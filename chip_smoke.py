@@ -3,23 +3,27 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line (any failure exits non-zero):
+Phases, each printing its lines (any failure exits non-zero):
 
 1. card: the card's name and power limit (nvidia-smi); build every CUDA
    kernel from csrc/ (set-up time).
-2. kernel: each kernel against its plain PyTorch twin on the card at the
-   main path's shapes (bitwise), with its time, the twin's, one PyTorch
-   library call's and the least time the card could take (bound).
-3. main path: the port's CLI at the bench configuration's size (21
-   synthetic ~3 Mbp genomes, build -k 31 -n 4 -s 50000000; search -f 1 on
-   400,000 x 150 bp reads from 3 of them; search -s on one genome). Each
-   kernel must have been launched; no stream batch may fall back.
-4. parity: the same search_keys through the generic gather
+2. kernel: each kernel (classic_word, stream_probe) against its plain
+   PyTorch twin on the card at the main path's shapes (bitwise), with its
+   time, the twin's, one PyTorch library call's where one computes the same
+   function, and the least time the card could take (bound).
+3. main path, twice, through the port's CLI at the bench configuration's
+   size (21 synthetic ~3 Mbp genomes, -k 31 -n 4 -s 50000000; search -f 1
+   on 400,000 x 150 bp reads from 3 of them; search -s on one genome):
+   a classic index (build) and a blocked one (build --blocked, layout v4).
+   Each path's kernel must have been launched while that path ran, no
+   stream batch may fall back, and the blocked TSV must be byte-identical
+   with COLORID_STREAM=0.
+4. parity, for each index: the same search_keys through the generic gather
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
-   both paths and for the device-resident stream dispatch, and that
-   dispatch's device time by kernel (torch.profiler).
+   both paths and for the device-resident dispatches, and one
+   device-resident stream dispatch's device time by kernel (torch.profiler).
 
-Then one JSON line per the kernel table, the card line, and last
+Then one JSON line with the kernel table, the card line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
 of the repo, it exits non-zero and prints no result.
 """
@@ -83,10 +87,10 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-# -- phase 2: the kernel against its twin --------------------------------------
+# -- phase 2: each kernel against its twin ---------------------------------------
 
 
-def kernel_phase(card: str) -> dict:
+def classic_kernel_phase(card: str) -> dict:
     import torch
 
     from colorid_tpu_torch.ops import stream_query as sq
@@ -157,7 +161,130 @@ def kernel_phase(card: str) -> dict:
     }
 
 
-# -- phase 3: the main path through the CLI ---------------------------------
+def _probe_inputs(g, n_blocks: int, P: int, C: int, num_hash: int, n_hot: int,
+                  span=None):
+    """Synthetic inputs of the probe kernel on the card: a block matrix in
+    which most rows of block b hold just color b % n_hot (so that, as on
+    the main path with its N_SOURCES source genomes, most probes are unique
+    hits on a few colors with a few frequencies, and the same histogram
+    cells take most of the traffic), and P probes sorted by block over
+    ``span`` blocks with split-lane offsets and small frequencies."""
+    import torch
+
+    dev = torch.device("cuda")
+    wpad = 1 << (((C + 31) // 32) - 1).bit_length()
+    rpb = 128 // wpad
+    rows = n_blocks * rpb
+    color = (torch.arange(rows, device=dev) // rpb) % n_hot
+    u = torch.rand(rows, generator=g, device=dev)
+    m = torch.zeros((rows, wpad), dtype=torch.int64, device=dev)
+    m.scatter_(1, (color // 32)[:, None], (1 << (color % 32))[:, None])
+    m = torch.where((u < 0.95)[:, None], m, 0)  # 5 % absent rows
+    noise = torch.randint(0, 2**32, (rows, wpad), generator=g, dtype=torch.int64, device=dev)
+    noise &= torch.randint(0, 2**32, (rows, wpad), generator=g, dtype=torch.int64, device=dev)
+    m = torch.where((u > 0.9)[:, None] & (u < 0.95)[:, None], m | noise, m)
+    lane = torch.arange(wpad * 32, device=dev).view(wpad, 32)
+    cmask = ((lane < C).to(torch.int64) << torch.arange(32, device=dev)).sum(dim=1)
+    m &= cmask
+    blocks2 = torch.where(m >= 2**31, m - 2**32, m).to(torch.int32).view(n_blocks, 128)
+    span = span or n_blocks
+    blk_s, _ = torch.sort(torch.randint(
+        0, span, (P,), generator=g, dtype=torch.int64, device=dev).to(torch.int32))
+    grp = rpb // num_hash
+    off = torch.zeros(P, dtype=torch.int64, device=dev)
+    for h in range(num_hash):
+        o = h * grp + torch.randint(0, grp, (P,), generator=g, dtype=torch.int64, device=dev)
+        off |= o << (8 * h)
+    qc = torch.randint(0, 12, (P,), generator=g, dtype=torch.int64, device=dev)
+    big = torch.rand(P, generator=g, device=dev) < 0.001
+    qc = torch.where(big, qc + 1500, qc).to(torch.int32)  # a few beyond hw
+    return blocks2, wpad, blk_s, off.to(torch.int32), qc
+
+
+def probe_kernel_phase(card: str) -> dict:
+    import torch
+
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n_blocks = -(-BLOOM // 128 // 128) * 128  # as pack_matrix_blocks pads: 390,656
+    P = 8 * (1 << 20)  # one streamed segment of the main path
+    cases = (
+        # name, colors, hit colors, probes, blocks the probes span
+        ("dense", N_GENOMES, N_SOURCES, P, n_blocks),
+        ("sparse", N_GENOMES, N_SOURCES, 64 * sq.PC, n_blocks),
+        ("wide", 200, 200, 1 << 20, 48 * 1024),  # wpad 8, hw 256: correctness only
+    )
+    errs = []
+    kept = None
+    for name, C, n_hot, n_probes, span in cases:
+        blocks2, wpad, blk_s, off_s, qc = _probe_inputs(
+            g, n_blocks if name != "wide" else span, n_probes, C, HASHES, n_hot, span)
+        kw = dict(num_hash=HASHES, wpad=wpad, n_colors=C)
+        shape = (sq._hist_rows(C), sq._hist_w(C))
+        outs = []
+        for fn in (sq.stream_probe, sq.stream_probe_plain):
+            counts = torch.zeros(32 * wpad, dtype=torch.int32, device=dev)
+            hist = torch.zeros(shape, dtype=torch.int32, device=dev)
+            outs.append((fn(blocks2, blk_s, off_s, qc, counts, hist, **kw), counts, hist))
+        torch.cuda.synchronize()
+        err = max(
+            int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            for a, b in zip(*outs)
+        )
+        equal = all(torch.equal(a, b) for a, b in zip(*outs))
+        uniq, counts, hist = outs[0]
+        log(f"[kernel] stream_probe {name}: P={n_probes} C={C} wpad={wpad} "
+            f"unique_hits={int((uniq >= 0).sum())} valid={int((uniq > -2).sum())} "
+            f"hist_sum={int(hist.sum())} max_abs_err={err} bitwise_equal={equal}")
+        if not equal:
+            raise AssertionError(f"stream_probe kernel != twin ({name})")
+        if int((uniq >= 0).sum()) == 0 or int(hist.sum()) == 0:
+            raise AssertionError(f"stream_probe {name}: no unique hit to check")
+        errs.append(err)
+        if name == "dense":
+            kept = (blocks2, wpad, blk_s, off_s, qc, kw, shape)
+        del outs
+    blocks2, wpad, blk_s, off_s, qc, kw, shape = kept
+    counts = torch.zeros(32 * wpad, dtype=torch.int32, device=dev)
+    hist = torch.zeros(shape, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: sq.stream_probe(blocks2, blk_s, off_s, qc, counts, hist, **kw), 20)
+    plain_ms = cuda_ms(
+        lambda: sq.stream_probe_plain(blocks2, blk_s, off_s, qc, counts, hist, **kw), 3)
+    # the bound: each probe's 12 bytes in and 4 out, the accumulators in and
+    # out, and the distinct 32-byte sectors of the matrix that the counted
+    # probes' rows lie in (wpad <= 8: a row lies in one sector)
+    live = qc > 0
+    base = blk_s.to(torch.int64)[live] * 128
+    offs = off_s.to(torch.int64)[live]
+    sectors = torch.cat([
+        (base + ((offs >> (8 * h)) & 0xFF) * wpad) // 8 for h in range(HASHES)
+    ])
+    n_sectors = int(torch.unique(sectors).numel())
+    n_bytes = P * 16 + n_sectors * 32 + 2 * 4 * (counts.numel() + hist.numel())
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] stream_probe P={P} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=null (no single PyTorch call gathers, ANDs and counts) "
+        f"bound_ms={bound_ms:.4f} (bytes={n_bytes}, sectors={n_sectors}) on {card}")
+    del kept, blocks2, blk_s, off_s, qc, sectors, base, offs
+    torch.cuda.empty_cache()
+    return {
+        "name": "stream_probe",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/stream_probe.cu",
+        "replaces": "colorid_tpu/ops/stream_query.py:158",
+        "launches": None,  # filled from the blocked main path's run
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+# -- phase 3: the main paths through the CLI ----------------------------------
 
 
 def synth_inputs(tmp: str):
@@ -213,14 +340,38 @@ def cli(argv: list[str]) -> list[str]:
     return buf.getvalue().splitlines()
 
 
-def main_path_phase(tmp: str, card: str):
+def _check_tsv(tsv, perfect, sources, what: str) -> list:
+    rows = [l.split("\t") for l in tsv if "\t" in l]
+    top = [r[2] for r in sorted(rows, key=lambda r: -float(r[3]))[:N_SOURCES]]
+    for line in tsv:
+        log(f"[main] {what} tsv {line}")
+    for line in perfect:
+        log(f"[main] {what} perfect {line}")
+    if sorted(top) != sorted(sources) or len(rows) < N_SOURCES:
+        raise AssertionError(f"top rows {top} are not the source genomes {sources}")
+    if not any(l.split("\t")[1] == "genome01" for l in perfect if "\t" in l):
+        raise AssertionError("perfect search did not report its own genome")
+    return rows
+
+
+def _searches(tmp: str, bxi: str, fq: str):
+    """search -f 1 on the reads and search -s on one genome, timed."""
+    t0 = time.time()
+    tsv = cli(["search", "-b", bxi, "-q", fq, "-f", "1", "--device", DEVICE])
+    t_search = time.time() - t0
+    t0 = time.time()
+    perfect = cli(["search", "-b", bxi, "-s", "--device", DEVICE,
+                   "-q", os.path.join(tmp, "genome01.fasta")])
+    return tsv, perfect, t_search, time.time() - t0
+
+
+def classic_path_phase(tmp: str, inputs, card: str):
+    """build -> search over a classic index; returns (index file, launches
+    of the classic word kernel while the path ran)."""
     from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.ops import stream_query as sq
 
-    t0 = time.time()
-    man, fq, sources = synth_inputs(tmp)
-    log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
-        f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
+    man, fq, sources = inputs
     prefix = os.path.join(tmp, "panel")
     # observe every classic stream batch: None means its residual capacity
     # tripped and search_keys re-ran it through the generic gather
@@ -239,37 +390,77 @@ def main_path_phase(tmp: str, card: str):
         cli(["build", "-k", str(K), "-n", str(HASHES), "-s", str(BLOOM),
              "-b", prefix, "-r", man, "-t", "8"])
         t_build = time.time() - t0
-        t0 = time.time()
-        tsv = cli(["search", "-b", prefix + ".bxi", "-q", fq, "-f", "1",
-                   "--device", DEVICE])
-        t_search = time.time() - t0
-        t0 = time.time()
-        perfect = cli(["search", "-b", prefix + ".bxi", "-s", "--device", DEVICE,
-                       "-q", os.path.join(tmp, "genome01.fasta")])
-        t_perfect = time.time() - t0
+        tsv, perfect, t_search, t_perfect = _searches(tmp, prefix + ".bxi", fq)
     finally:
         QueryEngine._search_keys_classic_stream = stream_fn
     launches = sq.classic_words.launches
-    rows = [l.split("\t") for l in tsv if "\t" in l]
-    top = [r[2] for r in sorted(rows, key=lambda r: -float(r[3]))[:N_SOURCES]]
-    log(f"[main] build {t_build:.1f}s; search -f 1 {t_search:.1f}s "
-        f"({rows[0][1] if rows else 0} k-mers); search -s {t_perfect:.1f}s; "
+    rows = _check_tsv(tsv, perfect, sources, "classic")
+    log(f"[main] classic: build {t_build:.1f}s; search -f 1 {t_search:.1f}s "
+        f"({rows[0][1]} k-mers); search -s {t_perfect:.1f}s; "
         f"classic_word launches={launches}; stream batches={len(outcomes)} "
         f"fallbacks={outcomes.count(False)} on {card}")
-    for line in tsv:
-        log(f"[main] tsv {line}")
-    for line in perfect:
-        log(f"[main] perfect {line}")
-    if sorted(top) != sorted(sources) or len(rows) < N_SOURCES:
-        raise AssertionError(f"top rows {top} are not the source genomes {sources}")
-    if not any(l.split("\t")[1] == "genome01" for l in perfect if "\t" in l):
-        raise AssertionError("perfect search did not report its own genome")
     if (DEVICE == "cuda" and launches == 0) or len(outcomes) < 2 or not all(outcomes):
         raise AssertionError(
             "the main path did not run every search through the classic kernel "
             f"(launches={launches}, stream outcomes={outcomes})"
         )
-    return prefix + ".bxi", fq, launches
+    return prefix + ".bxi", launches
+
+
+def blocked_path_phase(tmp: str, inputs, card: str):
+    """build --blocked -> search over the blocked (v4) index; returns
+    (index file, launches of the probe kernel while the path ran)."""
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    man, fq, sources = inputs
+    prefix = os.path.join(tmp, "turbo")
+    # observe every streamed segment: its size and its n_drop (nonzero means
+    # search_keys re-ran the query through the generic gather)
+    segments = []
+    stream_fn = sq.stream_accumulate_hash
+
+    def observed(*a, **kw):
+        out = stream_fn(*a, **kw)
+        segments.append((a[5].shape[0], out[4]))
+        return out
+
+    sq.stream_accumulate_hash = observed
+    sq.stream_probe.launches = 0
+    try:
+        t0 = time.time()
+        cli(["build", "--blocked", "-k", str(K), "-n", str(HASHES), "-s", str(BLOOM),
+             "-b", prefix, "-r", man, "-t", "8"])
+        t_build = time.time() - t0
+        tsv, perfect, t_search, t_perfect = _searches(tmp, prefix + ".bxi", fq)
+    finally:
+        sq.stream_accumulate_hash = stream_fn
+    launches = sq.stream_probe.launches
+    sizes = [n for n, _ in segments]
+    n_drop = sum(int(nd) for _, nd in segments)
+    index = BigsiIndex.load(prefix + ".bxi")
+    rows = _check_tsv(tsv, perfect, sources, "blocked")
+    log(f"[main] blocked: layout v{index.blocked}, bloom {index.bloom_size}; "
+        f"build --blocked {t_build:.1f}s; search -f 1 {t_search:.1f}s "
+        f"({rows[0][1]} k-mers); search -s {t_perfect:.1f}s; stream_probe "
+        f"launches={launches}; streamed segments={sizes} n_drop={n_drop} on {card}")
+    if index.blocked != 4:
+        raise AssertionError(f"build --blocked chose layout {index.blocked}, not v4")
+    if len(segments) < 2 or n_drop or (DEVICE == "cuda" and launches < 2):
+        raise AssertionError(
+            "the blocked main path did not run every search through the probe "
+            f"kernel (launches={launches}, segments={sizes}, n_drop={n_drop})"
+        )
+    # the same searches with the stream off: byte-identical TSV
+    os.environ["COLORID_STREAM"] = "0"
+    try:
+        tsv0, perfect0, _, _ = _searches(tmp, prefix + ".bxi", fq)
+    finally:
+        os.environ.pop("COLORID_STREAM")
+    if tsv0 != tsv or perfect0 != perfect or sq.stream_probe.launches != launches:
+        raise AssertionError("COLORID_STREAM=0 changed the blocked search's TSV")
+    log("[main] blocked: TSV byte-identical with COLORID_STREAM=0")
+    return prefix + ".bxi", launches
 
 
 # -- phase 4: stream vs generic parity and rates ----------------------------
@@ -289,7 +480,7 @@ def same_result(a, b) -> bool:
     )
 
 
-def parity_phase(bxi: str, fq: str, card: str) -> None:
+def classic_parity_phase(bxi: str, fq: str, card: str) -> None:
     import numpy as np
     import torch
 
@@ -340,7 +531,7 @@ def parity_phase(bxi: str, fq: str, card: str) -> None:
     dt = (time.time() - t0) / reps
     if (vecs[:, index.n_colors + stream_eng.wpad + 2] != 0).any():
         raise AssertionError("device-resident stream dispatch dropped probes")
-    log(f"[parity] SearchResult identical (stream vs generic vs device-resident); "
+    log(f"[parity] classic: SearchResult identical (stream vs generic vs device-resident); "
         f"n_kmers={n}; k-mers/s: stream={max(rates['stream']):.0f} "
         f"generic={max(rates['generic']):.0f} device_resident_stream={n / dt:.0f} "
         f"(best of 2 host-clock runs incl. H2D+fetch; device-resident mean of "
@@ -348,11 +539,90 @@ def parity_phase(bxi: str, fq: str, card: str) -> None:
     if DEVICE == "cuda":
         profile_dispatch(
             lambda: stream_eng.search_keys_dev_classic_async(pk_dev, qc_dev, K)[0],
-            card,
+            "classic", card,
         )
 
 
-def profile_dispatch(fn, card: str) -> None:
+def blocked_parity_phase(bxi: str, fq: str, card: str) -> None:
+    """The blocked index: search_keys with the probe stream against the
+    generic gather, the two device-resident dispatches against both, their
+    rates, and the profile of one device-resident stream dispatch."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops.stream_query import QKEY_MASK
+    from colorid_tpu_torch.pipelines.search import _count_query_kmers
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        keys, qcounts, packed = _count_query_kmers(fq, None, K, 15, 1, False)
+    n = keys.shape[0]
+    index = BigsiIndex.load(bxi)
+    stream_eng = QueryEngine(index, device=DEVICE)
+    seg = 8 * min(stream_eng.chunk, 1 << 20)
+    gate = [stream_eng._use_stream(min(seg, n - s)) for s in range(0, n, seg)]
+    if not stream_eng._stream or not gate[0]:
+        raise AssertionError("the density gate did not pick the probe stream")
+    os.environ["COLORID_STREAM"] = "0"
+    generic_eng = QueryEngine(index, device=DEVICE)
+    os.environ.pop("COLORID_STREAM")
+    rates, results = {}, {}
+    for name, eng in (("stream", stream_eng), ("generic", generic_eng),
+                      ("generic", generic_eng), ("stream", stream_eng)):
+        sync()
+        t0 = time.time()
+        res = eng.search_keys(keys, qcounts=qcounts, packed_all=packed, k=K)
+        rates.setdefault(name, []).append(n / (time.time() - t0))
+        results[name] = res
+    if not same_result(results["stream"], results["generic"]):
+        raise AssertionError("blocked: stream and generic SearchResults differ")
+    # device-resident dispatches: inputs already on the card, padded to the
+    # generic dispatch's chunk (a multiple of the stream's)
+    unit = min(stream_eng.chunk, 1 << 20)
+    P = -(-n // unit) * unit
+    pk = np.zeros((P, 2), dtype=np.uint32)
+    pk[:n] = packed
+    qc = np.zeros(P, dtype=np.int32)
+    qc[:n] = np.maximum(qcounts, 1)
+    pk_dev = torch.from_numpy(pk.view(np.int32)).to(DEVICE)
+    qc_dev = torch.from_numpy(qc).to(DEVICE)
+    max_freq = int(qc.max())
+    in_key = max_freq <= QKEY_MASK
+    dispatches = {
+        "stream": lambda: stream_eng.search_keys_dev_async(
+            pk_dev, qc_dev, K, max_freq=max_freq),
+        "generic": lambda: stream_eng.search_keys_dev_generic_async(pk_dev, qc_dev, K),
+    }
+    slot = index.n_colors + stream_eng.wpad + 2
+    reps = 5
+    dev_rates = {}
+    for name in ("stream", "generic", "generic", "stream"):
+        out = dispatches[name]()
+        res = stream_eng.search_keys_dev_finish(out[0].cpu().numpy(), *out[1:])
+        if res is None or not same_result(res, results["generic"]):
+            raise AssertionError(f"blocked: device-resident {name} differs (or dropped)")
+        sync()
+        t0 = time.time()
+        outs = [dispatches[name]() for _ in range(reps)]
+        vecs = torch.stack([o[0] for o in outs]).cpu().numpy()
+        dev_rates.setdefault(name, []).append(n / ((time.time() - t0) / reps))
+        if (vecs[:, slot] != 0).any():
+            raise AssertionError(f"blocked: device-resident {name} dispatch dropped probes")
+        del outs
+    log(f"[parity] blocked: SearchResult identical (stream vs generic, host path and "
+        f"device-resident); n_kmers={n}; streamed segments per search={sum(gate)} "
+        f"of {len(gate)}; k-mers/s: stream={max(rates['stream']):.0f} "
+        f"generic={max(rates['generic']):.0f} "
+        f"device_resident_stream={max(dev_rates['stream']):.0f} "
+        f"device_resident_generic={max(dev_rates['generic']):.0f} "
+        f"(best of 2 host-clock runs each; device-resident: mean of {reps} "
+        f"dispatches of {P} slots, max_freq={max_freq} in_key={in_key}) on {card}")
+    if DEVICE == "cuda":
+        profile_dispatch(lambda: dispatches["stream"]()[0], "blocked", card)
+
+
+def profile_dispatch(fn, what: str, card: str) -> None:
     """Where one device-resident stream dispatch spends its device time:
     torch.profiler's per-kernel device totals, and the device's idle share
     of the dispatch's host-clock span."""
@@ -381,14 +651,19 @@ def profile_dispatch(fn, card: str) -> None:
         acc[0] += us / 1e3
         acc[1] += e.count
     if not by_name:
-        log(f"[profile] no device time in the trace: not measured on {card}")
+        log(f"[profile] {what}: no device time in the trace: not measured on {card}")
         return
     rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()), reverse=True)
     dev_ms = sum(ms for ms, _, _ in rows)
     top = "; ".join(f"{name} x{n}={ms:.2f}ms" for ms, n, name in rows[:8])
-    log(f"[profile] one device-resident stream dispatch: device {dev_ms:.2f} ms of "
+    ours = "; ".join(
+        f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
+        and name.split("_kernel")[0] in ("classic_word", "stream_probe")
+    )
+    log(f"[profile] {what}: one device-resident stream dispatch: device {dev_ms:.2f} ms of "
         f"{wall_ms:.2f} ms host-clock span (idle share "
-        f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); top kernels: {top} on {card}")
+        f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); top kernels: {top}; "
+        f"the port's own: {ours or 'none'} on {card}")
 
 
 def main() -> int:
@@ -413,15 +688,21 @@ def main() -> int:
     kernels.build_all()
     log(f"[card] kernels built in {time.time() - t0:.1f}s (set-up); "
         f"ptxas: {' | '.join(l for v in kernels.build_log.values() for l in v.splitlines() if 'registers' in l or 'spill' in l)}")
-    row = kernel_phase(card)
+    classic_row = classic_kernel_phase(card)
+    probe_row = probe_kernel_phase(card)
     tmp = tempfile.mkdtemp(prefix="colorid_smoke_")
     try:
-        bxi, fq, launches = main_path_phase(tmp, card)
-        row["launches"] = launches
-        parity_phase(bxi, fq, card)
+        t0 = time.time()
+        inputs = synth_inputs(tmp)
+        log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
+            f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
+        classic_bxi, classic_row["launches"] = classic_path_phase(tmp, inputs, card)
+        blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
+        classic_parity_phase(classic_bxi, inputs[1], card)
+        blocked_parity_phase(blocked_bxi, inputs[1], card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [classic_row, probe_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

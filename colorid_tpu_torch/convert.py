@@ -28,8 +28,12 @@ def index_from_arrays(
     colors: list[str],
     n_ref_kmers: Mapping[str, int],
     m_size: int = 0,
+    blocked: int = 0,
+    place_rpb: int = 0,
 ) -> BigsiIndex:
-    """The port's BigsiIndex over a classic uint32 [bloom_size, W] matrix."""
+    """The port's BigsiIndex over a uint32 [bloom_size, W] matrix, classic
+    or (``blocked`` = the layout version, ``place_rpb`` as recorded)
+    blocked."""
     matrix = np.asarray(matrix_u32)
     W = (len(colors) + 31) // 32
     if matrix.dtype != np.uint32 or matrix.shape != (bloom_size, W):
@@ -45,6 +49,8 @@ def index_from_arrays(
         colors=list(colors),
         n_ref_kmers={c: int(n) for c, n in n_ref_kmers.items()},
         matrix=matrix,
+        blocked=int(blocked),
+        place_rpb=int(place_rpb),
     )
 
 
@@ -57,14 +63,16 @@ def engine_from_jax_state(
     """A port QueryEngine from the numpy form of a JAX engine's ``blocks2``
     (uint32 [Rb, 128], row width ``wpad``) and its index metadata (any
     object with the BigsiIndex fields bloom_size, num_hash, k_size, m_size,
-    colors and n_ref_kmers). The matrix rows are read back out of the block
-    layout, so the port's engine re-packs exactly the same blocks."""
+    colors, n_ref_kmers and, for a blocked index, blocked and place_rpb).
+    The matrix rows are read back out of the block layout, so the port's
+    engine re-packs exactly the same blocks and hashes with the same
+    placement."""
     blocks = np.asarray(blocks2_np)
     R = index_meta.bloom_size
     W = (len(index_meta.colors) + 31) // 32
     if wpad != row_wpad(W) or blocks.dtype != np.uint32 or blocks.ndim != 2 \
             or blocks.shape[1] != 128 or blocks.size < R * wpad:
-        raise ValueError("blocks2 does not hold a classic index of this shape")
+        raise ValueError("blocks2 does not hold an index of this shape")
     matrix = blocks.reshape(-1)[: R * wpad].reshape(R, wpad)[:, :W]
     index = index_from_arrays(
         np.ascontiguousarray(matrix),
@@ -74,5 +82,7 @@ def engine_from_jax_state(
         colors=index_meta.colors,
         n_ref_kmers=index_meta.n_ref_kmers,
         m_size=index_meta.m_size,
+        blocked=getattr(index_meta, "blocked", 0),
+        place_rpb=getattr(index_meta, "place_rpb", 0),
     )
     return QueryEngine(index, device=device)

@@ -2,9 +2,10 @@
 
 Hosts the bit-slice matrix on the device once and streams k-mer batches
 through the gather/AND/count ops. String work happens on the host; only
-dense integer tensors cross to the device. Dense queries against a classic
-index of <= 32 colors take the sorted-row stream (ops/stream_query.py and
-its CUDA kernel); everything else takes the generic gather (ops/query.py).
+dense integer tensors cross to the device. Dense queries take a sorted
+stream (ops/stream_query.py and its CUDA kernels): the row stream on a
+classic index of <= 32 colors, the probe stream on a blocked v2/v3/v4 index
+of <= 1024 colors. Everything else takes the generic gather (ops/query.py).
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ from .ops.query import (
     FREQ_CAP,
     pack_matrix_blocks,
     query_accumulate_hash_scan,
+    query_accumulate_hash_scan_exact,
     query_accumulate_scan,
 )
+from .ops.stream_query import STREAM_HASHES, STREAM_WPADS
 from .runtime import resolve_device
 
 
@@ -35,6 +38,12 @@ def _round_up(n: int, m: int) -> int:
 def _i32(a: np.ndarray) -> torch.Tensor:
     """Host uint32/int32 array -> int32 tensor (bit view, no copy)."""
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _dev_vec(stats, n_drop, hist) -> torch.Tensor:
+    """What a device-resident dispatch leaves for one fetch
+    (search_keys_dev_finish decodes it)."""
+    return torch.cat([stats, n_drop.reshape(1), hist.reshape(-1)])
 
 
 @dataclass
@@ -85,13 +94,24 @@ class QueryEngine:
         self.device = resolve_device(device)
         self.index = index
         self.chunk = chunk
-        if int(index.blocked):
-            raise NotImplementedError(
-                "blocked index layouts (build --blocked) are not yet ported "
-                "in colorid_tpu_torch (ROADMAP queue 1: blocked layouts and "
-                "_stream_kernel)"
-            )
         blocks, self.wpad = pack_matrix_blocks(np.asarray(index.matrix))
+        # blocked (turbo) layout: one 512B block per k-mer (ops/blocked.py);
+        # bv: 0 = classic rows, 1 = blocked, 2/3/4 = blocked split-lane
+        # (the probe stream's layouts, ops/stream_query.py)
+        self.bv = int(index.blocked)
+        if self.bv and self.wpad > 128:
+            raise ValueError(
+                "blocked (turbo) layout holds a k-mer's rows in one 512B "
+                "block and supports <= 4096 colors per device; use a classic "
+                "index or shard colors across devices"
+            )
+        self.rpb = (128 // self.wpad) if self.bv else 0
+        if self.bv and (index.place_rpb or self.rpb) != self.rpb:
+            raise NotImplementedError(
+                "shard-placed blocked indexes (build --color-shards) are not "
+                "yet ported in colorid_tpu_torch (ROADMAP queue 1: sharded "
+                "engines)"
+            )
         self.blocks2 = _i32(blocks).to(self.device)
         q = max(self.wpad // 128, 1)
         if index.bloom_size * (q if self.wpad > 128 else 1) >= 2**31:
@@ -104,10 +124,31 @@ class QueryEngine:
         # scan chunk so it stays memory-friendly
         if self.wpad > 128:
             self.chunk = min(self.chunk, max((1 << 29) // (self.wpad * 128), 2048))
-        self._stream_classic = (
-            self.wpad == 1  # <= 32 colors (wider rows: generic gather)
-            and os.environ.get("COLORID_STREAM", "1") != "0"
+        stream_on = os.environ.get("COLORID_STREAM", "1") != "0"
+        self._stream = (
+            self.bv in (2, 3, 4)  # split-lane placements
+            and index.num_hash in STREAM_HASHES
+            and self.wpad in STREAM_WPADS  # <= 1024 colors
+            and stream_on
         )
+        self._stream_classic = (
+            self.bv == 0  # reference-placement (classic) rows
+            and self.wpad == 1  # <= 32 colors (wider rows: generic gather)
+            and stream_on
+        )
+
+    def _use_stream(self, seg_kmers: int) -> bool:
+        """Blocked probe stream (default on for eligible blocked v2/v3/v4
+        indexes): used when a segment's probes are dense relative to the
+        matrix (each 128-block tile touched by many probes); sparse
+        segments keep the generic block gather. COLORID_STREAM=force
+        streams every segment (testing); =0 disables."""
+        if not self._stream:
+            return False
+        if os.environ.get("COLORID_STREAM") == "force":
+            return True
+        n_blocks = self.index.bloom_size // self.rpb
+        return seg_kmers >= 4 * n_blocks
 
     def _use_stream_classic(self, n_kmers: int, k: int | None) -> bool:
         """Classic sorted-row stream: pays off when the H*N row probes are
@@ -128,7 +169,15 @@ class QueryEngine:
     # -- hashing ------------------------------------------------------------
 
     def rows_for_keys(self, keys: np.ndarray) -> np.ndarray:
-        """XXH3 row indices [N, H] int32 for canonical k-mer byte rows [N, k]."""
+        """Row indices [N, H] int32 for canonical k-mer byte rows [N, k]:
+        XXH3 rows, or the blocked placement of a blocked index."""
+        if self.bv:
+            from .ops.blocked import blocked_rows_host
+
+            return blocked_rows_host(
+                keys, self.index.num_hash, self.index.bloom_size, self.rpb,
+                version=self.bv,
+            ).astype(np.int32)
         if keys.shape[0] and native.available():
             rows = native.xxh3_rows(keys, self.index.num_hash, self.index.bloom_size)
         else:
@@ -201,23 +250,137 @@ class QueryEngine:
                 return res
         capO = _round_up(n, 1024)
         stats, hist, oc_buf, of_buf = self._new_accumulators(capO)
+        # one pass per segment; a segment scans fixed-size chunks, or goes
+        # through the blocked probe stream when it is dense enough
         chunk = min(self.chunk, 1 << 20)
-        qc = _i32(np.minimum(np.maximum(qcounts, 1), 65535)).to(self.device)
-        if packed_all is not None:
-            query_accumulate_hash_scan(
-                stats, hist, oc_buf, of_buf, self.blocks2,
-                _i32(packed_all).to(self.device), qc, 0,
-                wpad=self.wpad, chunk=chunk, k=k,
-                num_hash=self.index.num_hash, bloom_size=self.index.bloom_size,
-            )
-        else:
-            query_accumulate_scan(
-                stats, hist, oc_buf, of_buf, self.blocks2,
-                _i32(rows_all.astype(np.int32)).to(self.device),
-                torch.ones(n, dtype=torch.bool, device=self.device), qc, 0,
-                wpad=self.wpad, chunk=chunk,
-            )
+        seg = chunk * 8
+        qc_all = np.minimum(np.maximum(qcounts, 1), 65535).astype(np.int32)
+        geo = dict(
+            wpad=self.wpad, num_hash=self.index.num_hash,
+            bloom_size=self.index.bloom_size, rpb=self.rpb,
+        )
+        drops: list[torch.Tensor] = []
+        for start in range(0, n, seg):
+            stop = min(start + seg, n)
+            m = stop - start
+            if packed_all is not None and self._use_stream(m):
+                from .ops.stream_query import stream_accumulate_hash
+
+                size = _round_up(m, chunk if m > chunk else min(16384, chunk))
+                pk = np.zeros((size, 2), dtype=np.uint32)
+                pk[:m] = packed_all[start:stop]
+                qc = np.zeros(size, dtype=np.int32)  # 0 marks padding
+                qc[:m] = qc_all[start:stop]
+                *_, nd = stream_accumulate_hash(
+                    stats, hist, oc_buf, of_buf, self.blocks2,
+                    _i32(pk).to(self.device), _i32(qc).to(self.device), start,
+                    k=k, n_colors=C, bv=self.bv, **geo,
+                )
+                drops.append(nd)
+            elif packed_all is not None:
+                query_accumulate_hash_scan(
+                    stats, hist, oc_buf, of_buf, self.blocks2,
+                    _i32(packed_all[start:stop]).to(self.device),
+                    _i32(qc_all[start:stop]).to(self.device), start,
+                    chunk=chunk, k=k, bv=self.bv or 1, **geo,
+                )
+            else:
+                query_accumulate_scan(
+                    stats, hist, oc_buf, of_buf, self.blocks2,
+                    _i32(rows_all[start:stop].astype(np.int32)).to(self.device),
+                    torch.ones(m, dtype=torch.bool, device=self.device),
+                    _i32(qc_all[start:stop]).to(self.device), start,
+                    wpad=self.wpad, chunk=chunk, rpb=self.rpb,
+                )
+        if drops and int(torch.stack(drops).sum()) > 0:
+            # probe-stream residual/overflow capacity exceeded (requires a
+            # pathological probe distribution): rerun on the generic path
+            self._stream = False
+            try:
+                return self.search_keys(keys, qcounts, rows_all, packed_all, k)
+            finally:
+                self._stream = True
         return self._collect(stats, hist, oc_buf, of_buf, capO, qcounts)
+
+    def search_keys_dev(
+        self, pk_dev: torch.Tensor, qc_dev: torch.Tensor, k: int,
+        max_freq: int | None = None,
+    ) -> SearchResult | None:
+        """search_keys over a device-resident, pre-padded query batch on a
+        stream-eligible blocked index: one exact-mode probe-stream dispatch
+        and one fetch. None if the stream's residual/overflow capacity was
+        exceeded or ``max_freq`` did not hold (rerun through
+        search_keys_dev_generic_async or the host path)."""
+        vec, oc_buf, of_buf, capO = self.search_keys_dev_async(
+            pk_dev, qc_dev, k=k, max_freq=max_freq
+        )
+        return self.search_keys_dev_finish(vec.cpu().numpy(), oc_buf, of_buf, capO)
+
+    def _check_dev_batch(self, name: str, pk_dev, qc_dev, k: int, unit: int):
+        if not (4 <= k <= 32):
+            raise ValueError("device hashing needs 4 <= k <= 32")
+        if pk_dev.dtype != torch.int32 or qc_dev.dtype != torch.int32:
+            raise ValueError(
+                f"{name} expects int32 packed k-mers and int32 frequencies "
+                f"(0 = pad); got {pk_dev.dtype}/{qc_dev.dtype}"
+            )
+        if pk_dev.shape[0] % unit:
+            raise ValueError(f"P must be a multiple of {unit}")
+
+    def search_keys_dev_async(
+        self, pk_dev: torch.Tensor, qc_dev: torch.Tensor, k: int,
+        max_freq: int | None = None,
+    ):
+        """Dispatch half of search_keys_dev. pk_dev int32 [P, 2] (bit view
+        of the uint32 packed k-mers), qc_dev int32 [P] full frequencies
+        (0 = pad), P a multiple of the stream chunk (ops/stream_query.PC).
+        Returns (vec, oc_buf, of_buf, capO) with vec = cat([stats, n_drop,
+        hist.ravel()]) still on the device, so callers can queue several
+        dispatches before one fetch; decode with search_keys_dev_finish.
+
+        max_freq: optional UPPER BOUND on the batch's frequencies (hosts
+        that counted the k-mers know it for free). When it fits the sort
+        key's low bits the sort drops its frequency payload
+        (ops/stream_query.QKEY_BITS). The bound is checked on the device:
+        a batch that exceeds it reports n_drop > 0 and decodes to None."""
+        from .ops.stream_query import (
+            OVER_CAP, PC, QKEY_MASK, RES_CAP, stream_accumulate_hash_exact,
+        )
+
+        if not self._stream:
+            raise ValueError("search_keys_dev requires a stream-eligible index")
+        self._check_dev_batch("search_keys_dev", pk_dev, qc_dev, k, PC)
+        capO = OVER_CAP + RES_CAP  # both appenders are capped (stream_query)
+        stats, hist, oc_buf, of_buf = self._new_accumulators(capO)
+        *_, nd = stream_accumulate_hash_exact(
+            stats, hist, oc_buf, of_buf, self.blocks2, pk_dev, qc_dev,
+            wpad=self.wpad, k=k, num_hash=self.index.num_hash,
+            bloom_size=self.index.bloom_size, rpb=self.rpb,
+            n_colors=self.index.n_colors, bv=self.bv,
+            qc_in_key=max_freq is not None and 0 < max_freq <= QKEY_MASK,
+        )
+        if max_freq is not None:
+            nd = nd + (qc_dev.max() > max_freq).to(nd.dtype)
+        return _dev_vec(stats, nd, hist), oc_buf, of_buf, capO
+
+    def search_keys_dev_generic_async(
+        self, pk_dev: torch.Tensor, qc_dev: torch.Tensor, k: int
+    ):
+        """Device-resident exact-mode query through the GENERIC gather:
+        works on every layout. Same contract as search_keys_dev_async
+        (decode with search_keys_dev_finish). P must be a multiple of the
+        engine chunk; qc_dev are full int32 frequencies with 0 = pad."""
+        chunk = min(self.chunk, 1 << 20)
+        self._check_dev_batch("search_keys_dev_generic", pk_dev, qc_dev, k, chunk)
+        capO = 1 << 18
+        stats, hist, oc_buf, of_buf = self._new_accumulators(capO)
+        query_accumulate_hash_scan_exact(
+            stats, hist, oc_buf, of_buf, self.blocks2, pk_dev, qc_dev,
+            wpad=self.wpad, chunk=chunk, k=k, num_hash=self.index.num_hash,
+            bloom_size=self.index.bloom_size, rpb=self.rpb, bv=self.bv or 1,
+        )
+        nd = torch.zeros(1, dtype=torch.int32, device=self.device)
+        return _dev_vec(stats, nd, hist), oc_buf, of_buf, capO
 
     def _search_keys_classic_stream(
         self, packed_all: np.ndarray, qcounts: np.ndarray, k: int
@@ -256,33 +419,24 @@ class QueryEngine:
             raise ValueError(
                 "search_keys_dev_classic requires a classic wpad==1 index"
             )
-        if not (4 <= k <= 32):
-            raise ValueError("device hashing needs 4 <= k <= 32")
-        if pk_dev.dtype != torch.int32 or qc_dev.dtype != torch.int32:
-            raise ValueError(
-                "search_keys_dev_classic expects int32 packed k-mers and "
-                f"int32 frequencies (0 = pad); got {pk_dev.dtype}/{qc_dev.dtype}"
-            )
-        P0 = pk_dev.shape[0]
-        if P0 % EPC_CL:
-            raise ValueError(f"P must be a multiple of {EPC_CL}")
+        self._check_dev_batch("search_keys_dev_classic", pk_dev, qc_dev, k, EPC_CL)
         if capO is None:
-            capO = _round_up(P0, 1024)
+            capO = _round_up(pk_dev.shape[0], 1024)
         stats, hist, oc_buf, of_buf = self._new_accumulators(capO)
         *_, nd = stream_accumulate_classic_exact(
             stats, hist, oc_buf, of_buf, self.blocks2, pk_dev, qc_dev,
             wpad=self.wpad, k=k, num_hash=self.index.num_hash,
             bloom_size=self.index.bloom_size, n_colors=self.index.n_colors,
         )
-        vec = torch.cat([stats, nd.reshape(1), hist.reshape(-1)])
-        return vec, oc_buf, of_buf, capO
+        return _dev_vec(stats, nd, hist), oc_buf, of_buf, capO
 
     def search_keys_dev_finish(
         self, host: np.ndarray, oc_buf, of_buf, capO
     ) -> SearchResult | None:
-        """Decode a fetched search_keys_dev_classic_async vector (numpy)
-        into a SearchResult; None when the drop guard tripped. Exact mode:
-        the overflow list carries frequencies directly."""
+        """Decode a fetched search_keys_dev_async / _generic_async /
+        _classic_async vector (numpy) into a SearchResult; None when the
+        drop guard tripped. Exact mode: the overflow list carries
+        frequencies directly."""
         C = self.index.n_colors
         sl = C + self.wpad + 2
         if int(host[sl]) > 0:  # capacity exceeded: generic path rerun

@@ -8,7 +8,7 @@ fast path cannot represent (lowercase bases, k > 32) are re-routed to the
 numpy path by the callers, so results are identical either way. That
 fallback is the reference's semantics on the host, not a device fallback.
 
-Only the entry points the build -> search slice calls are bound here.
+Only the entry points that build and search call are bound here.
 """
 
 from __future__ import annotations
@@ -69,6 +69,11 @@ def _load():
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_uint64, ctypes.c_void_p,
         ]
+        lib.ct_xxh3_hash64.restype = None
+        lib.ct_xxh3_hash64.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_void_p,
+        ]
         lib.ct_counter_new.restype = ctypes.c_void_p
         lib.ct_counter_new.argtypes = [ctypes.c_int32]
         lib.ct_counter_free.argtypes = [ctypes.c_void_p]
@@ -119,6 +124,16 @@ def xxh3_rows(keys: np.ndarray, num_hash: int, bloom_size: int) -> np.ndarray:
     lib.ct_xxh3_rows(
         keys.ctypes.data, n, k, num_hash, bloom_size, out.ctypes.data
     )
+    return out
+
+
+def xxh3_hash64(keys: np.ndarray, num_hash: int) -> np.ndarray:
+    """Raw seeded digests [N, H] uint64 for ASCII key rows [N, k]."""
+    lib = _load()
+    keys = np.ascontiguousarray(keys, dtype=np.uint8)
+    n, k = keys.shape
+    out = np.empty((n, num_hash), dtype=np.uint64)
+    lib.ct_xxh3_hash64(keys.ctypes.data, n, k, num_hash, out.ctypes.data)
     return out
 
 

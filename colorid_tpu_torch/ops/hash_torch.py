@@ -1,4 +1,7 @@
-"""Device-side XXH3-64: hash canonical k-mers into Bloom rows with torch ops.
+"""Device-side hashing: canonical k-mers into Bloom rows with torch ops.
+XXH3-64 for the classic rows and the blocked placements v1/v2, and the
+value-addressed placements v3/v4 of ops/blocked.py (one fmix64, a 64-bit
+square and a 64-bit product; no XXH3).
 
 The host ships each canonical k-mer as its 2-bit packing (8 bytes) instead
 of row indices (4 bytes x num_hash); the hash runs on the device as
@@ -249,6 +252,106 @@ def bloom_rows_device(
         for seed in range(num_hash)
     ]
     return torch.stack(outs, dim=1)
+
+
+# -- blocked placements (ops/blocked.py) on the device -----------------------
+
+_FMIX_C1 = 0xFF51AFD7ED558CCD
+_FMIX_C2 = 0xC4CEB9FE1A85EC53
+
+
+def _fmix64_device(v):
+    """murmur3 fmix64 over (lo, hi) limb pairs (ops/blocked.py::fmix64's
+    device twin)."""
+    v = _xor64(v, _shr64(v, 33))
+    v = _mul64_fold_low(v, _c(_FMIX_C1))
+    v = _xor64(v, _shr64(v, 33))
+    v = _mul64_fold_low(v, _c(_FMIX_C2))
+    return _xor64(v, _shr64(v, 33))
+
+
+def _not64(a):
+    return a[0] ^ M32, a[1] ^ M32
+
+
+def _sqr64_hi(a):
+    """High 64 bits of the 128-bit square of a (lo, hi) limb pair.
+
+    a^2 = p0 + (p1 << 33) + (p3 << 64) with p0 = lo^2, p1 = lo*hi,
+    p3 = hi^2. The limbs of the shifted p1 are l1..l3; each carry is the
+    part of an unmasked int64 sum above bit 32."""
+    alo, ahi = a
+    _, p0h = _mul32(alo, alo)
+    p1l, p1h = _mul32(alo, ahi)
+    p3l, p3h = _mul32(ahi, ahi)
+    l1 = (p1l << 1) & M32
+    l2 = ((p1h << 1) | (p1l >> 31)) & M32
+    l3 = p1h >> 31
+    s2 = l2 + p3l + ((p0h + l1) >> 32)
+    return s2 & M32, (l3 + p3h + (s2 >> 32)) & M32
+
+
+def _v3_blkoff(lo, hi, k: int, num_hash: int, bloom_size: int, rpb: int,
+               version: int = 3):
+    """Value-addressed blocked placement from 2-bit packed k-mers (int64
+    limbs lo, hi): block int64 [N] in [0, n_blocks), MONOTONE in the
+    (hi, lo) value, and the per-hash in-block offsets, a list of H int64
+    [N]. Twin of ops/blocked.py::v3_block_offsets; version 4 routes the
+    value through the canonical CDF F(x) = 1-(1-x)^2 first."""
+    n_blocks = bloom_size // rpb
+    grp = rpb // num_hash
+    g_bits = grp.bit_length() - 1
+    x = _shl64((lo, hi), 64 - 2 * k)
+    if version == 4:
+        x = _not64(_sqr64_hi(_not64(x)))
+    block = _mul64_full(x, _c(n_blocks))[2]  # (x * nb) >> 64 < nb < 2^31
+    m = _fmix64_device((lo, hi))
+    offs = [
+        h * grp + (_shr64(m, g_bits * h)[0] & (grp - 1))
+        for h in range(num_hash)
+    ]
+    return block, offs
+
+
+def device_blkoff(packed: torch.Tensor, *, k: int, num_hash: int,
+                  bloom_size: int, rpb: int, version: int = 1):
+    """Blocked placement (ops/blocked.py) of packed [N, 2] int32 k-mers:
+    block int64 [N] and the per-hash in-block row offsets, a list of H
+    int64 [N]. Versions 1 and 2 hash with the device XXH3; 3 and 4 are
+    value-addressed (no XXH3)."""
+    p = packed.to(torch.int64) & M32
+    lo, hi = p[:, 0], p[:, 1]
+    if version in (3, 4):
+        return _v3_blkoff(lo, hi, k, num_hash, bloom_size, rpb, version)
+    limbs = _limbs_from_packed(lo, hi, k)
+    hashes = [_xxh3_device(limbs, k, seed) for seed in range(num_hash)]
+    block = _mod_u64(hashes[0], bloom_size // rpb)
+    if version == 2:
+        grp = rpb // num_hash
+        offs = [hashes[0][1] & (grp - 1)]  # high limb: independent of block
+        offs += [
+            i * grp + (h[0] & (grp - 1)) for i, h in enumerate(hashes[1:], 1)
+        ]
+    else:
+        offs = [hashes[0][1] & (rpb - 1)]
+        offs += [h[0] & (rpb - 1) for h in hashes[1:]]
+    return block, offs
+
+
+def device_rows(packed: torch.Tensor, *, k: int, num_hash: int,
+                bloom_size: int, rpb: int = 0, version: int = 1):
+    """Bloom rows [N, H] int32 of packed k-mers: independent XXH3 rows
+    (rpb == 0) or the blocked placement (rpb > 0, a power of two)."""
+    if rpb == 0:
+        return bloom_rows_device(
+            packed, k=k, num_hash=num_hash, bloom_size=bloom_size
+        )
+    block, offs = device_blkoff(
+        packed, k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb,
+        version=version,
+    )
+    base = block * rpb
+    return torch.stack([base + o for o in offs], dim=1).to(torch.int32)
 
 
 def pack_keys_host(keys: np.ndarray) -> np.ndarray | None:

@@ -29,6 +29,12 @@ KERNELS = {
         "classic_word_launch",
         [_VP, _I64, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _U32, _I32, _VP],
     ),
+    "stream_probe": (
+        "stream_probe.cu",
+        "stream_probe_launch",
+        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32,
+         _I32, _VP],
+    ),
 }
 
 _lock = threading.Lock()

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .hash_torch import M32, bloom_rows_device
+from .hash_torch import M32, device_rows
 
 FREQ_CAP = 1024  # per-color on-device frequency histogram width
 
@@ -71,10 +71,27 @@ def _gather_rows(blocks2: torch.Tensor, rows: torch.Tensor, wpad: int):
     return flat[idx].reshape(N, H, wpad)
 
 
-def _and_present(blocks2, rows, wpad: int):
+def _gather_rows_blocked(blocks2, rows, wpad: int, rpb: int):
+    """Blocked layout: the H rows of a k-mer share one block
+    (ops/blocked.py), so one 512-byte block fetch serves all hashes and a
+    gather along its lanes picks each row's words."""
+    N, H = rows.shape
+    r = rows.to(torch.int64)
+    b = blocks2[r[:, 0] // rpb]  # [N, 128]
+    lane0 = (r % rpb) * wpad  # [N, H]
+    if wpad == 1:
+        return b.gather(1, lane0).reshape(N, H, 1)
+    lanes = lane0[:, :, None] + torch.arange(wpad, device=rows.device)
+    return b.gather(1, lanes.reshape(N, H * wpad)).reshape(N, H, wpad)
+
+
+def _and_present(blocks2, rows, wpad: int, rpb: int = 0):
     """AND over the hash axis + row presence. Returns (andw int32
-    [N, wpad], present bool [N])."""
-    g = _gather_rows(blocks2, rows, wpad)
+    [N, wpad], present bool [N]). rpb > 0: blocked layout."""
+    if rpb:
+        g = _gather_rows_blocked(blocks2, rows, wpad, rpb)
+    else:
+        g = _gather_rows(blocks2, rows, wpad)
     present = (g != 0).any(dim=2).all(dim=1)
     andw = g[:, 0, :]
     for h in range(1, g.shape[1]):
@@ -97,13 +114,13 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 def _accumulate_one(
     stats, hist, over_col, over_freq, blocks2, rows, mask, qcounts, wpad,
-    base_idx, gidx=None,
+    base_idx, rpb=0, gidx=None,
 ):
     """qcounts: int32 frequencies clipped to 65535 by the caller. Values
     >= FREQ_CAP route to the overflow list, which records the k-mer's GLOBAL
     index (base_idx + local); the host resolves exact frequencies from its
     own copy."""
-    andw, present = _and_present(blocks2, rows, wpad)
+    andw, present = _and_present(blocks2, rows, wpad, rpb)
     return _accumulate_tail(
         stats, hist, over_col, over_freq, andw, present, mask, qcounts,
         wpad, base_idx, gidx,
@@ -199,13 +216,14 @@ def query_accumulate_scan(
     *,
     wpad: int,
     chunk: int,
+    rpb: int = 0,
 ):
     """Whole-query accumulation over fixed-size chunks (the chunk bounds
     the [chunk, H, wpad] gather's memory; the last chunk may be short)."""
     for s, e in _chunks(rows.shape[0], chunk):
         _accumulate_one(
             stats, hist, over_col, over_freq, blocks2, rows[s:e], mask[s:e],
-            qcounts[s:e], wpad, base0 + s,
+            qcounts[s:e], wpad, base0 + s, rpb,
         )
     return stats, hist, over_col, over_freq
 
@@ -221,20 +239,24 @@ def query_accumulate_hash_scan(
     k: int,
     num_hash: int,
     bloom_size: int,
+    rpb: int = 0,
+    bv: int = 1,
     exact: bool = False,
 ):
-    """Device-side XXH3 (ops/hash_torch.py) + gather/AND/count
-    accumulation; the host ships 8 bytes of packed k-mer + the frequency.
-    With ``exact`` the qcounts are full frequencies and overflow slots
-    record the frequency itself instead of a global k-mer index."""
+    """Device-side hashing (ops/hash_torch.py: XXH3 rows, or the blocked
+    placement version ``bv`` when rpb > 0) + gather/AND/count accumulation;
+    the host ships 8 bytes of packed k-mer + the frequency. With ``exact``
+    the qcounts are full frequencies and overflow slots record the
+    frequency itself instead of a global k-mer index."""
     for s, e in _chunks(packed.shape[0], chunk):
-        rows = bloom_rows_device(
-            packed[s:e], k=k, num_hash=num_hash, bloom_size=bloom_size
+        rows = device_rows(
+            packed[s:e], k=k, num_hash=num_hash, bloom_size=bloom_size,
+            rpb=rpb, version=bv,
         )
         q = qcounts[s:e]
         _accumulate_one(
             stats, hist, over_col, over_freq, blocks2, rows, q > 0, q, wpad,
-            base0 + s, gidx=q if exact else None,
+            base0 + s, rpb, gidx=q if exact else None,
         )
     return stats, hist, over_col, over_freq
 

@@ -1,6 +1,7 @@
-"""Classic (reference-placement) sorted-row stream.
+"""Sorted-probe streams: the classic (reference-placement) row stream and
+the blocked (split-lane) probe stream.
 
-The classic layout (simple_bloom.rs:19-26) places a k-mer's H rows
+Classic. The classic layout (simple_bloom.rs:19-26) places a k-mer's H rows
 independently: row_i = xxh3_64_with_seed(kmer, i) % bloom_size. This path
 flattens the H*P row probes, sorts them by row, pulls each probe's single
 u32 row word through the classic word kernel (csrc/classic_word.cu), patches
@@ -8,8 +9,19 @@ the probes that fell outside their chunk's window, un-sorts the words back
 to probe order and recombines each k-mer's H words with the shared
 AND/count/histogram epilogue (ops/query.py::_accumulate_tail).
 
-Sorting reorders probes, which is sound because the words go back to probe
-order before any statistic is taken.
+Blocked. The blocked layouts v2/v3/v4 (ops/blocked.py) keep a k-mer's H
+rows in one 512-byte block, hash h in its own lane group. This path hashes
+on the device to (block, H in-block offsets), sorts the probes by block,
+and hands them to the probe kernel (csrc/stream_probe.cu), which gathers
+each probe's rows, ANDs them and accumulates the per-color counts and the
+uniq-hit frequency histogram; the plan around the kernel (chunk windows, a
+chunk-granular residual pass through the generic gather, the overflow list
+for frequencies the histogram does not cover) is the JAX package's, so all
+accumulators agree with it field by field.
+
+Sorting reorders probes, which is sound because every accumulated statistic
+is permutation-invariant (blocked) or taken after the words are back in
+probe order (classic).
 """
 
 from __future__ import annotations
@@ -17,8 +29,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .hash_torch import bloom_rows_device
-from .query import _accumulate_tail
+from .hash_torch import M32, bloom_rows_device, device_blkoff
+from .query import FREQ_CAP, _accumulate_one, _accumulate_tail, _popcount32, _to_i32
 
 T = 128  # matrix tile rows (512-byte blocks)
 # probes per kernel chunk: each chunk reads one NT_CL-tile window of the matrix
@@ -123,11 +135,17 @@ def classic_plan(row_s: torch.Tensor, n_blocks: int):
     inside the matrix) and inwin2d [P // PC_CL, PC_CL] the probes the
     kernel serves from that window."""
     blk_s = row_s >> 7
-    off_s = row_s & 127
-    blk2d = blk_s.view(-1, PC_CL)
-    tb = torch.clamp(blk2d[:, 0] // T, 0, n_blocks // T - NT_CL).to(torch.int32)
-    inwin2d = (blk2d - tb[:, None] * T) < NT_CL * T
-    return blk_s, off_s, tb, inwin2d
+    return blk_s, row_s & 127, *_window_plan(blk_s, n_blocks, PC_CL, NT_CL)
+
+
+def _window_plan(blk_s: torch.Tensor, n_blocks: int, pc: int, nt: int):
+    """For sorted blocks cut into chunks of pc probes: tb int32 [P // pc],
+    the first tile of each chunk's nt-tile window (clamped so the window
+    stays inside the matrix), and inwin2d bool [P // pc, pc], the probes
+    whose block lies in their chunk's window."""
+    blk2d = blk_s.view(-1, pc)
+    tb = torch.clamp(blk2d[:, 0] // T, 0, n_blocks // T - nt).to(torch.int32)
+    return tb, (blk2d - tb[:, None] * T) < nt * T
 
 
 def stream_accumulate_classic_exact(
@@ -193,3 +211,361 @@ def stream_accumulate_classic_exact(
         qcounts > 0, qcounts, 1, 0, gidx=qcounts,
     )
     return stats, hist, over_col, over_freq, n_drop
+
+
+# --- blocked (split-lane) sorted-probe stream --------------------------------
+
+PC = 2048  # probes per chunk: the unit of the window plan and of padding
+HIST_W = 256  # probe-kernel histogram width for WIDE color counts
+RES_CAP = 256 * PC  # residual probe slots (overflow-append bound)
+OVER_CAP = 1 << 18  # uniq-hit frequency-overflow entries per segment
+# Clipped-frequency bits packed into the sort key: carrying min(freq,
+# 2^QKEY_BITS - 1) in the key's low bits drops one payload array from the
+# sort. Sound because within-block probe order is irrelevant and every
+# consumer of the frequency either needs it only below FREQ_CAP or gets
+# the exact value from the overflow payload.
+QKEY_BITS = 11
+QKEY_MASK = (1 << QKEY_BITS) - 1
+STREAM_WPADS = (1, 2, 4, 8, 16, 32)  # kernel color capacity: 32 * wpad <= 1024
+STREAM_HASHES = (1, 2, 4)
+
+
+def _nt_win(wpad: int) -> int:
+    """Tiles per chunk window (the JAX package's plan: 4 tiles for narrow
+    rows, 2 for wide ones)."""
+    return 4 if wpad <= 4 else 2
+
+
+def _nch(wpad: int) -> int:
+    """Residual chunk capacity: out-of-window probes re-run through the
+    generic gather at chunk granularity, at most this many chunks."""
+    return 128 if wpad <= 4 else 256
+
+
+def _hist_w(n_colors: int) -> int:
+    """Probe-kernel histogram width: the engine's full FREQ_CAP range for
+    narrow color counts, HIST_W for wide ones (larger uniq-hit frequencies
+    go to the overflow list)."""
+    return 1024 if n_colors < 128 else HIST_W
+
+
+def _hist_rows(n_colors: int) -> int:
+    """Probe-kernel histogram rows (>= 32 * wpad, so every bit index of an
+    and-word has a row)."""
+    C = n_colors
+    return 32 if C < 32 else ((C + 1 + 127) // 128) * 128
+
+
+def _qc_in_key_ok(bloom_size: int, rpb: int) -> bool:
+    """Static guard: the block index must fit the key's high bits."""
+    n_blocks = (bloom_size + rpb - 1) // rpb
+    return n_blocks <= (1 << (32 - QKEY_BITS))
+
+
+def pack_offsets(offs: list) -> torch.Tensor:
+    """Per-hash in-block offsets (int64, < 128) -> one int32 with 8 bits per
+    hash (the probe kernel's ``off`` encoding; at most 4 hashes of 7 bits,
+    so the value stays below 2^31)."""
+    offp = offs[0]
+    for h in range(1, len(offs)):
+        offp = offp | (offs[h] << (8 * h))
+    return offp.to(torch.int32)
+
+
+def stream_probe_plain(blocks2, blk_s, off_s, qc_s, counts, hist, *,
+                       num_hash: int, wpad: int, n_colors: int):
+    """Plain PyTorch twin of the probe kernel (same contract as
+    ``stream_probe``)."""
+    P = blk_s.shape[0]
+    H, W = num_hash, wpad
+    cp, hw = hist.shape
+    dev = blk_s.device
+    blk = blk_s.to(torch.int64)
+    inb = (blk >= 0) & (blk < blocks2.shape[0])
+    b = blocks2[torch.where(inb, blk, 0)]  # [P, 128]
+    off = off_s.to(torch.int64) & M32
+    o = torch.stack([(off >> (8 * h)) & 0xFF for h in range(H)], dim=1)
+    ok = inb[:, None] & (o * W + W <= 128)  # [P, H]
+    lanes = (torch.where(ok, o, 0) * W)[:, :, None] + torch.arange(W, device=dev)
+    g = b.gather(1, lanes.reshape(P, H * W)).reshape(P, H, W)
+    g = torch.where(ok[:, :, None], g, 0)
+    present = (g != 0).any(dim=2).all(dim=1)
+    andw = g[:, 0]
+    for h in range(1, H):
+        andw = andw & g[:, h]
+    real = qc_s > 0
+    aw = torch.where(real[:, None], andw.to(torch.int64) & M32, 0)  # [P, W]
+    counts += torch.stack(
+        [((aw >> bit) & 1).sum(dim=0) for bit in range(32)], dim=1
+    ).reshape(W * 32).to(counts.dtype)
+    nhits = _popcount32(aw).sum(dim=1)
+    widx = (aw != 0).to(torch.int8).argmax(dim=1)
+    word = aw.gather(1, widx[:, None])[:, 0]
+    color = widx * 32 + _popcount32((word - 1) & M32)
+    valid = real & present
+    hit = valid & (nhits == 1)
+    qc = qc_s.to(torch.int64)
+    small = hit & (qc < hw) & (color < cp)
+    spread = torch.arange(P, device=dev) % (cp * hw)
+    hist.view(-1).index_add_(
+        0, torch.where(small, color * hw + qc, spread), small.to(hist.dtype)
+    )
+    return torch.where(hit, color, torch.where(valid, -1, -2)).to(torch.int32)
+
+
+def stream_probe(blocks2, blk_s, off_s, qc_s, counts, hist, *,
+                 num_hash: int, wpad: int, n_colors: int):
+    """Gather / AND / count for probes sorted by block; returns uniq int32
+    [P] and adds into ``counts`` and ``hist``.
+
+    blocks2 int32 [Rb, 128] (the matrix); blk_s int32 [P] block per probe;
+    off_s int32 [P] the H in-block row offsets, 8 bits each
+    (``pack_offsets``); qc_s int32 [P] frequency, 0 = padding or a probe
+    that is not to be counted; P % PC == 0. Per probe with qc > 0:
+    and_w = AND over h of the row at offset off_h (wpad words), present iff
+    every row has a nonzero word, every set bit c of and_w adds 1 to
+    counts[c] (int32 [32 * wpad]); uniq = the color of a present probe with
+    exactly one set bit, -1 for any other present probe, -2 otherwise
+    (absent row, or qc == 0); a unique hit with qc < hw adds 1 to
+    hist[color, qc] (int32 [cp, hw] = [_hist_rows, _hist_w](n_colors)).
+
+    A CUDA tensor launches csrc/stream_probe.cu; a CPU tensor takes the
+    plain twin. ``stream_probe.launches`` counts kernel launches."""
+    P = blk_s.shape[0]
+    tensors = (blocks2, blk_s, off_s, qc_s, counts, hist)
+    if any(t.dtype != torch.int32 for t in tensors):
+        raise TypeError("stream_probe takes int32 tensors")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("stream_probe takes contiguous tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("stream_probe: tensors on different devices")
+    if blocks2.dim() != 2 or blocks2.shape[1] != 128:
+        raise ValueError("stream_probe: blocks2 must be [Rb, 128]")
+    if wpad not in STREAM_WPADS or num_hash not in STREAM_HASHES:
+        raise ValueError(
+            f"stream_probe: wpad must be one of {STREAM_WPADS} and num_hash "
+            f"one of {STREAM_HASHES}; got wpad={wpad} num_hash={num_hash}"
+        )
+    if P % PC or off_s.shape != (P,) or qc_s.shape != (P,) or blk_s.dim() != 1:
+        raise ValueError(
+            f"stream_probe: blk_s, off_s and qc_s must be [P] with P a "
+            f"multiple of {PC}"
+        )
+    if counts.shape != (32 * wpad,) or hist.shape != (
+        _hist_rows(n_colors), _hist_w(n_colors)
+    ) or hist.shape[0] < 32 * wpad:
+        raise ValueError(
+            "stream_probe: counts must be [32 * wpad] and hist "
+            "[_hist_rows(n_colors), _hist_w(n_colors)]"
+        )
+    kw = dict(num_hash=num_hash, wpad=wpad, n_colors=n_colors)
+    dev = blk_s.device
+    if dev.type == "cpu":
+        return stream_probe_plain(blocks2, blk_s, off_s, qc_s, counts, hist, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"stream_probe: unsupported device {dev}")
+    uniq = torch.empty(P, dtype=torch.int32, device=dev)
+    fn = kernels.kernel("stream_probe")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            blocks2.data_ptr(), blocks2.numel(), blk_s.data_ptr(),
+            off_s.data_ptr(), qc_s.data_ptr(), uniq.data_ptr(),
+            counts.data_ptr(), hist.data_ptr(), P, num_hash, wpad,
+            hist.shape[0], hist.shape[1], stream,
+        )
+    if err:
+        raise RuntimeError(f"stream_probe kernel launch failed: CUDA error {err}")
+    stream_probe.launches += 1
+    return uniq
+
+
+stream_probe.launches = 0
+
+
+def stream_plan(blk_s: torch.Tensor, n_blocks: int, wpad: int):
+    """The window plan for sorted int32 blocks [P] (P % PC == 0) over a
+    matrix of n_blocks blocks: (tb, inwin2d) as _window_plan gives them.
+    The probe kernel serves the probes in their window; the rest go to the
+    residual pass."""
+    return _window_plan(blk_s, n_blocks, PC, _nt_win(wpad))
+
+
+def _stream_core(
+    stats, hist, over_col, over_freq, blocks2, blk_s, off_s, qc_s, gidx_s,
+    *, wpad: int, num_hash: int, rpb: int, n_colors: int,
+):
+    """Shared sorted-probe body: probes already sorted by block (blk_s
+    ascending), with packed offsets, frequencies (0 = padding) and an
+    overflow payload per probe (a global k-mer index, or the exact
+    frequency itself in exact mode). Runs the probe kernel over the probes
+    inside their chunk's window, the out-of-window probes of the first
+    _nch residual chunks through the generic gather, and merges into the
+    accumulators IN PLACE; returns (..., n_drop), an int32 device scalar
+    that is nonzero when a capacity was exceeded.
+
+    Nothing here waits for the device: where the JAX package branches on a
+    device value, this does the work unconditionally with masks."""
+    P = blk_s.shape[0]
+    C, W = n_colors, wpad
+    dev = blk_s.device
+    hw = _hist_w(C)
+    nch = _nch(W)
+    n_chunks = P // PC
+    tb, inwin2d = stream_plan(blk_s, blocks2.shape[0], W)
+
+    qcw = torch.where(inwin2d.view(-1), qc_s, 0)
+    counts_out = torch.zeros(32 * W, dtype=torch.int32, device=dev)
+    hist_out = torch.zeros((_hist_rows(C), hw), dtype=torch.int32, device=dev)
+    uniq = stream_probe(
+        blocks2, blk_s, off_s, qcw, counts_out, hist_out,
+        num_hash=num_hash, wpad=W, n_colors=C,
+    )
+
+    # global AND and all-valid from the counts: bit c of the AND over valid
+    # k-mers is 1 iff every one of the n_valid k-mers hit color c (all-ones
+    # when n_valid == 0); ok iff every real k-mer was valid
+    n_valid = (uniq > -2).sum()
+    n_real = (qcw > 0).sum()
+    eq = (counts_out == n_valid).to(torch.int64).view(W, 32)
+    and_b = (eq << torch.arange(32, device=dev)).sum(dim=1)
+    hist[:, :hw] += hist_out[:C]
+
+    # uniq-hit frequencies the kernel histogram does not cover (>= hw): the
+    # first OVER_CAP of them, in probe order, append at the running n_over
+    n_over_before = stats[C + W + 1].to(torch.int64)
+    big = (uniq >= 0) & (qc_s >= hw)
+    n_big = big.sum()
+    capO = over_col.shape[0]
+    pos = torch.cumsum(big, dim=0) - 1
+    to = n_over_before + pos
+    keep = big & (pos < OVER_CAP) & (to < capO)
+    spread = torch.arange(P, device=dev) % capO
+    oidx = torch.where(keep, to, spread)
+    over_col.index_add_(0, oidx, torch.where(keep, uniq, 0))
+    over_freq.index_add_(0, oidx, torch.where(keep, gidx_s, 0))
+
+    stats[:C] += counts_out[:C]
+    # the running AND keeps what earlier segments found
+    stats[C : C + W] &= _to_i32(and_b)
+    stats[C + W] *= (n_valid == n_real).to(stats.dtype)
+    stats[C + W + 1] += n_big.clamp(max=OVER_CAP).to(stats.dtype)
+
+    # residual pass, chunk-granular: out-of-window probes live in a few
+    # sparse chunks; the first nch such chunks re-run whole through the
+    # generic gather with their in-window probes masked out. The chunk list
+    # is a stable sort of the flags; its padding entries are masked too.
+    qc2d = qc_s.view(n_chunks, PC)
+    res2d = (~inwin2d) & (qc2d > 0)
+    chunk_res = res2d.sum(dim=1, dtype=torch.int32)
+    has_res = chunk_res > 0
+    covered = has_res & (torch.cumsum(has_res, dim=0) <= nch)
+    n_drop_res = (chunk_res * (has_res & ~covered)).sum(dtype=torch.int32)
+    cidx = torch.sort((~covered).to(torch.int8), stable=True).indices[:nch]
+    rvalid = (res2d[cidx] & covered[cidx][:, None]).reshape(-1)
+    rblk = blk_s.view(n_chunks, PC)[cidx].reshape(-1)
+    roff = off_s.view(n_chunks, PC)[cidx].reshape(-1)
+    rows_res = torch.stack(
+        [rblk * rpb + ((roff >> (8 * h)) & 0xFF) for h in range(num_hash)],
+        dim=1,
+    )
+    _accumulate_one(
+        stats, hist, over_col, over_freq, blocks2, rows_res, rvalid,
+        qc2d[cidx].reshape(-1) * rvalid, W, 0, rpb,
+        gidx=gidx_s.view(n_chunks, PC)[cidx].reshape(-1),
+    )
+    n_drop = (n_big - OVER_CAP).clamp(min=0).to(torch.int32) + n_drop_res
+    return stats, hist, over_col, over_freq, n_drop
+
+
+def _check_stream_batch(packed, qcounts):
+    if packed.dtype != torch.int32 or qcounts.dtype != torch.int32:
+        raise TypeError("stream batch: int32 packed k-mers and frequencies")
+    if packed.shape[0] % PC or qcounts.shape[0] != packed.shape[0]:
+        raise ValueError(f"stream batch must be padded to a multiple of {PC}")
+
+
+def stream_accumulate_hash(
+    stats, hist, over_col, over_freq, blocks2,
+    packed: torch.Tensor,  # int32 [P, 2]; P % PC == 0
+    qcounts: torch.Tensor,  # int32 [P] clipped frequencies; 0 marks padding
+    base0: int,  # global index of packed[0]
+    *,
+    wpad: int,
+    k: int,
+    num_hash: int,
+    bloom_size: int,
+    rpb: int,
+    n_colors: int,
+    bv: int = 2,
+):
+    """Drop-in replacement for query_accumulate_hash_scan on blocked
+    v2/v3/v4 indexes: same in-place stats/hist/overflow contract (overflow
+    entries record the global k-mer index), one probe-kernel launch per
+    segment. Also returns n_drop: nonzero means the segment must be re-run
+    on the generic path (overflow or residual capacity exceeded)."""
+    _check_stream_batch(packed, qcounts)
+    P = packed.shape[0]
+    blk, offs = device_blkoff(
+        packed, k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb,
+        version=bv,
+    )
+    offp = pack_offsets(offs)
+    if _qc_in_key_ok(bloom_size, rpb):
+        # sort diet: min(freq, FREQ_CAP) rides in the key's low bits. The
+        # key is int64: as a signed int32 it would mis-order blocks >= 2^20
+        key = (blk << QKEY_BITS) | qcounts.clamp(max=FREQ_CAP).to(torch.int64)
+        key_s, perm = torch.sort(key, stable=True)
+        blk_s = (key_s >> QKEY_BITS).to(torch.int32)
+        qc_s = (key_s & QKEY_MASK).to(torch.int32)
+    else:
+        blk_s, perm = torch.sort(blk.to(torch.int32), stable=True)
+        qc_s = qcounts[perm]
+    return _stream_core(
+        stats, hist, over_col, over_freq, blocks2,
+        blk_s, offp[perm], qc_s, (perm + base0).to(torch.int32),
+        wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=n_colors,
+    )
+
+
+def stream_accumulate_hash_exact(
+    stats, hist, over_col, over_freq, blocks2,
+    packed: torch.Tensor,  # int32 [P, 2]; P % PC == 0
+    qcounts: torch.Tensor,  # int32 [P] FULL frequencies; 0 marks padding
+    *,
+    wpad: int,
+    k: int,
+    num_hash: int,
+    bloom_size: int,
+    rpb: int,
+    n_colors: int,
+    bv: int = 2,
+    qc_in_key: bool = False,
+):
+    """stream_accumulate_hash in exact mode: the overflow payload is the
+    frequency itself, so the caller needs no host-side frequency
+    resolution. Frequencies must be the real int32 counts (not clipped).
+
+    qc_in_key=True packs the frequency into the sort key's low QKEY_BITS
+    (one payload array fewer). The CALLER must guarantee every frequency
+    < 2^QKEY_BITS (and the block-index guard _qc_in_key_ok holds); larger
+    values would be clipped, in the overflow payload too."""
+    _check_stream_batch(packed, qcounts)
+    blk, offs = device_blkoff(
+        packed, k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb,
+        version=bv,
+    )
+    offp = pack_offsets(offs)
+    if qc_in_key and _qc_in_key_ok(bloom_size, rpb):
+        key = (blk << QKEY_BITS) | qcounts.clamp(0, QKEY_MASK).to(torch.int64)
+        key_s, perm = torch.sort(key, stable=True)
+        blk_s = (key_s >> QKEY_BITS).to(torch.int32)
+        qc_s = (key_s & QKEY_MASK).to(torch.int32)
+    else:
+        blk_s, perm = torch.sort(blk.to(torch.int32), stable=True)
+        qc_s = qcounts[perm]
+    return _stream_core(
+        stats, hist, over_col, over_freq, blocks2,
+        blk_s, offp[perm], qc_s, qc_s,
+        wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=n_colors,
+    )

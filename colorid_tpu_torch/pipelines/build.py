@@ -19,9 +19,9 @@ Minimizer indexes use the build_multi_mini semantics (minimizer counting
 before filtering; fasta minimizers uppercased, fastq minimizers raw —
 kmer.rs:346 vs :746).
 
-This port builds classic (reference-placement) indexes on the host; the
-blocked layouts, the device scatter-OR build and color-shard placement are
-not yet ported and raise NotImplementedError.
+This port builds classic (reference-placement) and blocked (build
+--blocked, ops/blocked.py) indexes on the host; the device scatter-OR build
+and color-shard placement are not yet ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -177,10 +177,10 @@ def build_index(
     """
     from ..trace import span
 
-    if blocked or color_shards > 1:
+    if color_shards > 1:
         raise NotImplementedError(
-            "blocked index layouts (build --blocked/--color-shards) are not "
-            "yet ported in colorid_tpu_torch (ROADMAP queue 1: blocked layouts)"
+            "shard-local blocked placement (build --color-shards) is not yet "
+            "ported in colorid_tpu_torch (ROADMAP queue 1: sharded engines)"
         )
     if device:
         raise NotImplementedError(
@@ -190,6 +190,31 @@ def build_index(
     accessions = sorted(ref_map.keys())
     C = len(accessions)
     W = (C + 31) // 32
+    rpb = 0
+    bver = 0
+    if blocked:
+        from ..ops.blocked import (
+            blocked_rows_host,
+            pad_bloom_size,
+            rows_per_block,
+            v2_supported,
+            v3_supported,
+        )
+
+        wpad = 1 << (max(W, 1) - 1).bit_length()
+        rpb = rows_per_block(wpad)
+        bloom_size = pad_bloom_size(bloom_size)
+        # value-addressed split-lane (v4: density-corrected block map)
+        # whenever the key length and hash count permit (sorted probes hit
+        # the matrix in block order, ops/stream_query.py); v2 split-lane as
+        # the XXH3 fallback
+        key_len = m_size if m_size else k_size
+        if v3_supported(wpad, num_hash, key_len):
+            bver = 4
+        elif v2_supported(wpad, num_hash):
+            bver = 2
+        else:
+            bver = 1
     n_ref_kmers: dict[str, int] = {}
     matrix = np.zeros((bloom_size, W), dtype=np.uint32)
     if checkpoint_dir:
@@ -261,6 +286,11 @@ def build_index(
             n_ref_kmers[acc] = keys.shape[0]
             if keys.shape[0] == 0:
                 rows = np.zeros((0, num_hash), dtype=np.int64)
+            elif rpb:
+                with span(f"build:hash:{acc}"):
+                    rows = blocked_rows_host(
+                        keys, num_hash, bloom_size, rpb, version=bver
+                    )
             else:
                 with span(f"build:hash:{acc}"):
                     rows = _hash_rows(keys, num_hash, bloom_size)
@@ -285,4 +315,5 @@ def build_index(
         colors=accessions,
         n_ref_kmers=n_ref_kmers,
         matrix=matrix,
+        blocked=bver,
     )

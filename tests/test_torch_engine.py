@@ -229,9 +229,16 @@ def test_device_resident_dispatch_and_keys(panel, jax_case):
 
 def test_engine_refuses_what_is_not_ported():
     m = np.zeros((1000, 1), dtype=np.uint32)
-    blocked = BigsiIndex(1000, 4, 31, 0, ["a"], {"a": 1}, m, blocked=2)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        TEngine(blocked, device="cpu")
+    # a blocked index is taken now: one 512-byte block per k-mer
+    blocked = TEngine(
+        BigsiIndex(1000, 4, 31, 0, ["a"], {"a": 1}, m, blocked=2), device="cpu"
+    )
+    assert (blocked.bv, blocked.rpb, blocked._stream) == (2, 128, True)
+    assert not blocked._stream_classic
+    # placed for color shards narrower than the full row: for the sharded engines
+    placed = BigsiIndex(1000, 4, 31, 0, ["a"], {"a": 1}, m, blocked=2, place_rpb=64)
+    with pytest.raises(NotImplementedError, match="shard-placed"):
+        TEngine(placed, device="cpu")
     wide = BigsiIndex(2**31, 4, 31, 0, ["a"], {"a": 1}, m)
     with pytest.raises(NotImplementedError, match="query_accumulate_scan_wide"):
         TEngine(wide, device="cpu")

@@ -62,8 +62,12 @@ _SCRIPT = textwrap.dedent("""
     with contextlib.redirect_stdout(out):
         main(["build", "-k", "27", "-n", "4", "-s", "375000", "-b", d + "/idx", "-r", man])
         main(["search", "-b", d + "/idx.bxi", "-q", fq, "-f", "1", "--device", "cpu"])
+        main(["build", "--blocked", "-k", "27", "-n", "4", "-s", "375000",
+              "-b", d + "/turbo", "-r", man])
+        main(["search", "-b", d + "/turbo.bxi", "-q", fq, "-f", "1", "--device", "cpu"])
     rows = [l for l in out.getvalue().splitlines() if "\\t" in l]
-    assert rows and rows[0].split("\\t")[2] in ("genome0", "genome1"), rows
+    assert len(rows) >= 4 and rows[0].split("\\t")[2] in ("genome0", "genome1"), rows
+    assert "colorid_tpu_torch.ops.blocked" in sys.modules
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "colorid_tpu"))
     assert not leaked, leaked

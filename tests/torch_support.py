@@ -29,6 +29,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def t32(a: np.ndarray) -> torch.Tensor:
+    """A uint32/int32 numpy array as an int32 tensor (bit view)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
 def classic_case(kind: str, seed: int, n_chunks: int = 3, pc: int = 4096):
     """A random uint32 block matrix [Rb, 128] (every bit may be set, so the
     byte-plane masking shows) and n_chunks * pc sorted int32 row probes over
@@ -89,3 +94,53 @@ def write_fastq_gz(path, rs: np.ndarray, prefix: str = "read") -> str:
         for j, r in enumerate(rs):
             f.write(f"@{prefix}{j} extra\n{r.tobytes().decode()}\n+\n{qual}\n")
     return str(path)
+
+
+def rand_blocked_matrix(rng, C: int, bloom_size: int, zero_frac: float = 0.3,
+                        thin: int = 1):
+    """A random uint32 [bloom, W] bit-slice matrix for C colors over
+    bloom_size rows rounded up to whole 128-row groups: every color bit is
+    set with probability 2^-thin (wide rows need thin ones for an AND over
+    the hashes to leave single hits), no bit beyond C is set, and zero_frac
+    of the rows are absent. Returns (bloom, matrix, color names)."""
+    bloom = -(-bloom_size // 128) * 128
+    W = (C + 31) // 32
+    matrix = rng.integers(0, 2**32, (bloom, W), dtype=np.uint32)
+    for _ in range(thin - 1):
+        matrix &= rng.integers(0, 2**32, (bloom, W), dtype=np.uint32)
+    if C % 32:
+        matrix[:, W - 1] &= np.uint32((1 << (C % 32)) - 1)
+    matrix[rng.integers(0, bloom, int(bloom * zero_frac))] = 0
+    return bloom, matrix, [f"c{i}" for i in range(C)]
+
+
+def rand_packed(rng, n: int, k: int = 31) -> np.ndarray:
+    """n random 2-bit packed k-mers as (lo, hi) uint32 [n, 2]."""
+    vals = rng.integers(0, 4**k, n, dtype=np.uint64)
+    out = np.empty((n, 2), dtype=np.uint32)
+    out[:, 0] = (vals & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    out[:, 1] = (vals >> np.uint64(32)).astype(np.uint32)
+    return out
+
+
+def probe_case(C: int, num_hash: int, seed: int, n_blocks: int = 1024,
+               n_probes: int = 8192, thin: int = 1):
+    """Inputs of the blocked probe kernel: a block matrix uint32
+    [n_blocks, 128] for C colors and n_probes probes sorted by block, each
+    with split-lane offsets (hash h in its own group of rows) packed 8 bits
+    per hash, and a frequency (0 = padding). Returns (blocks, wpad, blk_s,
+    off_s, qc) as numpy arrays (int32 but for the blocks)."""
+    rng = np.random.default_rng(seed)
+    W = (C + 31) // 32
+    wpad = 1 << (W - 1).bit_length()
+    rpb = 128 // wpad
+    _bloom, matrix, _names = rand_blocked_matrix(rng, C, n_blocks * rpb, 0.3, thin)
+    blocks = np.zeros((n_blocks * rpb, wpad), dtype=np.uint32)
+    blocks[:, :W] = matrix
+    grp = rpb // num_hash
+    blk = np.sort(rng.integers(0, n_blocks, n_probes)).astype(np.int32)
+    off = np.zeros(n_probes, dtype=np.int64)
+    for h in range(num_hash):
+        off |= (h * grp + rng.integers(0, grp, n_probes)) << (8 * h)
+    qc = rng.integers(0, 2000, n_probes).astype(np.int32)
+    return blocks.reshape(n_blocks, 128), wpad, blk, off.astype(np.int32), qc
