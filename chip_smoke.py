@@ -7,10 +7,11 @@ Phases, each printing its lines (any failure exits non-zero):
 
 1. card: the card's name and power limit (nvidia-smi); build every CUDA
    kernel from csrc/ (set-up time).
-2. kernel: each kernel (classic_word, stream_probe) against its plain
-   PyTorch twin on the card at the main path's shapes (bitwise), with its
-   time, the twin's, one PyTorch library call's where one computes the same
-   function, and the least time the card could take (bound).
+2. kernel: each kernel (classic_word, stream_probe, stream_probe_raw)
+   against its plain PyTorch twin on the card at its main path's shapes
+   (bitwise), with its time, the twin's, one PyTorch library call's where
+   one computes the same function, and the least time the card could take
+   (bound).
 3. main path, twice, through the port's CLI at the bench configuration's
    size (21 synthetic ~3 Mbp genomes, -k 31 -n 4 -s 50000000; search -f 1
    on 400,000 x 150 bp reads from 3 of them; search -s on one genome):
@@ -22,6 +23,19 @@ Phases, each printing its lines (any failure exits non-zero):
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
    both paths and for the device-resident dispatches, and one
    device-resident stream dispatch's device time by kernel (torch.profiler).
+
+5. sharded paths on a logical mesh, every shard on the one card:
+   - color layout at full width: a seeded 4,096-color, H = 2, k = 31, v4
+     index of 4,194,304 rows placed for 4 color shards (2 GiB of matrix)
+     on a (1, 4) mesh; 16,777,216 distinct k-mers through
+     ShardedQueryEngine.search_keys must take the raw probe stream (one
+     stream_probe_raw launch per shard, n_drop 0) and equal the same
+     engine's generic path and the single-device QueryEngine;
+   - the entry points: CLI build --blocked --color-shards 4 on 1,200
+     synthetic 50 kbp genomes, CLI search on that index, and
+     ShardedQueryEngine on the loaded index: the same report lines;
+   - row layout: the blocked index of phase 3 on a (1, 4) row mesh: the
+     probe stream per row shard equals the single-device results.
 
 Then one JSON line with the kernel table, the card line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
@@ -255,19 +269,13 @@ def probe_kernel_phase(card: str) -> dict:
     # the bound: each probe's 12 bytes in and 4 out, the accumulators in and
     # out, and the distinct 32-byte sectors of the matrix that the counted
     # probes' rows lie in (wpad <= 8: a row lies in one sector)
-    live = qc > 0
-    base = blk_s.to(torch.int64)[live] * 128
-    offs = off_s.to(torch.int64)[live]
-    sectors = torch.cat([
-        (base + ((offs >> (8 * h)) & 0xFF) * wpad) // 8 for h in range(HASHES)
-    ])
-    n_sectors = int(torch.unique(sectors).numel())
-    n_bytes = P * 16 + n_sectors * 32 + 2 * 4 * (counts.numel() + hist.numel())
+    row_bytes, n_sectors = _touched_bytes(blk_s, off_s, qc, wpad, HASHES)
+    n_bytes = P * 16 + row_bytes + 2 * 4 * (counts.numel() + hist.numel())
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     log(f"[kernel] stream_probe P={P} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms=null (no single PyTorch call gathers, ANDs and counts) "
         f"bound_ms={bound_ms:.4f} (bytes={n_bytes}, sectors={n_sectors}) on {card}")
-    del kept, blocks2, blk_s, off_s, qc, sectors, base, offs
+    del kept, blocks2, blk_s, off_s, qc
     torch.cuda.empty_cache()
     return {
         "name": "stream_probe",
@@ -275,6 +283,113 @@ def probe_kernel_phase(card: str) -> dict:
         "source": "colorid_tpu_torch/csrc/stream_probe.cu",
         "replaces": "colorid_tpu/ops/stream_query.py:158",
         "launches": None,  # filled from the blocked main path's run
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def _touched_bytes(blk_s, off_s, qc, wpad: int, num_hash: int) -> tuple[int, int]:
+    """(bytes, sectors): the distinct 32-byte sectors of the matrix that the
+    counted probes' rows lie in (a row of wpad <= 8 words lies in one
+    sector, a wider one in wpad // 8)."""
+    import torch
+
+    live = qc > 0
+    base = blk_s.to(torch.int64)[live] * 128
+    offs = off_s.to(torch.int64)[live]
+    starts = torch.cat([
+        (base + ((offs >> (8 * h)) & 0xFF) * wpad) // 8 for h in range(num_hash)
+    ])
+    n = int(torch.unique(starts).numel()) * max(wpad // 8, 1)
+    return n * 32, n
+
+
+def raw_kernel_phase(card: str) -> dict:
+    """stream_probe_raw against its twin at the color-sharded path's shape
+    (one shard: wpad 32, H 2, 16,777,216 probes sorted by block over
+    1,048,576 blocks), on a narrow shape and on a sparse batch."""
+    import torch
+
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    P = 1 << 24
+    cases = (
+        # name, colors, hashes, probes, blocks
+        ("dense", 1024, 2, P, 1 << 20),
+        ("sparse", 1024, 2, 1 << 20, 1 << 20),  # runs of qc == 0
+        ("narrow", 200, 4, 1 << 20, 48 * 1024),  # wpad 8, H 4
+    )
+    errs = []
+    kept = None
+    for name, C, H, n_probes, n_blocks in cases:
+        blocks2, wpad, blk_s, off_s, qc = _probe_inputs(
+            g, n_blocks, n_probes, C, H, C, n_blocks)
+        if name == "sparse":
+            i = torch.arange(n_probes, device=dev)
+            qc = torch.where((i // 4096 % 4 != 0) & (i % 5 == 0), qc, 0).to(torch.int32)
+        kw = dict(num_hash=H, wpad=wpad)
+        counts = torch.zeros(32 * wpad, dtype=torch.int32, device=dev)
+        got = (*sq.stream_probe_raw(blocks2, blk_s, off_s, qc, counts, **kw), counts)
+        # the twin in slices of 2^22 probes: its [P, 128] block gather is
+        # 8.6 GB at the full shape
+        want_counts = torch.zeros_like(counts)
+        parts = [
+            sq.stream_probe_raw_plain(
+                blocks2, blk_s[a:a + (1 << 22)], off_s[a:a + (1 << 22)],
+                qc[a:a + (1 << 22)], want_counts, **kw)
+            for a in range(0, n_probes, 1 << 22)
+        ]
+        want = (*(torch.cat(x) for x in zip(*parts)), want_counts)
+        torch.cuda.synchronize()
+        err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                  for a, b in zip(got, want))
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        nh = got[0]
+        log(f"[kernel] stream_probe_raw {name}: P={n_probes} C={C} H={H} wpad={wpad} "
+            f"counted={int((qc > 0).sum())} single_hits={int((nh == 1).sum())} "
+            f"multi_hits={int((nh > 1).sum())} counts_sum={int(counts.sum())} "
+            f"max_abs_err={err} bitwise_equal={equal}")
+        if not equal:
+            raise AssertionError(f"stream_probe_raw kernel != twin ({name})")
+        if int((nh == 1).sum()) == 0 or (H == 2 and int((nh > 1).sum()) == 0):
+            raise AssertionError(f"stream_probe_raw {name}: nothing to check")
+        errs.append(err)
+        if name == "dense":
+            kept = (blocks2, wpad, blk_s, off_s, qc, kw)
+        del got, want, parts
+    blocks2, wpad, blk_s, off_s, qc, kw = kept
+    counts = torch.zeros(32 * wpad, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: sq.stream_probe_raw(blocks2, blk_s, off_s, qc, counts, **kw), 20)
+
+    def twin():
+        for a in range(0, P, 1 << 22):
+            sq.stream_probe_raw_plain(
+                blocks2, blk_s[a:a + (1 << 22)], off_s[a:a + (1 << 22)],
+                qc[a:a + (1 << 22)], counts, **kw)
+
+    plain_ms = cuda_ms(twin, 2)
+    # the bound: each probe's 12 bytes in and 12 out, the counts in and out,
+    # and the distinct sectors of the matrix that the counted probes touch
+    row_bytes, n_sectors = _touched_bytes(blk_s, off_s, qc, wpad, 2)
+    n_bytes = P * 24 + row_bytes + 2 * 4 * counts.numel()
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] stream_probe_raw P={P} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=null (no single PyTorch call gathers, ANDs and counts) "
+        f"bound_ms={bound_ms:.4f} (bytes={n_bytes}, sectors={n_sectors}) on {card}")
+    del kept, blocks2, blk_s, off_s, qc
+    torch.cuda.empty_cache()
+    return {
+        "name": "stream_probe_raw",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/stream_probe.cu",
+        "replaces": "colorid_tpu/ops/stream_query.py:158",
+        "launches": None,  # filled from the color-sharded path's run
         "max_abs_err": max(errs),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -622,8 +737,349 @@ def blocked_parity_phase(bxi: str, fq: str, card: str) -> None:
         profile_dispatch(lambda: dispatches["stream"]()[0], "blocked", card)
 
 
+# -- phase 5: the sharded paths on a logical mesh -----------------------------
+
+WIDE_COLORS, WIDE_ROWS, WIDE_SHARDS, WIDE_HASHES = 4096, 4_194_304, 4, 2
+WIDE_KMERS = 1 << 24
+PANEL_GENOMES, PANEL_LEN, PANEL_BLOOM, PANEL_READS = 1200, 50_000, 2_000_000, 20_000
+
+
+def same_answers(a, b) -> bool:
+    """What a streamed, a generic and a single-device result share (their
+    overflow lists differ in order, and their histograms in layout)."""
+    import numpy as np
+
+    return (
+        np.array_equal(a.counts, b.counts)
+        and a.all_valid == b.all_valid
+        and np.array_equal(a.and_all, b.and_all)
+        and a.freq_stats() == b.freq_stats()
+    )
+
+
+def wide_index():
+    """A seeded 4,096-color v4 index placed for 4 color shards (place_rpb 4:
+    1,024-color shards of wpad 32): a fifth of the words nonzero with about
+    4 bits each, 6 % of the rows absent. Made in row slabs to bound host
+    memory."""
+    import numpy as np
+
+    from colorid_tpu_torch import convert
+    from colorid_tpu_torch.ops.blocked import rows_per_block
+    from colorid_tpu_torch.ops.query import row_wpad
+
+    rng = np.random.default_rng(SEED + 3)
+    W = WIDE_COLORS // 32
+    place = rows_per_block(row_wpad(W // WIDE_SHARDS))
+    matrix = np.empty((WIDE_ROWS, W), dtype=np.uint32)
+    slab = min(1 << 19, WIDE_ROWS)
+    for a in range(0, WIDE_ROWS, slab):
+        w = rng.integers(0, 2**32, (3, slab, W), dtype=np.uint32)
+        live = rng.integers(0, 5, (slab, W), dtype=np.uint8) == 0
+        matrix[a:a + slab] = np.where(live, w[0] & w[1] & w[2], np.uint32(0))
+    matrix[rng.integers(0, WIDE_ROWS, WIDE_ROWS // 16)] = 0
+    names = [f"c{i}" for i in range(WIDE_COLORS)]
+    return convert.index_from_arrays(
+        matrix, bloom_size=WIDE_ROWS, num_hash=WIDE_HASHES, k_size=K, colors=names,
+        n_ref_kmers={n: 100 for n in names}, blocked=4, place_rpb=place,
+    )
+
+
+def wide_query():
+    """WIDE_KMERS distinct canonical 31-mers as ASCII rows with
+    frequencies, 0.2 % of them >= 1024. Canonical values have the density
+    that the v4 block map flattens: 16 probes per block here."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    v = rng.integers(0, 4**K, WIDE_KMERS + (1 << 16), dtype=np.uint64)
+    x = ~v & np.uint64(4**K - 1)
+    rc = np.zeros_like(x)
+    for _ in range(K):
+        rc = (rc << np.uint64(2)) | (x & np.uint64(3))
+        x >>= np.uint64(2)
+    vals = rng.permutation(np.unique(np.minimum(v, rc)))[:WIDE_KMERS]
+    if vals.shape[0] != WIDE_KMERS:
+        raise AssertionError("too few distinct k-mers drawn")
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    keys = np.empty((WIDE_KMERS, K), dtype=np.uint8)
+    for i in range(K):
+        keys[:, i] = acgt[((vals >> np.uint64(2 * (K - 1 - i))) & np.uint64(3)).astype(np.intp)]
+    qc = rng.integers(1, 60, WIDE_KMERS).astype(np.int32)
+    big = rng.random(WIDE_KMERS) < 0.002
+    qc[big] = rng.integers(1024, 50_000, int(big.sum()))
+    return keys, qc
+
+
+def colorshard_phase(card: str) -> int:
+    """The color-sharded path at full width; returns the raw kernel's
+    launches while ShardedQueryEngine.search_keys ran."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch import QueryEngine, ShardedQueryEngine
+    from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.ops.blocked import pack_keys_u64, v3_block_offsets
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+
+    t0 = time.time()
+    index = wide_index()
+    keys, qc = wide_query()
+    n = keys.shape[0]
+    t_inputs = time.time() - t0
+    t0 = time.time()
+    eng = ShardedQueryEngine(
+        index, mesh=make_mesh(1, WIDE_SHARDS, "color", devices=[DEVICE]))
+    sync()
+    t_put = time.time() - t0
+    log(f"[color] index: {index.n_colors} colors, {index.bloom_size} rows, H {index.num_hash}, "
+        f"v{index.blocked}, place_rpb {index.place_rpb}, {index.matrix.nbytes} bytes; "
+        f"{WIDE_SHARDS} shards of wpad {eng.wpad} ({eng.mat[0].numel() * 4} bytes each) on "
+        f"{eng.mat[0].device}; {n} distinct k-mers; inputs {t_inputs:.1f}s, shards packed "
+        f"and placed {t_put:.1f}s")
+    if not eng._stream or eng.wpad != 32 or index.place_rpb != 4:
+        raise AssertionError("the mesh's shards do not match the index's placement")
+
+    # observe the stream's outcome: None means n_drop > 0 (a generic rerun)
+    outcomes = []
+    finish = eng._stream_colorshard_finish
+
+    def observed(*a):
+        res = finish(*a)
+        outcomes.append(res is not None)
+        return res
+
+    eng._stream_colorshard_finish = observed
+    sq.stream_probe_raw.launches = 0
+    sync()
+    t0 = time.time()
+    res_stream = eng.search_keys(keys, qcounts=qc)
+    sync()
+    t_stream = time.time() - t0
+    launches = sq.stream_probe_raw.launches
+    eng._stream_colorshard_finish = finish
+    if outcomes != [True] or (DEVICE == "cuda" and launches != WIDE_SHARDS):
+        raise AssertionError(
+            f"the color-sharded search did not take the stream (outcomes={outcomes}, "
+            f"stream_probe_raw launches={launches}, want {WIDE_SHARDS})")
+
+    # where one streamed search spends its time: the host steps of
+    # _try_stream_keys, then the dispatch (H2D, 4 shards, the fetch)
+    t0 = time.time()
+    vals = pack_keys_u64(keys)
+    t_pack = time.time() - t0
+    t0 = time.time()
+    blk, offs = v3_block_offsets(vals, K, WIDE_HASHES, index.bloom_size, eng.rpb, version=4)
+    offp = offs[:, 0].astype(np.uint32) | (offs[:, 1].astype(np.uint32) << np.uint32(8))
+    t_place = time.time() - t0
+    t0 = time.time()
+    order = np.argsort(blk, kind="stable")
+    blk_s, offp_s, qc_s = blk[order].astype(np.int32), offp[order], qc[order]
+    t_sort = time.time() - t0
+    blk2d = blk_s.reshape(-1, sq.PC)
+    tb = np.clip(blk2d[:, 0] // 128, 0, index.bloom_size // eng.rpb // 128 - 2)
+    outside = blk2d - tb[:, None] * 128 >= 256
+    sync()
+    t0 = time.time()
+    res_again = finish(blk_s, offp_s, qc_s, WIDE_HASHES, eng.rpb)
+    sync()
+    t_dispatch = time.time() - t0
+    if res_again is None or not same_answers(res_again, res_stream):
+        raise AssertionError("the timed dispatch differs from the search")
+    log(f"[color] one streamed search of {n} k-mers: host pack {t_pack:.2f}s, placement "
+        f"{t_place:.2f}s, argsort+gather {t_sort:.2f}s, dispatch+assembly {t_dispatch:.2f}s "
+        f"(of {t_stream:.2f}s through search_keys); residual probes "
+        f"{int(outside.sum())} in {int(outside.any(axis=1).sum())} of {blk2d.shape[0]} "
+        f"chunks (capacity {sq._nch(eng.wpad)}), n_drop 0 on {card}")
+    if DEVICE == "cuda":
+        profile_dispatch(
+            lambda: finish(blk_s, offp_s, qc_s, WIDE_HASHES, eng.rpb), "color", card)
+    del vals, blk, offs, offp, order, blk_s, offp_s, qc_s, blk2d, outside
+
+    before = sq.stream_probe_raw.launches
+    os.environ["COLORID_STREAM"] = "0"
+    try:
+        sync()
+        t0 = time.time()
+        res_generic = eng.search_keys(keys, qcounts=qc)
+        sync()
+        t_generic = time.time() - t0
+    finally:
+        os.environ.pop("COLORID_STREAM")
+    if sq.stream_probe_raw.launches != before:
+        raise AssertionError("COLORID_STREAM=0 launched the raw kernel")
+    del eng
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    single = QueryEngine(index, device=DEVICE)
+    if not single._custom_place or single._stream:
+        raise AssertionError("the single-device engine did not take the recorded placement")
+    sync()
+    t0 = time.time()
+    res_single = single.search_keys(keys, qcounts=qc)
+    sync()
+    t_single = time.time() - t0
+    stats = res_single.freq_stats()
+    for name, res in (("generic sharded", res_generic), ("single-device", res_single)):
+        if not same_answers(res_stream, res):
+            raise AssertionError(f"color-sharded stream != {name} result")
+    if not stats or int(res_single.counts.sum()) == 0 or not len(res_single.over_colors):
+        raise AssertionError("the wide query has no unique hits or overflow to compare")
+    log(f"[color] counts, all_valid, and_all, freq_stats identical: streamed sharded == generic "
+        f"sharded == single-device (counts sum {int(res_single.counts.sum())}, all_valid "
+        f"{res_single.all_valid}, {len(stats)} colors with unique hits, "
+        f"{len(res_single.over_colors)} frequencies >= 1024); k-mers/s, host arrays in: "
+        f"streamed sharded={n / t_stream:.0f} generic sharded={n / t_generic:.0f} "
+        f"single-device generic={n / t_single:.0f}; stream_probe_raw launches={launches} on {card}")
+    return launches
+
+
+def entry_points_phase(tmp: str, card: str) -> None:
+    """build --blocked --color-shards 4 -> search through the CLI, and the
+    sharded engine on the loaded index: the same report lines."""
+    import numpy as np
+
+    from colorid_tpu_torch import BigsiIndex, QueryEngine, ShardedQueryEngine
+    from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+    from colorid_tpu_torch.pipelines.reports import generate_report
+    from colorid_tpu_torch.pipelines.search import _count_query_kmers
+
+    rng = np.random.default_rng(SEED + 5)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    d = os.path.join(tmp, "panel1200")
+    os.makedirs(d)
+    genomes = acgt[rng.integers(0, 4, (PANEL_GENOMES, PANEL_LEN))]
+    manifest = []
+    for i, g in enumerate(genomes):
+        path = os.path.join(d, f"g{i:04d}.fasta")
+        with open(path, "wb") as f:
+            f.write(f">g{i:04d}\n".encode() + g.tobytes() + b"\n")
+        manifest.append(f"g{i:04d}\t{path}\n")
+    man = os.path.join(d, "refs.txt")
+    with open(man, "w") as f:
+        f.writelines(manifest)
+    sources = [f"g{i:04d}" for i in (7, 640, 1100)]  # one in each of 3 color shards
+    src = rng.integers(0, 3, PANEL_READS)
+    starts = rng.integers(0, PANEL_LEN - READ_LEN, PANEL_READS)
+    reads = genomes[[7, 640, 1100]][src[:, None], starts[:, None] + np.arange(READ_LEN)]
+    rc = rng.random(PANEL_READS) < 0.5
+    reads[rc] = comp[reads[rc][:, ::-1]]
+    seqs = reads.tobytes().decode()
+    fq = os.path.join(d, "reads.fastq.gz")
+    qual = "I" * READ_LEN
+    with gzip.open(fq, "wt", compresslevel=1) as f:
+        f.write("".join(
+            f"@r{j}\n{seqs[j * READ_LEN:(j + 1) * READ_LEN]}\n+\n{qual}\n"
+            for j in range(PANEL_READS)))
+    prefix = os.path.join(d, "wide")
+    quiet = io.StringIO()  # the build names every accession on stderr
+    t0 = time.time()
+    with contextlib.redirect_stderr(quiet):
+        cli(["build", "--blocked", "--color-shards", str(WIDE_SHARDS), "-k", str(K),
+             "-n", str(WIDE_HASHES), "-s", str(PANEL_BLOOM), "-b", prefix, "-r", man,
+             "-t", "8"])
+    t_build = time.time() - t0
+    t0 = time.time()
+    with contextlib.redirect_stderr(quiet):
+        tsv = cli(["search", "-b", prefix + ".bxi", "-q", fq, "-f", "1", "--device", DEVICE])
+    t_search = time.time() - t0
+    rows = [l.split("\t") for l in tsv if "\t" in l]
+    for line in tsv[:6]:
+        log(f"[entry] tsv {line}")
+    if sorted(r[2] for r in rows[:3]) != sorted(sources):
+        raise AssertionError(f"top rows {[r[2] for r in rows[:3]]} are not {sources}")
+
+    index = BigsiIndex.load(prefix + ".bxi")
+    W = index.words_per_row
+    if index.blocked != 4 or index.place_rpb != 128 // 16 or W != 38:
+        raise AssertionError(
+            f"build --color-shards wrote blocked={index.blocked} "
+            f"place_rpb={index.place_rpb} words={W}")
+    with contextlib.redirect_stderr(quiet):
+        keys, qcounts, _packed = _count_query_kmers(fq, None, K, 15, 1, False)
+    eng = ShardedQueryEngine(
+        index, mesh=make_mesh(1, WIDE_SHARDS, "color", devices=[DEVICE]))
+    before = sq.stream_probe_raw.launches
+    streamed = eng._try_stream_keys(keys, qcounts)
+    raw_launches = sq.stream_probe_raw.launches - before
+    res = eng.search_keys(keys, qcounts=qcounts)
+    single = QueryEngine(index, device=DEVICE).search_keys(keys, qcounts=qcounts)
+    if not eng._stream or not same_answers(res, single):
+        raise AssertionError("sharded engine != single-device engine on the built index")
+    if streamed is not None and not same_answers(streamed, single):
+        raise AssertionError("the streamed sharded result differs")
+    report = {index.colors[c]: int(res.counts[c])
+              for c in range(index.n_colors) if res.counts[c] > 0}
+    uniq = {index.colors[c]: st for c, st in res.freq_stats().items()}
+    lines = generate_report(fq, report, uniq, index.n_ref_kmers, keys.shape[0], 0.35)
+    if lines != tsv:
+        raise AssertionError("the sharded engine's report differs from the CLI's TSV")
+    log(f"[entry] build --blocked --color-shards {WIDE_SHARDS}: {PANEL_GENOMES} genomes x "
+        f"{PANEL_LEN} bp, -k {K} -n {WIDE_HASHES} -s {PANEL_BLOOM} -> v{index.blocked}, "
+        f"place_rpb {index.place_rpb}, {W} words per row, shards of wpad {eng.wpad}: "
+        f"{t_build:.1f}s; CLI search -f 1 ({PANEL_READS} reads, {keys.shape[0]} k-mers, "
+        f"generic gather with the recorded placement) {t_search:.1f}s; "
+        f"ShardedQueryEngine on the loaded index: report lines identical to the CLI's "
+        f"({len(tsv)} lines), stream "
+        f"{'taken' if streamed is not None else 'dropped to the generic path (sparse probes)'}"
+        f", stream_probe_raw launches={raw_launches} on {card}")
+
+
+def rowshard_phase(bxi: str, fq: str, card: str) -> int:
+    """The blocked index of phase 3 on a (1, 4) row mesh; returns the probe
+    kernel's launches while the sharded search ran."""
+    from colorid_tpu_torch import BigsiIndex, QueryEngine, ShardedQueryEngine
+    from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+    from colorid_tpu_torch.pipelines.search import _count_query_kmers
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        keys, qcounts, packed = _count_query_kmers(fq, None, K, 15, 1, False)
+    n = keys.shape[0]
+    index = BigsiIndex.load(bxi)
+    eng = ShardedQueryEngine(
+        index, layout="row", mesh=make_mesh(1, 4, "row", devices=[DEVICE]))
+    if not eng._stream:
+        raise AssertionError("the row mesh is not stream-eligible")
+    sq.stream_probe.launches = 0
+    sync()
+    t0 = time.time()
+    streamed = eng._try_stream_keys(keys, qcounts)
+    sync()
+    t_stream = time.time() - t0
+    launches = sq.stream_probe.launches
+    if streamed is None or (DEVICE == "cuda" and launches != 4):
+        raise AssertionError(
+            f"the row-sharded search did not stream (stream_probe launches={launches})")
+    os.environ["COLORID_STREAM"] = "0"
+    try:
+        t0 = time.time()
+        generic = eng.search_keys(keys, qcounts=qcounts)
+        sync()
+        t_generic = time.time() - t0
+        single_generic = QueryEngine(index, device=DEVICE).search_keys(
+            keys, qcounts=qcounts, packed_all=packed, k=K)
+    finally:
+        os.environ.pop("COLORID_STREAM")
+    single_stream = QueryEngine(index, device=DEVICE).search_keys(
+        keys, qcounts=qcounts, packed_all=packed, k=K)
+    for name, res in (("generic row-sharded", generic), ("single-device stream", single_stream),
+                      ("single-device generic", single_generic)):
+        if not same_answers(streamed, res):
+            raise AssertionError(f"row-sharded stream != {name} result")
+    log(f"[row] (1, 4) row mesh on {eng.mat[0].device}: {eng.Rl} rows per shard, "
+        f"{eng.Rl // eng.rpb} blocks; {n} k-mers: streamed == generic row-sharded == "
+        f"single-device stream == single-device generic; k-mers/s, host arrays in: "
+        f"streamed={n / t_stream:.0f} generic row-sharded={n / t_generic:.0f}; "
+        f"stream_probe launches={launches} on {card}")
+    return launches
+
+
 def profile_dispatch(fn, what: str, card: str) -> None:
-    """Where one device-resident stream dispatch spends its device time:
+    """Where one stream dispatch spends its device time:
     torch.profiler's per-kernel device totals, and the device's idle share
     of the dispatch's host-clock span."""
     import torch
@@ -658,9 +1114,9 @@ def profile_dispatch(fn, what: str, card: str) -> None:
     top = "; ".join(f"{name} x{n}={ms:.2f}ms" for ms, n, name in rows[:8])
     ours = "; ".join(
         f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
-        and name.split("_kernel")[0] in ("classic_word", "stream_probe")
+        and name.split("_kernel")[0] in ("classic_word", "stream_probe", "stream_probe_raw")
     )
-    log(f"[profile] {what}: one device-resident stream dispatch: device {dev_ms:.2f} ms of "
+    log(f"[profile] {what}: one stream dispatch: device {dev_ms:.2f} ms of "
         f"{wall_ms:.2f} ms host-clock span (idle share "
         f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); top kernels: {top}; "
         f"the port's own: {ours or 'none'} on {card}")
@@ -690,6 +1146,7 @@ def main() -> int:
         f"ptxas: {' | '.join(l for v in kernels.build_log.values() for l in v.splitlines() if 'registers' in l or 'spill' in l)}")
     classic_row = classic_kernel_phase(card)
     probe_row = probe_kernel_phase(card)
+    raw_row = raw_kernel_phase(card)
     tmp = tempfile.mkdtemp(prefix="colorid_smoke_")
     try:
         t0 = time.time()
@@ -700,9 +1157,13 @@ def main() -> int:
         blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
         classic_parity_phase(classic_bxi, inputs[1], card)
         blocked_parity_phase(blocked_bxi, inputs[1], card)
+        probe_row["launches"] += rowshard_phase(blocked_bxi, inputs[1], card)
+        torch.cuda.empty_cache()
+        raw_row["launches"] = colorshard_phase(card)
+        entry_points_phase(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps({"kernels": [classic_row, probe_row]}))
+    print(json.dumps({"kernels": [classic_row, probe_row, raw_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -13,6 +13,14 @@ Public API:
     engine = QueryEngine(BigsiIndex.load("panel.bxi"), device="cuda")
     result = engine.search_keys(keys, qcounts=counts)
 
+Wide indexes shard over a logical mesh (``parallel/``): color or row
+shards, all on the one card unless the mesh names more devices:
+
+    from colorid_tpu_torch import ShardedQueryEngine
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+
+    engine = ShardedQueryEngine(index, mesh=make_mesh(1, 4, "color"))
+
 CLI: ``python -m colorid_tpu_torch.cli {build,search,info}``.
 """
 
@@ -29,6 +37,10 @@ def __getattr__(name):
         from .engine import QueryEngine
 
         return QueryEngine
+    if name == "ShardedQueryEngine":
+        from .parallel.engine import ShardedQueryEngine
+
+        return ShardedQueryEngine
     if name == "build_index":
         from .pipelines.build import build_index
 

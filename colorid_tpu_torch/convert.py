@@ -86,3 +86,26 @@ def engine_from_jax_state(
         place_rpb=getattr(index_meta, "place_rpb", 0),
     )
     return QueryEngine(index, device=device)
+
+
+def shards_from_jax_state(mat_np: np.ndarray, wpad: int, mesh) -> list[torch.Tensor]:
+    """The port's per-shard matrix tensors from the numpy form of a JAX
+    ShardedQueryEngine's ``mat`` (uint32 [S, nb, 128], one packed block
+    matrix of row width ``wpad`` per model shard, color or row layout):
+    int32 bit views, shard s on the mesh's device for s, as
+    parallel/sharded.py::device_put_colorshard / device_put_rowshard lay
+    them out. Pass them to the ``parallel.sharded`` functions beside the
+    JAX engine's ``wpad`` and ``Wl`` (color) or ``Rl`` (row)."""
+    mat = np.asarray(mat_np)
+    if mat.dtype != np.uint32 or mat.ndim != 3 or mat.shape[2] != 128 \
+            or mat.shape[0] != mesh.n_model:
+        raise ValueError(
+            f"mat must be uint32 [{mesh.n_model}, nb, 128]; got {mat.dtype} "
+            f"{list(mat.shape)}"
+        )
+    if wpad != row_wpad(wpad) or (mat.shape[1] * 128) % wpad:
+        raise ValueError(f"{wpad} is not a packed row width of these blocks")
+    return [
+        torch.from_numpy(np.array(mat[s]).view(np.int32)).to(mesh.device(s))
+        for s in range(mesh.n_model)
+    ]

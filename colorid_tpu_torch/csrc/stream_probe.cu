@@ -1,9 +1,11 @@
-// Sorted-stream probe kernel for blocked (split-lane) indexes on Hopper
-// (sm_90a).
+// Sorted-stream probe kernels for blocked (split-lane) indexes on Hopper
+// (sm_90a): the folding kernel of the single-device stream and the raw
+// kernel of the color-sharded stream (second half of this file).
 //
-// Replaces colorid_tpu/ops/stream_query.py::_stream_kernel in normal mode
-// (reached through _stream_call), the Pallas kernel of the JAX package's
-// blocked stream.
+// stream_probe_kernel replaces
+// colorid_tpu/ops/stream_query.py::_stream_kernel in normal mode (reached
+// through _stream_call), the Pallas kernel of the JAX package's blocked
+// stream.
 //
 // What it computes, per probe i of P probes sorted ascending by block
 // (one probe = one query k-mer; its H Bloom rows share the 512-byte block
@@ -42,7 +44,7 @@
 // read, and the result does not depend on it.
 //
 // The per-probe gather/AND is a __device__ function of its own
-// (probe_and), so that an entry point with other outputs can reuse it.
+// (probe_and), shared by both kernels.
 //
 // Bound to Python with ctypes (colorid_tpu_torch/ops/kernels.py): a plain
 // C entry point that launches on the caller's stream and returns
@@ -184,4 +186,115 @@ extern "C" int stream_probe_launch(
       return (int)cudaErrorInvalidValue;
   }
 #undef COLORID_STREAM_CASE
+}
+
+// --- raw mode ----------------------------------------------------------------
+//
+// stream_probe_raw_kernel replaces
+// colorid_tpu/ops/stream_query.py::_stream_kernel in raw mode (raw=True,
+// reached through _stream_call_raw), the local pass of the color-sharded
+// stream: the matrix is ONE color shard's slice of every row (32 * W
+// colors), so uniqueness and presence cannot be decided here. Per probe the
+// facts come OUT instead of being folded, and the caller merges them across
+// the color shards (parallel/sharded.py::stream_batch_colorshard):
+//   nhits[i]    = popcount of and_w over the shard's 32 * W bits
+//   colorsum[i] = sum of the indices of and_w's set bits (shard-local; the
+//                 color itself where nhits == 1)
+//   presmask[i] = bit h set iff hash row h has a nonzero word in this shard
+//   counts[c]  += 1 for every set bit c of and_w
+// all for qc[i] > 0; a probe with qc[i] == 0 (padding, or left to the
+// caller's residual pass) writes three zeros and counts nothing. A row that
+// is absent here ANDs to zero and so masks itself; it may be present in
+// another shard. counts [32 * W] is ADDED INTO. The plain PyTorch twin is
+// ops/stream_query.py::stream_probe_raw_plain; both agree bit for bit with
+// the JAX kernel's four outputs.
+//
+// What bounds it on an H100: bytes, as for the folding kernel: 12 bytes in
+// and 12 out per probe plus the 32-byte sectors of the rows the probes
+// touch (a W = 32 row is four sectors), against 3.35 TB/s.
+//
+// What the design does about that: the same one thread per probe with
+// direct loads of the H rows. The set-bit loop that feeds the shared-memory
+// counts also sums the bit indices, so the TPU kernel's second MXU
+// contraction (redm) has no counterpart; there is no histogram and hence no
+// global atomic but the one flush per color and thread block.
+
+template <int W>
+__global__ void stream_probe_raw_kernel(
+    const uint32_t* __restrict__ matrix, int64_t n_words,
+    const int32_t* __restrict__ blk, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ qc, int32_t* __restrict__ nhits,
+    int32_t* __restrict__ colorsum, int32_t* __restrict__ presmask,
+    int32_t* __restrict__ counts, int64_t P, int32_t H) {
+  __shared__ int32_t s_counts[32 * W];
+  for (int c = threadIdx.x; c < 32 * W; c += blockDim.x) s_counts[c] = 0;
+  __syncthreads();
+
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < P) {
+    int32_t nh = 0, cs = 0, pm = 0;
+    if (qc[i] > 0) {
+      uint32_t and_w[W];
+      pm = (int32_t)probe_and<W>(matrix, n_words, blk[i], (uint32_t)off[i], H,
+                                 and_w);
+#pragma unroll
+      for (int w = 0; w < W; w++) {
+        uint32_t v = and_w[w];
+        nh += __popc(v);
+        while (v) {
+          const int b = 32 * w + __ffs(v) - 1;
+          cs += b;
+          atomicAdd(&s_counts[b], 1);
+          v &= v - 1;
+        }
+      }
+    }
+    nhits[i] = nh;
+    colorsum[i] = cs;
+    presmask[i] = pm;
+  }
+
+  __syncthreads();
+  for (int c = threadIdx.x; c < 32 * W; c += blockDim.x) {
+    const int32_t v = s_counts[c];
+    if (v) atomicAdd(&counts[c], v);
+  }
+}
+
+template <int W>
+static int launch_raw(const void* matrix, int64_t n_words, const void* blk,
+                      const void* off, const void* qc, void* nhits,
+                      void* colorsum, void* presmask, void* counts, int64_t P,
+                      int32_t H, void* stream) {
+  const int threads = 256;
+  const int64_t blocks = (P + threads - 1) / threads;
+  stream_probe_raw_kernel<W><<<(unsigned int)blocks, threads, 0,
+                               (cudaStream_t)stream>>>(
+      (const uint32_t*)matrix, n_words, (const int32_t*)blk,
+      (const int32_t*)off, (const int32_t*)qc, (int32_t*)nhits,
+      (int32_t*)colorsum, (int32_t*)presmask, (int32_t*)counts, P, H);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int stream_probe_raw_launch(
+    const void* matrix, int64_t n_words, const void* blk, const void* off,
+    const void* qc, void* nhits, void* colorsum, void* presmask, void* counts,
+    int64_t P, int32_t num_hash, int32_t wpad, void* stream) {
+  if (P <= 0) return 0;
+  if (num_hash < 1 || num_hash > 4) return (int)cudaErrorInvalidValue;
+#define COLORID_STREAM_RAW_CASE(W)                                          \
+  case W:                                                                   \
+    return launch_raw<W>(matrix, n_words, blk, off, qc, nhits, colorsum,    \
+                         presmask, counts, P, num_hash, stream)
+  switch (wpad) {
+    COLORID_STREAM_RAW_CASE(1);
+    COLORID_STREAM_RAW_CASE(2);
+    COLORID_STREAM_RAW_CASE(4);
+    COLORID_STREAM_RAW_CASE(8);
+    COLORID_STREAM_RAW_CASE(16);
+    COLORID_STREAM_RAW_CASE(32);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef COLORID_STREAM_RAW_CASE
 }

@@ -5,7 +5,9 @@ through the gather/AND/count ops. String work happens on the host; only
 dense integer tensors cross to the device. Dense queries take a sorted
 stream (ops/stream_query.py and its CUDA kernels): the row stream on a
 classic index of <= 32 colors, the probe stream on a blocked v2/v3/v4 index
-of <= 1024 colors. Everything else takes the generic gather (ops/query.py).
+of <= 1024 colors. Everything else takes the generic gather (ops/query.py),
+also an index placed for color shards (build --color-shards), whose streams
+run on the sharded engine (parallel/engine.py).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .index.bigsi import BigsiIndex
 from .ops.hash_torch import pack_keys_host
 from .ops.query import (
     FREQ_CAP,
+    new_accumulators,
     pack_matrix_blocks,
     query_accumulate_hash_scan,
     query_accumulate_hash_scan_exact,
@@ -84,6 +87,24 @@ class SearchResult:
         return out
 
 
+def host_rows(index: BigsiIndex, keys: np.ndarray, rpb_place: int) -> np.ndarray:
+    """Row indices [N, H] int32 for canonical k-mer byte rows [N, k], hashed
+    on the host: the blocked placement with its build-time row group
+    rpb_place for a blocked index, XXH3 rows for a classic one."""
+    if index.blocked:
+        from .ops.blocked import blocked_rows_host
+
+        return blocked_rows_host(
+            keys, index.num_hash, index.bloom_size, rpb_place,
+            version=int(index.blocked),
+        ).astype(np.int32)
+    if keys.shape[0] and native.available():
+        rows = native.xxh3_rows(keys, index.num_hash, index.bloom_size)
+    else:
+        rows = bloom_rows_batch(keys, index.num_hash, index.bloom_size)
+    return rows.astype(np.int32)
+
+
 class QueryEngine:
     """Executes the BIGSI hot loop on one device."""
 
@@ -106,12 +127,16 @@ class QueryEngine:
                 "index or shard colors across devices"
             )
         self.rpb = (128 // self.wpad) if self.bv else 0
-        if self.bv and (index.place_rpb or self.rpb) != self.rpb:
-            raise NotImplementedError(
-                "shard-placed blocked indexes (build --color-shards) are not "
-                "yet ported in colorid_tpu_torch (ROADMAP queue 1: sharded "
-                "engines)"
-            )
+        # shard-placed blocked indexes (build --color-shards): the placement
+        # row group follows a color SHARD's packed width, not this engine's
+        # full-width packing, so the single-device engine hashes on the host
+        # with the recorded placement and gathers generically (the streams
+        # of such an index run on the ("data", "color") mesh,
+        # parallel/sharded.py::stream_batch_colorshard)
+        self.rpb_place = index.place_rpb or self.rpb
+        self._custom_place = self.rpb_place != self.rpb
+        if self._custom_place:
+            self.rpb = 0
         self.blocks2 = _i32(blocks).to(self.device)
         q = max(self.wpad // 128, 1)
         if index.bloom_size * (q if self.wpad > 128 else 1) >= 2**31:
@@ -129,6 +154,7 @@ class QueryEngine:
             self.bv in (2, 3, 4)  # split-lane placements
             and index.num_hash in STREAM_HASHES
             and self.wpad in STREAM_WPADS  # <= 1024 colors
+            and not self._custom_place
             and stream_on
         )
         self._stream_classic = (
@@ -171,30 +197,12 @@ class QueryEngine:
     def rows_for_keys(self, keys: np.ndarray) -> np.ndarray:
         """Row indices [N, H] int32 for canonical k-mer byte rows [N, k]:
         XXH3 rows, or the blocked placement of a blocked index."""
-        if self.bv:
-            from .ops.blocked import blocked_rows_host
-
-            return blocked_rows_host(
-                keys, self.index.num_hash, self.index.bloom_size, self.rpb,
-                version=self.bv,
-            ).astype(np.int32)
-        if keys.shape[0] and native.available():
-            rows = native.xxh3_rows(keys, self.index.num_hash, self.index.bloom_size)
-        else:
-            rows = bloom_rows_batch(keys, self.index.num_hash, self.index.bloom_size)
-        return rows.astype(np.int32)
+        return host_rows(self.index, keys, self.rpb_place)
 
     # -- search (batch_search_pe / perfect_search hot loop) ------------------
 
     def _new_accumulators(self, capO: int):
-        C = self.index.n_colors
-        stats = torch.zeros(C + self.wpad + 2, dtype=torch.int32, device=self.device)
-        stats[C : C + self.wpad] = -1  # and-words
-        stats[C + self.wpad] = 1  # all-valid flag
-        hist = torch.zeros((C, FREQ_CAP), dtype=torch.int32, device=self.device)
-        oc_buf = torch.zeros(capO, dtype=torch.int32, device=self.device)
-        of_buf = torch.zeros(capO, dtype=torch.int32, device=self.device)
-        return stats, hist, oc_buf, of_buf
+        return new_accumulators(self.index.n_colors, self.wpad, capO, self.device)
 
     def search_keys(
         self,
@@ -226,18 +234,21 @@ class QueryEngine:
                 np.full(W, 0xFFFFFFFF, dtype=np.uint32),
                 np.zeros((C, FREQ_CAP), dtype=np.int64), none, none,
             )
-        if packed_all is not None and not (k and 4 <= k <= 32):
+        if packed_all is not None and not (
+            k and 4 <= k <= 32 and not self._custom_place
+        ):
             # device hash envelope exceeded: fall back to host hashing
             packed_all = None
             if keys is None and rows_all is None:
                 raise ValueError(
                     "packed_all is outside the device-hash envelope "
-                    f"(k={k}; need 4 <= k <= 32) and no keys/rows were given "
-                    "to hash host-side"
+                    f"(k={k}; need 4 <= k <= 32 and an index that is not "
+                    "shard-placed) and no keys/rows were given to hash "
+                    "host-side"
                 )
         if packed_all is None and rows_all is None:
             k = keys.shape[1]
-            if 4 <= k <= 32:
+            if 4 <= k <= 32 and not self._custom_place:
                 packed_all = pack_keys_host(keys)
             if packed_all is None:
                 rows_all = self.rows_for_keys(keys)
@@ -319,6 +330,11 @@ class QueryEngine:
     def _check_dev_batch(self, name: str, pk_dev, qc_dev, k: int, unit: int):
         if not (4 <= k <= 32):
             raise ValueError("device hashing needs 4 <= k <= 32")
+        if self._custom_place:
+            raise ValueError(
+                f"{name}: device hashing does not cover shard-placed indexes "
+                "on one device; use ShardedQueryEngine or search_keys"
+            )
         if pk_dev.dtype != torch.int32 or qc_dev.dtype != torch.int32:
             raise ValueError(
                 f"{name} expects int32 packed k-mers and int32 frequencies "

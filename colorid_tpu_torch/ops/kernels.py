@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source compiles with nvcc for Hopper (``sm_90a``) into a shared
-library with a plain C entry point, loaded with ctypes. The build runs at
+library with plain C entry points (one per kernel; a source may hold
+several), loaded with ctypes. The build runs at
 first use, from the sources in the checkout, into ``_build/`` (git-ignored);
 all stale sources compile at once, one nvcc process each. Nothing here runs
 at import time: the CPU tests import every module on a machine without
@@ -21,7 +22,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# kernel library name -> (source file, C entry point, ctypes argtypes)
+# kernel name -> (source file, C entry point, ctypes argtypes); a source
+# file is one library, whatever number of entry points it exports
 _VP, _I64, _I32, _U32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint32
 KERNELS = {
     "classic_word": (
@@ -35,16 +37,23 @@ KERNELS = {
         [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32,
          _I32, _VP],
     ),
+    "stream_probe_raw": (
+        "stream_probe.cu",
+        "stream_probe_raw_launch",
+        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _VP],
+    ),
 }
+SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})
 
 _lock = threading.Lock()
 _fns: dict[str, object] = {}
-# nvcc's -Xptxas -v report (registers, shared memory, spills) per kernel
+_libs: dict[str, ctypes.CDLL] = {}
+# nvcc's -Xptxas -v report (registers, shared memory, spills) per source
 build_log: dict[str, str] = {}
 
 
-def _so_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
+def _so_path(src: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{os.path.splitext(src)[0]}.so")
 
 
 def _nvcc() -> str:
@@ -70,10 +79,10 @@ def build_all() -> float:
 def _build_locked() -> float:
     t0 = time.time()
     stale = [
-        name
-        for name, (src, _fn, _args) in KERNELS.items()
-        if not os.path.exists(_so_path(name))
-        or os.path.getmtime(_so_path(name))
+        src
+        for src in SOURCES
+        if not os.path.exists(_so_path(src))
+        or os.path.getmtime(_so_path(src))
         < os.path.getmtime(os.path.join(CSRC, src))
     ]
     if not stale:
@@ -82,12 +91,11 @@ def _build_locked() -> float:
     nvcc = _nvcc()
     procs = []
     for name in stale:
-        src = os.path.join(CSRC, KERNELS[name][0])
         tmp = f"{_so_path(name)}.{os.getpid()}.tmp"
         cmd = [
             nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", tmp, src,
+            "-o", tmp, os.path.join(CSRC, name),
         ]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -106,8 +114,9 @@ def _build_locked() -> float:
 
 
 def kernel(name: str):
-    """The ctypes entry point of kernel library ``name``, built on first
-    use. Its C function returns cudaGetLastError() after the launch."""
+    """The ctypes entry point of kernel ``name``; its library is built on
+    first use. The C function returns cudaGetLastError() after the
+    launch."""
     fn = _fns.get(name)
     if fn is not None:
         return fn
@@ -115,7 +124,9 @@ def kernel(name: str):
         if name not in _fns:
             _build_locked()
             src, entry, argtypes = KERNELS[name]
-            fn = getattr(ctypes.CDLL(_so_path(name)), entry)
+            if src not in _libs:
+                _libs[src] = ctypes.CDLL(_so_path(src))
+            fn = getattr(_libs[src], entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _fns[name] = fn

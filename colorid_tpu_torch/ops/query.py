@@ -85,6 +85,14 @@ def _gather_rows_blocked(blocks2, rows, wpad: int, rpb: int):
     return b.gather(1, lanes.reshape(N, H * wpad)).reshape(N, H, wpad)
 
 
+def _and_over_hashes(g: torch.Tensor) -> torch.Tensor:
+    """AND over the hash axis of gathered rows [N, H, W] -> [N, W]."""
+    andw = g[:, 0]
+    for h in range(1, g.shape[1]):
+        andw = andw & g[:, h]
+    return andw
+
+
 def _and_present(blocks2, rows, wpad: int, rpb: int = 0):
     """AND over the hash axis + row presence. Returns (andw int32
     [N, wpad], present bool [N]). rpb > 0: blocked layout."""
@@ -92,11 +100,7 @@ def _and_present(blocks2, rows, wpad: int, rpb: int = 0):
         g = _gather_rows_blocked(blocks2, rows, wpad, rpb)
     else:
         g = _gather_rows(blocks2, rows, wpad)
-    present = (g != 0).any(dim=2).all(dim=1)
-    andw = g[:, 0, :]
-    for h in range(1, g.shape[1]):
-        andw = andw & g[:, h, :]
-    return andw, present
+    return _and_over_hashes(g), (g != 0).any(dim=2).all(dim=1)
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -110,6 +114,45 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 def _to_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> their int32 bit pattern."""
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def new_accumulators(n_colors: int, wpad: int, capO: int, device):
+    """Fresh (stats, hist, over_col, over_freq) for _accumulate_tail: zero
+    counts, all-ones and-words, all-valid flag 1, n_over 0; empty histogram
+    and zeroed overflow slots."""
+    C = n_colors
+    stats = torch.zeros(C + wpad + 2, dtype=torch.int32, device=device)
+    stats[C : C + wpad] = -1  # and-words
+    stats[C + wpad] = 1  # all-valid flag
+    hist = torch.zeros((C, FREQ_CAP), dtype=torch.int32, device=device)
+    oc_buf = torch.zeros(capO, dtype=torch.int32, device=device)
+    of_buf = torch.zeros(capO, dtype=torch.int32, device=device)
+    return stats, hist, oc_buf, of_buf
+
+
+def _bit_counts(aw: torch.Tensor) -> torch.Tensor:
+    """Per-bit sums over the rows of aw (int64 [N, W] u32 values): int64
+    [W * 32], word-major, i.e. in color order."""
+    return torch.stack(
+        [((aw >> b) & 1).sum(dim=0) for b in range(32)], dim=1
+    ).reshape(-1)
+
+
+def _and_words(bit_counts: torch.Tensor, n_valid, W: int) -> torch.Tensor:
+    """The AND over n_valid rows' words from their per-bit sums: bit b is
+    set iff every row has it (all-ones when n_valid == 0). int64 [W]."""
+    eq = (bit_counts.reshape(W, 32) == n_valid).to(torch.int64)
+    return (eq << torch.arange(32, device=bit_counts.device)).sum(dim=1)
+
+
+def _hits(aw: torch.Tensor):
+    """(nhits, coloridx) per row of aw (int64 [N, W] u32 values): the set
+    bits over all words, and the index of the lowest set bit of the first
+    nonzero word (the hit color where nhits == 1; 0 where nhits == 0)."""
+    nhits = _popcount32(aw).sum(dim=1)
+    widx = (aw != 0).to(torch.int8).argmax(dim=1)
+    word = aw.gather(1, widx[:, None])[:, 0]
+    return nhits, widx * 32 + _popcount32(~word & (word - 1) & M32)
 
 
 def _accumulate_one(
@@ -155,12 +198,8 @@ def _accumulate_tail(
     aw_v = torch.where(valid[:, None], aw, 0)
     # per-bit valid counts over all 32*W bits; the global AND of the valid
     # rows' words has bit b iff every valid row has it
-    bit_counts = torch.stack(
-        [((aw_v >> b) & 1).sum(dim=0) for b in range(32)], dim=1
-    ).reshape(W * 32)  # [W*32], word-major = color order
-    n_valid = valid.sum()
-    and_bits = (bit_counts == n_valid).to(torch.int64).reshape(W, 32)
-    and_b = (and_bits << torch.arange(32, device=dev)).sum(dim=1)  # [W]
+    bit_counts = _bit_counts(aw_v)
+    and_b = _and_words(bit_counts, valid.sum(), W)
     ok_b = (present | ~mask).all()
 
     # colors >= C are never set in a well-formed index; drop them anyway as
@@ -168,12 +207,8 @@ def _accumulate_tail(
     lane_bit = torch.arange(W * 32, device=dev).reshape(W, 32)
     cmask = ((lane_bit < C).to(torch.int64) << torch.arange(32, device=dev)).sum(dim=1)
     aw_c = aw_v & cmask
-    nhits = _popcount32(aw_c).sum(dim=1)
+    nhits, coloridx = _hits(aw_c)
     uniq_mask = valid & (nhits == 1)
-    # the uniq color: the one nonzero word's index * 32 + its bit position
-    widx = (aw_c != 0).to(torch.int8).argmax(dim=1)
-    word = aw_c.gather(1, widx[:, None])[:, 0]
-    coloridx = widx * 32 + _popcount32((word - 1) & M32)
 
     qc = qcounts.to(torch.int64)
     spread = torch.arange(N, device=dev)

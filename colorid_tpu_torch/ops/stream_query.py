@@ -30,7 +30,18 @@ import torch
 
 from . import kernels
 from .hash_torch import M32, bloom_rows_device, device_blkoff
-from .query import FREQ_CAP, _accumulate_one, _accumulate_tail, _popcount32, _to_i32
+from .query import (
+    FREQ_CAP,
+    _accumulate_one,
+    _accumulate_tail,
+    _and_over_hashes,
+    _and_words,
+    _bit_counts,
+    _gather_rows_blocked,
+    _hits,
+    _popcount32,
+    _to_i32,
+)
 
 T = 128  # matrix tile rows (512-byte blocks)
 # probes per kernel chunk: each chunk reads one NT_CL-tile window of the matrix
@@ -272,13 +283,13 @@ def pack_offsets(offs: list) -> torch.Tensor:
     return offp.to(torch.int32)
 
 
-def stream_probe_plain(blocks2, blk_s, off_s, qc_s, counts, hist, *,
-                       num_hash: int, wpad: int, n_colors: int):
-    """Plain PyTorch twin of the probe kernel (same contract as
-    ``stream_probe``)."""
+def _probe_gather(blocks2, blk_s, off_s, num_hash: int, wpad: int):
+    """Per probe, the AND over its H rows' words and which rows are
+    nonzero: (andw int32 [P, W], nz bool [P, H]). A block outside the
+    matrix, or an offset whose row would leave its block, reads as an
+    all-zero row."""
     P = blk_s.shape[0]
     H, W = num_hash, wpad
-    cp, hw = hist.shape
     dev = blk_s.device
     blk = blk_s.to(torch.int64)
     inb = (blk >= 0) & (blk < blocks2.shape[0])
@@ -289,19 +300,22 @@ def stream_probe_plain(blocks2, blk_s, off_s, qc_s, counts, hist, *,
     lanes = (torch.where(ok, o, 0) * W)[:, :, None] + torch.arange(W, device=dev)
     g = b.gather(1, lanes.reshape(P, H * W)).reshape(P, H, W)
     g = torch.where(ok[:, :, None], g, 0)
-    present = (g != 0).any(dim=2).all(dim=1)
-    andw = g[:, 0]
-    for h in range(1, H):
-        andw = andw & g[:, h]
+    return _and_over_hashes(g), (g != 0).any(dim=2)
+
+
+def stream_probe_plain(blocks2, blk_s, off_s, qc_s, counts, hist, *,
+                       num_hash: int, wpad: int, n_colors: int):
+    """Plain PyTorch twin of the probe kernel (same contract as
+    ``stream_probe``)."""
+    P = blk_s.shape[0]
+    cp, hw = hist.shape
+    dev = blk_s.device
+    andw, nz = _probe_gather(blocks2, blk_s, off_s, num_hash, wpad)
+    present = nz.all(dim=1)
     real = qc_s > 0
     aw = torch.where(real[:, None], andw.to(torch.int64) & M32, 0)  # [P, W]
-    counts += torch.stack(
-        [((aw >> bit) & 1).sum(dim=0) for bit in range(32)], dim=1
-    ).reshape(W * 32).to(counts.dtype)
-    nhits = _popcount32(aw).sum(dim=1)
-    widx = (aw != 0).to(torch.int8).argmax(dim=1)
-    word = aw.gather(1, widx[:, None])[:, 0]
-    color = widx * 32 + _popcount32((word - 1) & M32)
+    counts += _bit_counts(aw).to(counts.dtype)
+    nhits, color = _hits(aw)
     valid = real & present
     hit = valid & (nhits == 1)
     qc = qc_s.to(torch.int64)
@@ -311,6 +325,31 @@ def stream_probe_plain(blocks2, blk_s, off_s, qc_s, counts, hist, *,
         0, torch.where(small, color * hw + qc, spread), small.to(hist.dtype)
     )
     return torch.where(hit, color, torch.where(valid, -1, -2)).to(torch.int32)
+
+
+def _check_probe_args(name: str, tensors, num_hash: int, wpad: int):
+    """What both probe kernels take: contiguous int32 tensors on one device,
+    (blocks2 [Rb, 128], blk_s, off_s, qc_s [P] with P % PC == 0, ...)."""
+    blocks2, blk_s, off_s, qc_s = tensors[:4]
+    P = blk_s.shape[0]
+    if any(t.dtype != torch.int32 for t in tensors):
+        raise TypeError(f"{name} takes int32 tensors")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    if blocks2.dim() != 2 or blocks2.shape[1] != 128:
+        raise ValueError(f"{name}: blocks2 must be [Rb, 128]")
+    if wpad not in STREAM_WPADS or num_hash not in STREAM_HASHES:
+        raise ValueError(
+            f"{name}: wpad must be one of {STREAM_WPADS} and num_hash "
+            f"one of {STREAM_HASHES}; got wpad={wpad} num_hash={num_hash}"
+        )
+    if P % PC or off_s.shape != (P,) or qc_s.shape != (P,) or blk_s.dim() != 1:
+        raise ValueError(
+            f"{name}: blk_s, off_s and qc_s must be [P] with P a "
+            f"multiple of {PC}"
+        )
 
 
 def stream_probe(blocks2, blk_s, off_s, qc_s, counts, hist, *,
@@ -331,26 +370,9 @@ def stream_probe(blocks2, blk_s, off_s, qc_s, counts, hist, *,
 
     A CUDA tensor launches csrc/stream_probe.cu; a CPU tensor takes the
     plain twin. ``stream_probe.launches`` counts kernel launches."""
+    _check_probe_args("stream_probe", (blocks2, blk_s, off_s, qc_s, counts, hist),
+                      num_hash, wpad)
     P = blk_s.shape[0]
-    tensors = (blocks2, blk_s, off_s, qc_s, counts, hist)
-    if any(t.dtype != torch.int32 for t in tensors):
-        raise TypeError("stream_probe takes int32 tensors")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("stream_probe takes contiguous tensors")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("stream_probe: tensors on different devices")
-    if blocks2.dim() != 2 or blocks2.shape[1] != 128:
-        raise ValueError("stream_probe: blocks2 must be [Rb, 128]")
-    if wpad not in STREAM_WPADS or num_hash not in STREAM_HASHES:
-        raise ValueError(
-            f"stream_probe: wpad must be one of {STREAM_WPADS} and num_hash "
-            f"one of {STREAM_HASHES}; got wpad={wpad} num_hash={num_hash}"
-        )
-    if P % PC or off_s.shape != (P,) or qc_s.shape != (P,) or blk_s.dim() != 1:
-        raise ValueError(
-            f"stream_probe: blk_s, off_s and qc_s must be [P] with P a "
-            f"multiple of {PC}"
-        )
     if counts.shape != (32 * wpad,) or hist.shape != (
         _hist_rows(n_colors), _hist_w(n_colors)
     ) or hist.shape[0] < 32 * wpad:
@@ -383,12 +405,164 @@ def stream_probe(blocks2, blk_s, off_s, qc_s, counts, hist, *,
 stream_probe.launches = 0
 
 
+def _raw_facts(aw: torch.Tensor, nz: torch.Tensor):
+    """The raw kernel's per-probe outputs from masked AND words aw (int64
+    [P, W] u32 values, zero where the probe does not count) and row
+    presence nz (bool [P, H], masked likewise): (nhits, colorsum, presmask
+    int32 [P], per-bit sums int64 [32 * W])."""
+    W = aw.shape[1]
+    dev = aw.device
+    word0 = 32 * torch.arange(W, device=dev)
+    colorsum = torch.zeros(aw.shape[0], dtype=torch.int64, device=dev)
+    cols = []
+    for b in range(32):
+        bit = (aw >> b) & 1
+        cols.append(bit.sum(dim=0))
+        colorsum += (bit * (word0 + b)).sum(dim=1)
+    nhits = _popcount32(aw).sum(dim=1)
+    presmask = (nz.to(torch.int64) << torch.arange(nz.shape[1], device=dev)).sum(dim=1)
+    i32 = torch.int32
+    return (nhits.to(i32), colorsum.to(i32), presmask.to(i32),
+            torch.stack(cols, dim=1).reshape(-1))
+
+
+def stream_probe_raw_plain(blocks2, blk_s, off_s, qc_s, counts, *,
+                           num_hash: int, wpad: int):
+    """Plain PyTorch twin of the raw probe kernel (same contract as
+    ``stream_probe_raw``)."""
+    andw, nz = _probe_gather(blocks2, blk_s, off_s, num_hash, wpad)
+    real = qc_s > 0
+    aw = torch.where(real[:, None], andw.to(torch.int64) & M32, 0)
+    nhits, colorsum, presmask, bits = _raw_facts(aw, nz & real[:, None])
+    counts += bits.to(counts.dtype)
+    return nhits, colorsum, presmask
+
+
+def stream_probe_raw(blocks2, blk_s, off_s, qc_s, counts, *,
+                     num_hash: int, wpad: int):
+    """The probe kernel in raw mode, for ONE color shard's matrix slice:
+    per-probe facts come out instead of being folded, because uniqueness
+    and presence span all color shards. Returns (nhits, colorsum, presmask)
+    int32 [P] and adds into ``counts``.
+
+    Inputs as ``stream_probe``. Per probe with qc > 0: and_w = AND over h of
+    the row at offset off_h; nhits = its set bits over the shard's
+    32 * wpad colors; colorsum = the sum of their (shard-local) indices,
+    i.e. the color where nhits == 1; presmask bit h is set iff row h has a
+    nonzero word in this shard; every set bit c adds 1 to counts[c] (int32
+    [32 * wpad]). A probe with qc == 0 gives three zeros and counts nothing.
+
+    A CUDA tensor launches csrc/stream_probe.cu (its raw entry point); a
+    CPU tensor takes the plain twin. ``stream_probe_raw.launches`` counts
+    kernel launches."""
+    _check_probe_args("stream_probe_raw", (blocks2, blk_s, off_s, qc_s, counts),
+                      num_hash, wpad)
+    if counts.shape != (32 * wpad,):
+        raise ValueError("stream_probe_raw: counts must be [32 * wpad]")
+    P = blk_s.shape[0]
+    dev = blk_s.device
+    if dev.type == "cpu":
+        return stream_probe_raw_plain(
+            blocks2, blk_s, off_s, qc_s, counts, num_hash=num_hash, wpad=wpad
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"stream_probe_raw: unsupported device {dev}")
+    nhits, colorsum, presmask = (
+        torch.empty(P, dtype=torch.int32, device=dev) for _ in range(3)
+    )
+    fn = kernels.kernel("stream_probe_raw")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            blocks2.data_ptr(), blocks2.numel(), blk_s.data_ptr(),
+            off_s.data_ptr(), qc_s.data_ptr(), nhits.data_ptr(),
+            colorsum.data_ptr(), presmask.data_ptr(), counts.data_ptr(), P,
+            num_hash, wpad, stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"stream_probe_raw kernel launch failed: CUDA error {err}"
+        )
+    stream_probe_raw.launches += 1
+    return nhits, colorsum, presmask
+
+
+stream_probe_raw.launches = 0
+
+
 def stream_plan(blk_s: torch.Tensor, n_blocks: int, wpad: int):
     """The window plan for sorted int32 blocks [P] (P % PC == 0) over a
     matrix of n_blocks blocks: (tb, inwin2d) as _window_plan gives them.
     The probe kernel serves the probes in their window; the rest go to the
     residual pass."""
     return _window_plan(blk_s, n_blocks, PC, _nt_win(wpad))
+
+
+def _residual_chunks(inwin2d, qc2d, nch: int):
+    """The chunk-granular residual plan: res2d bool [n_chunks, PC], the
+    counted probes outside their chunk's window; cidx, the (at most nch)
+    chunks that re-run through the generic gather, as a stable sort of the
+    flags (no host round trip; its padding entries are chunks that are not
+    covered); covered bool [n_chunks]; and n_drop, the residual probes of
+    the chunks beyond the capacity (int32 scalar)."""
+    res2d = (~inwin2d) & (qc2d > 0)
+    chunk_res = res2d.sum(dim=1, dtype=torch.int32)
+    has_res = chunk_res > 0
+    covered = has_res & (torch.cumsum(has_res, dim=0) <= nch)
+    n_drop = (chunk_res * (has_res & ~covered)).sum(dtype=torch.int32)
+    cidx = torch.sort((~covered).to(torch.int8), stable=True).indices[:nch]
+    return res2d, cidx, covered, n_drop
+
+
+def _residual_rows(blk_s, off_s, cidx, num_hash: int, rpb: int):
+    """Matrix rows [len(cidx) * PC, H] of the probes of chunks cidx."""
+    rblk = blk_s.view(-1, PC)[cidx].reshape(-1)
+    roff = off_s.view(-1, PC)[cidx].reshape(-1)
+    return torch.stack(
+        [rblk * rpb + ((roff >> (8 * h)) & 0xFF) for h in range(num_hash)],
+        dim=1,
+    )
+
+
+def stream_raw_local(blocks2, blk_s, off_s, qc_s, *, wpad: int, num_hash: int,
+                     rpb: int, n_colors: int):
+    """Local raw stream pass over sorted probes for ONE matrix shard:
+    returns (counts int32 [32 * wpad], nhits, colorsum, presmask int32 [P],
+    n_drop int32 scalar). The raw probe kernel serves the probes inside
+    their chunk's window; the out-of-window probes of the first _nch
+    residual chunks get their per-probe facts OVERWRITTEN from the generic
+    block gather and their bits ADDED to the counts, as _stream_core's
+    residual pass does for the folded statistics. Nothing here waits for
+    the device."""
+    P = blk_s.shape[0]
+    W = wpad
+    dev = blk_s.device
+    n_chunks = P // PC
+    _tb, inwin2d = stream_plan(blk_s, blocks2.shape[0], W)
+    qcw = torch.where(inwin2d.view(-1), qc_s, 0)
+    counts = torch.zeros(32 * W, dtype=torch.int32, device=dev)
+    nhits, colorsum, presmask = stream_probe_raw(
+        blocks2, blk_s, off_s, qcw, counts, num_hash=num_hash, wpad=W
+    )
+
+    res2d, cidx, covered, n_drop = _residual_chunks(
+        inwin2d, qc_s.view(n_chunks, PC), _nch(W)
+    )
+    live = res2d[cidx] & covered[cidx][:, None]  # [nch, PC]
+    rows = _residual_rows(blk_s, off_s, cidx, num_hash, rpb)
+    g = _gather_rows_blocked(blocks2, rows, W, rpb)  # [n, H, W]
+    andw = _and_over_hashes(g)
+    lv = live.reshape(-1)
+    lane_bit = torch.arange(W * 32, device=dev).reshape(W, 32)
+    cmask = ((lane_bit < n_colors).to(torch.int64)
+             << torch.arange(32, device=dev)).sum(dim=1)
+    aw = torch.where(lv[:, None], andw.to(torch.int64) & M32 & cmask, 0)
+    nh_r, cs_r, pm_r, bits = _raw_facts(aw, (g != 0).any(dim=2) & lv[:, None])
+    counts += bits.to(counts.dtype)
+    for full, part in ((nhits, nh_r), (colorsum, cs_r), (presmask, pm_r)):
+        f2 = full.view(n_chunks, PC)
+        f2[cidx] = torch.where(live, part.view(-1, PC), f2[cidx])
+    return counts, nhits, colorsum, presmask, n_drop
 
 
 def _stream_core(
@@ -427,8 +601,7 @@ def _stream_core(
     # when n_valid == 0); ok iff every real k-mer was valid
     n_valid = (uniq > -2).sum()
     n_real = (qcw > 0).sum()
-    eq = (counts_out == n_valid).to(torch.int64).view(W, 32)
-    and_b = (eq << torch.arange(32, device=dev)).sum(dim=1)
+    and_b = _and_words(counts_out, n_valid, W)
     hist[:, :hw] += hist_out[:C]
 
     # uniq-hit frequencies the kernel histogram does not cover (>= hw): the
@@ -456,19 +629,9 @@ def _stream_core(
     # generic gather with their in-window probes masked out. The chunk list
     # is a stable sort of the flags; its padding entries are masked too.
     qc2d = qc_s.view(n_chunks, PC)
-    res2d = (~inwin2d) & (qc2d > 0)
-    chunk_res = res2d.sum(dim=1, dtype=torch.int32)
-    has_res = chunk_res > 0
-    covered = has_res & (torch.cumsum(has_res, dim=0) <= nch)
-    n_drop_res = (chunk_res * (has_res & ~covered)).sum(dtype=torch.int32)
-    cidx = torch.sort((~covered).to(torch.int8), stable=True).indices[:nch]
+    res2d, cidx, covered, n_drop_res = _residual_chunks(inwin2d, qc2d, nch)
     rvalid = (res2d[cidx] & covered[cidx][:, None]).reshape(-1)
-    rblk = blk_s.view(n_chunks, PC)[cidx].reshape(-1)
-    roff = off_s.view(n_chunks, PC)[cidx].reshape(-1)
-    rows_res = torch.stack(
-        [rblk * rpb + ((roff >> (8 * h)) & 0xFF) for h in range(num_hash)],
-        dim=1,
-    )
+    rows_res = _residual_rows(blk_s, off_s, cidx, num_hash, rpb)
     _accumulate_one(
         stats, hist, over_col, over_freq, blocks2, rows_res, rvalid,
         qc2d[cidx].reshape(-1) * rvalid, W, 0, rpb,

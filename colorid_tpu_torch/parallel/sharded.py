@@ -1,0 +1,407 @@
+"""Sharded query execution on a single-process logical mesh.
+
+The BIGSI engine has three parallel axes:
+
+- **data**: k-mer batches split into slices; per-color counts sum over the
+  slices.
+- **color**: the bit-slice matrix split along the packed color-word axis.
+  Each shard gathers from its own full-height matrix slice; only the
+  per-probe hit counts, presence bits and the [C]-sized count vectors are
+  combined. The layout for wide (metagenomic) indexes.
+- **row**: the matrix split along the Bloom-row axis (each shard owns
+  bloom_size/n rows). A shard treats rows it does not own as neutral
+  (all-ones words, present) and the partial ANDs combine with a bitwise
+  AND. The layout for a matrix that one device cannot hold.
+
+A mesh here is ``n_data x n_model`` LOGICAL shards in one process: every
+model shard has its own matrix slice on one ``torch.device`` of a list,
+placed round-robin (model shard m on ``devices[m % len(devices)]``; the
+data slices of a model shard share its matrix and so its device). With one
+card every shard lives on it; with ``devices=["cpu"]`` the same code runs
+on the CPU. The JAX package's shard_map collectives (psum, pmax, pmin, the
+AND all_gather) become plain sums, maxima, minima and ANDs over the
+per-shard tensors of an axis, taken on the mesh's first device; what
+crosses devices is per-probe vectors and [C]-sized accumulators, never
+matrix rows.
+
+Per-shard matrices are packed into the 128-lane block layout of
+ops/query.py::pack_matrix_blocks. Words are uint32 bit patterns in int32
+tensors throughout.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..engine import _i32
+from ..ops.hash_torch import M32
+from ..ops.query import (
+    FREQ_CAP,
+    _and_over_hashes,
+    _and_words,
+    _bit_counts,
+    _gather_rows,
+    _gather_rows_blocked,
+    _hits,
+    _to_i32,
+    new_accumulators,
+    pack_matrix_blocks,
+    row_wpad,
+)
+from ..runtime import resolve_device
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """n_data x n_model logical shards; ``model_axis`` names the second
+    axis ("color" or "row")."""
+
+    n_data: int
+    n_model: int
+    model_axis: str
+    devices: tuple
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": self.n_data, self.model_axis: self.n_model}
+
+    @property
+    def home(self) -> torch.device:
+        """Where the cross-shard merges are taken."""
+        return self.devices[0]
+
+    def device(self, m: int) -> torch.device:
+        """The device of model shard m (and of its data slices)."""
+        return self.devices[m % len(self.devices)]
+
+
+def make_mesh(n_data: int, n_model: int, model_axis: str, devices=None) -> Mesh:
+    """A logical mesh over ``devices`` (default: the CUDA card; raises
+    without one, as every entry point of the package does)."""
+    if model_axis not in ("color", "row"):
+        raise ValueError(f"model_axis must be 'color' or 'row'; got {model_axis!r}")
+    if n_data < 1 or n_model < 1:
+        raise ValueError("a mesh needs at least one shard on each axis")
+    if devices is None:
+        devices = ["cuda"]
+    devs = tuple(resolve_device(d) for d in devices)
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    return Mesh(n_data, n_model, model_axis, devs)
+
+
+def _gather(mat, rows, wpad, rpb):
+    """Local-shard gather: single-block fetch for blocked layouts (a k-mer's
+    H rows share one rpb-row block; nesting holds for any shard-local rpb
+    that is a power-of-two multiple of the build-time rows-per-block), else
+    the generic per-row gather."""
+    if rpb:
+        return _gather_rows_blocked(mat, rows, wpad, rpb)
+    return _gather_rows(mat, rows, wpad)
+
+
+def device_put_colorshard(matrix: np.ndarray, mesh: Mesh):
+    """Split the color-word axis across the mesh's color shards and pack
+    each for the block gather. Returns (blocks, wpad, Wl): a list of
+    n_shards int32 [nb, 128] tensors, each on its shard's device, the
+    shards' packed row width and their live words per row."""
+    n = mesh.shape["color"]
+    R, W = matrix.shape
+    Wl = -(-W // n)
+    wpad = row_wpad(Wl)
+    shards = []
+    for i in range(n):
+        sl = np.zeros((R, Wl), dtype=np.uint32)
+        lo = i * Wl
+        hi = min(W, (i + 1) * Wl)
+        if hi > lo:
+            sl[:, : hi - lo] = matrix[:, lo:hi]
+        b, wp = pack_matrix_blocks(sl)
+        assert wp == wpad
+        shards.append(_i32(b).to(mesh.device(i)))
+    return shards, wpad, Wl
+
+
+def device_put_rowshard(matrix: np.ndarray, mesh: Mesh, row_multiple: int = 1):
+    """Split the Bloom-row axis across the mesh's row shards and pack each.
+    Returns (blocks, wpad, rows_per_shard). row_multiple rounds the shard
+    height (a blocked layout's row group must never straddle a shard
+    boundary, and the stream's tile windows need whole tiles)."""
+    n = mesh.shape["row"]
+    R, W = matrix.shape
+    Rl = -(-R // n)
+    Rl = -(-Rl // row_multiple) * row_multiple
+    wpad = row_wpad(W)
+    shards = []
+    for i in range(n):
+        sl = np.zeros((Rl, W), dtype=np.uint32)
+        lo = i * Rl
+        hi = min(R, (i + 1) * Rl)
+        if hi > lo:
+            sl[: hi - lo] = matrix[lo:hi]
+        b, wp = pack_matrix_blocks(sl)
+        assert wp == wpad
+        shards.append(_i32(b).to(mesh.device(i)))
+    return shards, wpad, Rl
+
+
+def _data_slices(n: int, nd: int):
+    if n % nd:
+        raise ValueError(f"batch of {n} does not split over {nd} data shards")
+    per = n // nd
+    return [slice(d * per, (d + 1) * per) for d in range(nd)]
+
+
+# ---------------------------------------------------------------------------
+# color-sharded query
+# ---------------------------------------------------------------------------
+
+
+def query_batch_colorshard(mat, rows, mask, *, mesh, wpad, Wl, rpb=0):
+    """The generic gather -> AND -> count query on a ("data", "color")
+    mesh. rows int32 [N, H], mask bool [N], N a multiple of n_data. Returns
+    (counts int32 [S * 32 * Wl], uniq int32 [N] (color or -1), valid bool
+    [N], and_all int32 [S * Wl], all_valid bool scalar), counts and and_all
+    concatenated over the color shards. rpb > 0 takes the blocked
+    single-fetch gather on each shard."""
+    S = mesh.shape["color"]
+    home = mesh.home
+    Cl = 32 * Wl
+    counts = [torch.zeros(Cl, dtype=torch.int64, device=mesh.device(s)) for s in range(S)]
+    n_valid = torch.zeros((), dtype=torch.int64, device=home)
+    ok = torch.ones((), dtype=torch.bool, device=home)
+    uniq, valid_all = [], []
+    for sl in _data_slices(rows.shape[0], mesh.n_data):
+        mask_d = mask[sl].to(home)
+        andw = []
+        seen = None  # [Nl, H]: hash row nonzero in some shard
+        for s in range(S):
+            g = _gather(mat[s], rows[sl].to(mesh.device(s)), wpad, rpb)[:, :, :Wl]
+            andw.append(_and_over_hashes(g).to(torch.int64) & M32)
+            nz = (g != 0).any(dim=2).to(home)
+            seen = nz if seen is None else seen | nz
+        present = seen.all(dim=1)
+        valid = present & mask_d
+        nhits = torch.zeros(valid.shape[0], dtype=torch.int64, device=home)
+        color = torch.full_like(nhits, -1)
+        for s in range(S):
+            v = valid.to(mesh.device(s))
+            aw_v = torch.where(v[:, None], andw[s], 0)
+            counts[s] += _bit_counts(aw_v)
+            nh_l, c_l = _hits(aw_v)
+            nhits += nh_l.to(home)
+            color = torch.maximum(
+                color, torch.where(nh_l > 0, c_l + s * Cl, -1).to(home)
+            )
+        uniq.append(torch.where(valid & (nhits == 1), color, -1).to(torch.int32))
+        valid_all.append(valid)
+        n_valid += valid.sum()
+        ok &= (present | ~mask_d).all()
+    and_all = torch.cat([
+        _to_i32(_and_words(counts[s], n_valid.to(counts[s].device), Wl)).to(home)
+        for s in range(S)
+    ])
+    counts = torch.cat([c.to(home) for c in counts]).to(torch.int32)
+    return counts, torch.cat(uniq), torch.cat(valid_all), and_all, ok
+
+
+# ---------------------------------------------------------------------------
+# row-sharded query
+# ---------------------------------------------------------------------------
+
+
+def query_batch_rowshard(mat, rows, mask, *, mesh, wpad, Rl, W, rpb=0):
+    """The same query on a ("data", "row") mesh: shard r holds rows
+    [r * Rl, (r + 1) * Rl). Returns (counts int32 [32 * W], uniq, valid,
+    and_all int32 [W], all_valid). rpb > 0 takes the blocked single-fetch
+    gather (Rl must be a multiple of the blocked row group)."""
+    nr = mesh.shape["row"]
+    home = mesh.home
+    counts = torch.zeros(32 * W, dtype=torch.int64, device=home)
+    n_valid = torch.zeros((), dtype=torch.int64, device=home)
+    ok = torch.ones((), dtype=torch.bool, device=home)
+    uniq, valid_all = [], []
+    for sl in _data_slices(rows.shape[0], mesh.n_data):
+        mask_d = mask[sl].to(home)
+        andw = None
+        n_seen = None
+        for r in range(nr):
+            local = rows[sl].to(mesh.device(r)) - r * Rl
+            owned = (local >= 0) & (local < Rl)
+            g = _gather(mat[r], local.clamp(0, Rl - 1), wpad, rpb)[:, :, :W]
+            g = torch.where(owned[:, :, None], g, -1)  # neutral for the AND
+            a = _and_over_hashes(g).to(home)
+            andw = a if andw is None else andw & a
+            nz = ((g != 0).any(dim=2) | ~owned).to(home).to(torch.int32)
+            n_seen = nz if n_seen is None else n_seen + nz
+        present = (n_seen == nr).all(dim=1)
+        valid = present & mask_d
+        aw_v = torch.where(valid[:, None], andw.to(torch.int64) & M32, 0)
+        counts += _bit_counts(aw_v)
+        nhits, color = _hits(aw_v)
+        uniq.append(torch.where(valid & (nhits == 1), color, -1).to(torch.int32))
+        valid_all.append(valid)
+        n_valid += valid.sum()
+        ok &= (present | ~mask_d).all()
+    and_all = _to_i32(_and_words(counts, n_valid, W))
+    return counts.to(torch.int32), torch.cat(uniq), torch.cat(valid_all), and_all, ok
+
+
+# ---------------------------------------------------------------------------
+# row-sharded sorted-stream query (value-addressed v3/v4 blocked layouts)
+# ---------------------------------------------------------------------------
+#
+# The single-device probe stream (ops/stream_query.py::_stream_core) runs
+# unchanged per shard of a ("data", "row") mesh, because the blocked layout
+# keeps ALL of a k-mer's rows in one 512-byte block: each probe is owned by
+# exactly ONE row shard, so a sorted probe stream partitions into contiguous
+# per-shard slices at the shard block boundaries (the value-addressed
+# placement is monotone) and every per-probe statistic is local. Only the
+# final merge crosses shards: sums of counts and histograms, an AND of the
+# and-words, a minimum of the all-valid flags.
+
+
+def stream_batch_rowshard(
+    mat, blk, offp, qc, *, mesh, wpad, num_hash, rpb, n_colors, nbl
+):
+    """Sorted-stream query over a ("data", "row") mesh.
+
+    blk/offp/qc are int32 [nd, nr, Pl]: probe slices partitioned by shard
+    block ownership (blk ascending within each slice, GLOBAL block ids, nbl
+    blocks per shard; qc == 0 marks padding; Pl a multiple of the stream
+    chunk). Returns (counts int32 [C], and-words int32 [wpad], ok, hist
+    int32 [C, FREQ_CAP], n_dropped, and the per-shard overflow lists n_over
+    [nd, nr], oc/of [nd, nr, capO] in exact mode: of holds frequencies)."""
+    from ..ops.stream_query import OVER_CAP, RES_CAP, _stream_core
+
+    C = n_colors
+    nd, nr = mesh.n_data, mesh.shape["row"]
+    home = mesh.home
+    capO = OVER_CAP + RES_CAP
+    outs = []
+    for d in range(nd):
+        for r in range(nr):
+            dev = mesh.device(r)
+            b = (blk[d, r].to(dev) - r * nbl).contiguous()
+            q = qc[d, r].to(dev).contiguous()
+            outs.append(_stream_core(
+                *new_accumulators(C, wpad, capO, dev), mat[r], b,
+                offp[d, r].to(dev).contiguous(), q, q,  # exact mode
+                wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=C,
+            ))
+    stats = torch.stack([o[0].to(home) for o in outs])  # [nd * nr, C + W + 2]
+    counts = stats[:, :C].sum(dim=0, dtype=torch.int32)
+    aw = stats[0, C : C + wpad].clone()
+    for i in range(1, stats.shape[0]):
+        aw &= stats[i, C : C + wpad]
+    ok = stats[:, C + wpad].min()
+    hist = torch.stack([o[1].to(home) for o in outs]).sum(dim=0, dtype=torch.int32)
+    ndrop = torch.stack([o[4].to(home) for o in outs]).sum(dtype=torch.int32)
+    n_over = stats[:, C + wpad + 1].view(nd, nr)
+    oc = torch.stack([o[2].to(home) for o in outs]).view(nd, nr, capO)
+    of = torch.stack([o[3].to(home) for o in outs]).view(nd, nr, capO)
+    return counts, aw, ok, hist, ndrop, n_over, oc, of
+
+
+# ---------------------------------------------------------------------------
+# color-sharded sorted-stream query (shard-placed v3/v4 indexes,
+# `build --color-shards N`)
+# ---------------------------------------------------------------------------
+#
+# An index of more than 1024 colors is wider than the probe kernel, but each
+# shard of a ("data", "color") mesh holds a <= 1024-color slice of every
+# row. With the blocked placement sized to the SHARD's packed width
+# (index.place_rpb == 128 // shard wpad), every shard runs the probe kernel
+# locally in RAW mode (per-probe nhits / colorsum / hash presence out,
+# counts in the kernel). The global epilogue needs two cross-shard facts
+# per probe: the total hit count (uniqueness spans all colors) and per-hash
+# row presence (a row is absent only if ALL shards see zeros). The uniq-hit
+# frequency histogram then accumulates on the OWNING shard.
+
+
+def stream_batch_colorshard(
+    mat, blk, offp, qc, *, mesh, wpad, num_hash, rpb, Cl, cp, cap
+):
+    """Sorted-stream query over a ("data", "color") mesh for shard-placed
+    indexes. blk/offp/qc are int32 [P] global sorted probes (qc == 0 marks
+    padding; P a multiple of n_data * PC); every color shard sees the same
+    probes. Returns per-shard counts int32 [S, 32 * wpad], and-words int32
+    [S, wpad], ok, hist int32 [S, cp, FREQ_CAP], n_dropped, and the
+    per-shard overflow lists n_over [nd, S], oc/of [nd, S, cap] (oc holds
+    shard-local colors: the caller adds the shard's base)."""
+    from ..ops.stream_query import stream_raw_local
+
+    S = mesh.shape["color"]
+    nd = mesh.n_data
+    home = mesh.home
+    hw = FREQ_CAP
+    full = (1 << num_hash) - 1
+    devs = [mesh.device(s) for s in range(S)]
+    counts32 = [torch.zeros(32 * wpad, dtype=torch.int64, device=dv) for dv in devs]
+    hist = [torch.zeros(cp * hw, dtype=torch.int32, device=dv) for dv in devs]
+    n_valid = torch.zeros((), dtype=torch.int64, device=home)
+    bad = torch.zeros((), dtype=torch.int64, device=home)
+    ndrop = torch.zeros((), dtype=torch.int32, device=home)
+    n_over, oc, of = [], [], []
+    for sl in _data_slices(blk.shape[0], nd):
+        local = []
+        nh_g = seen = None
+        for s in range(S):
+            b, o, q = (x[sl].to(devs[s]).contiguous() for x in (blk, offp, qc))
+            counts_l, nh_l, cs_l, pm_l, nd_l = stream_raw_local(
+                mat[s], b, o, q, wpad=wpad, num_hash=num_hash, rpb=rpb,
+                n_colors=Cl,
+            )
+            counts32[s] += counts_l
+            ndrop += nd_l.to(home)
+            local.append((q, nh_l, cs_l))
+            nh, pm = nh_l.to(home), pm_l.to(home)
+            nh_g = nh if nh_g is None else nh_g + nh
+            seen = pm if seen is None else seen | pm
+        realm = qc[sl].to(home) > 0
+        present = seen == full
+        validp = present & realm
+        n_valid += validp.sum()
+        bad += (realm & ~present).sum()
+        uniq = validp & (nh_g == 1)
+        for s in range(S):
+            q, nh_l, cs_l = local[s]
+            P = q.shape[0]
+            owner = uniq.to(devs[s]) & (nh_l == 1)
+            spread = torch.arange(P, device=devs[s])
+            # uniq-hit frequency histogram of the probes this shard owns
+            sel = owner & (q < hw)
+            hidx = torch.where(sel, cs_l.to(torch.int64) * hw + q, spread % (cp * hw))
+            hist[s].index_add_(0, hidx, sel.to(torch.int32))
+            # frequencies the histogram does not cover: the first cap of
+            # them, in probe order
+            big = owner & (q >= hw)
+            n_big = big.sum()
+            pos = torch.cumsum(big, dim=0) - 1
+            keep = big & (pos < cap)
+            oidx = torch.where(keep, pos, spread % cap)
+            oc_l = torch.zeros(cap, dtype=torch.int32, device=devs[s])
+            of_l = torch.zeros(cap, dtype=torch.int32, device=devs[s])
+            oc_l.index_add_(0, oidx, torch.where(keep, cs_l, 0))
+            of_l.index_add_(0, oidx, torch.where(keep, q, 0))
+            n_over.append(n_big.clamp(max=cap).to(home))
+            ndrop += (n_big - cap).clamp(min=0).to(torch.int32).to(home)
+            oc.append(oc_l.to(home))
+            of.append(of_l.to(home))
+    and_b = torch.stack([
+        _to_i32(_and_words(counts32[s], n_valid.to(devs[s]), wpad)).to(home)
+        for s in range(S)
+    ])
+    return (
+        torch.stack([c.to(home) for c in counts32]).to(torch.int32),
+        and_b,
+        (bad == 0).to(torch.int32),
+        torch.stack([h.to(home) for h in hist]).view(S, cp, hw),
+        ndrop,
+        torch.stack(n_over).view(nd, S).to(torch.int32),
+        torch.stack(oc).view(nd, S, cap),
+        torch.stack(of).view(nd, S, cap),
+    )

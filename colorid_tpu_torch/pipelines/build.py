@@ -177,11 +177,6 @@ def build_index(
     """
     from ..trace import span
 
-    if color_shards > 1:
-        raise NotImplementedError(
-            "shard-local blocked placement (build --color-shards) is not yet "
-            "ported in colorid_tpu_torch (ROADMAP queue 1: sharded engines)"
-        )
     if device:
         raise NotImplementedError(
             "the device scatter-OR build (build --device-build) is not yet "
@@ -192,6 +187,7 @@ def build_index(
     W = (C + 31) // 32
     rpb = 0
     bver = 0
+    place_rpb = 0
     if blocked:
         from ..ops.blocked import (
             blocked_rows_host,
@@ -200,8 +196,18 @@ def build_index(
             v2_supported,
             v3_supported,
         )
+        from ..ops.query import row_wpad
 
-        wpad = 1 << (max(W, 1) - 1).bit_length()
+        if color_shards > 1:
+            # shard-local placement: the blocked row group sizes to ONE
+            # color shard's packed width, so each shard of a
+            # ("data", "color") mesh keeps a k-mer's rows in one of ITS
+            # 512-byte blocks and the probe stream runs per shard
+            # (indexes wider than the 1024-color single-device stream cap)
+            wpad = row_wpad(-(-W // color_shards))
+            place_rpb = rows_per_block(wpad)
+        else:
+            wpad = 1 << (max(W, 1) - 1).bit_length()
         rpb = rows_per_block(wpad)
         bloom_size = pad_bloom_size(bloom_size)
         # value-addressed split-lane (v4: density-corrected block map)
@@ -316,4 +322,5 @@ def build_index(
         n_ref_kmers=n_ref_kmers,
         matrix=matrix,
         blocked=bver,
+        place_rpb=place_rpb,
     )

@@ -235,13 +235,15 @@ def test_info_on_blocked_index_matches_jax(panel, capsys):
 
 def test_what_build_still_refuses(panel):
     refs = {"genome0": panel["refs"]["genome0"]}
-    with pytest.raises(NotImplementedError, match="color-shards"):
-        tbuild(refs, 100_000, 4, K, verbose=False, blocked=True, color_shards=2)
+    # --color-shards is taken now: one color, so one word per shard and the
+    # full row's own placement group, recorded as such
+    placed = tbuild(refs, 100_000, 4, K, verbose=False, blocked=True, color_shards=2)
+    assert (placed.blocked, placed.place_rpb) == (4, 128)
     with pytest.raises(NotImplementedError, match="device-build"):
         tbuild(refs, 100_000, 4, K, verbose=False, device=True)
     with pytest.raises(SystemExit, match="incompatible"):
         tmain(["build", *BUILD, "--ref-format", "-b", str(panel["dir"] / "x"),
                "-r", panel["man"]])
-    with pytest.raises(SystemExit, match="color-shards"):
-        tmain(["build", *BUILD, "--color-shards", "2", "-b",
+    with pytest.raises(SystemExit, match="device-build"):
+        tmain(["build", *BUILD, "--device-build", "-b",
                str(panel["dir"] / "x"), "-r", panel["man"]])

@@ -4,9 +4,10 @@ the card has no jax), so they run there without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Each kernel (the classic word kernel, the blocked probe kernel) must equal
-its plain twin bit for bit, count its launches and refuse what it cannot
-take; the engine on the card must give the CPU engine's SearchResult,
+Each kernel (the classic word kernel, the blocked probe kernel and its raw
+mode) must equal its plain twin bit for bit, count its launches and refuse
+what it cannot take; the engines on the card (single-device, and a (1, 4)
+color and row mesh on the one card) must give the CPU's SearchResult,
 through the kernels."""
 
 import numpy as np
@@ -158,3 +159,121 @@ def test_blocked_engine_on_card_matches_cpu(cuda_device, monkeypatch, blocked, C
     assert dev is not None and host is not None
     for field in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
         np.testing.assert_array_equal(getattr(dev, field), getattr(host, field))
+
+
+# -- the raw probe kernel and the logical meshes --------------------------------
+
+
+def _sparse_qc(qc):
+    """Runs of qc == 0 (padding), and few counted probes between them."""
+    n = qc.shape[0]
+    live = (torch.arange(n, device=qc.device) // 256 % 3 != 0) & (
+        torch.arange(n, device=qc.device) % 7 == 0)
+    return torch.where(live, qc, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,num_hash,thin,sparse", [
+    (1024, 2, 5, False), (1024, 2, 5, True),  # the color-sharded path's shape
+    (200, 4, 3, False), (21, 4, 1, False), (21, 1, 4, True), (512, 2, 5, False),
+])
+def test_raw_kernel_matches_twin(cuda_device, C, num_hash, thin, sparse):
+    b2, wpad, blk, off, qc = _probe(ts.probe_case(C, num_hash, seed=C, thin=thin), cuda_device)
+    if sparse:
+        qc = _sparse_qc(qc)
+    kw = dict(num_hash=num_hash, wpad=wpad)
+    outs = []
+    for fn in (sq.stream_probe_raw_plain, sq.stream_probe_raw):
+        counts = torch.ones(32 * wpad, dtype=torch.int32, device=cuda_device)  # added into
+        before = sq.stream_probe_raw.launches
+        facts = fn(b2, blk, off, qc, counts, **kw)
+        torch.cuda.synchronize()
+        assert sq.stream_probe_raw.launches == before + (fn is sq.stream_probe_raw)
+        outs.append((*facts, counts))
+    for got, want in zip(outs[1], outs[0]):
+        assert got.dtype == torch.int32 and got.device.type == "cuda"
+        assert torch.equal(got, want)
+    nh, cs, pm, _counts = outs[1]
+    assert (nh == 1).any() and (nh > 1).any() and (pm == (1 << num_hash) - 1).any()
+    assert not (nh[qc == 0].any() or cs[qc == 0].any() or pm[qc == 0].any())
+
+
+@pytest.mark.cuda
+def test_raw_kernel_refuses_mixed_devices_and_bad_blocks(cuda_device):
+    b2, wpad, blk, off, qc = _probe(ts.probe_case(1024, 2, seed=1, thin=5), cuda_device)
+    counts = torch.zeros(32 * wpad, dtype=torch.int32, device=cuda_device)
+    kw = dict(num_hash=2, wpad=wpad)
+    with pytest.raises(ValueError, match="different devices"):
+        sq.stream_probe_raw(b2.cpu(), blk, off, qc, counts, **kw)
+    # a block outside the matrix reads as absent rows, in kernel and twin
+    far = torch.full_like(blk, 10**6)
+    got = sq.stream_probe_raw(b2, far, off, qc, counts, **kw)
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in got) and int(counts.sum()) == 0
+    for g, w in zip(got, sq.stream_probe_raw_plain(b2, far, off, qc, counts, **kw)):
+        assert torch.equal(g, w)
+
+
+def _assert_same_search(got, want):
+    for field in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    assert got.all_valid == want.all_valid
+    assert got.freq_stats() == want.freq_stats()
+
+
+@pytest.mark.cuda
+def test_color_mesh_on_card_matches_cpu(cuda_device):
+    """A (1, 4) color mesh on the one card: the raw kernel runs once per
+    shard, and the answers are the same mesh's on the CPU."""
+    from colorid_tpu_torch import ShardedQueryEngine, convert
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+
+    rng = np.random.default_rng(5)
+    C, R = 4096, 32768
+    word = rng.integers(0, 2**32, (3, R, C // 32), dtype=np.uint32)
+    matrix = np.where(rng.random((R, C // 32)) < 0.25, word[0] & word[1] & word[2],
+                      np.uint32(0))
+    names = [f"c{i}" for i in range(C)]
+    index = convert.index_from_arrays(
+        matrix, bloom_size=R, num_hash=2, k_size=31, colors=names,
+        n_ref_kmers={n: 1 for n in names}, blocked=4, place_rpb=4,
+    )
+    keys = rng.choice(ts.ACGT, (14_000, 31))
+    qc = rng.integers(1, 3000, 14_000).astype(np.int32)
+    cpu = ShardedQueryEngine(index, mesh=make_mesh(1, 4, "color", devices=["cpu"]))
+    card = ShardedQueryEngine(index, mesh=make_mesh(1, 4, "color", devices=[cuda_device]))
+    assert card._stream and all(m.device.type == "cuda" for m in card.mat)
+    before = sq.stream_probe_raw.launches
+    got = card.search_keys(keys, qcounts=qc)
+    assert sq.stream_probe_raw.launches == before + 4
+    want = cpu.search_keys(keys, qcounts=qc)
+    _assert_same_search(got, want)
+    assert len(got.freq_stats()) > 10 and len(got.over_colors) > 0
+    single = QueryEngine(index, chunk=1 << 14, device=cuda_device).search_keys(keys, qcounts=qc)
+    np.testing.assert_array_equal(got.counts, single.counts)
+    assert got.freq_stats() == single.freq_stats()
+
+
+@pytest.mark.cuda
+def test_row_mesh_on_card_matches_cpu(cuda_device):
+    """A (1, 4) row mesh on the one card: the probe kernel runs once per
+    row shard."""
+    from colorid_tpu_torch import ShardedQueryEngine, convert
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+
+    rng = np.random.default_rng(6)
+    bloom, matrix, names = ts.rand_blocked_matrix(rng, 21, 400_000, 0.1, thin=3)
+    index = convert.index_from_arrays(
+        matrix, bloom_size=bloom, num_hash=4, k_size=31, colors=names,
+        n_ref_kmers={n: 1 for n in names}, blocked=4,
+    )
+    keys = np.unique(rng.choice(ts.ACGT, (30_000, 31)), axis=0)
+    qc = rng.integers(1, 2000, keys.shape[0]).astype(np.int32)
+    cpu = ShardedQueryEngine(index, layout="row", mesh=make_mesh(1, 4, "row", devices=["cpu"]))
+    card = ShardedQueryEngine(index, layout="row", mesh=make_mesh(1, 4, "row", devices=[cuda_device]))
+    assert card._stream
+    before = sq.stream_probe.launches
+    got = card.search_keys(keys, qcounts=qc)
+    assert sq.stream_probe.launches == before + 4
+    _assert_same_search(got, cpu.search_keys(keys, qcounts=qc))
+    assert got.counts.sum() > 0

@@ -235,10 +235,20 @@ def test_engine_refuses_what_is_not_ported():
     )
     assert (blocked.bv, blocked.rpb, blocked._stream) == (2, 128, True)
     assert not blocked._stream_classic
-    # placed for color shards narrower than the full row: for the sharded engines
-    placed = BigsiIndex(1000, 4, 31, 0, ["a"], {"a": 1}, m, blocked=2, place_rpb=64)
-    with pytest.raises(NotImplementedError, match="shard-placed"):
-        TEngine(placed, device="cpu")
+    # placed for color shards narrower than the full row: taken now, hashed
+    # on the host with the recorded placement and gathered row by row (its
+    # streams run on the sharded engine); device-resident batches are refused
+    placed = TEngine(
+        BigsiIndex(1000, 4, 31, 0, ["a"], {"a": 1}, m, blocked=2, place_rpb=64),
+        device="cpu",
+    )
+    assert (placed.bv, placed.rpb, placed.rpb_place) == (2, 0, 64)
+    assert placed._custom_place and not placed._stream
+    z = torch.zeros((2048, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shard-placed"):
+        placed.search_keys_dev_generic_async(z, z[:, 0].contiguous(), 31)
+    with pytest.raises(ValueError, match="shard-placed"):
+        placed.search_keys(None, packed_all=np.zeros((4, 2), np.uint32), k=31)
     wide = BigsiIndex(2**31, 4, 31, 0, ["a"], {"a": 1}, m)
     with pytest.raises(NotImplementedError, match="query_accumulate_scan_wide"):
         TEngine(wide, device="cpu")

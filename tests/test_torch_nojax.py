@@ -1,7 +1,7 @@
 """The port stands alone: no module of colorid_tpu_torch imports jax or the
 JAX package colorid_tpu (checked on the source, and in a fresh interpreter
-that builds and searches through the port's CLI), its native library is its
-own, and its entry points default to the CUDA card and refuse to fall back
+that builds and searches through the port's CLI and runs a sharded search on
+a logical mesh), its native library is its own, and its entry points default to the CUDA card and refuse to fall back
 to the CPU when there is none."""
 
 import ast
@@ -65,9 +65,26 @@ _SCRIPT = textwrap.dedent("""
         main(["build", "--blocked", "-k", "27", "-n", "4", "-s", "375000",
               "-b", d + "/turbo", "-r", man])
         main(["search", "-b", d + "/turbo.bxi", "-q", fq, "-f", "1", "--device", "cpu"])
+        main(["build", "--blocked", "--color-shards", "2", "-k", "27", "-n", "4",
+              "-s", "375000", "-b", d + "/placed", "-r", man])
+        main(["search", "-b", d + "/placed.bxi", "-q", fq, "-f", "1", "--device", "cpu"])
     rows = [l for l in out.getvalue().splitlines() if "\\t" in l]
-    assert len(rows) >= 4 and rows[0].split("\\t")[2] in ("genome0", "genome1"), rows
+    assert len(rows) >= 6 and rows[0].split("\\t")[2] in ("genome0", "genome1"), rows
     assert "colorid_tpu_torch.ops.blocked" in sys.modules
+    # a sharded search on a logical mesh: the same answers as one device
+    import numpy as np
+    from colorid_tpu_torch import BigsiIndex, QueryEngine, ShardedQueryEngine
+    from colorid_tpu_torch.parallel import sharded
+    index = BigsiIndex.load(d + "/turbo.bxi")
+    keys = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        np.random.default_rng(0).integers(0, 4, (3000, 27))]
+    want = QueryEngine(index, device="cpu").search_keys(keys)
+    for axis in ("color", "row"):
+        eng = ShardedQueryEngine(
+            index, layout=axis, mesh=sharded.make_mesh(1, 2, axis, devices=["cpu"]))
+        got = eng.search_keys(keys)
+        assert (got.counts == want.counts).all() and got.all_valid == want.all_valid
+    assert "colorid_tpu_torch.parallel.engine" in sys.modules
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "colorid_tpu"))
     assert not leaked, leaked
