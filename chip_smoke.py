@@ -131,9 +131,9 @@ def classic_kernel_phase(card: str) -> dict:
     planes = sq._n_planes(N_GENOMES)
     errs = []
     for name, rs in (("dense", row_s), ("sparse", row_sparse)):
-        blk_s, off_s, tb, inwin2d = sq.classic_plan(rs, blocks2.shape[0])
-        got = sq.classic_words(blocks2, blk_s, off_s, tb, planes=planes)
-        want = sq.classic_words_plain(blocks2, blk_s, off_s, tb, planes=planes)
+        tb, inwin2d = sq.classic_plan(rs, blocks2.shape[0])
+        got = sq.classic_words(blocks2, rs, tb, planes=planes)
+        want = sq.classic_words_plain(blocks2, rs, tb, planes=planes)
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         n_out = int((~inwin2d).sum())
@@ -144,20 +144,20 @@ def classic_kernel_phase(card: str) -> dict:
         if name == "sparse" and n_out == 0:
             raise AssertionError("sparse case left no out-of-window probes")
         errs.append(err)
-    blk_s, off_s, tb, _ = sq.classic_plan(row_s, blocks2.shape[0])
+    tb, inwin2d = sq.classic_plan(row_s, blocks2.shape[0])
     flat = blocks2.view(-1)
     rows64 = row_s.to(torch.int64)
-    ms = cuda_ms(lambda: sq.classic_words(blocks2, blk_s, off_s, tb, planes=planes), 20)
-    plain_ms = cuda_ms(
-        lambda: sq.classic_words_plain(blocks2, blk_s, off_s, tb, planes=planes), 5
-    )
+    ms = cuda_ms(lambda: sq.classic_words(blocks2, row_s, tb, planes=planes), 20)
+    plain_ms = cuda_ms(lambda: sq.classic_words_plain(blocks2, row_s, tb, planes=planes), 5)
     library_ms = cuda_ms(lambda: torch.take(flat, rows64), 20)
-    distinct = int((row_s[1:] != row_s[:-1]).sum()) + 1
-    n_bytes = P * (4 + 4 + 4) + tb.numel() * 4 + distinct * 4
+    n_bytes, n_sectors = classic_bytes(row_s, inwin2d, tb.numel())
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    old_bytes = classic_bytes_by_word(row_s, tb.numel())
     log(f"[kernel] classic_word P={P} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms(torch.take)={library_ms:.4f} bound_ms={bound_ms:.4f} "
-        f"(bytes={n_bytes}, distinct_words={distinct}) on {card}")
+        f"(bytes={n_bytes}, sectors={n_sectors}; counted as 12 bytes per probe and 4 "
+        f"per distinct word instead: bytes={old_bytes} "
+        f"bound_ms={old_bytes / HBM_BYTES_PER_S * 1e3:.4f}) on {card}")
     del blocks2, row_s, row_sparse, flat, rows64
     torch.cuda.empty_cache()
     return {
@@ -267,10 +267,9 @@ def probe_kernel_phase(card: str) -> dict:
     plain_ms = cuda_ms(
         lambda: sq.stream_probe_plain(blocks2, blk_s, off_s, qc, counts, hist, **kw), 3)
     # the bound: each probe's 12 bytes in and 4 out, the accumulators in and
-    # out, and the distinct 32-byte sectors of the matrix that the counted
-    # probes' rows lie in (wpad <= 8: a row lies in one sector)
-    row_bytes, n_sectors = _touched_bytes(blk_s, off_s, qc, wpad, HASHES)
-    n_bytes = P * 16 + row_bytes + 2 * 4 * (counts.numel() + hist.numel())
+    # out, and the sectors of the counted probes' rows
+    n_bytes, n_sectors = probe_bytes(blk_s, off_s, qc, wpad, HASHES, 16,
+                                     counts.numel() + hist.numel())
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     log(f"[kernel] stream_probe P={P} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms=null (no single PyTorch call gathers, ANDs and counts) "
@@ -292,20 +291,52 @@ def probe_kernel_phase(card: str) -> dict:
     }
 
 
-def _touched_bytes(blk_s, off_s, qc, wpad: int, num_hash: int) -> tuple[int, int]:
-    """(bytes, sectors): the distinct 32-byte sectors of the matrix that the
-    counted probes' rows lie in (a row of wpad <= 8 words lies in one
-    sector, a wider one in wpad // 8)."""
+# -- the bytes each kernel's function must move, whatever implements it -------
+
+
+def sectors(word_starts, words_per_row: int) -> int:
+    """Distinct 32-byte sectors of the matrix covered by rows of
+    words_per_row words (a power of two) that start at the given word
+    indices. Rows are aligned to their width: one of <= 8 words lies in one
+    sector, a wider one covers words_per_row // 8."""
+    import torch
+
+    return int(torch.unique(word_starts // 8).numel()) * max(words_per_row // 8, 1)
+
+
+def classic_bytes(row_s, inwin, n_chunks: int) -> tuple[int, int]:
+    """(bytes, sectors) of the classic word gather: each probe's 4-byte
+    sorted row in and 4-byte word out, the chunks' tb, and the sectors of
+    the one-word rows that the in-window probes read."""
+    import torch
+
+    n = sectors(row_s.to(torch.int64)[inwin.reshape(-1)], 1)
+    return row_s.numel() * 8 + n_chunks * 4 + 32 * n, n
+
+
+def classic_bytes_by_word(row_s, n_chunks: int) -> int:
+    """The coarser count this bound replaced, printed beside it so that
+    older figures stay comparable: 12 bytes per probe (block and lane in,
+    word out), the chunks' tb, and 4 bytes per distinct row word."""
+    distinct = int((row_s[1:] != row_s[:-1]).sum()) + 1
+    return row_s.numel() * 12 + n_chunks * 4 + distinct * 4
+
+
+def probe_bytes(blk_s, off_s, qc, wpad: int, num_hash: int, per_probe: int,
+                acc_words: int) -> tuple[int, int]:
+    """(bytes, sectors) of a blocked probe kernel: per_probe bytes of probe
+    streams in and facts out for every probe, the int32 accumulators
+    (acc_words of them) in and out, and the sectors of the rows that the
+    counted probes (qc > 0) read: row h at word
+    blk * 128 + ((off >> 8h) & 0xFF) * wpad."""
     import torch
 
     live = qc > 0
     base = blk_s.to(torch.int64)[live] * 128
     offs = off_s.to(torch.int64)[live]
-    starts = torch.cat([
-        (base + ((offs >> (8 * h)) & 0xFF) * wpad) // 8 for h in range(num_hash)
-    ])
-    n = int(torch.unique(starts).numel()) * max(wpad // 8, 1)
-    return n * 32, n
+    starts = torch.cat([base + ((offs >> (8 * h)) & 0xFF) * wpad for h in range(num_hash)])
+    n = sectors(starts, wpad)
+    return blk_s.numel() * per_probe + 32 * n + 2 * 4 * acc_words, n
 
 
 def raw_kernel_phase(card: str) -> dict:
@@ -375,9 +406,8 @@ def raw_kernel_phase(card: str) -> dict:
 
     plain_ms = cuda_ms(twin, 2)
     # the bound: each probe's 12 bytes in and 12 out, the counts in and out,
-    # and the distinct sectors of the matrix that the counted probes touch
-    row_bytes, n_sectors = _touched_bytes(blk_s, off_s, qc, wpad, 2)
-    n_bytes = P * 24 + row_bytes + 2 * 4 * counts.numel()
+    # and the sectors of the counted probes' rows
+    n_bytes, n_sectors = probe_bytes(blk_s, off_s, qc, wpad, 2, 24, counts.numel())
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     log(f"[kernel] stream_probe_raw P={P} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms=null (no single PyTorch call gathers, ANDs and counts) "

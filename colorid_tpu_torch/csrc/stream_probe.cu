@@ -43,12 +43,12 @@
 // The tile window of the TPU kernel is not carried over: any block can be
 // read, and the result does not depend on it.
 //
-// The per-probe gather/AND is a __device__ function of its own
-// (probe_and), shared by both kernels.
+// The folding kernel's per-probe gather/AND is a __device__ function of
+// its own (probe_and); the raw kernel has its own lane-group gather.
 //
 // Bound to Python with ctypes (colorid_tpu_torch/ops/kernels.py): a plain
-// C entry point that launches on the caller's stream and returns
-// cudaGetLastError().
+// C entry point per kernel that launches on the caller's stream and
+// returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -203,89 +203,234 @@ extern "C" int stream_probe_launch(
 //   presmask[i] = bit h set iff hash row h has a nonzero word in this shard
 //   counts[c]  += 1 for every set bit c of and_w
 // all for qc[i] > 0; a probe with qc[i] == 0 (padding, or left to the
-// caller's residual pass) writes three zeros and counts nothing. A row that
-// is absent here ANDs to zero and so masks itself; it may be present in
-// another shard. counts [32 * W] is ADDED INTO. The plain PyTorch twin is
-// ops/stream_query.py::stream_probe_raw_plain; both agree bit for bit with
-// the JAX kernel's four outputs.
+// caller's residual pass) writes three zeros and counts nothing. A block
+// outside the matrix, or a row that would leave its block, reads as an
+// all-zero row. A row that is absent here ANDs to zero and so masks
+// itself; it may be present in another shard. counts [32 * W] is ADDED
+// INTO. The plain PyTorch twin is ops/stream_query.py::stream_probe_raw_plain;
+// both agree bit for bit with the JAX kernel's four outputs.
 //
-// What bounds it on an H100: bytes, as for the folding kernel: 12 bytes in
-// and 12 out per probe plus the 32-byte sectors of the rows the probes
-// touch (a W = 32 row is four sectors), against 3.35 TB/s.
+// What bounds it on an H100: bytes: 12 bytes in and 12 out per probe plus
+// the 32-byte sectors of the rows the counted probes touch (a W = 32 row is
+// four sectors, and the color-sharded path touches nearly every row),
+// against 3.35 TB/s.
 //
-// What the design does about that: the same one thread per probe with
-// direct loads of the H rows. The set-bit loop that feeds the shared-memory
-// counts also sums the bit indices, so the TPU kernel's second MXU
-// contraction (redm) has no counterpart; there is no histogram and hence no
-// global atomic but the one flush per color and thread block.
+// What the design does about that:
+// - Lane groups. G = W / 8 lanes serve one probe (one lane for W <= 8):
+//   each lane loads its 8 words of a row as two 16-byte vectors (W <= 4:
+//   the whole row in one load of 4, 8 or 16 bytes), and a vector load of
+//   the group covers 4 * G contiguous words, so at W = 32 one warp
+//   instruction moves 8 rows x 64 bytes in whole sectors; a lane holds 8
+//   and-words, not 32. Groups of 4 words a lane coalesce as well but spend
+//   twice the rounds, shuffles and reductions per probe, and the kernel
+//   runs close to the rate at which the SMs dispatch instructions.
+// - The probe streams are read one probe per lane, coalesced; each group
+//   takes its probe from them by shuffle, in G rounds of 32 / G probes, and
+//   the facts go back by shuffle to the probe's own lane, so the three
+//   outputs are stored coalesced too. With one lane per probe there is no
+//   shuffle at all.
+// - nhits is a popcount per lane; colorsum is summed in the loop over the
+//   set bits that feeds the shared counts (one add per set bit: the
+//   popcount identity sum = 32w * popc(v) + sum_k 2^k * popc(v & M_k) costs
+//   some 17 instructions per word whether or not a bit is set, where most
+//   probes have one set bit or none). Both ride in one int32 (nhits
+//   <= 1,024 in the low 11 bits, colorsum <= 523,776 above), so the group
+//   sums them with one chain of xor shuffles; presmask is the group's OR
+//   of its lanes' "nonzero part of row h" bits.
+// - Per-color counts take one shared-memory atomic per set bit; the grid
+//   is persistent (as many blocks as stay resident on every SM) with a
+//   grid-stride loop, so each block flushes its shared counts to the global
+//   ones once: at most (resident blocks) * 32 * W global atomics in all.
+// - W and H are template parameters: the H row loads of a lane go out
+//   together, and the loops unroll.
+// The tile window of the TPU kernel is not carried over: any block can be
+// read, and the caller zeroes qc outside the window.
 
-template <int W>
-__global__ void stream_probe_raw_kernel(
+namespace {
+
+constexpr int RAW_THREADS = 256;
+constexpr int LANE_WORDS = 8;  // words of a row per lane (rows of >= 8 words)
+
+// VEC consecutive words (16-, 8- or 4-byte aligned) into v[0..VEC)
+template <int VEC>
+__device__ __forceinline__ void load_vec(const uint32_t* __restrict__ p,
+                                         uint32_t* v) {
+  if constexpr (VEC == 4) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else if constexpr (VEC == 2) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int W, int H>
+__global__ void __launch_bounds__(RAW_THREADS) stream_probe_raw_kernel(
     const uint32_t* __restrict__ matrix, int64_t n_words,
     const int32_t* __restrict__ blk, const int32_t* __restrict__ off,
     const int32_t* __restrict__ qc, int32_t* __restrict__ nhits,
     int32_t* __restrict__ colorsum, int32_t* __restrict__ presmask,
-    int32_t* __restrict__ counts, int64_t P, int32_t H) {
+    int32_t* __restrict__ counts, int64_t P) {
+  constexpr int VEC = W < 4 ? W : 4;  // words per vector load
+  constexpr int LW = W < LANE_WORDS ? W : LANE_WORDS;  // words per lane
+  constexpr int NV = LW / VEC;        // vector loads per row and lane
+  constexpr int G = W / LW;           // lanes per probe
+  constexpr int NG = 32 / G;          // probes per round of a warp
+  constexpr unsigned FULL = 0xFFFFFFFFu;
   __shared__ int32_t s_counts[32 * W];
-  for (int c = threadIdx.x; c < 32 * W; c += blockDim.x) s_counts[c] = 0;
+  for (int c = threadIdx.x; c < 32 * W; c += RAW_THREADS) s_counts[c] = 0;
   __syncthreads();
 
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < P) {
-    int32_t nh = 0, cs = 0, pm = 0;
-    if (qc[i] > 0) {
-      uint32_t and_w[W];
-      pm = (int32_t)probe_and<W>(matrix, n_words, blk[i], (uint32_t)off[i], H,
-                                 and_w);
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / G;  // the lane's group within the warp
+  const int sub = lane % G;  // the lane's place within its group
+  const int64_t n_warps = ((int64_t)gridDim.x * RAW_THREADS) >> 5;
+  // P % 32 == 0: every lane of a warp takes the same trip count
+  for (int64_t t = (((int64_t)blockIdx.x * RAW_THREADS + threadIdx.x) >> 5) * 32;
+       t < P; t += n_warps * 32) {
+    const int32_t my_blk = blk[t + lane];
+    const int32_t my_off = off[t + lane];
+    const int32_t my_qc = qc[t + lane];
+    int32_t facts_out = 0, pres_out = 0;
 #pragma unroll
-      for (int w = 0; w < W; w++) {
-        uint32_t v = and_w[w];
-        nh += __popc(v);
-        while (v) {
-          const int b = 32 * w + __ffs(v) - 1;
-          cs += b;
-          atomicAdd(&s_counts[b], 1);
-          v &= v - 1;
+    for (int r = 0; r < G; r++) {
+      int32_t b32 = my_blk, o32 = my_off, q = my_qc;
+      if constexpr (G > 1) {  // the probe this group serves in round r
+        const int src = r * NG + grp;
+        b32 = __shfl_sync(FULL, my_blk, src);
+        o32 = __shfl_sync(FULL, my_off, src);
+        q = __shfl_sync(FULL, my_qc, src);
+      }
+      const int64_t b = b32;
+      const bool live = q > 0 && b >= 0 && b * 128 + 128 <= n_words;
+      // lane word j * VEC + e is row word j * G * VEC + sub * VEC + e
+      uint32_t aw[LW];
+      int32_t pres = 0;  // bit h: this lane's part of row h is nonzero
+#pragma unroll
+      for (int h = 0; h < H; h++) {
+        const uint32_t o = ((uint32_t)o32 >> (8 * h)) & 0xFFu;
+        uint32_t v[LW];
+        if (live && o * W + W <= 128u) {
+          const uint32_t* row = matrix + b * 128 + o * W + sub * VEC;
+#pragma unroll
+          for (int j = 0; j < NV; j++) load_vec<VEC>(row + j * G * VEC, v + j * VEC);
+        } else {
+#pragma unroll
+          for (int k = 0; k < LW; k++) v[k] = 0u;
+        }
+        uint32_t any = 0u;
+#pragma unroll
+        for (int k = 0; k < LW; k++) {
+          any |= v[k];
+          aw[k] = h ? aw[k] & v[k] : v[k];
+        }
+        pres |= (any != 0u ? 1 : 0) << h;
+      }
+      int nh = 0, cs = 0;
+#pragma unroll
+      for (int k = 0; k < LW; k++) {
+        nh += __popc(aw[k]);
+        const int c0 = 32 * ((k / VEC) * G * VEC + sub * VEC + k % VEC);
+        for (uint32_t v = aw[k]; v; v &= v - 1) {
+          const int c = c0 + __ffs(v) - 1;
+          cs += c;
+          atomicAdd(&s_counts[c], 1);
         }
       }
+      int32_t facts = (cs << 11) | nh;
+      if constexpr (G > 1) {
+#pragma unroll
+        for (int d = G / 2; d > 0; d >>= 1) {
+          facts += __shfl_xor_sync(FULL, facts, d);
+          pres |= __shfl_xor_sync(FULL, pres, d);
+        }
+        // lane l keeps probe t + l's facts: group l % NG served it in
+        // round l / NG
+        const int from = (lane % NG) * G;
+        const int32_t f = __shfl_sync(FULL, facts, from);
+        const int32_t p = __shfl_sync(FULL, pres, from);
+        if (lane / NG == r) {
+          facts_out = f;
+          pres_out = p;
+        }
+      } else {
+        facts_out = facts;
+        pres_out = pres;
+      }
     }
-    nhits[i] = nh;
-    colorsum[i] = cs;
-    presmask[i] = pm;
+    nhits[t + lane] = facts_out & 2047;
+    colorsum[t + lane] = facts_out >> 11;
+    presmask[t + lane] = pres_out;
   }
 
   __syncthreads();
-  for (int c = threadIdx.x; c < 32 * W; c += blockDim.x) {
+  for (int c = threadIdx.x; c < 32 * W; c += RAW_THREADS) {
     const int32_t v = s_counts[c];
     if (v) atomicAdd(&counts[c], v);
   }
 }
 
-template <int W>
-static int launch_raw(const void* matrix, int64_t n_words, const void* blk,
-                      const void* off, const void* qc, void* nhits,
-                      void* colorsum, void* presmask, void* counts, int64_t P,
-                      int32_t H, void* stream) {
-  const int threads = 256;
-  const int64_t blocks = (P + threads - 1) / threads;
-  stream_probe_raw_kernel<W><<<(unsigned int)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
+template <int W, int H>
+int launch_raw(const void* matrix, int64_t n_words, const void* blk,
+               const void* off, const void* qc, void* nhits, void* colorsum,
+               void* presmask, void* counts, int64_t P, void* stream) {
+  // a persistent grid: as many blocks as stay resident, no more than needed
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, stream_probe_raw_kernel<W, H>, RAW_THREADS, 0);
+  const int64_t needed = (P + RAW_THREADS - 1) / RAW_THREADS;
+  const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t blocks = needed < resident ? needed : resident;
+  stream_probe_raw_kernel<W, H><<<(unsigned int)blocks, RAW_THREADS, 0,
+                                  (cudaStream_t)stream>>>(
       (const uint32_t*)matrix, n_words, (const int32_t*)blk,
       (const int32_t*)off, (const int32_t*)qc, (int32_t*)nhits,
-      (int32_t*)colorsum, (int32_t*)presmask, (int32_t*)counts, P, H);
+      (int32_t*)colorsum, (int32_t*)presmask, (int32_t*)counts, P);
   return (int)cudaGetLastError();
 }
 
+template <int W>
+int launch_raw_h(const void* matrix, int64_t n_words, const void* blk,
+                 const void* off, const void* qc, void* nhits, void* colorsum,
+                 void* presmask, void* counts, int64_t P, int32_t H,
+                 void* stream) {
+  switch (H) {
+    case 1:
+      return launch_raw<W, 1>(matrix, n_words, blk, off, qc, nhits, colorsum,
+                              presmask, counts, P, stream);
+    case 2:
+      return launch_raw<W, 2>(matrix, n_words, blk, off, qc, nhits, colorsum,
+                              presmask, counts, P, stream);
+    case 4:
+      return launch_raw<W, 4>(matrix, n_words, blk, off, qc, nhits, colorsum,
+                              presmask, counts, P, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// matrix must be 16-byte aligned and P a multiple of 32 (the wrapper
+// checks both, with P a multiple of PC = 2048).
 extern "C" int stream_probe_raw_launch(
     const void* matrix, int64_t n_words, const void* blk, const void* off,
     const void* qc, void* nhits, void* colorsum, void* presmask, void* counts,
     int64_t P, int32_t num_hash, int32_t wpad, void* stream) {
   if (P <= 0) return 0;
-  if (num_hash < 1 || num_hash > 4) return (int)cudaErrorInvalidValue;
+  if (P % 32 || ((uintptr_t)matrix & 15u)) return (int)cudaErrorInvalidValue;
 #define COLORID_STREAM_RAW_CASE(W)                                          \
   case W:                                                                   \
-    return launch_raw<W>(matrix, n_words, blk, off, qc, nhits, colorsum,    \
-                         presmask, counts, P, num_hash, stream)
+    return launch_raw_h<W>(matrix, n_words, blk, off, qc, nhits, colorsum,  \
+                           presmask, counts, P, num_hash, stream)
   switch (wpad) {
     COLORID_STREAM_RAW_CASE(1);
     COLORID_STREAM_RAW_CASE(2);

@@ -29,7 +29,7 @@ KERNELS = {
     "classic_word": (
         "classic_word.cu",
         "classic_word_launch",
-        [_VP, _I64, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _U32, _I32, _VP],
+        [_VP, _I64, _VP, _VP, _VP, _I64, _U32, _I32, _VP],
     ),
     "stream_probe": (
         "stream_probe.cu",

@@ -71,36 +71,34 @@ def _word_mask(planes: int) -> int:
     return 0xFFFFFFFF if planes >= 4 else (1 << (8 * planes)) - 1
 
 
-def classic_words_plain(blocks2, blk_s, off_s, tb, *, planes: int):
+def classic_words_plain(blocks2, row_s, tb, *, planes: int):
     """Plain PyTorch twin of the classic word kernel (same contract): for
-    each probe, the matrix word at row blk*128 + off masked to its low
-    8*planes bits when blk lies in its chunk's NT_CL-tile window starting
-    at block tb[chunk]*128, else the constant _deoffset(planes)."""
+    each sorted row probe, the matrix word at that row masked to its low
+    8*planes bits when its block (row >> 7) lies in its chunk's NT_CL-tile
+    window starting at block tb[chunk]*128, else the constant
+    _deoffset(planes)."""
     base = tb.to(torch.int64).repeat_interleave(PC_CL) * T
-    blk = blk_s.to(torch.int64)
-    off = off_s.to(torch.int64)
+    row = row_s.to(torch.int64)
+    blk = row >> 7
     flat = blocks2.reshape(-1)
-    idx = blk * 128 + off
-    inwin = (
-        (blk - base >= 0) & (blk - base < NT_CL * T)
-        & (off >= 0) & (off < 128) & (idx < flat.shape[0])
-    )
-    word = flat[torch.where(inwin, idx, 0)]
+    inwin = (blk - base >= 0) & (blk - base < NT_CL * T) & (row < flat.shape[0])
+    word = flat[torch.where(inwin, row, 0)]
     if planes < 4:
         word = word & _word_mask(planes)
     return torch.where(inwin, word, _deoffset(planes)).to(torch.int32)
 
 
-def classic_words(blocks2, blk_s, off_s, tb, *, planes: int):
+def classic_words(blocks2, row_s, tb, *, planes: int):
     """Per sorted probe, its classic row word (int32 [P]).
 
-    blocks2 int32 [Rb, 128] (the matrix, wpad == 1), blk_s/off_s int32 [P]
-    with P % PC_CL == 0, tb int32 [P // PC_CL] the first tile of each
-    chunk's window. A CUDA tensor launches csrc/classic_word.cu; a CPU
-    tensor takes the plain twin. ``classic_words.launches`` counts kernel
+    blocks2 int32 [Rb, 128] (the matrix, wpad == 1), row_s int32 [P] the
+    probes' rows sorted ascending, P % PC_CL == 0, tb int32 [P // PC_CL]
+    the first tile of each chunk's window. A CUDA tensor launches
+    csrc/classic_word.cu (row_s must be 16-byte aligned); a CPU tensor
+    takes the plain twin. ``classic_words.launches`` counts kernel
     launches."""
-    P = blk_s.shape[0]
-    tensors = (blocks2, blk_s, off_s, tb)
+    P = row_s.shape[0]
+    tensors = (blocks2, row_s, tb)
     if any(t.dtype != torch.int32 for t in tensors):
         raise TypeError("classic_words takes int32 tensors")
     if any(not t.is_contiguous() for t in tensors):
@@ -109,26 +107,28 @@ def classic_words(blocks2, blk_s, off_s, tb, *, planes: int):
         raise ValueError("classic_words: tensors on different devices")
     if blocks2.dim() != 2 or blocks2.shape[1] != 128:
         raise ValueError("classic_words: blocks2 must be [Rb, 128]")
-    if P % PC_CL or off_s.shape[0] != P or tb.shape[0] != P // PC_CL:
+    if row_s.dim() != 1 or P % PC_CL or tb.shape != (P // PC_CL,):
         raise ValueError(
             f"classic_words: P must be a multiple of {PC_CL} with one tb "
             "entry per chunk"
         )
     if not 1 <= planes <= 4:
         raise ValueError("classic_words: planes must be in 1..4")
-    dev = blk_s.device
+    dev = row_s.device
     if dev.type == "cpu":
-        return classic_words_plain(blocks2, blk_s, off_s, tb, planes=planes)
+        return classic_words_plain(blocks2, row_s, tb, planes=planes)
     if dev.type != "cuda":
         raise ValueError(f"classic_words: unsupported device {dev}")
+    if row_s.data_ptr() % 16:
+        raise ValueError("classic_words: row_s must be 16-byte aligned")
     out = torch.empty(P, dtype=torch.int32, device=dev)
     fn = kernels.kernel("classic_word")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            blocks2.data_ptr(), blocks2.numel(), blk_s.data_ptr(),
-            off_s.data_ptr(), tb.data_ptr(), out.data_ptr(), P, PC_CL, NT_CL,
-            _word_mask(planes), _deoffset(planes), stream,
+            blocks2.data_ptr(), blocks2.numel(), row_s.data_ptr(),
+            tb.data_ptr(), out.data_ptr(), P, _word_mask(planes),
+            _deoffset(planes), stream,
         )
     if err:
         raise RuntimeError(f"classic_word kernel launch failed: CUDA error {err}")
@@ -140,23 +140,24 @@ classic_words.launches = 0
 
 
 def classic_plan(row_s: torch.Tensor, n_blocks: int):
-    """Kernel inputs for sorted int32 rows [P] (P % PC_CL == 0) over a
-    matrix of n_blocks 128-word blocks: (blk_s, off_s, tb, inwin2d) with
-    tb the first tile of each chunk's window (clamped so the window stays
-    inside the matrix) and inwin2d [P // PC_CL, PC_CL] the probes the
-    kernel serves from that window."""
-    blk_s = row_s >> 7
-    return blk_s, row_s & 127, *_window_plan(blk_s, n_blocks, PC_CL, NT_CL)
+    """The window plan for sorted int32 rows [P] (P % PC_CL == 0) over a
+    matrix of n_blocks 128-word blocks: (tb, inwin2d) with tb the first
+    tile of each chunk's window (clamped so the window stays inside the
+    matrix) and inwin2d [P // PC_CL, PC_CL] the probes the kernel serves
+    from that window."""
+    return _window_plan(row_s, n_blocks, PC_CL, NT_CL, unit=T)
 
 
-def _window_plan(blk_s: torch.Tensor, n_blocks: int, pc: int, nt: int):
-    """For sorted blocks cut into chunks of pc probes: tb int32 [P // pc],
-    the first tile of each chunk's nt-tile window (clamped so the window
-    stays inside the matrix), and inwin2d bool [P // pc, pc], the probes
-    whose block lies in their chunk's window."""
-    blk2d = blk_s.view(-1, pc)
-    tb = torch.clamp(blk2d[:, 0] // T, 0, n_blocks // T - nt).to(torch.int32)
-    return tb, (blk2d - tb[:, None] * T) < nt * T
+def _window_plan(keys: torch.Tensor, n_blocks: int, pc: int, nt: int,
+                 unit: int = 1):
+    """For sorted keys (block * unit + a lane below unit: blocks for the
+    probe streams, rows for the classic one) cut into chunks of pc probes:
+    tb int32 [P // pc], the first tile of each chunk's nt-tile window
+    (clamped so the window stays inside the matrix), and inwin2d bool
+    [P // pc, pc], the probes whose block lies in their chunk's window."""
+    k2d = keys.view(-1, pc)
+    tb = torch.clamp(k2d[:, 0] // (T * unit), 0, n_blocks // T - nt).to(torch.int32)
+    return tb, k2d < (tb[:, None].to(torch.int64) + nt) * (T * unit)
 
 
 def stream_accumulate_classic_exact(
@@ -188,9 +189,9 @@ def stream_accumulate_classic_exact(
     H = num_hash
     rows = bloom_rows_device(packed, k=k, num_hash=H, bloom_size=bloom_size)
     row_s, gidx_s = torch.sort(rows.reshape(-1))
-    blk_s, off_s, tb, inwin2d = classic_plan(row_s, blocks2.shape[0])
+    tb, inwin2d = classic_plan(row_s, blocks2.shape[0])
     n_chunks = tb.shape[0]
-    words = classic_words(blocks2, blk_s, off_s, tb, planes=_n_planes(n_colors))
+    words = classic_words(blocks2, row_s, tb, planes=_n_planes(n_colors))
 
     # chunk-granular residual patch: probes outside their chunk's window
     # live in a few low-density chunks; the first NCH_CL such chunks re-read
@@ -452,8 +453,9 @@ def stream_probe_raw(blocks2, blk_s, off_s, qc_s, counts, *,
     nonzero word in this shard; every set bit c adds 1 to counts[c] (int32
     [32 * wpad]). A probe with qc == 0 gives three zeros and counts nothing.
 
-    A CUDA tensor launches csrc/stream_probe.cu (its raw entry point); a
-    CPU tensor takes the plain twin. ``stream_probe_raw.launches`` counts
+    A CUDA tensor launches csrc/stream_probe.cu (its raw entry point, which
+    loads rows as 16-byte vectors: blocks2 must be 16-byte aligned); a CPU
+    tensor takes the plain twin. ``stream_probe_raw.launches`` counts
     kernel launches."""
     _check_probe_args("stream_probe_raw", (blocks2, blk_s, off_s, qc_s, counts),
                       num_hash, wpad)
@@ -467,6 +469,8 @@ def stream_probe_raw(blocks2, blk_s, off_s, qc_s, counts, *,
         )
     if dev.type != "cuda":
         raise ValueError(f"stream_probe_raw: unsupported device {dev}")
+    if blocks2.data_ptr() % 16:
+        raise ValueError("stream_probe_raw: blocks2 must be 16-byte aligned")
     nhits, colorsum, presmask = (
         torch.empty(P, dtype=torch.int32, device=dev) for _ in range(3)
     )

@@ -1,0 +1,51 @@
+"""The byte accounting behind chip_smoke.py's kernel bounds (the least time
+the card could take: bytes over the memory rate), on tiny cases counted by
+hand. The bounds run on CPU tensors as on the card's."""
+
+import torch
+
+import chip_smoke as cs
+
+
+def _i32(*v):
+    return torch.tensor(v, dtype=torch.int32)
+
+
+def test_sectors_of_narrow_and_wide_rows():
+    starts = torch.tensor([0, 1, 7, 8, 100], dtype=torch.int64)
+    assert cs.sectors(starts, 1) == 3  # words 0-7, 8-15 and 96-103
+    # rows of 32 words start at multiples of 32 and cover 4 sectors each
+    assert cs.sectors(torch.tensor([0, 32, 32, 96]), 32) == 3 * 4
+
+
+def test_classic_bytes_counts_rows_words_tb_and_sectors():
+    row_s = _i32(0, 1, 7, 8, 9, 100, 70_000)
+    inwin = torch.tensor([True] * 6 + [False])  # the last row is read elsewhere
+    n_bytes, n_sectors = cs.classic_bytes(row_s, inwin, 1)
+    assert n_sectors == 3  # rows 0-7, 8-15 and 96-103
+    assert n_bytes == 7 * (4 + 4) + 1 * 4 + 3 * 32
+    # the coarser count: 12 bytes per probe, tb, 4 bytes per distinct word
+    assert cs.classic_bytes_by_word(row_s, 1) == 7 * 12 + 4 + 7 * 4
+    assert cs.classic_bytes_by_word(_i32(5, 5, 6, 6), 1) == 4 * 12 + 4 + 2 * 4
+
+
+def test_raw_bytes_at_wpad_32_count_four_sectors_a_row():
+    # two hashes, 8 bits of in-block row offset each; a row is 32 words
+    blk = _i32(0, 0, 1, 3)
+    off = _i32(0 | 1 << 8, 0 | 2 << 8, 3 | 0 << 8, 1 | 1 << 8)
+    qc = _i32(1, 5, 0, 2)  # the third probe is not counted: its rows are not read
+    n_bytes, n_sectors = cs.probe_bytes(blk, off, qc, 32, 2, 24, 1024)
+    # rows at words 0, 32, 64 (block 0) and 416 (block 3, row 1, twice)
+    assert n_sectors == 4 * 4
+    assert n_bytes == 4 * 24 + 16 * 32 + 2 * 4 * 1024
+
+
+def test_probe_bytes_at_wpad_1_share_sectors():
+    # four hashes of one-word rows: rows 0-7 of a block share a sector
+    blk = _i32(2, 2)
+    off = _i32(0 | 3 << 8 | 9 << 16 | 127 << 24, 1 | 2 << 8 | 4 << 16 | 5 << 24)
+    qc = _i32(1, 1)
+    n_bytes, n_sectors = cs.probe_bytes(blk, off, qc, 1, 4, 16, 32 + 32 * 1024)
+    # block 2's sectors of rows 0-7, 8-15 and 120-127
+    assert n_sectors == 3
+    assert n_bytes == 2 * 16 + 3 * 32 + 2 * 4 * (32 + 32 * 1024)

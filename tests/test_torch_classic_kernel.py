@@ -14,15 +14,15 @@ from tests import torch_support as ts
 
 
 def _port_plan(blocks, rows):
-    b2 = torch.from_numpy(blocks.view(np.int32))
-    return (b2,) + sq.classic_plan(torch.from_numpy(rows), blocks.shape[0])
+    b2, row_s = torch.from_numpy(blocks.view(np.int32)), torch.from_numpy(rows)
+    return (b2, row_s) + sq.classic_plan(row_s, blocks.shape[0])
 
 
 @pytest.mark.parametrize("planes", [1, 2, 3, 4])
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
 def test_twin_matches_jax_kernel(kind, planes):
     blocks, rows = ts.classic_case(kind, seed=planes)
-    b2, blk_s, off_s, tb, inwin2d = _port_plan(blocks, rows)
+    b2, row_s, tb, inwin2d = _port_plan(blocks, rows)
     # the chunk windows follow the JAX stream's formula exactly
     firsts = (rows >> 7).reshape(-1, sq.PC_CL)[:, 0]
     want_tb = np.clip(firsts // sq.T, 0, blocks.shape[0] // sq.T - 2)
@@ -33,11 +33,12 @@ def test_twin_matches_jax_kernel(kind, planes):
     else:
         assert n_out == 0
     before = sq.classic_words.launches
-    got = sq.classic_words(b2, blk_s, off_s, tb, planes=planes).numpy()
+    got = sq.classic_words(b2, row_s, tb, planes=planes).numpy()
     assert sq.classic_words.launches == before  # the twin is no launch
+    # the JAX kernel takes each row as its block and lane
     want = np.asarray(
         jsq._classic_call(
-            jsq.byte_plane_blocks(blocks), blk_s.numpy(), off_s.numpy(),
+            jsq.byte_plane_blocks(blocks), rows >> 7, rows & 127,
             tb.numpy(), planes=planes, nt=2, pc=jsq.PC_CL,
         )
     )
@@ -66,15 +67,15 @@ def test_constants_match_jax():
 
 def test_wrapper_rejects_bad_inputs():
     blocks, rows = ts.classic_case("dense", seed=0)
-    b2, blk_s, off_s, tb, _ = _port_plan(blocks, rows)
+    b2, row_s, tb, _ = _port_plan(blocks, rows)
     with pytest.raises(TypeError):
-        sq.classic_words(b2, blk_s.to(torch.int64), off_s, tb, planes=1)
+        sq.classic_words(b2, row_s.to(torch.int64), tb, planes=1)
     with pytest.raises(ValueError):
-        sq.classic_words(b2, blk_s[:-1], off_s[:-1], tb, planes=1)
+        sq.classic_words(b2, row_s[:-1], tb, planes=1)
     with pytest.raises(ValueError):
-        sq.classic_words(b2, blk_s, off_s, tb[:-1], planes=1)
+        sq.classic_words(b2, row_s, tb[:-1], planes=1)
     with pytest.raises(ValueError):
-        sq.classic_words(b2.t(), blk_s, off_s, tb, planes=1)
+        sq.classic_words(b2.t(), row_s, tb, planes=1)
     with pytest.raises(ValueError):
-        sq.classic_words(b2, blk_s, off_s, tb, planes=5)
+        sq.classic_words(b2, row_s, tb, planes=5)
 

@@ -24,19 +24,25 @@ from tests.torch_support import cuda_device  # noqa: F401 (fixture)
 
 def _plan(blocks, rows, device):
     b2 = torch.from_numpy(blocks.view(np.int32)).to(device)
-    return (b2,) + sq.classic_plan(torch.from_numpy(rows).to(device), blocks.shape[0])
+    row_s = torch.from_numpy(rows).to(device)
+    return (b2, row_s) + sq.classic_plan(row_s, blocks.shape[0])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["dense", "sparse"])
+@pytest.mark.parametrize("kind", ["dense", "sparse", "one_chunk"])
 def test_kernel_matches_twin(cuda_device, kind):
-    blocks, rows = ts.classic_case(kind, seed=7)
-    b2, blk_s, off_s, tb, inwin2d = _plan(blocks, rows, cuda_device)
+    """Dense probes, sparse ones with out-of-window probes, and a batch of
+    exactly one chunk (one tb entry)."""
+    if kind == "one_chunk":
+        blocks, rows = ts.classic_case("dense", seed=7, n_chunks=1)
+    else:
+        blocks, rows = ts.classic_case(kind, seed=7)
+    b2, row_s, tb, inwin2d = _plan(blocks, rows, cuda_device)
     assert (int((~inwin2d).sum()) > 0) == (kind == "sparse")
     for planes in (1, 2, 3, 4):
-        want = sq.classic_words_plain(b2, blk_s, off_s, tb, planes=planes)
+        want = sq.classic_words_plain(b2, row_s, tb, planes=planes)
         before = sq.classic_words.launches
-        got = sq.classic_words(b2, blk_s, off_s, tb, planes=planes)
+        got = sq.classic_words(b2, row_s, tb, planes=planes)
         torch.cuda.synchronize()
         assert sq.classic_words.launches == before + 1
         assert got.device.type == "cuda" and got.dtype == torch.int32
@@ -46,9 +52,14 @@ def test_kernel_matches_twin(cuda_device, kind):
 @pytest.mark.cuda
 def test_kernel_refuses_mixed_devices(cuda_device):
     blocks, rows = ts.classic_case("dense", seed=1)
-    b2, blk_s, off_s, tb, _ = _plan(blocks, rows, cuda_device)
+    b2, row_s, tb, _ = _plan(blocks, rows, cuda_device)
     with pytest.raises(ValueError, match="different devices"):
-        sq.classic_words(b2.cpu(), blk_s, off_s, tb, planes=4)
+        sq.classic_words(b2.cpu(), row_s, tb, planes=4)
+    # the kernel loads rows as 16-byte vectors
+    buf = torch.zeros(row_s.numel() + 1, dtype=torch.int32, device=cuda_device)
+    buf[1:] = row_s
+    with pytest.raises(ValueError, match="aligned"):
+        sq.classic_words(b2, buf[1:], tb, planes=4)
 
 
 @pytest.mark.cuda
@@ -172,15 +183,23 @@ def _sparse_qc(qc):
     return torch.where(live, qc, 0)
 
 
+# one color count per wpad (1, 2, 4, 8, 16, 32: every lane-group width of
+# the raw kernel) times every hash count, and two sparse batches
+RAW_CASES = [(C, H, False) for C in (21, 60, 100, 200, 512, 1024) for H in (1, 2, 4)]
+RAW_CASES += [(1024, 2, True), (21, 1, True)]  # the first: the color-sharded path's shape
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,num_hash,thin,sparse", [
-    (1024, 2, 5, False), (1024, 2, 5, True),  # the color-sharded path's shape
-    (200, 4, 3, False), (21, 4, 1, False), (21, 1, 4, True), (512, 2, 5, False),
-])
-def test_raw_kernel_matches_twin(cuda_device, C, num_hash, thin, sparse):
+@pytest.mark.parametrize("C,num_hash,sparse", RAW_CASES)
+def test_raw_kernel_matches_twin(cuda_device, C, num_hash, sparse):
+    # color bits thin enough that the AND over the hashes leaves single
+    # and multiple hits: about one set bit per probe
+    thin = max(1, round(np.log2(C) / num_hash))
     b2, wpad, blk, off, qc = _probe(ts.probe_case(C, num_hash, seed=C, thin=thin), cuda_device)
     if sparse:
         qc = _sparse_qc(qc)
+    # the last probes' blocks lie beyond the matrix: all-zero rows
+    blk[-40:] = b2.shape[0] + torch.arange(40, device=cuda_device, dtype=torch.int32)
     kw = dict(num_hash=num_hash, wpad=wpad)
     outs = []
     for fn in (sq.stream_probe_raw_plain, sq.stream_probe_raw):
@@ -196,6 +215,7 @@ def test_raw_kernel_matches_twin(cuda_device, C, num_hash, thin, sparse):
     nh, cs, pm, _counts = outs[1]
     assert (nh == 1).any() and (nh > 1).any() and (pm == (1 << num_hash) - 1).any()
     assert not (nh[qc == 0].any() or cs[qc == 0].any() or pm[qc == 0].any())
+    assert not (nh[-40:].any() or pm[-40:].any())
 
 
 @pytest.mark.cuda
@@ -212,6 +232,12 @@ def test_raw_kernel_refuses_mixed_devices_and_bad_blocks(cuda_device):
     assert not any(t.any() for t in got) and int(counts.sum()) == 0
     for g, w in zip(got, sq.stream_probe_raw_plain(b2, far, off, qc, counts, **kw)):
         assert torch.equal(g, w)
+    # the kernel loads rows as 16-byte vectors: a matrix that is not
+    # 16-byte aligned is refused, not served by a slower path
+    buf = torch.zeros(b2.numel() + 1, dtype=torch.int32, device=cuda_device)
+    buf[1:] = b2.reshape(-1)
+    with pytest.raises(ValueError, match="aligned"):
+        sq.stream_probe_raw(buf[1:].view(-1, 128), blk, off, qc, counts, **kw)
 
 
 def _assert_same_search(got, want):

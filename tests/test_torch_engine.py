@@ -129,7 +129,7 @@ def _n_residual(packed, num_hash, bloom, n_blocks):
         torch.from_numpy(pk.view(np.int32)), k=K, num_hash=num_hash, bloom_size=bloom
     )
     row_s, _ = torch.sort(rows.reshape(-1))
-    return int((~tsq.classic_plan(row_s, n_blocks)[3]).sum())
+    return int((~tsq.classic_plan(row_s, n_blocks)[1]).sum())
 
 
 @pytest.mark.parametrize(
