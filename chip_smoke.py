@@ -11,7 +11,8 @@ Phases, each printing its lines (any failure exits non-zero):
    against its plain PyTorch twin on the card at its main path's shapes
    (bitwise), with its time, the twin's, one PyTorch library call's where
    one computes the same function, and the least time the card could take
-   (bound).
+   (bound); stream_probe_raw also on stream_probe's inputs, as the time of
+   the gather that both share.
 3. main path, twice, through the port's CLI at the bench configuration's
    size (21 synthetic ~3 Mbp genomes, -k 31 -n 4 -s 50000000; search -f 1
    on 400,000 x 150 bp reads from 3 of them; search -s on one genome):
@@ -22,7 +23,9 @@ Phases, each printing its lines (any failure exits non-zero):
 4. parity, for each index: the same search_keys through the generic gather
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
    both paths and for the device-resident dispatches, and one
-   device-resident stream dispatch's device time by kernel (torch.profiler).
+   device-resident stream dispatch's device time by kernel (torch.profiler);
+   the probe kernel on the inputs that the blocked dispatch hands it, against
+   its twin and timed alone ("real segment").
 
 5. sharded paths on a logical mesh, every shard on the one card:
    - color layout at full width: a seeded 4,096-color, H = 2, k = 31, v4
@@ -266,6 +269,11 @@ def probe_kernel_phase(card: str) -> dict:
     ms = cuda_ms(lambda: sq.stream_probe(blocks2, blk_s, off_s, qc, counts, hist, **kw), 20)
     plain_ms = cuda_ms(
         lambda: sq.stream_probe_plain(blocks2, blk_s, off_s, qc, counts, hist, **kw), 3)
+    # the gather alone: the raw kernel does the same gather, AND and counts
+    # and stores its facts unfolded (12 bytes a probe where this stores 4)
+    raw_counts = torch.zeros(32 * wpad, dtype=torch.int32, device=dev)
+    gather_ms = cuda_ms(lambda: sq.stream_probe_raw(
+        blocks2, blk_s, off_s, qc, raw_counts, num_hash=HASHES, wpad=wpad), 20)
     # the bound: each probe's 12 bytes in and 4 out, the accumulators in and
     # out, and the sectors of the counted probes' rows
     n_bytes, n_sectors = probe_bytes(blk_s, off_s, qc, wpad, HASHES, 16,
@@ -273,7 +281,10 @@ def probe_kernel_phase(card: str) -> dict:
     bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     log(f"[kernel] stream_probe P={P} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms=null (no single PyTorch call gathers, ANDs and counts) "
-        f"bound_ms={bound_ms:.4f} (bytes={n_bytes}, sectors={n_sectors}) on {card}")
+        f"bound_ms={bound_ms:.4f} (bytes={n_bytes}, sectors={n_sectors}); "
+        f"histogram band hf={sq._hist_band(*shape)} of hw={shape[1]} on {card}")
+    log(f"[kernel] stream_probe gather-only yardstick: stream_probe_raw on the same "
+        f"inputs ms={gather_ms:.4f} (stream_probe {ms:.4f}) on {card}")
     del kept, blocks2, blk_s, off_s, qc
     torch.cuda.empty_cache()
     return {
@@ -288,6 +299,7 @@ def probe_kernel_phase(card: str) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "gather_only_ms": gather_ms,
     }
 
 
@@ -688,10 +700,12 @@ def classic_parity_phase(bxi: str, fq: str, card: str) -> None:
         )
 
 
-def blocked_parity_phase(bxi: str, fq: str, card: str) -> None:
+def blocked_parity_phase(bxi: str, fq: str, card: str):
     """The blocked index: search_keys with the probe stream against the
     generic gather, the two device-resident dispatches against both, their
-    rates, and the profile of one device-resident stream dispatch."""
+    rates, and the profile of one device-resident stream dispatch. On the
+    card also the probe kernel on the real segment's inputs (see
+    real_segment); returns its ms there, or None on the CPU."""
     import numpy as np
     import torch
 
@@ -763,8 +777,58 @@ def blocked_parity_phase(bxi: str, fq: str, card: str) -> None:
         f"device_resident_generic={max(dev_rates['generic']):.0f} "
         f"(best of 2 host-clock runs each; device-resident: mean of {reps} "
         f"dispatches of {P} slots, max_freq={max_freq} in_key={in_key}) on {card}")
-    if DEVICE == "cuda":
-        profile_dispatch(lambda: dispatches["stream"]()[0], "blocked", card)
+    if DEVICE != "cuda":
+        return None
+    profile_dispatch(lambda: dispatches["stream"]()[0], "blocked", card)
+    return real_segment(dispatches["stream"], card)
+
+
+def real_segment(dispatch, card: str) -> float:
+    """The probe kernel on the inputs that the device-resident blocked
+    dispatch hands it (the real query's sorted, windowed probes): kernel
+    against twin bitwise, and the kernel's time alone."""
+    import torch
+
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    kernel = sq.stream_probe
+    calls = []
+
+    def observed(*a, **kw):
+        calls.append((a, kw))
+        return kernel(*a, **kw)
+
+    # the kernel counts its launches on the module's name, the observer now
+    observed.launches = kernel.launches
+    sq.stream_probe = observed
+    try:
+        dispatch()
+        torch.cuda.synchronize()
+    finally:
+        sq.stream_probe = kernel
+        kernel.launches = observed.launches
+    a, kw = max(calls, key=lambda c: c[0][1].numel())
+    blocks2, blk_s, off_s, qc, counts, hist = a
+    outs = []
+    for fn in (sq.stream_probe, sq.stream_probe_plain):
+        acc = (torch.zeros_like(counts), torch.zeros_like(hist))
+        outs.append((fn(blocks2, blk_s, off_s, qc, *acc, **kw), *acc))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(*outs))
+    uniq, _counts, h = outs[0]
+    q_hit = qc[uniq >= 0]
+    if not q_hit.numel():
+        raise AssertionError("the real segment has no unique hit to check")
+    acc = (torch.zeros_like(counts), torch.zeros_like(hist))
+    ms = cuda_ms(lambda: sq.stream_probe(blocks2, blk_s, off_s, qc, *acc, **kw), 20)
+    log(f"[kernel] stream_probe real segment: P={blk_s.numel()} (of {len(calls)} "
+        f"segment(s) in the dispatch) counted={int((qc > 0).sum())} "
+        f"unique_hits={int(q_hit.numel())} frequencies {int(q_hit.min())}-{int(q_hit.max())} "
+        f"on {int((h > 0).sum())} histogram cells; bitwise_equal={equal} ms={ms:.4f} "
+        f"on {card}")
+    if not equal:
+        raise AssertionError("stream_probe kernel != twin on the real segment")
+    return ms
 
 
 # -- phase 5: the sharded paths on a logical mesh -----------------------------
@@ -1108,6 +1172,32 @@ def rowshard_phase(bxi: str, fq: str, card: str) -> int:
     return launches
 
 
+def ptxas_summary(logs) -> list[str]:
+    """One entry per compiled kernel instance from nvcc's -Xptxas -v
+    reports: its name with template arguments (stream_probe_kernel<1,4> is
+    W = 1, H = 4), registers, static shared memory and spills."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in (l for log in logs for l in log.splitlines()):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the identifier runs from the last digit of its length prefix
+            k = re.search(r"([A-Za-z_]+_kernel)(?:I((?:Li-?\d+E)+)E)?", m.group(1))
+            vals = re.findall(r"Li(-?\d+)E", k.group(2) or "") if k else []
+            name = (k.group(1) + (f"<{','.join(vals)}>" if vals else "")) if k else m.group(1)
+        elif "spill" in line:
+            spill = "no spills" if re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                                             line) else line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name} {regs.group(1) if regs else '?'} registers "
+                       f"{smem.group(1) if smem else 0} B smem {spill}")
+            name, spill = None, ""
+    return out
+
+
 def profile_dispatch(fn, what: str, card: str) -> None:
     """Where one stream dispatch spends its device time:
     torch.profiler's per-kernel device totals, and the device's idle share
@@ -1173,7 +1263,7 @@ def main() -> int:
     t0 = time.time()
     kernels.build_all()
     log(f"[card] kernels built in {time.time() - t0:.1f}s (set-up); "
-        f"ptxas: {' | '.join(l for v in kernels.build_log.values() for l in v.splitlines() if 'registers' in l or 'spill' in l)}")
+        f"ptxas: {' | '.join(ptxas_summary(kernels.build_log.values()))}")
     classic_row = classic_kernel_phase(card)
     probe_row = probe_kernel_phase(card)
     raw_row = raw_kernel_phase(card)
@@ -1186,7 +1276,7 @@ def main() -> int:
         classic_bxi, classic_row["launches"] = classic_path_phase(tmp, inputs, card)
         blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
         classic_parity_phase(classic_bxi, inputs[1], card)
-        blocked_parity_phase(blocked_bxi, inputs[1], card)
+        probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
         probe_row["launches"] += rowshard_phase(blocked_bxi, inputs[1], card)
         torch.cuda.empty_cache()
         raw_row["launches"] = colorshard_phase(card)

@@ -1,255 +1,115 @@
 // Sorted-stream probe kernels for blocked (split-lane) indexes on Hopper
-// (sm_90a): the folding kernel of the single-device stream and the raw
-// kernel of the color-sharded stream (second half of this file).
+// (sm_90a): one gather, two epilogues, as the TPU kernel is one body with a
+// raw flag.
 //
-// stream_probe_kernel replaces
-// colorid_tpu/ops/stream_query.py::_stream_kernel in normal mode (reached
-// through _stream_call), the Pallas kernel of the JAX package's blocked
-// stream.
+// Which TPU kernel each entry point replaces:
+// - stream_probe_launch (stream_probe_kernel) replaces
+//   colorid_tpu/ops/stream_query.py::_stream_kernel in normal mode (reached
+//   through _stream_call), the probe kernel of the single-device blocked
+//   stream and of each shard of the row mesh;
+// - stream_probe_raw_launch (stream_probe_raw_kernel) replaces the same
+//   _stream_kernel in raw mode (reached through _stream_call_raw), the local
+//   pass of the color-sharded stream.
 //
-// What it computes, per probe i of P probes sorted ascending by block
-// (one probe = one query k-mer; its H Bloom rows share the 512-byte block
-// blk[i] of the [Rb, 128] u32 matrix, row h at in-block offset
-// (off[i] >> 8h) & 0xFF, each row W = wpad words wide):
+// What both gather, per probe i of P probes sorted ascending by block (one
+// probe = one query k-mer; its H Bloom rows share the 512-byte block blk[i]
+// of the [Rb, 128] u32 matrix, row h at in-block offset (off[i] >> 8h) &
+// 0xFF, each row W = wpad words wide), for qc[i] > 0:
 //   and_w[w] = AND over h of matrix[blk, off_h * W + w]
-//   present  = every row h has some nonzero word
 //   nhits    = popcount of and_w over all 32 * W bits
-//   uniq[i]  = the one set bit's index (the color) when qc[i] > 0, present
-//              and nhits == 1; -1 when qc[i] > 0 and present otherwise;
-//              -2 when qc[i] == 0 (padding, or a probe the caller keeps
-//              for its residual pass) or some row is absent
-//   counts[c] += 1 for every set bit c of and_w, when qc[i] > 0
+//   colorsum = the sum of the indices of and_w's set bits (the color itself
+//              where nhits == 1)
+//   presmask = bit h set iff row h has a nonzero word
+//   counts[c] += 1 for every set bit c of and_w
+// A probe with qc[i] == 0 (padding, or a probe the caller keeps for its
+// residual pass) reads nothing and counts nothing. A block outside the
+// matrix, or a row that would leave its block, reads as an all-zero row.
+//
+// Normal mode folds the facts (the color count of the single-device or
+// row-sharded matrix is the whole index's, so presence and uniqueness are
+// decided here):
+//   uniq[i] = colorsum when present (presmask == 2^H - 1) and nhits == 1;
+//             -1 when present otherwise; -2 when absent or qc[i] == 0
 //   hist[color * hw + qc[i]] += 1 for a unique hit with qc[i] < hw
 // counts [32 * W] and hist [cp, hw] are ADDED INTO. The plain PyTorch twin
-// (ops/stream_query.py::stream_probe_plain) has the same contract, and both
-// agree bit for bit with the JAX kernel's uniq / counts / hist outputs.
+// is ops/stream_query.py::stream_probe_plain.
 //
-// What bounds it on an H100: bytes. Each probe reads 12 bytes and writes 4,
-// plus the 32-byte sectors of the blocks the probes touch (at most the
-// whole matrix once), against 3.35 TB/s of HBM; per probe it does a few
-// ANDs, one popcount per word and a handful of integer atomics.
+// Raw mode: the matrix is ONE color shard's slice of every row, so
+// uniqueness and presence span the shards and are decided by the caller
+// (parallel/sharded.py::stream_batch_colorshard); nhits, colorsum and
+// presmask come out per probe (three zeros where qc[i] == 0), and counts is
+// added into. Its twin is ops/stream_query.py::stream_probe_raw_plain. Both
+// twins agree bit for bit with the JAX kernel's outputs.
 //
-// What the design does about that: one thread per probe with direct global
-// loads. The TPU kernel's int8 byte planes, its one-hot MXU row select, the
-// lane-gather AND trees and the one-hot histogram contraction exist only
-// because that device cannot index rows dynamically and has no atomics;
-// here the H rows are read as they are, __popc/__ffs give nhits and the
-// color, and the two small accumulators take integer atomics (exact, and
-// identical from run to run). Probes arrive sorted by block, so a warp's
-// loads fall into few blocks. Per-color counts go through a shared-memory
-// copy that is flushed with one global atomic per color and thread block;
-// histogram hits are merged across the warp first (__match_any_sync), since
-// a dense query sends most of its probes to a few (color, frequency) cells.
-// The tile window of the TPU kernel is not carried over: any block can be
-// read, and the result does not depend on it.
+// What bounds them on an H100: bytes (chip_smoke.py::probe_bytes): 12 bytes
+// of probe streams in per probe, 4 bytes out (normal: uniq) or 12 (raw:
+// three facts), the accumulators in and out, and the 32-byte sectors of the
+// rows that the counted probes read (a row of W <= 8 words lies in one
+// sector, a wider one covers W / 8), against 3.35 TB/s.
 //
-// The folding kernel's per-probe gather/AND is a __device__ function of
-// its own (probe_and); the raw kernel has its own lane-group gather.
-//
-// Bound to Python with ctypes (colorid_tpu_torch/ops/kernels.py): a plain
-// C entry point per kernel that launches on the caller's stream and
-// returns cudaGetLastError().
-
-#include <cstdint>
-#include <cuda_runtime.h>
-
-// and_w[0..W) = AND over the H rows' words; returns the presence mask (bit
-// h set iff row h has a nonzero word). A block index outside the matrix
-// reads as all-zero rows.
-template <int W>
-__device__ __forceinline__ uint32_t probe_and(
-    const uint32_t* __restrict__ matrix, int64_t n_words, int64_t blk,
-    uint32_t off, int H, uint32_t (&and_w)[W]) {
-#pragma unroll
-  for (int w = 0; w < W; w++) and_w[w] = 0xFFFFFFFFu;
-  const int64_t base = blk * 128;
-  if (blk < 0 || base + 128 > n_words) {
-#pragma unroll
-    for (int w = 0; w < W; w++) and_w[w] = 0u;
-    return 0u;
-  }
-  uint32_t pres = 0u;
-  for (int h = 0; h < H; h++) {
-    const uint32_t o = (off >> (8 * h)) & 0xFFu;
-    uint32_t any = 0u;
-    if (o * W + W <= 128u) {
-      const uint32_t* row = matrix + base + o * W;
-#pragma unroll
-      for (int w = 0; w < W; w++) {
-        const uint32_t v = __ldg(row + w);
-        any |= v;
-        and_w[w] &= v;
-      }
-    } else {
-#pragma unroll
-      for (int w = 0; w < W; w++) and_w[w] = 0u;
-    }
-    pres |= (any != 0u ? 1u : 0u) << h;
-  }
-  return pres;
-}
-
-template <int W>
-__global__ void stream_probe_kernel(
-    const uint32_t* __restrict__ matrix, int64_t n_words,
-    const int32_t* __restrict__ blk, const int32_t* __restrict__ off,
-    const int32_t* __restrict__ qc, int32_t* __restrict__ uniq,
-    int32_t* __restrict__ counts, int32_t* __restrict__ hist, int64_t P,
-    int32_t H, int32_t cp, int32_t hw) {
-  __shared__ int32_t s_counts[32 * W];
-  for (int c = threadIdx.x; c < 32 * W; c += blockDim.x) s_counts[c] = 0;
-  __syncthreads();
-
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t hidx = -1;  // histogram cell of a unique hit, else none
-  if (i < P) {
-    const int32_t q = qc[i];
-    int32_t u = -2;
-    if (q > 0) {
-      uint32_t and_w[W];
-      const uint32_t pres =
-          probe_and<W>(matrix, n_words, blk[i], (uint32_t)off[i], H, and_w);
-      int nhits = 0;
-      int color = 0;
-#pragma unroll
-      for (int w = 0; w < W; w++) {
-        uint32_t v = and_w[w];
-        if (v) {
-          nhits += __popc(v);
-          color = 32 * w + __ffs(v) - 1;
-          while (v) {
-            const int b = __ffs(v) - 1;
-            atomicAdd(&s_counts[32 * w + b], 1);
-            v &= v - 1;
-          }
-        }
-      }
-      if (pres == (1u << H) - 1u) {
-        u = -1;
-        if (nhits == 1) {
-          u = color;
-          if (q < hw && color < cp) hidx = (int64_t)color * hw + q;
-        }
-      }
-    }
-    uniq[i] = u;
-  }
-
-  // one global atomic per distinct histogram cell in the warp
-  const unsigned hitters = __ballot_sync(0xFFFFFFFFu, hidx >= 0);
-  if (hidx >= 0) {
-    const unsigned peers = __match_any_sync(hitters, hidx);
-    if ((threadIdx.x & 31) == __ffs(peers) - 1)
-      atomicAdd(&hist[hidx], __popc(peers));
-  }
-
-  __syncthreads();
-  for (int c = threadIdx.x; c < 32 * W; c += blockDim.x) {
-    const int32_t v = s_counts[c];
-    if (v) atomicAdd(&counts[c], v);
-  }
-}
-
-template <int W>
-static int launch(const void* matrix, int64_t n_words, const void* blk,
-                  const void* off, const void* qc, void* uniq, void* counts,
-                  void* hist, int64_t P, int32_t H, int32_t cp, int32_t hw,
-                  void* stream) {
-  const int threads = 256;
-  const int64_t blocks = (P + threads - 1) / threads;
-  stream_probe_kernel<W><<<(unsigned int)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(
-      (const uint32_t*)matrix, n_words, (const int32_t*)blk,
-      (const int32_t*)off, (const int32_t*)qc, (int32_t*)uniq,
-      (int32_t*)counts, (int32_t*)hist, P, H, cp, hw);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int stream_probe_launch(
-    const void* matrix, int64_t n_words, const void* blk, const void* off,
-    const void* qc, void* uniq, void* counts, void* hist, int64_t P,
-    int32_t num_hash, int32_t wpad, int32_t cp, int32_t hw, void* stream) {
-  if (P <= 0) return 0;
-  if (num_hash < 1 || num_hash > 4) return (int)cudaErrorInvalidValue;
-#define COLORID_STREAM_CASE(W)                                              \
-  case W:                                                                   \
-    return launch<W>(matrix, n_words, blk, off, qc, uniq, counts, hist, P,  \
-                     num_hash, cp, hw, stream)
-  switch (wpad) {
-    COLORID_STREAM_CASE(1);
-    COLORID_STREAM_CASE(2);
-    COLORID_STREAM_CASE(4);
-    COLORID_STREAM_CASE(8);
-    COLORID_STREAM_CASE(16);
-    COLORID_STREAM_CASE(32);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef COLORID_STREAM_CASE
-}
-
-// --- raw mode ----------------------------------------------------------------
-//
-// stream_probe_raw_kernel replaces
-// colorid_tpu/ops/stream_query.py::_stream_kernel in raw mode (raw=True,
-// reached through _stream_call_raw), the local pass of the color-sharded
-// stream: the matrix is ONE color shard's slice of every row (32 * W
-// colors), so uniqueness and presence cannot be decided here. Per probe the
-// facts come OUT instead of being folded, and the caller merges them across
-// the color shards (parallel/sharded.py::stream_batch_colorshard):
-//   nhits[i]    = popcount of and_w over the shard's 32 * W bits
-//   colorsum[i] = sum of the indices of and_w's set bits (shard-local; the
-//                 color itself where nhits == 1)
-//   presmask[i] = bit h set iff hash row h has a nonzero word in this shard
-//   counts[c]  += 1 for every set bit c of and_w
-// all for qc[i] > 0; a probe with qc[i] == 0 (padding, or left to the
-// caller's residual pass) writes three zeros and counts nothing. A block
-// outside the matrix, or a row that would leave its block, reads as an
-// all-zero row. A row that is absent here ANDs to zero and so masks
-// itself; it may be present in another shard. counts [32 * W] is ADDED
-// INTO. The plain PyTorch twin is ops/stream_query.py::stream_probe_raw_plain;
-// both agree bit for bit with the JAX kernel's four outputs.
-//
-// What bounds it on an H100: bytes: 12 bytes in and 12 out per probe plus
-// the 32-byte sectors of the rows the counted probes touch (a W = 32 row is
-// four sectors, and the color-sharded path touches nearly every row),
-// against 3.35 TB/s.
-//
-// What the design does about that:
+// The gather (gather_step, shared by both kernels):
 // - Lane groups. G = W / 8 lanes serve one probe (one lane for W <= 8):
 //   each lane loads its 8 words of a row as two 16-byte vectors (W <= 4:
 //   the whole row in one load of 4, 8 or 16 bytes), and a vector load of
 //   the group covers 4 * G contiguous words, so at W = 32 one warp
-//   instruction moves 8 rows x 64 bytes in whole sectors; a lane holds 8
-//   and-words, not 32. Groups of 4 words a lane coalesce as well but spend
-//   twice the rounds, shuffles and reductions per probe, and the kernel
-//   runs close to the rate at which the SMs dispatch instructions.
+//   instruction moves 8 rows x 64 bytes in whole sectors.
 // - The probe streams are read one probe per lane, coalesced; each group
 //   takes its probe from them by shuffle, in G rounds of 32 / G probes, and
-//   the facts go back by shuffle to the probe's own lane, so the three
-//   outputs are stored coalesced too. With one lane per probe there is no
-//   shuffle at all.
+//   the facts go back by shuffle to the probe's own lane, so the outputs
+//   are stored coalesced too.
 // - nhits is a popcount per lane; colorsum is summed in the loop over the
-//   set bits that feeds the shared counts (one add per set bit: the
-//   popcount identity sum = 32w * popc(v) + sum_k 2^k * popc(v & M_k) costs
-//   some 17 instructions per word whether or not a bit is set, where most
-//   probes have one set bit or none). Both ride in one int32 (nhits
+//   set bits that feeds the shared counts. Both ride in one int32 (nhits
 //   <= 1,024 in the low 11 bits, colorsum <= 523,776 above), so the group
-//   sums them with one chain of xor shuffles; presmask is the group's OR
-//   of its lanes' "nonzero part of row h" bits.
+//   sums them with one chain of xor shuffles; presmask is the group's OR.
 // - Per-color counts take one shared-memory atomic per set bit; the grid
-//   is persistent (as many blocks as stay resident on every SM) with a
-//   grid-stride loop, so each block flushes its shared counts to the global
-//   ones once: at most (resident blocks) * 32 * W global atomics in all.
-// - W and H are template parameters: the H row loads of a lane go out
-//   together, and the loops unroll.
+//   is persistent (as many blocks as stay resident) with a grid-stride
+//   loop, so each block flushes its shared counts once.
+//
+// What held the first normal-mode kernel back, and what this one does
+// about it. It ran one thread per probe on a grid of P / 256 blocks
+// (32,768 on the main path), and (1) sent every warp's unique hits to the
+// global histogram, one atomic per distinct (color, frequency) cell of the
+// warp: on a real query nearly every k-mer is a unique hit on one of a few
+// source colors with a small frequency, so some 262,000 warps hammered a
+// few dozen histogram words in three cache lines, and same-line atomics
+// serialize in one L2 slice; (2) zeroed and flushed its shared counts in
+// every one of those blocks, up to 32 more global atomics each onto one
+// line. At the main path's shape (8,388,608 probes, W 1, H 4) it took 0.39
+// ms on an H100 80GB HBM3 where the raw kernel, the same gather with three
+// times the bytes out, took 0.14. Now the gather is the raw kernel's, on its
+// persistent grid, and
+// each block keeps a band of the histogram in shared memory: the cells of
+// frequency q < hf (hf a power of two <= hw, chosen by the wrapper so that
+// cp * hf int32 stay within a small per-block budget:
+// ops/stream_query.py::_hist_band). A unique hit with q < hf takes one
+// shared atomic; one with hf <= q < hw is merged across its warp
+// (__match_any_sync) and takes one global atomic per distinct cell, as
+// before (such cells are cold); q >= hw adds nothing (the caller's overflow
+// list). Which of the two a hit takes depends on q alone, so no hit is
+// counted twice. At the end each block flushes only its nonzero band cells:
+// at most (resident blocks) x (nonzero cells) global atomics per launch.
+// Integer atomics give the same sums in any order: run to run identical.
+//
 // The tile window of the TPU kernel is not carried over: any block can be
-// read, and the caller zeroes qc outside the window.
+// read, and the caller zeroes qc outside the window. The TPU kernel's byte
+// planes, one-hot MXU row select, lane-gather AND trees and one-hot
+// histogram contraction exist because that device cannot index rows
+// dynamically and has no atomics; none of them is needed here.
+//
+// Bound to Python with ctypes (colorid_tpu_torch/ops/kernels.py): a plain
+// C entry point per kernel that launches on the caller's stream and returns
+// cudaGetLastError(). Both take a 16-byte aligned matrix and P % 32 == 0
+// (the wrappers check both; P is a multiple of PC = 2048).
+
+#include <cstdint>
+#include <cuda_runtime.h>
 
 namespace {
 
-constexpr int RAW_THREADS = 256;
+constexpr int THREADS = 256;
 constexpr int LANE_WORDS = 8;  // words of a row per lane (rows of >= 8 words)
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr size_t BAND_BYTES_MAX = 48 * 1024;  // dynamic shared memory, no opt-in
 
 // VEC consecutive words (16-, 8- or 4-byte aligned) into v[0..VEC)
 template <int VEC>
@@ -270,148 +130,269 @@ __device__ __forceinline__ void load_vec(const uint32_t* __restrict__ p,
   }
 }
 
+// One warp step of the gather: lane l holds probe t + l's stream values;
+// returns that probe's facts ((colorsum << 11) | nhits) and presmask, and
+// adds its set bits into the shared counts. All 32 lanes must call it.
 template <int W, int H>
-__global__ void __launch_bounds__(RAW_THREADS) stream_probe_raw_kernel(
-    const uint32_t* __restrict__ matrix, int64_t n_words,
-    const int32_t* __restrict__ blk, const int32_t* __restrict__ off,
-    const int32_t* __restrict__ qc, int32_t* __restrict__ nhits,
-    int32_t* __restrict__ colorsum, int32_t* __restrict__ presmask,
-    int32_t* __restrict__ counts, int64_t P) {
-  constexpr int VEC = W < 4 ? W : 4;  // words per vector load
+__device__ __forceinline__ void gather_step(
+    const uint32_t* __restrict__ matrix, int64_t n_words, int32_t my_blk,
+    int32_t my_off, int32_t my_qc, int32_t* s_counts, int32_t& facts_out,
+    int32_t& pres_out) {
+  constexpr int VEC = W < 4 ? W : 4;                   // words per vector load
   constexpr int LW = W < LANE_WORDS ? W : LANE_WORDS;  // words per lane
-  constexpr int NV = LW / VEC;        // vector loads per row and lane
-  constexpr int G = W / LW;           // lanes per probe
-  constexpr int NG = 32 / G;          // probes per round of a warp
-  constexpr unsigned FULL = 0xFFFFFFFFu;
-  __shared__ int32_t s_counts[32 * W];
-  for (int c = threadIdx.x; c < 32 * W; c += RAW_THREADS) s_counts[c] = 0;
-  __syncthreads();
-
+  constexpr int NV = LW / VEC;  // vector loads per row and lane
+  constexpr int G = W / LW;     // lanes per probe
+  constexpr int NG = 32 / G;    // probes per round of a warp
   const int lane = threadIdx.x & 31;
   const int grp = lane / G;  // the lane's group within the warp
   const int sub = lane % G;  // the lane's place within its group
-  const int64_t n_warps = ((int64_t)gridDim.x * RAW_THREADS) >> 5;
-  // P % 32 == 0: every lane of a warp takes the same trip count
-  for (int64_t t = (((int64_t)blockIdx.x * RAW_THREADS + threadIdx.x) >> 5) * 32;
-       t < P; t += n_warps * 32) {
-    const int32_t my_blk = blk[t + lane];
-    const int32_t my_off = off[t + lane];
-    const int32_t my_qc = qc[t + lane];
-    int32_t facts_out = 0, pres_out = 0;
+  facts_out = 0;
+  pres_out = 0;
 #pragma unroll
-    for (int r = 0; r < G; r++) {
-      int32_t b32 = my_blk, o32 = my_off, q = my_qc;
-      if constexpr (G > 1) {  // the probe this group serves in round r
-        const int src = r * NG + grp;
-        b32 = __shfl_sync(FULL, my_blk, src);
-        o32 = __shfl_sync(FULL, my_off, src);
-        q = __shfl_sync(FULL, my_qc, src);
+  for (int r = 0; r < G; r++) {
+    int32_t b32 = my_blk, o32 = my_off, q = my_qc;
+    if constexpr (G > 1) {  // the probe this group serves in round r
+      const int src = r * NG + grp;
+      b32 = __shfl_sync(FULL, my_blk, src);
+      o32 = __shfl_sync(FULL, my_off, src);
+      q = __shfl_sync(FULL, my_qc, src);
+    }
+    const int64_t b = b32;
+    const bool live = q > 0 && b >= 0 && b * 128 + 128 <= n_words;
+    // lane word j * VEC + e is row word j * G * VEC + sub * VEC + e
+    uint32_t aw[LW];
+    int32_t pres = 0;  // bit h: this lane's part of row h is nonzero
+#pragma unroll
+    for (int h = 0; h < H; h++) {
+      const uint32_t o = ((uint32_t)o32 >> (8 * h)) & 0xFFu;
+      uint32_t v[LW];
+      if (live && o * W + W <= 128u) {
+        const uint32_t* row = matrix + b * 128 + o * W + sub * VEC;
+#pragma unroll
+        for (int j = 0; j < NV; j++) load_vec<VEC>(row + j * G * VEC, v + j * VEC);
+      } else {
+#pragma unroll
+        for (int k = 0; k < LW; k++) v[k] = 0u;
       }
-      const int64_t b = b32;
-      const bool live = q > 0 && b >= 0 && b * 128 + 128 <= n_words;
-      // lane word j * VEC + e is row word j * G * VEC + sub * VEC + e
-      uint32_t aw[LW];
-      int32_t pres = 0;  // bit h: this lane's part of row h is nonzero
-#pragma unroll
-      for (int h = 0; h < H; h++) {
-        const uint32_t o = ((uint32_t)o32 >> (8 * h)) & 0xFFu;
-        uint32_t v[LW];
-        if (live && o * W + W <= 128u) {
-          const uint32_t* row = matrix + b * 128 + o * W + sub * VEC;
-#pragma unroll
-          for (int j = 0; j < NV; j++) load_vec<VEC>(row + j * G * VEC, v + j * VEC);
-        } else {
-#pragma unroll
-          for (int k = 0; k < LW; k++) v[k] = 0u;
-        }
-        uint32_t any = 0u;
-#pragma unroll
-        for (int k = 0; k < LW; k++) {
-          any |= v[k];
-          aw[k] = h ? aw[k] & v[k] : v[k];
-        }
-        pres |= (any != 0u ? 1 : 0) << h;
-      }
-      int nh = 0, cs = 0;
+      uint32_t any = 0u;
 #pragma unroll
       for (int k = 0; k < LW; k++) {
-        nh += __popc(aw[k]);
-        const int c0 = 32 * ((k / VEC) * G * VEC + sub * VEC + k % VEC);
-        for (uint32_t v = aw[k]; v; v &= v - 1) {
-          const int c = c0 + __ffs(v) - 1;
-          cs += c;
-          atomicAdd(&s_counts[c], 1);
-        }
+        any |= v[k];
+        aw[k] = h ? aw[k] & v[k] : v[k];
       }
-      int32_t facts = (cs << 11) | nh;
-      if constexpr (G > 1) {
+      pres |= (any != 0u ? 1 : 0) << h;
+    }
+    int nh = 0, cs = 0;
 #pragma unroll
-        for (int d = G / 2; d > 0; d >>= 1) {
-          facts += __shfl_xor_sync(FULL, facts, d);
-          pres |= __shfl_xor_sync(FULL, pres, d);
-        }
-        // lane l keeps probe t + l's facts: group l % NG served it in
-        // round l / NG
-        const int from = (lane % NG) * G;
-        const int32_t f = __shfl_sync(FULL, facts, from);
-        const int32_t p = __shfl_sync(FULL, pres, from);
-        if (lane / NG == r) {
-          facts_out = f;
-          pres_out = p;
-        }
-      } else {
-        facts_out = facts;
-        pres_out = pres;
+    for (int k = 0; k < LW; k++) {
+      nh += __popc(aw[k]);
+      const int c0 = 32 * ((k / VEC) * G * VEC + sub * VEC + k % VEC);
+      for (uint32_t v = aw[k]; v; v &= v - 1) {
+        const int c = c0 + __ffs(v) - 1;
+        cs += c;
+        atomicAdd(&s_counts[c], 1);
       }
     }
-    nhits[t + lane] = facts_out & 2047;
-    colorsum[t + lane] = facts_out >> 11;
-    presmask[t + lane] = pres_out;
+    int32_t facts = (cs << 11) | nh;
+    if constexpr (G > 1) {
+#pragma unroll
+      for (int d = G / 2; d > 0; d >>= 1) {
+        facts += __shfl_xor_sync(FULL, facts, d);
+        pres |= __shfl_xor_sync(FULL, pres, d);
+      }
+      // lane l keeps probe t + l's facts: group l % NG served it in round
+      // l / NG
+      const int from = (lane % NG) * G;
+      const int32_t f = __shfl_sync(FULL, facts, from);
+      const int32_t p = __shfl_sync(FULL, pres, from);
+      if (lane / NG == r) {
+        facts_out = f;
+        pres_out = p;
+      }
+    } else {
+      facts_out = facts;
+      pres_out = pres;
+    }
   }
+}
 
-  __syncthreads();
-  for (int c = threadIdx.x; c < 32 * W; c += RAW_THREADS) {
+template <int W>
+__device__ __forceinline__ void flush_counts(const int32_t* s_counts,
+                                             int32_t* __restrict__ counts) {
+  for (int c = threadIdx.x; c < 32 * W; c += THREADS) {
     const int32_t v = s_counts[c];
     if (v) atomicAdd(&counts[c], v);
   }
 }
 
+// The grid-stride loop over warp steps: P % 32 == 0, so every lane of a warp
+// takes the same trip count and the warp stays converged for the shuffles.
+#define FOR_EACH_WARP_STEP(t, P)                                              \
+  for (int64_t t = (((int64_t)blockIdx.x * THREADS + threadIdx.x) >> 5) * 32; \
+       t < (P); t += (((int64_t)gridDim.x * THREADS) >> 5) * 32)
+
 template <int W, int H>
-int launch_raw(const void* matrix, int64_t n_words, const void* blk,
-               const void* off, const void* qc, void* nhits, void* colorsum,
-               void* presmask, void* counts, int64_t P, void* stream) {
-  // a persistent grid: as many blocks as stay resident, no more than needed
+__global__ void __launch_bounds__(THREADS) stream_probe_kernel(
+    const uint32_t* __restrict__ matrix, int64_t n_words,
+    const int32_t* __restrict__ blk, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ qc, int32_t* __restrict__ uniq,
+    int32_t* __restrict__ counts, int32_t* __restrict__ hist, int64_t P,
+    int32_t cp, int32_t hw, int32_t hf) {
+  __shared__ int32_t s_counts[32 * W];
+  extern __shared__ int32_t s_band[];  // [cp, hf]: hist's cells of q < hf
+  for (int c = threadIdx.x; c < 32 * W; c += THREADS) s_counts[c] = 0;
+  for (int c = threadIdx.x; c < cp * hf; c += THREADS) s_band[c] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  FOR_EACH_WARP_STEP(t, P) {
+    const int32_t q = qc[t + lane];
+    int32_t facts, pres;
+    gather_step<W, H>(matrix, n_words, blk[t + lane], off[t + lane], q,
+                      s_counts, facts, pres);
+    // pres is 0 for a probe that does not count (qc == 0, or its block
+    // outside the matrix), so such a probe is absent: -2
+    int32_t u = -2;
+    int32_t cold = -1;  // a global cell hf <= q < hw of a unique hit
+    if (pres == (1 << H) - 1) {
+      u = -1;
+      if ((facts & 2047) == 1) {
+        u = facts >> 11;  // the color (< 32 * W <= cp)
+        if (q < hf)
+          atomicAdd(&s_band[u * hf + q], 1);
+        else if (q < hw)
+          cold = u * hw + q;
+      }
+    }
+    uniq[t + lane] = u;
+    // one global atomic per distinct cold cell of the warp; the ballot and
+    // the match run with the whole warp converged (same trip count)
+    const unsigned hitters = __ballot_sync(FULL, cold >= 0);
+    if (cold >= 0) {
+      const unsigned peers = __match_any_sync(hitters, cold);
+      if (lane == __ffs(peers) - 1) atomicAdd(&hist[cold], __popc(peers));
+    }
+  }
+
+  __syncthreads();
+  flush_counts<W>(s_counts, counts);
+  for (int c = threadIdx.x; c < cp * hf; c += THREADS) {
+    const int32_t v = s_band[c];
+    if (v) atomicAdd(&hist[(c / hf) * hw + c % hf], v);
+  }
+}
+
+template <int W, int H>
+__global__ void __launch_bounds__(THREADS) stream_probe_raw_kernel(
+    const uint32_t* __restrict__ matrix, int64_t n_words,
+    const int32_t* __restrict__ blk, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ qc, int32_t* __restrict__ nhits,
+    int32_t* __restrict__ colorsum, int32_t* __restrict__ presmask,
+    int32_t* __restrict__ counts, int64_t P) {
+  __shared__ int32_t s_counts[32 * W];
+  for (int c = threadIdx.x; c < 32 * W; c += THREADS) s_counts[c] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  FOR_EACH_WARP_STEP(t, P) {
+    int32_t facts, pres;
+    gather_step<W, H>(matrix, n_words, blk[t + lane], off[t + lane],
+                      qc[t + lane], s_counts, facts, pres);
+    nhits[t + lane] = facts & 2047;
+    colorsum[t + lane] = facts >> 11;
+    presmask[t + lane] = pres;
+  }
+
+  __syncthreads();
+  flush_counts<W>(s_counts, counts);
+}
+
+#undef FOR_EACH_WARP_STEP
+
+// a persistent grid: as many blocks as stay resident, no more than needed
+template <typename Kernel>
+unsigned int persistent_blocks(Kernel kernel, size_t smem, int64_t P) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, stream_probe_raw_kernel<W, H>, RAW_THREADS, 0);
-  const int64_t needed = (P + RAW_THREADS - 1) / RAW_THREADS;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+  const int64_t needed = (P + THREADS - 1) / THREADS;
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const int64_t blocks = needed < resident ? needed : resident;
-  stream_probe_raw_kernel<W, H><<<(unsigned int)blocks, RAW_THREADS, 0,
-                                  (cudaStream_t)stream>>>(
-      (const uint32_t*)matrix, n_words, (const int32_t*)blk,
-      (const int32_t*)off, (const int32_t*)qc, (int32_t*)nhits,
-      (int32_t*)colorsum, (int32_t*)presmask, (int32_t*)counts, P);
-  return (int)cudaGetLastError();
+  return (unsigned int)(needed < resident ? needed : resident);
 }
 
-template <int W>
-int launch_raw_h(const void* matrix, int64_t n_words, const void* blk,
-                 const void* off, const void* qc, void* nhits, void* colorsum,
-                 void* presmask, void* counts, int64_t P, int32_t H,
-                 void* stream) {
-  switch (H) {
+struct Probes {
+  const void *matrix, *blk, *off, *qc;
+  int64_t n_words, P;
+  cudaStream_t stream;
+};
+
+struct FoldLaunch {
+  Probes p;
+  void *uniq, *counts, *hist;
+  int32_t cp, hw, hf;
+  template <int W, int H>
+  int run() const {
+    const size_t smem = (size_t)cp * hf * sizeof(int32_t);
+    if (cp < 32 * W || smem > BAND_BYTES_MAX) return (int)cudaErrorInvalidValue;
+    const unsigned int blocks =
+        persistent_blocks(stream_probe_kernel<W, H>, smem, p.P);
+    stream_probe_kernel<W, H><<<blocks, THREADS, smem, p.stream>>>(
+        (const uint32_t*)p.matrix, p.n_words, (const int32_t*)p.blk,
+        (const int32_t*)p.off, (const int32_t*)p.qc, (int32_t*)uniq,
+        (int32_t*)counts, (int32_t*)hist, p.P, cp, hw, hf);
+    return (int)cudaGetLastError();
+  }
+};
+
+struct RawLaunch {
+  Probes p;
+  void *nhits, *colorsum, *presmask, *counts;
+  template <int W, int H>
+  int run() const {
+    const unsigned int blocks =
+        persistent_blocks(stream_probe_raw_kernel<W, H>, 0, p.P);
+    stream_probe_raw_kernel<W, H><<<blocks, THREADS, 0, p.stream>>>(
+        (const uint32_t*)p.matrix, p.n_words, (const int32_t*)p.blk,
+        (const int32_t*)p.off, (const int32_t*)p.qc, (int32_t*)nhits,
+        (int32_t*)colorsum, (int32_t*)presmask, (int32_t*)counts, p.P);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int W, class Launch>
+int by_hashes(const Launch& f, int32_t num_hash) {
+  switch (num_hash) {
     case 1:
-      return launch_raw<W, 1>(matrix, n_words, blk, off, qc, nhits, colorsum,
-                              presmask, counts, P, stream);
+      return f.template run<W, 1>();
     case 2:
-      return launch_raw<W, 2>(matrix, n_words, blk, off, qc, nhits, colorsum,
-                              presmask, counts, P, stream);
+      return f.template run<W, 2>();
     case 4:
-      return launch_raw<W, 4>(matrix, n_words, blk, off, qc, nhits, colorsum,
-                              presmask, counts, P, stream);
+      return f.template run<W, 4>();
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the instance for (wpad, num_hash), after the checks both entry points share
+template <class Launch>
+int dispatch(const Launch& f, int32_t wpad, int32_t num_hash) {
+  const Probes& p = f.p;
+  if (p.P <= 0) return 0;
+  if (p.P % 32 || ((uintptr_t)p.matrix & 15u)) return (int)cudaErrorInvalidValue;
+  switch (wpad) {
+    case 1:
+      return by_hashes<1>(f, num_hash);
+    case 2:
+      return by_hashes<2>(f, num_hash);
+    case 4:
+      return by_hashes<4>(f, num_hash);
+    case 8:
+      return by_hashes<8>(f, num_hash);
+    case 16:
+      return by_hashes<16>(f, num_hash);
+    case 32:
+      return by_hashes<32>(f, num_hash);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -419,27 +400,24 @@ int launch_raw_h(const void* matrix, int64_t n_words, const void* blk,
 
 }  // namespace
 
-// matrix must be 16-byte aligned and P a multiple of 32 (the wrapper
-// checks both, with P a multiple of PC = 2048).
+// hf: the histogram band kept in shared memory (a power of two <= hw, cp *
+// hf * 4 bytes <= 48 KB; the wrapper picks it)
+extern "C" int stream_probe_launch(
+    const void* matrix, int64_t n_words, const void* blk, const void* off,
+    const void* qc, void* uniq, void* counts, void* hist, int64_t P,
+    int32_t num_hash, int32_t wpad, int32_t cp, int32_t hw, int32_t hf,
+    void* stream) {
+  if (hf < 1 || hf > hw || (hf & (hf - 1))) return (int)cudaErrorInvalidValue;
+  const FoldLaunch f{{matrix, blk, off, qc, n_words, P, (cudaStream_t)stream},
+                     uniq, counts, hist, cp, hw, hf};
+  return dispatch(f, wpad, num_hash);
+}
+
 extern "C" int stream_probe_raw_launch(
     const void* matrix, int64_t n_words, const void* blk, const void* off,
     const void* qc, void* nhits, void* colorsum, void* presmask, void* counts,
     int64_t P, int32_t num_hash, int32_t wpad, void* stream) {
-  if (P <= 0) return 0;
-  if (P % 32 || ((uintptr_t)matrix & 15u)) return (int)cudaErrorInvalidValue;
-#define COLORID_STREAM_RAW_CASE(W)                                          \
-  case W:                                                                   \
-    return launch_raw_h<W>(matrix, n_words, blk, off, qc, nhits, colorsum,  \
-                           presmask, counts, P, num_hash, stream)
-  switch (wpad) {
-    COLORID_STREAM_RAW_CASE(1);
-    COLORID_STREAM_RAW_CASE(2);
-    COLORID_STREAM_RAW_CASE(4);
-    COLORID_STREAM_RAW_CASE(8);
-    COLORID_STREAM_RAW_CASE(16);
-    COLORID_STREAM_RAW_CASE(32);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef COLORID_STREAM_RAW_CASE
+  const RawLaunch f{{matrix, blk, off, qc, n_words, P, (cudaStream_t)stream},
+                    nhits, colorsum, presmask, counts};
+  return dispatch(f, wpad, num_hash);
 }

@@ -35,7 +35,7 @@ KERNELS = {
         "stream_probe.cu",
         "stream_probe_launch",
         [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32,
-         _I32, _VP],
+         _I32, _I32, _VP],
     ),
     "stream_probe_raw": (
         "stream_probe.cu",

@@ -229,6 +229,10 @@ def stream_accumulate_classic_exact(
 
 PC = 2048  # probes per chunk: the unit of the window plan and of padding
 HIST_W = 256  # probe-kernel histogram width for WIDE color counts
+# per-block shared memory for the probe kernel's histogram band: 16 KB
+# leaves room for several resident blocks of 256 threads on an SM and
+# stays below the 48 KB a kernel takes without opting in
+HIST_BAND_BYTES = 16 * 1024
 RES_CAP = 256 * PC  # residual probe slots (overflow-append bound)
 OVER_CAP = 1 << 18  # uniq-hit frequency-overflow entries per segment
 # Clipped-frequency bits packed into the sort key: carrying min(freq,
@@ -259,6 +263,17 @@ def _hist_w(n_colors: int) -> int:
     narrow color counts, HIST_W for wide ones (larger uniq-hit frequencies
     go to the overflow list)."""
     return 1024 if n_colors < 128 else HIST_W
+
+
+def _hist_band(cp: int, hw: int) -> int:
+    """The probe kernel's histogram band: each thread block keeps the cells
+    of frequency q < hf of the [cp, hw] histogram in shared memory. hf is
+    the largest power of two <= hw with cp * hf int32 within
+    HIST_BAND_BYTES (at least 1)."""
+    hf = 1
+    while 2 * hf <= hw and cp * 2 * hf * 4 <= HIST_BAND_BYTES:
+        hf *= 2
+    return hf
 
 
 def _hist_rows(n_colors: int) -> int:
@@ -353,6 +368,16 @@ def _check_probe_args(name: str, tensors, num_hash: int, wpad: int):
         )
 
 
+def _check_card_args(name: str, blocks2):
+    """What both probe kernels take on the card besides: a CUDA tensor,
+    and a matrix that is 16-byte aligned (rows load as 16-byte vectors)."""
+    dev = blocks2.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if blocks2.data_ptr() % 16:
+        raise ValueError(f"{name}: blocks2 must be 16-byte aligned")
+
+
 def stream_probe(blocks2, blk_s, off_s, qc_s, counts, hist, *,
                  num_hash: int, wpad: int, n_colors: int):
     """Gather / AND / count for probes sorted by block; returns uniq int32
@@ -369,8 +394,11 @@ def stream_probe(blocks2, blk_s, off_s, qc_s, counts, hist, *,
     (absent row, or qc == 0); a unique hit with qc < hw adds 1 to
     hist[color, qc] (int32 [cp, hw] = [_hist_rows, _hist_w](n_colors)).
 
-    A CUDA tensor launches csrc/stream_probe.cu; a CPU tensor takes the
-    plain twin. ``stream_probe.launches`` counts kernel launches."""
+    A CUDA tensor launches csrc/stream_probe.cu (its normal-mode entry
+    point, which loads rows as 16-byte vectors: blocks2 must be 16-byte
+    aligned, and keeps the histogram's cells of qc < _hist_band(cp, hw) in
+    shared memory); a CPU tensor takes the plain twin.
+    ``stream_probe.launches`` counts kernel launches."""
     _check_probe_args("stream_probe", (blocks2, blk_s, off_s, qc_s, counts, hist),
                       num_hash, wpad)
     P = blk_s.shape[0]
@@ -385,8 +413,8 @@ def stream_probe(blocks2, blk_s, off_s, qc_s, counts, hist, *,
     dev = blk_s.device
     if dev.type == "cpu":
         return stream_probe_plain(blocks2, blk_s, off_s, qc_s, counts, hist, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"stream_probe: unsupported device {dev}")
+    _check_card_args("stream_probe", blocks2)
+    cp, hw = hist.shape
     uniq = torch.empty(P, dtype=torch.int32, device=dev)
     fn = kernels.kernel("stream_probe")
     with torch.cuda.device(dev):
@@ -394,8 +422,8 @@ def stream_probe(blocks2, blk_s, off_s, qc_s, counts, hist, *,
         err = fn(
             blocks2.data_ptr(), blocks2.numel(), blk_s.data_ptr(),
             off_s.data_ptr(), qc_s.data_ptr(), uniq.data_ptr(),
-            counts.data_ptr(), hist.data_ptr(), P, num_hash, wpad,
-            hist.shape[0], hist.shape[1], stream,
+            counts.data_ptr(), hist.data_ptr(), P, num_hash, wpad, cp, hw,
+            _hist_band(cp, hw), stream,
         )
     if err:
         raise RuntimeError(f"stream_probe kernel launch failed: CUDA error {err}")
@@ -467,10 +495,7 @@ def stream_probe_raw(blocks2, blk_s, off_s, qc_s, counts, *,
         return stream_probe_raw_plain(
             blocks2, blk_s, off_s, qc_s, counts, num_hash=num_hash, wpad=wpad
         )
-    if dev.type != "cuda":
-        raise ValueError(f"stream_probe_raw: unsupported device {dev}")
-    if blocks2.data_ptr() % 16:
-        raise ValueError("stream_probe_raw: blocks2 must be 16-byte aligned")
+    _check_card_args("stream_probe_raw", blocks2)
     nhits, colorsum, presmask = (
         torch.empty(P, dtype=torch.int32, device=dev) for _ in range(3)
     )

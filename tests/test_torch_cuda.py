@@ -89,33 +89,96 @@ def _probe(case, device):
     return b2, wpad, *(torch.from_numpy(a).to(device) for a in (blk, off, qc))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("C,num_hash,thin", [
-    (21, 4, 1), (21, 1, 4), (60, 2, 3), (100, 4, 1), (200, 4, 3), (512, 2, 5),
-    (1024, 2, 5),
-])
-def test_probe_kernel_matches_twin(cuda_device, C, num_hash, thin):
-    b2, wpad, blk, off, qc = _probe(ts.probe_case(C, num_hash, seed=C, thin=thin), cuda_device)
+def _run_probe_kernel(b2, wpad, blk, off, qc, C, num_hash, device):
+    """The probe kernel and its twin on the same inputs, into accumulators
+    that start nonzero: bitwise equal, one launch, and the same again on a
+    second run (integer atomics). Returns the kernel's (uniq, counts, hist)
+    less the accumulators' start."""
     kw = dict(num_hash=num_hash, wpad=wpad, n_colors=C)
     shape = (sq._hist_rows(C), sq._hist_w(C))
     outs = []
-    for fn in (sq.stream_probe_plain, sq.stream_probe):
-        counts = torch.ones(32 * wpad, dtype=torch.int32, device=cuda_device)  # added into
-        hist = torch.ones(shape, dtype=torch.int32, device=cuda_device)
+    for fn in (sq.stream_probe_plain, sq.stream_probe, sq.stream_probe):
+        counts = torch.ones(32 * wpad, dtype=torch.int32, device=device)  # added into
+        hist = torch.ones(shape, dtype=torch.int32, device=device)
         before = sq.stream_probe.launches
         uniq = fn(b2, blk, off, qc, counts, hist, **kw)
         torch.cuda.synchronize()
         assert sq.stream_probe.launches == before + (fn is sq.stream_probe)
         outs.append((uniq, counts, hist))
-    for got, want in zip(outs[1], outs[0]):
-        assert got.dtype == torch.int32 and torch.equal(got, want)
-    uniq = outs[1][0]
+    for got in outs[1:]:
+        for g, w in zip(got, outs[0]):
+            assert g.dtype == torch.int32 and g.device.type == "cuda"
+            assert torch.equal(g, w)
+    uniq, counts, hist = outs[1]
+    return uniq, counts - 1, hist - 1
+
+
+# one color count per wpad (1, 2, 4, 8, 16, 32: every lane-group width of the
+# gather) times every hash count
+PROBE_CASES = [(C, H) for C in (21, 60, 100, 200, 512, 1024) for H in (1, 2, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,num_hash", PROBE_CASES)
+def test_probe_kernel_matches_twin(cuda_device, C, num_hash):
+    # color bits thin enough that the AND over the hashes leaves single and
+    # multiple hits: about one set bit per probe
+    thin = max(1, round(np.log2(C) / num_hash))
+    b2, wpad, blk, off, qc = _probe(ts.probe_case(C, num_hash, seed=C, thin=thin), cuda_device)
+    # the last probes' blocks lie beyond the matrix: all-zero rows
+    blk[-40:] = b2.shape[0] + torch.arange(40, device=cuda_device, dtype=torch.int32)
+    uniq, counts, hist = _run_probe_kernel(b2, wpad, blk, off, qc, C, num_hash, cuda_device)
     assert (uniq >= 0).any() and (uniq == -1).any() and (uniq == -2).any()
-    # run to run identical (integer atomics)
-    counts = torch.ones(32 * wpad, dtype=torch.int32, device=cuda_device)
-    hist = torch.ones(shape, dtype=torch.int32, device=cuda_device)
-    again = sq.stream_probe(b2, blk, off, qc, counts, hist, **kw)
-    assert torch.equal(again, uniq) and torch.equal(hist, outs[1][2])
+    assert (uniq[-40:] == -2).all() and (uniq[qc == 0] == -2).all()
+    assert int(counts.sum()) > 0 and int(hist.sum()) > 0
+
+
+def _hot_case(C, num_hash, qc_values, seed, device):
+    """Most probes are unique hits on three hot colors: every row of block b
+    holds the one color hot[b % 3] (5 % of the rows absent), so the AND over
+    a probe's rows leaves that color; frequencies are drawn from
+    qc_values, with 5 % padding."""
+    rng = np.random.default_rng(seed)
+    _blocks, wpad, blk, off, _qc = ts.probe_case(C, num_hash, seed=seed)
+    n_rows = _blocks.shape[0] * (128 // wpad)
+    hot = np.array([0, C // 3, C - 1])
+    color = hot[np.arange(n_rows) // (128 // wpad) % 3]
+    rows = np.zeros((n_rows, wpad), np.uint32)
+    rows[np.arange(n_rows), color // 32] = np.uint32(1) << (color % 32).astype(np.uint32)
+    rows[rng.random(n_rows) < 0.05] = 0
+    qc = rng.choice(np.asarray(qc_values, np.int32), blk.shape[0])
+    qc[rng.random(blk.shape[0]) < 0.05] = 0
+    return _probe((rows.reshape(-1, 128), wpad, blk, off, qc), device)
+
+
+@pytest.mark.cuda
+def test_probe_kernel_hot_cells(cuda_device):
+    """The main path's traffic: nearly every probe a unique hit on one of 3
+    colors with a frequency in 1..18, so some 54 histogram cells take it
+    all (the kernel's shared band)."""
+    C, H = 21, 4
+    b2, wpad, blk, off, qc = _hot_case(C, H, np.arange(1, 19), 21, cuda_device)
+    uniq, counts, hist = _run_probe_kernel(b2, wpad, blk, off, qc, C, H, cuda_device)
+    assert int((uniq >= 0).sum()) > 0.7 * uniq.numel()
+    assert int((hist > 0).sum()) <= 3 * 18 and int(hist.sum()) == int((uniq >= 0).sum())
+    assert 18 < sq._hist_band(*hist.shape)  # every cell in the band
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [21, 200, 1024])
+def test_probe_kernel_band_edges(cuda_device, C):
+    """Frequencies on both sides of the shared band's edge hf, of the
+    histogram's width hw, and beyond it (counted nowhere)."""
+    H = 4 if C < 1024 else 2
+    hw = sq._hist_w(C)
+    hf = sq._hist_band(sq._hist_rows(C), hw)
+    edges = sorted({q for q in (1, hf - 1, hf, hf + 1, hw - 1, hw, hw + 1, 5000) if q > 0})
+    b2, wpad, blk, off, qc = _hot_case(C, H, edges, C, cuda_device)
+    uniq, _counts, hist = _run_probe_kernel(b2, wpad, blk, off, qc, C, H, cuda_device)
+    for q in (q for q in edges if q < hw):
+        assert int(hist[:, q].sum()) == int(((uniq >= 0) & (qc == q)).sum()) > 0
+    assert int(hist.sum()) == int(((uniq >= 0) & (qc < hw)).sum())
+    assert int(((uniq >= 0) & (qc >= hw)).sum()) > 0
 
 
 @pytest.mark.cuda
@@ -133,6 +196,12 @@ def test_probe_kernel_refuses_mixed_devices_and_bad_blocks(cuda_device):
     assert torch.equal(got, torch.full_like(blk, -2)) and int(counts.sum()) == 0
     want = sq.stream_probe_plain(b2, far, off, qc, counts, hist, **kw)
     assert torch.equal(got, want)
+    # the kernel loads rows as 16-byte vectors: a matrix that is not
+    # 16-byte aligned is refused, not served by a slower path
+    buf = torch.zeros(b2.numel() + 1, dtype=torch.int32, device=cuda_device)
+    buf[1:] = b2.reshape(-1)
+    with pytest.raises(ValueError, match="aligned"):
+        sq.stream_probe(buf[1:].view(-1, 128), blk, off, qc, counts, hist, **kw)
 
 
 @pytest.mark.cuda

@@ -103,6 +103,25 @@ def test_probe_wrapper_refuses_what_the_kernel_does_not_take():
         tsq.stream_probe(b2, z, z, z, counts, hist.t().contiguous().t(), **kw)
 
 
+def test_hist_band_fits_its_budget_for_every_color_count():
+    """The probe kernel's shared histogram band: a power of two hf <= hw,
+    the largest whose [cp, hf] int32 cells fit HIST_BAND_BYTES."""
+    for C in range(1, 1025):
+        cp, hw = tsq._hist_rows(C), tsq._hist_w(C)
+        assert cp >= 32 * ((C + 31) // 32)  # a row for every bit of an and-word
+        hf = tsq._hist_band(cp, hw)
+        assert 1 <= hf <= hw and hf & (hf - 1) == 0, C
+        assert cp * hf * 4 <= tsq.HIST_BAND_BYTES, C
+        assert hf == hw or cp * 2 * hf * 4 > tsq.HIST_BAND_BYTES, C
+
+
+@pytest.mark.parametrize("C,hf", [(21, 128), (60, 32), (200, 16), (1024, 2)])
+def test_hist_band_at_each_histogram_shape(C, hf):
+    """C 21 is the main path's (its real query's frequencies are 1-18, all
+    in the band); wide color counts keep a narrow band."""
+    assert tsq._hist_band(tsq._hist_rows(C), tsq._hist_w(C)) == hf
+
+
 # -- _stream_core through its two callers ---------------------------------------
 
 
