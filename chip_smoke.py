@@ -15,11 +15,12 @@ Phases, each printing its lines (any failure exits non-zero):
    the gather that both share.
 3. main path, twice, through the port's CLI at the bench configuration's
    size (21 synthetic ~3 Mbp genomes, -k 31 -n 4 -s 50000000; search -f 1
-   on 400,000 x 150 bp reads from 3 of them; search -s on one genome):
+   on 400,000 x 150 bp reads from 3 of them, its k-mers counted on the card
+   (the default route); search -s on one genome):
    a classic index (build) and a blocked one (build --blocked, layout v4).
-   Each path's kernel must have been launched while that path ran, no
-   stream batch may fall back, and the blocked TSV must be byte-identical
-   with COLORID_STREAM=0.
+   Each path's kernel must have been launched while that path ran and
+   while its search -f 1 ran, no stream batch may fall back, and the
+   blocked TSV must be byte-identical with COLORID_STREAM=0.
 4. parity, for each index: the same search_keys through the generic gather
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
    both paths and for the device-resident dispatches, and one
@@ -27,6 +28,20 @@ Phases, each printing its lines (any failure exits non-zero):
    the probe kernel on the inputs that the blocked dispatch hands it, against
    its twin and timed alone ("real segment").
 
+4b. reads (the read classifier and device k-mer counting) on both indexes
+   of phase 3: CLI read_id on 204,000 seeded read pairs (3 source genomes,
+   2 % junk, N bases, first mates shorter than k, lowercase, duplicates):
+   pairs/s, >= 95 % of the source pairs accepted for their genome, no junk
+   pair accepted for a genome; on 5,000 pairs the card's _reads.txt and
+   _counts.txt equal --device cpu's byte for byte; COLORID_RID_SAFE=0 and
+   COLORID_RID_READS=0 give the default route's bytes; batch_id on two
+   samples equals read_id on each; read_filter writes exactly the pairs
+   that _reads.txt selects; CLI search -f 1 with device counting
+   (COLORID_SEARCH_READS=1) equals host counting (=0) byte for byte;
+   QueryEngine.search_reads on device-resident reads equals search_keys on
+   host-counted k-mers; torch.profiler breakdowns of one search_reads call
+   and of one order-free dispatch of 8,192 pairs, and read_id's wall-time
+   split.
 5. sharded paths on a logical mesh, every shard on the one card:
    - color layout at full width: a seeded 4,096-color, H = 2, k = 31, v4
      index of 4,194,304 rows placed for 4 color shards (2 GiB of matrix)
@@ -511,55 +526,68 @@ def _check_tsv(tsv, perfect, sources, what: str) -> list:
     return rows
 
 
-def _searches(tmp: str, bxi: str, fq: str):
-    """search -f 1 on the reads and search -s on one genome, timed."""
+def _searches(tmp: str, bxi: str, fq: str, kernel):
+    """search -f 1 on the reads (the default route: k-mers counted on the
+    card, QueryEngine.search_reads) and search -s on one genome, timed;
+    also the launches of ``kernel`` (a wrapper with a count) while search
+    -f 1 ran."""
+    before = kernel.launches
     t0 = time.time()
     tsv = cli(["search", "-b", bxi, "-q", fq, "-f", "1", "--device", DEVICE])
     t_search = time.time() - t0
+    reads_launches = kernel.launches - before
     t0 = time.time()
     perfect = cli(["search", "-b", bxi, "-s", "--device", DEVICE,
                    "-q", os.path.join(tmp, "genome01.fasta")])
-    return tsv, perfect, t_search, time.time() - t0
+    return tsv, perfect, t_search, time.time() - t0, reads_launches
 
 
 def classic_path_phase(tmp: str, inputs, card: str):
     """build -> search over a classic index; returns (index file, launches
     of the classic word kernel while the path ran)."""
-    from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.ops import stream_query as sq
 
     man, fq, sources = inputs
     prefix = os.path.join(tmp, "panel")
-    # observe every classic stream batch: None means its residual capacity
-    # tripped and search_keys re-ran it through the generic gather
-    outcomes = []
-    stream_fn = QueryEngine._search_keys_classic_stream
+    # observe every classic stream batch (search_reads' and search_keys'):
+    # n_drop > 0 means its residual capacity tripped and the engine re-ran
+    # it through the generic gather
+    batches = []
+    stream_fn = sq.stream_accumulate_classic_exact
 
-    def observed(self, *a, **kw):
-        res = stream_fn(self, *a, **kw)
-        outcomes.append(res is not None)
-        return res
+    def observed(*a, **kw):
+        out = stream_fn(*a, **kw)
+        batches.append((a[5].shape[0], out[4]))
+        return out
 
-    QueryEngine._search_keys_classic_stream = observed
+    sq.stream_accumulate_classic_exact = observed
     sq.classic_words.launches = 0
     try:
         t0 = time.time()
         cli(["build", "-k", str(K), "-n", str(HASHES), "-s", str(BLOOM),
              "-b", prefix, "-r", man, "-t", "8"])
         t_build = time.time() - t0
-        tsv, perfect, t_search, t_perfect = _searches(tmp, prefix + ".bxi", fq)
+        tsv, perfect, t_search, t_perfect, reads_launches = _searches(
+            tmp, prefix + ".bxi", fq, sq.classic_words)
     finally:
-        QueryEngine._search_keys_classic_stream = stream_fn
+        sq.stream_accumulate_classic_exact = stream_fn
     launches = sq.classic_words.launches
+    sizes = [n for n, _ in batches]
+    n_drop = sum(int(nd) for _, nd in batches)
     rows = _check_tsv(tsv, perfect, sources, "classic")
     log(f"[main] classic: build {t_build:.1f}s; search -f 1 {t_search:.1f}s "
-        f"({rows[0][1]} k-mers); search -s {t_perfect:.1f}s; "
-        f"classic_word launches={launches}; stream batches={len(outcomes)} "
-        f"fallbacks={outcomes.count(False)} on {card}")
-    if (DEVICE == "cuda" and launches == 0) or len(outcomes) < 2 or not all(outcomes):
+        f"({rows[0][1]} k-mers, counted on the device; classic_word launches "
+        f"{reads_launches}); search -s {t_perfect:.1f}s; classic_word "
+        f"launches={launches}; stream batches={sizes} n_drop={n_drop} on {card}")
+    if DEVICE == "cuda" and (launches == 0 or reads_launches == 0):
         raise AssertionError(
-            "the main path did not run every search through the classic kernel "
-            f"(launches={launches}, stream outcomes={outcomes})"
+            "the main path did not run search -f 1 and search -s through the "
+            f"classic kernel (launches={launches}, search -f 1: {reads_launches})"
+        )
+    if len(batches) < 2 or n_drop:
+        raise AssertionError(
+            f"a classic search fell back to the generic gather (batches={sizes}, "
+            f"n_drop={n_drop})"
         )
     return prefix + ".bxi", launches
 
@@ -572,26 +600,30 @@ def blocked_path_phase(tmp: str, inputs, card: str):
 
     man, fq, sources = inputs
     prefix = os.path.join(tmp, "turbo")
-    # observe every streamed segment: its size and its n_drop (nonzero means
-    # search_keys re-ran the query through the generic gather)
+    # observe every streamed segment (search_reads' exact-mode dispatch and
+    # search_keys' segments): its size and its n_drop (nonzero means the
+    # engine re-ran the query through the generic gather)
     segments = []
-    stream_fn = sq.stream_accumulate_hash
+    stream_fns = sq.stream_accumulate_hash, sq.stream_accumulate_hash_exact
 
-    def observed(*a, **kw):
-        out = stream_fn(*a, **kw)
-        segments.append((a[5].shape[0], out[4]))
-        return out
+    def observer(fn):
+        def observed(*a, **kw):
+            out = fn(*a, **kw)
+            segments.append((a[5].shape[0], out[4]))
+            return out
+        return observed
 
-    sq.stream_accumulate_hash = observed
+    sq.stream_accumulate_hash, sq.stream_accumulate_hash_exact = map(observer, stream_fns)
     sq.stream_probe.launches = 0
     try:
         t0 = time.time()
         cli(["build", "--blocked", "-k", str(K), "-n", str(HASHES), "-s", str(BLOOM),
              "-b", prefix, "-r", man, "-t", "8"])
         t_build = time.time() - t0
-        tsv, perfect, t_search, t_perfect = _searches(tmp, prefix + ".bxi", fq)
+        tsv, perfect, t_search, t_perfect, reads_launches = _searches(
+            tmp, prefix + ".bxi", fq, sq.stream_probe)
     finally:
-        sq.stream_accumulate_hash = stream_fn
+        sq.stream_accumulate_hash, sq.stream_accumulate_hash_exact = stream_fns
     launches = sq.stream_probe.launches
     sizes = [n for n, _ in segments]
     n_drop = sum(int(nd) for _, nd in segments)
@@ -599,19 +631,23 @@ def blocked_path_phase(tmp: str, inputs, card: str):
     rows = _check_tsv(tsv, perfect, sources, "blocked")
     log(f"[main] blocked: layout v{index.blocked}, bloom {index.bloom_size}; "
         f"build --blocked {t_build:.1f}s; search -f 1 {t_search:.1f}s "
-        f"({rows[0][1]} k-mers); search -s {t_perfect:.1f}s; stream_probe "
+        f"({rows[0][1]} k-mers, counted on the device; stream_probe launches "
+        f"{reads_launches}); search -s {t_perfect:.1f}s; stream_probe "
         f"launches={launches}; streamed segments={sizes} n_drop={n_drop} on {card}")
     if index.blocked != 4:
         raise AssertionError(f"build --blocked chose layout {index.blocked}, not v4")
-    if len(segments) < 2 or n_drop or (DEVICE == "cuda" and launches < 2):
+    if len(segments) < 2 or n_drop or (
+        DEVICE == "cuda" and (launches < 2 or reads_launches == 0)
+    ):
         raise AssertionError(
             "the blocked main path did not run every search through the probe "
-            f"kernel (launches={launches}, segments={sizes}, n_drop={n_drop})"
+            f"kernel (launches={launches}, search -f 1: {reads_launches}, "
+            f"segments={sizes}, n_drop={n_drop})"
         )
     # the same searches with the stream off: byte-identical TSV
     os.environ["COLORID_STREAM"] = "0"
     try:
-        tsv0, perfect0, _, _ = _searches(tmp, prefix + ".bxi", fq)
+        tsv0, perfect0, *_ = _searches(tmp, prefix + ".bxi", fq, sq.stream_probe)
     finally:
         os.environ.pop("COLORID_STREAM")
     if tsv0 != tsv or perfect0 != perfect or sq.stream_probe.launches != launches:
@@ -829,6 +865,320 @@ def real_segment(dispatch, card: str) -> float:
     if not equal:
         raise AssertionError("stream_probe kernel != twin on the real segment")
     return ms
+
+
+# -- phase 4b: the reads path (read classifier, device k-mer counting) --------
+
+N_PAIRS, INSERT, N_CHECK, N_ROUTES, N_PROFILE = 200_000, 500, 5_000, 20_000, 8_192
+
+
+def _genome(path: str):
+    """The bases of a one-record fasta written by synth_inputs."""
+    import numpy as np
+
+    raw = np.fromfile(path, dtype=np.uint8)
+    body = raw[raw.tobytes().index(b"\n") + 1:]
+    return body[body != ord("\n")]
+
+
+def synth_pairs(tmp: str):
+    """Seeded paired-end reads for read_id: N_PAIRS pairs of READ_LEN bp from
+    the first N_SOURCES genomes (insert INSERT, mate 2 reverse-complemented,
+    SUB_RATE substitutions), 2 % more pairs of random junk, then 1 % of the
+    pairs with an N, 0.5 % whose first mate is cut below k (too_short), 20
+    with a lowercase stretch and 1 % exact duplicates of another pair, all
+    in a random order. Returns (mates [n, 2, READ_LEN] uint8, per pair the
+    source genome (-1 junk), its first mate's length, a lowercase flag)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 6)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    gs = np.stack([_genome(os.path.join(tmp, f"genome{i:02d}.fasta"))
+                   for i in range(N_SOURCES)])
+    n = N_PAIRS + N_PAIRS // 50
+    src = rng.integers(0, N_SOURCES, n)
+    src[N_PAIRS:] = -1
+    starts = rng.integers(0, GENOME_LEN - INSERT, n)[:, None]
+    span = np.arange(READ_LEN)
+    g = src.clip(0)[:, None]
+    mates = np.stack([gs[g, starts + span], comp[gs[g, starts + INSERT - READ_LEN + span][:, ::-1]]], axis=1)
+    junk = src < 0
+    mates[junk] = acgt[rng.integers(0, 4, (int(junk.sum()), 2, READ_LEN))]
+    sub = rng.random(mates.shape) < SUB_RATE
+    mates[sub] = acgt[rng.integers(0, 4, int(sub.sum()))]
+    with_n = rng.choice(n, n // 100, replace=False)
+    mates[with_n, 0, rng.integers(0, READ_LEN, with_n.size)] = ord("N")
+    dup = rng.choice(np.arange(1, n), n // 100, replace=False)
+    mates[dup], src[dup] = mates[dup - 1], src[dup - 1]
+    lower = np.zeros(n, dtype=bool)
+    lower[rng.choice(n, 20, replace=False)] = True
+    mates[lower, 1, 40:60] += 32
+    len1 = np.full(n, READ_LEN)
+    len1[rng.choice(n, n // 200, replace=False)] = K - 11
+    order = rng.permutation(n)
+    return mates[order], src[order], len1[order], lower[order]
+
+
+def write_pairs(prefix: str, mates, len1, sel) -> list[str]:
+    """The selected pairs as prefix_R1/_R2.fastq.gz (ids pair<j>)."""
+    paths = [f"{prefix}_R1.fastq.gz", f"{prefix}_R2.fastq.gz"]
+    qual = "I" * READ_LEN
+    for m, path in enumerate(paths):
+        rows = mates[sel, m].tobytes().decode()
+        lens = len1[sel] if m == 0 else [READ_LEN] * len(sel)
+        with gzip.open(path, "wt", compresslevel=1) as f:
+            f.write("".join(
+                f"@pair{j}\n{rows[i * READ_LEN:i * READ_LEN + ln]}\n+\n{qual[:ln]}\n"
+                for i, (j, ln) in enumerate(zip(sel, lens))
+            ))
+    return paths
+
+
+def read_id_bytes(bxi: str, files: list[str], prefix: str, device: str | None = None,
+                  env: dict | None = None):
+    """CLI read_id (on DEVICE unless ``device`` is given); returns
+    (_reads.txt bytes, _counts.txt bytes, seconds)."""
+    device = device or DEVICE
+    for key, value in (env or {}).items():
+        os.environ[key] = value
+    try:
+        t0 = time.time()
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli(["read_id", "-b", bxi, "-q", *files, "-n", prefix, "--device", device])
+        dt = time.time() - t0
+    finally:
+        for key in env or {}:
+            os.environ.pop(key)
+    with open(prefix + "_reads.txt", "rb") as f, open(prefix + "_counts.txt", "rb") as g:
+        return f.read(), g.read(), dt
+
+
+@contextlib.contextmanager
+def read_id_split():
+    """Where read_id's wall time goes: seconds inside classify_batch, in
+    the host preparation of reads (native 2-bit packing, rank emulation,
+    k-mer sets), in the engine's read classifier calls (dispatch and the
+    fetch that waits for the card), and what is left of classify_batch
+    (the decision math). Observers wrap the functions for the run."""
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.pipelines import read_id as rid
+
+    acc = {"classify": 0.0, "prepare": 0.0, "device": 0.0}
+    depth = dict.fromkeys(acc, 0)  # only the outermost call of a kind counts
+    saved = []
+
+    def timed(owner, name, key, returns_fetch=False):
+        fn = getattr(owner, name)
+
+        def wrapped(*a, **kw):
+            if depth[key]:
+                return fn(*a, **kw)
+            depth[key] += 1
+            t0 = time.time()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                depth[key] -= 1
+                acc[key] += time.time() - t0
+            if returns_fetch:
+                def fetch(out=out):
+                    t1 = time.time()
+                    try:
+                        return out()
+                    finally:
+                        acc[key] += time.time() - t1
+                return fetch
+            return out
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+
+    timed(rid, "classify_batch", "classify")
+    for name in ("_prepare_reads", "_prepare_reads_orderfree", "_prepare_native", "kmer_set"):
+        timed(rid, name, "prepare")
+    for name in ("readid_counts_orderfree", "readid_counts_packed", "readid_counts_arrays",
+                 "readid_counts", "readid_firsthit"):
+        timed(QueryEngine, name, "device")
+    for name in ("readid_counts_reads_async", "readid_firsthit_reads_async"):
+        timed(QueryEngine, name, "device", returns_fetch=True)
+    try:
+        yield acc
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def _check_calls(reads_txt: bytes, src, len1, what: str) -> float:
+    """Share of the source pairs (not junk, first mate >= k) called accept
+    for their own genome; raises if a junk pair is accepted for a genome."""
+    rows = [l.split("\t") for l in reads_txt.decode().splitlines()]
+    if len(rows) != len(src):
+        raise AssertionError(f"{what}: {len(rows)} rows for {len(src)} pairs")
+    ok = n_src = 0
+    for (_rid, call, _c, _m, status, _n), s, ln in zip(rows, src, len1):
+        if s < 0:
+            if status == "accept" and call.startswith("genome"):
+                raise AssertionError(f"{what}: a junk pair was accepted for {call}")
+        elif ln >= K:
+            n_src += 1
+            ok += status == "accept" and call == f"genome{s:02d}"
+    return ok / n_src
+
+
+def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch.core.fastx import stream_fastq
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+    from colorid_tpu_torch.ops.query import query_readid_orderfree_reads
+    from colorid_tpu_torch.pipelines.search import _count_query_kmers
+
+    t0 = time.time()
+    mates, src, len1, lower = synth_pairs(tmp)
+    n = len(src)
+    d = os.path.join(tmp, "pairs")
+    os.makedirs(d)
+    full = write_pairs(os.path.join(d, "all"), mates, len1, np.arange(n))
+    check = write_pairs(os.path.join(d, "check"), mates, len1, np.arange(N_CHECK))
+    routes = write_pairs(os.path.join(d, "routes"), mates, len1, np.arange(N_ROUTES))
+    log(f"[reads] {n} pairs ({int((src < 0).sum())} junk, {int((len1 < K).sum())} "
+        f"first mates below k, {int(lower.sum())} with lowercase) written in "
+        f"{time.time() - t0:.1f}s")
+    for name, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
+        with read_id_split() as split:
+            reads, _counts, dt = read_id_bytes(bxi, full, os.path.join(d, f"{name}_all"))
+        share = _check_calls(reads, src, len1, name)
+        rest = split["classify"] - split["prepare"] - split["device"]
+        log(f"[reads] {name} read_id: {n} pairs in {dt:.2f}s of CLI wall time (index "
+            f"load included) = {n / dt:.0f} pairs/s; "
+            f"{share:.4f} of the source pairs accepted for their genome, no junk pair "
+            f"accepted; wall split: classify_batch {split['classify']:.2f}s (host "
+            f"preparation {split['prepare']:.2f}s, engine calls with their fetches "
+            f"{split['device']:.2f}s, decision math {rest:.2f}s), outside it (index "
+            f"load, FASTQ decode wait, output files) {dt - split['classify']:.2f}s on {card}")
+        if share < 0.95:
+            raise AssertionError(f"{name}: only {share:.4f} of the source pairs accepted")
+        got = read_id_bytes(bxi, check, os.path.join(d, f"{name}_card"))
+        want = read_id_bytes(bxi, check, os.path.join(d, f"{name}_cpu"), device="cpu")
+        if got[:2] != want[:2]:
+            raise AssertionError(f"{name}: the card's read_id files differ from the CPU's")
+        base = read_id_bytes(bxi, routes, os.path.join(d, f"{name}_routes"))
+        route_s = []
+        for env in ({"COLORID_RID_SAFE": "0"}, {"COLORID_RID_READS": "0"}):
+            other = read_id_bytes(bxi, routes, os.path.join(d, f"{name}_env"), env=env)
+            if other[:2] != base[:2]:
+                raise AssertionError(f"{name}: {env} changed read_id's files")
+            route_s.append(other[2])
+        log(f"[reads] {name}: _reads.txt and _counts.txt byte-identical, card vs "
+            f"--device cpu on {N_CHECK} pairs ({got[2]:.2f}s vs {want[2]:.2f}s) and "
+            f"default vs COLORID_RID_SAFE=0 vs COLORID_RID_READS=0 on {N_ROUTES} pairs "
+            f"({base[2]:.2f}s, {route_s[0]:.2f}s, {route_s[1]:.2f}s) on {card}")
+    # batch_id on two samples (paired, single-end) against read_id on each
+    se = os.path.join(d, "se_reads")
+    se_bytes = read_id_bytes(classic_bxi, check[:1], se)
+    man = os.path.join(d, "samples.txt")
+    with open(man, "w") as f:
+        f.write(f"pe\t{routes[0]}\t{routes[1]}\nse\t{check[0]}\n")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli(["batch_id", "-b", classic_bxi, "-q", man, "-T", "tag", "--device", DEVICE])
+    finally:
+        os.chdir(cwd)
+    for sample, want in (("pe", os.path.join(d, "classic_routes")), ("se", se)):
+        for suffix in ("_reads.txt", "_counts.txt"):
+            with open(os.path.join(d, f"{sample}_tag{suffix}"), "rb") as f, \
+                    open(want + suffix, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"batch_id {sample}{suffix} != read_id's")
+    # read_filter: the pairs whose call names genome01
+    reads_txt = os.path.join(d, "classic_routes_reads.txt")
+    with open(reads_txt) as f:
+        hit = [l.split("\t")[0] for l in f if "genome01" in l.split("\t")[1]]
+    with contextlib.redirect_stderr(io.StringIO()):
+        cli(["read_filter", "-c", reads_txt, "-f", *routes, "-t", "genome01",
+             "-p", os.path.join(d, "filtered")])
+    for m in (1, 2):
+        with gzip.open(os.path.join(d, f"filtered_genome01_R{m}.fq.gz"), "rt") as f:
+            ids = f.read().splitlines()[::4]
+        if [i.split(" ")[0] for i in ids] != hit:
+            raise AssertionError(f"read_filter R{m} records != the _reads.txt rows")
+    log(f"[reads] batch_id (2 samples) equals read_id on each; read_filter wrote the "
+        f"{len(hit)} pairs that _reads.txt calls genome01, in order, on {card}")
+
+    # device k-mer counting: CLI search -f 1, and search_reads vs search_keys
+    fq = inputs[1]
+    with contextlib.redirect_stderr(io.StringIO()):
+        keys, qcounts, packed = _count_query_kmers(fq, None, K, 15, 1, False)
+        seqs = [s for _id, s in stream_fastq(fq, 15)]
+    L = max(64, -(-max(len(s) for s in seqs) // 32) * 32)
+    rb = np.zeros((len(seqs), L), dtype=np.uint8)
+    for j, s in enumerate(seqs):
+        rb[j, : len(s)] = s
+    words, vbits = pack_reads_valid(rb)
+    lens = np.array([len(s) for s in seqs], dtype=np.int32)
+    dev = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(DEVICE)
+           for a in (words, lens, vbits)]
+    for name, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
+        secs, tsvs = [], []
+        for flag in ("1", "0"):
+            os.environ["COLORID_SEARCH_READS"] = flag
+            try:
+                t0 = time.time()
+                tsvs.append(cli(["search", "-b", bxi, "-q", fq, "-f", "1", "--device", DEVICE]))
+                secs.append(time.time() - t0)
+            finally:
+                os.environ.pop("COLORID_SEARCH_READS")
+        if tsvs[0] != tsvs[1] or not tsvs[0]:
+            raise AssertionError(f"{name}: search -f 1 TSV differs with device counting")
+        eng = QueryEngine(BigsiIndex.load(bxi), device=DEVICE)
+        want = eng.search_keys(keys, qcounts=qcounts, packed_all=packed, k=K)
+        kernel = sq.classic_words if name == "classic" else sq.stream_probe
+        before = kernel.launches
+        rates = []
+        for _ in range(2):
+            sync()
+            t0 = time.time()
+            got, n_u = eng.search_reads(*dev, k=K, L=L, filter_t=1)
+            rates.append(n_u / (time.time() - t0))
+        launches = kernel.launches - before
+        if n_u != keys.shape[0] or not same_result(got, want):
+            raise AssertionError(f"{name}: search_reads != search_keys on host-counted k-mers")
+        if DEVICE == "cuda" and launches < 2:
+            raise AssertionError(f"{name}: search_reads did not launch {kernel.__name__}")
+        log(f"[reads] {name}: CLI search -f 1 TSV byte-identical, device counting "
+            f"{secs[0]:.2f}s vs host counting {secs[1]:.2f}s; search_reads on "
+            f"{len(seqs)} device-resident reads ({words.shape[0] * (L - K + 1)} windows) "
+            f"== search_keys on {n_u} host-counted k-mers; {max(rates):.0f} k-mers/s "
+            f"(best of 2, one fetch each; {kernel.__name__} launches {launches}) on {card}")
+        if DEVICE == "cuda":
+            profile_dispatch(
+                lambda: eng.search_reads(*dev, k=K, L=L, filter_t=1)[1],
+                f"search_reads {name}", card, label="search_reads",
+            )
+            # one order-free dispatch of N_PROFILE pairs, inputs on the card
+            sel = np.arange(N_PROFILE)
+            pw, pv = pack_reads_valid(mates[sel].reshape(-1, READ_LEN))
+            pl = torch.full((2 * N_PROFILE,), READ_LEN, dtype=torch.int32, device=DEVICE)
+            pw, pv = (torch.from_numpy(a.view(np.int32)).to(DEVICE) for a in (pw, pv))
+            geo = eng._reads_geometry(K, 160)
+            log(f"[profile] readid {name}: {N_PROFILE} pairs, "
+                f"{2 * N_PROFILE * (160 - K + 1)} windows")
+            profile_dispatch(
+                lambda: query_readid_orderfree_reads(
+                    eng.blocks2, pw, pl, pv, num_reads=N_PROFILE, nm=2, d=1, **geo),
+                f"readid {name}", card, label="order-free",
+            )
+        del eng
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
 
 
 # -- phase 5: the sharded paths on a logical mesh -----------------------------
@@ -1198,8 +1548,9 @@ def ptxas_summary(logs) -> list[str]:
     return out
 
 
-def profile_dispatch(fn, what: str, card: str) -> None:
-    """Where one stream dispatch spends its device time:
+def profile_dispatch(fn, what: str, card: str, label: str = "stream") -> None:
+    """Where one dispatch (a stream dispatch unless ``label`` says other)
+    spends its device time:
     torch.profiler's per-kernel device totals, and the device's idle share
     of the dispatch's host-clock span."""
     import torch
@@ -1236,7 +1587,7 @@ def profile_dispatch(fn, what: str, card: str) -> None:
         f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
         and name.split("_kernel")[0] in ("classic_word", "stream_probe", "stream_probe_raw")
     )
-    log(f"[profile] {what}: one stream dispatch: device {dev_ms:.2f} ms of "
+    log(f"[profile] {what}: one {label} dispatch: device {dev_ms:.2f} ms of "
         f"{wall_ms:.2f} ms host-clock span (idle share "
         f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); top kernels: {top}; "
         f"the port's own: {ours or 'none'} on {card}")
@@ -1277,6 +1628,7 @@ def main() -> int:
         blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
         classic_parity_phase(classic_bxi, inputs[1], card)
         probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
+        reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         probe_row["launches"] += rowshard_phase(blocked_bxi, inputs[1], card)
         torch.cuda.empty_cache()
         raw_row["launches"] = colorshard_phase(card)

@@ -21,7 +21,11 @@ shards, all on the one card unless the mesh names more devices:
 
     engine = ShardedQueryEngine(index, mesh=make_mesh(1, 4, "color"))
 
-CLI: ``python -m colorid_tpu_torch.cli {build,search,info}``.
+Reads go to the card as 2-bit words: ``engine.search_reads`` counts their
+k-mers there, and ``pipelines/read_id.py`` classifies read by read.
+
+CLI: ``python -m colorid_tpu_torch.cli
+{build,search,info,read_id,batch_id,read_filter}``.
 """
 
 __version__ = "0.1.0"

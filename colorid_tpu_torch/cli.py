@@ -22,9 +22,8 @@ Index files keep the reference extensions: `<prefix>.bxi` (k-mer) /
 (`--ref-format` writes reference bincode); the loader autodetects either.
 Both formats are shared with the JAX package.
 
-`search` runs on `--device cuda` (the default; raises without a card) or
-`--device cpu`. read_id, batch_id and read_filter keep the reference's
-flags but are not yet ported: they exit non-zero.
+`search`, `read_id` and `batch_id` run on `--device cuda` (the default;
+raises without a card) or `--device cpu`. read_filter is host-only.
 """
 
 from __future__ import annotations
@@ -73,11 +72,13 @@ def _build(args: argparse.Namespace) -> None:
         index.save(path)
 
 
-def _load_engine(path: str, device: str):
+def _load_engine(path: str, device: str, high_mem: bool = False):
     from .engine import QueryEngine
     from .index.bigsi import BigsiIndex
 
-    return QueryEngine(BigsiIndex.load(path), device=device)
+    # -H loads the whole file into RAM (the reference's read_bigsi_highmem,
+    # bigsi.rs:65-68); default memory-maps
+    return QueryEngine(BigsiIndex.load(path, mmap=not high_mem), device=device)
 
 
 def _search(args: argparse.Namespace) -> None:
@@ -123,10 +124,56 @@ def _info(args: argparse.Namespace) -> None:
         print(l)
 
 
-def _not_ported(args: argparse.Namespace) -> None:
-    raise SystemExit(
-        f"colorid-tpu-torch: {args.cmd} is not yet ported in colorid_tpu_torch"
+def _read_id(args: argparse.Namespace) -> None:
+    import time
+
+    from .pipelines.read_id import read_id
+
+    t0 = time.time()
+    engine = _load_engine(args.bigsi, args.device, args.high_mem_load)
+    print(f"Index loaded in {int(time.time() - t0)} seconds", file=sys.stderr)
+    read_id(
+        args.query,
+        engine,
+        prefix=args.prefix,
+        d=args.down_sample,
+        fp_correct=10.0 ** (-args.fp_correct),
+        b=args.batch,
+        qual_offset=args.quality,
+        start_sample=args.bitvector_sample,
+        threads=args.threads,
     )
+
+
+def _batch_id(args: argparse.Namespace) -> None:
+    from .pipelines.build import tab_to_map
+    from .pipelines.read_id import read_id
+
+    samples = tab_to_map(args.query)
+    engine = _load_engine(args.bigsi, args.device, args.high_mem_load)
+    for accession, files in samples.items():
+        print(f"Classifying {accession}", file=sys.stderr)
+        read_id(
+            files,
+            engine,
+            prefix=f"{accession}_{args.tag}",
+            d=args.down_sample,
+            fp_correct=10.0 ** (-args.fp_correct),
+            b=args.batch,
+            qual_offset=args.quality,
+            start_sample=args.bitvector_sample,
+            threads=args.threads,
+        )
+
+
+def _read_filter(args: argparse.Namespace) -> None:
+    from .pipelines.read_filter import read_filter_pe, read_filter_se, tab_to_map
+
+    class_map = tab_to_map(args.classification, args.taxon)
+    if len(args.files) == 1:
+        read_filter_se(class_map, args.files, args.taxon, args.prefix, args.exclude)
+    else:
+        read_filter_pe(class_map, args.files, args.taxon, args.prefix, args.exclude)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -192,7 +239,9 @@ def make_parser() -> argparse.ArgumentParser:
     r.add_argument("-p", "--fp_correct", type=float, default=3.0)
     r.add_argument("-Q", "--quality", type=int, default=15)
     r.add_argument("-B", "--bitvector_sample", type=int, default=3)
-    r.set_defaults(func=_not_ported)
+    r.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device that holds the index and runs the query")
+    r.set_defaults(func=_read_id)
 
     bi = sub.add_parser("batch_id", help="classifies batch of samples reads")
     bi.add_argument("-b", "--bigsi", required=True)
@@ -205,7 +254,9 @@ def make_parser() -> argparse.ArgumentParser:
     bi.add_argument("-p", "--fp_correct", type=float, default=3.0)
     bi.add_argument("-Q", "--quality", type=int, default=15)
     bi.add_argument("-B", "--bitvector_sample", type=int, default=3)
-    bi.set_defaults(func=_not_ported)
+    bi.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device that holds the index and runs the query")
+    bi.set_defaults(func=_batch_id)
 
     rf = sub.add_parser("read_filter", help="filters reads")
     rf.add_argument("-c", "--classification", required=True)
@@ -213,7 +264,7 @@ def make_parser() -> argparse.ArgumentParser:
     rf.add_argument("-t", "--taxon", required=True)
     rf.add_argument("-p", "--prefix", required=True)
     rf.add_argument("-e", "--exclude", action="store_true")
-    rf.set_defaults(func=_not_ported)
+    rf.set_defaults(func=_read_filter)
     return p
 
 

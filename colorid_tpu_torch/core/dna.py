@@ -1,4 +1,4 @@
-"""Byte-level DNA primitives (lookup tables + quality masking).
+"""Byte-level DNA primitives (lookup tables + revcomp/masking).
 
 Behavior contracts (reference: the Rust colorid sources, src/):
 - complement table matches ``switch_base`` (kmer.rs:847-863): acgtun/ACGTUN
@@ -47,3 +47,16 @@ def qual_mask(seq: np.ndarray, qual: np.ndarray, qual_offset: int) -> np.ndarray
         raise ValueError("sequence shorter than quality string")
     cutoff = qual_offset + 33
     return np.where(qual[: len(qual)] < cutoff, np.uint8(ord("N")), seq[: len(qual)])
+
+
+def to_str(a: np.ndarray) -> str:
+    return a.tobytes().decode("utf-8")
+
+
+def revcomp(seq: np.ndarray) -> np.ndarray:
+    """Reverse complement of a uint8 sequence (kmer.rs:839-845)."""
+    return COMP[seq[::-1]]
+
+
+def revcomp_str(s: str) -> str:
+    return to_str(revcomp(to_bytes(s)))

@@ -11,6 +11,10 @@
   at 0 mod 4; '+' lines ignored; gzip streams may be multi-member
   (MultiGzDecoder semantics — Python gzip handles concatenated members).
   The paired iterator stops as soon as file2 is exhausted (None => break).
+- ``stream_fasta_records`` (read_id_mt_pe.rs:450-527): the read_id fasta
+  streamer keeps the raw line terminator inside the accumulated sequence, so
+  k-mers never span fasta line boundaries there; replicated faithfully via
+  keep_newlines=True.
 """
 
 from __future__ import annotations
@@ -141,3 +145,95 @@ def stream_fastq_pe(
                 )
 
 
+def stream_fastq_raw(
+    path: str,
+) -> Iterator[tuple[str, np.ndarray, np.ndarray]]:
+    """(id, seq_bytes, qual_bytes) per read, unmasked — batch pipelines mask
+    vectorized over whole batches instead of per read."""
+    with _open_maybe_gz(path) as f:
+        rid = ""
+        seq = ""
+        for line_count, line in enumerate(f, start=1):
+            l = line.rstrip("\n").rstrip("\r")
+            m = line_count % 4
+            if m == 1:
+                rid = l
+            elif m == 2:
+                seq = l
+            elif m == 0:
+                yield rid, to_bytes(seq), to_bytes(l)
+
+
+def stream_fastq_pe_raw(
+    path1: str, path2: str
+) -> Iterator[tuple[str, np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+    """Paired unmasked streaming; id from file1; stops when file2 runs dry."""
+    with _open_maybe_gz(path1) as f1, _open_maybe_gz(path2) as f2:
+        it2 = iter(f2)
+        rid = ""
+        seq1 = ""
+        seq2 = ""
+        line_count = 0
+        for line in f1:
+            line_count += 1
+            l = line.rstrip("\n").rstrip("\r")
+            l2_raw = next(it2, None)
+            if l2_raw is None:
+                return
+            m = line_count % 4
+            if m == 1:
+                rid = l
+            elif m == 2:
+                seq1 = l
+                seq2 = l2_raw.rstrip("\n").rstrip("\r")
+            elif m == 0:
+                q2 = l2_raw.rstrip("\n").rstrip("\r")
+                yield (
+                    rid,
+                    to_bytes(seq1),
+                    to_bytes(l),
+                    to_bytes(seq2),
+                    to_bytes(q2),
+                )
+
+
+def stream_fastq_records(
+    path: str,
+) -> Iterator[tuple[str, str, str]]:
+    """Raw (id, seq, qual) triples — used by read_filter to rewrite files."""
+    with _open_maybe_gz(path) as f:
+        rid = ""
+        seq = ""
+        for line_count, line in enumerate(f, start=1):
+            l = line.rstrip("\n").rstrip("\r")
+            m = line_count % 4
+            if m == 1:
+                rid = l
+            elif m == 2:
+                seq = l
+            elif m == 0:
+                yield rid, seq, l
+
+
+def stream_fasta_records(path: str) -> Iterator[tuple[str, str]]:
+    """read_id fasta streaming (read_id_mt_pe.rs:450-527): header = first
+    line, then any '>' line; sequence keeps embedded newlines (quirk: k-mers
+    never span fasta lines on this path); the record before a '>' line is
+    emitted only if nonempty."""
+    with open(path, "r") as f:
+        rid = ""
+        sub = ""
+        first = True
+        for line in f:
+            if first:
+                rid = line[:-1] if line.endswith("\n") else line
+                first = False
+                continue
+            if ">" in line:
+                if sub:
+                    yield rid, sub
+                    rid = line[:-1] if line.endswith("\n") else line
+                    sub = ""
+            else:
+                sub += line
+        yield rid, sub

@@ -48,6 +48,8 @@ replaying only the first occurrences (in first-occurrence order) is exact.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 FNV_OFFSET = np.uint64(0xCBF29CE484222325)
@@ -67,6 +69,23 @@ def fnv1a64_str(data: bytes) -> int:
     """Hash of a Rust &str/String: bytes then the 0xff terminator."""
     h = fnv1a64(data)
     return ((h ^ 0xFF) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+
+
+def fnv1a64_usize(value: int) -> int:
+    """Hash of a Rust usize on a 64-bit LE target: 8 little-endian bytes."""
+    return fnv1a64(int(value).to_bytes(8, "little"))
+
+
+def fnv1a64_batch(keys: np.ndarray) -> np.ndarray:
+    """Vectorized fnv1a64_str over byte rows [N, k] -> uint64 [N]."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint8)
+    n, k = keys.shape
+    h = np.full(n, FNV_OFFSET, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        for j in range(k):
+            h = (h ^ keys[:, j].astype(np.uint64)) * FNV_PRIME
+        h = (h ^ np.uint64(0xFF)) * FNV_PRIME
+    return h
 
 
 def _capacity_to_buckets(cap: int) -> int:
@@ -165,6 +184,36 @@ def hashbrown_iteration_order(hashes) -> np.ndarray:
     for i, h in enumerate(hashes):
         t.insert(int(h), i)
     return t.iteration_order()
+
+
+def fnv_set_ranks(hashes) -> np.ndarray:
+    """ranks[i] = iteration position of the i-th inserted unique key."""
+    order = hashbrown_iteration_order(hashes)
+    ranks = np.empty(len(order), dtype=np.int64)
+    ranks[order] = np.arange(len(order))
+    return ranks
+
+
+def fnv_reorder_keys(keys: np.ndarray) -> np.ndarray:
+    """Reorder unique k-mer byte rows [N, k] (first-occurrence order) into
+    FnvHashSet iteration order, so index == iteration position."""
+    if keys.shape[0] <= 1:
+        return keys
+    order = hashbrown_iteration_order(fnv1a64_batch(keys))
+    return keys[order]
+
+
+def fnv_map_order_usize(keys_in_insertion_order) -> list[int]:
+    """FnvHashMap<usize, _> iteration order for the given unique keys."""
+    return list(_map_order_usize_cached(tuple(keys_in_insertion_order)))
+
+
+@functools.lru_cache(maxsize=65536)
+def _map_order_usize_cached(keys: tuple) -> tuple:
+    # tied-read fixup calls this once per read with small color-id tuples
+    # that repeat heavily across a batch; the table replay is pure in them
+    order = hashbrown_iteration_order([fnv1a64_usize(k) for k in keys])
+    return tuple(keys[i] for i in order)
 
 
 def fnv_map_order_str(keys_in_insertion_order: list[bytes]) -> list[bytes]:

@@ -27,7 +27,7 @@ canonical comparison):
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
@@ -221,3 +221,32 @@ def count_kmers(
     return u.view(np.uint8).reshape(-1, width), summed
 
 
+def kmer_set(
+    seqs: Sequence[np.ndarray],
+    k: int,
+    d: int = 1,
+    minimizer: int = 0,
+) -> np.ndarray:
+    """Per-read canonical k-mer set in first-occurrence order
+    (kmerize_vector_skip_n_set / minimerize_vector_skip_n_set semantics:
+    skip_n always on, no uppercase of k-mers, minimizers uppercased).
+
+    Sequences shorter than k are skipped (the reference would panic; the
+    caller has already emitted "too_short" based on the first mate).
+    """
+    width = minimizer if minimizer else k
+    parts = []
+    for seq in seqs:
+        if len(seq) < k:
+            continue
+        w = canonical_windows(seq, k, d=d, skip_n=True, uppercase=False)
+        if w.shape[0] == 0:
+            continue
+        if minimizer:
+            w = UPPER[minimizers_of_windows(w, minimizer)]
+        parts.append(w)
+    if not parts:
+        return np.empty((0, width), dtype=np.uint8)
+    allw = np.concatenate(parts, axis=0)
+    uniq, _ = unique_rows(allw, order="first")
+    return uniq

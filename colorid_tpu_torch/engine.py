@@ -43,6 +43,16 @@ def _i32(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
 
+def _pad_rows(pk: torch.Tensor, qc: torch.Tensor, unit: int):
+    """Device k-mers [n, 2] and frequencies [n] zero-padded to a multiple
+    of a stream's unit (qc == 0 marks padding)."""
+    pad = _round_up(pk.shape[0], unit) - pk.shape[0]
+    return (
+        torch.cat([pk, pk.new_zeros((pad, 2))]),
+        torch.cat([qc, qc.new_zeros(pad)]),
+    )
+
+
 def _dev_vec(stats, n_drop, hist) -> torch.Tensor:
     """What a device-resident dispatch leaves for one fetch
     (search_keys_dev_finish decodes it)."""
@@ -146,9 +156,15 @@ class QueryEngine:
                 "colorid_tpu_torch (ROADMAP queue 1)"
             )
         # wide rows multiply the epilogue's [chunk, wpad] footprint; cap the
-        # scan chunk so it stays memory-friendly
+        # scan chunk, the search_keys pad floor and the reads per read_id
+        # dispatch so they stay memory-friendly
         if self.wpad > 128:
             self.chunk = min(self.chunk, max((1 << 29) // (self.wpad * 128), 2048))
+            self._minpad = 2048
+            self._rid_reads = 1024
+        else:
+            self._minpad = 16384
+            self._rid_reads = 8192
         stream_on = os.environ.get("COLORID_STREAM", "1") != "0"
         self._stream = (
             self.bv in (2, 3, 4)  # split-lane placements
@@ -226,14 +242,8 @@ class QueryEngine:
         else:
             n = keys.shape[0]
         C = self.index.n_colors
-        W = self.index.words_per_row
         if n == 0:
-            none = np.zeros(0, dtype=np.int32)
-            return SearchResult(
-                np.zeros(C, dtype=np.int64), True,
-                np.full(W, 0xFFFFFFFF, dtype=np.uint32),
-                np.zeros((C, FREQ_CAP), dtype=np.int64), none, none,
-            )
+            return self._empty_result()
         if packed_all is not None and not (
             k and 4 <= k <= 32 and not self._custom_place
         ):
@@ -277,7 +287,7 @@ class QueryEngine:
             if packed_all is not None and self._use_stream(m):
                 from .ops.stream_query import stream_accumulate_hash
 
-                size = _round_up(m, chunk if m > chunk else min(16384, chunk))
+                size = _round_up(m, chunk if m > chunk else min(self._minpad, chunk))
                 pk = np.zeros((size, 2), dtype=np.uint32)
                 pk[:m] = packed_all[start:stop]
                 qc = np.zeros(size, dtype=np.int32)  # 0 marks padding
@@ -322,10 +332,9 @@ class QueryEngine:
         and one fetch. None if the stream's residual/overflow capacity was
         exceeded or ``max_freq`` did not hold (rerun through
         search_keys_dev_generic_async or the host path)."""
-        vec, oc_buf, of_buf, capO = self.search_keys_dev_async(
-            pk_dev, qc_dev, k=k, max_freq=max_freq
+        return self._finish_dev(
+            self.search_keys_dev_async(pk_dev, qc_dev, k=k, max_freq=max_freq)
         )
-        return self.search_keys_dev_finish(vec.cpu().numpy(), oc_buf, of_buf, capO)
 
     def _check_dev_batch(self, name: str, pk_dev, qc_dev, k: int, unit: int):
         if not (4 <= k <= 32):
@@ -380,15 +389,16 @@ class QueryEngine:
         return _dev_vec(stats, nd, hist), oc_buf, of_buf, capO
 
     def search_keys_dev_generic_async(
-        self, pk_dev: torch.Tensor, qc_dev: torch.Tensor, k: int
+        self, pk_dev: torch.Tensor, qc_dev: torch.Tensor, k: int,
+        capO: int = 1 << 18,
     ):
         """Device-resident exact-mode query through the GENERIC gather:
         works on every layout. Same contract as search_keys_dev_async
-        (decode with search_keys_dev_finish). P must be a multiple of the
-        engine chunk; qc_dev are full int32 frequencies with 0 = pad."""
+        (decode with search_keys_dev_finish). P may be any length (the
+        last chunk is short); qc_dev are full int32 frequencies with 0 =
+        pad. capO bounds the overflow list the result can report."""
         chunk = min(self.chunk, 1 << 20)
-        self._check_dev_batch("search_keys_dev_generic", pk_dev, qc_dev, k, chunk)
-        capO = 1 << 18
+        self._check_dev_batch("search_keys_dev_generic", pk_dev, qc_dev, k, 1)
         stats, hist, oc_buf, of_buf = self._new_accumulators(capO)
         query_accumulate_hash_scan_exact(
             stats, hist, oc_buf, of_buf, self.blocks2, pk_dev, qc_dev,
@@ -412,11 +422,10 @@ class QueryEngine:
         pk[:n] = packed_all
         qc = np.zeros(P0, dtype=np.int32)
         qc[:n] = np.maximum(qcounts[:n], 1)
-        vec, oc_buf, of_buf, capO = self.search_keys_dev_classic_async(
+        return self._finish_dev(self.search_keys_dev_classic_async(
             _i32(pk).to(self.device), _i32(qc).to(self.device), k,
             capO=_round_up(n, 1024),
-        )
-        return self.search_keys_dev_finish(vec.cpu().numpy(), oc_buf, of_buf, capO)
+        ))
 
     def search_keys_dev_classic_async(
         self, pk_dev: torch.Tensor, qc_dev: torch.Tensor, k: int,
@@ -460,6 +469,11 @@ class QueryEngine:
         hist = host[sl + 1 :].reshape(C, FREQ_CAP)
         return self._result(host[:sl], hist, oc_buf, of_buf, capO, None)
 
+    def _finish_dev(self, out) -> SearchResult | None:
+        """Fetch and decode one search_keys_dev*_async dispatch."""
+        vec, oc_buf, of_buf, capO = out
+        return self.search_keys_dev_finish(vec.cpu().numpy(), oc_buf, of_buf, capO)
+
     def _collect(self, stats, hist, oc_buf, of_buf, capO, qcounts=None):
         """Fetch the device accumulators into a SearchResult. With a host
         ``qcounts`` copy, overflow slots hold global k-mer indices resolved
@@ -490,3 +504,433 @@ class QueryEngine:
         return SearchResult(
             counts, all_valid, and_all, hist_np.astype(np.int64), over_c, over_f
         )
+
+    def _empty_result(self) -> SearchResult:
+        """The SearchResult of a query without k-mers."""
+        C = self.index.n_colors
+        none = np.zeros(0, dtype=np.int32)
+        return SearchResult(
+            np.zeros(C, dtype=np.int64), True,
+            np.full(self.index.words_per_row, 0xFFFFFFFF, dtype=np.uint32),
+            np.zeros((C, FREQ_CAP), dtype=np.int64), none, none,
+        )
+
+    def _to_dev(self, a) -> torch.Tensor:
+        """A host array (numpy; uint32 words as their int32 bit view) or a
+        tensor, on this engine's device. On the card a host array goes
+        through pinned memory with a non-blocking copy, so queueing several
+        dispatches never waits for the ones before."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # -- device k-mer extraction (ops/extract.py) ----------------------------
+
+    def search_reads(
+        self,
+        reads_packed,  # uint32 [R, ceil(L/16)] 2-bit read words (or a tensor)
+        lens,  # int32 [R] true read lengths
+        valid_bits=None,  # uint32 [R, ceil(L/32)]
+        *,
+        k: int,
+        L: int,
+        filter_t: int = 0,
+        d: int = 1,
+    ) -> tuple[SearchResult, int]:
+        """Search a batch of uppercase-ACGT reads shipped as 2-bit words.
+
+        The device extracts canonical k-mer windows, counts them, applies
+        the strictly-greater frequency filter (kmer.rs:826-837) and queries
+        the index, all without the k-mers ever existing host-side
+        (ops/extract.py): the host link carries ~0.27 bytes per read base
+        instead of 10 bytes per unique k-mer. Inputs may already be on the
+        device (tensors, int32 bit views). Returns (result, n_unique
+        filtered k-mers). N/other invalid bases are handled exactly via the
+        optional per-base validity bitplane (pack_reads_valid): windows
+        touching one are skipped like the reference's has_no_n check;
+        lowercase-containing reads still need the exact host path (raw-byte
+        canonical order is not 2-bit representable).
+
+        The counted k-mers stay on the device and go to the dispatcher
+        search_keys would choose for a batch of that size: the blocked
+        probe stream (search_keys_dev_async) or the classic sorted-row
+        stream (search_keys_dev_classic_async) when the batch is dense
+        enough, else the generic gather, which also reruns a stream
+        dispatch whose capacity was exceeded. The JAX package answers a
+        v3/v4 index through its fused one-dispatch pipeline
+        (ops/fused_reads.py, not yet ported) and every other index through
+        the generic gather. Counts, all_valid, and_all, freq_stats() and
+        n_unique agree with it; the overflow list as a multiset.
+        """
+        from .ops.extract import extract_count
+        from .ops.stream_query import EPC_CL, PC
+
+        if not (4 <= k <= 32 and self.index.bloom_size < 2**31):
+            raise ValueError("search_reads requires the device-hash envelope")
+        if self._custom_place:
+            raise ValueError(
+                "search_reads device hashing does not cover shard-placed "
+                "indexes on one device; use the sharded engine or search_keys"
+            )
+        n_windows = reads_packed.shape[0] * (L - k + 1)
+        if n_windows >= 2**31:
+            raise ValueError(
+                f"read batch spans {n_windows} k-mer windows, beyond int32 "
+                "device indexing; split the batch (R * (L - k + 1) must stay "
+                "under 2^31)"
+            )
+        if not isinstance(lens, torch.Tensor):
+            lens = np.asarray(lens, dtype=np.int32)
+        pk, qc, n_u = extract_count(
+            self._to_dev(reads_packed), self._to_dev(lens),
+            None if valid_bits is None else self._to_dev(valid_bits),
+            k=k, L=L, filter_t=filter_t, d=d,
+        )
+        if qc.numel() == 0:
+            return self._empty_result(), 0
+        # one fetch of two scalars; keys and counts stay on the device
+        n, max_freq = torch.stack([n_u, qc.max()]).tolist()
+        if n == 0:
+            return self._empty_result(), 0
+        pk, qc = pk[:n], qc[:n]
+        capO = _round_up(n, 1024)
+        res = None
+        if self._use_stream(n):
+            res = self._finish_dev(self.search_keys_dev_async(
+                *_pad_rows(pk, qc, PC), k=k, max_freq=max_freq
+            ))
+        elif self._use_stream_classic(n, k):
+            res = self._finish_dev(self.search_keys_dev_classic_async(
+                *_pad_rows(pk, qc, EPC_CL), k, capO=capO
+            ))
+        if res is None:  # sparse batch, or a stream's capacity exceeded
+            res = self._finish_dev(
+                self.search_keys_dev_generic_async(pk, qc, k, capO=capO)
+            )
+        return res, n
+
+    def count_reads_histogram(
+        self,
+        reads_packed,
+        lens,
+        valid_bits=None,
+        *,
+        k: int,
+        L: int,
+        d: int = 1,
+        cap: int = 65536,
+    ) -> np.ndarray:
+        """Device-side per-unique-k-mer count histogram (auto_cutoff input;
+        kmer.rs:866): one [cap] int32 fetch instead of shipping counts."""
+        from .ops.extract import count_histogram
+
+        if not isinstance(lens, torch.Tensor):
+            lens = np.asarray(lens, dtype=np.int32)
+        return count_histogram(
+            self._to_dev(reads_packed), self._to_dev(lens),
+            None if valid_bits is None else self._to_dev(valid_bits),
+            k=k, L=L, d=d, cap=cap,
+        ).cpu().numpy()
+
+    # -- read classifier (read_id hot loop) ----------------------------------
+    #
+    # Each method cuts its batch into chunks of _rid_reads reads, queues
+    # every chunk's dispatch, and fetches all of them at once at the end
+    # (the *_async variants return that fetch as a closure). Chunks are not
+    # padded: without a compiler cache, fixed shapes buy nothing here.
+
+    def _rid_chunks(self, n_reads: int, seg: np.ndarray | None = None):
+        """(r0, r1, lo, hi) per chunk of reads: reads [r0, r1) own the
+        entries [lo, hi) of the read-sorted ``seg`` (None: one entry per
+        read)."""
+        for r0 in range(0, n_reads, self._rid_reads):
+            r1 = min(r0 + self._rid_reads, n_reads)
+            if seg is None:
+                yield r0, r1, r0, r1
+            else:
+                lo, hi = np.searchsorted(seg, [r0, r1], "left")
+                yield r0, r1, int(lo), int(hi)
+
+    @staticmethod
+    def _fetch(out: np.ndarray, pending: list):
+        """One device-to-host copy of every queued chunk's rows into out."""
+        if pending:
+            host = torch.cat([rep for _r0, _r1, rep in pending]).cpu().numpy()
+            j = 0
+            for r0, r1, _rep in pending:
+                out[r0:r1] = host[j : j + r1 - r0]
+                j += r1 - r0
+        return out
+
+    def _flatten_keys(self, keys_per_read: list[np.ndarray]):
+        """(rows [N, H], seg [N], pos [N]) of per-read key rows in set
+        order, or None when no read has a k-mer."""
+        seg, pos, rows = [], [], []
+        for i, keys in enumerate(keys_per_read):
+            kn = keys.shape[0]
+            if kn == 0:
+                continue
+            seg.append(np.full(kn, i, dtype=np.int32))
+            pos.append(np.arange(kn, dtype=np.int32))
+            rows.append(self.rows_for_keys(keys))
+        if not rows:
+            return None
+        return np.concatenate(rows), np.concatenate(seg), np.concatenate(pos)
+
+    def readid_counts(
+        self,
+        keys_per_read: list[np.ndarray],
+        start_sample: int,
+    ) -> np.ndarray:
+        """Per-read per-color hit counts [B, C+1] (column C = no_hits),
+        replicating search_index(_classic) semantics including the
+        break-on-absent quirk and the -B candidate-set two-phase count."""
+        n_reads = len(keys_per_read)
+        flat = self._flatten_keys(keys_per_read)
+        if flat is None:
+            return np.zeros((n_reads, self.index.n_colors + 1), dtype=np.int32)
+        return self.readid_counts_arrays(*flat, n_reads, start_sample)
+
+    def readid_firsthit(
+        self,
+        keys_per_read: list[np.ndarray],
+        start_sample: int,
+    ) -> np.ndarray:
+        """First-hit position matrix [B, C+1] (column C = first-absent
+        position; 2**30 = never) for keys given in set-iteration order:
+        recovers the reference's final_report insertion order for the
+        read_id tie-order fixup. Callers pass only the (rare) tied reads."""
+        from .ops.query import BIG, query_readid_firsthit
+
+        C = self.index.n_colors
+        n_reads = len(keys_per_read)
+        out = np.full((n_reads, C + 1), BIG, dtype=np.int32)
+        flat = self._flatten_keys(keys_per_read)
+        if flat is None:
+            return out
+        rows, seg, pos = (self._to_dev(a) for a in flat)
+        rep = query_readid_firsthit(
+            self.blocks2, rows, seg, pos, num_reads=n_reads,
+            start_sample=start_sample, num_colors=C, wpad=self.wpad,
+            rpb=self.rpb,
+        )
+        out[:] = rep.cpu().numpy()
+        return out
+
+    def _reads_geometry(self, k: int, L: int) -> dict:
+        return dict(
+            num_colors=self.index.n_colors, wpad=self.wpad, k=k, L=L,
+            num_hash=self.index.num_hash, bloom_size=self.index.bloom_size,
+            rpb=self.rpb, bv=self.bv or 1,
+        )
+
+    def _reads_chunk(self, mates_packed, mate_seg, lens, ranks, r0, lo, hi):
+        """One chunk of the reads path on the device: its mates, their read
+        ids relative to r0 (int16), lengths and rank plane."""
+        return (
+            self._to_dev(mates_packed[lo:hi]),
+            self._to_dev((mate_seg[lo:hi] - r0).astype(np.int16)),
+            self._to_dev(np.asarray(lens[lo:hi], dtype=np.int32)),
+            self._to_dev(ranks[lo:hi]),
+        )
+
+    def readid_firsthit_reads(
+        self,
+        mates_packed: np.ndarray,
+        mate_seg: np.ndarray,
+        lens: np.ndarray,
+        ranks: np.ndarray,
+        n_reads: int,
+        start_sample: int,
+        k: int,
+        L: int,
+    ) -> np.ndarray:
+        """readid_firsthit from 2-bit packed mates + the per-window rank
+        plane (no host k-mer work; the tie-fixup path for reads-path
+        groups). Same [B, C+1] contract as readid_firsthit."""
+        return self.readid_firsthit_reads_async(
+            mates_packed, mate_seg, lens, ranks, n_reads, start_sample, k, L
+        )()
+
+    def readid_firsthit_reads_async(
+        self,
+        mates_packed: np.ndarray,
+        mate_seg: np.ndarray,
+        lens: np.ndarray,
+        ranks: np.ndarray,
+        n_reads: int,
+        start_sample: int,
+        k: int,
+        L: int,
+    ):
+        """readid_firsthit_reads with a deferred fetch (dispatch now, the
+        returned callable produces the matrix) so the classifier overlaps
+        the tie-fixup round trip with other host work."""
+        from .ops.query import BIG, query_readid_firsthit_reads
+
+        out = np.full((n_reads, self.index.n_colors + 1), BIG, dtype=np.int32)
+        M = mates_packed.shape[0]
+        if M == 0:
+            return lambda: out
+        rep = query_readid_firsthit_reads(
+            self.blocks2,
+            *self._reads_chunk(mates_packed, np.asarray(mate_seg, dtype=np.int32),
+                               lens, ranks, 0, 0, M),
+            num_reads=n_reads, start_sample=start_sample,
+            **self._reads_geometry(k, L),
+        )
+        return lambda: self._fetch(out, [(0, n_reads, rep)])
+
+    def readid_counts_packed(
+        self,
+        packed: np.ndarray,  # uint32 [N, 2]
+        seg: np.ndarray,  # int16 [N] sorted asc
+        pos: np.ndarray,  # int16 [N]
+        n_reads: int,
+        start_sample: int,
+        k: int,
+    ) -> np.ndarray:
+        """readid counts with device hashing (12 B per k-mer of host
+        traffic)."""
+        from .ops.query import query_readid_hash_batch
+
+        out = np.zeros((n_reads, self.index.n_colors + 1), dtype=np.int32)
+        pending = []
+        for r0, r1, lo, hi in self._rid_chunks(n_reads, seg):
+            if hi == lo:
+                continue
+            rep = query_readid_hash_batch(
+                self.blocks2,
+                self._to_dev(packed[lo:hi]),
+                self._to_dev((seg[lo:hi] - r0).astype(np.int16)),
+                self._to_dev(np.asarray(pos[lo:hi], dtype=np.int16)),
+                num_reads=r1 - r0, start_sample=start_sample,
+                num_colors=self.index.n_colors, wpad=self.wpad, k=k,
+                num_hash=self.index.num_hash,
+                bloom_size=self.index.bloom_size, rpb=self.rpb,
+                bv=self.bv or 1,
+            )
+            pending.append((r0, r1, rep))
+        return self._fetch(out, pending)
+
+    def readid_counts_reads(
+        self,
+        mates_packed: np.ndarray,  # uint32 [M, ceil(L/16)]
+        mate_seg: np.ndarray,  # int16/int32 [M] read id per mate, sorted asc
+        lens: np.ndarray,  # int32 [M]
+        ranks: np.ndarray,  # int16 or uint8 [M, L-k+1]
+        n_reads: int,
+        start_sample: int,
+        k: int,
+        L: int,
+    ) -> np.ndarray:
+        """readid counts with device-side window extraction: the host ships
+        2-bit packed mates + the per-window rank plane (~2.3 B/window)
+        instead of 12 B per unique k-mer. Same [B, C+1] contract as
+        readid_counts."""
+        return self.readid_counts_reads_async(
+            mates_packed, mate_seg, lens, ranks, n_reads, start_sample, k, L
+        )()
+
+    def readid_counts_reads_async(
+        self,
+        mates_packed: np.ndarray,
+        mate_seg: np.ndarray,
+        lens: np.ndarray,
+        ranks: np.ndarray,
+        n_reads: int,
+        start_sample: int,
+        k: int,
+        L: int,
+    ):
+        """readid_counts_reads with a deferred fetch: all chunks dispatch
+        now and the returned zero-arg callable produces the [B, C+1] matrix,
+        so the classifier overlaps the device round trip with host work
+        (decision math, tie preparation)."""
+        from .ops.query import query_readid_reads_batch
+
+        out = np.zeros((n_reads, self.index.n_colors + 1), dtype=np.int32)
+        mate_seg = np.asarray(mate_seg, dtype=np.int32)
+        pending = []
+        for r0, r1, lo, hi in self._rid_chunks(n_reads, mate_seg):
+            if hi == lo:
+                continue
+            rep = query_readid_reads_batch(
+                self.blocks2,
+                *self._reads_chunk(mates_packed, mate_seg, lens, ranks, r0, lo, hi),
+                num_reads=r1 - r0, start_sample=start_sample,
+                **self._reads_geometry(k, L),
+            )
+            pending.append((r0, r1, rep))
+        return lambda: self._fetch(out, pending)
+
+    def readid_counts_orderfree(
+        self,
+        mates_packed: np.ndarray,  # uint32 [M, ceil(L/16)]; M = n_reads*nm
+        lens: np.ndarray,  # int32 [M]
+        valid_bits: np.ndarray,  # uint32 [M, ceil(L/32)]
+        n_reads: int,
+        nm: int,
+        k: int,
+        L: int,
+        d: int = 1,
+    ) -> np.ndarray:
+        """Order-free read classifier pass (ops/query.py::
+        query_readid_orderfree_reads): the device dedups each read's
+        canonical k-mer set itself, so the host ships ONLY packed mates, no
+        hashbrown rank plane. Returns int32 [n_reads, C+3] (full counts,
+        any-absent flag, distinct-k-mer count, zero-hit-k-mer count);
+        pipelines/read_id.py decides which reads still need the exact
+        set-order replay."""
+        from .ops.query import query_readid_orderfree_reads
+
+        geo = self._reads_geometry(k, L)
+        out = np.zeros((n_reads, geo["num_colors"] + 3), dtype=np.int32)
+        pending = []
+        for r0, r1, _lo, _hi in self._rid_chunks(n_reads):
+            m0, m1 = r0 * nm, r1 * nm
+            rep = query_readid_orderfree_reads(
+                self.blocks2,
+                self._to_dev(mates_packed[m0:m1]),
+                self._to_dev(np.asarray(lens[m0:m1], dtype=np.int32)),
+                self._to_dev(valid_bits[m0:m1]),
+                num_reads=r1 - r0, nm=nm, d=d, **geo,
+            )
+            pending.append((r0, r1, rep))
+        return self._fetch(out, pending)
+
+    def readid_counts_arrays(
+        self,
+        rows: np.ndarray,
+        seg: np.ndarray,
+        pos: np.ndarray,
+        n_reads: int,
+        start_sample: int,
+    ) -> np.ndarray:
+        """Per-read counts from prepared flattened arrays (seg sorted asc),
+        in chunks of reads so one dispatch stays within a bounded k-mer
+        budget."""
+        from .ops.query import query_readid_batch
+
+        out = np.zeros((n_reads, self.index.n_colors + 1), dtype=np.int32)
+        rows = rows.astype(np.int32, copy=False)
+        pending = []
+        for r0, r1, lo, hi in self._rid_chunks(n_reads, seg):
+            if hi == lo:
+                continue
+            rep = query_readid_batch(
+                self.blocks2,
+                self._to_dev(rows[lo:hi]),
+                self._to_dev((seg[lo:hi] - r0).astype(np.int32)),
+                self._to_dev(np.asarray(pos[lo:hi], dtype=np.int32)),
+                num_reads=r1 - r0, start_sample=start_sample,
+                num_colors=self.index.n_colors, wpad=self.wpad, rpb=self.rpb,
+            )
+            pending.append((r0, r1, rep))
+        return self._fetch(out, pending)

@@ -1,4 +1,4 @@
-"""XXH3-64 (seeded) implemented from scratch, numpy-vectorized.
+"""XXH3-64 (seeded) implemented from scratch, scalar and numpy-vectorized.
 
 The BIGSI engine hashes every canonical k-mer ``num_hash`` times with
 ``xxh3_64(kmer_bytes, seed=i)`` and takes the result modulo ``bloom_size`` to
@@ -9,6 +9,7 @@ This module implements the finalized XXH3 specification (xxHash v0.8.x) for
 inputs up to 240 bytes — k-mers are short fixed-length keys, so the long
 (striped) path is never needed; we raise for len > 240.
 
+``xxh3_64`` is the scalar hash of one key (core/bloom.py's BloomFilter).
 ``xxh3_64_batch`` hashes a batch of equal-length keys (shape [N, L]
 uint8); it is the host-side hash engine behind ``bloom_rows_batch``, which
 feeds the device query where the native library is missing or a key
@@ -49,6 +50,114 @@ def _rd32(buf: bytes, off: int) -> int:
 
 def _swap32(x: int) -> int:
     return int.from_bytes((x & 0xFFFFFFFF).to_bytes(4, "little"), "big")
+
+
+def _rotl64(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & M64
+
+
+def _swap64(x: int) -> int:
+    return int.from_bytes(x.to_bytes(8, "little"), "big")
+
+
+def _mul128_fold64(a: int, b: int) -> int:
+    p = a * b
+    return (p & M64) ^ (p >> 64)
+
+
+def _xxh64_avalanche(h: int) -> int:
+    h &= M64
+    h ^= h >> 33
+    h = (h * P64_2) & M64
+    h ^= h >> 29
+    h = (h * P64_3) & M64
+    h ^= h >> 32
+    return h
+
+
+def _xxh3_avalanche(h: int) -> int:
+    h &= M64
+    h ^= h >> 37
+    h = (h * PMX1) & M64
+    h ^= h >> 32
+    return h
+
+
+def _rrmxmx(h: int, length: int) -> int:
+    h ^= _rotl64(h, 49) ^ _rotl64(h, 24)
+    h = (h * PMX2) & M64
+    h ^= (h >> 35) + length
+    h &= M64
+    h = (h * PMX2) & M64
+    h ^= h >> 28
+    return h
+
+
+def _mix16(data: bytes, off: int, sec_off: int, seed: int) -> int:
+    lo = _rd64(data, off) ^ ((_rd64(KSECRET, sec_off) + seed) & M64)
+    hi = _rd64(data, off + 8) ^ ((_rd64(KSECRET, sec_off + 8) - seed) & M64)
+    return _mul128_fold64(lo, hi)
+
+
+def xxh3_64(data: bytes, seed: int = 0) -> int:
+    """Scalar XXH3-64 with seed for inputs of length 0..240 bytes."""
+    seed &= M64
+    n = len(data)
+    if n <= 16:
+        if n > 8:  # 9..16
+            flip1 = (_rd64(KSECRET, 24) ^ _rd64(KSECRET, 32)) + seed
+            flip2 = (_rd64(KSECRET, 40) ^ _rd64(KSECRET, 48)) - seed
+            in_lo = (_rd64(data, 0) ^ flip1) & M64
+            in_hi = (_rd64(data, n - 8) ^ flip2) & M64
+            acc = (
+                n
+                + _swap64(in_lo)
+                + in_hi
+                + _mul128_fold64(in_lo, in_hi)
+            )
+            return _xxh3_avalanche(acc)
+        if n >= 4:  # 4..8
+            seed ^= (_swap32(seed) << 32) & M64
+            flip = ((_rd64(KSECRET, 8) ^ _rd64(KSECRET, 16)) - seed) & M64
+            in1 = _rd32(data, 0)
+            in2 = _rd32(data, n - 4)
+            in64 = (in2 + (in1 << 32)) & M64
+            return _rrmxmx(in64 ^ flip, n)
+        if n > 0:  # 1..3
+            c1, c2, c3 = data[0], data[n >> 1], data[n - 1]
+            combined = (c1 << 16) | (c2 << 24) | c3 | (n << 8)
+            flip = ((_rd32(KSECRET, 0) ^ _rd32(KSECRET, 4)) + seed) & M64
+            return _xxh64_avalanche(combined ^ flip)
+        # 0
+        flip = _rd64(KSECRET, 56) ^ _rd64(KSECRET, 64)
+        return _xxh64_avalanche(seed ^ flip)
+    if n <= 128:  # 17..128
+        acc = (n * P64_1) & M64
+        if n > 32:
+            if n > 64:
+                if n > 96:
+                    acc += _mix16(data, 48, 96, seed)
+                    acc += _mix16(data, n - 64, 112, seed)
+                acc += _mix16(data, 32, 64, seed)
+                acc += _mix16(data, n - 48, 80, seed)
+            acc += _mix16(data, 16, 32, seed)
+            acc += _mix16(data, n - 32, 48, seed)
+        acc += _mix16(data, 0, 0, seed)
+        acc += _mix16(data, n - 16, 16, seed)
+        return _xxh3_avalanche(acc)
+    if n <= 240:  # 129..240
+        acc = (n * P64_1) & M64
+        nb_rounds = n // 16
+        for i in range(8):
+            acc += _mix16(data, 16 * i, 16 * i, seed)
+        acc = _xxh3_avalanche(acc)
+        for i in range(8, nb_rounds):
+            acc += _mix16(data, 16 * i, 16 * (i - 8) + 3, seed)
+        acc += _mix16(data, n - 16, 136 - 17, seed)
+        return _xxh3_avalanche(acc)
+    raise ValueError(
+        f"xxh3_64: input length {n} > 240 unsupported (k-mer keys are short)"
+    )
 
 
 # ---------------------------------------------------------------------------

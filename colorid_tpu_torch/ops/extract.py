@@ -1,0 +1,264 @@
+"""Device-side canonical k-mer extraction + counting from 2-bit packed reads.
+
+The host ships reads as 2-bit base codes (16 bases per uint32 word, ~0.27
+bytes/base) and the device does everything the reference's host-side k-mer
+counting stage does (kmer.rs:87-299 canonical windows + kmer.rs:826-837
+frequency filter): window extraction, forward/revcomp canonicalization
+(A<C<G<T 2-bit ordering == byte-lexicographic ordering, kmer.rs:104),
+sort-unique counting and the strictly-greater-than frequency filter. The
+filtered unique k-mers never exist host-side: they feed the hash/gather/count
+query (ops/query.py) device-resident.
+
+Tensors carry the uint32 words as int32 bit views (as everywhere in the
+port). Inside, every unsigned 32-bit quantity (a word, a (lo, hi) limb of a
+64-bit k-mer value) is an int64 in [0, 2^32): torch has no unsigned shift,
+add or compare on every device. The 64-bit canonical value sorts as ONE
+int64 key, ``(hi - 2^31) * 2^32 + lo``: that offset keeps the signed order
+equal to the unsigned (hi, lo) order also at k = 32, where a canonical value
+can reach bit 63, and maps the all-ones sentinel (never canonical: the
+canonical form of T^32 is A^32) to the largest int64.
+
+Only uppercase ACGT reads take this path; callers route reads containing
+lowercase bases to the exact host path (the same split the read_id frontend
+does); bytes outside ACGT are handled by the validity bitplane.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .hash_torch import M32, _to_i32
+
+_CODE = np.full(256, 255, dtype=np.uint8)
+_CODE[ord("A")] = 0
+_CODE[ord("C")] = 1
+_CODE[ord("G")] = 2
+_CODE[ord("T")] = 3
+
+SENT_KEY = 2**63 - 1  # the sort key of (lo, hi) = (0xFFFFFFFF, 0xFFFFFFFF)
+
+
+def words_per_read(L: int) -> int:
+    return (L + 15) // 16
+
+
+def _pack_codes(codes: np.ndarray) -> np.ndarray:
+    """Base codes [R, L] (0..3) -> 2-bit words [R, ceil(L/16)] uint32."""
+    R, L = codes.shape
+    Lw = words_per_read(L)
+    cp = np.zeros((R, Lw * 16), dtype=np.uint32)
+    cp[:, :L] = codes
+    shifts = (2 * (15 - np.arange(16, dtype=np.uint32))).astype(np.uint32)
+    return (cp.reshape(R, Lw, 16) << shifts).sum(axis=2, dtype=np.uint32)
+
+
+def pack_reads(seqs: np.ndarray) -> np.ndarray | None:
+    """ASCII reads [R, L] uint8 -> 2-bit words [R, ceil(L/16)] uint32.
+
+    Base i of a read sits at bits [2*(15 - i%16), +2) of word i//16 (first
+    base in the most significant bits). Returns None when any byte is
+    outside uppercase ACGT (caller uses the exact host path then).
+    """
+    codes = _CODE[seqs]
+    if (codes == 255).any():
+        return None
+    return _pack_codes(codes)
+
+
+def pack_reads_masked(seqs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """pack_reads with per-read routing: returns (words [R, ceil(L/16)],
+    clean bool [R]). Dirty reads (any byte outside uppercase ACGT) pack as
+    all-A placeholders with clean[i] == False so callers can send only the
+    clean rows through the device fast path and route the dirty minority to
+    the exact host path (the reference skips only N-containing windows,
+    kmer.rs:87-125, so a whole-batch reject would be needlessly coarse)."""
+    codes = _CODE[seqs]
+    clean = ~(codes == 255).any(axis=1)
+    codes = np.where(clean[:, None], codes, np.uint8(0))
+    return _pack_codes(codes), clean
+
+
+def pack_reads_valid(seqs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """ASCII reads [R, L] -> (2-bit words [R, ceil(L/16)], per-base validity
+    bitplane [R, ceil(L/32)] uint32, little-endian). Bytes outside uppercase
+    ACGT pack as 'A' with their validity bit 0; the device skips windows
+    touching an invalid base exactly like the reference skips N-containing
+    windows (kmer.rs:87-125). ~0.03 extra bytes/base on the host link."""
+    R, L = seqs.shape
+    codes = _CODE[seqs]
+    ok = codes != 255
+    words = _pack_codes(np.where(ok, codes, np.uint8(0)))
+    Lb = ((L + 31) // 32) * 32
+    okp = np.zeros((R, Lb), dtype=np.uint8)
+    okp[:, :L] = ok
+    vbits = np.packbits(okp, axis=1, bitorder="little")
+    return words, vbits.reshape(R, -1, 4).view(np.uint32)[:, :, 0].copy()
+
+
+def pack_reads_any(seqs: np.ndarray) -> np.ndarray:
+    """pack_reads for pre-screened batches: bytes outside uppercase ACGT
+    pack as 'A' placeholders. Callers guarantee such windows are never
+    counted (the read_id reads path marks them -1 in the rank plane, so the
+    query treats them as padding, matching the reference's skip of
+    N-containing windows, kmer.rs:87-125)."""
+    codes = _CODE[seqs]
+    return _pack_codes(np.where(codes == 255, np.uint8(0), codes))
+
+
+def _window_valid_ok(valid_bits: torch.Tensor, L: int, k: int, NW: int):
+    """bool [R, NW]: window w has all k bases valid (prefix sum over the
+    unpacked per-base validity bitplane, int32 bit views [R, ceil(L/32)])."""
+    R = valid_bits.shape[0]
+    shifts = torch.arange(32, dtype=torch.int32, device=valid_bits.device)
+    # (x >> s) & 1 is bit s also where the int32 view is negative
+    vb = ((valid_bits[:, :, None] >> shifts) & 1).reshape(R, -1)[:, :L]
+    c = torch.cumsum(1 - vb, dim=1, dtype=torch.int32)
+    c = torch.cat([torch.zeros_like(c[:, :1]), c], dim=1)
+    return (c[:, k:] - c[:, :NW]) == 0
+
+
+def _unpack_codes(words: torch.Tensor, L: int) -> torch.Tensor:
+    """[R, Lw] int32 words -> [R, L] int64 base codes (0..3)."""
+    R, Lw = words.shape
+    shifts = 2 * (15 - torch.arange(16, dtype=torch.int64, device=words.device))
+    codes = ((words.to(torch.int64) & M32)[:, :, None] >> shifts) & 3
+    return codes.reshape(R, Lw * 16)[:, :L]
+
+
+def _window_limbs(codes: torch.Tensor, k: int, NW: int):
+    """Canonical (lo, hi) limbs (int64 in [0, 2^32)) of every k-window of
+    every read.
+
+    Forward value = sum_j code[w+j] << 2*(k-1-j) (pack_keys_host layout);
+    revcomp value = sum_j (3-code[w+j]) << 2*j. Canonical = the
+    lexicographically smaller of the two (kmer.rs:104 string compare ==
+    2-bit integer compare under A<C<G<T).
+    """
+    shape = (codes.shape[0], NW)
+    f_lo, f_hi, r_lo, r_hi = (
+        torch.zeros(shape, dtype=torch.int64, device=codes.device)
+        for _ in range(4)
+    )
+    for j in range(k):
+        c = codes[:, j : j + NW]
+        s = 2 * (k - 1 - j)
+        if s >= 32:
+            f_hi.add_(c << (s - 32))
+        else:
+            f_lo.add_(c << s)
+        t = 2 * j
+        if t >= 32:
+            r_hi.add_((3 - c) << (t - 32))
+        else:
+            r_lo.add_((3 - c) << t)
+    fwd_le = (f_hi < r_hi) | ((f_hi == r_hi) & (f_lo <= r_lo))
+    return torch.where(fwd_le, f_lo, r_lo), torch.where(fwd_le, f_hi, r_hi)
+
+
+def _sort_key(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """int64 key whose signed order is the unsigned (hi, lo) order."""
+    return (hi - 2**31) * 2**32 + lo
+
+
+def _key_limbs(key: torch.Tensor):
+    """(lo, hi) limbs of _sort_key values."""
+    return key & M32, (key >> 32) + 2**31
+
+
+def _window_keys(reads_packed, lens, valid_bits, k: int, L: int, d: int):
+    """Sort keys [R, NW] of every canonical window; SENT_KEY where the
+    window does not fit the read's true length, is off the stride d, or
+    touches an invalid base."""
+    NW = L - k + 1
+    if NW <= 0:
+        raise ValueError("L < k")
+    lo, hi = _window_limbs(_unpack_codes(reads_packed, L), k, NW)
+    w_idx = torch.arange(NW, dtype=torch.int32, device=lo.device)[None, :]
+    valid = w_idx + k <= lens.to(torch.int32)[:, None]
+    if d > 1:
+        valid = valid & (w_idx % d == 0)
+    if valid_bits is not None:
+        valid = valid & _window_valid_ok(valid_bits, L, k, NW)
+    return torch.where(valid, _sort_key(lo, hi), SENT_KEY)
+
+
+def _run_counts(s: torch.Tensor):
+    """Over a sorted key vector: (new bool, count int64) with new marking
+    the first slot of each run of equal keys and count its run length
+    there (the next run's start minus its own), with no host round trip:
+    runs are numbered by a running sum of the starts, each run's start is
+    scattered to its number, and slots past the last run read N. (A
+    reversed running minimum gives the same counts, but torch's scan with
+    indices costs ~156 ms over 52 M keys on an H100.)"""
+    N = s.shape[0]
+    iota = torch.arange(N, device=s.device)
+    new = torch.ones(N, dtype=torch.bool, device=s.device)
+    new[1:] = s[1:] != s[:-1]
+    run = torch.cumsum(new, dim=0) - 1
+    start = torch.full((N + 2,), N, dtype=torch.int64, device=s.device)
+    start.index_copy_(0, torch.where(new, run, N + 1), iota)  # N + 1: dump
+    return new, start[run + 1] - iota
+
+
+def extract_count(
+    reads_packed: torch.Tensor,  # int32 [R, ceil(L/16)] (uint32 bit view)
+    lens: torch.Tensor,  # int32 [R] true read lengths (<= L)
+    valid_bits: torch.Tensor | None = None,  # int32 [R, ceil(L/32)] or None
+    *,
+    k: int,
+    L: int,
+    filter_t: int,
+    d: int = 1,
+):
+    """Unique filtered canonical k-mers of a packed read batch, on device.
+
+    Returns (packed [N, 2] int32 (bit view of the (lo, hi) uint32 limbs),
+    qcounts int32 [N], n_unique int32 0-d tensor) with N = R * (L - k + 1):
+    the first n_unique entries are the distinct canonical k-mers with count
+    > filter_t (in sorted key order) and their exact counts; every later
+    slot is zero, so qcounts == 0 there (the query's padding marker).
+    Windows are taken at stride ``d`` (kmerize step_by) and only where the
+    window fits the read's true length; counting replicates clean_map's
+    strictly-greater filter (kmer.rs:826-837). Nothing waits for the host.
+    """
+    s = torch.sort(
+        _window_keys(reads_packed, lens, valid_bits, k, L, d).reshape(-1)
+    ).values
+    N = s.shape[0]
+    new, count = _run_counts(s)
+    keep = new & (s != SENT_KEY) & (count > filter_t)
+    pos = torch.cumsum(keep, dim=0) - 1
+    to = torch.where(keep, pos, N)  # slot N collects what is dropped
+    lo, hi = _key_limbs(s)
+    out = torch.zeros((N + 1, 2), dtype=torch.int32, device=s.device)
+    out.index_copy_(0, to, torch.stack([_to_i32(lo), _to_i32(hi)], dim=1))
+    qc = torch.zeros(N + 1, dtype=torch.int32, device=s.device)
+    qc.index_copy_(0, to, count.to(torch.int32))
+    return out[:N], qc[:N], keep.sum().to(torch.int32)
+
+
+def count_histogram(
+    reads_packed: torch.Tensor,
+    lens: torch.Tensor,
+    valid_bits: torch.Tensor | None = None,
+    *,
+    k: int,
+    L: int,
+    d: int = 1,
+    cap: int = 65536,
+):
+    """Histogram of per-unique-k-mer counts (for auto_cutoff, kmer.rs:866):
+    hist[c] = number of distinct canonical k-mers seen exactly c times
+    (c >= cap clips into the top bin), int32 [cap]. Device-side twin of the
+    counting in extract_count so a search without -f can infer the cutoff
+    from one small fetch before filtering."""
+    s = torch.sort(
+        _window_keys(reads_packed, lens, valid_bits, k, L, d).reshape(-1)
+    ).values
+    new, count = _run_counts(s)
+    keep = new & (s != SENT_KEY)
+    c = torch.where(keep, count.clamp(0, cap - 1), cap)
+    hist = torch.zeros(cap + 1, dtype=torch.int32, device=s.device)
+    hist.index_add_(0, c, torch.ones_like(c, dtype=torch.int32))
+    return hist[:cap]

@@ -37,6 +37,11 @@ def _c(x: int) -> tuple[int, int]:
     return x & M32, x >> 32
 
 
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> their int32 bit pattern."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
 # -- 64-bit ops over (lo, hi) limb pairs ------------------------------------
 # a limb is an int64 tensor in [0, 2^32) or a python int in that range
 
@@ -240,18 +245,28 @@ def _mod_u64(h, m: int) -> torch.Tensor:
     return ((hi % m) * ((1 << 32) % m) + lo) % m
 
 
-def bloom_rows_device(
-    packed: torch.Tensor, *, k: int, num_hash: int, bloom_size: int
-) -> torch.Tensor:
+def _split_packed(packed: torch.Tensor):
     """packed [N, 2] int32 (bit view of the (lo, hi) uint32 2-bit k-mers)
-    -> rows [N, num_hash] int32."""
+    -> (lo, hi) int64 limbs in [0, 2^32)."""
     p = packed.to(torch.int64) & M32
-    limbs = _limbs_from_packed(p[:, 0], p[:, 1], k)
+    return p[:, 0], p[:, 1]
+
+
+def _bloom_rows(lo, hi, k: int, num_hash: int, bloom_size: int) -> torch.Tensor:
+    limbs = _limbs_from_packed(lo, hi, k)
     outs = [
         _mod_u64(_xxh3_device(limbs, k, seed), bloom_size).to(torch.int32)
         for seed in range(num_hash)
     ]
     return torch.stack(outs, dim=1)
+
+
+def bloom_rows_device(
+    packed: torch.Tensor, *, k: int, num_hash: int, bloom_size: int
+) -> torch.Tensor:
+    """packed [N, 2] int32 (bit view of the (lo, hi) uint32 2-bit k-mers)
+    -> rows [N, num_hash] int32."""
+    return _bloom_rows(*_split_packed(packed), k, num_hash, bloom_size)
 
 
 # -- blocked placements (ops/blocked.py) on the device -----------------------
@@ -319,8 +334,11 @@ def device_blkoff(packed: torch.Tensor, *, k: int, num_hash: int,
     block int64 [N] and the per-hash in-block row offsets, a list of H
     int64 [N]. Versions 1 and 2 hash with the device XXH3; 3 and 4 are
     value-addressed (no XXH3)."""
-    p = packed.to(torch.int64) & M32
-    lo, hi = p[:, 0], p[:, 1]
+    return _blkoff(*_split_packed(packed), k, num_hash, bloom_size, rpb, version)
+
+
+def _blkoff(lo, hi, k: int, num_hash: int, bloom_size: int, rpb: int,
+            version: int):
     if version in (3, 4):
         return _v3_blkoff(lo, hi, k, num_hash, bloom_size, rpb, version)
     limbs = _limbs_from_packed(lo, hi, k)
@@ -342,14 +360,20 @@ def device_rows(packed: torch.Tensor, *, k: int, num_hash: int,
                 bloom_size: int, rpb: int = 0, version: int = 1):
     """Bloom rows [N, H] int32 of packed k-mers: independent XXH3 rows
     (rpb == 0) or the blocked placement (rpb > 0, a power of two)."""
-    if rpb == 0:
-        return bloom_rows_device(
-            packed, k=k, num_hash=num_hash, bloom_size=bloom_size
-        )
-    block, offs = device_blkoff(
-        packed, k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb,
-        version=version,
+    return device_rows_limbs(
+        *_split_packed(packed), k=k, num_hash=num_hash,
+        bloom_size=bloom_size, rpb=rpb, version=version,
     )
+
+
+def device_rows_limbs(lo: torch.Tensor, hi: torch.Tensor, *, k: int,
+                      num_hash: int, bloom_size: int, rpb: int = 0,
+                      version: int = 1):
+    """device_rows of k-mers given as int64 (lo, hi) limbs in [0, 2^32)
+    (the form ops/extract.py's window extraction yields them in)."""
+    if rpb == 0:
+        return _bloom_rows(lo, hi, k, num_hash, bloom_size)
+    block, offs = _blkoff(lo, hi, k, num_hash, bloom_size, rpb, version)
     base = block * rpb
     return torch.stack([base + o for o in offs], dim=1).to(torch.int32)
 

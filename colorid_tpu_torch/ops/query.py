@@ -8,6 +8,8 @@ uint32 words in the JAX package's 128-lane block layout
 functions. A query arrives either as 2-bit packed k-mers (hashed on device,
 ops/hash_torch.py) or as precomputed row indices.
 
+The read classifier (read_id) queries sit at the end of this module.
+
 Absent-row semantics: the reference stores only rows with >= 1 set bit and
 treats a missing row as "this k-mer cannot be in any color"
 (batch_search_pe.rs:51-57 `continue`). Densely, absent == all-zero, and a
@@ -23,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .hash_torch import M32, device_rows
+from .hash_torch import M32, _to_i32, device_rows, device_rows_limbs
 
 FREQ_CAP = 1024  # per-color on-device frequency histogram width
 
@@ -109,11 +111,6 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return ((x * 0x01010101) & M32) >> 24
-
-
-def _to_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> their int32 bit pattern."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
 def new_accumulators(n_colors: int, wpad: int, capO: int, device):
@@ -305,4 +302,352 @@ def query_accumulate_hash_scan_exact(
     return query_accumulate_hash_scan(
         stats, hist, over_col, over_freq, blocks2, packed, qcounts, 0,
         exact=True, **kw,
+    )
+
+
+# -- read classifier (read_id hot loop) ---------------------------------------
+
+PAD_POS = 2**30  # kmer_pos for padding slots: never counted
+BIG = 2**30  # first-absent / first-hit position meaning "never"
+
+
+def _unpack_bits(words: torch.Tensor, n_colors: int) -> torch.Tensor:
+    """int32 [N, W] bit views -> int32 bits [N, n_colors] (LSB-first,
+    color order). (x >> s) & 1 is bit s also where the view is negative."""
+    N, W = words.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(N, W * 32)[:, :n_colors]
+
+
+def _decode_ranks(ranks: torch.Tensor):
+    """Rank-plane decode for the reads-path queries: int16 uses -1 as the
+    no-rank marker; uint8 (the halved-H2D encoding, pipelines/read_id.py)
+    uses 255. Returns (rank int32, live bool)."""
+    rk = ranks.to(torch.int32)
+    if ranks.dtype == torch.uint8:
+        return rk, rk != 255
+    return rk, rk >= 0
+
+
+def _seg_min(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Per-segment minimum of int32 values [N] or [N, C], BIG where a
+    segment (a read) has none."""
+    out = torch.full((n_seg,) + values.shape[1:], BIG, dtype=torch.int32,
+                     device=values.device)
+    idx = seg.to(torch.int64)
+    if values.dim() == 2:
+        idx = idx[:, None].expand(-1, values.shape[1])
+    return out.scatter_reduce_(0, idx, values, "amin", include_self=True)
+
+
+def _seg_sum(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Per-segment sum of int32 values [N, C] (integer, so exact)."""
+    out = torch.zeros((n_seg,) + values.shape[1:], dtype=torch.int32,
+                      device=values.device)
+    return out.index_add_(0, seg.to(torch.int64), values)
+
+
+def _first_absent(present, seg_ids, kmer_pos, num_reads: int):
+    """(first absent k-mer position per read (BIG = none), counted bool
+    [N]): a k-mer counts when all its rows are present and it comes
+    strictly before its read's first absent k-mer (the reference breaks
+    out of the read's k-mer loop there)."""
+    first_absent = _seg_min(torch.where(present, BIG, kmer_pos), seg_ids, num_reads)
+    counted = present & (kmer_pos < first_absent[seg_ids.to(torch.int64)])
+    return first_absent, counted
+
+
+def query_readid_batch(
+    blocks2: torch.Tensor,
+    rows: torch.Tensor,
+    seg_ids: torch.Tensor,
+    kmer_pos: torch.Tensor,
+    *,
+    num_reads: int,
+    start_sample: int,
+    num_colors: int,
+    wpad: int,
+    rpb: int = 0,
+):
+    """Per-read hit-count matrix for the read classifier (read_id).
+
+    Replicates search_index / search_index_classic (read_id_mt_pe.rs:66-165)
+    over a flattened batch of reads:
+
+    - k-mers of all reads are concatenated; ``seg_ids`` maps each k-mer to
+      its read, ``kmer_pos`` is its insertion-order position within the read.
+    - a k-mer with any absent row makes the read count one ``no_hits``
+      pseudo-color AND stops counting for every later k-mer of that read
+      (the reference `break`s out of the k-mer loop).
+    - with start_sample B > 0, k-mers at positions >= B only count toward
+      colors already hit by the first B k-mers (the candidate set).
+
+    Args: rows int32 [N, H]; seg_ids int32 [N] read per k-mer; kmer_pos
+    int32 [N] (PAD_POS marks padding). Returns int32 [num_reads, C+1]
+    per-read per-color counts; column C is the no_hits pseudo-color.
+    """
+    return _readid_core(
+        blocks2, rows, seg_ids, kmer_pos,
+        num_reads=num_reads, start_sample=start_sample,
+        num_colors=num_colors, wpad=wpad, rpb=rpb,
+    )
+
+
+def _readid_core(
+    blocks2, rows, seg_ids, kmer_pos, *, num_reads, start_sample,
+    num_colors, wpad, rpb=0,
+):
+    andw, present = _and_present(blocks2, rows, wpad, rpb)
+    bits = _unpack_bits(andw, num_colors)  # [N, C]
+    first_absent, counted = _first_absent(present, seg_ids, kmer_pos, num_reads)
+    cbits = bits * counted[:, None]
+    if start_sample > 0:
+        phase1 = cbits * (kmer_pos < start_sample)[:, None]
+        # candidate set: colors hit within the first B k-mers
+        cand = _seg_sum(phase1, seg_ids, num_reads).clamp_(max=1)
+        phase2 = cbits * (kmer_pos >= start_sample)[:, None]
+        contrib = phase1 + phase2 * cand[seg_ids.to(torch.int64)]
+    else:
+        contrib = cbits
+    report = _seg_sum(contrib, seg_ids, num_reads)
+    no_hits = (first_absent < BIG).to(torch.int32)[:, None]
+    return torch.cat([report, no_hits], dim=1)
+
+
+def query_readid_firsthit(
+    blocks2: torch.Tensor,
+    rows: torch.Tensor,
+    seg_ids: torch.Tensor,
+    kmer_pos: torch.Tensor,
+    *,
+    num_reads: int,
+    start_sample: int,
+    num_colors: int,
+    wpad: int,
+    rpb: int = 0,
+):
+    """First-hit k-mer position per (read, color): the insertion order of
+    the reference's ``final_report`` FnvHashMap (read_id_mt_pe.rs:127-139:
+    colors enter the map at their first phase-1/classic hit, ascending color
+    within one k-mer; ``no_hits`` enters at the break). Column C carries the
+    first-absent position. 2**30 where never hit. Used by the read_id tie
+    fixup to reconstruct kmer_poll_plus's stable-sort order for tied top
+    hits (read_id_mt_pe.rs:195-196)."""
+    return _readid_firsthit_core(
+        blocks2, rows, seg_ids, kmer_pos,
+        num_reads=num_reads, start_sample=start_sample,
+        num_colors=num_colors, wpad=wpad, rpb=rpb,
+    )
+
+
+def _readid_firsthit_core(
+    blocks2, rows, seg_ids, kmer_pos, *, num_reads, start_sample,
+    num_colors, wpad, rpb=0,
+):
+    andw, present = _and_present(blocks2, rows, wpad, rpb)
+    bits = _unpack_bits(andw, num_colors)
+    first_absent, counted = _first_absent(present, seg_ids, kmer_pos, num_reads)
+    # only phase-1 hits insert report keys (phase 2 increments existing)
+    ph1 = counted & (kmer_pos < start_sample) if start_sample > 0 else counted
+    pos_hit = torch.where((bits > 0) & ph1[:, None], kmer_pos[:, None], BIG)
+    fh = _seg_min(pos_hit, seg_ids, num_reads)
+    return torch.cat([fh, first_absent[:, None]], dim=1)
+
+
+def query_readid_hash_batch(
+    blocks2: torch.Tensor,
+    packed: torch.Tensor,  # int32 [N, 2] 2-bit packed canonical k-mers
+    seg_ids16: torch.Tensor,  # int16 [N]
+    kmer_pos16: torch.Tensor,  # int16 [N]; -1 marks padding
+    *,
+    num_reads: int,
+    start_sample: int,
+    num_colors: int,
+    wpad: int,
+    k: int,
+    num_hash: int,
+    bloom_size: int,
+    rpb: int = 0,
+    bv: int = 1,
+):
+    """query_readid_batch with device hashing: the host ships 12 B per
+    k-mer (packed key + int16 seg/pos) instead of 24 B."""
+    rows = device_rows(packed, k=k, num_hash=num_hash, bloom_size=bloom_size,
+                       rpb=rpb, version=bv)
+    p16 = kmer_pos16.to(torch.int32)
+    return _readid_core(
+        blocks2, rows, seg_ids16.to(torch.int32), torch.where(p16 < 0, PAD_POS, p16),
+        num_reads=num_reads, start_sample=start_sample,
+        num_colors=num_colors, wpad=wpad, rpb=rpb,
+    )
+
+
+def pad_rows(rows: np.ndarray, n_pad: int) -> np.ndarray:
+    """Pad a row-index batch to a fixed shape with index 0 (harmless: padding
+    is excluded via seg_ids/valid masks by callers)."""
+    if rows.shape[0] == n_pad:
+        return rows
+    out = np.zeros((n_pad, rows.shape[1]), dtype=rows.dtype)
+    out[: rows.shape[0]] = rows
+    return out
+
+
+def _reads_rows_seg_pos(mates_packed, mate_seg16, lens, ranks16, *, k, L,
+                        num_hash, bloom_size, rpb, bv):
+    """Rows, read ids and set ranks of every window of 2-bit packed mates
+    (the reads path): a window counts where it fits the mate, its rank is
+    live and the mate is not padding (mate_seg -1); else its position is
+    PAD_POS."""
+    from .extract import _unpack_codes, _window_limbs
+
+    M = mates_packed.shape[0]
+    NW = L - k + 1
+    lo, hi = _window_limbs(_unpack_codes(mates_packed, L), k, NW)  # [M, NW]
+    w_idx = torch.arange(NW, dtype=torch.int32, device=lo.device)[None, :]
+    rk, rk_live = _decode_ranks(ranks16)
+    live = (w_idx + k <= lens.to(torch.int32)[:, None]) & rk_live \
+        & (mate_seg16 >= 0)[:, None]
+    pos = torch.where(live, rk, PAD_POS).reshape(-1)
+    seg = mate_seg16.to(torch.int32).clamp(min=0)
+    seg = seg[:, None].expand(M, NW).reshape(-1)
+    rows = device_rows_limbs(
+        lo.reshape(-1), hi.reshape(-1), k=k, num_hash=num_hash,
+        bloom_size=bloom_size, rpb=rpb, version=bv,
+    )
+    return rows, seg, pos
+
+
+def query_readid_reads_batch(
+    blocks2: torch.Tensor,
+    mates_packed: torch.Tensor,  # int32 [M, ceil(L/16)] 2-bit mate words
+    mate_seg16: torch.Tensor,  # int16 [M] read id per mate (-1 = padding)
+    lens: torch.Tensor,  # int32 [M] true mate lengths
+    ranks16: torch.Tensor,  # int16 (-1 = none) or uint8 (255 = none)
+    #                         [M, L-k+1] per-window set rank plane
+    *,
+    num_reads: int,
+    start_sample: int,
+    num_colors: int,
+    wpad: int,
+    k: int,
+    L: int,
+    num_hash: int,
+    bloom_size: int,
+    rpb: int = 0,
+    bv: int = 1,
+):
+    """query_readid_batch where the device re-derives every canonical k-mer
+    window from 2-bit packed mates (ops/extract.py machinery): the host
+    ships ~0.25 B per base plus a rank plane per window instead of 12 B per
+    unique k-mer (native ct_read_rank_windows computes the ranks, the
+    FnvHashSet iteration order the break/-B logic needs, and marks
+    duplicate/skipped windows as no-rank, which become padding here)."""
+    rows, seg, pos = _reads_rows_seg_pos(
+        mates_packed, mate_seg16, lens, ranks16, k=k, L=L, num_hash=num_hash,
+        bloom_size=bloom_size, rpb=rpb, bv=bv,
+    )
+    return _readid_core(
+        blocks2, rows, seg, pos,
+        num_reads=num_reads, start_sample=start_sample,
+        num_colors=num_colors, wpad=wpad, rpb=rpb,
+    )
+
+
+def query_readid_orderfree_reads(
+    blocks2: torch.Tensor,
+    mates_packed: torch.Tensor,  # int32 [M, ceil(L/16)]; M = num_reads * nm
+    lens: torch.Tensor,  # int32 [M] true mate lengths
+    valid_bits: torch.Tensor,  # int32 [M, ceil(L/32)] per-base validity
+    *,
+    num_reads: int,
+    num_colors: int,
+    wpad: int,
+    k: int,
+    L: int,
+    nm: int,  # mates per read (uniform)
+    d: int,
+    num_hash: int,
+    bloom_size: int,
+    rpb: int = 0,
+    bv: int = 1,
+):
+    """ORDER-FREE read classifier pass: full per-read per-color counts with
+    no break-on-absent and no -B candidate phase, plus the facts that decide
+    whether the exact set-order replay is needed at all.
+
+    The reference's per-read result depends on FnvHashSet iteration order
+    only through (a) the break at the first absent k-mer
+    (read_id_mt_pe.rs:88-89) and (b) the first-B candidate set
+    (read_id_mt_pe.rs:115-139). pipelines/read_id.py::_resolve_orderfree
+    decides from this pass's outputs whether ANY iteration order could
+    change the outcome; only the reads that fail it replay the exact order.
+
+    The per-read k-mer SET is recovered on device: each read's canonical
+    windows sort by their int64 key (ops/extract.py) and repeats are masked.
+
+    Returns int32 [num_reads, C + 3]: columns 0..C-1 = full counts,
+    column C = 1 if any distinct k-mer had an absent row, column C+1 = D
+    (distinct valid k-mer count), column C+2 = number of distinct k-mers
+    whose rows are all present but whose AND hits no color (these can make
+    the first-B candidate set empty under some orders).
+    """
+    from .extract import SENT_KEY, _key_limbs, _window_keys
+
+    WR = nm * (L - k + 1)  # windows per read
+    keys = _window_keys(mates_packed, lens, valid_bits, k, L, d)
+    s = torch.sort(keys.reshape(num_reads, WR), dim=1).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    uniq = first & (s != SENT_KEY)
+    lo, hi = _key_limbs(s.reshape(-1))
+    rows = device_rows_limbs(lo, hi, k=k, num_hash=num_hash,
+                             bloom_size=bloom_size, rpb=rpb, version=bv)
+    andw, present = _and_present(blocks2, rows, wpad, rpb)
+    u = uniq.reshape(-1)
+    counted = u & present
+    bits = _unpack_bits(andw, num_colors)
+    cbits = bits * counted[:, None]
+    # windows are contiguous per read: a reshape-reduce, no segment scatter
+    report = cbits.reshape(num_reads, WR, num_colors).sum(dim=1, dtype=torch.int32)
+    absent = (u & ~present).reshape(num_reads, WR).any(dim=1)
+    zerohit = (counted & (bits.sum(dim=1) == 0)).reshape(num_reads, WR).sum(
+        dim=1, dtype=torch.int32
+    )
+    D = uniq.sum(dim=1, dtype=torch.int32)
+    return torch.cat(
+        [report, absent.to(torch.int32)[:, None], D[:, None], zerohit[:, None]],
+        dim=1,
+    )
+
+
+def query_readid_firsthit_reads(
+    blocks2: torch.Tensor,
+    mates_packed: torch.Tensor,  # int32 [M, ceil(L/16)]
+    mate_seg16: torch.Tensor,  # int16 [M]; -1 = padding
+    lens: torch.Tensor,  # int32 [M]
+    ranks16: torch.Tensor,  # int16 or uint8 [M, L-k+1]
+    *,
+    num_reads: int,
+    start_sample: int,
+    num_colors: int,
+    wpad: int,
+    k: int,
+    L: int,
+    num_hash: int,
+    bloom_size: int,
+    rpb: int = 0,
+    bv: int = 1,
+):
+    """query_readid_firsthit with device-side window extraction (the
+    reads-path twin of query_readid_reads_batch): feeds the read_id
+    tie-order fixup without any host k-mer work."""
+    rows, seg, pos = _reads_rows_seg_pos(
+        mates_packed, mate_seg16, lens, ranks16, k=k, L=L, num_hash=num_hash,
+        bloom_size=bloom_size, rpb=rpb, bv=bv,
+    )
+    return _readid_firsthit_core(
+        blocks2, rows, seg, pos,
+        num_reads=num_reads, start_sample=start_sample,
+        num_colors=num_colors, wpad=wpad, rpb=rpb,
     )

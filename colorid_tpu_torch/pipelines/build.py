@@ -20,8 +20,10 @@ before filtering; fasta minimizers uppercased, fastq minimizers raw —
 kmer.rs:346 vs :746).
 
 This port builds classic (reference-placement) and blocked (build
---blocked, ops/blocked.py) indexes on the host; the device scatter-OR build
-and color-shard placement are not yet ported and raise NotImplementedError.
+--blocked, ops/blocked.py) indexes on the host, the latter also placed for
+color shards (--color-shards, the placement group of one shard's packed
+width); the device scatter-OR build (--device-build) is not yet ported and
+raises NotImplementedError.
 """
 
 from __future__ import annotations

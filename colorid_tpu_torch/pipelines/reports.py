@@ -15,6 +15,13 @@ import os
 from collections import Counter
 
 
+def mode(numbers: list[float]) -> int:
+    """reports.rs:65-77: mode of freqs cast to usize; ties -> smallest."""
+    occ = Counter(int(v) for v in numbers)
+    best = max(occ.values())
+    return min(v for v, c in occ.items() if c == best)
+
+
 def generate_report(
     query: str,
     report: dict[str, int],

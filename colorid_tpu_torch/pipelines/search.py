@@ -4,10 +4,11 @@ All scoring runs through the device QueryEngine; this layer does input
 counting/filtering, assembles the per-color report + unique-k-mer coverage
 stats from the kernel outputs, and formats reference-identical TSV.
 
-Device-side k-mer extraction (``engine.search_reads``) is not yet ported,
-so the ``hasattr(engine, "search_reads")`` gates below send every query
-through host counting (``_count_query_kmers``) and ``search_keys``; a later
-slice that adds ``search_reads`` turns the device-counting path on.
+A ``.fastq.gz`` query counts its k-mers on the device (``engine.
+search_reads``, ops/extract.py) unless COLORID_SEARCH_READS=0, the input
+holds lowercase bases, or it spans more windows than
+COLORID_SEARCH_READS_MAX_WIN; those take host counting
+(``_count_query_kmers``) and ``search_keys``. Both give the same TSV.
 """
 
 from __future__ import annotations
@@ -100,23 +101,96 @@ def _count_query_kmers(
 
 
 def _device_count_search(file1, file2, engine, filter_t, qual_offset):
-    """Fully device-resident fastq query (device extraction, count,
-    auto-cutoff filter and query: batch_search_pe.rs:24-83). Returns
-    (SearchResult, n_filtered_kmers), or None to take the host counting
-    path, which it always does until the engine has ``search_reads``."""
-    return device_count_search_seqs(None, engine, filter_t)
+    """Fully device-resident fastq query: stream + quality-mask reads on
+    host, ship 2-bit words + a per-base validity bitplane (~0.28 B/base),
+    and let the device extract, count, auto-cutoff-filter and query — the
+    reference's whole count-then-search flow (batch_search_pe.rs:24-83)
+    without per-k-mer host work or traffic. Returns (SearchResult,
+    n_filtered_kmers) or None to fall back to the host counting path
+    (lowercase input, engine without device extraction, or an input beyond
+    the single-device window budget)."""
+    import os
+
+    from ..core.fastx import stream_fastq, stream_fastq_pe
+    from ..ops.extract import pack_reads_valid
+
+    index = engine.index
+    k = index.k_size
+    if not (
+        hasattr(engine, "search_reads")
+        and 4 <= k <= 32
+        and index.bloom_size < 2**31
+        and os.environ.get("COLORID_SEARCH_READS", "1") != "0"
+    ):
+        return None
+    print(
+        file1 if file2 is None else f"Paired end: {file1} {file2}",
+        file=sys.stderr,
+    )
+    print("Counting k-mers, this may take a while!", file=sys.stderr)
+    if file2 is None:
+        seqs = [s for _id, s in stream_fastq(file1, qual_offset)]
+    else:
+        seqs = [
+            s
+            for _id, s1, s2 in stream_fastq_pe(file1, file2, qual_offset)
+            for s in (s1, s2)
+        ]
+    return device_count_search_seqs(seqs, engine, filter_t)
 
 
 def device_count_search_seqs(seqs, engine, filter_t):
     """The device-resident count+filter+query flow over in-memory byte
-    sequences. Returns None (fall back to host counting) for an engine
-    without ``search_reads``, which this package does not have yet."""
-    if not hasattr(engine, "search_reads"):
+    sequences (shared by the fastq path above and serve's /search bodies).
+    Returns (SearchResult, n_filtered_kmers) or None to fall back."""
+    import os
+
+    from ..ops.extract import pack_reads_valid
+
+    index = engine.index
+    k = index.k_size
+    if not (
+        seqs
+        and hasattr(engine, "search_reads")
+        and 4 <= k <= 32
+        and index.bloom_size < 2**31
+        and not getattr(engine, "_custom_place", False)
+        and os.environ.get("COLORID_SEARCH_READS", "1") != "0"
+    ):
         return None
-    raise NotImplementedError(
-        "device k-mer extraction (search_reads) is not yet ported in "
-        "colorid_tpu_torch"
+    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    Lmax = int(lens.max())
+    if Lmax < k or Lmax > 8192:
+        return None
+    Lb = max(64, -(-Lmax // 32) * 32)
+    R = len(seqs)
+    Rp = max(1 << (R - 1).bit_length(), 4096)
+    budget = int(os.environ.get("COLORID_SEARCH_READS_MAX_WIN", 1 << 29))
+    if Rp * (Lb - k + 1) > budget:
+        return None  # host counting handles arbitrarily large inputs
+    mb = np.zeros((Rp, Lb), dtype=np.uint8)
+    for j, s in enumerate(seqs):
+        mb[j, : len(s)] = s
+    lower = np.zeros(256, dtype=bool)
+    lower[[ord(c) for c in "acgt"]] = True
+    if lower[mb].any():
+        return None  # raw-byte canonical order is not 2-bit representable
+    lens_p = np.zeros(Rp, dtype=np.int32)
+    lens_p[:R] = lens
+    words, vbits = pack_reads_valid(mb)
+    if filter_t < 0:
+        from ..core.cutoff import auto_cutoff_hist
+
+        hist = engine.count_reads_histogram(
+            words, lens_p, vbits, k=k, L=Lb
+        )
+        t = auto_cutoff_hist(hist)
+    else:
+        t = filter_t
+    res, n_u = engine.search_reads(
+        words, lens_p, vbits, k=k, L=Lb, filter_t=t
     )
+    return res, n_u
 
 
 def batch_search(

@@ -227,6 +227,20 @@ def test_search_on_blocked_index_matches_jax(panel, capsys, monkeypatch, stream,
         assert [r[1] for r in rows] == ["genome3"]
 
 
+@pytest.mark.parametrize("filt", [["-f", "1"], []])
+def test_device_counted_search_on_blocked_index_matches_jax(panel, capsys, monkeypatch, filt):
+    """Both CLIs count the .fastq.gz's k-mers on the device: the JAX
+    package through its fused reads pipeline on this v4 index, the port
+    through extraction and the engine's own query dispatch; the TSV is the
+    same."""
+    monkeypatch.setenv("COLORID_SEARCH_READS", "1")
+    q = ["-q", panel["fq"], *filt]
+    want = _run(jmain, ["search", "-b", panel["jax"], *q], capsys)
+    got = _run(tmain, ["search", "-b", panel["torch"], *q, "--device", "cpu"], capsys)
+    assert got == want
+    assert {r.split("\t")[2] for r in got.splitlines()[:2]} == {"genome0", "genome1"}
+
+
 def test_info_on_blocked_index_matches_jax(panel, capsys):
     want = _run(jmain, ["info", "-b", panel["jax"]], capsys)
     got = _run(tmain, ["info", "-b", panel["torch"]], capsys)

@@ -176,18 +176,6 @@ def test_convert_round_trip(panel, built):
         )
 
 
-@pytest.mark.parametrize("cmd", [
-    ["read_id", "-b", "x.bxi", "-q", "q.fq.gz", "-n", "out"],
-    ["batch_id", "-b", "x.bxi", "-q", "q.txt", "-T", "tag"],
-    ["read_filter", "-c", "c.txt", "-f", "a.fq", "-t", "tax", "-p", "out"],
-])
-def test_unported_subcommands_exit_nonzero(cmd):
-    with pytest.raises(SystemExit) as e:
-        tmain(cmd)
-    assert e.value.code != 0
-    assert "not yet ported in colorid_tpu_torch" in str(e.value.code)
-
-
 @pytest.mark.parametrize("fnv_order", ["1", "0"])
 def test_counts_file_matches_jax(tmp_path, monkeypatch, fnv_order):
     """read_counts_five_fields (the read_id counts file, rows in the

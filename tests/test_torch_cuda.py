@@ -372,3 +372,120 @@ def test_row_mesh_on_card_matches_cpu(cuda_device):
     assert sq.stream_probe.launches == before + 4
     _assert_same_search(got, cpu.search_keys(keys, qcounts=qc))
     assert got.counts.sum() > 0
+
+
+# -- the reads path: device extraction and the read classifier -----------------
+
+
+def _read_words(seed: int, R: int, L: int):
+    """Packed reads with N bases and duplicates: (words, lens, validity
+    bits) as CPU tensors, in extract_count's argument order."""
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+
+    rng = np.random.default_rng(seed)
+    seqs = ts.ACGT[rng.integers(0, 4, (R, L))]
+    seqs[::7, 20] = ord("N")
+    seqs[10:20] = seqs[20:30]
+    seqs[31] = ord("T")
+    w, vb = pack_reads_valid(seqs)
+    lens = rng.integers(L - 30, L + 1, R).astype(np.int32)
+    return ts.t32(w), torch.from_numpy(lens), ts.t32(vb)
+
+
+def _on(device, *ts_):
+    return [t.to(device) for t in ts_]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [27, 32])
+def test_extract_count_on_card_matches_cpu(cuda_device, k):
+    from colorid_tpu_torch.ops.extract import count_histogram, extract_count
+
+    L = 151
+    cpu = _read_words(k, 512, L)
+    for ft, d in ((0, 1), (1, 1), (1, 2)):
+        want = extract_count(*cpu, k=k, L=L, filter_t=ft, d=d)
+        got = extract_count(*_on(cuda_device, *cpu), k=k, L=L, filter_t=ft, d=d)
+        for g, w in zip(got, want):
+            assert g.device.type == cuda_device.type and torch.equal(g.cpu(), w)
+    want = count_histogram(*cpu, k=k, L=L, cap=256)
+    assert torch.equal(count_histogram(*_on(cuda_device, *cpu), k=k, L=L, cap=256).cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["classic", "blocked"])
+def test_readid_functions_on_card_match_cpu(cuda_device, kind):
+    from colorid_tpu_torch.ops import query as q
+    from colorid_tpu_torch.ops.extract import pack_reads_any, pack_reads_valid
+
+    rng = np.random.default_rng(5)
+    C, H = 21, 4
+    bloom, matrix, _names = ts.rand_blocked_matrix(rng, C, 1 << 16, 0.005)
+    blocks, wpad = q.pack_matrix_blocks(matrix)
+    rpb = 128 // wpad if kind == "blocked" else 0
+    bv = 4 if rpb else 1
+    b2 = ts.t32(blocks)
+    N, nr = 20000, 300
+    seg = torch.from_numpy(np.sort(rng.integers(0, nr, N)).astype(np.int32))
+    pos = torch.from_numpy(rng.integers(0, 200, N).astype(np.int32))
+    rows = rng.integers(0, bloom, (N, H))
+    if rpb:
+        rows = rows[:, :1] // rpb * rpb + rng.integers(0, rpb, (N, H))
+    rows = torch.from_numpy(rows.astype(np.int32))
+    pk = ts.t32(ts.rand_packed(rng, N, 31))
+    L, k, M = 160, 31, 400
+    seqs = ts.ACGT[rng.integers(0, 4, (M, L))]
+    words, vb = pack_reads_valid(seqs)
+    mates = ts.t32(pack_reads_any(seqs))
+    mseg = torch.from_numpy(np.repeat(np.arange(M // 2), 2).astype(np.int16))
+    lens = torch.from_numpy(rng.integers(20, L + 1, M).astype(np.int32))
+    ranks = torch.from_numpy(rng.integers(-1, 200, (M, L - k + 1)).astype(np.int16))
+    geo = dict(num_colors=C, wpad=wpad, k=k, num_hash=H, bloom_size=bloom, rpb=rpb, bv=bv)
+    calls = []
+    for B in (0, 3):
+        rkw = dict(num_reads=nr, start_sample=B, num_colors=C, wpad=wpad, rpb=rpb)
+        calls += [
+            (q.query_readid_batch, (b2, rows, seg, pos), rkw),
+            (q.query_readid_firsthit, (b2, rows, seg, pos), rkw),
+            (q.query_readid_hash_batch, (b2, pk, seg.to(torch.int16), pos.to(torch.int16)),
+             dict(geo, num_reads=nr, start_sample=B)),
+            (q.query_readid_reads_batch, (b2, mates, mseg, lens, ranks),
+             dict(geo, L=L, num_reads=M // 2, start_sample=B)),
+            (q.query_readid_firsthit_reads, (b2, mates, mseg, lens, ranks),
+             dict(geo, L=L, num_reads=M // 2, start_sample=B)),
+        ]
+    calls.append((q.query_readid_orderfree_reads, (b2, ts.t32(words), lens, ts.t32(vb)),
+                  dict(geo, L=L, num_reads=M // 2, nm=2, d=1)))
+    for fn, args, kw in calls:
+        want = fn(*args, **kw)
+        got = fn(*_on(cuda_device, *args), **kw)
+        assert got.device.type == cuda_device.type, fn.__name__
+        assert torch.equal(got.cpu(), want), fn.__name__
+
+
+@pytest.mark.cuda
+def test_search_reads_and_orderfree_on_card_match_cpu(cuda_device, tmp_path):
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+
+    gs = ts.genomes(4, 50_000, seed=2)
+    _man, refs = ts.write_panel(tmp_path, gs)
+    index = build_index(refs, 375_000, 4, 27, verbose=False, blocked=True)
+    rs = ts.reads(gs[:2], 3000, 150, seed=3, sub_rate=0.01)
+    w, vb = pack_reads_valid(rs)
+    lens = np.full(rs.shape[0], 150, dtype=np.int32)
+    engines = [QueryEngine(index, device=dev) for dev in ("cpu", cuda_device)]
+    before = sq.stream_probe.launches
+    (want, n_want), (got, n_got) = (
+        e.search_reads(w, lens, vb, k=27, L=160, filter_t=1) for e in engines
+    )
+    assert n_got == n_want > 0
+    assert sq.stream_probe.launches > before  # the dense batch is streamed
+    for f in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert got.all_valid == want.all_valid
+    w2, vb2 = pack_reads_valid(rs[:2000])  # 1,000 reads of two mates
+    want, got = (
+        e.readid_counts_orderfree(w2, np.full(2000, 150, np.int32), vb2, 1000, 2, 27, 160)
+        for e in engines
+    )
+    assert np.array_equal(got, want) and want[:, :4].sum() > 0

@@ -91,3 +91,33 @@ def test_pack_rejects_non_acgt():
     assert hash_torch.pack_keys_host(np.frombuffer(b"ACGN", dtype=np.uint8)[None]) is None
     assert hash_torch.pack_keys_host(np.frombuffer(b"acgt", dtype=np.uint8)[None]) is None
     assert hash_torch.pack_keys_host(_keys(33, 2, seed=1)) is None
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_scalar_xxh3_matches_jax(seed):
+    """The scalar hash (core/bloom.py's) over every length class 0..240."""
+    from colorid_tpu.hashing.xxh3 import xxh3_64 as jxxh3
+    from colorid_tpu_torch.hashing.xxh3 import xxh3_64
+
+    rng = np.random.default_rng(seed)
+    for n in list(range(0, 33)) + [64, 65, 96, 97, 128, 129, 200, 240]:
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert xxh3_64(data, seed) == jxxh3(data, seed)
+    with pytest.raises(ValueError):
+        xxh3_64(bytes(241))
+
+
+def test_bloom_filter_matches_jax():
+    from colorid_tpu.core.bloom import BloomFilter as JBloom
+    from colorid_tpu_torch.core.bloom import BloomFilter
+
+    keys = [bytes(k) for k in _keys(21, 200, seed=3)]
+    bf, jbf = BloomFilter(250_000, 4), JBloom(250_000, 4)
+    for key in keys[:100]:
+        bf.insert(key)
+        jbf.insert(key)
+    bf.insert("ATGC")
+    jbf.insert("ATGC")
+    np.testing.assert_array_equal(bf.bits, jbf.bits)
+    assert all(bf.contains(key) for key in keys[:100]) and bf.contains("ATGC")
+    assert [bf.contains(key) for key in keys[100:]] == [jbf.contains(key) for key in keys[100:]]

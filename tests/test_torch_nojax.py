@@ -1,7 +1,7 @@
 """The port stands alone: no module of colorid_tpu_torch imports jax or the
 JAX package colorid_tpu (checked on the source, and in a fresh interpreter
-that builds and searches through the port's CLI and runs a sharded search on
-a logical mesh), its native library is its own, and its entry points default to the CUDA card and refuse to fall back
+that builds, searches and classifies reads through the port's CLI and runs a
+sharded search on a logical mesh), its native library is its own, and its entry points default to the CUDA card and refuse to fall back
 to the CPU when there is none."""
 
 import ast
@@ -68,9 +68,13 @@ _SCRIPT = textwrap.dedent("""
         main(["build", "--blocked", "--color-shards", "2", "-k", "27", "-n", "4",
               "-s", "375000", "-b", d + "/placed", "-r", man])
         main(["search", "-b", d + "/placed.bxi", "-q", fq, "-f", "1", "--device", "cpu"])
+        main(["read_id", "-b", d + "/idx.bxi", "-q", fq, "-n", d + "/rid", "--device", "cpu"])
     rows = [l for l in out.getvalue().splitlines() if "\\t" in l]
     assert len(rows) >= 6 and rows[0].split("\\t")[2] in ("genome0", "genome1"), rows
     assert "colorid_tpu_torch.ops.blocked" in sys.modules
+    calls = [l.split("\\t")[1] for l in open(d + "/rid_reads.txt")]
+    assert len(calls) == 2000 and calls.count("genome0") + calls.count("genome1") > 1500
+    assert "colorid_tpu_torch.pipelines.read_id" in sys.modules
     # a sharded search on a logical mesh: the same answers as one device
     import numpy as np
     from colorid_tpu_torch import BigsiIndex, QueryEngine, ShardedQueryEngine

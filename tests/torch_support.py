@@ -144,3 +144,71 @@ def probe_case(C: int, num_hash: int, seed: int, n_blocks: int = 1024,
         off |= (h * grp + rng.integers(0, grp, n_probes)) << (8 * h)
     qc = rng.integers(0, 2000, n_probes).astype(np.int32)
     return blocks.reshape(n_blocks, 128), wpad, blk, off.astype(np.int32), qc
+
+
+def read_mix(gs: list[np.ndarray], n: int, seed: int, L: int = 150,
+             insert: int = 500, sub_rate: float = 0.005):
+    """n read pairs for the read classifier, as (r1, q1, r2, q2) lists of
+    byte strings: pairs from the genomes (insert ``insert``, mate 2
+    reverse-complemented, substitutions at sub_rate) mixed with junk pairs,
+    chimeras (mates from two genomes), reads whose first or last 30 bases
+    are random (absent k-mers early or late), N bases, low-quality bases
+    (masked to N at -Q 15), first mates shorter than k, shorter mates,
+    lowercase stretches and exact duplicates of the pair before."""
+    rng = np.random.default_rng(seed)
+    glen = len(gs[0])
+
+    def frag(g, start, length, rc=False):
+        s = gs[g][start : start + length].copy()
+        return _COMP[s[::-1]] if rc else s
+
+    def rand(length):
+        return ACGT[rng.integers(0, 4, length)]
+
+    out = []
+    for i in range(n):
+        if i % 31 == 30 and out:
+            out.append(out[-1])
+            continue
+        g = int(rng.integers(0, len(gs)))
+        s = int(rng.integers(0, glen - insert))
+        r1 = frag(g, s, L)
+        r2 = frag(g, s + insert - L, L, rc=True)
+        if i % 50 == 7:  # junk
+            r1, r2 = rand(L), rand(L)
+        elif i % 23 == 5:  # chimera
+            g2 = (g + 1) % len(gs)
+            r2 = frag(g2, int(rng.integers(0, glen - L)), L, rc=True)
+        for r in (r1, r2):
+            sub = rng.random(L) < sub_rate
+            r[sub] = ACGT[rng.integers(0, 4, int(sub.sum()))]
+        if i % 19 == 3:
+            r1[:30] = rand(30)
+        if i % 29 == 4:
+            r1[-30:] = rand(30)
+        if i % 17 == 2:
+            r1[rng.integers(0, L, 2)] = ord("N")
+        if i % 97 == 11:
+            r2[40:60] = r2[40:60] + 32  # lowercase acgt
+        if i % 37 == 6:
+            r2 = r2[:100]
+        q1 = np.full(len(r1), ord("I"), dtype=np.uint8)
+        q2 = np.full(len(r2), ord("I"), dtype=np.uint8)
+        if i % 13 == 1:
+            q1[rng.integers(0, len(r1), 4)] = ord("#")
+        if i % 41 == 9:  # first mate shorter than k: too_short
+            r1, q1 = r1[:20], q1[:20]
+        out.append(tuple(x.tobytes() for x in (r1, q1, r2, q2)))
+    return out
+
+
+def write_pairs(d, pairs, name: str = "pairs"):
+    """The pairs of read_mix as two .fastq.gz files (ids from file 1).
+    Returns (path 1, path 2)."""
+    paths = [os.path.join(d, f"{name}_R{m}.fastq.gz") for m in (1, 2)]
+    for m, path in enumerate(paths):
+        with gzip.open(path, "wb") as f:
+            for j, p in enumerate(pairs):
+                seq, qual = p[2 * m], p[2 * m + 1]
+                f.write(b"@pair%d %d\n%s\n+\n%s\n" % (j, m + 1, seq, qual))
+    return paths[0], paths[1]
