@@ -17,10 +17,11 @@ Phases, each printing its lines (any failure exits non-zero):
    size (21 synthetic ~3 Mbp genomes, -k 31 -n 4 -s 50000000; search -f 1
    on 400,000 x 150 bp reads from 3 of them, its k-mers counted on the card
    (the default route); search -s on one genome):
-   a classic index (build) and a blocked one (build --blocked, layout v4).
-   Each path's kernel must have been launched while that path ran and
-   while its search -f 1 ran, no stream batch may fall back, and the
-   blocked TSV must be byte-identical with COLORID_STREAM=0.
+   a classic index (build) and a blocked one (build --blocked, layout v4,
+   whose search -f 1 takes the fused reads path). Each path's kernel must
+   have been launched while that path ran and while its search -f 1 ran,
+   no stream batch may fall back, and the blocked TSV must be
+   byte-identical with COLORID_STREAM=0.
 4. parity, for each index: the same search_keys through the generic gather
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
    both paths and for the device-resident dispatches, and one
@@ -42,6 +43,20 @@ Phases, each printing its lines (any failure exits non-zero):
    host-counted k-mers; torch.profiler breakdowns of one search_reads call
    and of one order-free dispatch of 8,192 pairs, and read_id's wall-time
    split.
+4c. fused: search_reads on those 400,000 device-resident reads (52 M
+   windows) on the blocked index through the chunked fused route (the
+   default above COLORID_FUSED_MAX_WINDOWS), the single fused dispatch and
+   the counted route (extract_count, then the probe stream): the same
+   answers, stream_probe launched and n_drop 0 on both fused routes;
+   k-mers/s and a device breakdown of each; search_reads_fused_async on
+   two halves, one stacked fetch, equal to search_reads on each half.
+4d. serve: the HTTP server on the card (a thread of this process) on
+   both indexes: /healthz and /info against the index; /search with 20,000
+   of the reads (filter 1, 0, -1, gene) equal to host counting, launching
+   stream_probe (v4, every body) and classic_word (classic, filter 0);
+   /classify with 2,000 pairs equal to classify_batch on a CPU engine; 64
+   concurrent 1-pair requests equal to a sequential run in fewer
+   classify_batch calls; /search latency and /classify requests/s.
 5. sharded paths on a logical mesh, every shard on the one card:
    - color layout at full width: a seeded 4,096-color, H = 2, k = 31, v4
      index of 4,194,304 rows placed for 4 color shards (2 GiB of matrix)
@@ -596,24 +611,33 @@ def blocked_path_phase(tmp: str, inputs, card: str):
     """build --blocked -> search over the blocked (v4) index; returns
     (index file, launches of the probe kernel while the path ran)."""
     from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops import fused_reads as fr
     from colorid_tpu_torch.ops import stream_query as sq
 
     man, fq, sources = inputs
     prefix = os.path.join(tmp, "turbo")
-    # observe every streamed segment (search_reads' exact-mode dispatch and
-    # search_keys' segments): its size and its n_drop (nonzero means the
-    # engine re-ran the query through the generic gather)
+    # observe every probe-stream dispatch (search -f 1's fused reads
+    # pipeline, search_keys' segments): its probe slots (the merge's S x
+    # cap for the chunked fused route) and its n_drop (nonzero means the
+    # engine re-ran the query on another route)
     segments = []
-    stream_fns = sq.stream_accumulate_hash, sq.stream_accumulate_hash_exact
+    owners = (  # (module, function, the dispatch's size from its arguments)
+        (sq, "stream_accumulate_hash", lambda a: a[5].shape[0]),
+        (sq, "stream_accumulate_hash_exact", lambda a: a[5].shape[0]),
+        (fr, "fused_search_reads", lambda a: f"fused {a[5].shape[0]} reads"),
+        (fr, "fused_merge_query", lambda a: f"merge {a[5].numel()} slots"),
+    )
+    saved = [getattr(o, n) for o, n, _ in owners]
 
-    def observer(fn):
+    def observer(fn, size):
         def observed(*a, **kw):
             out = fn(*a, **kw)
-            segments.append((a[5].shape[0], out[4]))
+            segments.append((size(a), out[4]))
             return out
         return observed
 
-    sq.stream_accumulate_hash, sq.stream_accumulate_hash_exact = map(observer, stream_fns)
+    for (o, n, size), fn in zip(owners, saved):
+        setattr(o, n, observer(fn, size))
     sq.stream_probe.launches = 0
     try:
         t0 = time.time()
@@ -623,7 +647,8 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         tsv, perfect, t_search, t_perfect, reads_launches = _searches(
             tmp, prefix + ".bxi", fq, sq.stream_probe)
     finally:
-        sq.stream_accumulate_hash, sq.stream_accumulate_hash_exact = stream_fns
+        for (o, n, _), fn in zip(owners, saved):
+            setattr(o, n, fn)
     launches = sq.stream_probe.launches
     sizes = [n for n, _ in segments]
     n_drop = sum(int(nd) for _, nd in segments)
@@ -1027,7 +1052,11 @@ def _check_calls(reads_txt: bytes, src, len1, what: str) -> float:
     return ok / n_src
 
 
-def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str) -> None:
+def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str) -> dict:
+    """Returns what the fused and serve phases reuse: the reads on the
+    card (words, lens, validity bits) and their padded length L, the reads
+    as host byte arrays, and the read pairs with their first mates'
+    lengths."""
     import numpy as np
     import torch
 
@@ -1179,6 +1208,300 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
         del eng
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
+    return {"dev": dev, "L": L, "seqs": seqs, "mates": mates, "len1": len1}
+
+
+# -- phase 4c: the fused reads path and the HTTP server -----------------------
+
+N_SERVE_READS, N_SERVE_PAIRS, N_CONCURRENT = 20_000, 2_000, 64
+
+
+def same_answers_reads(a, b) -> bool:
+    """Two search_reads answers agree in counts, all_valid, and_all,
+    freq_stats() and n_unique, the overflow list as a multiset (its order
+    follows each route's own probe stream)."""
+    import numpy as np
+
+    (ra, na), (rb, nb) = a, b
+    return (
+        na == nb
+        and np.array_equal(ra.counts, rb.counts)
+        and ra.all_valid == rb.all_valid
+        and np.array_equal(ra.and_all, rb.and_all)
+        and ra.freq_stats() == rb.freq_stats()
+        and sorted(zip(ra.over_colors.tolist(), ra.over_freqs.tolist()))
+        == sorted(zip(rb.over_colors.tolist(), rb.over_freqs.tolist()))
+    )
+
+
+def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
+    """search_reads on the device-resident reads through the chunked fused
+    route (the default above COLORID_FUSED_MAX_WINDOWS), the single fused
+    dispatch (the guard raised above the window count) and the counted
+    route (extract_count, then the probe stream): the same answers, each
+    fused dispatch with n_drop 0 and stream_probe launched; k-mers/s and a
+    device breakdown of each; search_reads_fused_async on two halves,
+    fetched in one stacked copy, equal to search_reads on each half.
+    Returns the probe kernel's launches on the fused routes."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops import fused_reads as fr
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    dev, L = reads["dev"], reads["L"]
+    R = dev[0].shape[0]
+    n_windows = R * (L - K + 1)
+    eng = QueryEngine(BigsiIndex.load(blocked_bxi), device=DEVICE)
+    dispatches = []  # (fused function, its n_drop) per call
+    saved = fr.fused_search_reads, fr.fused_merge_query
+
+    def observer(fn):
+        def observed(*a, **kw):
+            out = fn(*a, **kw)
+            dispatches.append((fn.__name__, out[4]))
+            return out
+        return observed
+
+    def default():
+        return eng.search_reads(*dev, k=K, L=L, filter_t=1)
+
+    def counted():
+        return eng._search_reads_counted(*dev, k=K, L=L, filter_t=1, d=1)
+
+    routes, fused_launches = {}, 0
+    fr.fused_search_reads, fr.fused_merge_query = map(observer, saved)
+    try:
+        for name, fn, max_w, want in (
+            ("chunked", default, None, "fused_merge_query"),
+            ("single", default, str(n_windows), "fused_search_reads"),
+            ("counted", counted, None, None),
+        ):
+            before = os.environ.get("COLORID_FUSED_MAX_WINDOWS")
+            if max_w:
+                os.environ["COLORID_FUSED_MAX_WINDOWS"] = max_w
+            try:
+                dispatches.clear()
+                sq.stream_probe.launches = 0
+                secs = []
+                for _ in range(3):
+                    sync()
+                    t0 = time.time()
+                    out = fn()
+                    secs.append(time.time() - t0)
+                launches = sq.stream_probe.launches
+                fused_launches += launches if want else 0
+                seen = [(f, int(nd)) for f, nd in dispatches]
+                if seen != ([(want, 0)] * 3 if want else []):
+                    raise AssertionError(f"[fused] {name}: dispatches {seen}")
+                if DEVICE == "cuda" and launches < 3:
+                    raise AssertionError(f"[fused] {name}: stream_probe launched {launches} times")
+                log(f"[fused] {name} route: {out[1]} k-mers from {n_windows} windows of "
+                    f"{R} device-resident reads, {out[1] / min(secs):.0f} k-mers/s (best of "
+                    f"3, one fetch each: {', '.join(f'{t:.4f}' for t in secs)} s); "
+                    f"stream_probe launches {launches} in 3 calls; "
+                    f"dispatches {seen[:1]} x{len(seen)} on {card}")
+                if DEVICE == "cuda":
+                    profile_dispatch(lambda: fn()[1], f"fused {name}", card,
+                                     label=f"{name} search_reads")
+            finally:
+                if max_w and before is None:
+                    os.environ.pop("COLORID_FUSED_MAX_WINDOWS")
+                elif max_w:
+                    os.environ["COLORID_FUSED_MAX_WINDOWS"] = before
+            routes[name] = out
+    finally:
+        fr.fused_search_reads, fr.fused_merge_query = saved
+    if out[1] == 0 or not all(same_answers_reads(routes["chunked"], r) for r in routes.values()):
+        raise AssertionError("[fused] the three routes' answers differ")
+    log(f"[fused] chunked == single == counted: counts, all_valid, and_all, freq_stats, "
+        f"{out[1]} k-mers, {len(out[0].over_colors)} overflow entries (as a multiset) "
+        f"on {card}")
+
+    # the async half: two dispatches queued, one stacked fetch
+    h = R // 2
+    halves = [tuple(t[:h] for t in dev), tuple(t[h:] for t in dev)]
+    sq.stream_probe.launches = 0
+    sync()
+    t0 = time.time()
+    outs = [eng.search_reads_fused_async(*hv, k=K, L=L, filter_t=1) for hv in halves]
+    host = torch.stack([o[0] for o in outs]).cpu().numpy()
+    got = [eng.search_reads_fused_finish(row, *o[1:]) for row, o in zip(host, outs)]
+    dt = time.time() - t0
+    async_launches = sq.stream_probe.launches
+    for g, hv in zip(got, halves):
+        want = eng.search_reads(*hv, k=K, L=L, filter_t=1)
+        if g is None or g[1] != want[1] or not same_result(g[0], want[0]) or not (
+            np.array_equal(g[0].over_colors, want[0].over_colors)
+            and np.array_equal(g[0].over_freqs, want[0].over_freqs)
+        ):
+            raise AssertionError("[fused] search_reads_fused_async != search_reads on a half")
+    if DEVICE == "cuda" and async_launches != 2:
+        raise AssertionError(f"[fused] async: stream_probe launched {async_launches} times")
+    log(f"[fused] search_reads_fused_async on 2 x {h} reads, one stacked fetch, equals "
+        f"search_reads on each half; {(got[0][1] + got[1][1]) / dt:.0f} k-mers/s; "
+        f"stream_probe launches {async_launches} on {card}")
+    del eng
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return fused_launches + async_launches
+
+
+def _http(url: str, payload=None):
+    """GET (payload None) or POST JSON; a reply other than 200 raises."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def serve_phase(classic_bxi: str, blocked_bxi: str, reads: dict, card: str):
+    """The HTTP server (colorid_tpu_torch/serve.py) on the card, in a thread
+    of this process, on each phase-3 index: /healthz and /info against the
+    index; /search with N_SERVE_READS reads (filter 1, 0, -1, gene; p_shared
+    0.01, so that the report has rows at this coverage) equal to
+    the same body counted on the host (COLORID_SEARCH_READS=0), the probe
+    kernel launched by every default-route body on the v4 index and the
+    classic word kernel by the filter 0 body on the classic one; /classify
+    with N_SERVE_PAIRS pairs in one request equal to classify_batch on a
+    CPU engine; N_CONCURRENT concurrent 1-pair requests equal to a
+    sequential run, in fewer classify_batch calls than requests. Any reply
+    but 200 fails. Returns the launches (classic_word, stream_probe) of the
+    default-route /search bodies."""
+    import statistics
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from colorid_tpu_torch import serve
+    from colorid_tpu_torch.core.dna import to_bytes
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.pipelines import read_id as rid
+
+    seqs = [s.tobytes().decode() for s in reads["seqs"][:N_SERVE_READS]]
+    mates, len1 = reads["mates"], reads["len1"]
+    pairs = [
+        {"id": f"pair{j}",
+         "seqs": [mates[j, 0, : len1[j]].tobytes().decode(), mates[j, 1].tobytes().decode()]}
+        for j in range(N_SERVE_PAIRS + N_CONCURRENT)
+    ]
+    one_each = [{"reads": [p]} for p in pairs[N_SERVE_PAIRS:]]
+    calls = []
+    real = rid.classify_batch
+
+    def counting(batch, *a, **kw):
+        calls.append(len(batch))
+        return real(batch, *a, **kw)
+
+    rid.classify_batch = counting  # the batcher's worker binds it when it starts
+    launches = []
+    try:
+        for name, bxi, kernel in (("classic", classic_bxi, sq.classic_words),
+                                  ("blocked", blocked_bxi, sq.stream_probe)):
+            t0 = time.time()
+            srv = serve.make_server(bxi, 0, device=DEVICE)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{srv.server_address[1]}"
+            t_start = time.time() - t0
+            try:
+                index = serve._State.engine.index
+                h = _http(url + "/healthz")
+                want_h = {"ok": True, "bloom_size": index.bloom_size, "num_hash": index.num_hash,
+                          "k_size": index.k_size, "m_size": index.m_size,
+                          "n_colors": index.n_colors}
+                info = _http(url + "/info")["accessions"]
+                if h != want_h or [a["accession"] for a in info] != sorted(index.colors) or any(
+                    a["n_kmers"] != index.n_ref_kmers.get(a["accession"], 0) for a in info
+                ):
+                    raise AssertionError(f"[serve] {name}: /healthz or /info disagree with the index")
+                # /search: each body on the default route (k-mers counted on
+                # the card), then counted on the host
+                n_launch, parts = 0, []
+                for label, body in (("filter 1", {"filter": 1}), ("filter 0", {"filter": 0}),
+                                    ("filter -1", {"filter": -1}), ("gene", {"gene": True})):
+                    payload = dict(body, sequences=seqs, p_shared=0.01)
+                    kernel.launches = 0
+                    t0 = time.time()
+                    out = _http(url + "/search", payload)
+                    dt = time.time() - t0
+                    used = kernel.launches
+                    n_launch += used
+                    os.environ["COLORID_SEARCH_READS"] = "0"
+                    try:
+                        host = _http(url + "/search", payload)
+                    finally:
+                        os.environ.pop("COLORID_SEARCH_READS")
+                    if out != host or not out["rows"]:
+                        diff = [(a, b) for a, b in zip(out["rows"], host["rows"]) if a != b]
+                        raise AssertionError(
+                            f"[serve] {name} /search {label}: device counting != host "
+                            f"counting ({out['num_kmers']} vs {host['num_kmers']} k-mers, "
+                            f"{len(out['rows'])} vs {len(host['rows'])} rows, first "
+                            f"difference {diff[:1]})")
+                    need = name == "blocked" or label == "filter 0"
+                    if DEVICE == "cuda" and need and used == 0:
+                        raise AssertionError(f"[serve] {name} /search {label}: "
+                                             f"{kernel.__name__} not launched")
+                    parts.append(f"{label} {out['num_kmers']} k-mers {dt * 1e3:.1f} ms "
+                                 f"{kernel.__name__} x{used}")
+                lat = []
+                for _ in range(5):
+                    kernel.launches = 0
+                    t0 = time.time()
+                    _http(url + "/search", {"filter": 1, "sequences": seqs, "p_shared": 0.01})
+                    lat.append(time.time() - t0)
+                    n_launch += kernel.launches
+                launches.append(n_launch)
+                log(f"[serve] {name}: up in {t_start:.1f}s (kernels built, warmed); /healthz, "
+                    f"/info == the index; /search on {len(seqs)} reads == host counting: "
+                    f"{'; '.join(parts)}; filter 1 median {statistics.median(lat) * 1e3:.1f} "
+                    f"ms over 5 ({', '.join(f'{t * 1e3:.1f}' for t in lat)}) on {card}")
+                # /classify: one request of N_SERVE_PAIRS pairs against the CPU
+                t0 = time.time()
+                got = _http(url + "/classify", {"reads": pairs[:N_SERVE_PAIRS]})["rows"]
+                dt = time.time() - t0
+                cpu = QueryEngine(BigsiIndex.load(bxi), device="cpu")
+                batch = [(p["id"], [to_bytes(x) for x in p["seqs"]]) for p in pairs[:N_SERVE_PAIRS]]
+                want = [dict(zip(("id", "classification", "support", "total", "status", "n_top"), r))
+                        for r in real(batch, cpu, d=1, fp_correct=1e-3, start_sample=3)]
+                del cpu
+                if got != json.loads(json.dumps(want)):
+                    raise AssertionError(f"[serve] {name} /classify != classify_batch on the CPU")
+                sequential = [_http(url + "/classify", p)["rows"] for p in one_each]
+                calls.clear()
+                t0 = time.time()
+                with ThreadPoolExecutor(max_workers=N_CONCURRENT) as ex:
+                    concurrent = list(ex.map(lambda p: _http(url + "/classify", p)["rows"],
+                                             one_each))
+                dt_c = time.time() - t0
+                if (concurrent != sequential or sum(calls) != N_CONCURRENT
+                        or len(calls) >= N_CONCURRENT):
+                    raise AssertionError(f"[serve] {name}: concurrent /classify != sequential "
+                                         f"or not coalesced (classify_batch calls {calls})")
+                accepted = sum(r["status"] == "accept" for r in got)
+                log(f"[serve] {name}: /classify of {N_SERVE_PAIRS} pairs in one request "
+                    f"{dt:.2f}s = {N_SERVE_PAIRS / dt:.0f} pairs/s ({accepted} accepted), == "
+                    f"classify_batch on a CPU engine; {N_CONCURRENT} concurrent 1-pair "
+                    f"requests == sequential, {N_CONCURRENT / dt_c:.1f} requests/s in "
+                    f"{len(calls)} classify_batch calls on {card}")
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                serve._State.engine = None
+                if DEVICE == "cuda":
+                    torch.cuda.empty_cache()
+    finally:
+        rid.classify_batch = real
+    return launches[0], launches[1]
 
 
 # -- phase 5: the sharded paths on a logical mesh -----------------------------
@@ -1628,7 +1951,12 @@ def main() -> int:
         blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
         classic_parity_phase(classic_bxi, inputs[1], card)
         probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
-        reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
+        reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
+        probe_row["launches"] += fused_phase(blocked_bxi, reads, card)
+        served = serve_phase(classic_bxi, blocked_bxi, reads, card)
+        classic_row["launches"] += served[0]
+        probe_row["launches"] += served[1]
+        del reads
         probe_row["launches"] += rowshard_phase(blocked_bxi, inputs[1], card)
         torch.cuda.empty_cache()
         raw_row["launches"] = colorshard_phase(card)

@@ -22,10 +22,13 @@ shards, all on the one card unless the mesh names more devices:
     engine = ShardedQueryEngine(index, mesh=make_mesh(1, 4, "color"))
 
 Reads go to the card as 2-bit words: ``engine.search_reads`` counts their
-k-mers there, and ``pipelines/read_id.py`` classifies read by read.
+k-mers there (on a v3/v4 index through the fused reads path,
+``ops/fused_reads.py``), and ``pipelines/read_id.py`` classifies read by
+read.
 
 CLI: ``python -m colorid_tpu_torch.cli
-{build,search,info,read_id,batch_id,read_filter}``.
+{build,search,info,read_id,batch_id,read_filter}``; HTTP server:
+``python -m colorid_tpu_torch.serve -b panel.bxi --port 8750``.
 """
 
 __version__ = "0.1.0"

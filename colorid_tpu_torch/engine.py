@@ -53,10 +53,15 @@ def _pad_rows(pk: torch.Tensor, qc: torch.Tensor, unit: int):
     )
 
 
-def _dev_vec(stats, n_drop, hist) -> torch.Tensor:
-    """What a device-resident dispatch leaves for one fetch
-    (search_keys_dev_finish decodes it)."""
-    return torch.cat([stats, n_drop.reshape(1), hist.reshape(-1)])
+def _dev_vec(stats, n_drop, hist, n_unique=None) -> torch.Tensor:
+    """What a device-resident dispatch leaves for one fetch:
+    cat([stats, n_drop, hist.ravel()]) (search_keys_dev_finish decodes it),
+    or with the fused reads path's n_unique cat([stats, n_drop, n_unique,
+    hist.ravel()]) (search_reads_fused_finish)."""
+    mid = [n_drop.reshape(1)]
+    if n_unique is not None:
+        mid.append(n_unique.reshape(1).to(stats.dtype))
+    return torch.cat([stats, *mid, hist.reshape(-1)])
 
 
 @dataclass
@@ -557,20 +562,13 @@ class QueryEngine:
         lowercase-containing reads still need the exact host path (raw-byte
         canonical order is not 2-bit representable).
 
-        The counted k-mers stay on the device and go to the dispatcher
-        search_keys would choose for a batch of that size: the blocked
-        probe stream (search_keys_dev_async) or the classic sorted-row
-        stream (search_keys_dev_classic_async) when the batch is dense
-        enough, else the generic gather, which also reruns a stream
-        dispatch whose capacity was exceeded. The JAX package answers a
-        v3/v4 index through its fused one-dispatch pipeline
-        (ops/fused_reads.py, not yet ported) and every other index through
-        the generic gather. Counts, all_valid, and_all, freq_stats() and
-        n_unique agree with it; the overflow list as a multiset.
+        A value-addressed (v3/v4) stream-eligible index answers through the
+        fused pipeline (ops/fused_reads.py), as the JAX package does: one
+        dispatch up to COLORID_FUSED_MAX_WINDOWS windows (read per call,
+        default 28,000,000), the chunked pipeline beyond. A capacity trip
+        there (n_drop > 0), and every other index, take the counted route
+        (_search_reads_counted).
         """
-        from .ops.extract import extract_count
-        from .ops.stream_query import EPC_CL, PC
-
         if not (4 <= k <= 32 and self.index.bloom_size < 2**31):
             raise ValueError("search_reads requires the device-hash envelope")
         if self._custom_place:
@@ -587,10 +585,42 @@ class QueryEngine:
             )
         if not isinstance(lens, torch.Tensor):
             lens = np.asarray(lens, dtype=np.int32)
+        reads_d, lens_d = self._to_dev(reads_packed), self._to_dev(lens)
+        vb_d = None if valid_bits is None else self._to_dev(valid_bits)
+        if n_windows > 0 and self._stream and self.bv in (3, 4):
+            max_w = int(os.environ.get("COLORID_FUSED_MAX_WINDOWS", 28_000_000))
+            if n_windows > max_w:
+                out = self._search_reads_fused_chunked(
+                    reads_d, lens_d, vb_d, k=k, L=L, filter_t=filter_t, d=d,
+                    max_windows=max_w,
+                )
+            else:
+                out = self._search_reads_fused(
+                    reads_d, lens_d, vb_d, k=k, L=L, filter_t=filter_t, d=d,
+                )
+            if out is not None:
+                return out
+        return self._search_reads_counted(
+            reads_d, lens_d, vb_d, k=k, L=L, filter_t=filter_t, d=d
+        )
+
+    def _search_reads_counted(
+        self, reads_d, lens_d, vb_d, *, k, L, filter_t, d
+    ) -> tuple[SearchResult, int]:
+        """search_reads through extract_count: the counted k-mers stay on
+        the device and go to the dispatcher search_keys would choose for a
+        batch of that size: the blocked probe stream (search_keys_dev_async)
+        or the classic sorted-row stream (search_keys_dev_classic_async)
+        when the batch is dense enough, else the generic gather, which also
+        reruns a stream dispatch whose capacity was exceeded. The JAX
+        package answers these indexes through the generic gather: counts,
+        all_valid, and_all, freq_stats() and n_unique agree with it, the
+        overflow list as a multiset."""
+        from .ops.extract import extract_count
+        from .ops.stream_query import EPC_CL, PC
+
         pk, qc, n_u = extract_count(
-            self._to_dev(reads_packed), self._to_dev(lens),
-            None if valid_bits is None else self._to_dev(valid_bits),
-            k=k, L=L, filter_t=filter_t, d=d,
+            reads_d, lens_d, vb_d, k=k, L=L, filter_t=filter_t, d=d
         )
         if qc.numel() == 0:
             return self._empty_result(), 0
@@ -614,6 +644,142 @@ class QueryEngine:
                 self.search_keys_dev_generic_async(pk, qc, k, capO=capO)
             )
         return res, n
+
+    # -- the fused reads path (ops/fused_reads.py) ----------------------------
+
+    def _fused_geometry(self) -> dict:
+        return dict(
+            wpad=self.wpad, num_hash=self.index.num_hash,
+            bloom_size=self.index.bloom_size, rpb=self.rpb,
+            n_colors=self.index.n_colors, bv=self.bv,
+        )
+
+    def _search_reads_fused(
+        self, reads_d, lens_d, vb_d=None, *, k, L, filter_t, d
+    ) -> tuple[SearchResult, int] | None:
+        """search_reads through the single fused dispatch: extraction, exact
+        counting and the probe stream in one call. None when the stream's
+        residual/overflow capacity was exceeded, so the caller falls back
+        to the counted route."""
+        return self._fused_finish(self.search_reads_fused_async(
+            reads_d, lens_d, vb_d, k=k, L=L, filter_t=filter_t, d=d
+        ))
+
+    def _search_reads_fused_chunked(
+        self, reads_d, lens_d, vb_d=None, *, k, L, filter_t, d, max_windows,
+    ) -> tuple[SearchResult, int] | None:
+        """The chunked fused pipeline (ops/fused_reads.py dispatches A, A2,
+        B): no dispatch spans more than ~max_windows k-mer windows.
+        Per-chunk extract + sort + count, a compaction sized from the
+        largest per-chunk unique count (one fetch), then one merge + global
+        filter + probe stream."""
+        from .ops.fused_reads import (
+            compact_sorted,
+            extract_sorted_counts,
+            fused_merge_query,
+        )
+        from .ops.stream_query import OVER_CAP, RES_CAP
+
+        NW = L - k + 1
+        R = reads_d.shape[0]
+        Rc = max(max_windows // NW, 1)
+        S = -(-R // Rc)
+        Rc = -(-R // S)  # balanced chunks
+        padR = S * Rc - R
+        if padR:  # zero-length reads: no valid window
+            reads_d = torch.cat([reads_d, reads_d.new_zeros((padR, reads_d.shape[1]))])
+            lens_d = torch.cat([lens_d, lens_d.new_zeros(padR)])
+            if vb_d is not None:
+                vb_d = torch.cat([vb_d, vb_d.new_zeros((padR, vb_d.shape[1]))])
+        outs = [
+            extract_sorted_counts(
+                reads_d[s * Rc : (s + 1) * Rc], lens_d[s * Rc : (s + 1) * Rc],
+                None if vb_d is None else vb_d[s * Rc : (s + 1) * Rc],
+                k=k, L=L, d=d,
+            )
+            for s in range(S)
+        ]
+        n_max = int(torch.stack([o[2] for o in outs]).max())
+        # the JAX package's cap: a power of two of at least 2^20 (its
+        # compile-shape bound), which fixes the merge's probe stream
+        cap = min(1 << max(20, max(n_max, 1).bit_length()), Rc * NW)
+        comps = [compact_sorted(o[0], o[1], cap=cap) for o in outs]
+        capO = OVER_CAP + RES_CAP
+        stats, hist, oc_buf, of_buf = self._new_accumulators(capO)
+        *_, n_drop, n_u = fused_merge_query(
+            stats, hist, oc_buf, of_buf, self.blocks2,
+            torch.stack([c[0] for c in comps]),
+            torch.stack([c[1] for c in comps]),
+            k=k, filter_t=filter_t, **self._fused_geometry(),
+        )
+        return self._fused_finish(
+            (_dev_vec(stats, n_drop, hist, n_u), oc_buf, of_buf, capO)
+        )
+
+    def search_reads_fused_async(
+        self, reads_dev, lens_dev, valid_bits=None, *,
+        k: int, L: int, filter_t: int = 0, d: int = 1,
+    ):
+        """Dispatch half of the single fused reads search: returns (vec,
+        oc_buf, of_buf, capO) with vec = cat([stats, n_drop, n_unique,
+        hist.ravel()]) still on the device, so callers can queue several
+        dispatches and fetch them in one stacked copy; decode with
+        search_reads_fused_finish. Raises ValueError when the single fused
+        dispatch is not eligible (a layout that is not value-addressed, the
+        device-hash envelope, or a window count past
+        COLORID_FUSED_MAX_WINDOWS): callers fall back to search_reads."""
+        from .ops.fused_reads import fused_search_reads
+        from .ops.stream_query import OVER_CAP, RES_CAP
+
+        if not (4 <= k <= 32 and self.index.bloom_size < 2**31):
+            raise ValueError("fused async requires the device-hash envelope")
+        if self._custom_place or not (self._stream and self.bv in (3, 4)):
+            raise ValueError(
+                "fused async requires a stream-eligible value-addressed "
+                "(v3/v4) blocked index"
+            )
+        n_windows = reads_dev.shape[0] * (L - k + 1)
+        max_w = int(os.environ.get("COLORID_FUSED_MAX_WINDOWS", 28_000_000))
+        if n_windows > max_w:
+            raise ValueError(
+                f"{n_windows} windows exceeds the single-dispatch guard "
+                f"({max_w}); use search_reads (chunked pipeline)"
+            )
+        if not isinstance(lens_dev, torch.Tensor):
+            lens_dev = np.asarray(lens_dev, dtype=np.int32)
+        capO = OVER_CAP + RES_CAP
+        stats, hist, oc_buf, of_buf = self._new_accumulators(capO)
+        *_, n_drop, n_u = fused_search_reads(
+            stats, hist, oc_buf, of_buf, self.blocks2,
+            self._to_dev(reads_dev), self._to_dev(lens_dev),
+            None if valid_bits is None else self._to_dev(valid_bits),
+            k=k, L=L, filter_t=filter_t, d=d, **self._fused_geometry(),
+        )
+        return _dev_vec(stats, n_drop, hist, n_u), oc_buf, of_buf, capO
+
+    def search_reads_fused_finish(
+        self, host, oc_buf, of_buf, capO
+    ) -> tuple[SearchResult, int] | None:
+        """Decode a fetched search_reads_fused_async vector (numpy) into
+        (SearchResult, n_unique); None when the drop guard tripped."""
+        return self._fused_decode(np.asarray(host), oc_buf, of_buf, capO)
+
+    def _fused_finish(self, out) -> tuple[SearchResult, int] | None:
+        """Fetch (ONE copy for everything but the rare overflow list) and
+        decode one fused dispatch's (vec, oc_buf, of_buf, capO)."""
+        vec, oc_buf, of_buf, capO = out
+        return self._fused_decode(vec.cpu().numpy(), oc_buf, of_buf, capO)
+
+    def _fused_decode(
+        self, host, oc_buf, of_buf, capO
+    ) -> tuple[SearchResult, int] | None:
+        C = self.index.n_colors
+        sl = C + self.wpad + 2
+        if int(host[sl]) > 0:  # n_drop: capacity exceeded, caller falls back
+            return None
+        hist = host[sl + 2 :].reshape(C, FREQ_CAP)
+        res = self._result(host[:sl], hist, oc_buf, of_buf, capO, None)
+        return res, int(host[sl + 1])
 
     def count_reads_histogram(
         self,

@@ -489,3 +489,99 @@ def test_search_reads_and_orderfree_on_card_match_cpu(cuda_device, tmp_path):
         for e in engines
     )
     assert np.array_equal(got, want) and want[:, :4].sum() > 0
+
+
+# -- the fused reads path and the HTTP server -------------------------------------
+
+
+@pytest.fixture
+def v4_panel(tmp_path):
+    """A small v4 index over four random genomes, and 3,000 reads of 150 bp
+    with one read repeated 1,100 times (its k-mers pass FREQ_CAP: the
+    overflow list)."""
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+
+    gs = ts.genomes(4, 50_000, seed=5)
+    _man, refs = ts.write_panel(tmp_path, gs)
+    index = build_index(refs, 375_000, 4, 27, verbose=False, blocked=True)
+    rs = ts.reads(gs[:2], 3000, 150, seed=6, sub_rate=0.01)
+    rs = np.concatenate([rs, np.repeat(rs[:1], 1100, axis=0)])
+    w, vb = pack_reads_valid(rs)
+    return gs, index, (w, np.full(rs.shape[0], 150, dtype=np.int32), vb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_windows", [None, "150000"])  # single, chunked
+def test_fused_routes_on_card_match_cpu(cuda_device, monkeypatch, v4_panel, max_windows):
+    _gs, index, batch = v4_panel
+    if max_windows:
+        monkeypatch.setenv("COLORID_FUSED_MAX_WINDOWS", max_windows)
+    engines = [QueryEngine(index, device=dev) for dev in ("cpu", cuda_device)]
+    before = sq.stream_probe.launches
+    (want, n_want), (got, n_got) = (
+        e.search_reads(*batch, k=27, L=160, filter_t=1) for e in engines
+    )
+    assert sq.stream_probe.launches == before + 1  # one fused stream, on the card
+    assert n_got == n_want > 0 and len(want.over_colors) > 0
+    for f in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert got.all_valid == want.all_valid
+
+
+@pytest.mark.cuda
+def test_fused_async_on_card_matches_cpu(cuda_device, v4_panel):
+    _gs, index, (w, lens, vb) = v4_panel
+    halves = [slice(0, 2000), slice(2000, w.shape[0])]
+    rows = []
+    for dev in ("cpu", cuda_device):
+        eng = QueryEngine(index, device=dev)
+        outs = [eng.search_reads_fused_async(ts.t32(w[h]), torch.from_numpy(lens[h]),
+                                             ts.t32(vb[h]), k=27, L=160, filter_t=1)
+                for h in halves]
+        host = torch.stack([o[0] for o in outs]).cpu().numpy()
+        rows.append([eng.search_reads_fused_finish(r, *o[1:]) for r, o in zip(host, outs)])
+    for (want, n_want), (got, n_got) in zip(*rows):
+        assert n_got == n_want > 0
+        for f in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+            assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_server_on_card_matches_cpu(cuda_device, tmp_path, v4_panel):
+    """/search and /classify through the server on the card and on the
+    CPU: the same JSON bodies; /search launches the probe kernel."""
+    import json
+    import threading
+    import urllib.request
+
+    from colorid_tpu_torch import serve
+
+    gs, index, _batch = v4_panel
+    path = str(tmp_path / "v4.bxi")
+    index.save(path)
+    seqs = [r.tobytes().decode() for r in ts.reads(gs[:2], 500, 150, seed=8)]
+    pairs = [{"id": f"p{i}", "seqs": [p[0].decode(), p[2].decode()]}
+             for i, p in enumerate(ts.read_mix(gs, 40, seed=9))]
+    requests = [("/search", {"sequences": seqs, "filter": 0, "p_shared": 0.01}),
+                ("/classify", {"reads": pairs})]
+    answers = []
+    for device in ("cuda", "cpu"):
+        srv = serve.make_server(path, 0, device=device)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        before = sq.stream_probe.launches
+        try:
+            got = []
+            for route, body in requests:
+                req = urllib.request.Request(url + route, json.dumps(body).encode(),
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    got.append(json.loads(r.read()))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        if device == "cuda":
+            assert sq.stream_probe.launches > before
+        answers.append(got)
+    assert answers[0] == answers[1]
+    assert answers[0][0]["rows"] and len(answers[0][1]["rows"]) == 40

@@ -1,7 +1,8 @@
 """The port stands alone: no module of colorid_tpu_torch imports jax or the
 JAX package colorid_tpu (checked on the source, and in a fresh interpreter
-that builds, searches and classifies reads through the port's CLI and runs a
-sharded search on a logical mesh), its native library is its own, and its entry points default to the CUDA card and refuse to fall back
+that builds, searches and classifies reads through the port's CLI, runs a
+sharded search on a logical mesh and answers a /search through the port's
+HTTP server), its native library is its own, and its entry points default to the CUDA card and refuse to fall back
 to the CPU when there is none."""
 
 import ast
@@ -89,6 +90,18 @@ _SCRIPT = textwrap.dedent("""
         got = eng.search_keys(keys)
         assert (got.counts == want.counts).all() and got.all_valid == want.all_valid
     assert "colorid_tpu_torch.parallel.engine" in sys.modules
+    # the HTTP server on the v4 index: /search counts on the device through
+    # the fused reads path
+    import json, threading, urllib.request
+    from colorid_tpu_torch import serve
+    srv = serve.make_server(d + "/turbo.bxi", 0, device="cpu")
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    body = json.dumps({"sequences": ["ACGT" * 40], "filter": 0}).encode()
+    url = "http://127.0.0.1:%d/search" % srv.server_address[1]
+    with urllib.request.urlopen(urllib.request.Request(url, body), timeout=60) as r:
+        assert json.loads(r.read())["num_kmers"] > 0
+    srv.shutdown()
+    assert "colorid_tpu_torch.ops.fused_reads" in sys.modules
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "colorid_tpu"))
     assert not leaked, leaked
