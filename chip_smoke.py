@@ -69,6 +69,25 @@ Phases, each printing its lines (any failure exits non-zero):
      ShardedQueryEngine on the loaded index: the same report lines;
    - row layout: the blocked index of phase 3 on a (1, 4) row mesh: the
      probe stream per row shard equals the single-device results.
+6. devbuild, on the phase-3 cell: CLI build --device-build -t 8 (the
+   scatter-OR on the card, one per accession) and the host build back to
+   back (host, device, device, host), every .bxi byte-identical to phase
+   3's host build, and search -f 1 on a device-built one the same TSV
+   through classic_word; then the row-sharded build (build_matrix_rowshard
+   + pack_blocks_rowshard) of the index's row lists on a (1, 4) row mesh: its
+   shards equal device_put_rowshard's, and ShardedQueryEngine(
+   sharded_matrix=...) with no host matrix gives the host-matrix row
+   engine's SearchResult and the single-device answers; the same from the
+   blocked v4 index's columns, whose row shards stream (stream_probe).
+7. wide: a classic index of two seeded 40 kbp genomes at -k 27 -n 2 -s
+   3,000,000,000 (12 GB of matrix on the card), built with CLI build
+   --device-build (which scatters on the host past 2^31 rows, as the JAX
+   package does): search_keys equal to a numpy oracle through the wide
+   route (the generic scan over int64 rows past 2^31); classify_batch, the
+   search's counting path and CLI read_id on 2,000 pairs call their source
+   genome through the wide routes; k-mers/s of the int64 scan beside
+   query_accumulate_scan_wide on split rows and the int32 scan, pairs/s,
+   host peak RSS and the card's max_memory_allocated.
 
 Then one JSON line with the kernel table, the card line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout
@@ -559,7 +578,8 @@ def _searches(tmp: str, bxi: str, fq: str, kernel):
 
 def classic_path_phase(tmp: str, inputs, card: str):
     """build -> search over a classic index; returns (index file, launches
-    of the classic word kernel while the path ran)."""
+    of the classic word kernel while the path ran, the build's seconds,
+    search -f 1's TSV)."""
     from colorid_tpu_torch.ops import stream_query as sq
 
     man, fq, sources = inputs
@@ -604,7 +624,7 @@ def classic_path_phase(tmp: str, inputs, card: str):
             f"a classic search fell back to the generic gather (batches={sizes}, "
             f"n_drop={n_drop})"
         )
-    return prefix + ".bxi", launches
+    return prefix + ".bxi", launches, t_build, tsv
 
 
 def blocked_path_phase(tmp: str, inputs, card: str):
@@ -1845,6 +1865,401 @@ def rowshard_phase(bxi: str, fq: str, card: str) -> int:
     return launches
 
 
+# -- phase 6: index construction on the card ----------------------------------
+
+ROWSHARD_KMERS = 1 << 20  # the born-sharded engines' query (of ~8.6 M k-mers)
+
+
+def born_sharded(what: str, index, row_lists, keys, qcounts, card: str) -> int:
+    """build_matrix_rowshard + pack_blocks_rowshard from an index's row
+    lists on a (1, 4) row mesh of the card: the shards must equal
+    device_put_rowshard of the host matrix (the host-matrix engine's), and
+    ShardedQueryEngine(sharded_matrix=...) with no host matrix must give
+    the host-matrix row engine's SearchResult and the single-device
+    engine's answers. Returns the probe kernel's launches in the
+    born-sharded engine's search."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch import QueryEngine, ShardedQueryEngine
+    from colorid_tpu_torch.ops import build_ops
+    from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+
+    mesh = make_mesh(1, 4, "row", devices=[DEVICE])
+    meta = dataclasses.replace(index, matrix=None)
+    mult = ShardedQueryEngine.row_multiple(meta)
+    sync()
+    t0 = time.time()
+    shards, Rl = build_ops.build_matrix_rowshard(
+        row_lists, index.bloom_size, mesh, row_multiple=mult)
+    blocks = build_ops.pack_blocks_rowshard(shards, mesh=mesh, Rl=Rl, W=index.words_per_row)
+    sync()
+    t_build = time.time() - t0
+    del shards
+    hosted = ShardedQueryEngine(index, mesh=mesh, layout="row")
+    if hosted.Rl != Rl or not all(torch.equal(a, b) for a, b in zip(blocks, hosted.mat)):
+        raise AssertionError(f"{what}: the born-sharded blocks != device_put_rowshard's")
+    born = ShardedQueryEngine(meta, mesh=mesh, layout="row",
+                              sharded_matrix=(blocks, hosted.wpad, Rl))
+    if (born._stream, born.rpb) != (hosted._stream, hosted.rpb):
+        raise AssertionError(f"{what}: the born-sharded engine chose another path")
+    sq.stream_probe.launches = 0
+    sync()
+    t0 = time.time()
+    res = born.search_keys(keys, qcounts=qcounts)
+    sync()
+    t_search = time.time() - t0
+    launches = sq.stream_probe.launches
+    if born._stream and DEVICE == "cuda" and launches != 4:
+        raise AssertionError(f"{what}: the born-sharded row shards did not stream "
+                             f"(stream_probe launches={launches})")
+    res_host = hosted.search_keys(keys, qcounts=qcounts)
+    single = QueryEngine(index, device=DEVICE).search_keys(keys, qcounts=qcounts)
+    if not same_result(res, res_host) or not same_answers(res, single):
+        raise AssertionError(f"{what}: born-sharded SearchResult != host-matrix / single-device")
+    if int(res.counts.sum()) == 0 or not res.freq_stats():
+        raise AssertionError(f"{what}: the born-sharded query has no hits to compare")
+    log(f"[devbuild] {what}: build_matrix_rowshard + pack_blocks_rowshard on a (1, 4) row "
+        f"mesh of {blocks[0].device}: {Rl} rows per shard (multiple of {mult}) in "
+        f"{t_build:.2f}s, shards == device_put_rowshard of the host matrix; "
+        f"ShardedQueryEngine(sharded_matrix=...) with no host matrix, "
+        f"{'the probe stream per row shard' if born._stream else 'the generic gather'}: "
+        f"{keys.shape[0]} k-mers in {t_search:.2f}s, SearchResult == host-matrix row "
+        f"engine's, answers == single-device (counts sum {int(res.counts.sum())}, "
+        f"{len(res.freq_stats())} colors with unique hits); stream_probe launches="
+        f"{launches} on {card}")
+    return launches if born._stream else 0
+
+
+def _columns(index) -> list:
+    """Each color's Bloom rows (int32) from an index's host matrix: the row
+    lists a build of that index scatters."""
+    import numpy as np
+
+    m = np.asarray(index.matrix)
+    return [np.nonzero((m[:, c // 32] >> np.uint32(c % 32)) & np.uint32(1))[0].astype(np.int32)
+            for c in range(index.n_colors)]
+
+
+def devbuild_phase(tmp: str, inputs, classic, blocked_bxi: str, card: str):
+    """CLI build --device-build of phase 3's classic index against the host
+    build, timed back to back in the order host, device, device, host (each
+    .bxi byte-identical to phase 3's host build; search -f 1 on a
+    device-built one gives the same TSV through the classic kernel), then
+    the row-sharded build from the index's row lists (classic) and from the
+    blocked v4 index's. Returns (classic_word launches in the device-built
+    index's search -f 1, stream_probe launches of the born-sharded v4
+    engine)."""
+    from colorid_tpu_torch import BigsiIndex
+    from colorid_tpu_torch.ops import build_ops
+    from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.pipelines.search import _count_query_kmers
+
+    man, fq, _sources = inputs
+    host_bxi, t_main, host_tsv = classic
+    with open(host_bxi, "rb") as f:
+        want = f.read()
+    # the device builds' scatter-ORs: rows per call and their seconds
+    scattered, scatter = [], []
+    real = build_ops.scatter_or_column
+
+    def observed(acc, rows, bit):
+        sync()
+        t0 = time.time()
+        out = real(acc, rows, bit)
+        sync()
+        scatter.append(time.time() - t0)
+        scattered.append(int(rows.shape[0]))
+        return out
+
+    secs = {"host": [], "device": []}
+    load = os.getloadavg()[0]
+    build_ops.scatter_or_column = observed
+    try:
+        for i, who in enumerate(("host", "device", "device", "host")):
+            prefix = os.path.join(tmp, f"{who}panel{i}")
+            flags = ["--device-build", "--device", DEVICE] if who == "device" else []
+            t0 = time.time()
+            with contextlib.redirect_stderr(io.StringIO()):
+                cli(["build", *flags, "-k", str(K), "-n", str(HASHES), "-s", str(BLOOM),
+                     "-b", prefix, "-r", man, "-t", "8"])
+            secs[who].append(time.time() - t0)
+            with open(prefix + ".bxi", "rb") as g:
+                if g.read() != want:
+                    raise AssertionError(f"build {i + 1} ({who}) wrote another .bxi than "
+                                         "phase 3's host build")
+            if i != 2:
+                os.remove(prefix + ".bxi")
+    finally:
+        build_ops.scatter_or_column = real
+    if len(scattered) != 2 * N_GENOMES:
+        raise AssertionError(f"build --device-build ran {len(scattered)} scatter-ORs on the "
+                             f"device, not one per accession of each device build")
+    dev_bxi = os.path.join(tmp, "devicepanel2.bxi")
+    sq.classic_words.launches = 0
+    t0 = time.time()
+    tsv = cli(["search", "-b", dev_bxi, "-q", fq, "-f", "1", "--device", DEVICE])
+    t_search = time.time() - t0
+    launches = sq.classic_words.launches
+    if tsv != host_tsv:
+        raise AssertionError("search -f 1 on the device-built index gave another TSV")
+    if DEVICE == "cuda" and launches == 0:
+        raise AssertionError("search -f 1 on the device-built index did not launch classic_word")
+    ratio = sum(secs["device"]) / sum(secs["host"])
+    log(f"[devbuild] CLI build -t 8, back to back (host, device, device, host; load "
+        f"average {load:.2f} before): host {secs['host'][0]:.2f}s / {secs['host'][1]:.2f}s, "
+        f"--device-build {secs['device'][0]:.2f}s / {secs['device'][1]:.2f}s (device / host "
+        f"{ratio:.3f}; scatter-OR on the {DEVICE} {sum(scatter[:N_GENOMES]):.3f}s / "
+        f"{sum(scatter[N_GENOMES:]):.3f}s for {N_GENOMES} accessions, "
+        f"{sum(scattered[:N_GENOMES])} hashed rows each build); phase 3's host build, "
+        f"first and cold, {t_main:.2f}s; every .bxi byte-identical to phase 3's; search -f 1 "
+        f"on the device-built index {t_search:.1f}s, TSV identical, classic_word "
+        f"launches={launches} on {card}")
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        keys, qcounts, _packed = _count_query_kmers(fq, None, K, 15, 1, False)
+    keys, qcounts = keys[:ROWSHARD_KMERS], qcounts[:ROWSHARD_KMERS]
+    classic_index = BigsiIndex.load(host_bxi)
+    born_sharded("classic", classic_index, _columns(classic_index), keys, qcounts, card)
+    del classic_index
+    index = BigsiIndex.load(blocked_bxi)
+    probe = born_sharded("blocked v4", index, _columns(index), keys, qcounts, card)
+    return launches, probe
+
+
+# -- phase 7: an index past int32 row addressing -------------------------------
+
+WIDE_BLOOM, WIDE_K, WIDE_H, WIDE_LEN, WIDE_PAIRS = 3_000_000_000, 27, 2, 40_000, 2000
+WIDE_RATE_KMERS = 1 << 22
+
+
+def wide_phase(tmp: str, card: str) -> None:
+    """A classic index of two seeded 40 kbp genomes at -k 27 -n 2 -s
+    3,000,000,000 (tests/test_wide_bloom.py's parameters; 12 GB of matrix
+    on the card). Built with CLI build --device-build, which the JAX
+    package's rule sends to the host scatter past 2^31 rows, and written in
+    the reference's sparse bincode format (the dense CXI file would be 12
+    GB on disk). search_keys must equal a numpy oracle over the host matrix
+    through the wide route (query_accumulate_scan over int64 rows past
+    2^31); classify_batch, search -f 1's counting path and CLI read_id on
+    2,000 pairs go through the wide routes (query_readid_batch over int64
+    rows) and call their source genome."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    import colorid_tpu_torch.engine as engine_mod
+    from colorid_tpu_torch import BigsiIndex, QueryEngine, native
+    from colorid_tpu_torch.hashing.xxh3 import bloom_rows_batch
+    from colorid_tpu_torch.ops import query as q
+    from colorid_tpu_torch.pipelines.read_id import classify_batch
+    from colorid_tpu_torch.pipelines.search import batch_search
+
+    rng = np.random.default_rng(SEED + 7)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
+    d = os.path.join(tmp, "wide")
+    os.makedirs(d)
+    genomes = acgt[rng.integers(0, 4, (2, WIDE_LEN))]
+    with open(os.path.join(d, "refs.txt"), "w") as man:
+        for i, g in enumerate(genomes):
+            path = os.path.join(d, f"wide{i}.fasta")
+            with open(path, "wb") as f:
+                f.write(f">wide{i}\n".encode() + g.tobytes() + b"\n")
+            man.write(f"wide{i}\t{path}\n")
+    prefix = os.path.join(d, "wide")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        cli(["build", "--device-build", "--device", DEVICE, "--ref-format", "-k",
+             str(WIDE_K), "-n", str(WIDE_H), "-s", str(WIDE_BLOOM), "-b", prefix,
+             "-r", os.path.join(d, "refs.txt"), "-t", "2"])
+    t_build = time.time() - t0
+    rule = [l for l in err.getvalue().splitlines() if "2^31" in l]
+    if not rule:
+        raise AssertionError("the wide build did not name the host-scatter rule")
+    t0 = time.time()
+    index = BigsiIndex.load(prefix + ".bxi")
+    engine = QueryEngine(index, chunk=1 << 20, device=DEVICE)
+    sync()
+    t_load = time.time() - t0
+    if not engine._wide or engine._stream_classic or index.matrix.shape[0] != WIDE_BLOOM:
+        raise AssertionError("the 3e9-row index did not take the wide route")
+
+    # the wide route: the generic scan and read_id batches over int64 rows;
+    # a call counts only where its rows pass 2^31 - 1 somewhere
+    calls = {"scan": 0, "readid": 0, "firsthit": 0}
+    patched = [(engine_mod, "query_accumulate_scan", "scan", 5),
+               (q, "query_readid_batch", "readid", 1),
+               (q, "query_readid_firsthit", "firsthit", 1)]
+    saved = [getattr(o, n) for o, n, _, _ in patched]
+
+    def counted(fn, key, at):
+        def wrapped(*a, **kw):
+            rows = a[at]
+            if rows.dtype != torch.int64:
+                raise AssertionError(f"{fn.__name__} got {rows.dtype} rows on the wide index")
+            calls[key] += 1
+            calls[key + "_past"] = calls.get(key + "_past", 0) + int(
+                rows.numel() > 0 and int(rows.max()) >= 2**31)
+            return fn(*a, **kw)
+        return wrapped
+
+    for (o, n, key, at), fn in zip(patched, saved):
+        setattr(o, n, counted(fn, key, at))
+    try:
+        # search_keys on the k-mers of 20 x 500 bp reads against a numpy
+        # oracle over the host matrix (tests/test_wide_bloom.py's check)
+        nc = native.NativeCounter(WIDE_K)
+        if not nc.add_many(np.ascontiguousarray(genomes[1][: 20 * 500].reshape(20, 500))):
+            raise AssertionError("the native counter refused the reads")
+        keys, qcounts = nc.dump(0)
+        qcounts = np.maximum(qcounts, 1).astype(np.int32)
+        res = engine.search_keys(keys, qcounts=qcounts)
+        n_scan, n_past = calls["scan"], calls.get("scan_past", 0)
+        rows = bloom_rows_batch(keys, WIDE_H, WIDE_BLOOM)
+        vals = index.matrix[rows.reshape(-1), 0].reshape(rows.shape)
+        andw = vals[:, 0] & vals[:, 1]
+        present = (vals != 0).all(axis=1)
+        bits = (andw[:, None] >> np.arange(2, dtype=np.uint32)) & 1
+        want = (bits * present[:, None]).sum(axis=0)
+        uniq = present & (bits.sum(axis=1) == 1)
+        fs = res.freq_stats()
+        if (not np.array_equal(res.counts, want) or res.all_valid != bool(present.all())
+                or [fs[c][2] if c in fs else 0 for c in range(2)]
+                != [int((uniq & (bits[:, c] == 1)).sum()) for c in range(2)]):
+            raise AssertionError("the wide search != the numpy oracle")
+        if n_scan == 0 or n_past == 0 or rows.max() < 2**31:
+            raise AssertionError("the wide search did not scan int64 rows past 2^31")
+
+        # the classifier on 8 reads of one genome, search -f 1's counting
+        # path on the pairs' first mates, and the device-resident scans
+        g = genomes[1]
+        batch = [(f"@r{i}", [g[1000 + i * 700: 1150 + i * 700].copy()]) for i in range(8)]
+        called = classify_batch(batch, engine, 1, 1e-3, 3)
+        if not calls.get("readid_past") or not all(r[1] == "wide1" and r[4] == "accept"
+                                                   for r in called):
+            raise AssertionError(f"classify_batch on the wide index: {called}, "
+                                 f"wide read_id calls {calls['readid']}")
+        pairs = WIDE_PAIRS
+        src = rng.integers(0, 2, pairs)
+        starts = rng.integers(0, WIDE_LEN - 400, pairs)[:, None]
+        span = np.arange(READ_LEN)
+        mates = np.stack([genomes[src[:, None], starts + span],
+                          comp[genomes[src[:, None], starts + 400 - READ_LEN + span][:, ::-1]]],
+                         axis=1)
+        files = write_pairs(os.path.join(d, "pairs"), mates, np.full(pairs, READ_LEN),
+                            np.arange(pairs))
+        before = calls["scan"]
+        with contextlib.redirect_stderr(io.StringIO()):
+            tsv = batch_search(files[:1], [], engine, filter_t=0, cov=0.35,
+                               gene_search=False, qual_offset=15)
+        top = tsv[0].split("\t")[2] if tsv else None
+        if calls["scan"] == before or top not in ("wide0", "wide1") or len(tsv) != 2:
+            raise AssertionError(f"search -f 0 on the wide index: {tsv}")
+        rate = wide_rates(engine)
+    finally:
+        for (o, n, _, _), fn in zip(patched, saved):
+            setattr(o, n, fn)
+    dev_peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    del engine, index
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # CLI read_id: the index loaded anew, int64 rows hashed on the host, the
+    # read_id batches on the card
+    before = dict(calls)
+    for (o, n, key, at), fn in zip(patched, saved):
+        setattr(o, n, counted(fn, key, at))
+    try:
+        reads_txt, _counts, t_rid = read_id_bytes(prefix + ".bxi", files,
+                                                  os.path.join(d, "rid"))
+    finally:
+        for (o, n, _, _), fn in zip(patched, saved):
+            setattr(o, n, fn)
+    lines = [l.split("\t") for l in reads_txt.decode().splitlines()]
+    ok = sum(r[1] == f"wide{s}" and r[4] == "accept" for r, s in zip(lines, src))
+    if len(lines) != pairs or ok < 0.95 * pairs or any(
+            r[1] not in ("wide0", "wide1", "no_hits") for r in lines):
+        raise AssertionError(f"CLI read_id on the wide index: {ok} of {len(lines)} "
+                             "pairs called accept for their genome")
+    if calls.get("readid_past", 0) == before.get("readid_past", 0):
+        raise AssertionError("CLI read_id did not run read_id batches over rows past 2^31")
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    log(f"[wide] build --device-build --ref-format -k {WIDE_K} -n {WIDE_H} -s {WIDE_BLOOM} "
+        f"on 2 x {WIDE_LEN} bp: {t_build:.1f}s ({rule[0].strip()}); loaded and placed "
+        f"({WIDE_BLOOM * 4} bytes of matrix) in {t_load:.1f}s; search_keys on "
+        f"{keys.shape[0]} k-mers == numpy oracle (counts {res.counts.tolist()}, rows up to "
+        f"{int(rows.max())}) through query_accumulate_scan over int64 rows ({n_scan} "
+        f"calls, {n_past} with rows past 2^31); classify_batch: 8 of 8 reads "
+        f"accept wide1 ({calls['readid']} int64 read_id batches); search -f 0 top row {top}; "
+        f"{rate} on {card}")
+    log(f"[wide] CLI read_id on {pairs} pairs: {t_rid:.1f}s with the index load "
+        f"({pairs / t_rid:.0f} pairs/s), {ok} of {pairs} accept for their genome, "
+        f"int64 read_id batches={calls['readid'] - before['readid']} "
+        f"firsthit={calls['firsthit'] - before['firsthit']}; memory: host peak RSS "
+        f"{host_peak} bytes (the process so far), card max_memory_allocated {dev_peak} "
+        f"bytes on {card}")
+
+
+def wide_rates(engine) -> str:
+    """k-mers/s of the wide route on the 3e9-row matrix: the generic scan
+    over int64 rows device-resident and through search_keys (int64 rows
+    from the host), the JAX-signature adapter query_accumulate_scan_wide
+    over the same rows split into (block, lane), and the generic scan over
+    int32 rows on the same matrix's first 2^31 rows."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch.ops import query as q
+
+    rng = np.random.default_rng(SEED + 8)
+    n = WIDE_RATE_KMERS
+    rows = rng.integers(0, WIDE_BLOOM, (n, WIDE_H))
+    qc = rng.integers(1, 60, n).astype(np.int32)
+    wide = engine._to_dev(rows)
+    blk, lane0 = (engine._to_dev(a) for a in q.split_rows_wide(rows, engine.wpad))
+    narrow = engine._to_dev((rows % 2**31).astype(np.int32))
+    mask = torch.ones(n, dtype=torch.bool, device=engine.device)
+    qc_d = engine._to_dev(qc)
+    acc = engine._new_accumulators(1 << 16)
+    geo = dict(wpad=engine.wpad, chunk=1 << 20)
+    runs = {
+        "int64": lambda: q.query_accumulate_scan(*acc, engine.blocks2, wide, mask, qc_d, 0,
+                                                 **geo),
+        "split": lambda: q.query_accumulate_scan_wide(*acc, engine.blocks2, blk, lane0, mask,
+                                                      qc_d, 0, **geo),
+        "int32": lambda: q.query_accumulate_scan(*acc, engine.blocks2, narrow, mask, qc_d, 0,
+                                                 **geo),
+    }
+    ms = {}
+    for name, fn in runs.items():
+        if DEVICE == "cuda":
+            ms[name] = cuda_ms(fn, 3)
+        else:
+            t0 = time.time()
+            fn()
+            ms[name] = (time.time() - t0) * 1e3
+    sync()
+    t0 = time.time()
+    engine.search_keys(None, qcounts=qc, rows_all=rows)
+    t_host = time.time() - t0
+    return (f"{n} k-mers x {WIDE_H} rows, device-resident: generic scan on int64 rows (the "
+            f"wide route) {n / ms['int64'] * 1e3:.0f} k-mers/s ({ms['int64']:.2f} ms), "
+            f"query_accumulate_scan_wide on split rows {n / ms['split'] * 1e3:.0f} k-mers/s "
+            f"({ms['split']:.2f} ms), generic scan on int32 rows below 2^31 "
+            f"{n / ms['int32'] * 1e3:.0f} k-mers/s ({ms['int32']:.2f} ms); search_keys with "
+            f"host int64 rows {n / t_host:.0f} k-mers/s")
+
+
 def ptxas_summary(logs) -> list[str]:
     """One entry per compiled kernel instance from nvcc's -Xptxas -v
     reports: its name with template arguments (stream_probe_kernel<1,4> is
@@ -1947,7 +2362,8 @@ def main() -> int:
         inputs = synth_inputs(tmp)
         log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
             f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
-        classic_bxi, classic_row["launches"] = classic_path_phase(tmp, inputs, card)
+        classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
+            tmp, inputs, card)
         blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
         classic_parity_phase(classic_bxi, inputs[1], card)
         probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
@@ -1961,6 +2377,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         raw_row["launches"] = colorshard_phase(card)
         entry_points_phase(tmp, card)
+        built = devbuild_phase(tmp, inputs, (classic_bxi, t_build, classic_tsv),
+                               blocked_bxi, card)
+        classic_row["launches"] += built[0]
+        probe_row["launches"] += built[1]
+        wide_phase(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"kernels": [classic_row, probe_row, raw_row]}))

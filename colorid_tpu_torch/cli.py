@@ -5,7 +5,7 @@ Subcommands and flags mirror the reference binary:
 
   build        -b/--bigsi -r/--refs -k/--kmer -n/--num_hashes -s/--bloom
                [-m/--minimizer] [-v/--value N] [-t/--threads] [-Q/--quality]
-               [-f/--filter]
+               [-f/--filter] [--device-build [--device]]
   search       -b/--bigsi -q/--query... [-r/--reverse...] [-f/--filter]
                [-p/--p_shared] [-g/--gene_search] [-s/--perfect_search]
                [-m/--multi_fasta] [-Q/--quality]
@@ -23,7 +23,9 @@ Index files keep the reference extensions: `<prefix>.bxi` (k-mer) /
 Both formats are shared with the JAX package.
 
 `search`, `read_id` and `batch_id` run on `--device cuda` (the default;
-raises without a card) or `--device cpu`. read_filter is host-only.
+raises without a card) or `--device cpu`, and so does the scatter-OR of
+`build --device-build` (a plain `build` scatters on the host, as does any
+build past 2^31 Bloom rows). read_filter is host-only.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def _build(args: argparse.Namespace) -> None:
         quality=args.quality,
         cutoff=args.filter,
         checkpoint_dir=args.checkpoint,
-        device=args.device_build,
+        device=args.device if args.device_build else False,
         blocked=args.blocked,
         threads=max(args.threads, 1),
         color_shards=args.color_shards,
@@ -199,7 +201,9 @@ def make_parser() -> argparse.ArgumentParser:
     b.add_argument("--checkpoint", default=None,
                    help="directory for per-accession build checkpoints (resume)")
     b.add_argument("--device-build", action="store_true",
-                   help="run the scatter-OR index construction on the accelerator")
+                   help="run the scatter-OR index construction on --device")
+    b.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device of --device-build's scatter-OR")
     b.add_argument("--blocked", action="store_true",
                    help="turbo layout: all hashes of a k-mer in one 512B block "
                         "(one HBM fetch per k-mer; not reference-bit-compatible)")
@@ -270,10 +274,7 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> None:
     args = make_parser().parse_args(argv)
-    try:
-        args.func(args)
-    except NotImplementedError as e:
-        raise SystemExit(f"colorid-tpu-torch: {e}") from e
+    args.func(args)
 
 
 if __name__ == "__main__":

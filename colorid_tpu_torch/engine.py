@@ -7,7 +7,9 @@ stream (ops/stream_query.py and its CUDA kernels): the row stream on a
 classic index of <= 32 colors, the probe stream on a blocked v2/v3/v4 index
 of <= 1024 colors. Everything else takes the generic gather (ops/query.py),
 also an index placed for color shards (build --color-shards), whose streams
-run on the sharded engine (parallel/engine.py).
+run on the sharded engine (parallel/engine.py), and a classic index past
+int32 row addressing (bloom_size >= 2^31), whose rows the host hashes to
+int64 for the generic gather's int64 word offsets.
 """
 
 from __future__ import annotations
@@ -103,9 +105,10 @@ class SearchResult:
 
 
 def host_rows(index: BigsiIndex, keys: np.ndarray, rpb_place: int) -> np.ndarray:
-    """Row indices [N, H] int32 for canonical k-mer byte rows [N, k], hashed
-    on the host: the blocked placement with its build-time row group
-    rpb_place for a blocked index, XXH3 rows for a classic one."""
+    """Row indices [N, H] for canonical k-mer byte rows [N, k], hashed on
+    the host: the blocked placement with its build-time row group rpb_place
+    for a blocked index, XXH3 rows for a classic one. int32, or int64 for a
+    classic index past int32 row addressing (bloom_size >= 2^31)."""
     if index.blocked:
         from .ops.blocked import blocked_rows_host
 
@@ -113,11 +116,14 @@ def host_rows(index: BigsiIndex, keys: np.ndarray, rpb_place: int) -> np.ndarray
             keys, index.num_hash, index.bloom_size, rpb_place,
             version=int(index.blocked),
         ).astype(np.int32)
-    if keys.shape[0] and native.available():
+    dt = np.int64 if index.bloom_size >= 2**31 else np.int32
+    # the native row hasher emits uint32 rows: valid through 2^32; larger
+    # blooms take the numpy uint64 path
+    if keys.shape[0] and native.available() and index.bloom_size <= 2**32:
         rows = native.xxh3_rows(keys, index.num_hash, index.bloom_size)
     else:
         rows = bloom_rows_batch(keys, index.num_hash, index.bloom_size)
-    return rows.astype(np.int32)
+    return rows.astype(dt)
 
 
 class QueryEngine:
@@ -154,12 +160,26 @@ class QueryEngine:
             self.rpb = 0
         self.blocks2 = _i32(blocks).to(self.device)
         q = max(self.wpad // 128, 1)
+        # rows of <= one block need only the row index to fit int32; wide
+        # rows address bloom_size * q blocks. Past int32 row addressing the
+        # engine takes the wide path: the host hashes int64 rows and the
+        # generic gather's int64 word offsets take them as they are, which
+        # keeps the reference's open usize bloom_size domain
+        # (src/main.rs:475-477) up to the JAX package's 2^38 bits.
+        self._wide = False
         if index.bloom_size * (q if self.wpad > 128 else 1) >= 2**31:
-            raise NotImplementedError(
-                "bloom_size beyond int32 block addressing "
-                "(query_accumulate_scan_wide) is not yet ported in "
-                "colorid_tpu_torch (ROADMAP queue 1)"
-            )
+            if self.bv or self.wpad > 128:
+                raise ValueError(
+                    "bloom_size exceeds int32 device block addressing for "
+                    "this layout; use a classic index (<= 4096 colors) or "
+                    "shard colors/rows across devices"
+                )
+            if index.bloom_size * self.wpad >= 2**38:
+                raise ValueError(
+                    "bloom_size exceeds wide block addressing (2^38 bits); "
+                    "shard rows across devices"
+                )
+            self._wide = True
         # wide rows multiply the epilogue's [chunk, wpad] footprint; cap the
         # scan chunk, the search_keys pad floor and the reads per read_id
         # dispatch so they stay memory-friendly
@@ -181,6 +201,7 @@ class QueryEngine:
         self._stream_classic = (
             self.bv == 0  # reference-placement (classic) rows
             and self.wpad == 1  # <= 32 colors (wider rows: generic gather)
+            and index.bloom_size < 2**31  # int32 rows (a wide index scans)
             and stream_on
         )
 
@@ -216,8 +237,9 @@ class QueryEngine:
     # -- hashing ------------------------------------------------------------
 
     def rows_for_keys(self, keys: np.ndarray) -> np.ndarray:
-        """Row indices [N, H] int32 for canonical k-mer byte rows [N, k]:
-        XXH3 rows, or the blocked placement of a blocked index."""
+        """Row indices [N, H] for canonical k-mer byte rows [N, k]: XXH3
+        rows (int64 on a wide index, else int32), or the blocked placement
+        of a blocked index."""
         return host_rows(self.index, keys, self.rpb_place)
 
     # -- search (batch_search_pe / perfect_search hot loop) ------------------
@@ -249,21 +271,21 @@ class QueryEngine:
         C = self.index.n_colors
         if n == 0:
             return self._empty_result()
-        if packed_all is not None and not (
-            k and 4 <= k <= 32 and not self._custom_place
-        ):
+        dev_hash = self.index.bloom_size < 2**31 and not self._custom_place
+        if packed_all is not None and not (k and 4 <= k <= 32 and dev_hash):
             # device hash envelope exceeded: fall back to host hashing
             packed_all = None
             if keys is None and rows_all is None:
                 raise ValueError(
                     "packed_all is outside the device-hash envelope "
-                    f"(k={k}; need 4 <= k <= 32 and an index that is not "
-                    "shard-placed) and no keys/rows were given to hash "
+                    f"(k={k}, bloom_size={self.index.bloom_size}; need "
+                    "4 <= k <= 32, bloom_size < 2^31 and an index that is "
+                    "not shard-placed) and no keys/rows were given to hash "
                     "host-side"
                 )
         if packed_all is None and rows_all is None:
             k = keys.shape[1]
-            if 4 <= k <= 32 and not self._custom_place:
+            if 4 <= k <= 32 and dev_hash:
                 packed_all = pack_keys_host(keys)
             if packed_all is None:
                 rows_all = self.rows_for_keys(keys)
@@ -313,7 +335,9 @@ class QueryEngine:
             else:
                 query_accumulate_scan(
                     stats, hist, oc_buf, of_buf, self.blocks2,
-                    _i32(rows_all[start:stop].astype(np.int32)).to(self.device),
+                    torch.from_numpy(
+                        rows_all[start:stop].astype(np.int64 if self._wide else np.int32)
+                    ).to(self.device),
                     torch.ones(m, dtype=torch.bool, device=self.device),
                     _i32(qc_all[start:stop]).to(self.device), start,
                     wpad=self.wpad, chunk=chunk, rpb=self.rpb,
@@ -341,9 +365,15 @@ class QueryEngine:
             self.search_keys_dev_async(pk_dev, qc_dev, k=k, max_freq=max_freq)
         )
 
+    def _check_dev_hash(self, k: int):
+        # the device hash's rows are int32 (ops/hash_torch.py)
+        if not (4 <= k <= 32 and self.index.bloom_size < 2**31):
+            raise ValueError(
+                "device hashing needs 4 <= k <= 32 and bloom_size < 2^31"
+            )
+
     def _check_dev_batch(self, name: str, pk_dev, qc_dev, k: int, unit: int):
-        if not (4 <= k <= 32):
-            raise ValueError("device hashing needs 4 <= k <= 32")
+        self._check_dev_hash(k)
         if self._custom_place:
             raise ValueError(
                 f"{name}: device hashing does not cover shard-placed indexes "
@@ -890,6 +920,7 @@ class QueryEngine:
         return out
 
     def _reads_geometry(self, k: int, L: int) -> dict:
+        self._check_dev_hash(k)
         return dict(
             num_colors=self.index.n_colors, wpad=self.wpad, k=k, L=L,
             num_hash=self.index.num_hash, bloom_size=self.index.bloom_size,
@@ -966,6 +997,7 @@ class QueryEngine:
         traffic)."""
         from .ops.query import query_readid_hash_batch
 
+        self._check_dev_hash(k)
         out = np.zeros((n_reads, self.index.n_colors + 1), dtype=np.int32)
         pending = []
         for r0, r1, lo, hi in self._rid_chunks(n_reads, seg):
@@ -1085,7 +1117,7 @@ class QueryEngine:
         from .ops.query import query_readid_batch
 
         out = np.zeros((n_reads, self.index.n_colors + 1), dtype=np.int32)
-        rows = rows.astype(np.int32, copy=False)
+        rows = rows.astype(np.int64 if self._wide else np.int32, copy=False)
         pending = []
         for r0, r1, lo, hi in self._rid_chunks(n_reads, seg):
             if hi == lo:

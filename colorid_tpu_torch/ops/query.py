@@ -6,7 +6,11 @@ lives on the device as an int32 [Rb, 128] tensor, the bit view of the
 uint32 words in the JAX package's 128-lane block layout
 (pack_matrix_blocks), so both packages hand the same arrays to their public
 functions. A query arrives either as 2-bit packed k-mers (hashed on device,
-ops/hash_torch.py) or as precomputed row indices.
+ops/hash_torch.py) or as precomputed row indices: int32, or int64 for an
+index past int32 row addressing (bloom_size >= 2^31), which the gather's
+int64 word offsets serve as they are. The *_wide functions take the JAX
+package's (block, lane) split of such rows (split_rows_wide) and turn it
+back into rows.
 
 The read classifier (read_id) queries sit at the end of this module.
 
@@ -85,6 +89,22 @@ def _gather_rows_blocked(blocks2, rows, wpad: int, rpb: int):
         return b.gather(1, lane0).reshape(N, H, 1)
     lanes = lane0[:, :, None] + torch.arange(wpad, device=rows.device)
     return b.gather(1, lanes.reshape(N, H * wpad)).reshape(N, H, wpad)
+
+
+def split_rows_wide(rows: np.ndarray, wpad: int):
+    """Host-side split of int64 row indices [N, H] into the JAX package's
+    (blk, lane0) int32 pair: row r's words start at lane lane0 of 128-word
+    block blk. Valid while bloom_size * wpad < 2^38 (blk < 2^31)."""
+    rpw = 128 // wpad
+    blk = (rows // rpw).astype(np.int32)
+    lane0 = ((rows % rpw) * np.int64(wpad)).astype(np.int32)
+    return blk, lane0
+
+
+def _unsplit_rows(blk: torch.Tensor, lane0: torch.Tensor, wpad: int):
+    """The int64 rows of a (blk, lane0) split: blk * 128 + lane0 is the
+    row's flat word offset r * wpad."""
+    return (blk.to(torch.int64) * 128 + lane0) // wpad
 
 
 def _and_over_hashes(g: torch.Tensor) -> torch.Tensor:
@@ -258,6 +278,29 @@ def query_accumulate_scan(
             qcounts[s:e], wpad, base0 + s, rpb,
         )
     return stats, hist, over_col, over_freq
+
+
+def query_accumulate_scan_wide(
+    stats, hist, over_col, over_freq, blocks2,
+    blk: torch.Tensor,  # int32 [n, H] block index (split_rows_wide)
+    lane0: torch.Tensor,  # int32 [n, H] first lane of the row's words
+    mask: torch.Tensor,  # bool [n]
+    qcounts: torch.Tensor,  # int32 [n], clipped frequencies
+    base0: int,  # global index of blk[0]
+    *,
+    wpad: int,
+    chunk: int,
+):
+    """query_accumulate_scan over the JAX package's (block, lane) split of
+    rows past int32 addressing (bloom_size >= 2^31; split_rows_wide). The
+    reference accepts any usize bloom size (src/main.rs:475-477,
+    src/bigsi.rs:20-27); the engine passes such rows as int64 straight to
+    query_accumulate_scan."""
+    return query_accumulate_scan(
+        stats, hist, over_col, over_freq, blocks2,
+        _unsplit_rows(blk, lane0, wpad), mask, qcounts, base0,
+        wpad=wpad, chunk=chunk,
+    )
 
 
 def query_accumulate_hash_scan(
@@ -453,6 +496,48 @@ def _readid_firsthit_core(
     pos_hit = torch.where((bits > 0) & ph1[:, None], kmer_pos[:, None], BIG)
     fh = _seg_min(pos_hit, seg_ids, num_reads)
     return torch.cat([fh, first_absent[:, None]], dim=1)
+
+
+def query_readid_batch_wide(
+    blocks2: torch.Tensor,
+    blk: torch.Tensor,  # int32 [N, H] (split_rows_wide)
+    lane0: torch.Tensor,  # int32 [N, H]
+    seg_ids: torch.Tensor,
+    kmer_pos: torch.Tensor,
+    *,
+    num_reads: int,
+    start_sample: int,
+    num_colors: int,
+    wpad: int,
+):
+    """query_readid_batch over the (block, lane) split of rows past int32
+    addressing (split_rows_wide)."""
+    return query_readid_batch(
+        blocks2, _unsplit_rows(blk, lane0, wpad), seg_ids, kmer_pos,
+        num_reads=num_reads, start_sample=start_sample,
+        num_colors=num_colors, wpad=wpad,
+    )
+
+
+def query_readid_firsthit_wide(
+    blocks2: torch.Tensor,
+    blk: torch.Tensor,
+    lane0: torch.Tensor,
+    seg_ids: torch.Tensor,
+    kmer_pos: torch.Tensor,
+    *,
+    num_reads: int,
+    start_sample: int,
+    num_colors: int,
+    wpad: int,
+):
+    """query_readid_firsthit over the (block, lane) split of rows past int32
+    addressing (split_rows_wide)."""
+    return query_readid_firsthit(
+        blocks2, _unsplit_rows(blk, lane0, wpad), seg_ids, kmer_pos,
+        num_reads=num_reads, start_sample=start_sample,
+        num_colors=num_colors, wpad=wpad,
+    )
 
 
 def query_readid_hash_batch(

@@ -12,6 +12,11 @@ probe stream per row shard (v3/v4 indexes of <= 1024 colors), on the color
 layout the raw probe stream per color shard (an index built with
 ``build --color-shards N`` on a mesh of N color shards, which is what lets
 an index wider than 1024 colors stream at all).
+
+A row layout may also start from a matrix born sharded on the devices
+(ops/build_ops.py::build_matrix_rowshard + pack_blocks_rowshard, passed as
+``sharded_matrix``): the full matrix then never exists on the host, and
+the engine decides its gather and its stream as for the host matrix.
 """
 
 from __future__ import annotations
@@ -30,6 +35,29 @@ from ..runtime import resolve_device
 from . import sharded
 
 
+def _placement_rpb(index: BigsiIndex) -> int:
+    """The build-time placement group of a blocked index (0: classic rows)."""
+    if not index.blocked:
+        return 0
+    return index.place_rpb or rows_per_block(row_wpad(index.words_per_row))
+
+
+def _splits(index: BigsiIndex) -> bool:
+    """Value-addressed placement the probe stream can take."""
+    return index.blocked in (3, 4) and index.num_hash in STREAM_HASHES
+
+
+def _row_stream_ok(index: BigsiIndex) -> bool:
+    """Whether the probe stream runs per row shard: a value-addressed
+    placement (blocks monotone in the k-mer value, so sorted probes split
+    at the shard boundaries) of the full row width."""
+    wpad_g = row_wpad(index.words_per_row)
+    return (
+        _splits(index) and wpad_g in STREAM_WPADS
+        and _placement_rpb(index) == 128 // wpad_g
+    )
+
+
 class ShardedQueryEngine:
     def __init__(
         self,
@@ -39,18 +67,28 @@ class ShardedQueryEngine:
         n_data: int = 1,
         chunk: int = 1 << 18,
         device: str | torch.device = "cuda",
+        sharded_matrix: tuple | None = None,
     ):
         """``mesh`` decides the shards and their devices; without one, the
         mesh is n_data x (cards // n_data) shards of ``layout`` on
-        ``device`` (default the CUDA card; raises without one)."""
+        ``device`` (default the CUDA card; raises without one).
+
+        ``sharded_matrix`` = (blocks, wpad, Rl): per-row-shard packed blocks
+        already on the mesh's devices (ops/build_ops.py::
+        pack_blocks_rowshard), for layout "row"; index.matrix may then be
+        None. Rl must be a multiple of row_multiple(index)."""
         self.index = index
         self.layout = layout
         self.chunk = chunk
         if index.bloom_size >= 2**31:
             raise ValueError(
                 "ShardedQueryEngine hashes global rows in int32; "
-                "bloom_size >= 2^31 is not supported"
+                "bloom_size >= 2^31 is served by the single-device "
+                "QueryEngine's wide path (int64 rows through the generic "
+                "gather, ops/query.py::query_accumulate_scan)"
             )
+        if sharded_matrix is not None and layout != "row":
+            raise ValueError("sharded_matrix requires layout='row'")
         if mesh is None:
             dev = resolve_device(device)
             n = torch.cuda.device_count() if dev.type == "cuda" else 1
@@ -65,30 +103,31 @@ class ShardedQueryEngine:
         self.mesh = mesh
         self.rpb = 0  # blocked single-fetch gather (0 = generic gather)
         self._stream = False  # sorted-stream eligibility
-        matrix = np.asarray(index.matrix)
-        wpad_g = row_wpad(matrix.shape[1])
-        # the build-time placement group (0: classic rows)
-        self.rpb_place = (
-            (index.place_rpb or rows_per_block(wpad_g)) if index.blocked else 0
-        )
-        splits = index.blocked in (3, 4) and index.num_hash in STREAM_HASHES
+        wpad_g = row_wpad(index.words_per_row)
+        self.rpb_place = _placement_rpb(index)
         if layout == "color":
             self.mat, self.wpad, self.Wl = sharded.device_put_colorshard(
-                matrix, mesh
+                np.asarray(index.matrix), mesh
             )
+        elif sharded_matrix is not None:
+            self.mat, self.wpad, self.Rl = sharded_matrix
+            mult = self.row_multiple(index)
+            if (
+                len(self.mat) != mesh.n_model or self.wpad != wpad_g
+                or self.Rl % mult
+            ):
+                raise ValueError(
+                    f"sharded_matrix of {len(self.mat)} shards, wpad "
+                    f"{self.wpad}, {self.Rl} rows per shard does not fit a "
+                    f"mesh of {mesh.n_model} row shards and this index (wpad "
+                    f"{wpad_g}, rows per shard a multiple of {mult}: "
+                    "build_matrix_rowshard(..., row_multiple=ShardedQueryEngine."
+                    "row_multiple(index)))"
+                )
         else:
-            # value-addressed placement: blocks are monotone in the k-mer
-            # value, so sorted probes split at the shard boundaries
-            stream_ok = (
-                splits and wpad_g in STREAM_WPADS
-                and self.rpb_place == 128 // wpad_g
-            )
-            # the stream tiles each shard's matrix in 128-block windows, so
-            # shard boundaries must fall on tile boundaries; a blocked row
-            # group must never straddle two shards
-            mult = 128 * self.rpb_place if stream_ok else (128 if index.blocked else 1)
             self.mat, self.wpad, self.Rl = sharded.device_put_rowshard(
-                matrix, mesh, row_multiple=mult
+                np.asarray(index.matrix), mesh,
+                row_multiple=self.row_multiple(index),
             )
         # blocked layout: a k-mer's H rows share one build-time row group;
         # a power-of-two shard-local rows-per-block >= that group nests it,
@@ -102,11 +141,21 @@ class ShardedQueryEngine:
             # whose placement group matches THIS mesh's shard width: the
             # raw probe stream runs per color shard
             self._stream = (
-                splits and self.wpad in STREAM_WPADS
+                _splits(index) and self.wpad in STREAM_WPADS
                 and self.rpb_place == self.rpb
             )
         else:
-            self._stream = stream_ok
+            self._stream = _row_stream_ok(index)
+
+    @staticmethod
+    def row_multiple(index: BigsiIndex) -> int:
+        """What the rows per shard of a row mesh must be a multiple of for
+        this index: the stream tiles each shard's matrix in 128-block
+        windows, so shard boundaries fall on tile boundaries; a blocked row
+        group never straddles two shards."""
+        if _row_stream_ok(index):
+            return 128 * _placement_rpb(index)
+        return 128 if index.blocked else 1
 
     def _rows(self, keys: np.ndarray) -> np.ndarray:
         # the index's build-time placement, not the shard-local gather

@@ -20,10 +20,12 @@ before filtering; fasta minimizers uppercased, fastq minimizers raw —
 kmer.rs:346 vs :746).
 
 This port builds classic (reference-placement) and blocked (build
---blocked, ops/blocked.py) indexes on the host, the latter also placed for
-color shards (--color-shards, the placement group of one shard's packed
-width); the device scatter-OR build (--device-build) is not yet ported and
-raises NotImplementedError.
+--blocked, ops/blocked.py) indexes, the latter also placed for color shards
+(--color-shards, the placement group of one shard's packed width). Counting,
+hashing and the blocked placement run on the host; the scatter-OR runs on
+the host (numpy) or, with ``device`` (build --device-build), per accession
+on the card (ops/build_ops.py), except for a bloom_size past int32 row
+addressing, which scatters on the host as in the JAX package.
 """
 
 from __future__ import annotations
@@ -163,14 +165,20 @@ def build_index(
     quality: int = 15,
     cutoff: int = -1,
     verbose: bool = True,
-    device: bool = False,
+    device: bool | str = False,
     checkpoint_dir: str | None = None,
     blocked: bool = False,
     threads: int = 1,
     color_shards: int = 0,
 ) -> BigsiIndex:
-    """Build the dense bit-slice index (build.rs:132-256 semantics) on the
-    host, with a numpy scatter-OR per color column.
+    """Build the dense bit-slice index (build.rs:132-256 semantics).
+
+    device: False scatters each color column with numpy on the host; True
+    (the card), "cuda" or "cpu" holds the matrix on that device and ORs
+    each accession's hashed rows into its color bit as the accession is
+    done (ops/build_ops.py::scatter_or_column), with no host Bloom bitmap
+    unless a checkpoint needs one. Either way the matrix is the same. A
+    bloom_size >= 2^31 always scatters on the host.
 
     checkpoint_dir enables per-accession resume (the reference has no
     partial build, SURVEY §5): each finished accession's Bloom bitmap
@@ -179,14 +187,27 @@ def build_index(
     """
     from ..trace import span
 
-    if device:
-        raise NotImplementedError(
-            "the device scatter-OR build (build --device-build) is not yet "
-            "ported in colorid_tpu_torch (ROADMAP queue 1: device build)"
-        )
     accessions = sorted(ref_map.keys())
     C = len(accessions)
     W = (C + 31) // 32
+    if device is True:
+        device = "cuda"
+    if device and bloom_size >= 2**31:
+        # the device scatter-OR is int32-indexed, as in the JAX package
+        if verbose:
+            print(
+                f"bloom_size {bloom_size} >= 2^31: the scatter-OR runs on "
+                "the host",
+                file=sys.stderr,
+            )
+        device = False
+    if device:
+        import torch
+
+        from ..ops.build_ops import scatter_or_column
+        from ..runtime import resolve_device
+
+        device = resolve_device(device)  # before counting: no card raises now
     rpb = 0
     bver = 0
     place_rpb = 0
@@ -224,7 +245,10 @@ def build_index(
         else:
             bver = 1
     n_ref_kmers: dict[str, int] = {}
-    matrix = np.zeros((bloom_size, W), dtype=np.uint32)
+    if device:
+        mat = torch.zeros((bloom_size, W), dtype=torch.int32, device=device)
+    else:
+        matrix = np.zeros((bloom_size, W), dtype=np.uint32)
     if checkpoint_dir:
         os.makedirs(checkpoint_dir, exist_ok=True)
     counted: dict[str, np.ndarray] = {}
@@ -263,7 +287,7 @@ def build_index(
     for i, acc in enumerate(accessions):
         if verbose:
             print(f"Adding {acc} to index ({i + 1}/{C})", file=sys.stderr)
-        bloom = None
+        bloom = rows = None
         ck = (
             os.path.join(checkpoint_dir, _safe_name(acc) + ".bloom.npz")
             if checkpoint_dir
@@ -302,8 +326,9 @@ def build_index(
             else:
                 with span(f"build:hash:{acc}"):
                     rows = _hash_rows(keys, num_hash, bloom_size)
-            bloom = np.zeros(bloom_size, dtype=bool)
-            bloom[rows.ravel()] = True
+            if ck or not device:
+                bloom = np.zeros(bloom_size, dtype=bool)
+                bloom[rows.ravel()] = True
             if ck:
                 np.savez(
                     ck,
@@ -314,7 +339,18 @@ def build_index(
                     k_size=k_size,
                     m_size=m_size,
                 )
-        matrix[:, i // 32] |= bloom.astype(np.uint32) << np.uint32(i % 32)
+        if device:
+            # the hashed rows themselves (a repeat ORs the same bit), or a
+            # resumed checkpoint's set bits
+            hit = np.nonzero(bloom)[0] if rows is None else rows.ravel()
+            with span("build:scatter_or_device"):
+                scatter_or_column(
+                    mat[:, i // 32], torch.from_numpy(hit.astype(np.int32)), i % 32
+                )
+        else:
+            matrix[:, i // 32] |= bloom.astype(np.uint32) << np.uint32(i % 32)
+    if device:
+        matrix = mat.cpu().numpy().view(np.uint32)
     return BigsiIndex(
         bloom_size=bloom_size,
         num_hash=num_hash,

@@ -253,11 +253,14 @@ def test_what_build_still_refuses(panel):
     # full row's own placement group, recorded as such
     placed = tbuild(refs, 100_000, 4, K, verbose=False, blocked=True, color_shards=2)
     assert (placed.blocked, placed.place_rpb) == (4, 128)
-    with pytest.raises(NotImplementedError, match="device-build"):
-        tbuild(refs, 100_000, 4, K, verbose=False, device=True)
     with pytest.raises(SystemExit, match="incompatible"):
         tmain(["build", *BUILD, "--ref-format", "-b", str(panel["dir"] / "x"),
                "-r", panel["man"]])
-    with pytest.raises(SystemExit, match="device-build"):
-        tmain(["build", *BUILD, "--device-build", "-b",
-               str(panel["dir"] / "x"), "-r", panel["man"]])
+    # --device-build is taken now (ops/build_ops.py), on the card unless
+    # --device cpu: without a card it raises, it never builds on the host
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            tbuild(refs, 100_000, 4, K, verbose=False, device=True)
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            tmain(["build", *BUILD, "--device-build", "-b",
+                   str(panel["dir"] / "x"), "-r", panel["man"]])

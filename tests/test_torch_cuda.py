@@ -585,3 +585,80 @@ def test_server_on_card_matches_cpu(cuda_device, tmp_path, v4_panel):
         answers.append(got)
     assert answers[0] == answers[1]
     assert answers[0][0]["rows"] and len(answers[0][1]["rows"]) == 40
+
+
+@pytest.mark.cuda
+def test_device_build_on_card_matches_cpu(cuda_device):
+    """build_matrix_device and the row-sharded build + pack on a (1, 4) row
+    mesh of the card against the CPU, for 70 colors (bit 31 of two words
+    set) with repeated rows and an empty row list."""
+    from colorid_tpu_torch.ops import build_ops
+    from colorid_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(40)
+    R, C = 200_003, 70
+    row_lists = [rng.integers(0, R, rng.integers(1, 20_000)) for _ in range(C)]
+    row_lists[3] = row_lists[3][:0]
+    row_lists[31] = np.concatenate([row_lists[31], row_lists[31], [0, R - 1]])
+    got = build_ops.build_matrix_device(row_lists, R, device=cuda_device)
+    want = build_ops.build_matrix_device(row_lists, R, device="cpu")
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert int((want[:, :2] < 0).sum()) > 0  # bit 31 set
+    for mult in (1, 128 * 128):
+        shards = []
+        for dev in (cuda_device, "cpu"):
+            mesh = sharded.make_mesh(1, 4, "row", devices=[dev])
+            mat, Rl = build_ops.build_matrix_rowshard(row_lists, R, mesh, row_multiple=mult)
+            shards.append(build_ops.pack_blocks_rowshard(mat, mesh=mesh, Rl=Rl, W=3))
+        for a, b in zip(*shards):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_wide_functions_on_card_match_cpu(cuda_device):
+    """query_accumulate_scan_wide and the wide read_id twins on a small
+    block matrix fed split int64 rows: the card's outputs equal the CPU's,
+    and the engine's wide route (its flag set on a small index) too."""
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops import query as q
+
+    rng = np.random.default_rng(41)
+    R, wpad = 4096 * 32, 4
+    m = rng.integers(0, 2**32, (R, 3), dtype=np.uint32)
+    m &= rng.integers(0, 2**32, (R, 3), dtype=np.uint32)
+    m[rng.integers(0, R, R // 4)] = 0
+    blocks, _ = q.pack_matrix_blocks(m)
+    rows = rng.integers(0, R, (50_000, 3)).astype(np.int64)
+    blk, lane0 = q.split_rows_wide(rows, wpad)
+    mask = rng.random(50_000) < 0.9
+    qc = rng.integers(1, 2000, 50_000).astype(np.int32)
+    seg = np.sort(rng.integers(0, 1000, 50_000)).astype(np.int32)
+    pos = rng.integers(0, 60, 50_000).astype(np.int32)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        b2 = ts.t32(blocks).to(dev)
+        bl = torch.from_numpy(blk).to(dev)
+        l0 = torch.from_numpy(lane0).to(dev)
+        acc = q.query_accumulate_scan_wide(
+            *q.new_accumulators(96, wpad, 1 << 16, dev), b2, bl, l0,
+            torch.from_numpy(mask).to(dev), torch.from_numpy(qc).to(dev), 0,
+            wpad=wpad, chunk=1 << 14,
+        )
+        geo = dict(num_reads=1000, start_sample=3, num_colors=96, wpad=wpad)
+        sp = (torch.from_numpy(seg).to(dev), torch.from_numpy(pos).to(dev))
+        rid = (q.query_readid_batch_wide(b2, bl, l0, *sp, **geo),
+               q.query_readid_firsthit_wide(b2, bl, l0, *sp, **geo))
+        outs.append([t.cpu() for t in (*acc, *rid)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    names = [f"c{i}" for i in range(96)]
+    index = BigsiIndex(R, 3, 31, 0, names, {n: 1 for n in names}, m)
+    results = []
+    for dev in ("cuda", "cpu"):
+        eng = QueryEngine(index, chunk=1 << 14, device=dev)
+        eng._wide = True
+        results.append(eng.search_keys(None, qcounts=qc, rows_all=rows))
+    a, b = results
+    for f in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert a.all_valid == b.all_valid and a.counts.sum() > 0

@@ -249,6 +249,10 @@ def test_engine_refuses_what_is_not_ported():
         placed.search_keys_dev_generic_async(z, z[:, 0].contiguous(), 31)
     with pytest.raises(ValueError, match="shard-placed"):
         placed.search_keys(None, packed_all=np.zeros((4, 2), np.uint32), k=31)
-    wide = BigsiIndex(2**31, 4, 31, 0, ["a"], {"a": 1}, m)
-    with pytest.raises(NotImplementedError, match="query_accumulate_scan_wide"):
-        TEngine(wide, device="cpu")
+    # past int32 row addressing: a classic index is taken now, through the
+    # wide route (rows split into (block, lane) pairs); a blocked one is not
+    wide = TEngine(BigsiIndex(2**31, 4, 31, 0, ["a"], {"a": 1}, m), device="cpu")
+    assert wide._wide and not wide._stream_classic
+    with pytest.raises(ValueError, match="int32 device block addressing"):
+        TEngine(BigsiIndex(2**31, 4, 31, 0, ["a"], {"a": 1}, m, blocked=2),
+                device="cpu")

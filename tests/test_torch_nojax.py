@@ -1,8 +1,9 @@
 """The port stands alone: no module of colorid_tpu_torch imports jax or the
 JAX package colorid_tpu (checked on the source, and in a fresh interpreter
-that builds, searches and classifies reads through the port's CLI, runs a
-sharded search on a logical mesh and answers a /search through the port's
-HTTP server), its native library is its own, and its entry points default to the CUDA card and refuse to fall back
+that builds (on the host and with --device-build), searches and classifies
+reads through the port's CLI, runs a sharded search on a logical mesh (also
+over a matrix born sharded) and answers a /search through the port's HTTP
+server), its native library is its own, and its entry points default to the CUDA card and refuse to fall back
 to the CPU when there is none."""
 
 import ast
@@ -70,6 +71,10 @@ _SCRIPT = textwrap.dedent("""
               "-s", "375000", "-b", d + "/placed", "-r", man])
         main(["search", "-b", d + "/placed.bxi", "-q", fq, "-f", "1", "--device", "cpu"])
         main(["read_id", "-b", d + "/idx.bxi", "-q", fq, "-n", d + "/rid", "--device", "cpu"])
+        main(["build", "--device-build", "--device", "cpu", "-k", "27", "-n", "4",
+              "-s", "375000", "-b", d + "/dev", "-r", man])
+    assert open(d + "/dev.bxi", "rb").read() == open(d + "/idx.bxi", "rb").read()
+    assert "colorid_tpu_torch.ops.build_ops" in sys.modules
     rows = [l for l in out.getvalue().splitlines() if "\\t" in l]
     assert len(rows) >= 6 and rows[0].split("\\t")[2] in ("genome0", "genome1"), rows
     assert "colorid_tpu_torch.ops.blocked" in sys.modules
@@ -89,6 +94,20 @@ _SCRIPT = textwrap.dedent("""
             index, layout=axis, mesh=sharded.make_mesh(1, 2, axis, devices=["cpu"]))
         got = eng.search_keys(keys)
         assert (got.counts == want.counts).all() and got.all_valid == want.all_valid
+    from colorid_tpu_torch.ops import build_ops
+    classic = BigsiIndex.load(d + "/idx.bxi")
+    mesh = sharded.make_mesh(1, 2, "row", devices=["cpu"])
+    cols = [np.nonzero(classic.matrix[:, 0] >> np.uint32(c) & 1)[0] for c in range(3)]
+    shards, Rl = build_ops.build_matrix_rowshard(
+        cols, classic.bloom_size, mesh,
+        row_multiple=ShardedQueryEngine.row_multiple(classic))
+    blocks = build_ops.pack_blocks_rowshard(shards, mesh=mesh, Rl=Rl, W=1)
+    import dataclasses
+    born = ShardedQueryEngine(
+        dataclasses.replace(classic, matrix=None), layout="row", mesh=mesh,
+        sharded_matrix=(blocks, 1, Rl)).search_keys(keys)
+    want = QueryEngine(classic, device="cpu").search_keys(keys)
+    assert (born.counts == want.counts).all() and born.all_valid == want.all_valid
     assert "colorid_tpu_torch.parallel.engine" in sys.modules
     # the HTTP server on the v4 index: /search counts on the device through
     # the fused reads path
