@@ -1073,10 +1073,12 @@ def _check_calls(reads_txt: bytes, src, len1, what: str) -> float:
 
 
 def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str) -> dict:
-    """Returns what the fused and serve phases reuse: the reads on the
-    card (words, lens, validity bits) and their padded length L, the reads
-    as host byte arrays, and the read pairs with their first mates'
-    lengths."""
+    """Returns what the fused, serve and sharded reads phases reuse: the
+    reads on the card (words, lens, validity bits) and their padded length
+    L, the reads as host byte arrays, the read pairs with their first
+    mates' lengths, the pair files with each pair's source genome, and the
+    blocked index's read_id outputs with its pairs/s and classify_batch
+    seconds."""
     import numpy as np
     import torch
 
@@ -1099,9 +1101,11 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
     log(f"[reads] {n} pairs ({int((src < 0).sum())} junk, {int((len1 < K).sum())} "
         f"first mates below k, {int(lower.sum())} with lowercase) written in "
         f"{time.time() - t0:.1f}s")
+    single = {}  # per index: CLI pairs/s and classify_batch seconds
     for name, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
         with read_id_split() as split:
             reads, _counts, dt = read_id_bytes(bxi, full, os.path.join(d, f"{name}_all"))
+        single[name] = (n / dt, split["classify"])
         share = _check_calls(reads, src, len1, name)
         rest = split["classify"] - split["prepare"] - split["device"]
         log(f"[reads] {name} read_id: {n} pairs in {dt:.2f}s of CLI wall time (index "
@@ -1228,7 +1232,9 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
         del eng
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
-    return {"dev": dev, "L": L, "seqs": seqs, "mates": mates, "len1": len1}
+    return {"dev": dev, "L": L, "seqs": seqs, "mates": mates, "len1": len1,
+            "pairs": full, "src": src, "blocked_all": os.path.join(d, "blocked_all"),
+            "single": single["blocked"]}
 
 
 # -- phase 4c: the fused reads path and the HTTP server -----------------------
@@ -1529,6 +1535,7 @@ def serve_phase(classic_bxi: str, blocked_bxi: str, reads: dict, card: str):
 WIDE_COLORS, WIDE_ROWS, WIDE_SHARDS, WIDE_HASHES = 4096, 4_194_304, 4, 2
 WIDE_KMERS = 1 << 24
 PANEL_GENOMES, PANEL_LEN, PANEL_BLOOM, PANEL_READS = 1200, 50_000, 2_000_000, 20_000
+TIE_LEN, TIE_READS = 10_000, 500
 
 
 def same_answers(a, b) -> bool:
@@ -1547,24 +1554,28 @@ def same_answers(a, b) -> bool:
 def wide_index():
     """A seeded 4,096-color v4 index placed for 4 color shards (place_rpb 4:
     1,024-color shards of wpad 32): a fifth of the words nonzero with about
-    4 bits each, 6 % of the rows absent. Made in row slabs to bound host
-    memory."""
+    4 bits each, 6 % of the rows absent. Drawn on DEVICE (torch's generator
+    from the seed) in row slabs, and copied to the host matrix."""
     import numpy as np
+    import torch
 
     from colorid_tpu_torch import convert
     from colorid_tpu_torch.ops.blocked import rows_per_block
+    from colorid_tpu_torch.ops.hash_torch import _to_i32
     from colorid_tpu_torch.ops.query import row_wpad
 
-    rng = np.random.default_rng(SEED + 3)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     W = WIDE_COLORS // 32
     place = rows_per_block(row_wpad(W // WIDE_SHARDS))
     matrix = np.empty((WIDE_ROWS, W), dtype=np.uint32)
     slab = min(1 << 19, WIDE_ROWS)
     for a in range(0, WIDE_ROWS, slab):
-        w = rng.integers(0, 2**32, (3, slab, W), dtype=np.uint32)
-        live = rng.integers(0, 5, (slab, W), dtype=np.uint8) == 0
-        matrix[a:a + slab] = np.where(live, w[0] & w[1] & w[2], np.uint32(0))
-    matrix[rng.integers(0, WIDE_ROWS, WIDE_ROWS // 16)] = 0
+        w = torch.randint(0, 2**32, (3, slab, W), generator=g, device=DEVICE)
+        live = torch.randint(0, 5, (slab, W), generator=g, device=DEVICE) == 0
+        words = torch.where(live, w[0] & w[1] & w[2], 0)
+        matrix[a:a + slab] = _to_i32(words).cpu().numpy().view(np.uint32)
+    absent = torch.randint(0, WIDE_ROWS, (WIDE_ROWS // 16,), generator=g, device=DEVICE)
+    matrix[absent.cpu().numpy()] = 0
     names = [f"c{i}" for i in range(WIDE_COLORS)]
     return convert.index_from_arrays(
         matrix, bloom_size=WIDE_ROWS, num_hash=WIDE_HASHES, k_size=K, colors=names,
@@ -1574,28 +1585,30 @@ def wide_index():
 
 def wide_query():
     """WIDE_KMERS distinct canonical 31-mers as ASCII rows with
-    frequencies, 0.2 % of them >= 1024. Canonical values have the density
-    that the v4 block map flattens: 16 probes per block here."""
-    import numpy as np
+    frequencies, 0.2 % of them >= 1024, drawn on DEVICE from the seed.
+    Canonical values have the density that the v4 block map flattens: 16
+    probes per block here."""
+    import torch
 
-    rng = np.random.default_rng(SEED + 4)
-    v = rng.integers(0, 4**K, WIDE_KMERS + (1 << 16), dtype=np.uint64)
-    x = ~v & np.uint64(4**K - 1)
-    rc = np.zeros_like(x)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    v = torch.randint(0, 4**K, (WIDE_KMERS + (1 << 16),), generator=g, device=DEVICE)
+    x = ~v & (4**K - 1)
+    rc = torch.zeros_like(x)
     for _ in range(K):
-        rc = (rc << np.uint64(2)) | (x & np.uint64(3))
-        x >>= np.uint64(2)
-    vals = rng.permutation(np.unique(np.minimum(v, rc)))[:WIDE_KMERS]
-    if vals.shape[0] != WIDE_KMERS:
+        rc = (rc << 2) | (x & 3)
+        x = x >> 2
+    vals = torch.unique(torch.minimum(v, rc))
+    vals = vals[torch.randperm(vals.numel(), generator=g, device=DEVICE)][:WIDE_KMERS]
+    if vals.numel() != WIDE_KMERS:
         raise AssertionError("too few distinct k-mers drawn")
-    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    keys = np.empty((WIDE_KMERS, K), dtype=np.uint8)
-    for i in range(K):
-        keys[:, i] = acgt[((vals >> np.uint64(2 * (K - 1 - i))) & np.uint64(3)).astype(np.intp)]
-    qc = rng.integers(1, 60, WIDE_KMERS).astype(np.int32)
-    big = rng.random(WIDE_KMERS) < 0.002
-    qc[big] = rng.integers(1024, 50_000, int(big.sum()))
-    return keys, qc
+    shifts = 2 * torch.arange(K - 1, -1, -1, device=DEVICE)
+    acgt = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=DEVICE)
+    keys = acgt[(vals[:, None] >> shifts) & 3].cpu().numpy()
+    qc = torch.randint(1, 60, (WIDE_KMERS,), generator=g, device=DEVICE, dtype=torch.int32)
+    big = torch.rand(WIDE_KMERS, generator=g, device=DEVICE) < 0.002
+    qc[big] = torch.randint(1024, 50_000, (int(big.sum()),), generator=g, device=DEVICE,
+                            dtype=torch.int32)
+    return keys, qc.cpu().numpy()
 
 
 def colorshard_phase(card: str) -> int:
@@ -1606,7 +1619,7 @@ def colorshard_phase(card: str) -> int:
 
     from colorid_tpu_torch import QueryEngine, ShardedQueryEngine
     from colorid_tpu_torch.ops import stream_query as sq
-    from colorid_tpu_torch.ops.blocked import pack_keys_u64, v3_block_offsets
+    from colorid_tpu_torch.parallel import engine as peng
     from colorid_tpu_torch.parallel.sharded import make_mesh
 
     t0 = time.time()
@@ -1627,52 +1640,59 @@ def colorshard_phase(card: str) -> int:
     if not eng._stream or eng.wpad != 32 or index.place_rpb != 4:
         raise AssertionError("the mesh's shards do not match the index's placement")
 
-    # observe the stream's outcome: None means n_drop > 0 (a generic rerun)
-    outcomes = []
+    # observe the stream's outcome (None means n_drop > 0, a generic rerun)
+    # and where the search spends its time: the host steps of
+    # _try_stream_keys (packing, placement, then the argsort and gathers up
+    # to the dispatch), then the dispatch (H2D, 4 shards, the fetch) and
+    # its assembly
+    outcomes, marks, probes = [], {}, []
     finish = eng._stream_colorshard_finish
+    steps = {name: getattr(peng, name) for name in ("pack_keys_u64", "v3_block_offsets")}
+
+    def stamped(name):
+        def wrapped(*a, **kw):
+            t0 = time.time()
+            out = steps[name](*a, **kw)
+            marks[name] = (t0, time.time())
+            return out
+        return wrapped
 
     def observed(*a):
+        probes.append(a)
+        t0 = time.time()
         res = finish(*a)
+        sync()
+        marks["dispatch"] = (t0, time.time())
         outcomes.append(res is not None)
         return res
 
     eng._stream_colorshard_finish = observed
+    for name in steps:
+        setattr(peng, name, stamped(name))
     sq.stream_probe_raw.launches = 0
     sync()
-    t0 = time.time()
-    res_stream = eng.search_keys(keys, qcounts=qc)
-    sync()
-    t_stream = time.time() - t0
+    try:
+        t0 = time.time()
+        res_stream = eng.search_keys(keys, qcounts=qc)
+        sync()
+        t_stream = time.time() - t0
+    finally:
+        eng._stream_colorshard_finish = finish
+        for name, fn in steps.items():
+            setattr(peng, name, fn)
     launches = sq.stream_probe_raw.launches
-    eng._stream_colorshard_finish = finish
     if outcomes != [True] or (DEVICE == "cuda" and launches != WIDE_SHARDS):
         raise AssertionError(
             f"the color-sharded search did not take the stream (outcomes={outcomes}, "
             f"stream_probe_raw launches={launches}, want {WIDE_SHARDS})")
-
-    # where one streamed search spends its time: the host steps of
-    # _try_stream_keys, then the dispatch (H2D, 4 shards, the fetch)
-    t0 = time.time()
-    vals = pack_keys_u64(keys)
-    t_pack = time.time() - t0
-    t0 = time.time()
-    blk, offs = v3_block_offsets(vals, K, WIDE_HASHES, index.bloom_size, eng.rpb, version=4)
-    offp = offs[:, 0].astype(np.uint32) | (offs[:, 1].astype(np.uint32) << np.uint32(8))
-    t_place = time.time() - t0
-    t0 = time.time()
-    order = np.argsort(blk, kind="stable")
-    blk_s, offp_s, qc_s = blk[order].astype(np.int32), offp[order], qc[order]
-    t_sort = time.time() - t0
+    t_pack = marks["pack_keys_u64"][1] - marks["pack_keys_u64"][0]
+    t_place = marks["v3_block_offsets"][1] - marks["v3_block_offsets"][0]
+    t_sort = marks["dispatch"][0] - marks["v3_block_offsets"][1]
+    t_dispatch = marks["dispatch"][1] - marks["dispatch"][0]
+    blk_s, offp_s, qc_s = probes[0][:3]
     blk2d = blk_s.reshape(-1, sq.PC)
     tb = np.clip(blk2d[:, 0] // 128, 0, index.bloom_size // eng.rpb // 128 - 2)
     outside = blk2d - tb[:, None] * 128 >= 256
-    sync()
-    t0 = time.time()
-    res_again = finish(blk_s, offp_s, qc_s, WIDE_HASHES, eng.rpb)
-    sync()
-    t_dispatch = time.time() - t0
-    if res_again is None or not same_answers(res_again, res_stream):
-        raise AssertionError("the timed dispatch differs from the search")
     log(f"[color] one streamed search of {n} k-mers: host pack {t_pack:.2f}s, placement "
         f"{t_place:.2f}s, argsort+gather {t_sort:.2f}s, dispatch+assembly {t_dispatch:.2f}s "
         f"(of {t_stream:.2f}s through search_keys); residual probes "
@@ -1681,7 +1701,7 @@ def colorshard_phase(card: str) -> int:
     if DEVICE == "cuda":
         profile_dispatch(
             lambda: finish(blk_s, offp_s, qc_s, WIDE_HASHES, eng.rpb), "color", card)
-    del vals, blk, offs, offp, order, blk_s, offp_s, qc_s, blk2d, outside
+    del probes, blk_s, offp_s, qc_s, blk2d, outside
 
     before = sq.stream_probe_raw.launches
     os.environ["COLORID_STREAM"] = "0"
@@ -1721,9 +1741,10 @@ def colorshard_phase(card: str) -> int:
     return launches
 
 
-def entry_points_phase(tmp: str, card: str) -> None:
+def entry_points_phase(tmp: str, card: str) -> dict:
     """build --blocked --color-shards 4 -> search through the CLI, and the
-    sharded engine on the loaded index: the same report lines."""
+    sharded engine on the loaded index: the same report lines. Returns the
+    index's path, the reads' FASTQ and the panel's genomes."""
     import numpy as np
 
     from colorid_tpu_torch import BigsiIndex, QueryEngine, ShardedQueryEngine
@@ -1739,6 +1760,9 @@ def entry_points_phase(tmp: str, card: str) -> None:
     d = os.path.join(tmp, "panel1200")
     os.makedirs(d)
     genomes = acgt[rng.integers(0, 4, (PANEL_GENOMES, PANEL_LEN))]
+    # the last genome repeats the first one's first TIE_LEN bases: reads
+    # from there tie between a color of the first shard and one of the last
+    genomes[-1, :TIE_LEN] = genomes[0, :TIE_LEN]
     manifest = []
     for i, g in enumerate(genomes):
         path = os.path.join(d, f"g{i:04d}.fasta")
@@ -1813,6 +1837,7 @@ def entry_points_phase(tmp: str, card: str) -> None:
         f"({len(tsv)} lines), stream "
         f"{'taken' if streamed is not None else 'dropped to the generic path (sparse probes)'}"
         f", stream_probe_raw launches={raw_launches} on {card}")
+    return {"bxi": prefix + ".bxi", "fq": fq, "genomes": genomes}
 
 
 def rowshard_phase(bxi: str, fq: str, card: str) -> int:
@@ -1863,6 +1888,282 @@ def rowshard_phase(bxi: str, fq: str, card: str) -> int:
         f"streamed={n / t_stream:.0f} generic row-sharded={n / t_generic:.0f}; "
         f"stream_probe launches={launches} on {card}")
     return launches
+
+
+# -- phase 5b: the sharded read classifier and sharded device extraction -------
+
+SHREADS_MESH = (2, 4)
+
+
+@contextlib.contextmanager
+def sharded_outputs(timed: bool = False):
+    """(seen, secs): the device types of every tensor that
+    parallel/sharded.py's read classifier, extraction, hashing and generic
+    query return while the block runs, by function (observers wrap them for
+    the block); with ``timed`` each call is synchronised before and after
+    and secs adds up its seconds by function (a split that gives up the
+    overlap of host and card, so its sum exceeds an untimed call's)."""
+    from colorid_tpu_torch.parallel import sharded
+
+    names = [n for n in dir(sharded) if n.startswith(
+        ("readid_batch_", "readid_firsthit_", "extract_merge_", "hash_packed_", "query_batch_"))]
+    saved = {n: getattr(sharded, n) for n in names}
+    seen: dict[str, set] = {}
+    secs: dict[str, float] = {}
+
+    def watched(name, fn):
+        def wrapped(*a, **kw):
+            if timed:
+                sync()
+                t0 = time.time()
+            out = fn(*a, **kw)
+            if timed:
+                sync()
+                secs[name] = secs.get(name, 0.0) + time.time() - t0
+            for t in out if isinstance(out, tuple) else (out,):
+                seen.setdefault(name, set()).add(t.device.type)
+            return out
+        return wrapped
+
+    for n in names:
+        setattr(sharded, n, watched(n, saved[n]))
+    try:
+        yield seen, secs
+    finally:
+        for n in names:
+            setattr(sharded, n, saved[n])
+
+
+def _on_device(seen: dict, want: tuple, what: str) -> None:
+    """Every watched output on DEVICE, and each function of ``want`` called."""
+    missing = [n for n in want if n not in seen]
+    off = {n: d for n, d in seen.items() if d != {DEVICE}}
+    if missing or off:
+        raise AssertionError(f"{what}: not called {missing}, outputs off {DEVICE}: {off}")
+
+
+def _count_calls(engine, names) -> dict:
+    """Counts the calls of the engine's methods ``names`` from now on."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(engine, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        setattr(engine, name, counted)
+    return calls
+
+
+def _files(prefix: str) -> list[bytes]:
+    out = []
+    for suffix in ("_reads.txt", "_counts.txt"):
+        with open(prefix + suffix, "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def shreads_phase(blocked_bxi: str, reads: dict, panel: dict, card: str) -> None:
+    """The sharded read classifier and sharded device extraction on
+    (2, 4) meshes, every shard on the one card: read_id through a row mesh
+    over the blocked index (the packed route) against the single-device
+    CLI's files of the reads phase; read_id of the panel's reads through a
+    color mesh over the shard-placed index (the arrays route and the
+    first-hit fixup) against a single-device engine's; search_reads on
+    both meshes against the single-device answers."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch import BigsiIndex, QueryEngine, ShardedQueryEngine
+    from colorid_tpu_torch.core.fastx import stream_fastq
+    from colorid_tpu_torch.ops.extract import pack_reads
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+    from colorid_tpu_torch.pipelines import read_id as rid
+    from colorid_tpu_torch.pipelines.search import _count_query_kmers
+
+    t_phase = time.time()
+    nd, nm = SHREADS_MESH
+    d = os.path.dirname(reads["blocked_all"])
+    quiet = io.StringIO()
+    routes = ("readid_counts_packed", "readid_counts_arrays", "readid_firsthit")
+    rid_fns = ("readid_batch_rowshard_packed",)
+
+    # (a) read_id on the reads cell's pairs through a row mesh
+    index = BigsiIndex.load(blocked_bxi)
+    row = ShardedQueryEngine(index, layout="row", mesh=make_mesh(nd, nm, "row", devices=[DEVICE]))
+    if {m.device.type for m in row.mat} != {DEVICE} or not row.rpb:
+        raise AssertionError("the row mesh's shards are not on the card or gather row by row")
+    calls = _count_calls(row, routes)
+    prefix = os.path.join(d, "sharded_row")
+    with sharded_outputs() as (seen, _), read_id_split() as split:
+        t0 = time.time()
+        with contextlib.redirect_stderr(quiet):
+            rid.read_id(reads["pairs"], row, prefix)
+        dt = time.time() - t0
+    _on_device(seen, rid_fns, "sharded read_id (row mesh)")
+    if _files(prefix) != _files(reads["blocked_all"]):
+        raise AssertionError("the row mesh's read_id files differ from the single-device CLI's")
+    if not calls["readid_counts_packed"]:
+        raise AssertionError(f"the row mesh's read_id did not take the packed route: {calls}")
+    n = len(reads["src"])
+    rate1, classify1 = reads["single"]
+    log(f"[shreads] {SHREADS_MESH} row mesh over the blocked index ({nm} row shards of "
+        f"{row.Rl} rows on {row.mat[0].device}, blocked gather rpb {row.rpb}): read_id on "
+        f"{n} pairs: _reads.txt and _counts.txt byte-identical to the single-device CLI's; "
+        f"{n / dt:.0f} pairs/s ({dt:.2f}s in-process, classify_batch {split['classify']:.2f}s; "
+        f"calls {calls}) against the single-device CLI's {rate1:.0f} pairs/s (index load "
+        f"included; classify_batch {classify1:.2f}s) on {card}")
+
+    # (c) search_reads on the device-resident reads through the row mesh
+    words, lens = reads["dev"][:2]
+    L = reads["L"]
+    single = QueryEngine(index, device=DEVICE)
+    t_single, t_row = [], []
+    for _ in range(2):
+        sync()
+        t0 = time.time()
+        want = single.search_reads(words, lens, k=K, L=L, filter_t=1)
+        sync()
+        t_single.append(time.time() - t0)
+    with sharded_outputs() as (seen, _):
+        for _ in range(2):
+            sync()
+            t0 = time.time()
+            got = row.search_reads(words, lens, k=K, L=L, filter_t=1)
+            sync()
+            t_row.append(time.time() - t0)
+    _on_device(seen, ("extract_merge_datashard", "hash_packed_datashard",
+                      "query_batch_rowshard"), "sharded search_reads (row mesh)")
+    n_u = got[1]
+    if n_u != want[1] or not same_answers(got[0], want[0]):
+        raise AssertionError("the row mesh's search_reads differs from the single-device one")
+    # where a sharded call spends its time: each sharded step synchronised,
+    # and what is left (the host's padding, the n_owned and uniq-color
+    # fetches, the uniq-hit statistics of _finish)
+    with sharded_outputs(timed=True) as (_, secs):
+        sync()
+        t0 = time.time()
+        row.search_reads(words, lens, k=K, L=L, filter_t=1)
+        sync()
+        t_split = time.time() - t0
+    log(f"[shreads] search_reads -f 1 on {words.shape[0]} device-resident reads "
+        f"({words.shape[0] * (L - K + 1)} windows) through the row mesh: counts, all_valid, "
+        f"and_all, freq_stats and n_u ({n_u}) equal to the single-device search_reads; "
+        f"k-mers/s (best of 2): sharded {n_u / min(t_row):.0f} ({min(t_row):.3f}s), "
+        f"single-device {n_u / min(t_single):.0f} ({min(t_single):.3f}s); one sharded call "
+        f"split, each step synchronised: "
+        + ", ".join(f"{name} {sec:.3f}s" for name, sec in secs.items())
+        + f", the host's part {t_split - sum(secs.values()):.3f}s of {t_split:.3f}s on {card}")
+    if DEVICE == "cuda":
+        profile_dispatch(lambda: row.search_reads(words, lens, k=K, L=L, filter_t=1)[1],
+                         "shreads row mesh", card, label="sharded search_reads")
+    del row, single, index
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) read_id of the panel's reads (and reads from the shared region,
+    # which tie) through a color mesh over the shard-placed index
+    pidx = BigsiIndex.load(panel["bxi"])
+    col = ShardedQueryEngine(pidx, mesh=make_mesh(nd, nm, "color", devices=[DEVICE]))
+    if {m.device.type for m in col.mat} != {DEVICE} or not pidx.place_rpb:
+        raise AssertionError("the color mesh's shards are not on the card")
+    with contextlib.redirect_stderr(quiet):
+        seqs = np.stack([s for _id, s in stream_fastq(panel["fq"], 15)])
+    rng = np.random.default_rng(SEED + 7)
+    starts = rng.integers(0, TIE_LEN - READ_LEN, TIE_READS)
+    tied = panel["genomes"][0][starts[:, None] + np.arange(READ_LEN)]
+    fq = os.path.join(d, "panel_ties.fastq.gz")
+    qual = "I" * READ_LEN
+    with gzip.open(fq, "wt", compresslevel=1) as f:
+        f.write("".join(f"@r{j}\n{r.tobytes().decode()}\n+\n{qual}\n"
+                        for j, r in enumerate(np.concatenate([seqs, tied]))))
+    single = QueryEngine(pidx, device=DEVICE)
+    t0 = time.time()
+    with contextlib.redirect_stderr(quiet):
+        rid.read_id([fq], single, os.path.join(d, "panel_single"))
+    t_single = time.time() - t0
+    calls = _count_calls(col, routes)
+    with sharded_outputs() as (seen, _):
+        t0 = time.time()
+        with contextlib.redirect_stderr(quiet):
+            rid.read_id([fq], col, os.path.join(d, "panel_sharded"))
+        t_col = time.time() - t0
+    _on_device(seen, ("readid_batch_colorshard", "readid_firsthit_colorshard"),
+               "sharded read_id (color mesh)")
+    got_files = _files(os.path.join(d, "panel_sharded"))
+    if got_files != _files(os.path.join(d, "panel_single")):
+        raise AssertionError("the color mesh's read_id files differ from the single-device one's")
+    if not calls["readid_counts_arrays"] or not calls["readid_firsthit"]:
+        raise AssertionError(f"the color mesh's read_id missed a route: {calls}")
+    rows = [l.split("\t") for l in got_files[0].decode().splitlines()]
+    n_ties = sum(1 for r in rows if r[4] == "reject" and int(r[5]) > 1)
+    n_r = len(rows)
+    log(f"[shreads] {SHREADS_MESH} color mesh over the shard-placed index ({pidx.n_colors} "
+        f"colors, place_rpb {pidx.place_rpb}, {nm} shards of wpad {col.wpad}): read_id on "
+        f"{n_r} reads ({TIE_READS} from the region two colors share; {n_ties} tied calls "
+        f"reordered by the first-hit fixup): files byte-identical to the single-device "
+        f"engine's; calls {calls}; {n_r / t_col:.0f} reads/s sharded ({t_col:.2f}s), "
+        f"{n_r / t_single:.0f} single-device ({t_single:.2f}s) on {card}")
+
+    # (c) search_reads on the panel's reads through the color mesh against
+    # the single-device engine on host-counted k-mers (its device hashing
+    # refuses a shard-placed index)
+    with contextlib.redirect_stderr(quiet):
+        keys, qcounts, _packed = _count_query_kmers(panel["fq"], None, K, 15, 1, False)
+    want = single.search_keys(keys, qcounts=qcounts)
+    pw = torch.from_numpy(pack_reads(seqs).view(np.int32)).to(DEVICE)
+    pl = torch.full((seqs.shape[0],), seqs.shape[1], dtype=torch.int32, device=DEVICE)
+    with sharded_outputs() as (seen, _):
+        sync()
+        t0 = time.time()
+        got, n_u = col.search_reads(pw, pl, k=K, L=seqs.shape[1], filter_t=1)
+        sync()
+        t_col = time.time() - t0
+    _on_device(seen, ("extract_merge_datashard", "hash_packed_datashard",
+                      "query_batch_colorshard"), "sharded search_reads (color mesh)")
+    if n_u != keys.shape[0] or not same_answers(got, want):
+        raise AssertionError("the color mesh's search_reads differs from search_keys")
+    log(f"[shreads] search_reads -f 1 on the panel's {seqs.shape[0]} reads through the color "
+        f"mesh: equal to the single-device search_keys on {n_u} host-counted k-mers; "
+        f"{n_u / t_col:.0f} k-mers/s ({t_col:.3f}s); phase {time.time() - t_phase:.1f}s "
+        f"on {card}")
+    del col, single
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def dist_phase(card: str) -> None:
+    """parallel/distributed.py on the card: a process group of this one
+    process (two NCCL ranks cannot share one card) over TCP on localhost,
+    one all_reduce on the card, and the group torn down."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from colorid_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.time()
+    distributed.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                           backend=None if DEVICE == "cuda" else "gloo")
+    try:
+        backend, size = dist.get_backend(), dist.get_world_size()
+        multi = distributed.is_multi_process()
+        x = torch.arange(1 << 20, dtype=torch.float32, device=DEVICE)
+        dist.all_reduce(x)
+        sync()
+        same = bool(torch.equal(x, torch.arange(1 << 20, dtype=torch.float32, device=DEVICE)))
+    finally:
+        dist.destroy_process_group()
+    if not same or size != 1 or multi or x.device.type != DEVICE or distributed.is_multi_process():
+        raise AssertionError(f"[dist] all_reduce over one rank: equal={same} size={size}")
+    log(f"[dist] distributed.initialize over tcp://127.0.0.1:{port}: backend {backend}, world "
+        f"size {size}, is_multi_process {multi}; all_reduce of 2^20 float32 on "
+        f"{x.device} unchanged; group destroyed; {time.time() - t0:.1f}s on {card}")
 
 
 # -- phase 6: index construction on the card ----------------------------------
@@ -2331,7 +2632,20 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream") -> None:
         f"the port's own: {ours or 'none'} on {card}")
 
 
+PHASE_S: dict[str, float] = {}  # seconds per phase of this run
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        PHASE_S[name] = PHASE_S.get(name, 0.0) + time.time() - t0
+
+
 def main() -> int:
+    t_script = time.time()
     try:
         import torch
     except ImportError:
@@ -2353,37 +2667,57 @@ def main() -> int:
     kernels.build_all()
     log(f"[card] kernels built in {time.time() - t0:.1f}s (set-up); "
         f"ptxas: {' | '.join(ptxas_summary(kernels.build_log.values()))}")
-    classic_row = classic_kernel_phase(card)
-    probe_row = probe_kernel_phase(card)
-    raw_row = raw_kernel_phase(card)
+    with phase("kernel"):
+        classic_row = classic_kernel_phase(card)
+        probe_row = probe_kernel_phase(card)
+        raw_row = raw_kernel_phase(card)
     tmp = tempfile.mkdtemp(prefix="colorid_smoke_")
     try:
-        t0 = time.time()
-        inputs = synth_inputs(tmp)
-        log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
-            f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
-        classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
-            tmp, inputs, card)
-        blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
-        classic_parity_phase(classic_bxi, inputs[1], card)
-        probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
-        reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
-        probe_row["launches"] += fused_phase(blocked_bxi, reads, card)
-        served = serve_phase(classic_bxi, blocked_bxi, reads, card)
+        with phase("main"):
+            t0 = time.time()
+            inputs = synth_inputs(tmp)
+            log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
+                f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
+            classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
+                tmp, inputs, card)
+            blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
+        with phase("parity"):
+            classic_parity_phase(classic_bxi, inputs[1], card)
+            probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
+        with phase("reads"):
+            reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
+        with phase("fused"):
+            probe_row["launches"] += fused_phase(blocked_bxi, reads, card)
+        with phase("serve"):
+            served = serve_phase(classic_bxi, blocked_bxi, reads, card)
         classic_row["launches"] += served[0]
         probe_row["launches"] += served[1]
+        shr = {key: reads[key] for key in ("pairs", "src", "blocked_all", "single", "L")}
+        shr["dev"] = reads["dev"][:2]
         del reads
-        probe_row["launches"] += rowshard_phase(blocked_bxi, inputs[1], card)
+        with phase("row"):
+            probe_row["launches"] += rowshard_phase(blocked_bxi, inputs[1], card)
         torch.cuda.empty_cache()
-        raw_row["launches"] = colorshard_phase(card)
-        entry_points_phase(tmp, card)
-        built = devbuild_phase(tmp, inputs, (classic_bxi, t_build, classic_tsv),
-                               blocked_bxi, card)
+        with phase("color"):
+            raw_row["launches"] = colorshard_phase(card)
+        with phase("entry"):
+            panel = entry_points_phase(tmp, card)
+        with phase("shreads"):
+            shreads_phase(blocked_bxi, shr, panel, card)
+        del shr, panel
+        with phase("dist"):
+            dist_phase(card)
+        with phase("devbuild"):
+            built = devbuild_phase(tmp, inputs, (classic_bxi, t_build, classic_tsv),
+                                   blocked_bxi, card)
         classic_row["launches"] += built[0]
         probe_row["launches"] += built[1]
-        wide_phase(tmp, card)
+        with phase("wide"):
+            wide_phase(tmp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
+        + f"; whole script {time.time() - t_script:.1f}s on {card}")
     print(json.dumps({"kernels": [classic_row, probe_row, raw_row]}))
     print(card)
     print(json.dumps({

@@ -14,12 +14,21 @@ Public API:
     result = engine.search_keys(keys, qcounts=counts)
 
 Wide indexes shard over a logical mesh (``parallel/``): color or row
-shards, all on the one card unless the mesh names more devices:
+shards, all on the one card unless the mesh names more devices, with
+batches split over the data axis. The sharded engine searches k-mers,
+classifies reads and counts k-mers of reads on the devices:
 
     from colorid_tpu_torch import ShardedQueryEngine
     from colorid_tpu_torch.parallel.sharded import make_mesh
 
-    engine = ShardedQueryEngine(index, mesh=make_mesh(1, 4, "color"))
+    engine = ShardedQueryEngine(index, mesh=make_mesh(2, 4, "color"))
+    result = engine.search_keys(keys, qcounts=counts)
+    report = engine.readid_counts(keys_per_read, start_sample=3)
+    result, n_unique = engine.search_reads(words, lens, k=31, L=160, filter_t=1)
+
+and is a drop-in engine for ``pipelines.read_id.read_id`` and
+``classify_batch``. ``parallel/distributed.py`` starts a
+``torch.distributed`` process group (NCCL by default).
 
 Reads go to the card as 2-bit words: ``engine.search_reads`` counts their
 k-mers there (on a v3/v4 index through the fused reads path,

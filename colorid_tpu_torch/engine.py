@@ -126,6 +126,23 @@ def host_rows(index: BigsiIndex, keys: np.ndarray, rpb_place: int) -> np.ndarray
     return rows.astype(dt)
 
 
+def flatten_keys(keys_per_read: list[np.ndarray], rows_of):
+    """(rows [N, H], seg [N], pos [N]) of per-read k-mer byte rows given in
+    set order, rows_of(keys) hashing them: seg is the read of each k-mer,
+    pos its rank in the read's set. None when no read has a k-mer."""
+    seg, pos, rows = [], [], []
+    for i, keys in enumerate(keys_per_read):
+        kn = keys.shape[0]
+        if kn == 0:
+            continue
+        seg.append(np.full(kn, i, dtype=np.int32))
+        pos.append(np.arange(kn, dtype=np.int32))
+        rows.append(rows_of(keys))
+    if not rows:
+        return None
+    return np.concatenate(rows), np.concatenate(seg), np.concatenate(pos)
+
+
 class QueryEngine:
     """Executes the BIGSI hot loop on one device."""
 
@@ -865,19 +882,7 @@ class QueryEngine:
         return out
 
     def _flatten_keys(self, keys_per_read: list[np.ndarray]):
-        """(rows [N, H], seg [N], pos [N]) of per-read key rows in set
-        order, or None when no read has a k-mer."""
-        seg, pos, rows = [], [], []
-        for i, keys in enumerate(keys_per_read):
-            kn = keys.shape[0]
-            if kn == 0:
-                continue
-            seg.append(np.full(kn, i, dtype=np.int32))
-            pos.append(np.arange(kn, dtype=np.int32))
-            rows.append(self.rows_for_keys(keys))
-        if not rows:
-            return None
-        return np.concatenate(rows), np.concatenate(seg), np.concatenate(pos)
+        return flatten_keys(keys_per_read, self.rows_for_keys)
 
     def readid_counts(
         self,

@@ -373,7 +373,7 @@ def read_sets_packed(
     seq_offs = np.ascontiguousarray(seq_offs, dtype=np.int64)
     read_seq_counts = np.ascontiguousarray(read_seq_counts, dtype=np.int32)
     n_reads = len(read_seq_counts)
-    if n_reads >= 32768:
+    if n_reads > 32768:  # int16 read ids: 0..32767
         return None
     lens = np.diff(seq_offs)
     cap = int(np.maximum(0, (lens - k) // d + 1).sum())

@@ -172,6 +172,27 @@ def _hits(aw: torch.Tensor):
     return nhits, widx * 32 + _popcount32(~word & (word - 1) & M32)
 
 
+def query_batch(blocks2: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
+                *, wpad: int, rpb: int = 0):
+    """Score one batch of k-mers against the index: the single-batch step
+    whose contract the sharded query_batch_colorshard / _rowshard share.
+
+    rows int32 [N, H] Bloom rows per k-mer; mask bool [N] real-vs-padding.
+    Returns (counts int32 [32 * wpad] per-color hits over the valid k-mers,
+    uniq_color int32 [N] the color of a k-mer that hit exactly one, else
+    -1, valid bool [N] all rows present and real, and_all int32 [wpad] the
+    AND of the valid k-mers' words (all ones when none), all_valid bool
+    0-d every real k-mer had all of its rows). rpb > 0: blocked layout."""
+    andw, present = _and_present(blocks2, rows, wpad, rpb)
+    valid = present & mask
+    aw_v = torch.where(valid[:, None], andw.to(torch.int64) & M32, 0)
+    counts = _bit_counts(aw_v)
+    nhits, color = _hits(aw_v)
+    uniq = torch.where(valid & (nhits == 1), color, -1).to(torch.int32)
+    and_all = _to_i32(_and_words(counts, valid.sum(), wpad))
+    return counts.to(torch.int32), uniq, valid, and_all, (present | ~mask).all()
+
+
 def _accumulate_one(
     stats, hist, over_col, over_freq, blocks2, rows, mask, qcounts, wpad,
     base_idx, rpb=0, gidx=None,
@@ -444,6 +465,17 @@ def _readid_core(
     andw, present = _and_present(blocks2, rows, wpad, rpb)
     bits = _unpack_bits(andw, num_colors)  # [N, C]
     first_absent, counted = _first_absent(present, seg_ids, kmer_pos, num_reads)
+    report = _readid_report(bits, counted, seg_ids, kmer_pos, num_reads, start_sample)
+    no_hits = (first_absent < BIG).to(torch.int32)[:, None]
+    return torch.cat([report, no_hits], dim=1)
+
+
+def _readid_report(bits, counted, seg_ids, kmer_pos, num_reads: int,
+                   start_sample: int):
+    """Per-read hit counts [num_reads, C] from the color bits [N, C] of
+    the counted k-mers; with start_sample B > 0, k-mers at positions >= B
+    count only toward colors the read's first B k-mers hit (the candidate
+    set, a per-color fact: a color shard computes it from its own bits)."""
     cbits = bits * counted[:, None]
     if start_sample > 0:
         phase1 = cbits * (kmer_pos < start_sample)[:, None]
@@ -453,9 +485,7 @@ def _readid_core(
         contrib = phase1 + phase2 * cand[seg_ids.to(torch.int64)]
     else:
         contrib = cbits
-    report = _seg_sum(contrib, seg_ids, num_reads)
-    no_hits = (first_absent < BIG).to(torch.int32)[:, None]
-    return torch.cat([report, no_hits], dim=1)
+    return _seg_sum(contrib, seg_ids, num_reads)
 
 
 def query_readid_firsthit(
@@ -491,11 +521,18 @@ def _readid_firsthit_core(
     andw, present = _and_present(blocks2, rows, wpad, rpb)
     bits = _unpack_bits(andw, num_colors)
     first_absent, counted = _first_absent(present, seg_ids, kmer_pos, num_reads)
+    fh = _firsthit_report(bits, counted, seg_ids, kmer_pos, num_reads, start_sample)
+    return torch.cat([fh, first_absent[:, None]], dim=1)
+
+
+def _firsthit_report(bits, counted, seg_ids, kmer_pos, num_reads: int,
+                     start_sample: int):
+    """First-hit position [num_reads, C] of each color (BIG = never) from
+    the color bits [N, C] of the counted k-mers."""
     # only phase-1 hits insert report keys (phase 2 increments existing)
     ph1 = counted & (kmer_pos < start_sample) if start_sample > 0 else counted
     pos_hit = torch.where((bits > 0) & ph1[:, None], kmer_pos[:, None], BIG)
-    fh = _seg_min(pos_hit, seg_ids, num_reads)
-    return torch.cat([fh, first_absent[:, None]], dim=1)
+    return _seg_min(pos_hit, seg_ids, num_reads)
 
 
 def query_readid_batch_wide(

@@ -17,6 +17,14 @@ A row layout may also start from a matrix born sharded on the devices
 (ops/build_ops.py::build_matrix_rowshard + pack_blocks_rowshard, passed as
 ``sharded_matrix``): the full matrix then never exists on the host, and
 the engine decides its gather and its stream as for the host matrix.
+
+The engine is also a drop-in for the single-device engine in the read
+classifier (pipelines/read_id.py::classify_batch and read_id call its
+readid_counts, readid_counts_arrays, readid_counts_packed and
+readid_firsthit: reads split over the data axis, the matrix over the model
+axis), and it counts k-mers of reads on the devices (search_reads: each
+data slice extracts its reads' windows, one global merge makes the counts
+exact, then the generic sharded query).
 """
 
 from __future__ import annotations
@@ -26,10 +34,10 @@ import os
 import numpy as np
 import torch
 
-from ..engine import SearchResult, _i32, _round_up, host_rows
+from ..engine import SearchResult, _i32, _round_up, flatten_keys, host_rows
 from ..index.bigsi import BigsiIndex
 from ..ops.blocked import pack_keys_u64, rows_per_block, v3_block_offsets
-from ..ops.query import FREQ_CAP, row_wpad
+from ..ops.query import BIG, FREQ_CAP, PAD_POS, row_wpad
 from ..ops.stream_query import OVER_CAP, PC, STREAM_HASHES, STREAM_WPADS
 from ..runtime import resolve_device
 from . import sharded
@@ -192,27 +200,50 @@ class ShardedQueryEngine:
             rows[:m] = rows_all[start:stop]
             mask = np.zeros(size, dtype=bool)
             mask[:m] = True
-            rows_t, mask_t = torch.from_numpy(rows), torch.from_numpy(mask)
-            if self.layout == "color":
-                c, u, _v, aa, av = sharded.query_batch_colorshard(
-                    self.mat, rows_t, mask_t,
-                    mesh=self.mesh, wpad=self.wpad, Wl=self.Wl, rpb=self.rpb,
-                )
-                counts += c.cpu().numpy().reshape(-1)[:C]
-                and_all &= aa.cpu().numpy().view(np.uint32)[:W]
-            else:
-                c, u, _v, aa, av = sharded.query_batch_rowshard(
-                    self.mat, rows_t, mask_t,
-                    mesh=self.mesh, wpad=self.wpad, Rl=self.Rl,
-                    W=W, rpb=self.rpb,
-                )
-                counts += c.cpu().numpy()[:C]
-                and_all &= aa.cpu().numpy().view(np.uint32)[:W]
-            uniq_color[start:stop] = u.cpu().numpy()[:m]
-            all_valid = all_valid and bool(av)
+            c, aa, u, av = self._query_batch(
+                self._home(rows), torch.from_numpy(mask).to(self.mesh.home))
+            counts += c
+            and_all &= aa
+            uniq_color[start:stop] = u[:m]
+            all_valid = all_valid and av
         return self._finish(
             counts, all_valid, and_all, hist, uniq_color, qcounts
         )
+
+    def _query_batch(self, rows: torch.Tensor, mask: torch.Tensor):
+        """The generic sharded query of one batch (rows int32 [N, H], mask
+        bool [N]) on this engine's layout. Returns host arrays: (counts
+        int64 [C], and-words uint32 [W], uniq colors int32 [N], all_valid)."""
+        C = self.index.n_colors
+        W = self.index.words_per_row
+        shard, geo = self._layout_geometry()
+        c, u, _v, aa, av = getattr(sharded, f"query_batch_{shard}")(
+            self.mat, rows, mask, mesh=self.mesh, wpad=self.wpad, rpb=self.rpb, **geo,
+        )
+        return (
+            c.cpu().numpy()[:C].astype(np.int64),
+            aa.cpu().numpy().view(np.uint32)[:W],
+            u.cpu().numpy(),
+            bool(av),
+        )
+
+    def _layout_geometry(self) -> tuple[str, dict]:
+        """The suffix of this layout's functions in sharded.py and the shard
+        geometry they take."""
+        if self.layout == "color":
+            return "colorshard", dict(Wl=self.Wl)
+        return "rowshard", dict(Rl=self.Rl, W=self.index.words_per_row)
+
+    def _home(self, a) -> torch.Tensor:
+        """A host array (uint32 words as their int32 bit view) or a tensor
+        on the mesh's home device, where the sharded functions take their
+        inputs."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.mesh.home)
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a).to(self.mesh.home)
 
     def _try_stream_keys(self, keys, qcounts) -> SearchResult | None:
         """The sorted-stream paths: one dispatch of the probe stream per
@@ -367,4 +398,184 @@ class ShardedQueryEngine:
             hist,
             uc[~small].astype(np.int32),
             uq[~small].astype(np.int32),
+        )
+
+    # -- the read classifier on the mesh ---------------------------------------
+
+    def readid_counts(
+        self, keys_per_read: list[np.ndarray], start_sample: int
+    ) -> np.ndarray:
+        """Per-read per-color hit counts [B, C+1] (column C = no_hits): the
+        contract and semantics of QueryEngine.readid_counts (break on an
+        absent k-mer, the -B two-phase count, keys in set-iteration order),
+        with the reads split over the data axis (the reference's rayon
+        fan-out, read_id_mt_pe.rs:300-361) and the matrix over the model
+        axis."""
+        C = self.index.n_colors
+        n_reads = len(keys_per_read)
+        flat = flatten_keys(keys_per_read, self._rows)
+        if flat is None:
+            return np.zeros((n_reads, C + 1), dtype=np.int32)
+        return self.readid_counts_arrays(*flat, n_reads, start_sample)
+
+    def _partition_reads(self, per_kmer: np.ndarray, seg, pos, n_reads: int):
+        """Split flattened per-k-mer arrays (seg ascending) into contiguous
+        groups of reads, one per data slice, padded to a common length Nl
+        (a multiple of 8). Returns (per_kmer [nd, Nl, ...], seg int32
+        [nd, Nl] relative to the slice's first read, pos int32 [nd, Nl]
+        (PAD_POS on padding), reads per slice)."""
+        nd = self.mesh.n_data
+        n_reads_l = -(-n_reads // nd)
+        seg = np.asarray(seg, dtype=np.int32)  # the packed route hands int16
+        pos = np.asarray(pos, dtype=np.int32)
+        bounds = np.searchsorted(
+            seg, np.arange(nd + 1, dtype=np.int64) * n_reads_l, "left"
+        )
+        Nl = _round_up(max(int((bounds[1:] - bounds[:-1]).max()), 1), 8)
+        pk = np.zeros((nd, Nl) + per_kmer.shape[1:], dtype=per_kmer.dtype)
+        sg = np.zeros((nd, Nl), dtype=np.int32)
+        ps = np.full((nd, Nl), PAD_POS, dtype=np.int32)
+        for s in range(nd):
+            lo, hi = bounds[s], bounds[s + 1]
+            n = hi - lo
+            if n == 0:
+                continue
+            pk[s, :n] = per_kmer[lo:hi]
+            sg[s, :n] = seg[lo:hi] - np.int32(s * n_reads_l)
+            ps[s, :n] = pos[lo:hi]
+        return pk, sg, ps, n_reads_l
+
+    def _readid(self, name: str, per_kmer: np.ndarray, seg, pos, n_reads: int,
+                start_sample: int, **kw) -> np.ndarray:
+        """One sharded read classifier function (sharded.<name>_<layout>
+        [_packed]: name holds "{}" where the layout goes) over flattened
+        per-k-mer arrays; returns [n_reads, C+1]: the per-read color columns
+        and, last, the no-hits flag or the first-absent position."""
+        C = self.index.n_colors
+        per3, seg2, pos2, n_reads_l = self._partition_reads(per_kmer, seg, pos, n_reads)
+        shard, geo = self._layout_geometry()
+        cols, last = getattr(sharded, name.format(shard))(
+            self.mat, self._home(per3), self._home(seg2), self._home(pos2),
+            mesh=self.mesh, wpad=self.wpad, start_sample=start_sample,
+            n_reads_l=n_reads_l, rpb=self.rpb, **geo, **kw,
+        )
+        out = np.empty((n_reads, C + 1), dtype=np.int32)
+        out[:, :C] = cols[:n_reads, :C].cpu().numpy()
+        out[:, C] = last[:n_reads].cpu().numpy()
+        return out
+
+    def readid_counts_arrays(
+        self, rows: np.ndarray, seg, pos, n_reads: int, start_sample: int
+    ) -> np.ndarray:
+        """QueryEngine.readid_counts_arrays on the mesh: prepared flattened
+        row arrays (seg ascending), the reads over the data axis."""
+        return self._readid("readid_batch_{}", rows.astype(np.int32, copy=False),
+                            seg, pos, n_reads, start_sample)
+
+    def _placement(self) -> tuple[int, int]:
+        """(rpb_place, bv): the index's build-time hash placement (its row
+        group and layout version; (0, 1) for classic XXH3 rows), which the
+        device hashing must reproduce. Not self.rpb, the shard-local gather
+        grouping."""
+        if self.index.blocked:
+            return self.rpb_place, int(self.index.blocked)
+        return 0, 1
+
+    def readid_counts_packed(
+        self, packed: np.ndarray, seg, pos, n_reads: int, start_sample: int,
+        k: int,
+    ) -> np.ndarray:
+        """QueryEngine.readid_counts_packed on the mesh: 2-bit packed
+        k-mers uint32 [N, 2] hashed on the devices (12 B per k-mer of host
+        traffic), seg / pos (int16 from the read classifier) ascending by
+        read."""
+        index = self.index
+        rpb_place, bv = self._placement()
+        return self._readid(
+            "readid_batch_{}_packed", np.ascontiguousarray(packed, dtype=np.uint32),
+            seg, pos, n_reads, start_sample, k=k, num_hash=index.num_hash,
+            bloom_size=index.bloom_size, rpb_place=rpb_place, bv=bv,
+        )
+
+    def readid_firsthit(
+        self, keys_per_read: list[np.ndarray], start_sample: int
+    ) -> np.ndarray:
+        """QueryEngine.readid_firsthit on the mesh: the first-hit position
+        matrix [B, C+1] (column C = first-absent position; 2**30 = never)
+        for the read_id tie-order fixup."""
+        n_reads = len(keys_per_read)
+        flat = flatten_keys(keys_per_read, self._rows)
+        if flat is None:
+            return np.full((n_reads, self.index.n_colors + 1), BIG, dtype=np.int32)
+        rows, seg, pos = flat
+        return self._readid("readid_firsthit_{}", rows.astype(np.int32, copy=False),
+                            seg, pos, n_reads, start_sample)
+
+    # -- device k-mer extraction on the mesh -----------------------------------
+
+    def search_reads(
+        self,
+        reads_packed,
+        lens,
+        *,
+        k: int,
+        L: int,
+        filter_t: int = 0,
+        d: int = 1,
+    ) -> tuple[SearchResult, int]:
+        """QueryEngine.search_reads on the mesh: reads_packed (2-bit words,
+        uint32 [R, ceil(L/16)] on the host or their int32 view as a tensor)
+        split over the data axis, k-mer extraction on the devices with one
+        global unique merge (sharded.extract_merge_datashard: exact
+        whole-batch frequencies and the strictly-greater filter), device
+        hashing with the index's build-time placement, then the generic
+        sharded query. Reads must be uppercase ACGT (no validity plane).
+        Returns (SearchResult, n_unique filtered k-mers)."""
+        index = self.index
+        if not (4 <= k <= 32 and index.bloom_size < 2**31):
+            raise ValueError("search_reads requires the device-hash envelope")
+        nd = self.mesh.n_data
+        home = self.mesh.home
+        R = reads_packed.shape[0]
+        NW = L - k + 1
+        Rp = _round_up(max(R, nd), nd)
+        if Rp * NW >= 2**31:
+            raise ValueError(
+                "read batch exceeds int32 device indexing; split the batch"
+            )
+        reads = self._home(reads_packed)
+        lens_t = self._home(np.asarray(lens, dtype=np.int32)
+                            if not isinstance(lens, torch.Tensor) else lens.to(torch.int32))
+        if Rp > R:
+            reads = torch.cat([reads, reads.new_zeros((Rp - R, reads.shape[1]))])
+            lens_t = torch.cat([lens_t, lens_t.new_zeros(Rp - R)])
+        keys2, qc, n_own = sharded.extract_merge_datashard(
+            reads, lens_t, mesh=self.mesh, k=k, L=L, filter_t=filter_t, d=d,
+        )
+        n_own = n_own.cpu().numpy()
+        n_u = int(n_own.sum())
+        C = index.n_colors
+        W = index.words_per_row
+        hist = np.zeros((C, FREQ_CAP), dtype=np.int64)
+        if n_u == 0:
+            none = np.zeros(0, dtype=np.int32)
+            return SearchResult(
+                np.zeros(C, dtype=np.int64), True,
+                np.full(W, 0xFFFFFFFF, dtype=np.uint32), hist, none, none,
+            ), 0
+        # the tight per-slice prefix over the compacted owned uniques
+        T = keys2.shape[0] // nd
+        S = min(_round_up(max(int(n_own.max()), 1), 8), T)
+        ks = keys2.view(nd, T, 2)[:, :S].reshape(nd * S, 2)
+        qs = qc.view(nd, T)[:, :S].reshape(nd * S)
+        rpb_place, bv = self._placement()
+        rows = sharded.hash_packed_datashard(
+            ks, mesh=self.mesh, k=k, num_hash=index.num_hash,
+            bloom_size=index.bloom_size, rpb_place=rpb_place, bv=bv,
+        )
+        counts, and_all, uniq_color, all_valid = self._query_batch(rows, (qs > 0).to(home))
+        return (
+            self._finish(counts, all_valid, and_all, hist, uniq_color,
+                         qs.cpu().numpy()),
+            n_u,
         )

@@ -24,6 +24,13 @@ per-shard tensors of an axis, taken on the mesh's first device; what
 crosses devices is per-probe vectors and [C]-sized accumulators, never
 matrix rows.
 
+Besides the k-mer query (query_batch_* and the sorted streams), the mesh
+runs the read classifier (readid_batch_*, readid_firsthit_*: reads split
+over the data axis, the matrix over the model axis) and device k-mer
+extraction (extract_merge_datashard: each data slice counts its reads'
+windows, one global merge makes the counts exact, hash_packed_datashard
+turns the owned k-mers into rows).
+
 Per-shard matrices are packed into the 128-lane block layout of
 ops/query.py::pack_matrix_blocks. Words are uint32 bit patterns in int32
 tensors throughout.
@@ -37,16 +44,22 @@ import numpy as np
 import torch
 
 from ..engine import _i32
-from ..ops.hash_torch import M32
+from ..ops.extract import SENT_KEY, _key_limbs, _sort_key, extract_count
+from ..ops.hash_torch import M32, device_rows
 from ..ops.query import (
+    BIG,
     FREQ_CAP,
     _and_over_hashes,
     _and_words,
     _bit_counts,
+    _first_absent,
+    _firsthit_report,
     _gather_rows,
     _gather_rows_blocked,
     _hits,
+    _readid_report,
     _to_i32,
+    _unpack_bits,
     new_accumulators,
     pack_matrix_blocks,
     row_wpad,
@@ -101,6 +114,43 @@ def _gather(mat, rows, wpad, rpb):
     if rpb:
         return _gather_rows_blocked(mat, rows, wpad, rpb)
     return _gather_rows(mat, rows, wpad)
+
+
+def _color_and_present(mat, rows, mesh: Mesh, wpad: int, Wl: int, rpb: int):
+    """Rows int32 [N, H] gathered on every shard of a ("data", "color")
+    mesh: per shard s the AND over the hashes of its color slice (int32
+    [N, Wl], on shard s's device), and the rows' presence (bool [N], on
+    the home device): a row is absent only where it is zero in every
+    shard's slice."""
+    home = mesh.home
+    andw, seen = [], None  # seen [N, H]: hash row nonzero in some shard
+    for s in range(mesh.n_model):
+        g = _gather(mat[s], rows.to(mesh.device(s)), wpad, rpb)[:, :, :Wl]
+        andw.append(_and_over_hashes(g))
+        nz = (g != 0).any(dim=2).to(home)
+        seen = nz if seen is None else seen | nz
+    return andw, seen.all(dim=1)
+
+
+def _row_and_present(mat, rows, mesh: Mesh, wpad: int, Rl: int, W: int, rpb: int):
+    """Rows int32 [N, H] gathered on a ("data", "row") mesh whose shard r
+    holds rows [r * Rl, (r + 1) * Rl): the AND over the hashes (int32
+    [N, W]) and the rows' presence (bool [N]), both on the home device. A
+    shard treats the rows it does not own as neutral (all-ones words,
+    present)."""
+    home = mesh.home
+    nr = mesh.n_model
+    andw = n_seen = None
+    for r in range(nr):
+        local = rows.to(mesh.device(r)) - r * Rl
+        owned = (local >= 0) & (local < Rl)
+        g = _gather(mat[r], local.clamp(0, Rl - 1), wpad, rpb)[:, :, :W]
+        g = torch.where(owned[:, :, None], g, -1)  # neutral for the AND
+        a = _and_over_hashes(g).to(home)
+        andw = a if andw is None else andw & a
+        nz = ((g != 0).any(dim=2) | ~owned).to(home).to(torch.int32)
+        n_seen = nz if n_seen is None else n_seen + nz
+    return andw, (n_seen == nr).all(dim=1)
 
 
 def device_put_colorshard(matrix: np.ndarray, mesh: Mesh):
@@ -176,14 +226,8 @@ def query_batch_colorshard(mat, rows, mask, *, mesh, wpad, Wl, rpb=0):
     uniq, valid_all = [], []
     for sl in _data_slices(rows.shape[0], mesh.n_data):
         mask_d = mask[sl].to(home)
-        andw = []
-        seen = None  # [Nl, H]: hash row nonzero in some shard
-        for s in range(S):
-            g = _gather(mat[s], rows[sl].to(mesh.device(s)), wpad, rpb)[:, :, :Wl]
-            andw.append(_and_over_hashes(g).to(torch.int64) & M32)
-            nz = (g != 0).any(dim=2).to(home)
-            seen = nz if seen is None else seen | nz
-        present = seen.all(dim=1)
+        andw, present = _color_and_present(mat, rows[sl], mesh, wpad, Wl, rpb)
+        andw = [a.to(torch.int64) & M32 for a in andw]
         valid = present & mask_d
         nhits = torch.zeros(valid.shape[0], dtype=torch.int64, device=home)
         color = torch.full_like(nhits, -1)
@@ -218,7 +262,6 @@ def query_batch_rowshard(mat, rows, mask, *, mesh, wpad, Rl, W, rpb=0):
     [r * Rl, (r + 1) * Rl). Returns (counts int32 [32 * W], uniq, valid,
     and_all int32 [W], all_valid). rpb > 0 takes the blocked single-fetch
     gather (Rl must be a multiple of the blocked row group)."""
-    nr = mesh.shape["row"]
     home = mesh.home
     counts = torch.zeros(32 * W, dtype=torch.int64, device=home)
     n_valid = torch.zeros((), dtype=torch.int64, device=home)
@@ -226,18 +269,7 @@ def query_batch_rowshard(mat, rows, mask, *, mesh, wpad, Rl, W, rpb=0):
     uniq, valid_all = [], []
     for sl in _data_slices(rows.shape[0], mesh.n_data):
         mask_d = mask[sl].to(home)
-        andw = None
-        n_seen = None
-        for r in range(nr):
-            local = rows[sl].to(mesh.device(r)) - r * Rl
-            owned = (local >= 0) & (local < Rl)
-            g = _gather(mat[r], local.clamp(0, Rl - 1), wpad, rpb)[:, :, :W]
-            g = torch.where(owned[:, :, None], g, -1)  # neutral for the AND
-            a = _and_over_hashes(g).to(home)
-            andw = a if andw is None else andw & a
-            nz = ((g != 0).any(dim=2) | ~owned).to(home).to(torch.int32)
-            n_seen = nz if n_seen is None else n_seen + nz
-        present = (n_seen == nr).all(dim=1)
+        andw, present = _row_and_present(mat, rows[sl], mesh, wpad, Rl, W, rpb)
         valid = present & mask_d
         aw_v = torch.where(valid[:, None], andw.to(torch.int64) & M32, 0)
         counts += _bit_counts(aw_v)
@@ -404,4 +436,202 @@ def stream_batch_colorshard(
         torch.stack(n_over).view(nd, S).to(torch.int32),
         torch.stack(oc).view(nd, S, cap),
         torch.stack(of).view(nd, S, cap),
+    )
+
+
+# ---------------------------------------------------------------------------
+# sharded device extraction (search_reads on a mesh)
+# ---------------------------------------------------------------------------
+
+
+def extract_merge_datashard(reads, lens, *, mesh, k, L, filter_t, d=1):
+    """Device extraction and a global unique/count/filter over the data
+    axis. reads int32 [R, ceil(L/16)] (2-bit words), lens int32 [R], R a
+    multiple of n_data.
+
+    Each data slice counts its own reads' canonical windows
+    (ops/extract.py::extract_count, no filter); the per-slice sets then
+    merge on the home device: concatenated, sorted once, the counts of a
+    key summed over its whole run, the strictly-greater filter applied
+    (the reference counts over the whole fastq before it filters,
+    batch_search_pe.rs:28-39, so a per-slice filter would change the
+    result). Slice s owns the sorted array's entries [s * T, (s + 1) * T),
+    T = R * (L - k + 1) / n_data, and keeps the keys whose run starts
+    there, compacted to the front. Returns (keys int32 [n_data * T, 2]
+    (the (lo, hi) bit views), qcounts int32 [n_data * T] (0 = padding),
+    n_owned int32 [n_data])."""
+    nd = mesh.n_data
+    home = mesh.home
+    keys, qcs = [], []
+    for sl in _data_slices(reads.shape[0], nd):
+        pk, qc, _n = extract_count(reads[sl], lens[sl], k=k, L=L, filter_t=0, d=d)
+        pk = pk.to(torch.int64) & M32
+        # the slice's padding slots (qc == 0) sort last, as (2^32-1, 2^32-1)
+        keys.append(torch.where(qc == 0, SENT_KEY, _sort_key(pk[:, 0], pk[:, 1])).to(home))
+        qcs.append(qc.to(home))
+    s, order = torch.sort(torch.cat(keys))
+    q = torch.cat(qcs)[order].to(torch.int64)
+    N = s.shape[0]
+    new = torch.ones(N, dtype=torch.bool, device=home)
+    new[1:] = s[1:] != s[:-1]
+    # run totals over the WHOLE sorted array, before it is cut into slices:
+    # a run may straddle a slice boundary, and the slice holding its first
+    # entry keeps it
+    run = torch.cumsum(new, dim=0) - 1
+    total = torch.zeros(N, dtype=torch.int64, device=home).index_add_(0, run, q)[run]
+    keep = new & (s != SENT_KEY) & (total > filter_t)
+    lo, hi = _key_limbs(s)
+    pk = torch.stack([_to_i32(lo), _to_i32(hi)], dim=1)
+    T = N // nd
+    keys_out, qc_out, n_owned = [], [], []
+    for sl in _data_slices(N, nd):
+        kp = keep[sl]
+        to = torch.where(kp, torch.cumsum(kp, dim=0) - 1, T)  # slot T: dropped
+        keys_out.append(
+            torch.zeros((T + 1, 2), dtype=torch.int32, device=home).index_copy_(0, to, pk[sl])[:T])
+        qc_out.append(
+            torch.zeros(T + 1, dtype=torch.int32, device=home)
+            .index_copy_(0, to, total[sl].to(torch.int32))[:T])
+        n_owned.append(kp.sum())
+    return (torch.cat(keys_out), torch.cat(qc_out),
+            torch.stack(n_owned).to(torch.int32))
+
+
+def hash_packed_datashard(keys2, *, mesh, k, num_hash, bloom_size, rpb_place=0, bv=1):
+    """Bloom rows int32 [N, H] of packed k-mers int32 [N, 2] hashed on the
+    device, slice by slice of the data axis (ops/hash_torch.py::
+    device_rows; rpb_place / bv = the index's build-time placement)."""
+    return torch.cat([
+        _rows_from_packed(keys2[sl], k, num_hash, bloom_size, rpb_place, bv)
+        for sl in _data_slices(keys2.shape[0], mesh.n_data)
+    ])
+
+
+# ---------------------------------------------------------------------------
+# sharded read classifier (the read_id hot loop on a mesh)
+# ---------------------------------------------------------------------------
+#
+# Reads split over the data axis in contiguous groups (the reference's rayon
+# par_iter over reads, read_id_mt_pe.rs:300-361): rows / seg / pos are
+# [n_data, Nl, ...], seg relative to the slice's first read, pos the
+# k-mer's FnvHashSet iteration rank (PAD_POS on padding). A k-mer's
+# presence (the break condition) is global: on the color layout a row is
+# present where some shard's slice of it is nonzero, on the row layout it
+# is present on the shard that owns it. Everything per color (the counts,
+# the -B candidate set, the first hits) is shard-local on the color layout.
+
+
+def _rows_from_packed(keys2, k, num_hash, bloom_size, rpb_place, bv):
+    return device_rows(keys2, k=k, num_hash=num_hash, bloom_size=bloom_size,
+                       rpb=rpb_place, version=bv)
+
+
+def _readid_color(mat, rows_of, seg, pos, *, mesh, wpad, Wl, start_sample,
+                  n_reads_l, rpb, firsthit):
+    """(per-read color facts [n_data * n_reads_l, n_model * 32 * Wl], per
+    read the no-hits flag, or with ``firsthit`` the first-absent position)
+    on a ("data", "color") mesh; rows_of(d) gives data slice d's rows."""
+    home = mesh.home
+    per_read = _firsthit_report if firsthit else _readid_report
+    cols_all, last = [], []
+    for d in range(mesh.n_data):
+        sg, ps = seg[d].to(home), pos[d].to(home)
+        andw, present = _color_and_present(mat, rows_of(d), mesh, wpad, Wl, rpb)
+        first_absent, counted = _first_absent(present, sg, ps, n_reads_l)
+        cols = []
+        for s, a in enumerate(andw):
+            dev = mesh.device(s)
+            cols.append(per_read(
+                _unpack_bits(a, 32 * Wl), counted.to(dev), sg.to(dev), ps.to(dev),
+                n_reads_l, start_sample,
+            ).to(home))
+        cols_all.append(torch.cat(cols, dim=1))
+        last.append(first_absent if firsthit else (first_absent < BIG).to(torch.int32))
+    return torch.cat(cols_all), torch.cat(last)
+
+
+def _readid_row(mat, rows_of, seg, pos, *, mesh, wpad, Rl, W, start_sample,
+                n_reads_l, rpb, firsthit):
+    """_readid_color on a ("data", "row") mesh: the partial ANDs and
+    presences merge over the row shards, then the per-read logic runs once
+    per data slice on the home device."""
+    home = mesh.home
+    per_read = _firsthit_report if firsthit else _readid_report
+    cols_all, last = [], []
+    for d in range(mesh.n_data):
+        sg, ps = seg[d].to(home), pos[d].to(home)
+        andw, present = _row_and_present(mat, rows_of(d), mesh, wpad, Rl, W, rpb)
+        first_absent, counted = _first_absent(present, sg, ps, n_reads_l)
+        cols_all.append(per_read(_unpack_bits(andw, 32 * W), counted, sg, ps,
+                                 n_reads_l, start_sample))
+        last.append(first_absent if firsthit else (first_absent < BIG).to(torch.int32))
+    return torch.cat(cols_all), torch.cat(last)
+
+
+def readid_batch_colorshard(matrix, rows, seg, pos, *, mesh, wpad, Wl,
+                            start_sample, n_reads_l, rpb=0):
+    """ops/query.py::query_readid_batch on a ("data", "color") mesh. rows
+    int32 [n_data, Nl, H]; seg, pos int32 [n_data, Nl]. Returns (report
+    int32 [n_data * n_reads_l, n_model * 32 * Wl], no_hits int32
+    [n_data * n_reads_l])."""
+    return _readid_color(
+        matrix, lambda d: rows[d], seg, pos, mesh=mesh, wpad=wpad, Wl=Wl,
+        start_sample=start_sample, n_reads_l=n_reads_l, rpb=rpb, firsthit=False,
+    )
+
+
+def readid_batch_rowshard(matrix, rows, seg, pos, *, mesh, wpad, Rl, W,
+                          start_sample, n_reads_l, rpb=0):
+    """query_readid_batch on a ("data", "row") mesh. Returns (report int32
+    [n_data * n_reads_l, 32 * W], no_hits int32 [n_data * n_reads_l])."""
+    return _readid_row(
+        matrix, lambda d: rows[d], seg, pos, mesh=mesh, wpad=wpad, Rl=Rl, W=W,
+        start_sample=start_sample, n_reads_l=n_reads_l, rpb=rpb, firsthit=False,
+    )
+
+
+def readid_batch_colorshard_packed(matrix, keys2, seg, pos, *, mesh, wpad, Wl,
+                                   start_sample, n_reads_l, rpb, k, num_hash,
+                                   bloom_size, rpb_place, bv):
+    """readid_batch_colorshard with the rows hashed on the device from
+    2-bit packed k-mers int32 [n_data, Nl, 2] (12 B of host traffic per
+    k-mer)."""
+    return _readid_color(
+        matrix,
+        lambda d: _rows_from_packed(keys2[d], k, num_hash, bloom_size, rpb_place, bv),
+        seg, pos, mesh=mesh, wpad=wpad, Wl=Wl, start_sample=start_sample,
+        n_reads_l=n_reads_l, rpb=rpb, firsthit=False,
+    )
+
+
+def readid_batch_rowshard_packed(matrix, keys2, seg, pos, *, mesh, wpad, Rl, W,
+                                 start_sample, n_reads_l, rpb, k, num_hash,
+                                 bloom_size, rpb_place, bv):
+    """readid_batch_rowshard with the rows hashed on the device."""
+    return _readid_row(
+        matrix,
+        lambda d: _rows_from_packed(keys2[d], k, num_hash, bloom_size, rpb_place, bv),
+        seg, pos, mesh=mesh, wpad=wpad, Rl=Rl, W=W, start_sample=start_sample,
+        n_reads_l=n_reads_l, rpb=rpb, firsthit=False,
+    )
+
+
+def readid_firsthit_colorshard(matrix, rows, seg, pos, *, mesh, wpad, Wl,
+                               start_sample, n_reads_l, rpb=0):
+    """ops/query.py::query_readid_firsthit on a ("data", "color") mesh.
+    Returns (fh int32 [n_data * n_reads_l, n_model * 32 * Wl], first_absent
+    int32 [n_data * n_reads_l]); BIG where never."""
+    return _readid_color(
+        matrix, lambda d: rows[d], seg, pos, mesh=mesh, wpad=wpad, Wl=Wl,
+        start_sample=start_sample, n_reads_l=n_reads_l, rpb=rpb, firsthit=True,
+    )
+
+
+def readid_firsthit_rowshard(matrix, rows, seg, pos, *, mesh, wpad, Rl, W,
+                             start_sample, n_reads_l, rpb=0):
+    """query_readid_firsthit on a ("data", "row") mesh. Returns (fh int32
+    [n_data * n_reads_l, 32 * W], first_absent int32 [n_data * n_reads_l])."""
+    return _readid_row(
+        matrix, lambda d: rows[d], seg, pos, mesh=mesh, wpad=wpad, Rl=Rl, W=W,
+        start_sample=start_sample, n_reads_l=n_reads_l, rpb=rpb, firsthit=True,
     )

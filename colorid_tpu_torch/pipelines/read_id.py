@@ -419,7 +419,7 @@ def _prepare_native(batch, todo_idx, index, d, packed_ok):
     )
     width = m or k
     fnv = fnv_order_enabled()
-    if packed_ok and 4 <= width <= 32 and len(todo_idx) < 32768:
+    if packed_ok and 4 <= width <= 32 and len(todo_idx) <= 32768:
         got = native.read_sets_packed(concat, offs, nseqs, k, d, m, fnv_order=fnv)
         if got is not None:
             return ("packed",) + got

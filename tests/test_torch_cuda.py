@@ -662,3 +662,76 @@ def test_wide_functions_on_card_match_cpu(cuda_device):
     for f in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
     assert a.all_valid == b.all_valid and a.counts.sum() > 0
+
+
+# -- the sharded read classifier and sharded device extraction --------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["color", "row"])
+def test_sharded_reads_on_card_match_cpu(cuda_device, tmp_path, layout):
+    """A (2, 2) mesh of either layout on the one card against the same mesh
+    on the CPU: readid_counts (the arrays route), readid_counts_packed,
+    readid_firsthit, classify_batch and search_reads, bitwise; every tensor
+    the sharded functions return lies on the card."""
+    from colorid_tpu_torch import ShardedQueryEngine
+    from colorid_tpu_torch.core.kmers import kmer_set
+    from colorid_tpu_torch.ops.extract import pack_reads
+    from colorid_tpu_torch.parallel import sharded
+    from colorid_tpu_torch.pipelines import read_id as rid
+
+    gs = ts.genomes(40, 20_000, seed=8)
+    gs[1][:4000] = gs[0][:4000]  # reads from here tie between genomes 0 and 1
+    _man, refs = ts.write_panel(tmp_path, gs)
+    index = build_index(refs, 500_000, 4, 27, verbose=False, blocked=True)
+    rs = ts.reads(gs[:3], 600, 150, seed=9, sub_rate=0.01)
+    rs[:60] = np.stack([gs[0][s:s + 150] for s in range(0, 3600, 60)])  # ties
+    sets = [rid._fnv_order_keys(kmer_set([r], 27)) for r in rs[:200]]
+    batch = [(f"r{i}", [r]) for i, r in enumerate(rs[:300])]
+    words, lens = pack_reads(rs), np.full(rs.shape[0], 150, dtype=np.int32)
+
+    seen = []
+    names = [n for n in dir(sharded) if n.startswith(("readid_", "extract_merge",
+                                                       "hash_packed", "query_batch_"))]
+
+    def on_card(fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            for t in out if isinstance(out, tuple) else (out,):
+                seen.append(t.device.type)
+            return out
+        return wrapped
+
+    engines = [
+        ShardedQueryEngine(index, layout=layout,
+                           mesh=sharded.make_mesh(2, 2, layout, devices=[dev]))
+        for dev in ("cpu", cuda_device)
+    ]
+    outs = []
+    for e in engines:
+        saved = {n: getattr(sharded, n) for n in names}
+        if e.mesh.home.type == "cuda":
+            for n in names:
+                setattr(sharded, n, on_card(saved[n]))
+        try:
+            prep = rid._prepare_native(batch, list(range(len(batch))), index, 1, True)
+            packed = (e.readid_counts_packed(prep[1], prep[2], prep[3], len(batch), 3, 27)
+                      if prep is not None and prep[0] == "packed" else None)
+            outs.append((
+                e.readid_counts(sets, 3), e.readid_firsthit(sets, 3), packed,
+                rid.classify_batch(batch, e, 1, 1e-3, 3),
+                e.search_reads(words, lens, k=27, L=150, filter_t=1),
+            ))
+        finally:
+            for n in names:
+                setattr(sharded, n, saved[n])
+    assert seen and set(seen) == {"cuda"}
+    (c0, f0, p0, rows0, (s0, n0)), (c1, f1, p1, rows1, (s1, n1)) = outs
+    np.testing.assert_array_equal(c1, c0)
+    np.testing.assert_array_equal(f1, f0)
+    if p0 is not None:
+        np.testing.assert_array_equal(p1, p0)
+    assert rows1 == rows0 and any(r[4] == "reject" and r[5] > 1 for r in rows0)
+    assert n1 == n0 > 0
+    _assert_same_search(s1, s0)
+    assert c0[:, :-1].max() > 50

@@ -2,9 +2,10 @@
 JAX package colorid_tpu (checked on the source, and in a fresh interpreter
 that builds (on the host and with --device-build), searches and classifies
 reads through the port's CLI, runs a sharded search on a logical mesh (also
-over a matrix born sharded) and answers a /search through the port's HTTP
-server), its native library is its own, and its entry points default to the CUDA card and refuse to fall back
-to the CPU when there is none."""
+over a matrix born sharded), classifies reads and counts their k-mers on
+that mesh, and answers a /search through the port's HTTP server), its
+native library is its own, and its entry points default to the CUDA card
+and refuse to fall back to the CPU when there is none."""
 
 import ast
 import os
@@ -56,7 +57,21 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 _SCRIPT = textwrap.dedent("""
-    import contextlib, io, sys
+    import contextlib, importlib.abc, io, sys
+
+    class NoJax(importlib.abc.MetaPathFinder):
+        # jax, jaxlib and the JAX package cannot be imported here
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "colorid_tpu"):
+                raise ModuleNotFoundError(f"{name} is not importable here", name=name)
+            return None
+
+    sys.meta_path.insert(0, NoJax())
+    try:
+        import jax  # noqa: F401
+        raise AssertionError("jax is importable")
+    except ModuleNotFoundError:
+        pass
     from colorid_tpu_torch.cli import main
     from colorid_tpu_torch import native
     d, man, fq = sys.argv[1:4]
@@ -109,6 +124,25 @@ _SCRIPT = textwrap.dedent("""
     want = QueryEngine(classic, device="cpu").search_keys(keys)
     assert (born.counts == want.counts).all() and born.all_valid == want.all_valid
     assert "colorid_tpu_torch.parallel.engine" in sys.modules
+    # the sharded read classifier and device k-mer counting on a (2, 2)
+    # row mesh: the single-device engine's answers
+    from colorid_tpu_torch.core.fastx import stream_fastq
+    from colorid_tpu_torch.core.kmers import kmer_set
+    from colorid_tpu_torch.ops.extract import pack_reads
+    from colorid_tpu_torch.pipelines.read_id import _fnv_order_keys
+    seqs = np.stack([s for _id, s in stream_fastq(fq, 15)][:300])
+    sets = [_fnv_order_keys(kmer_set([s], 27)) for s in seqs[:60]]
+    single = QueryEngine(index, device="cpu")
+    shr = ShardedQueryEngine(index, layout="row",
+                             mesh=sharded.make_mesh(2, 2, "row", devices=["cpu"]))
+    rep = shr.readid_counts(sets, 3)
+    assert (rep == single.readid_counts(sets, 3)).all() and rep[:, :-1].max() > 0
+    lens = np.full(seqs.shape[0], seqs.shape[1], dtype=np.int32)
+    got, n_u = shr.search_reads(pack_reads(seqs), lens, k=27, L=seqs.shape[1])
+    want, want_n = single.search_reads(pack_reads(seqs), lens, k=27, L=seqs.shape[1])
+    assert n_u == want_n > 0 and (got.counts == want.counts).all()
+    assert got.freq_stats() == want.freq_stats()
+    assert "colorid_tpu_torch.ops.extract" in sys.modules
     # the HTTP server on the v4 index: /search counts on the device through
     # the fused reads path
     import json, threading, urllib.request
