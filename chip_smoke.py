@@ -69,6 +69,17 @@ Phases, each printing its lines (any failure exits non-zero):
      ShardedQueryEngine on the loaded index: the same report lines;
    - row layout: the blocked index of phase 3 on a (1, 4) row mesh: the
      probe stream per row shard equals the single-device results.
+5c. mproc: ShardedQueryEngine on a (1, 4) row mesh whose shards live in
+   two processes, two per rank (this script in --mproc-worker mode; gloo
+   with both ranks on one card, NCCL with one card each where there are
+   two or more): search_keys with the k-mers of phase 3's search -f 1 on
+   the classic index and, through the generic gather (the JAX package's
+   route across processes), on the v4 one; read_id of the reads cell's
+   204,000 pairs (byte-identical to the single-device CLI's files);
+   search_reads on its 400,000 reads; build_matrix_rowshard of the classic
+   index's columns across the ranks and its search. Every output equal on
+   both ranks and to the single-device engine; k-mers/s, pairs/s, the
+   seconds in collectives and each rank's max_memory_allocated.
 6. devbuild, on the phase-3 cell: CLI build --device-build -t 8 (the
    scatter-OR on the card, one per accession) and the host build back to
    back (host, device, device, host), every .bxi byte-identical to phase
@@ -97,6 +108,7 @@ of the repo, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gzip
 import io
 import json
@@ -2166,6 +2178,243 @@ def dist_phase(card: str) -> None:
         f"{x.device} unchanged; group destroyed; {time.time() - t0:.1f}s on {card}")
 
 
+# -- phase 5c: the row mesh across processes -----------------------------------
+
+MPROC_TIMEOUT = 900  # seconds for both ranks of the [mproc] phase
+
+
+RESULT_FIELDS = ("counts", "all_valid", "and_all", "freq_hist", "over_colors", "over_freqs")
+
+
+def _result_arrays(prefix: str, res) -> dict:
+    import numpy as np
+
+    return {f"{prefix}.{f}": np.asarray(getattr(res, f)) for f in RESULT_FIELDS}
+
+
+def _result_of(out: dict, prefix: str):
+    from colorid_tpu_torch.engine import SearchResult
+
+    return SearchResult(*(out[f"{prefix}.{f}"] for f in RESULT_FIELDS))
+
+
+def mproc_worker(argv: list[str]) -> int:
+    """One rank of the [mproc] phase (chip_smoke.py --mproc-worker RANK
+    HOST:PORT DIR DEVICE BACKEND): a (1, 4) row mesh of two shards per
+    rank over DIR's classic.bxi and blocked.bxi, every route of the phase
+    timed, its outputs, seconds, collective seconds (all_and and all_sum,
+    the row merges' collectives, each synchronised) and the card's
+    max_memory_allocated saved to DIR/rank<RANK>.npz. Prints no result
+    line."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch import BigsiIndex, ShardedQueryEngine
+    from colorid_tpu_torch.ops import build_ops
+    from colorid_tpu_torch.ops.query import row_wpad
+    from colorid_tpu_torch.parallel import distributed
+    from colorid_tpu_torch.parallel.sharded import make_mesh
+    from colorid_tpu_torch.pipelines import read_id as rid
+
+    global DEVICE
+    rank, coord, d, device, backend = int(argv[0]), argv[1], argv[2], argv[3], argv[4]
+    DEVICE = torch.device(device).type
+    if DEVICE == "cuda":
+        torch.cuda.set_device(torch.device(device))
+        torch.cuda.reset_peak_memory_stats()
+    distributed.initialize(coord, num_processes=2, process_id=rank, backend=backend)
+    coll = [0.0, 0]
+
+    def timed(fn):
+        def wrapped(t):
+            sync()
+            t0 = time.time()
+            out = fn(t)
+            sync()
+            coll[0] += time.time() - t0
+            coll[1] += 1
+            return out
+        return wrapped
+
+    distributed.all_and = timed(distributed.all_and)
+    distributed.all_sum = timed(distributed.all_sum)
+    out: dict = {}
+
+    def step(name, fn):
+        c0, n0 = coll
+        sync()
+        t0 = time.time()
+        res = fn()
+        sync()
+        out[f"{name}.secs"] = np.array(time.time() - t0)
+        out[f"{name}.coll"] = np.array([coll[0] - c0, coll[1] - n0])
+        return res
+
+    try:
+        q = np.load(os.path.join(d, "query.npz"))
+        keys, qcounts = q["keys"], q["qcounts"]
+        mesh = make_mesh(1, 4, "row", devices=[device, device])
+        for kind in ("classic", "blocked"):
+            index = BigsiIndex.load(os.path.join(d, f"{kind}.bxi"))
+            eng = ShardedQueryEngine(index, mesh=mesh, layout="row")
+            out[f"{kind}.held"] = np.array([m is not None for m in eng.mat])
+            out[f"{kind}.stream"] = np.array(eng._stream)
+            res = step(f"{kind}.search_keys", lambda: eng.search_keys(keys, qcounts=qcounts))
+            out.update(_result_arrays(f"{kind}.search_keys", res))
+        # eng is the v4 index's engine from here on
+        prefix = os.path.join(d, f"rank{rank}")
+        with contextlib.redirect_stderr(io.StringIO()):
+            step("read_id", lambda: rid.read_id(list(q["pairs"]), eng, prefix))
+        words = torch.from_numpy(q["words"]).to(device)
+        lens = torch.from_numpy(q["lens"]).to(device)
+        L = int(q["L"])
+        for i in range(2):
+            res, n_u = step(f"search_reads{i}", lambda: eng.search_reads(
+                words, lens, k=K, L=L, filter_t=1))
+        out.update(_result_arrays("search_reads", res))
+        out["search_reads.n_u"] = np.array(n_u)
+        del eng, words, lens
+        index = BigsiIndex.load(os.path.join(d, "classic.bxi"))
+        meta = dataclasses.replace(index, matrix=None)
+        cols = _columns(index)
+
+        def born():
+            shards, Rl = build_ops.build_matrix_rowshard(
+                cols, index.bloom_size, mesh, row_multiple=ShardedQueryEngine.row_multiple(meta))
+            blocks = build_ops.pack_blocks_rowshard(
+                shards, mesh=mesh, Rl=Rl, W=index.words_per_row)
+            return ShardedQueryEngine(meta, mesh=mesh, layout="row",
+                                      sharded_matrix=(blocks, row_wpad(index.words_per_row), Rl))
+
+        eng = step("born.build", born)
+        res = step("born.search_keys", lambda: eng.search_keys(keys, qcounts=qcounts))
+        out.update(_result_arrays("born.search_keys", res))
+        out["born.held"] = np.array([m is not None for m in eng.mat])
+        out["home"] = np.array(str(mesh.home))
+        out["max_memory_allocated"] = np.array(
+            torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
+    return 0
+
+
+def mproc_phase(tmp: str, fq: str, classic_bxi: str, blocked_bxi: str, shr: dict,
+                card: str) -> None:
+    """ShardedQueryEngine on a (1, 4) row mesh whose shards live in two
+    processes (two per rank: this script in --mproc-worker mode, gloo with
+    both ranks on one card, NCCL with one card each where there are two or
+    more): search_keys on the classic index and, through the generic
+    gather, on the v4 one with the k-mers of search -f 1; read_id of the
+    reads cell's pairs (byte-identical to the single-device CLI's files);
+    search_reads on its 400,000 reads; the row-sharded build of the
+    classic index's columns and its search. Every output equal on both
+    ranks and to the single-device engine."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch import BigsiIndex, QueryEngine
+    from colorid_tpu_torch.pipelines.search import _count_query_kmers
+
+    t_phase = time.time()
+    d = os.path.join(tmp, "mproc")
+    os.makedirs(d)
+    with contextlib.redirect_stderr(io.StringIO()):
+        keys, qcounts, packed = _count_query_kmers(fq, None, K, 15, 1, False)
+    words, lens = (x.cpu().numpy() for x in shr["dev"][:2])
+    np.savez(os.path.join(d, "query.npz"), keys=keys, qcounts=qcounts, words=words,
+             lens=lens, L=np.array(shr["L"]), pairs=np.array(shr["pairs"]))
+    for kind, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
+        os.symlink(bxi, os.path.join(d, f"{kind}.bxi"))
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    backend = "nccl" if cards >= 2 else "gloo"
+    devs = [f"cuda:{r}" if cards >= 2 else ("cuda:0" if DEVICE == "cuda" else "cpu")
+            for r in range(2)]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    t0 = time.time()
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mproc-worker", str(r), coord, d,
+         devs[r], backend], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(MPROC_TIMEOUT - (time.time() - t0), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tails = []
+        for f in logs:
+            f.seek(0)
+            tails.append(f.read()[-3000:])
+            f.close()
+    t_ranks = time.time() - t0
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"[mproc] a rank failed (exit codes "
+                             f"{[p.returncode for p in procs]}):\n" + "\n".join(tails))
+    a, b = (dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in range(2))
+    for key in a:
+        if not key.endswith((".secs", ".coll", ".held", "max_memory_allocated", "home")) \
+                and not np.array_equal(a[key], b[key]):
+            raise AssertionError(f"[mproc] rank 1's {key} differs from rank 0's")
+    held = [a["classic.held"].tolist(), b["classic.held"].tolist()]
+    if held != [[True, True, False, False], [False, False, True, True]] or \
+            a["blocked.stream"] or a["born.held"].tolist() != held[0]:
+        raise AssertionError(f"[mproc] shards held {held}, v4 stream {a['blocked.stream']}")
+    for kind, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
+        want = QueryEngine(BigsiIndex.load(bxi), device=DEVICE).search_keys(
+            keys, qcounts=qcounts, packed_all=packed, k=K)
+        if not same_answers(_result_of(a, f"{kind}.search_keys"), want):
+            raise AssertionError(f"[mproc] {kind} search_keys != the single-device engine's")
+        if kind == "classic" and not same_answers(_result_of(a, "born.search_keys"), want):
+            raise AssertionError("[mproc] the born-sharded search != the single-device engine's")
+        if kind == "blocked":
+            single = QueryEngine(BigsiIndex.load(bxi), device=DEVICE)
+            sr = single.search_reads(*shr["dev"][:2], k=K, L=shr["L"], filter_t=1)
+            if int(a["search_reads.n_u"]) != sr[1] or not same_answers(
+                    _result_of(a, "search_reads"), sr[0]):
+                raise AssertionError("[mproc] search_reads != the single-device engine's")
+            del single
+    want_files = _files(shr["blocked_all"])
+    for r in range(2):
+        if _files(os.path.join(d, f"rank{r}")) != want_files:
+            raise AssertionError(f"[mproc] rank {r}'s read_id files differ from the "
+                                 "single-device CLI's")
+    n, n_pairs, n_u = keys.shape[0], len(shr["src"]), int(a["search_reads.n_u"])
+
+    def timing(out, name, count, unit):
+        secs, (cs, calls) = float(out[f"{name}.secs"]), out[f"{name}.coll"]
+        return f"{count / secs:.0f} {unit} ({secs:.2f}s, collectives {cs:.3f}s in {int(calls)})"
+
+    for r, out in enumerate((a, b)):
+        sr = min((f"search_reads{i}" for i in range(2)), key=lambda k: float(out[k + ".secs"]))
+        log(f"[mproc] rank {r} ({backend}, shards {[i for i, h in enumerate(held[r]) if h]} on "
+            f"{out['home']}): search_keys classic {timing(out, 'classic.search_keys', n, 'k-mers/s')}"
+            f", v4 (generic) {timing(out, 'blocked.search_keys', n, 'k-mers/s')}; read_id "
+            f"{timing(out, 'read_id', n_pairs, 'pairs/s')}; search_reads -f 1 (best of 2) "
+            f"{timing(out, sr, n_u, 'k-mers/s')}; born-sharded build "
+            f"{float(out['born.build.secs']):.2f}s, its search "
+            f"{timing(out, 'born.search_keys', n, 'k-mers/s')}; max_memory_allocated "
+            f"{int(out['max_memory_allocated'])} B on {card}")
+    log(f"[mproc] two ranks, (1, 4) row mesh over {backend} ({devs[0]}, {devs[1]}): "
+        f"search_keys on {n} k-mers (classic and v4), read_id on {n_pairs} pairs, "
+        f"search_reads on {words.shape[0]} reads ({n_u} k-mers), the born-sharded build "
+        f"and its search: every output equal on both ranks and to the single-device engine, "
+        f"read_id files byte-identical to the single-device CLI's, v4 through the generic "
+        f"gather; ranks {t_ranks:.1f}s (start-up included), phase "
+        f"{time.time() - t_phase:.1f}s on {card}")
+
+
 # -- phase 6: index construction on the card ----------------------------------
 
 ROWSHARD_KMERS = 1 << 20  # the born-sharded engines' query (of ~8.6 M k-mers)
@@ -2645,6 +2894,8 @@ def phase(name: str):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mproc-worker"]:
+        return mproc_worker(sys.argv[2:])
     t_script = time.time()
     try:
         import torch
@@ -2704,9 +2955,12 @@ def main() -> int:
             panel = entry_points_phase(tmp, card)
         with phase("shreads"):
             shreads_phase(blocked_bxi, shr, panel, card)
-        del shr, panel
+        del panel
         with phase("dist"):
             dist_phase(card)
+        with phase("mproc"):
+            mproc_phase(tmp, inputs[1], classic_bxi, blocked_bxi, shr, card)
+        del shr
         with phase("devbuild"):
             built = devbuild_phase(tmp, inputs, (classic_bxi, t_build, classic_tsv),
                                    blocked_bxi, card)

@@ -18,7 +18,8 @@ lists with the dropped index R only to bound its compile cache).
 A row-sharded build (build_matrix_rowshard) gives each row shard of a
 ("data", "row") mesh only the rows it owns; the full matrix then never
 exists on the host or in one tensor, and pack_blocks_rowshard packs each
-shard for the sharded engine (parallel/engine.py, ``sharded_matrix=``).
+shard for the sharded engine (parallel/engine.py, ``sharded_matrix=``). On
+a mesh across processes each process builds only the shards it holds.
 """
 
 from __future__ import annotations
@@ -93,7 +94,9 @@ def build_matrix_rowshard(
     unrounded shards.
 
     Returns (shards, Rl): a list of n int32 [Rl, W] tensors, shard r on
-    mesh.device(r); rows past bloom_size stay zero."""
+    mesh.device(r); rows past bloom_size stay zero. On a mesh across
+    processes every rank passes the same row lists and scatters only the
+    shards it holds; the others are None."""
     if mesh.model_axis != "row":
         raise ValueError(f"a row-sharded build needs a row mesh; got {mesh.model_axis!r}")
     n = mesh.n_model
@@ -102,6 +105,7 @@ def build_matrix_rowshard(
     Rl = -(-Rl // row_multiple) * row_multiple
     shards = [
         torch.zeros((Rl, W), dtype=torch.int32, device=mesh.device(r))
+        if mesh.owns(r) else None
         for r in range(n)
     ]
     for c, rl in enumerate(row_lists):
@@ -110,7 +114,7 @@ def build_matrix_rowshard(
             rows = np.sort(rows)  # a build's own lists (np.nonzero) are sorted
         cuts = np.searchsorted(rows, np.arange(1, n) * Rl)
         for r, local in enumerate(np.split(rows, cuts)):
-            if local.size:
+            if local.size and shards[r] is not None:
                 scatter_or_column(
                     shards[r][:, c // 32], torch.from_numpy(local - r * Rl), c % 32
                 )
@@ -122,7 +126,8 @@ def pack_blocks_rowshard(mat: list[torch.Tensor], *, mesh, Rl: int, W: int):
     device: the blocks parallel/sharded.py::device_put_rowshard gives for
     the gathered matrix (rows padded to row_wpad(W) words, at least 512
     blocks as in pack_matrix_blocks), without gathering it. Returns a list
-    of int32 [nb, 128] tensors, shard r on mesh.device(r)."""
+    of int32 [nb, 128] tensors, shard r on mesh.device(r) (None where
+    ``mat`` has None: a shard another process holds)."""
     if len(mat) != mesh.n_model:
         raise ValueError(f"{len(mat)} shards for a mesh of {mesh.n_model} row shards")
     wpad = row_wpad(W)
@@ -130,6 +135,9 @@ def pack_blocks_rowshard(mat: list[torch.Tensor], *, mesh, Rl: int, W: int):
     cap = -(-(nb * 128) // wpad)
     out = []
     for r, m in enumerate(mat):
+        if m is None:
+            out.append(None)
+            continue
         if m.shape != (Rl, W):
             raise ValueError(f"shard {r} is {list(m.shape)}, not [{Rl}, {W}]")
         mp = torch.zeros((cap, wpad), dtype=torch.int32, device=mesh.device(r))

@@ -25,6 +25,17 @@ readid_firsthit: reads split over the data axis, the matrix over the model
 axis), and it counts k-mers of reads on the devices (search_reads: each
 data slice extracts its reads' windows, one global merge makes the counts
 exact, then the generic sharded query).
+
+Across processes (parallel/distributed.py::initialize first, one process
+per card), the engine runs on a ("data" = 1, "row" = n) mesh whose shards
+live in several processes: every rank builds the engine and calls each
+method with the same arguments, gathers from the shards it holds, and
+gets the whole answer after one collective per merged quantity. That is
+what the JAX package completes across processes: its color layout, its
+n_data > 1 meshes and its row stream fail there at a fetch of an array
+that spans other processes' devices, so the port's mesh refuses the first
+two (sharded.Mesh) and gathers generically where the row stream would
+run (the JAX package's COLORID_STREAM=0 route, the same SearchResult).
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from ..ops.blocked import pack_keys_u64, rows_per_block, v3_block_offsets
 from ..ops.query import BIG, FREQ_CAP, PAD_POS, row_wpad
 from ..ops.stream_query import OVER_CAP, PC, STREAM_HASHES, STREAM_WPADS
 from ..runtime import resolve_device
-from . import sharded
+from . import distributed, sharded
 
 
 def _placement_rpb(index: BigsiIndex) -> int:
@@ -79,7 +90,9 @@ class ShardedQueryEngine:
     ):
         """``mesh`` decides the shards and their devices; without one, the
         mesh is n_data x (cards // n_data) shards of ``layout`` on
-        ``device`` (default the CUDA card; raises without one).
+        ``device`` (default the CUDA card; raises without one), or, inside
+        a group of more than one process, n_data x (processes // n_data)
+        shards with this process's on ``device``.
 
         ``sharded_matrix`` = (blocks, wpad, Rl): per-row-shard packed blocks
         already on the mesh's devices (ops/build_ops.py::
@@ -99,7 +112,10 @@ class ShardedQueryEngine:
             raise ValueError("sharded_matrix requires layout='row'")
         if mesh is None:
             dev = resolve_device(device)
-            n = torch.cuda.device_count() if dev.type == "cuda" else 1
+            if distributed.is_multi_process():
+                n = torch.distributed.get_world_size()
+            else:
+                n = torch.cuda.device_count() if dev.type == "cuda" else 1
             mesh = sharded.make_mesh(
                 n_data, max(n // n_data, 1), layout, devices=[dev]
             )
@@ -118,7 +134,8 @@ class ShardedQueryEngine:
                 np.asarray(index.matrix), mesh
             )
         elif sharded_matrix is not None:
-            self.mat, self.wpad, self.Rl = sharded_matrix
+            blocks, self.wpad, self.Rl = sharded_matrix
+            self.mat = sharded.replicate(blocks, mesh)
             mult = self.row_multiple(index)
             if (
                 len(self.mat) != mesh.n_model or self.wpad != wpad_g
@@ -153,7 +170,10 @@ class ShardedQueryEngine:
                 and self.rpb_place == self.rpb
             )
         else:
-            self._stream = _row_stream_ok(index)
+            # the JAX row stream fails across processes (it fetches the
+            # per-shard overflow counts, P("data", "row"),
+            # colorid_tpu/parallel/engine.py:270)
+            self._stream = _row_stream_ok(index) and not mesh.spans_processes
 
     @staticmethod
     def row_multiple(index: BigsiIndex) -> int:

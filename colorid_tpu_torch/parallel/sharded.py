@@ -13,16 +13,26 @@ The BIGSI engine has three parallel axes:
   (all-ones words, present) and the partial ANDs combine with a bitwise
   AND. The layout for a matrix that one device cannot hold.
 
-A mesh here is ``n_data x n_model`` LOGICAL shards in one process: every
-model shard has its own matrix slice on one ``torch.device`` of a list,
-placed round-robin (model shard m on ``devices[m % len(devices)]``; the
-data slices of a model shard share its matrix and so its device). With one
-card every shard lives on it; with ``devices=["cpu"]`` the same code runs
-on the CPU. The JAX package's shard_map collectives (psum, pmax, pmin, the
-AND all_gather) become plain sums, maxima, minima and ANDs over the
-per-shard tensors of an axis, taken on the mesh's first device; what
-crosses devices is per-probe vectors and [C]-sized accumulators, never
-matrix rows.
+A mesh here is ``n_data x n_model`` shards over a list of devices: shard
+(d, m) sits on ``devices[(d * n_model + m) % len(devices)]``, the order in
+which the JAX package's make_mesh lays out jax.devices()[:nd * nm], and
+every device of a model shard's column holds a copy of its matrix slice
+(replicate; JAX's NamedSharding(P(model, None, None))). With one card every
+shard lives on it; with ``devices=["cpu"]`` the same code runs on the CPU.
+The JAX package's shard_map collectives (psum, pmax, pmin, the AND
+all_gather) become plain sums, maxima, minima and ANDs over the per-shard
+tensors of an axis, taken on the mesh's home device; what crosses devices
+is per-probe vectors and [C]-sized accumulators, never matrix rows.
+
+Inside a torch.distributed group of more than one process
+(parallel/distributed.py), make_mesh spans every process's devices, as
+jax.devices() does after jax.distributed.initialize. Each process holds
+only the shards on its own devices (the others are None) and gathers from
+them; the row layout's two merges, the AND of the partial words and the
+sum of presences, then run as one collective each, and every process
+computes the whole result. Such a mesh has the row layout and one data
+row: the JAX package serves nothing else across processes (Mesh's
+refusals).
 
 Besides the k-mer query (query_batch_* and the sorted streams), the mesh
 runs the read classifier (readid_batch_*, readid_firsthit_*: reads split
@@ -42,6 +52,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..engine import _i32
 from ..ops.extract import SENT_KEY, _key_limbs, _sort_key, extract_count
@@ -65,35 +76,76 @@ from ..ops.query import (
     row_wpad,
 )
 from ..runtime import resolve_device
+from . import distributed
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """n_data x n_model logical shards; ``model_axis`` names the second
-    axis ("color" or "row")."""
+    """n_data x n_model shards; ``model_axis`` names the second axis
+    ("color" or "row"). Shard (d, m) sits on global device d * n_model + m
+    of ``devices`` (modulo its length). In a mesh across processes,
+    ``ranks`` holds each device's owner and this process is ``rank``; in
+    one process ``ranks`` is empty."""
 
     n_data: int
     n_model: int
     model_axis: str
     devices: tuple
+    ranks: tuple = ()
+    rank: int = 0
+
+    def __post_init__(self):
+        if not self.spans_processes:
+            return
+        if self.model_axis != "row":
+            raise ValueError(
+                "a mesh across processes has the row layout: on a color mesh the "
+                "JAX package's ShardedQueryEngine fetches the counts, sharded "
+                "P('color') over other processes' devices, and fails ('Fetching "
+                "value for jax.Array that spans non-addressable devices', "
+                "colorid_tpu/parallel/engine.py:170)"
+            )
+        if self.n_data != 1:
+            raise ValueError(
+                "a mesh across processes has one data row: with n_data > 1 the JAX "
+                "package's ShardedQueryEngine fetches per-k-mer outputs sharded "
+                "P('data') over other processes' devices and fails ('Fetching value "
+                "for jax.Array that spans non-addressable devices', "
+                "colorid_tpu/parallel/engine.py:185, :552, :592)"
+            )
 
     @property
     def shape(self) -> dict[str, int]:
         return {"data": self.n_data, self.model_axis: self.n_model}
 
     @property
-    def home(self) -> torch.device:
-        """Where the cross-shard merges are taken."""
-        return self.devices[0]
+    def spans_processes(self) -> bool:
+        return len(set(self.ranks)) > 1
 
-    def device(self, m: int) -> torch.device:
-        """The device of model shard m (and of its data slices)."""
-        return self.devices[m % len(self.devices)]
+    @property
+    def home(self) -> torch.device:
+        """Where this process takes the cross-shard merges: its first
+        device."""
+        return self.devices[self.ranks.index(self.rank) if self.ranks else 0]
+
+    def _slot(self, m: int, d: int) -> int:
+        return (d * self.n_model + m) % len(self.devices)
+
+    def device(self, m: int, d: int = 0) -> torch.device:
+        """The device of shard (d, m)."""
+        return self.devices[self._slot(m, d)]
+
+    def owns(self, m: int, d: int = 0) -> bool:
+        """Whether this process holds shard (d, m)."""
+        return not self.ranks or self.ranks[self._slot(m, d)] == self.rank
 
 
 def make_mesh(n_data: int, n_model: int, model_axis: str, devices=None) -> Mesh:
-    """A logical mesh over ``devices`` (default: the CUDA card; raises
-    without one, as every entry point of the package does)."""
+    """A mesh over ``devices`` (default: the CUDA card; raises without one,
+    as every entry point of the package does). Inside an initialized group
+    of more than one process, ``devices`` are this process's own and the
+    mesh spans every process's (distributed.global_devices: a collective,
+    so every rank makes the mesh, with the same shape)."""
     if model_axis not in ("color", "row"):
         raise ValueError(f"model_axis must be 'color' or 'row'; got {model_axis!r}")
     if n_data < 1 or n_model < 1:
@@ -103,7 +155,48 @@ def make_mesh(n_data: int, n_model: int, model_axis: str, devices=None) -> Mesh:
     devs = tuple(resolve_device(d) for d in devices)
     if not devs:
         raise ValueError("a mesh needs at least one device")
-    return Mesh(n_data, n_model, model_axis, devs)
+    if not distributed.is_multi_process():
+        return Mesh(n_data, n_model, model_axis, devs)
+    # another process's "cuda" is not this one's: name the card
+    devs = [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devs]
+    entries = distributed.global_devices(devs)
+    return Mesh(n_data, n_model, model_axis,
+                tuple(torch.device(name) for _r, name in entries),
+                tuple(r for r, _name in entries), dist.get_rank())
+
+
+class Shards(list):
+    """Per-model-shard packed blocks: item m is model shard m on the device
+    of its shard (0, m) (None where another process holds it), and
+    ``replicas[(d, m)]`` its copy on the device of shard (d, m) where that
+    is another device."""
+
+    def __init__(self, shards, replicas=None):
+        super().__init__(shards)
+        self.replicas = replicas or {}
+
+
+def replicate(shards, mesh: Mesh) -> Shards:
+    """One tensor per model shard, each on its shard (0, m)'s device, with
+    a copy on every other device of the shard's column."""
+    replicas = {}
+    for m, t in enumerate(shards):
+        if t is None:
+            continue
+        on = {mesh.device(m): t}
+        for d in range(1, mesh.n_data):
+            dev = mesh.device(m, d)
+            if dev not in on:
+                on[dev] = t.to(dev)
+            if on[dev] is not t:
+                replicas[(d, m)] = on[dev]
+    return Shards(shards, replicas)
+
+
+def _shard(mat, m: int, d: int):
+    """Model shard m's blocks on the device of shard (d, m)."""
+    return getattr(mat, "replicas", {}).get((d, m), mat[m])
 
 
 def _gather(mat, rows, wpad, rpb):
@@ -116,47 +209,57 @@ def _gather(mat, rows, wpad, rpb):
     return _gather_rows(mat, rows, wpad)
 
 
-def _color_and_present(mat, rows, mesh: Mesh, wpad: int, Wl: int, rpb: int):
-    """Rows int32 [N, H] gathered on every shard of a ("data", "color")
-    mesh: per shard s the AND over the hashes of its color slice (int32
-    [N, Wl], on shard s's device), and the rows' presence (bool [N], on
-    the home device): a row is absent only where it is zero in every
-    shard's slice."""
+def _color_and_present(mat, rows, mesh: Mesh, wpad: int, Wl: int, rpb: int, d: int = 0):
+    """Rows int32 [N, H] of data slice d gathered on every shard of a
+    ("data", "color") mesh: per shard s the AND over the hashes of its
+    color slice (int32 [N, Wl], on shard (d, s)'s device), and the rows'
+    presence (bool [N], on the home device): a row is absent only where it
+    is zero in every shard's slice."""
     home = mesh.home
     andw, seen = [], None  # seen [N, H]: hash row nonzero in some shard
     for s in range(mesh.n_model):
-        g = _gather(mat[s], rows.to(mesh.device(s)), wpad, rpb)[:, :, :Wl]
+        g = _gather(_shard(mat, s, d), rows.to(mesh.device(s, d)), wpad, rpb)[:, :, :Wl]
         andw.append(_and_over_hashes(g))
         nz = (g != 0).any(dim=2).to(home)
         seen = nz if seen is None else seen | nz
     return andw, seen.all(dim=1)
 
 
-def _row_and_present(mat, rows, mesh: Mesh, wpad: int, Rl: int, W: int, rpb: int):
-    """Rows int32 [N, H] gathered on a ("data", "row") mesh whose shard r
-    holds rows [r * Rl, (r + 1) * Rl): the AND over the hashes (int32
-    [N, W]) and the rows' presence (bool [N]), both on the home device. A
-    shard treats the rows it does not own as neutral (all-ones words,
-    present)."""
+def _row_and_present(mat, rows, mesh: Mesh, wpad: int, Rl: int, W: int, rpb: int,
+                     d: int = 0):
+    """Rows int32 [N, H] of data slice d gathered on a ("data", "row") mesh
+    whose shard r holds rows [r * Rl, (r + 1) * Rl): the AND over the
+    hashes (int32 [N, W]) and the rows' presence (bool [N]), both on the
+    home device. A shard treats the rows it does not own as neutral
+    (all-ones words) and counts the rows it owns that are nonzero; a k-mer
+    is present when all H of its rows count (each row has one owner). This
+    process merges the shards it holds; on a mesh across processes the
+    merged words then AND, and the counts sum, over the ranks (the JAX
+    body's AND all_gather and psum over "row"), so every rank returns the
+    whole answer."""
     home = mesh.home
-    nr = mesh.n_model
-    andw = n_seen = None
-    for r in range(nr):
-        local = rows.to(mesh.device(r)) - r * Rl
+    N, H = rows.shape
+    andw = torch.full((N, W), -1, dtype=torch.int32, device=home)
+    n_present = torch.zeros(N, dtype=torch.int32, device=home)
+    for r in range(mesh.n_model):
+        if not mesh.owns(r, d):
+            continue
+        local = rows.to(mesh.device(r, d)) - r * Rl
         owned = (local >= 0) & (local < Rl)
-        g = _gather(mat[r], local.clamp(0, Rl - 1), wpad, rpb)[:, :, :W]
+        g = _gather(_shard(mat, r, d), local.clamp(0, Rl - 1), wpad, rpb)[:, :, :W]
         g = torch.where(owned[:, :, None], g, -1)  # neutral for the AND
-        a = _and_over_hashes(g).to(home)
-        andw = a if andw is None else andw & a
-        nz = ((g != 0).any(dim=2) | ~owned).to(home).to(torch.int32)
-        n_seen = nz if n_seen is None else n_seen + nz
-    return andw, (n_seen == nr).all(dim=1)
+        andw &= _and_over_hashes(g).to(home)
+        n_present += ((g != 0).any(dim=2) & owned).sum(dim=1, dtype=torch.int32).to(home)
+    if mesh.spans_processes:
+        andw = distributed.all_and(andw)
+        n_present = distributed.all_sum(n_present)
+    return andw, n_present == H
 
 
 def device_put_colorshard(matrix: np.ndarray, mesh: Mesh):
     """Split the color-word axis across the mesh's color shards and pack
-    each for the block gather. Returns (blocks, wpad, Wl): a list of
-    n_shards int32 [nb, 128] tensors, each on its shard's device, the
+    each for the block gather. Returns (blocks, wpad, Wl): the n_shards
+    int32 [nb, 128] tensors (Shards: each on its shards' devices), the
     shards' packed row width and their live words per row."""
     n = mesh.shape["color"]
     R, W = matrix.shape
@@ -172,14 +275,17 @@ def device_put_colorshard(matrix: np.ndarray, mesh: Mesh):
         b, wp = pack_matrix_blocks(sl)
         assert wp == wpad
         shards.append(_i32(b).to(mesh.device(i)))
-    return shards, wpad, Wl
+    return replicate(shards, mesh), wpad, Wl
 
 
 def device_put_rowshard(matrix: np.ndarray, mesh: Mesh, row_multiple: int = 1):
     """Split the Bloom-row axis across the mesh's row shards and pack each.
     Returns (blocks, wpad, rows_per_shard). row_multiple rounds the shard
     height (a blocked layout's row group must never straddle a shard
-    boundary, and the stream's tile windows need whole tiles)."""
+    boundary, and the stream's tile windows need whole tiles). On a mesh
+    across processes every rank passes the same host matrix, as every JAX
+    process does, and packs only the shards it holds (the others are
+    None)."""
     n = mesh.shape["row"]
     R, W = matrix.shape
     Rl = -(-R // n)
@@ -187,6 +293,9 @@ def device_put_rowshard(matrix: np.ndarray, mesh: Mesh, row_multiple: int = 1):
     wpad = row_wpad(W)
     shards = []
     for i in range(n):
+        if not mesh.owns(i):
+            shards.append(None)
+            continue
         sl = np.zeros((Rl, W), dtype=np.uint32)
         lo = i * Rl
         hi = min(R, (i + 1) * Rl)
@@ -195,7 +304,7 @@ def device_put_rowshard(matrix: np.ndarray, mesh: Mesh, row_multiple: int = 1):
         b, wp = pack_matrix_blocks(sl)
         assert wp == wpad
         shards.append(_i32(b).to(mesh.device(i)))
-    return shards, wpad, Rl
+    return replicate(shards, mesh), wpad, Rl
 
 
 def _data_slices(n: int, nd: int):
@@ -224,17 +333,17 @@ def query_batch_colorshard(mat, rows, mask, *, mesh, wpad, Wl, rpb=0):
     n_valid = torch.zeros((), dtype=torch.int64, device=home)
     ok = torch.ones((), dtype=torch.bool, device=home)
     uniq, valid_all = [], []
-    for sl in _data_slices(rows.shape[0], mesh.n_data):
+    for d, sl in enumerate(_data_slices(rows.shape[0], mesh.n_data)):
         mask_d = mask[sl].to(home)
-        andw, present = _color_and_present(mat, rows[sl], mesh, wpad, Wl, rpb)
+        andw, present = _color_and_present(mat, rows[sl], mesh, wpad, Wl, rpb, d)
         andw = [a.to(torch.int64) & M32 for a in andw]
         valid = present & mask_d
         nhits = torch.zeros(valid.shape[0], dtype=torch.int64, device=home)
         color = torch.full_like(nhits, -1)
         for s in range(S):
-            v = valid.to(mesh.device(s))
+            v = valid.to(andw[s].device)
             aw_v = torch.where(v[:, None], andw[s], 0)
-            counts[s] += _bit_counts(aw_v)
+            counts[s] += _bit_counts(aw_v).to(counts[s].device)
             nh_l, c_l = _hits(aw_v)
             nhits += nh_l.to(home)
             color = torch.maximum(
@@ -267,9 +376,9 @@ def query_batch_rowshard(mat, rows, mask, *, mesh, wpad, Rl, W, rpb=0):
     n_valid = torch.zeros((), dtype=torch.int64, device=home)
     ok = torch.ones((), dtype=torch.bool, device=home)
     uniq, valid_all = [], []
-    for sl in _data_slices(rows.shape[0], mesh.n_data):
+    for d, sl in enumerate(_data_slices(rows.shape[0], mesh.n_data)):
         mask_d = mask[sl].to(home)
-        andw, present = _row_and_present(mat, rows[sl], mesh, wpad, Rl, W, rpb)
+        andw, present = _row_and_present(mat, rows[sl], mesh, wpad, Rl, W, rpb, d)
         valid = present & mask_d
         aw_v = torch.where(valid[:, None], andw.to(torch.int64) & M32, 0)
         counts += _bit_counts(aw_v)
@@ -316,11 +425,11 @@ def stream_batch_rowshard(
     outs = []
     for d in range(nd):
         for r in range(nr):
-            dev = mesh.device(r)
+            dev = mesh.device(r, d)
             b = (blk[d, r].to(dev) - r * nbl).contiguous()
             q = qc[d, r].to(dev).contiguous()
             outs.append(_stream_core(
-                *new_accumulators(C, wpad, capO, dev), mat[r], b,
+                *new_accumulators(C, wpad, capO, dev), _shard(mat, r, d), b,
                 offp[d, r].to(dev).contiguous(), q, q,  # exact mode
                 wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=C,
             ))
@@ -378,16 +487,17 @@ def stream_batch_colorshard(
     bad = torch.zeros((), dtype=torch.int64, device=home)
     ndrop = torch.zeros((), dtype=torch.int32, device=home)
     n_over, oc, of = [], [], []
-    for sl in _data_slices(blk.shape[0], nd):
+    for d, sl in enumerate(_data_slices(blk.shape[0], nd)):
         local = []
         nh_g = seen = None
         for s in range(S):
-            b, o, q = (x[sl].to(devs[s]).contiguous() for x in (blk, offp, qc))
+            dv = mesh.device(s, d)
+            b, o, q = (x[sl].to(dv).contiguous() for x in (blk, offp, qc))
             counts_l, nh_l, cs_l, pm_l, nd_l = stream_raw_local(
-                mat[s], b, o, q, wpad=wpad, num_hash=num_hash, rpb=rpb,
+                _shard(mat, s, d), b, o, q, wpad=wpad, num_hash=num_hash, rpb=rpb,
                 n_colors=Cl,
             )
-            counts32[s] += counts_l
+            counts32[s] += counts_l.to(devs[s])
             ndrop += nd_l.to(home)
             local.append((q, nh_l, cs_l))
             nh, pm = nh_l.to(home), pm_l.to(home)
@@ -402,12 +512,13 @@ def stream_batch_colorshard(
         for s in range(S):
             q, nh_l, cs_l = local[s]
             P = q.shape[0]
-            owner = uniq.to(devs[s]) & (nh_l == 1)
-            spread = torch.arange(P, device=devs[s])
+            dv = q.device
+            owner = uniq.to(dv) & (nh_l == 1)
+            spread = torch.arange(P, device=dv)
             # uniq-hit frequency histogram of the probes this shard owns
             sel = owner & (q < hw)
             hidx = torch.where(sel, cs_l.to(torch.int64) * hw + q, spread % (cp * hw))
-            hist[s].index_add_(0, hidx, sel.to(torch.int32))
+            hist[s].index_add_(0, hidx.to(devs[s]), sel.to(torch.int32).to(devs[s]))
             # frequencies the histogram does not cover: the first cap of
             # them, in probe order
             big = owner & (q >= hw)
@@ -415,8 +526,8 @@ def stream_batch_colorshard(
             pos = torch.cumsum(big, dim=0) - 1
             keep = big & (pos < cap)
             oidx = torch.where(keep, pos, spread % cap)
-            oc_l = torch.zeros(cap, dtype=torch.int32, device=devs[s])
-            of_l = torch.zeros(cap, dtype=torch.int32, device=devs[s])
+            oc_l = torch.zeros(cap, dtype=torch.int32, device=dv)
+            of_l = torch.zeros(cap, dtype=torch.int32, device=dv)
             oc_l.index_add_(0, oidx, torch.where(keep, cs_l, 0))
             of_l.index_add_(0, oidx, torch.where(keep, q, 0))
             n_over.append(n_big.clamp(max=cap).to(home))
@@ -459,7 +570,11 @@ def extract_merge_datashard(reads, lens, *, mesh, k, L, filter_t, d=1):
     T = R * (L - k + 1) / n_data, and keeps the keys whose run starts
     there, compacted to the front. Returns (keys int32 [n_data * T, 2]
     (the (lo, hi) bit views), qcounts int32 [n_data * T] (0 = padding),
-    n_owned int32 [n_data])."""
+    n_owned int32 [n_data]).
+
+    A mesh across processes has one data row: every rank extracts the same
+    reads and needs no collective, as every JAX device of one data slice
+    does on a P("data") input."""
     nd = mesh.n_data
     home = mesh.home
     keys, qcs = [], []
@@ -500,7 +615,9 @@ def extract_merge_datashard(reads, lens, *, mesh, k, L, filter_t, d=1):
 def hash_packed_datashard(keys2, *, mesh, k, num_hash, bloom_size, rpb_place=0, bv=1):
     """Bloom rows int32 [N, H] of packed k-mers int32 [N, 2] hashed on the
     device, slice by slice of the data axis (ops/hash_torch.py::
-    device_rows; rpb_place / bv = the index's build-time placement)."""
+    device_rows; rpb_place / bv = the index's build-time placement). On a
+    mesh across processes (one data row) every rank hashes the same
+    k-mers, with no collective."""
     return torch.cat([
         _rows_from_packed(keys2[sl], k, num_hash, bloom_size, rpb_place, bv)
         for sl in _data_slices(keys2.shape[0], mesh.n_data)
@@ -536,11 +653,11 @@ def _readid_color(mat, rows_of, seg, pos, *, mesh, wpad, Wl, start_sample,
     cols_all, last = [], []
     for d in range(mesh.n_data):
         sg, ps = seg[d].to(home), pos[d].to(home)
-        andw, present = _color_and_present(mat, rows_of(d), mesh, wpad, Wl, rpb)
+        andw, present = _color_and_present(mat, rows_of(d), mesh, wpad, Wl, rpb, d)
         first_absent, counted = _first_absent(present, sg, ps, n_reads_l)
         cols = []
-        for s, a in enumerate(andw):
-            dev = mesh.device(s)
+        for a in andw:
+            dev = a.device
             cols.append(per_read(
                 _unpack_bits(a, 32 * Wl), counted.to(dev), sg.to(dev), ps.to(dev),
                 n_reads_l, start_sample,
@@ -553,14 +670,15 @@ def _readid_color(mat, rows_of, seg, pos, *, mesh, wpad, Wl, start_sample,
 def _readid_row(mat, rows_of, seg, pos, *, mesh, wpad, Rl, W, start_sample,
                 n_reads_l, rpb, firsthit):
     """_readid_color on a ("data", "row") mesh: the partial ANDs and
-    presences merge over the row shards, then the per-read logic runs once
-    per data slice on the home device."""
+    presences merge over the row shards (and over the ranks of a mesh
+    across processes), then the per-read logic runs once per data slice on
+    the home device."""
     home = mesh.home
     per_read = _firsthit_report if firsthit else _readid_report
     cols_all, last = [], []
     for d in range(mesh.n_data):
         sg, ps = seg[d].to(home), pos[d].to(home)
-        andw, present = _row_and_present(mat, rows_of(d), mesh, wpad, Rl, W, rpb)
+        andw, present = _row_and_present(mat, rows_of(d), mesh, wpad, Rl, W, rpb, d)
         first_absent, counted = _first_absent(present, sg, ps, n_reads_l)
         cols_all.append(per_read(_unpack_bits(andw, 32 * W), counted, sg, ps,
                                  n_reads_l, start_sample))

@@ -735,3 +735,144 @@ def test_sharded_reads_on_card_match_cpu(cuda_device, tmp_path, layout):
     assert n1 == n0 > 0
     _assert_same_search(s1, s0)
     assert c0[:, :-1].max() > 50
+
+
+def _mesh_panel(tmp):
+    """tests/test_torch_process_mesh.py's panel: 24 seeded 3 kbp genomes,
+    a classic and a v4 index of 2^16 rows, saved with the workers' inputs."""
+    gs = ts.genomes(24, 3000, seed=30)
+    gs[1][:2000] = gs[0][:2000]
+    _man, refs = ts.write_panel(tmp, gs)
+    index = {}
+    for kind, kw in (("classic", {}), ("blocked", dict(blocked=True))):
+        index[kind] = build_index(refs, 1 << 16, 2, 27, verbose=False, **kw)
+        index[kind].save(f"{tmp}/{kind}.bxi")
+    return index, ts.write_mesh_inputs(tmp, gs, 27, 150)
+
+
+@pytest.mark.cuda
+def test_process_mesh_on_the_card(cuda_device, tmp_path):
+    """Two ranks of tests/torch_process_mesh_worker.py with their shards on
+    the card (gloo with one card, both ranks on it; NCCL with two or more,
+    one card each) on (1, 4) and (1, 2) row meshes: every output the same
+    on both ranks and equal to the single-device engine on the card."""
+    import json
+
+    from colorid_tpu_torch.engine import flatten_keys, host_rows
+    from colorid_tpu_torch.parallel.engine import _placement_rpb
+    from colorid_tpu_torch.pipelines import read_id as rid
+
+    tmp = str(tmp_path)
+    index, inp = _mesh_panel(tmp)
+    multi = torch.cuda.device_count() >= 2
+    worker = f"{ts.ROOT}/tests/torch_process_mesh_worker.py"
+    ts.launch_two(lambda r, coord: [worker, coord, str(r), tmp, tmp,
+                                    f"cuda:{r if multi else 0}", "nccl" if multi else "gloo"],
+                  timeout=300)
+    a, b = (dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(2))
+    for key in a:
+        if not key.endswith((".held", "coll.mismatch", "default.home")):
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    assert [str(o["default.home"]) for o in (a, b)] == [f"cuda:{r if multi else 0}"
+                                                        for r in range(2)]
+    assert a["m14.classic.held"].tolist() == [True, True, False, False]
+    assert "different inputs" in str(b["coll.mismatch"]) and not a["leaked"].size
+    keys, qc, sets = inp["keys"], inp["qcounts"], inp["sets"]
+    for kind, t in index.items():
+        single = QueryEngine(t, device=cuda_device)
+        want = single.search_keys(keys, qcounts=qc)
+        rows, seg, pos = flatten_keys(sets, lambda k: host_rows(t, k, _placement_rpb(t)))
+        rid_want = {
+            "readid_counts": single.readid_counts(sets, 3),
+            "readid_counts_arrays": single.readid_counts_arrays(rows, seg, pos, len(sets), 3),
+            "readid_counts_packed": single.readid_counts_packed(
+                inp["packed"], seg, pos, len(sets), 3, 27),
+            "readid_firsthit": single.readid_firsthit(sets, 3),
+        }
+        sr, n_u = single.search_reads(inp["words"], inp["lens"], k=27, L=150, filter_t=1)
+        rows_want = json.loads(json.dumps(rid.classify_batch(inp["batch"], single, 1, 1e-3, 3)))
+        for mesh in ("m14", "m12"):
+            tag = f"{mesh}.{kind}"
+            for what in ("search_keys", "born"):
+                got = [a[f"{tag}.{what}.{f}"] for f in ("counts", "all_valid", "and_all")]
+                np.testing.assert_array_equal(got[0], want.counts)
+                assert bool(got[1]) == want.all_valid
+                np.testing.assert_array_equal(got[2], want.and_all)
+            for name, arr in rid_want.items():
+                np.testing.assert_array_equal(a[f"{tag}.{name}"], arr, err_msg=name)
+            np.testing.assert_array_equal(a[f"{tag}.search_reads.counts"], sr.counts)
+            assert int(a[f"{tag}.search_reads.n_u"]) == n_u > 1000
+            assert json.loads(str(a[f"{tag}.classify_batch"])) == rows_want
+            assert not a[f"{tag}.stream"] and a[f"{tag}.born.equal_blocks"]
+
+
+@pytest.mark.cuda
+def test_a_model_shard_is_copied_down_its_column(cuda_device, tmp_path):
+    """A (2, 2) row mesh over (card, cpu, cpu): shard (1, 0) reads a CPU
+    copy of model shard 0 and shard (1, 1) a card copy of model shard 1,
+    as JAX replicates a model shard down the data axis; search_keys,
+    readid_counts and search_reads equal the single-device engine's."""
+    from colorid_tpu_torch import ShardedQueryEngine
+    from colorid_tpu_torch.parallel import sharded
+
+    gs = ts.genomes(8, 20_000, seed=3)
+    _man, refs = ts.write_panel(tmp_path, gs)
+    index = build_index(refs, 1 << 18, 2, 27, verbose=False)
+    mesh = sharded.make_mesh(2, 2, "row", devices=[cuda_device, "cpu", "cpu"])
+    eng = ShardedQueryEngine(index, mesh=mesh, layout="row")
+    assert [m.device.type for m in eng.mat] == ["cuda", "cpu"]
+    assert {k: v.device.type for k, v in eng.mat.replicas.items()} == {
+        (1, 0): "cpu", (1, 1): "cuda"}
+    assert torch.equal(eng.mat.replicas[(1, 0)], eng.mat[0].cpu())
+    single = QueryEngine(index, device=cuda_device)
+    rd = ts.reads(gs, 400, 150, seed=4)
+    keys = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        np.random.default_rng(5).integers(0, 4, (5000, 27))]
+    keys[:2000] = rd[:, :27].repeat(5, axis=0)[:2000]
+    got, want = eng.search_keys(keys), single.search_keys(keys)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    assert got.all_valid == want.all_valid and got.freq_stats() == want.freq_stats()
+    from colorid_tpu_torch.core.kmers import kmer_set
+    from colorid_tpu_torch.ops.extract import pack_reads
+
+    sets = [kmer_set([r], 27) for r in rd[:50]]
+    np.testing.assert_array_equal(eng.readid_counts(sets, 3), single.readid_counts(sets, 3))
+    lens = np.full(rd.shape[0], 150, dtype=np.int32)
+    (s0, n0), (s1, n1) = (e.search_reads(pack_reads(rd), lens, k=27, L=150)
+                          for e in (eng, single))
+    assert n0 == n1 > 0
+    np.testing.assert_array_equal(s0.counts, s1.counts)
+
+
+@pytest.mark.cuda
+def test_placement_over_several_cards(cuda_device, tmp_path):
+    """A (2, 2) row mesh over every card of the machine (two or more):
+    shard (d, m) on card d * 2 + m (modulo the count), model shards copied
+    down their columns; the v4 index's stream per row shard and the
+    classic index's generic gather equal the single-device engine."""
+    from colorid_tpu_torch import ShardedQueryEngine
+    from colorid_tpu_torch.parallel import sharded
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    gs = ts.genomes(8, 20_000, seed=3)
+    _man, refs = ts.write_panel(tmp_path, gs)
+    keys = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        np.random.default_rng(5).integers(0, 4, (5000, 27))]
+    keys[:2000] = ts.reads(gs, 2000, 27, seed=4)
+    cards = [f"cuda:{i}" for i in range(min(n, 4))]
+    for kw in ({}, dict(blocked=True)):
+        index = build_index(refs, 1 << 18, 2, 27, verbose=False, **kw)
+        eng = ShardedQueryEngine(index, layout="row",
+                                 mesh=sharded.make_mesh(2, 2, "row", devices=cards))
+        for d in range(2):
+            for m in range(2):
+                want = (d * 2 + m) % len(cards)
+                assert eng.mesh.device(m, d).index == want
+                assert sharded._shard(eng.mat, m, d).device.index == want
+        assert eng._stream == bool(kw)
+        got = eng.search_keys(keys)
+        want = QueryEngine(index, device=cuda_device).search_keys(keys)
+        np.testing.assert_array_equal(got.counts, want.counts)
+        assert got.all_valid == want.all_valid and got.freq_stats() == want.freq_stats()

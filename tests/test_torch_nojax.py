@@ -1,9 +1,11 @@
-"""The port stands alone: no module of colorid_tpu_torch imports jax or the
+"""The port stands alone: no module of colorid_tpu_torch, nor
+chip_smoke.py, nor the process-mesh worker of the tests, imports jax or the
 JAX package colorid_tpu (checked on the source, and in a fresh interpreter
 that builds (on the host and with --device-build), searches and classifies
 reads through the port's CLI, runs a sharded search on a logical mesh (also
 over a matrix born sharded), classifies reads and counts their k-mers on
-that mesh, and answers a /search through the port's HTTP server), its
+that mesh, runs the process-mesh collectives and mesh over a process group
+of one, and answers a /search through the port's HTTP server), its
 native library is its own, and its entry points default to the CUDA card
 and refuse to fall back to the CPU when there is none."""
 
@@ -47,6 +49,8 @@ def test_no_module_imports_jax_or_the_jax_package():
         if f.endswith(".py")
     ]
     assert len(files) > 20
+    files += [os.path.join(ROOT, "chip_smoke.py"),
+              os.path.join(ROOT, "tests", "torch_process_mesh_worker.py")]
     bad = {
         (os.path.relpath(p, ROOT), m)
         for p in files
@@ -143,6 +147,23 @@ _SCRIPT = textwrap.dedent("""
     assert n_u == want_n > 0 and (got.counts == want.counts).all()
     assert got.freq_stats() == want.freq_stats()
     assert "colorid_tpu_torch.ops.extract" in sys.modules
+    # the process-mesh collectives and a mesh made inside a process group
+    # (of one process: the mesh stays in-process)
+    import socket
+    import torch
+    import torch.distributed as dist
+    from colorid_tpu_torch.parallel import distributed
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0, backend="gloo")
+    x = torch.tensor([[6, 3], [-1, 9]])
+    assert distributed.global_devices(["cpu"]) == [(0, "cpu")]
+    for fn in (distributed.all_sum, distributed.all_min, distributed.all_and,
+               distributed.all_cat):
+        assert torch.equal(fn(x), x)
+    assert not sharded.make_mesh(1, 2, "row", devices=["cpu"]).spans_processes
+    dist.destroy_process_group()
     # the HTTP server on the v4 index: /search counts on the device through
     # the fused reads path
     import json, threading, urllib.request

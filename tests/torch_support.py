@@ -4,6 +4,9 @@ so both packages see the same bytes."""
 
 import gzip
 import os
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -13,6 +16,8 @@ import torch
 # intra-op thread per core in each of them oversubscribes the CPU and slows
 # the port's tests tenfold
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 _COMP = np.zeros(256, dtype=np.uint8)
@@ -212,3 +217,85 @@ def write_pairs(d, pairs, name: str = "pairs"):
                 seq, qual = p[2 * m], p[2 * m + 1]
                 f.write(b"@pair%d %d\n%s\n+\n%s\n" % (j, m + 1, seq, qual))
     return paths[0], paths[1]
+
+
+def launch_two(argv_of, timeout: int = 180) -> list[str]:
+    """Two processes, argv_of(rank, "host:port") each, on a free local
+    port; fails unless both exit 0 within ``timeout`` seconds. Returns
+    their standard outputs."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, *argv_of(r, coord)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def write_mesh_inputs(d: str, gs, K: int, L: int) -> dict:
+    """The workers' inputs: k-mers and frequencies for search_keys (the
+    reads' k-mers and random ones; some frequencies past FREQ_CAP), per-read
+    k-mer sets in FnvHashSet order with their 2-bit packed keys, reads for
+    search_reads (1,100 copies of one: the overflow list) and for
+    classify_batch (ties, junk, too short, lowercase), for
+    tests/torch_process_mesh_worker.py; gs as from genomes(), genome 1
+    repeating genome 0's first 2 kbp."""
+    from colorid_tpu_torch.core.kmers import kmer_set
+    from colorid_tpu_torch.ops.blocked import pack_keys_u64
+    from colorid_tpu_torch.ops.extract import pack_reads
+    from colorid_tpu_torch.pipelines.read_id import _fnv_order_keys
+
+    rng = np.random.default_rng(31)
+    rd = reads(gs[:3], 300, L, seed=32, sub_rate=0.005)
+    rd[:40] = rd[40:80]  # repeats: frequencies above 1
+    keys = np.concatenate([kmer_set(list(rd[:120]), K), ACGT[rng.integers(0, 4, (300, K))]])
+    qcounts = rng.integers(1, 5, keys.shape[0]).astype(np.int32)
+    qcounts[::97] = 1100
+    sets = []
+    for i in range(40):
+        g = gs[0] if i % 6 == 0 else gs[int(rng.integers(0, len(gs)))]
+        s = int(rng.integers(0, 1850 if i % 6 == 0 else len(g) - L))
+        read = g[s:s + L].copy()
+        if i % 5 == 0:
+            read[75:] = ACGT[rng.integers(0, 4, 75)]  # absent k-mers: the break
+        sets.append(_fnv_order_keys(kmer_set([read], K)))
+    sets.append(np.zeros((0, K), dtype=np.uint8))  # a read without k-mers
+    v = pack_keys_u64(np.concatenate(sets))
+    packed = np.stack([(v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                       (v >> np.uint64(32)).astype(np.uint32)], axis=1)
+    sr = np.concatenate([rd, np.repeat(gs[2][None, 1000:1000 + L], 1100, axis=0)])
+    lens = rng.integers(100, L + 1, sr.shape[0]).astype(np.int32)
+    lens[300:] = L
+    batch = []
+    for i in range(60):
+        if i % 7 == 3:
+            read = ACGT[rng.integers(0, 4, 20)]  # too short
+        elif i % 7 == 5:
+            read = ACGT[rng.integers(0, 4, L)]  # junk
+        else:
+            g = gs[0] if i % 3 == 0 else gs[int(rng.integers(0, len(gs)))]
+            s = int(rng.integers(0, 1850 if i % 3 == 0 else len(g) - L))
+            read = g[s:s + L].copy()
+        if i == 10:
+            read[30:40] += 32  # lowercase
+        batch.append(read)
+    inp = dict(keys=keys, qcounts=qcounts, set_keys=np.concatenate(sets),
+               set_lens=np.array([s.shape[0] for s in sets]), packed=packed,
+               words=pack_reads(sr), lens=lens, k=np.array(K), L=np.array(L),
+               batch_reads=np.concatenate(batch), batch_lens=np.array([len(r) for r in batch]))
+    np.savez(os.path.join(d, "inputs.npz"), **inp)
+    inp["sets"] = sets
+    inp["batch"] = [(f"r{i}", [r]) for i, r in enumerate(batch)]
+    return inp
