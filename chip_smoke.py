@@ -2,17 +2,28 @@
 """Smoke run of the PyTorch port (colorid_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare OTHER_ROOT
+
+With --compare it measures this checkout against the one at OTHER_ROOT (for
+example the parent commit, unpacked with git archive) on one cell, in the
+turns other, this, this, other, each a fresh process: the [parity],
+[reads], [fused] and [mproc] phases below with their [profile] lines. It
+prints no result line.
 
 Phases, each printing its lines (any failure exits non-zero):
 
 1. card: the card's name and power limit (nvidia-smi); build every CUDA
    kernel from csrc/ (set-up time).
-2. kernel: each kernel (classic_word, stream_probe, stream_probe_raw)
-   against its plain PyTorch twin on the card at its main path's shapes
-   (bitwise), with its time, the twin's, one PyTorch library call's where
-   one computes the same function, and the least time the card could take
-   (bound); stream_probe_raw also on stream_probe's inputs, as the time of
-   the gather that both share.
+2. kernel: each kernel (classic_word, stream_probe, stream_probe_raw, and
+   the hand kernels for code that the JAX package leaves to XLA: placement
+   and window_keys) against its plain PyTorch twin on the card at its main
+   path's shapes (bitwise), with its time, the twin's, one PyTorch library
+   call's where one computes the same function, and the least time the
+   card could take (bound: bytes, or for the two hand kernels also the
+   SASS instructions of their loop body at the card's issue rate);
+   stream_probe_raw also on stream_probe's inputs, as the time of the
+   gather that both share; placement and window_keys also across a grid
+   of k, H, bloom_size, layout, stride and N bases.
 3. main path, twice, through the port's CLI at the bench configuration's
    size (21 synthetic ~3 Mbp genomes, -k 31 -n 4 -s 50000000; search -f 1
    on 400,000 x 150 bp reads from 3 of them, its k-mers counted on the card
@@ -20,6 +31,8 @@ Phases, each printing its lines (any failure exits non-zero):
    a classic index (build) and a blocked one (build --blocked, layout v4,
    whose search -f 1 takes the fused reads path). Each path's kernel must
    have been launched while that path ran and while its search -f 1 ran,
+   placement while search -f 1 and search -s ran, window_keys while
+   search -f 1 ran (search -s counts its k-mers on the host),
    no stream batch may fall back, and the blocked TSV must be
    byte-identical with COLORID_STREAM=0.
 4. parity, for each index: the same search_keys through the generic gather
@@ -125,6 +138,7 @@ N_GENOMES, GENOME_LEN, N_SOURCES = 21, 3_000_000, 3
 N_READS, READ_LEN, SUB_RATE = 400_000, 150, 0.005
 SEED = 2026
 DEVICE = "cuda"  # the CPU rehearsal of phases 3-4 sets "cpu"
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -502,6 +516,306 @@ def raw_kernel_phase(card: str) -> dict:
     }
 
 
+# -- hand kernels for code that XLA compiles in the JAX package ----------------
+
+GRID_K = (4, 7, 8, 9, 15, 16, 17, 27, 31, 32)  # each XXH3 length class and its edges
+
+
+def max_sm_mhz() -> float:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if r.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
+    return float(r.stdout.strip().splitlines()[0])
+
+
+def issue_ms(n_instr: float) -> float:
+    """The least time the card takes to issue n_instr thread instructions:
+    one warp instruction per clock on each of an SM's four schedulers, at
+    the card's maximum SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_instr / (sms * 4 * 32 * max_sm_mhz() * 1e6) * 1e3
+
+
+def sass_loop_instructions(source: str, instance: str):
+    """Instructions in the innermost loop of the kernel instance whose
+    mangled name holds ``instance`` (cuobjdump -sass of the library built
+    from ``source``): what a thread issues per item where the loop body is
+    straight code. None where the toolkit has no cuobjdump."""
+    import re
+
+    from colorid_tpu_torch.ops import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    r = subprocess.run([tool, "-sass", kernels._so_path(source)],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        return None
+    spans, inside = [], False
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = instance in m.group(1)
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+[^;]*\bBRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", line)
+        if inside and m and int(m.group(2), 16) < int(m.group(1), 16):
+            spans.append((int(m.group(1), 16) - int(m.group(2), 16)) // 16 + 1)
+    return min(spans) if spans else None
+
+
+def _bound(n_bytes: int, n_items: int, instr) -> tuple[float, str, str]:
+    """(bound_ms, bound_by, how) from the bytes moved and, where the SASS
+    count is known, the instructions issued."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    if instr is None:
+        return bytes_ms, "bytes", f"bytes={n_bytes} ({bytes_ms:.4f} ms); operations: not measured (no cuobjdump)"
+    ops_ms = issue_ms(n_items * instr)
+    how = (f"bytes={n_bytes} ({bytes_ms:.4f} ms); operations: {instr} SASS instructions "
+           f"per item x {n_items} ({ops_ms:.4f} ms)")
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", how
+
+
+def _as_i32(x):
+    """int64 values in [0, 2^32) -> their int32 bit pattern."""
+    import torch
+
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _rand_kmers(g, n: int, k: int):
+    """Packed int32 [n, 2] (the (lo, hi) bit views) of n random 2k-bit
+    k-mer values on the card."""
+    import torch
+
+    lo = torch.randint(0, 2 ** min(2 * k, 32), (n,), generator=g, dtype=torch.int64,
+                       device="cuda")
+    hi = torch.randint(0, 2 ** max(2 * k - 32, 0), (n,), generator=g, dtype=torch.int64,
+                       device="cuda")
+    return torch.stack([_as_i32(lo), _as_i32(hi)], dim=1)
+
+
+def _key_of(packed):
+    """The sort keys (ops/extract.py::_sort_key) of packed k-mers."""
+    import torch
+
+    from colorid_tpu_torch.ops.extract import _sort_key
+
+    p = packed.to(torch.int64) & 0xFFFFFFFF
+    return _sort_key(p[:, 0], p[:, 1])
+
+
+def max_abs_diff(a, b) -> int:
+    """The largest |a - b| over two integer tensors of one shape, exact
+    (the differences of int64 keys can overflow int64, so the few that
+    differ are taken as Python ints)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"kernel output {a.dtype} {tuple(a.shape)} against twin "
+                             f"{b.dtype} {tuple(b.shape)}")
+    ne = a != b
+    if not bool(ne.any()):
+        return 0
+    return max(abs(x - y) for x, y in zip(a[ne].tolist(), b[ne].tolist()))
+
+
+def placement_err(a, b) -> int:
+    """max_abs_diff over placement's rows, or its block and offsets."""
+    if isinstance(a, tuple):
+        return max([max_abs_diff(a[0], b[0])] + [max_abs_diff(x, y) for x, y in zip(a[1], b[1])])
+    return max_abs_diff(a, b)
+
+
+def placement_kernel_phase(card: str) -> dict:
+    """The placement kernel against its twin, bitwise: on the classic main
+    path's batch (8,558,315 k-mers of -k 31 -n 4 -s 50000000, padded to
+    the stream's EPC_CL), on the v4 batch (9,437,184 slots, 390,625 blocks
+    of rpb 128, from packed k-mers and from sort keys), and across k, H,
+    bloom_size, layout and output (a grid of 20,000 k-mers each); times of
+    both main-path batches."""
+    import torch
+
+    from colorid_tpu_torch.ops import hash_torch as ht
+    from colorid_tpu_torch.ops.stream_query import EPC_CL
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n_live = 8_558_315
+    P0 = -(-n_live // EPC_CL) * EPC_CL
+    classic = torch.zeros((P0, 2), dtype=torch.int32, device="cuda")
+    classic[:n_live] = _rand_kmers(g, n_live, K)
+    P4 = 9 * (1 << 20)
+    v4 = torch.zeros((P4, 2), dtype=torch.int32, device="cuda")
+    v4[:n_live] = _rand_kmers(g, n_live, K)
+    ckw = dict(k=K, num_hash=HASHES, bloom_size=BLOOM)
+    vkw = dict(k=K, num_hash=HASHES, bloom_size=BLOOM, rpb=128, version=4, blkoff=True)
+    n_checked, errs = 0, {}
+    for what, src, kw in (("classic", classic, ckw), ("v4", v4, vkw),
+                          ("v4 sort keys", _key_of(v4), vkw)):
+        got, want = ht.placement(src, **kw), ht.placement_plain(src, **kw)
+        errs[what] = placement_err(got, want)
+        if errs[what]:
+            raise AssertionError(f"placement kernel != twin ({what}): max_abs_err {errs[what]}")
+        n_checked += 1
+        del got, want
+    errs["grid"] = 0
+    # the grid: every length class, H, modulus, layout and output, from
+    # packed k-mers and from sort keys with sentinels among them
+    for k in GRID_K:
+        pk = _rand_kmers(g, 20_000, k)
+        sk = _key_of(pk)
+        sk[::97] = 2**63 - 1
+        for src in (pk, sk):
+            for H in (1, 2, 4, 8):
+                for bloom in (1_000_003, 2**31 - 1):
+                    cases = [dict()] + [
+                        dict(rpb=128, version=v, blkoff=b) for v in (1, 2, 3, 4)
+                        for b in (False, True)
+                    ]
+                    for c in cases:
+                        kw = dict(k=k, num_hash=H, bloom_size=bloom, **c)
+                        err = placement_err(ht.placement(src, **kw),
+                                            ht.placement_plain(src, **kw))
+                        errs["grid"] = max(errs["grid"], err)
+                        if err:
+                            raise AssertionError(f"placement kernel != twin ({kw}): "
+                                                 f"max_abs_err {err}")
+                        n_checked += 1
+    log(f"[kernel] placement: bitwise equal to its twin (max_abs_err "
+        f"{', '.join(f'{w} {e}' for w, e in errs.items())}) on the classic batch "
+        f"(P={P0}, {n_live} k-mers, k {K}, H {HASHES}, bloom {BLOOM}), the v4 batch "
+        f"(P={P4}, {BLOOM // 128} blocks of rpb 128; packed and sort keys) and a grid "
+        f"of k {list(GRID_K)} x H 1/2/4/8 x bloom 1,000,003 / 2^31-1 x classic, v1-v4 "
+        f"rows and block/offsets x packed / sort keys: {n_checked} cases on {card}")
+    out = {}
+    for what, src, kw, instance, out_bytes in (
+        ("classic", classic, ckw, "placement_kernelILi2ELi4ELb0E", 4 * HASHES),
+        ("v4", v4, vkw, "placement_kernelILi7ELi4ELb1E", 8 * (HASHES + 1)),
+    ):
+        ms = cuda_ms(lambda: ht.placement(src, **kw), 20)
+        plain_ms = cuda_ms(lambda: ht.placement_plain(src, **kw), 3)
+        n = src.shape[0]
+        instr = sass_loop_instructions("placement.cu", instance)
+        bound_ms, bound_by, how = _bound(n * (8 + out_bytes), n, instr)
+        log(f"[kernel] placement {what} P={n} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=null (no single PyTorch call hashes or places k-mers) "
+            f"bound_ms={bound_ms:.4f} bound_by={bound_by} ({how}) on {card}")
+        out[what] = (ms, plain_ms, bound_ms, bound_by)
+    del classic, v4
+    torch.cuda.empty_cache()
+    ms, plain_ms, bound_ms, bound_by = out["classic"]
+    return {
+        "name": "placement",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/placement.cu",
+        "replaces": "colorid_tpu/ops/hash_jax.py:438",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max(errs.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "v4_ms": out["v4"][0],
+        "v4_plain_ms": out["v4"][1],
+        "v4_bound_ms": out["v4"][2],
+    }
+
+
+def _rand_reads(g, R: int, L: int, n_len: int, p_n: float):
+    """R random reads of true length n_len in words of padded length L on
+    the card, a fraction p_n of their bases N: (words int32 [R, ceil(L/16)],
+    lens int32 [R], validity bits int32 [R, ceil(L/32)]), as
+    ops/extract.py::pack_reads_valid packs them."""
+    import torch
+
+    codes = torch.randint(0, 4, (R, L), generator=g, dtype=torch.int64, device="cuda")
+    ok = torch.rand((R, L), generator=g, device="cuda") >= p_n
+    ok[:, n_len:] = False
+    codes = torch.where(ok, codes, 0)
+    Lw, Lv = -(-L // 16), -(-L // 32)
+    cw = torch.zeros((R, Lw * 16), dtype=torch.int64, device="cuda")
+    cw[:, :L] = codes
+    shifts = 2 * (15 - torch.arange(16, device="cuda"))
+    words = (cw.view(R, Lw, 16) << shifts).sum(dim=2)
+    ov = torch.zeros((R, Lv * 32), dtype=torch.int64, device="cuda")
+    ov[:, :L] = ok.to(torch.int64)
+    vbits = (ov.view(R, Lv, 32) << torch.arange(32, device="cuda")).sum(dim=2)
+    lens = torch.full((R,), n_len, dtype=torch.int32, device="cuda")
+    return _as_i32(words), lens, _as_i32(vbits)
+
+
+def window_keys_kernel_phase(card: str) -> dict:
+    """The window-key kernel against its twin, bitwise: on the reads cell's
+    shape (400,000 reads of 150 bp in words of 160 bases, k 31: 52,000,000
+    windows, with the validity bitplane and 0.1 % N bases) and on a grid of
+    k, stride d, read length and bitplane (2,000 reads each, N bases, true
+    lengths down to 1); its time there."""
+    import torch
+
+    from colorid_tpu_torch.ops import extract as te
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    L = max(64, -(-READ_LEN // 32) * 32)  # the reads path's padded length: 160
+    words, lens, vbits = _rand_reads(g, N_READS, L, READ_LEN, 0.001)
+    kw = dict(k=K, L=L, d=1)
+    got = te.window_keys(words, lens, vbits, **kw)
+    want = te._window_keys(words, lens, vbits, K, L, 1)
+    errs = {"cell": max_abs_diff(got, want), "grid": 0}
+    if errs["cell"]:
+        raise AssertionError(f"window_keys kernel != twin (the reads cell): max_abs_err "
+                             f"{errs['cell']}")
+    n_sent = int((got == te.SENT_KEY).sum())
+    del got, want
+    n_checked = 1
+    for k in GRID_K:
+        for Lg in (33, 150, 160):
+            if Lg < k:
+                continue
+            w, ln, vb = _rand_reads(g, 2000, Lg, Lg, 0.01)
+            ln = torch.randint(1, Lg + 1, (2000,), generator=g, dtype=torch.int32, device="cuda")
+            for d in (1, 3):
+                for v in (vb, None):
+                    err = max_abs_diff(te.window_keys(w, ln, v, k=k, L=Lg, d=d),
+                                       te._window_keys(w, ln, v, k, Lg, d))
+                    errs["grid"] = max(errs["grid"], err)
+                    if err:
+                        raise AssertionError(f"window_keys kernel != twin (k={k} L={Lg} "
+                                             f"d={d}): max_abs_err {err}")
+                    n_checked += 1
+    ms = cuda_ms(lambda: te.window_keys(words, lens, vbits, **kw), 20)
+    plain_ms = cuda_ms(lambda: te._window_keys(words, lens, vbits, K, L, 1), 3)
+    n_win = N_READS * (L - K + 1)
+    n_bytes = 4 * (words.numel() + lens.numel() + vbits.numel()) + 8 * n_win
+    instr = sass_loop_instructions("window_keys.cu", "window_keys_kernelILb1ELb0E")
+    bound_ms, bound_by, how = _bound(n_bytes, n_win, instr)
+    log(f"[kernel] window_keys: bitwise equal to its twin (max_abs_err cell "
+        f"{errs['cell']}, grid {errs['grid']}) on {N_READS} reads x {L} "
+        f"({n_win} windows, {n_sent} of them SENT_KEY) and on a grid of k {list(GRID_K)} "
+        f"x L 33/150/160 x d 1/3 x with/without the bitplane: {n_checked} cases on {card}")
+    log(f"[kernel] window_keys windows={n_win} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=null (no single PyTorch call extracts canonical windows) "
+        f"bound_ms={bound_ms:.4f} bound_by={bound_by} ({how}) on {card}")
+    del words, lens, vbits
+    torch.cuda.empty_cache()
+    return {
+        "name": "window_keys",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/window_keys.cu",
+        "replaces": "colorid_tpu/ops/extract.py:151",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": max(errs.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 # -- phase 3: the main paths through the CLI ----------------------------------
 
 
@@ -572,20 +886,43 @@ def _check_tsv(tsv, perfect, sources, what: str) -> list:
     return rows
 
 
-def _searches(tmp: str, bxi: str, fq: str, kernel):
+def _searches(tmp: str, bxi: str, fq: str, kernels):
     """search -f 1 on the reads (the default route: k-mers counted on the
     card, QueryEngine.search_reads) and search -s on one genome, timed;
-    also the launches of ``kernel`` (a wrapper with a count) while search
-    -f 1 ran."""
-    before = kernel.launches
+    also, per wrapper of ``kernels`` (each with a count), its launches
+    while each of the two ran: {name: (search -f 1, search -s)}."""
+    before = [kn.launches for kn in kernels]
     t0 = time.time()
     tsv = cli(["search", "-b", bxi, "-q", fq, "-f", "1", "--device", DEVICE])
     t_search = time.time() - t0
-    reads_launches = kernel.launches - before
+    mid = [kn.launches for kn in kernels]
     t0 = time.time()
     perfect = cli(["search", "-b", bxi, "-s", "--device", DEVICE,
                    "-q", os.path.join(tmp, "genome01.fasta")])
-    return tsv, perfect, t_search, time.time() - t0, reads_launches
+    t_perfect = time.time() - t0
+    used = {kn.__name__: (m - b, kn.launches - m) for kn, b, m in zip(kernels, before, mid)}
+    return tsv, perfect, t_search, t_perfect, used
+
+
+def _new_kernels():
+    """The placement and window-key wrappers (each with a count)."""
+    from colorid_tpu_torch.ops.extract import window_keys
+    from colorid_tpu_torch.ops.hash_torch import placement
+
+    return placement, window_keys
+
+
+def _check_new_kernels(used: dict, what: str) -> None:
+    """On the card, search -f 1 must have placed its k-mers and extracted
+    its windows through the kernels, and search -s (k-mers counted on the
+    host, as the reference does) placed its k-mers through the kernel."""
+    if DEVICE != "cuda":
+        return
+    if min(used["placement"]) == 0 or used["window_keys"][0] == 0:
+        raise AssertionError(
+            f"{what}: search -f 1 and search -s did not run through the placement "
+            f"and window-key kernels (launches in (search -f 1, search -s): {used})"
+        )
 
 
 def classic_path_phase(tmp: str, inputs, card: str):
@@ -614,18 +951,22 @@ def classic_path_phase(tmp: str, inputs, card: str):
         cli(["build", "-k", str(K), "-n", str(HASHES), "-s", str(BLOOM),
              "-b", prefix, "-r", man, "-t", "8"])
         t_build = time.time() - t0
-        tsv, perfect, t_search, t_perfect, reads_launches = _searches(
-            tmp, prefix + ".bxi", fq, sq.classic_words)
+        tsv, perfect, t_search, t_perfect, used = _searches(
+            tmp, prefix + ".bxi", fq, (sq.classic_words, *_new_kernels()))
     finally:
         sq.stream_accumulate_classic_exact = stream_fn
     launches = sq.classic_words.launches
+    reads_launches = used["classic_words"][0]
     sizes = [n for n, _ in batches]
     n_drop = sum(int(nd) for _, nd in batches)
     rows = _check_tsv(tsv, perfect, sources, "classic")
     log(f"[main] classic: build {t_build:.1f}s; search -f 1 {t_search:.1f}s "
         f"({rows[0][1]} k-mers, counted on the device; classic_word launches "
         f"{reads_launches}); search -s {t_perfect:.1f}s; classic_word "
-        f"launches={launches}; stream batches={sizes} n_drop={n_drop} on {card}")
+        f"launches={launches}; stream batches={sizes} n_drop={n_drop}; launches in "
+        f"(search -f 1, search -s): placement {used['placement']}, window_keys "
+        f"{used['window_keys']} on {card}")
+    _check_new_kernels(used, "classic")
     if DEVICE == "cuda" and (launches == 0 or reads_launches == 0):
         raise AssertionError(
             "the main path did not run search -f 1 and search -s through the "
@@ -676,12 +1017,13 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         cli(["build", "--blocked", "-k", str(K), "-n", str(HASHES), "-s", str(BLOOM),
              "-b", prefix, "-r", man, "-t", "8"])
         t_build = time.time() - t0
-        tsv, perfect, t_search, t_perfect, reads_launches = _searches(
-            tmp, prefix + ".bxi", fq, sq.stream_probe)
+        tsv, perfect, t_search, t_perfect, used = _searches(
+            tmp, prefix + ".bxi", fq, (sq.stream_probe, *_new_kernels()))
     finally:
         for (o, n, _), fn in zip(owners, saved):
             setattr(o, n, fn)
     launches = sq.stream_probe.launches
+    reads_launches = used["stream_probe"][0]
     sizes = [n for n, _ in segments]
     n_drop = sum(int(nd) for _, nd in segments)
     index = BigsiIndex.load(prefix + ".bxi")
@@ -690,7 +1032,10 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         f"build --blocked {t_build:.1f}s; search -f 1 {t_search:.1f}s "
         f"({rows[0][1]} k-mers, counted on the device; stream_probe launches "
         f"{reads_launches}); search -s {t_perfect:.1f}s; stream_probe "
-        f"launches={launches}; streamed segments={sizes} n_drop={n_drop} on {card}")
+        f"launches={launches}; streamed segments={sizes} n_drop={n_drop}; launches in "
+        f"(search -f 1, search -s): placement {used['placement']}, window_keys "
+        f"{used['window_keys']} on {card}")
+    _check_new_kernels(used, "blocked")
     if index.blocked != 4:
         raise AssertionError(f"build --blocked chose layout {index.blocked}, not v4")
     if len(segments) < 2 or n_drop or (
@@ -704,7 +1049,7 @@ def blocked_path_phase(tmp: str, inputs, card: str):
     # the same searches with the stream off: byte-identical TSV
     os.environ["COLORID_STREAM"] = "0"
     try:
-        tsv0, perfect0, *_ = _searches(tmp, prefix + ".bxi", fq, sq.stream_probe)
+        tsv0, perfect0, *_ = _searches(tmp, prefix + ".bxi", fq, (sq.stream_probe,))
     finally:
         os.environ.pop("COLORID_STREAM")
     if tsv0 != tsv or perfect0 != perfect or sq.stream_probe.launches != launches:
@@ -1084,6 +1429,91 @@ def _check_calls(reads_txt: bytes, src, len1, what: str) -> float:
     return ok / n_src
 
 
+def pack_fastq(fq: str):
+    """The reads of a FASTQ as the reads path takes them: (sequences, their
+    padded length L, (words uint32 [R, L/16], lens int32 [R], validity bits
+    uint32 [R, L/32]))."""
+    import numpy as np
+
+    from colorid_tpu_torch.core.fastx import stream_fastq
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+
+    seqs = [s for _id, s in stream_fastq(fq, 15)]
+    L = max(64, -(-max(len(s) for s in seqs) // 32) * 32)
+    rb = np.zeros((len(seqs), L), dtype=np.uint8)
+    for j, s in enumerate(seqs):
+        rb[j, : len(s)] = s
+    words, vbits = pack_reads_valid(rb)
+    return seqs, L, (words, np.array([len(s) for s in seqs], dtype=np.int32), vbits)
+
+
+def on_device(arrays) -> list:
+    """Host arrays on DEVICE, uint32 as its int32 bit view."""
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(DEVICE)
+            for a in arrays]
+
+
+def search_reads_phase(name: str, bxi: str, dev, L: int, query, mates, card: str):
+    """QueryEngine.search_reads on device-resident reads (dev: words, lens,
+    validity bits) against search_keys on their host-counted k-mers (query:
+    keys, qcounts, packed): k-mers/s (best of 2, one fetch each) and, on the
+    card, the device breakdown of one call and of one order-free read_id
+    dispatch of the first N_PROFILE pairs of mates. Returns the answer."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+    from colorid_tpu_torch.ops.query import query_readid_orderfree_reads
+
+    keys, qcounts, packed = query
+    eng = QueryEngine(BigsiIndex.load(bxi), device=DEVICE)
+    want = eng.search_keys(keys, qcounts=qcounts, packed_all=packed, k=K)
+    kernel = sq.classic_words if name == "classic" else sq.stream_probe
+    before = kernel.launches
+    rates = []
+    for _ in range(2):
+        sync()
+        t0 = time.time()
+        got, n_u = eng.search_reads(*dev, k=K, L=L, filter_t=1)
+        rates.append(n_u / (time.time() - t0))
+    launches = kernel.launches - before
+    if n_u != keys.shape[0] or not same_result(got, want):
+        raise AssertionError(f"{name}: search_reads != search_keys on host-counted k-mers")
+    if DEVICE == "cuda" and launches < 2:
+        raise AssertionError(f"{name}: search_reads did not launch {kernel.__name__}")
+    R = dev[0].shape[0]
+    log(f"[reads] {name}: search_reads on {R} device-resident reads ({R * (L - K + 1)} "
+        f"windows) == search_keys on {n_u} host-counted k-mers; {max(rates):.0f} k-mers/s "
+        f"(best of 2, one fetch each; {kernel.__name__} launches {launches}) on {card}")
+    if DEVICE == "cuda":
+        profile_dispatch(
+            lambda: eng.search_reads(*dev, k=K, L=L, filter_t=1)[1],
+            f"search_reads {name}", card, label="search_reads",
+        )
+        # one order-free dispatch of N_PROFILE pairs, inputs on the card
+        pw, pv = pack_reads_valid(mates[:N_PROFILE].reshape(-1, READ_LEN))
+        pl = torch.full((2 * N_PROFILE,), READ_LEN, dtype=torch.int32, device=DEVICE)
+        pw, pv = (torch.from_numpy(a.view(np.int32)).to(DEVICE) for a in (pw, pv))
+        geo = eng._reads_geometry(K, 160)
+        log(f"[profile] readid {name}: {N_PROFILE} pairs, "
+            f"{2 * N_PROFILE * (160 - K + 1)} windows")
+        profile_dispatch(
+            lambda: query_readid_orderfree_reads(
+                eng.blocks2, pw, pl, pv, num_reads=N_PROFILE, nm=2, d=1, **geo),
+            f"readid {name}", card, label="order-free",
+        )
+    del eng
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return got, n_u
+
+
 def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str) -> dict:
     """Returns what the fused, serve and sharded reads phases reuse: the
     reads on the card (words, lens, validity bits) and their padded length
@@ -1092,14 +1522,7 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
     blocked index's read_id outputs with its pairs/s and classify_batch
     seconds."""
     import numpy as np
-    import torch
 
-    from colorid_tpu_torch.core.fastx import stream_fastq
-    from colorid_tpu_torch.engine import QueryEngine
-    from colorid_tpu_torch.index.bigsi import BigsiIndex
-    from colorid_tpu_torch.ops import stream_query as sq
-    from colorid_tpu_torch.ops.extract import pack_reads_valid
-    from colorid_tpu_torch.ops.query import query_readid_orderfree_reads
     from colorid_tpu_torch.pipelines.search import _count_query_kmers
 
     t0 = time.time()
@@ -1181,16 +1604,9 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
     # device k-mer counting: CLI search -f 1, and search_reads vs search_keys
     fq = inputs[1]
     with contextlib.redirect_stderr(io.StringIO()):
-        keys, qcounts, packed = _count_query_kmers(fq, None, K, 15, 1, False)
-        seqs = [s for _id, s in stream_fastq(fq, 15)]
-    L = max(64, -(-max(len(s) for s in seqs) // 32) * 32)
-    rb = np.zeros((len(seqs), L), dtype=np.uint8)
-    for j, s in enumerate(seqs):
-        rb[j, : len(s)] = s
-    words, vbits = pack_reads_valid(rb)
-    lens = np.array([len(s) for s in seqs], dtype=np.int32)
-    dev = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(DEVICE)
-           for a in (words, lens, vbits)]
+        query = _count_query_kmers(fq, None, K, 15, 1, False)
+    seqs, L, packed_reads = pack_fastq(fq)
+    dev = on_device(packed_reads)
     for name, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
         secs, tsvs = [], []
         for flag in ("1", "0"):
@@ -1203,47 +1619,9 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
                 os.environ.pop("COLORID_SEARCH_READS")
         if tsvs[0] != tsvs[1] or not tsvs[0]:
             raise AssertionError(f"{name}: search -f 1 TSV differs with device counting")
-        eng = QueryEngine(BigsiIndex.load(bxi), device=DEVICE)
-        want = eng.search_keys(keys, qcounts=qcounts, packed_all=packed, k=K)
-        kernel = sq.classic_words if name == "classic" else sq.stream_probe
-        before = kernel.launches
-        rates = []
-        for _ in range(2):
-            sync()
-            t0 = time.time()
-            got, n_u = eng.search_reads(*dev, k=K, L=L, filter_t=1)
-            rates.append(n_u / (time.time() - t0))
-        launches = kernel.launches - before
-        if n_u != keys.shape[0] or not same_result(got, want):
-            raise AssertionError(f"{name}: search_reads != search_keys on host-counted k-mers")
-        if DEVICE == "cuda" and launches < 2:
-            raise AssertionError(f"{name}: search_reads did not launch {kernel.__name__}")
         log(f"[reads] {name}: CLI search -f 1 TSV byte-identical, device counting "
-            f"{secs[0]:.2f}s vs host counting {secs[1]:.2f}s; search_reads on "
-            f"{len(seqs)} device-resident reads ({words.shape[0] * (L - K + 1)} windows) "
-            f"== search_keys on {n_u} host-counted k-mers; {max(rates):.0f} k-mers/s "
-            f"(best of 2, one fetch each; {kernel.__name__} launches {launches}) on {card}")
-        if DEVICE == "cuda":
-            profile_dispatch(
-                lambda: eng.search_reads(*dev, k=K, L=L, filter_t=1)[1],
-                f"search_reads {name}", card, label="search_reads",
-            )
-            # one order-free dispatch of N_PROFILE pairs, inputs on the card
-            sel = np.arange(N_PROFILE)
-            pw, pv = pack_reads_valid(mates[sel].reshape(-1, READ_LEN))
-            pl = torch.full((2 * N_PROFILE,), READ_LEN, dtype=torch.int32, device=DEVICE)
-            pw, pv = (torch.from_numpy(a.view(np.int32)).to(DEVICE) for a in (pw, pv))
-            geo = eng._reads_geometry(K, 160)
-            log(f"[profile] readid {name}: {N_PROFILE} pairs, "
-                f"{2 * N_PROFILE * (160 - K + 1)} windows")
-            profile_dispatch(
-                lambda: query_readid_orderfree_reads(
-                    eng.blocks2, pw, pl, pv, num_reads=N_PROFILE, nm=2, d=1, **geo),
-                f"readid {name}", card, label="order-free",
-            )
-        del eng
-        if DEVICE == "cuda":
-            torch.cuda.empty_cache()
+            f"{secs[0]:.2f}s vs host counting {secs[1]:.2f}s on {card}")
+        search_reads_phase(name, bxi, dev, L, query, mates, card)
     return {"dev": dev, "L": L, "seqs": seqs, "mates": mates, "len1": len1,
             "pairs": full, "src": src, "blocked_all": os.path.join(d, "blocked_all"),
             "single": single["blocked"]}
@@ -2200,12 +2578,13 @@ def _result_of(out: dict, prefix: str):
 
 def mproc_worker(argv: list[str]) -> int:
     """One rank of the [mproc] phase (chip_smoke.py --mproc-worker RANK
-    HOST:PORT DIR DEVICE BACKEND): a (1, 4) row mesh of two shards per
-    rank over DIR's classic.bxi and blocked.bxi, every route of the phase
-    timed, its outputs, seconds, collective seconds (all_and and all_sum,
-    the row merges' collectives, each synchronised) and the card's
-    max_memory_allocated saved to DIR/rank<RANK>.npz. Prints no result
-    line."""
+    HOST:PORT DIR DEVICE BACKEND ROOT): a (1, 4) row mesh of two shards per
+    rank over DIR's classic.bxi and blocked.bxi with the package of the
+    checkout at ROOT, every route of the phase timed, its outputs, seconds,
+    collective seconds (all_and and all_sum, the row merges' collectives,
+    each synchronised) and the card's max_memory_allocated saved to
+    DIR/rank<RANK>.npz. Prints no result line."""
+    sys.path.insert(0, argv[5])
     import numpy as np
     import torch
 
@@ -2302,7 +2681,7 @@ def mproc_worker(argv: list[str]) -> int:
 
 
 def mproc_phase(tmp: str, fq: str, classic_bxi: str, blocked_bxi: str, shr: dict,
-                card: str) -> None:
+                card: str, root: str = HERE) -> None:
     """ShardedQueryEngine on a (1, 4) row mesh whose shards live in two
     processes (two per rank: this script in --mproc-worker mode, gloo with
     both ranks on one card, NCCL with one card each where there are two or
@@ -2311,7 +2690,8 @@ def mproc_phase(tmp: str, fq: str, classic_bxi: str, blocked_bxi: str, shr: dict
     reads cell's pairs (byte-identical to the single-device CLI's files);
     search_reads on its 400,000 reads; the row-sharded build of the
     classic index's columns and its search. Every output equal on both
-    ranks and to the single-device engine."""
+    ranks and to the single-device engine. The ranks run the package of
+    the checkout at root."""
     import socket
 
     import numpy as np
@@ -2341,8 +2721,8 @@ def mproc_phase(tmp: str, fq: str, classic_bxi: str, blocked_bxi: str, shr: dict
     logs = [open(os.path.join(d, f"rank{r}.log"), "w+") for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mproc-worker", str(r), coord, d,
-         devs[r], backend], stdout=logs[r], stderr=subprocess.STDOUT,
-        cwd=os.path.dirname(os.path.abspath(__file__))) for r in range(2)]
+         devs[r], backend, root], stdout=logs[r], stderr=subprocess.STDOUT,
+        cwd=HERE) for r in range(2)]
     try:
         for p in procs:
             p.wait(timeout=max(MPROC_TIMEOUT - (time.time() - t0), 1))
@@ -2813,7 +3193,9 @@ def wide_rates(engine) -> str:
 def ptxas_summary(logs) -> list[str]:
     """One entry per compiled kernel instance from nvcc's -Xptxas -v
     reports: its name with template arguments (stream_probe_kernel<1,4> is
-    W = 1, H = 4), registers, static shared memory and spills."""
+    W = 1, H = 4; placement_kernel<2,4,0> is path 2, H = 4, rows),
+    registers, static shared memory and spills; a kernel of more than eight
+    instances as one entry with their ranges."""
     import re
 
     out, name, spill = [], None, ""
@@ -2821,8 +3203,8 @@ def ptxas_summary(logs) -> list[str]:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             # the identifier runs from the last digit of its length prefix
-            k = re.search(r"([A-Za-z_]+_kernel)(?:I((?:Li-?\d+E)+)E)?", m.group(1))
-            vals = re.findall(r"Li(-?\d+)E", k.group(2) or "") if k else []
+            k = re.search(r"([A-Za-z_]+_kernel)(?:I((?:L[ib]-?\d+E)+)E)?", m.group(1))
+            vals = re.findall(r"L[ib](-?\d+)E", k.group(2) or "") if k else []
             name = (k.group(1) + (f"<{','.join(vals)}>" if vals else "")) if k else m.group(1)
         elif "spill" in line:
             spill = "no spills" if re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
@@ -2830,10 +3212,22 @@ def ptxas_summary(logs) -> list[str]:
         elif "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line)
             smem = re.search(r"(\d+) bytes smem", line)
-            out.append(f"{name} {regs.group(1) if regs else '?'} registers "
-                       f"{smem.group(1) if smem else 0} B smem {spill}")
+            out.append((name, int(regs.group(1)) if regs else -1,
+                        int(smem.group(1)) if smem else 0, spill))
             name, spill = None, ""
-    return out
+    by_base: dict[str, list] = {}
+    for entry in out:
+        by_base.setdefault(entry[0].split("<")[0], []).append(entry)
+    lines = []
+    for base, entries in by_base.items():
+        if len(entries) > 8:
+            regs = [e[1] for e in entries]
+            spills = sorted({e[3] for e in entries})
+            lines.append(f"{base} {len(entries)} instances {min(regs)}-{max(regs)} registers "
+                         f"{max(e[2] for e in entries)} B smem {'; '.join(spills)}")
+        else:
+            lines += [f"{n} {r} registers {sm} B smem {sp}" for n, r, sm, sp in entries]
+    return lines
 
 
 def profile_dispatch(fn, what: str, card: str, label: str = "stream") -> None:
@@ -2873,12 +3267,144 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream") -> None:
     top = "; ".join(f"{name} x{n}={ms:.2f}ms" for ms, n, name in rows[:8])
     ours = "; ".join(
         f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
-        and name.split("_kernel")[0] in ("classic_word", "stream_probe", "stream_probe_raw")
+        and name.split("_kernel")[0] in (
+            "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys")
     )
+    ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
     log(f"[profile] {what}: one {label} dispatch: device {dev_ms:.2f} ms of "
         f"{wall_ms:.2f} ms host-clock span (idle share "
-        f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); top kernels: {top}; "
+        f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); element-wise launches "
+        f"x{sum(n for _, n in ew)}={sum(ms for ms, _ in ew):.2f}ms; top kernels: {top}; "
         f"the port's own: {ours or 'none'} on {card}")
+
+
+# -- --compare: two checkouts in turns on one card ------------------------------
+
+TURNS = ("other", "this", "this", "other")  # the other checkout first and last
+TURN_TIMEOUT = MPROC_TIMEOUT + 600  # seconds for one turn, its [mproc] ranks included
+
+
+def compare_cell(tmp: str) -> dict:
+    """What --compare measures, made once with this checkout's package
+    under tmp: phase 3's inputs and its classic and blocked (v4) indexes,
+    the 400,000 reads packed as the reads path takes them, the reads cell's
+    204,000 pairs as files with the blocked index's single-device read_id
+    files, and the first N_PROFILE pairs' mates."""
+    import numpy as np
+
+    man, fq, _sources = synth_inputs(tmp)
+    cell = {"fq": fq}
+    for name, extra in (("classic", []), ("blocked", ["--blocked"])):
+        prefix = os.path.join(tmp, name)
+        cli(["build", *extra, "-k", str(K), "-n", str(HASHES), "-s", str(BLOOM),
+             "-b", prefix, "-r", man, "-t", "8"])
+        cell[name] = prefix + ".bxi"
+    _seqs, cell["L"], reads = pack_fastq(fq)
+    mates, src, len1, _lower = synth_pairs(tmp)
+    cell["pairs"] = write_pairs(os.path.join(tmp, "all"), mates, len1, np.arange(len(src)))
+    cell["blocked_all"] = os.path.join(tmp, "blocked_all")
+    read_id_bytes(cell["blocked"], cell["pairs"], cell["blocked_all"])
+    for key, a in (("words", reads[0]), ("lens", reads[1]), ("vbits", reads[2]),
+                   ("mates", mates[:N_PROFILE]), ("src", src)):
+        np.save(os.path.join(tmp, key + ".npy"), a)
+    return cell
+
+
+def compare_turn(root: str, tmp: str) -> int:
+    """One turn of --compare (chip_smoke.py --compare-turn ROOT DIR): the
+    package of the checkout at ROOT, first on sys.path, on DIR's cell:
+    the parity phases of both indexes ([parity], [profile] classic and
+    blocked), search_reads and one order-free read_id dispatch on each
+    ([reads], [profile]), the fused phase ([fused]) and the [mproc] phase,
+    each with its own checks. Prints the search_reads answers on a line
+    of their own."""
+    sys.path.insert(0, root)
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import colorid_tpu_torch
+    from colorid_tpu_torch.ops import kernels
+    from colorid_tpu_torch.pipelines.search import _count_query_kmers
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(colorid_tpu_torch.__file__)))
+    if pkg_root != os.path.abspath(root):
+        raise RuntimeError(f"the package came from {pkg_root}, not {root}")
+    card = card_line() if DEVICE == "cuda" else "cpu"
+    if DEVICE == "cuda":
+        kernels.build_all()
+    with open(os.path.join(tmp, "cell.json")) as f:
+        cell = json.load(f)
+    a = {key: np.load(os.path.join(tmp, key + ".npy"))
+         for key in ("words", "lens", "vbits", "mates", "src")}
+    dev = on_device((a["words"], a["lens"], a["vbits"]))
+    classic_parity_phase(cell["classic"], cell["fq"], card)
+    blocked_parity_phase(cell["blocked"], cell["fq"], card)
+    with contextlib.redirect_stderr(io.StringIO()):
+        query = _count_query_kmers(cell["fq"], None, K, 15, 1, False)
+    answers = {}
+    for name in ("classic", "blocked"):
+        got, n_u = search_reads_phase(name, cell[name], dev, cell["L"], query, a["mates"], card)
+        answers[name] = [int(n_u), hashlib.sha256(
+            got.counts.tobytes() + got.freq_hist.tobytes()).hexdigest()]
+    fused_phase(cell["blocked"], {"dev": dev, "L": cell["L"]}, card)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    shr = {"dev": dev[:2], "L": cell["L"], "pairs": cell["pairs"], "src": a["src"],
+           "blocked_all": cell["blocked_all"]}
+    turn_dir = tempfile.mkdtemp(dir=tmp)
+    mproc_phase(turn_dir, cell["fq"], cell["classic"], cell["blocked"], shr, card, root=root)
+    print("ANSWERS " + json.dumps(answers), flush=True)
+    return 0
+
+
+def compare(other: str) -> int:
+    """chip_smoke.py --compare OTHER_ROOT: this checkout against another
+    (for example the parent commit, unpacked with git archive), in the
+    turns TURNS on one card. The cell is made once (compare_cell); each turn
+    is a fresh process of compare_turn with that turn's package. Every
+    turn's checks must hold and its search_reads answers must be the same
+    in every turn. Prints each turn's lines; no result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    other = os.path.abspath(other)
+    if not os.path.isdir(os.path.join(other, "colorid_tpu_torch")):
+        print(f"chip_smoke: {other} holds no colorid_tpu_torch", file=sys.stderr)
+        return 2
+    card = card_line()
+    roots = {"this": HERE, "other": other}
+    answers = []
+    tmp = tempfile.mkdtemp(prefix="colorid_compare_")
+    try:
+        t0 = time.time()
+        cell = compare_cell(tmp)
+        with open(os.path.join(tmp, "cell.json"), "w") as f:
+            json.dump(cell, f)
+        log(f"[compare] cell made in {time.time() - t0:.1f}s; turns {list(TURNS)}; "
+            f"this = {HERE}, other = {other} on {card}")
+        for i, label in enumerate(TURNS, 1):
+            t0 = time.time()
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--compare-turn", roots[label], tmp],
+                capture_output=True, text=True, timeout=TURN_TIMEOUT, cwd=HERE)
+            for line in r.stdout.splitlines():
+                if line.startswith("ANSWERS "):
+                    answers.append(json.loads(line[len("ANSWERS "):]))
+                else:
+                    log(f"[turn {i} {label}] {line}")
+            if r.returncode != 0:
+                print(r.stderr[-4000:], file=sys.stderr)
+                return 1
+            log(f"[compare] turn {i} {label} took {time.time() - t0:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = len(answers) == len(TURNS) and all(x == answers[0] for x in answers)
+    log(f"[compare] search_reads answers identical in every turn: {same}")
+    return 0 if same else 1
 
 
 PHASE_S: dict[str, float] = {}  # seconds per phase of this run
@@ -2896,6 +3422,13 @@ def phase(name: str):
 def main() -> int:
     if sys.argv[1:2] == ["--mproc-worker"]:
         return mproc_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--compare-turn"]:
+        return compare_turn(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--compare"] and len(sys.argv) == 3:
+        return compare(sys.argv[2])
+    if sys.argv[1:]:
+        print(__doc__.split("Phases,")[0], file=sys.stderr)
+        return 2
     t_script = time.time()
     try:
         import torch
@@ -2922,6 +3455,8 @@ def main() -> int:
         classic_row = classic_kernel_phase(card)
         probe_row = probe_kernel_phase(card)
         raw_row = raw_kernel_phase(card)
+        placement_row = placement_kernel_phase(card)
+        window_row = window_keys_kernel_phase(card)
     tmp = tempfile.mkdtemp(prefix="colorid_smoke_")
     try:
         with phase("main"):
@@ -2929,9 +3464,13 @@ def main() -> int:
             inputs = synth_inputs(tmp)
             log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
                 f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
+            placement, window_keys = _new_kernels()
+            placement.launches = window_keys.launches = 0
             classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
                 tmp, inputs, card)
             blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
+            placement_row["launches"] = placement.launches
+            window_row["launches"] = window_keys.launches
         with phase("parity"):
             classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
@@ -2972,7 +3511,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
         + f"; whole script {time.time() - t_script:.1f}s on {card}")
-    print(json.dumps({"kernels": [classic_row, probe_row, raw_row]}))
+    print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -28,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .hash_torch import M32, _to_i32
+from . import kernels
+from .hash_torch import M32, _key_limbs, _to_i32
 
 _CODE = np.full(256, 255, dtype=np.uint8)
 _CODE[ord("A")] = 0
@@ -161,15 +162,10 @@ def _sort_key(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return (hi - 2**31) * 2**32 + lo
 
 
-def _key_limbs(key: torch.Tensor):
-    """(lo, hi) limbs of _sort_key values."""
-    return key & M32, (key >> 32) + 2**31
-
-
 def _window_keys(reads_packed, lens, valid_bits, k: int, L: int, d: int):
     """Sort keys [R, NW] of every canonical window; SENT_KEY where the
     window does not fit the read's true length, is off the stride d, or
-    touches an invalid base."""
+    touches an invalid base. The plain twin of ``window_keys``' kernel."""
     NW = L - k + 1
     if NW <= 0:
         raise ValueError("L < k")
@@ -181,6 +177,66 @@ def _window_keys(reads_packed, lens, valid_bits, k: int, L: int, d: int):
     if valid_bits is not None:
         valid = valid & _window_valid_ok(valid_bits, L, k, NW)
     return torch.where(valid, _sort_key(lo, hi), SENT_KEY)
+
+
+def window_keys(reads_packed: torch.Tensor, lens: torch.Tensor,
+                valid_bits: torch.Tensor | None = None, *, k: int, L: int,
+                d: int = 1) -> torch.Tensor:
+    """Sort keys int64 [R, L - k + 1] of every canonical k-window of 2-bit
+    packed reads (``_window_keys``' contract): reads_packed int32 [R, Lw]
+    (Lw * 16 >= L), lens [R] of any integer type (taken as int32),
+    valid_bits int32 [R, Lv] (Lv * 32 >= L) or None; 1 <= k <= 32, d >= 1.
+
+    A CUDA tensor launches csrc/window_keys.cu on the current stream; a CPU
+    tensor takes the plain twin ``_window_keys``. ``window_keys.launches``
+    counts kernel launches."""
+    if lens.dtype.is_floating_point or lens.dtype.is_complex or lens.dtype == torch.bool:
+        raise TypeError("window_keys takes integer lens")
+    lens = lens.to(torch.int32).contiguous()
+    tensors = [reads_packed, lens] + ([valid_bits] if valid_bits is not None else [])
+    if any(t.dtype != torch.int32 for t in tensors):
+        raise TypeError("window_keys takes int32 words and validity bits")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("window_keys takes contiguous tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("window_keys: tensors on different devices")
+    if not 1 <= k <= 32 or L < k or d < 1:
+        raise ValueError(f"window_keys: needs 1 <= k <= 32, k <= L and d >= 1 "
+                         f"(k={k}, L={L}, d={d})")
+    R = reads_packed.shape[0] if reads_packed.dim() == 2 else -1
+    if R < 0 or reads_packed.shape[1] * 16 < L or lens.shape != (R,) or (
+        valid_bits is not None
+        and (valid_bits.dim() != 2 or valid_bits.shape[0] != R
+             or valid_bits.shape[1] * 32 < L)
+    ):
+        raise ValueError(
+            "window_keys: reads_packed [R, >= ceil(L/16)], lens [R] and "
+            "valid_bits [R, >= ceil(L/32)]"
+        )
+    dev = reads_packed.device
+    if dev.type == "cpu":
+        return _window_keys(reads_packed, lens, valid_bits, k, L, d)
+    if dev.type != "cuda":
+        raise ValueError(f"window_keys: unsupported device {dev}")
+    out = torch.empty((R, L - k + 1), dtype=torch.int64, device=dev)
+    if R == 0:
+        return out
+    fn = kernels.kernel("window_keys")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            reads_packed.data_ptr(), lens.data_ptr(),
+            None if valid_bits is None else valid_bits.data_ptr(), out.data_ptr(),
+            R, reads_packed.shape[1],
+            0 if valid_bits is None else valid_bits.shape[1], L, k, d, stream,
+        )
+    if err:
+        raise RuntimeError(f"window_keys kernel launch failed: CUDA error {err}")
+    window_keys.launches += 1
+    return out
+
+
+window_keys.launches = 0
 
 
 def _run_counts(s: torch.Tensor):
@@ -223,7 +279,7 @@ def extract_count(
     strictly-greater filter (kmer.rs:826-837). Nothing waits for the host.
     """
     s = torch.sort(
-        _window_keys(reads_packed, lens, valid_bits, k, L, d).reshape(-1)
+        window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
     ).values
     N = s.shape[0]
     new, count = _run_counts(s)
@@ -254,7 +310,7 @@ def count_histogram(
     counting in extract_count so a search without -f can infer the cutoff
     from one small fetch before filtering."""
     s = torch.sort(
-        _window_keys(reads_packed, lens, valid_bits, k, L, d).reshape(-1)
+        window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
     ).values
     new, count = _run_counts(s)
     keep = new & (s != SENT_KEY)

@@ -26,8 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from .extract import SENT_KEY, _key_limbs, _run_counts, _window_keys
-from .hash_torch import _v3_blkoff
+from .extract import SENT_KEY, _run_counts, window_keys
+from .hash_torch import placement
 from .stream_query import PC, _stream_core, pack_offsets
 
 
@@ -37,8 +37,8 @@ def _probe(stats, hist, over_col, over_freq, blocks2, s, qc, *, k: int,
     """Value-addressed placement of the key-sorted slots s (int64 keys,
     block order by monotonicity) and the exact-mode probe stream, with the
     frequency as its own overflow payload. Returns n_drop."""
-    lo, hi = _key_limbs(s)
-    blk, offs = _v3_blkoff(lo, hi, k, num_hash, bloom_size, rpb, version=bv)
+    blk, offs = placement(s, k=k, num_hash=num_hash, bloom_size=bloom_size,
+                          rpb=rpb, version=bv, blkoff=True)
     *_, n_drop = _stream_core(
         stats, hist, over_col, over_freq, blocks2,
         blk.to(torch.int32), pack_offsets(offs), qc, qc,
@@ -81,7 +81,7 @@ def fused_search_reads(
     frequency itself). Updates the accumulators in place and returns
     (stats, hist, over_col, over_freq, n_drop, n_unique), the last two
     int32 device scalars. Nothing here waits for the device."""
-    s = _window_keys(reads_packed, lens, valid_bits, k, L, d).reshape(-1)
+    s = window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
     # pairwise compaction rounds (below): each round halves the slot count,
     # so pad the stream so that the final length stays a multiple of PC
     rounds = min(3, (filter_t + 1).bit_length() - 1) if filter_t >= 1 else 0
@@ -141,7 +141,7 @@ def extract_sorted_counts(
     Returns (s int64 [R * NW] sorted keys, qc int32 [R * NW], n_unique
     int32 device scalar)."""
     s = torch.sort(
-        _window_keys(reads_packed, lens, valid_bits, k, L, d).reshape(-1)
+        window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
     ).values
     new, count = _run_counts(s)
     keep = new & (s != SENT_KEY)

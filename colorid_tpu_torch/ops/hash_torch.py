@@ -1,19 +1,22 @@
-"""Device-side hashing: canonical k-mers into Bloom rows with torch ops.
+"""Device-side hashing: canonical k-mers into Bloom rows.
 XXH3-64 for the classic rows and the blocked placements v1/v2, and the
 value-addressed placements v3/v4 of ops/blocked.py (one fmix64, a 64-bit
 square and a 64-bit product; no XXH3).
 
 The host ships each canonical k-mer as its 2-bit packing (8 bytes) instead
-of row indices (4 bytes x num_hash); the hash runs on the device as
-elementwise tensor ops.
+of row indices (4 bytes x num_hash); the hash runs on the device.
 
-PyTorch has no unsigned 32/64-bit shift, add or remainder on every device,
-and ``>>`` on a signed value is arithmetic. So a u64 value is a (lo, hi)
-pair of 32-bit limbs, each carried in an ``int64`` tensor holding a value
-in [0, 2^32). Every intermediate stays below 2^63 (products are taken over
-16-bit halves), so no signed overflow ever happens, and results are masked
-back to 32 bits after every shift, add and product. All secret-derived
-constants are folded per seed on the host.
+``placement`` is the entry every caller reaches: on a CUDA tensor it
+launches csrc/placement.cu (native 64-bit integers, one launch per batch);
+on a CPU tensor it runs the plain twin below, elementwise tensor ops.
+
+The twin: PyTorch has no unsigned 32/64-bit shift, add or remainder on
+every device, and ``>>`` on a signed value is arithmetic. So a u64 value is
+a (lo, hi) pair of 32-bit limbs, each carried in an ``int64`` tensor
+holding a value in [0, 2^32). Every intermediate stays below 2^63 (products
+are taken over 16-bit halves), so no signed overflow ever happens, and
+results are masked back to 32 bits after every shift, add and product. All
+secret-derived constants are folded per seed on the host.
 
 Supported: k in 4..32 (the 4-8, 9-16 and 17-128 XXH3 length classes over
 ASCII ACGT bytes), bloom_size < 2^31. Callers fall back to host hashing
@@ -22,9 +25,12 @@ outside this envelope. Bit-exact against hashing/xxh3.py.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from . import kernels
 from ..hashing.xxh3 import KSECRET, M64, P64_1, PMX1, PMX2, _rd64
 
 M32 = 0xFFFFFFFF
@@ -261,14 +267,6 @@ def _bloom_rows(lo, hi, k: int, num_hash: int, bloom_size: int) -> torch.Tensor:
     return torch.stack(outs, dim=1)
 
 
-def bloom_rows_device(
-    packed: torch.Tensor, *, k: int, num_hash: int, bloom_size: int
-) -> torch.Tensor:
-    """packed [N, 2] int32 (bit view of the (lo, hi) uint32 2-bit k-mers)
-    -> rows [N, num_hash] int32."""
-    return _bloom_rows(*_split_packed(packed), k, num_hash, bloom_size)
-
-
 # -- blocked placements (ops/blocked.py) on the device -----------------------
 
 _FMIX_C1 = 0xFF51AFD7ED558CCD
@@ -328,15 +326,6 @@ def _v3_blkoff(lo, hi, k: int, num_hash: int, bloom_size: int, rpb: int,
     return block, offs
 
 
-def device_blkoff(packed: torch.Tensor, *, k: int, num_hash: int,
-                  bloom_size: int, rpb: int, version: int = 1):
-    """Blocked placement (ops/blocked.py) of packed [N, 2] int32 k-mers:
-    block int64 [N] and the per-hash in-block row offsets, a list of H
-    int64 [N]. Versions 1 and 2 hash with the device XXH3; 3 and 4 are
-    value-addressed (no XXH3)."""
-    return _blkoff(*_split_packed(packed), k, num_hash, bloom_size, rpb, version)
-
-
 def _blkoff(lo, hi, k: int, num_hash: int, bloom_size: int, rpb: int,
             version: int):
     if version in (3, 4):
@@ -356,27 +345,149 @@ def _blkoff(lo, hi, k: int, num_hash: int, bloom_size: int, rpb: int,
     return block, offs
 
 
-def device_rows(packed: torch.Tensor, *, k: int, num_hash: int,
-                bloom_size: int, rpb: int = 0, version: int = 1):
-    """Bloom rows [N, H] int32 of packed k-mers: independent XXH3 rows
-    (rpb == 0) or the blocked placement (rpb > 0, a power of two)."""
-    return device_rows_limbs(
-        *_split_packed(packed), k=k, num_hash=num_hash,
-        bloom_size=bloom_size, rpb=rpb, version=version,
-    )
+# -- the placement kernel's wrapper and its twin -----------------------------
+
+# what csrc/placement.cu's struct Consts holds, in its order: the secret
+# words at bytes 0, 8, ..., 48, the XXH3 primes, the fmix64 multipliers
+_KERNEL_CONSTS = tuple(
+    [_rd64(KSECRET, 8 * j) for j in range(7)]
+    + [P64_1, PMX1, PMX2, _FMIX_C1, _FMIX_C2]
+)
+_KEY_FLIP = 1 << 63  # a sort key (ops/extract.py::_sort_key) is the value ^ 2^63
 
 
-def device_rows_limbs(lo: torch.Tensor, hi: torch.Tensor, *, k: int,
-                      num_hash: int, bloom_size: int, rpb: int = 0,
-                      version: int = 1):
-    """device_rows of k-mers given as int64 (lo, hi) limbs in [0, 2^32)
-    (the form ops/extract.py's window extraction yields them in)."""
+def _key_limbs(key: torch.Tensor):
+    """(lo, hi) limbs of ops/extract.py::_sort_key values."""
+    return key & M32, (key >> 32) + 2**31
+
+
+def _src_limbs(src: torch.Tensor):
+    """(lo, hi) int64 limbs of packed int32 [N, 2] k-mers or int64 sort
+    keys [N]."""
+    return _key_limbs(src) if src.dtype == torch.int64 else _split_packed(src)
+
+
+def placement_plain(src: torch.Tensor, *, k: int, num_hash: int,
+                    bloom_size: int, rpb: int = 0, version: int = 1,
+                    blkoff: bool = False):
+    """Plain PyTorch twin of the placement kernel (same contract as
+    ``placement``)."""
+    lo, hi = _src_limbs(src)
     if rpb == 0:
         return _bloom_rows(lo, hi, k, num_hash, bloom_size)
     block, offs = _blkoff(lo, hi, k, num_hash, bloom_size, rpb, version)
+    if blkoff:
+        return block, offs
     base = block * rpb
     return torch.stack([base + o for o in offs], dim=1).to(torch.int32)
 
+
+def _check_placement(src, k, num_hash, bloom_size, rpb, version, blkoff):
+    if not (
+        (src.dtype == torch.int32 and src.dim() == 2 and src.shape[1] == 2)
+        or (src.dtype == torch.int64 and src.dim() == 1)
+    ):
+        raise TypeError(
+            "placement takes packed int32 [N, 2] k-mers or int64 [N] sort keys"
+        )
+    if not src.is_contiguous():
+        raise ValueError("placement takes a contiguous tensor")
+    if not 4 <= k <= 32:
+        raise ValueError(f"device xxh3 supports k in 4..32, got {k}")
+    if num_hash < 1:
+        raise ValueError("placement: num_hash must be >= 1")
+    if not 0 < bloom_size < 2**31:
+        raise ValueError("device modulo supports 0 < m < 2^31 (bloom_size < 2^31)")
+    if rpb == 0:
+        if blkoff:
+            raise ValueError("placement: blkoff needs a blocked layout (rpb > 0)")
+        return
+    if rpb < 0 or rpb & (rpb - 1) or rpb > bloom_size or rpb > 1 << 16:
+        raise ValueError("placement: rpb must be a power of two <= min(bloom_size, 2^16)")
+    if version not in (1, 2, 3, 4) or (version > 1 and num_hash > rpb):
+        raise ValueError(
+            f"placement: blocked version must be 1..4 (v2-v4 with num_hash <= rpb); "
+            f"got version={version} num_hash={num_hash} rpb={rpb}"
+        )
+
+
+def placement(src: torch.Tensor, *, k: int, num_hash: int, bloom_size: int,
+              rpb: int = 0, version: int = 1, blkoff: bool = False):
+    """Bloom placement of canonical k-mers, given as packed int32 [N, 2]
+    (the (lo, hi) uint32 bit views of their 2-bit values) or as int64 [N]
+    sort keys (ops/extract.py::_sort_key).
+
+    rpb == 0: the classic rows, int32 [N, num_hash], row h =
+    xxh3_64(ascii_kmer, h) % bloom_size. rpb > 0: the blocked placement
+    ``version`` (ops/blocked.py): rows int32 [N, num_hash] (block * rpb +
+    offset), or with ``blkoff`` (block int64 [N], the H in-block offsets
+    as a list of int64 [N]; views of one [H + 1, N] buffer on the card).
+
+    A CUDA tensor launches csrc/placement.cu on the current stream; a CPU
+    tensor takes the plain twin. ``placement.launches`` counts kernel
+    launches."""
+    _check_placement(src, k, num_hash, bloom_size, rpb, version, blkoff)
+    kw = dict(k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb,
+              version=version, blkoff=blkoff)
+    dev = src.device
+    if dev.type == "cpu":
+        return placement_plain(src, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"placement: unsupported device {dev}")
+    n, H = src.shape[0], num_hash
+    if blkoff:
+        out = torch.empty((H + 1, n), dtype=torch.int64, device=dev)
+        rows_ptr, blk_ptr = None, out.data_ptr()
+    else:
+        out = torch.empty((n, H), dtype=torch.int32, device=dev)
+        rows_ptr, blk_ptr = out.data_ptr(), None
+    if n:
+        if src.data_ptr() % 8:
+            raise ValueError("placement: the k-mers must be 8-byte aligned")
+        fn = kernels.kernel("placement")
+        consts = (ctypes.c_uint64 * len(_KERNEL_CONSTS))(*_KERNEL_CONSTS)
+        flip = _KEY_FLIP if src.dtype == torch.int64 else 0
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(
+                src.data_ptr(), flip, n, rows_ptr, blk_ptr, k, H,
+                version if rpb else 0, bloom_size, rpb,
+                ctypes.addressof(consts), stream,
+            )
+        if err:
+            raise RuntimeError(f"placement kernel launch failed: CUDA error {err}")
+        placement.launches += 1
+    return (out[0], list(out[1:])) if blkoff else out
+
+
+placement.launches = 0
+
+
+def bloom_rows_device(
+    packed: torch.Tensor, *, k: int, num_hash: int, bloom_size: int
+) -> torch.Tensor:
+    """packed [N, 2] int32 (bit view of the (lo, hi) uint32 2-bit k-mers)
+    -> rows [N, num_hash] int32."""
+    return placement(packed, k=k, num_hash=num_hash, bloom_size=bloom_size)
+
+
+def device_blkoff(packed: torch.Tensor, *, k: int, num_hash: int,
+                  bloom_size: int, rpb: int, version: int = 1):
+    """Blocked placement (ops/blocked.py) of packed [N, 2] int32 k-mers:
+    block int64 [N] and the per-hash in-block row offsets, a list of H
+    int64 [N]. Versions 1 and 2 hash with the device XXH3; 3 and 4 are
+    value-addressed (no XXH3)."""
+    return placement(packed, k=k, num_hash=num_hash, bloom_size=bloom_size,
+                     rpb=rpb, version=version, blkoff=True)
+
+
+def device_rows(packed: torch.Tensor, *, k: int, num_hash: int,
+                bloom_size: int, rpb: int = 0, version: int = 1):
+    """Bloom rows [N, H] int32 of packed k-mers (or int64 sort keys):
+    independent XXH3 rows (rpb == 0) or the blocked placement (rpb > 0, a
+    power of two)."""
+    return placement(packed, k=k, num_hash=num_hash, bloom_size=bloom_size,
+                     rpb=rpb, version=version)
 
 def pack_keys_host(keys: np.ndarray) -> np.ndarray | None:
     """ASCII canonical k-mers [N, k] -> (lo, hi) uint32 [N, 2], or None when

@@ -24,7 +24,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> (source file, C entry point, ctypes argtypes); a source
 # file is one library, whatever number of entry points it exports
-_VP, _I64, _I32, _U32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint32
+_VP, _I64, _I32, _U32, _U64 = (
+    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_uint32, ctypes.c_uint64
+)
 KERNELS = {
     "classic_word": (
         "classic_word.cu",
@@ -41,6 +43,16 @@ KERNELS = {
         "stream_probe.cu",
         "stream_probe_raw_launch",
         [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _VP],
+    ),
+    "placement": (
+        "placement.cu",
+        "placement_launch",
+        [_VP, _U64, _I64, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _VP, _VP],
+    ),
+    "window_keys": (
+        "window_keys.cu",
+        "window_keys_launch",
+        [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _I32, _VP],
     ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .hash_torch import M32, _to_i32, device_rows, device_rows_limbs
+from .hash_torch import M32, _to_i32, device_rows
 
 FREQ_CAP = 1024  # per-color on-device frequency histogram width
 
@@ -621,22 +621,22 @@ def _reads_rows_seg_pos(mates_packed, mate_seg16, lens, ranks16, *, k, L,
     (the reads path): a window counts where it fits the mate, its rank is
     live and the mate is not padding (mate_seg -1); else its position is
     PAD_POS."""
-    from .extract import _unpack_codes, _window_limbs
+    from .extract import window_keys
 
     M = mates_packed.shape[0]
     NW = L - k + 1
-    lo, hi = _window_limbs(_unpack_codes(mates_packed, L), k, NW)  # [M, NW]
-    w_idx = torch.arange(NW, dtype=torch.int32, device=lo.device)[None, :]
+    # every window's key: the read length L for all, no validity plane
+    full = torch.full((M,), L, dtype=torch.int32, device=mates_packed.device)
+    keys = window_keys(mates_packed, full, k=k, L=L)  # [M, NW]
+    w_idx = torch.arange(NW, dtype=torch.int32, device=keys.device)[None, :]
     rk, rk_live = _decode_ranks(ranks16)
     live = (w_idx + k <= lens.to(torch.int32)[:, None]) & rk_live \
         & (mate_seg16 >= 0)[:, None]
     pos = torch.where(live, rk, PAD_POS).reshape(-1)
     seg = mate_seg16.to(torch.int32).clamp(min=0)
     seg = seg[:, None].expand(M, NW).reshape(-1)
-    rows = device_rows_limbs(
-        lo.reshape(-1), hi.reshape(-1), k=k, num_hash=num_hash,
-        bloom_size=bloom_size, rpb=rpb, version=bv,
-    )
+    rows = device_rows(keys.reshape(-1), k=k, num_hash=num_hash,
+                       bloom_size=bloom_size, rpb=rpb, version=bv)
     return rows, seg, pos
 
 
@@ -714,17 +714,16 @@ def query_readid_orderfree_reads(
     whose rows are all present but whose AND hits no color (these can make
     the first-B candidate set empty under some orders).
     """
-    from .extract import SENT_KEY, _key_limbs, _window_keys
+    from .extract import SENT_KEY, window_keys
 
     WR = nm * (L - k + 1)  # windows per read
-    keys = _window_keys(mates_packed, lens, valid_bits, k, L, d)
+    keys = window_keys(mates_packed, lens, valid_bits, k=k, L=L, d=d)
     s = torch.sort(keys.reshape(num_reads, WR), dim=1).values
     first = torch.ones_like(s, dtype=torch.bool)
     first[:, 1:] = s[:, 1:] != s[:, :-1]
     uniq = first & (s != SENT_KEY)
-    lo, hi = _key_limbs(s.reshape(-1))
-    rows = device_rows_limbs(lo, hi, k=k, num_hash=num_hash,
-                             bloom_size=bloom_size, rpb=rpb, version=bv)
+    rows = device_rows(s.reshape(-1), k=k, num_hash=num_hash,
+                       bloom_size=bloom_size, rpb=rpb, version=bv)
     andw, present = _and_present(blocks2, rows, wpad, rpb)
     u = uniq.reshape(-1)
     counted = u & present

@@ -26,6 +26,8 @@ probe order (classic).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from . import kernels
@@ -227,7 +229,10 @@ def stream_accumulate_classic_exact(
 
 # --- blocked (split-lane) sorted-probe stream --------------------------------
 
-PC = 2048  # probes per chunk: the unit of the window plan and of padding
+# probes per chunk: the unit of the window plan and of padding. Read once at
+# import; COLORID_STREAM_PC overrides it for sweeps, as in the JAX package
+# (the probe kernels take a positive multiple of 32)
+PC = int(os.environ.get("COLORID_STREAM_PC", "2048"))
 HIST_W = 256  # probe-kernel histogram width for WIDE color counts
 # per-block shared memory for the probe kernel's histogram band: 16 KB
 # leaves room for several resident blocks of 256 threads on an SM and
@@ -360,6 +365,11 @@ def _check_probe_args(name: str, tensors, num_hash: int, wpad: int):
         raise ValueError(
             f"{name}: wpad must be one of {STREAM_WPADS} and num_hash "
             f"one of {STREAM_HASHES}; got wpad={wpad} num_hash={num_hash}"
+        )
+    if PC <= 0 or PC % 32:
+        raise ValueError(
+            f"{name}: COLORID_STREAM_PC={PC} is not a positive multiple of 32, "
+            "which the probe kernels need"
         )
     if P % PC or off_s.shape != (P,) or qc_s.shape != (P,) or blk_s.dim() != 1:
         raise ValueError(

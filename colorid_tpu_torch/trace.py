@@ -15,6 +15,10 @@ from contextlib import contextmanager
 _ENABLED = os.environ.get("COLORID_TRACE", "") not in ("", "0")
 
 
+def enabled() -> bool:
+    return _ENABLED
+
+
 @contextmanager
 def span(name: str):
     if not _ENABLED:

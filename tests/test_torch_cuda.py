@@ -5,8 +5,8 @@ the card has no jax), so they run there without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Each kernel (the classic word kernel, the blocked probe kernel and its raw
-mode) must equal its plain twin bit for bit, count its launches and refuse
-what it cannot take; the engines on the card (single-device, and a (1, 4)
+mode, the placement and window-key kernels) must equal its plain twin bit
+for bit, count its launches and refuse what it cannot take; the engines on the card (single-device, and a (1, 4)
 color and row mesh on the one card) must give the CPU's SearchResult,
 through the kernels."""
 
@@ -876,3 +876,113 @@ def test_placement_over_several_cards(cuda_device, tmp_path):
         want = QueryEngine(index, device=cuda_device).search_keys(keys)
         np.testing.assert_array_equal(got.counts, want.counts)
         assert got.all_valid == want.all_valid and got.freq_stats() == want.freq_stats()
+
+
+# -- the placement and window-key kernels -------------------------------------
+
+GRID_K = [4, 7, 8, 9, 15, 16, 17, 27, 31, 32]  # each XXH3 length class and its edges
+
+
+def _placements(H: int):
+    """(rpb, version, blkoff) of every placement the kernel takes at H."""
+    out = [(0, 1, False)]
+    for version in (1, 2, 3, 4):
+        for rpb in (128, 64, 8):
+            if version == 1 or H <= rpb:
+                out += [(rpb, version, False), (rpb, version, True)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", GRID_K)
+def test_placement_kernel_matches_twin(cuda_device, k):
+    """Every placement (classic rows, v1-v4 rows and block/offsets) at H 1,
+    2, 3 (the loop instance), 4 and 8 and bloom sizes up to 2^31 - 1, from
+    packed k-mers and from sort keys with sentinels among them: the kernel
+    equals the plain twin on the card bit for bit, twice."""
+    from colorid_tpu_torch.ops import extract as te
+    from colorid_tpu_torch.ops import hash_torch as ht
+
+    keys = np.random.default_rng(k).choice(ts.ACGT, size=(5000, k))
+    pk = ts.t32(ht.pack_keys_host(keys)).to(cuda_device)
+    p64 = pk.to(torch.int64) & 0xFFFFFFFF
+    sk = te._sort_key(p64[:, 0], p64[:, 1])
+    sk[::97] = te.SENT_KEY
+    for src in (pk, sk):
+        for H in (1, 2, 3, 4, 8):
+            for bloom in (1_000_003, 2**31 - 1):
+                for rpb, version, blkoff in _placements(H):
+                    kw = dict(k=k, num_hash=H, bloom_size=bloom, rpb=rpb,
+                              version=version, blkoff=blkoff)
+                    before = ht.placement.launches
+                    got = [ht.placement(src, **kw) for _ in range(2)]
+                    assert ht.placement.launches == before + 2
+                    want = ht.placement_plain(src, **kw)
+                    if blkoff:
+                        got = [torch.cat([b[None], torch.stack(o)]) for b, o in got]
+                        want = torch.cat([want[0][None], torch.stack(want[1])])
+                    for g in got:
+                        assert g.device.type == "cuda" and g.dtype == want.dtype
+                        assert torch.equal(g, want), (src.dtype, H, bloom, kw)
+
+
+@pytest.mark.cuda
+def test_placement_kernel_refuses_misaligned_and_counts_only_launches(cuda_device):
+    from colorid_tpu_torch.ops import hash_torch as ht
+
+    buf = torch.zeros(2 * 64 + 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        ht.placement(buf[1:].view(64, 2), k=31, num_hash=4, bloom_size=1000)
+    before = ht.placement.launches
+    empty = ht.placement(buf[:0].view(0, 2), k=31, num_hash=4, bloom_size=1000)
+    assert empty.shape == (0, 4) and ht.placement.launches == before
+
+
+def _window_reads(seed: int, R: int, L: int):
+    """Packed reads with N bases (also at the ends) and true lengths from 1
+    to L: (words, lens, validity bits) as CPU tensors."""
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+
+    rng = np.random.default_rng(seed)
+    seqs = ts.ACGT[rng.integers(0, 4, (R, L))]
+    seqs[rng.random((R, L)) < 0.01] = ord("N")
+    seqs[0, 0] = seqs[1, L - 1] = ord("N")
+    w, vb = pack_reads_valid(seqs)
+    lens = rng.integers(1, L + 1, R).astype(np.int32)
+    lens[:3] = L
+    return ts.t32(w), torch.from_numpy(lens), ts.t32(vb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", GRID_K)
+def test_window_keys_kernel_matches_twin(cuda_device, k):
+    """The kernel against the twin on the CPU, bit for bit: read lengths at
+    and off the word and bitplane edges, with and without the bitplane,
+    strides 1 and 3, twice."""
+    from colorid_tpu_torch.ops import extract as te
+
+    for L in sorted({max(k, 16), 33, 150, 160}):
+        if L < k:
+            continue
+        cpu = _window_reads(k * 1000 + L, 700, L)
+        dev = _on(cuda_device, *cpu)
+        for d in (1, 3):
+            for valid in (True, False):
+                vb = (cpu[2], dev[2]) if valid else (None, None)
+                want = te._window_keys(cpu[0], cpu[1], vb[0], k, L, d)
+                before = te.window_keys.launches
+                for _ in range(2):
+                    got = te.window_keys(dev[0], dev[1], vb[1], k=k, L=L, d=d)
+                    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+                assert te.window_keys.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_window_keys_kernel_refuses_mixed_devices(cuda_device):
+    from colorid_tpu_torch.ops import extract as te
+
+    w, lens, vb = _window_reads(1, 16, 64)
+    with pytest.raises(ValueError, match="different devices"):
+        te.window_keys(w.to(cuda_device), lens, None, k=21, L=64)
+    empty = te.window_keys(*_on(cuda_device, w[:0], lens[:0], vb[:0]), k=21, L=64)
+    assert empty.shape == (0, 44)

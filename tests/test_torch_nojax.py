@@ -5,7 +5,8 @@ that builds (on the host and with --device-build), searches and classifies
 reads through the port's CLI, runs a sharded search on a logical mesh (also
 over a matrix born sharded), classifies reads and counts their k-mers on
 that mesh, runs the process-mesh collectives and mesh over a process group
-of one, and answers a /search through the port's HTTP server), its
+of one, and answers a /search through the port's HTTP server; its
+placement and window-key wrappers take their twins there), its
 native library is its own, and its entry points default to the CUDA card
 and refuse to fall back to the CPU when there is none."""
 
@@ -176,6 +177,11 @@ _SCRIPT = textwrap.dedent("""
         assert json.loads(r.read())["num_kmers"] > 0
     srv.shutdown()
     assert "colorid_tpu_torch.ops.fused_reads" in sys.modules
+    # the placement and window-key wrappers ran on the CPU through their
+    # twins: no kernel was built or launched without a card
+    from colorid_tpu_torch.ops import extract, hash_torch, kernels
+    assert hash_torch.placement.launches == extract.window_keys.launches == 0
+    assert not kernels._libs and {"placement.cu", "window_keys.cu"} <= set(kernels.SOURCES)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "colorid_tpu"))
     assert not leaked, leaked
