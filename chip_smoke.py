@@ -42,6 +42,12 @@ Phases, each printing its lines (any failure exits non-zero):
    the probe kernel on the inputs that the blocked dispatch hands it, against
    its twin and timed alone ("real segment").
 
+4a. bench: python -m colorid_tpu_torch.bench in a subprocess on phase 3's
+   two indexes (handed over in its cache under its names): rc 0, one JSON
+   line with the stream, generic, fused, classic and read_id rates above 0,
+   no parity key, the card's name; the bench itself fails a phase whose
+   kernel was not launched (stream_probe, classic_word, placement,
+   window_keys) and any parity check that does not hold.
 4b. reads (the read classifier and device k-mer counting) on both indexes
    of phase 3: CLI read_id on 204,000 seeded read pairs (3 source genomes,
    2 % junk, N bases, first mates shorter than k, lowercase, duplicates):
@@ -820,45 +826,22 @@ def window_keys_kernel_phase(card: str) -> dict:
 
 
 def synth_inputs(tmp: str):
-    """21 random genomes (fasta) + a manifest + a .fastq.gz of reads drawn
-    from the first N_SOURCES genomes, half reverse-complemented, with
-    SUB_RATE random substitutions. All from one numpy seed."""
-    import numpy as np
+    """The [main] cell, colorid_tpu_torch.bench.synth_cell at this script's
+    sizes from SEED: N_GENOMES random genomes as fasta with a manifest
+    (bench.write_panel) and a .fastq.gz of reads drawn from the first
+    N_SOURCES genomes, half reverse-complemented, with SUB_RATE random
+    substitutions."""
+    from colorid_tpu_torch.bench import synth_cell, write_panel
 
-    rng = np.random.default_rng(SEED)
-    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    comp = np.zeros(256, dtype=np.uint8)
-    comp[acgt] = np.frombuffer(b"TGCA", dtype=np.uint8)
-    genomes, manifest = [], []
-    for i in range(N_GENOMES):
-        g = acgt[rng.integers(0, 4, GENOME_LEN)]
-        genomes.append(g)
-        path = os.path.join(tmp, f"genome{i:02d}.fasta")
-        lines = g[: GENOME_LEN // 80 * 80].reshape(-1, 80)
-        body = np.concatenate(
-            [lines, np.full((lines.shape[0], 1), ord("\n"), dtype=np.uint8)], axis=1
-        ).tobytes()
-        with open(path, "wb") as f:
-            f.write(f">genome{i:02d}\n".encode() + body + g[GENOME_LEN // 80 * 80:].tobytes() + b"\n")
-        manifest.append(f"genome{i:02d}\t{path}\n")
-    man = os.path.join(tmp, "refs.txt")
-    with open(man, "w") as f:
-        f.writelines(manifest)
-    src = rng.integers(0, N_SOURCES, N_READS)
-    starts = rng.integers(0, GENOME_LEN - READ_LEN, N_READS)
-    stack = np.stack(genomes[:N_SOURCES])
-    reads = stack[src[:, None], starts[:, None] + np.arange(READ_LEN)]
-    rc = rng.random(N_READS) < 0.5
-    reads[rc] = comp[reads[rc][:, ::-1]]
-    sub = rng.random(reads.shape) < SUB_RATE
-    reads[sub] = acgt[rng.integers(0, 4, int(sub.sum()))]
-    qual = "I" * READ_LEN
+    genomes, reads = synth_cell(SEED, N_GENOMES, GENOME_LEN, N_SOURCES, N_READS)
+    man = write_panel(tmp, genomes)
+    L = reads.shape[1]
+    qual = "I" * L
     fq = os.path.join(tmp, "reads.fastq.gz")
     seqs = reads.tobytes().decode()
     with gzip.open(fq, "wt", compresslevel=1) as f:
         f.write("".join(
-            f"@read{j}\n{seqs[j * READ_LEN:(j + 1) * READ_LEN]}\n+\n{qual}\n"
-            for j in range(N_READS)
+            f"@read{j}\n{seqs[j * L:(j + 1) * L]}\n+\n{qual}\n" for j in range(N_READS)
         ))
     return man, fq, [f"genome{i:02d}" for i in range(N_SOURCES)]
 
@@ -1061,24 +1044,11 @@ def blocked_path_phase(tmp: str, inputs, card: str):
 # -- phase 4: stream vs generic parity and rates ----------------------------
 
 
-def same_result(a, b) -> bool:
-    import numpy as np
-
-    return (
-        np.array_equal(a.counts, b.counts)
-        and np.array_equal(a.and_all, b.and_all)
-        and a.all_valid == b.all_valid
-        and np.array_equal(a.freq_hist, b.freq_hist)
-        and a.freq_stats() == b.freq_stats()
-        and sorted(zip(a.over_colors.tolist(), a.over_freqs.tolist()))
-        == sorted(zip(b.over_colors.tolist(), b.over_freqs.tolist()))
-    )
-
-
 def classic_parity_phase(bxi: str, fq: str, card: str) -> None:
     import numpy as np
     import torch
 
+    from colorid_tpu_torch.bench import same_result
     from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.index.bigsi import BigsiIndex
     from colorid_tpu_torch.ops.stream_query import EPC_CL
@@ -1147,6 +1117,7 @@ def blocked_parity_phase(bxi: str, fq: str, card: str):
     import numpy as np
     import torch
 
+    from colorid_tpu_torch.bench import same_result
     from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.index.bigsi import BigsiIndex
     from colorid_tpu_torch.ops.stream_query import QKEY_MASK
@@ -1267,6 +1238,62 @@ def real_segment(dispatch, card: str) -> float:
     if not equal:
         raise AssertionError("stream_probe kernel != twin on the real segment")
     return ms
+
+
+# -- phase 4a: the port's bench on this cell ----------------------------------
+
+BENCH_TIMEOUT = 600  # seconds for the bench's subprocess
+BENCH_RATES = ("stream", "generic", "fused", "classic")
+
+
+def bench_phase(tmp: str, classic_bxi: str, blocked_bxi: str, card: str) -> dict:
+    """python -m colorid_tpu_torch.bench in a subprocess on the card, its
+    cache holding phase 3's two indexes under the bench's names (the same
+    bytes as its own build of this cell), each stamped with this script's
+    cell, so none is built twice: rc 0, one JSON line with every rate above
+    0, no parity key, this card's name, the fused rate timed on queued
+    single fused dispatches. Returns the kernel wrappers' launches in the
+    bench's run."""
+    import torch
+
+    from colorid_tpu_torch.bench import cell_stamp, write_stamp
+
+    cache = os.path.join(tmp, "bench_cache")
+    os.makedirs(cache)
+    for bxi, name, blocked in ((classic_bxi, "bench50M.bxi", False),
+                               (blocked_bxi, "bench50M_blocked.bxi", True)):
+        os.symlink(bxi, os.path.join(cache, name))
+        write_stamp(os.path.join(cache, name),
+                    cell_stamp(blocked, N_GENOMES, GENOME_LEN, BLOOM))
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "colorid_tpu_torch.bench", "--device", DEVICE], cwd=HERE,
+        env=dict(os.environ, BENCH_CACHE_DIR=cache), capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT,
+    )
+    dt = time.time() - t0
+    launches = None
+    for line in r.stderr.splitlines():
+        if line.startswith("[launches] "):
+            launches = json.loads(line.split(" ", 1)[1])
+        if line.startswith(("[", "card:", "query:", "loading", "building", "parity", "PARITY",
+                            "fused route")):
+            log(f"[bench] | {line}")
+    lines = [l for l in r.stdout.splitlines() if l.strip()]
+    if r.returncode != 0 or len(lines) != 1 or launches is None:
+        print(r.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"[bench] rc {r.returncode}, stdout {lines}")
+    rec = json.loads(lines[0])
+    want = torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu"
+    rates = [rec.get(f"{k}_kmers_per_s", 0) for k in BENCH_RATES] + [
+        rec.get("read_id_pairs_per_s", 0)]
+    if min(rates) <= 0 or "parity" in rec or rec.get("device") != want:
+        raise AssertionError(f"[bench] line out of contract: {lines[0]}")
+    if "fused route timed: queued single fused dispatches" not in r.stderr:
+        raise AssertionError("[bench] the fused rate was not timed on queued single "
+                             "fused dispatches")
+    log(f"[bench] {lines[0]} in {dt:.1f}s on {card}")
+    return launches
 
 
 # -- phase 4b: the reads path (read classifier, device k-mer counting) --------
@@ -1465,6 +1492,7 @@ def search_reads_phase(name: str, bxi: str, dev, L: int, query, mates, card: str
     import numpy as np
     import torch
 
+    from colorid_tpu_torch.bench import same_result
     from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.index.bigsi import BigsiIndex
     from colorid_tpu_torch.ops import stream_query as sq
@@ -1662,6 +1690,7 @@ def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
     import numpy as np
     import torch
 
+    from colorid_tpu_torch.bench import same_result
     from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.index.bigsi import BigsiIndex
     from colorid_tpu_torch.ops import fused_reads as fr
@@ -2814,6 +2843,7 @@ def born_sharded(what: str, index, row_lists, keys, qcounts, card: str) -> int:
     import torch
 
     from colorid_tpu_torch import QueryEngine, ShardedQueryEngine
+    from colorid_tpu_torch.bench import same_result
     from colorid_tpu_torch.ops import build_ops
     from colorid_tpu_torch.ops import stream_query as sq
     from colorid_tpu_torch.parallel.sharded import make_mesh
@@ -3474,6 +3504,11 @@ def main() -> int:
         with phase("parity"):
             classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
+        with phase("bench"):
+            benched = bench_phase(tmp, classic_bxi, blocked_bxi, card)
+        for row, name in ((classic_row, "classic_words"), (probe_row, "stream_probe"),
+                          (placement_row, "placement"), (window_row, "window_keys")):
+            row["launches"] += benched[name]
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):
