@@ -16,7 +16,8 @@ Phases, each printing its lines (any failure exits non-zero):
    kernel from csrc/ (set-up time).
 2. kernel: each kernel (classic_word, stream_probe, stream_probe_raw, and
    the hand kernels for code that the JAX package leaves to XLA: placement
-   and window_keys) against its plain PyTorch twin on the card at its main
+   and window_keys; the third, the epilogue, in phase 4-epilogue) against
+   its plain PyTorch twin on the card at its main
    path's shapes (bitwise), with its time, the twin's, one PyTorch library
    call's where one computes the same function, and the least time the
    card could take (bound: bytes, or for the two hand kernels also the
@@ -34,20 +35,29 @@ Phases, each printing its lines (any failure exits non-zero):
    placement while search -f 1 and search -s ran, window_keys while
    search -f 1 ran (search -s counts its k-mers on the host),
    no stream batch may fall back, and the blocked TSV must be
-   byte-identical with COLORID_STREAM=0.
+   byte-identical with COLORID_STREAM=0; both searches of each index must
+   end in the epilogue kernel (the classic stream in its per-hash-words
+   mode, the probe stream's residual pass in its AND-words mode).
 4. parity, for each index: the same search_keys through the generic gather
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
    both paths and for the device-resident dispatches, and one
    device-resident stream dispatch's device time by kernel (torch.profiler);
    the probe kernel on the inputs that the blocked dispatch hands it, against
    its twin and timed alone ("real segment").
+4-epilogue. The epilogue kernel against its twins, all four accumulators
+   bitwise: on the inputs that the device-resident classic dispatch hands
+   it (8,650,752 slots, H 4, C 21) and on synthetic AND-words batches (W 1
+   / C 32 with hot histogram bins, W 8 / C 200 on the global-atomic
+   histogram, an overflow list from 1,000 past capO); its time, the
+   twin's, the bound and the main path's launches.
 
 4a. bench: python -m colorid_tpu_torch.bench in a subprocess on phase 3's
    two indexes (handed over in its cache under its names): rc 0, one JSON
    line with the stream, generic, fused, classic and read_id rates above 0,
    no parity key, the card's name; the bench itself fails a phase whose
    kernel was not launched (stream_probe, classic_word, placement,
-   window_keys) and any parity check that does not hold.
+   window_keys, the epilogue's two modes) and any parity check that does
+   not hold.
 4b. reads (the read classifier and device k-mer counting) on both indexes
    of phase 3: CLI read_id on 204,000 seeded read pairs (3 source genomes,
    2 % junk, N bases, first mates shorter than k, lowercase, duplicates):
@@ -547,11 +557,13 @@ def issue_ms(n_instr: float) -> float:
     return n_instr / (sms * 4 * 32 * max_sm_mhz() * 1e6) * 1e3
 
 
-def sass_loop_instructions(source: str, instance: str):
-    """Instructions in the innermost loop of the kernel instance whose
-    mangled name holds ``instance`` (cuobjdump -sass of the library built
-    from ``source``): what a thread issues per item where the loop body is
-    straight code. None where the toolkit has no cuobjdump."""
+def sass_loop_instructions(source: str, instance: str, outer: bool = False):
+    """Instructions in the innermost loop (with ``outer``, the outermost:
+    a loop over items whose body holds data-dependent inner loops, each
+    counted once) of the kernel instance whose mangled name holds
+    ``instance`` (cuobjdump -sass of the library built from ``source``):
+    what a thread issues per item where the loop body is straight code.
+    None where the toolkit has no cuobjdump."""
     import re
 
     from colorid_tpu_torch.ops import kernels
@@ -572,7 +584,9 @@ def sass_loop_instructions(source: str, instance: str):
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+[^;]*\bBRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", line)
         if inside and m and int(m.group(2), 16) < int(m.group(1), 16):
             spans.append((int(m.group(1), 16) - int(m.group(2), 16)) // 16 + 1)
-    return min(spans) if spans else None
+    if not spans:
+        return None
+    return max(spans) if outer else min(spans)
 
 
 def _bound(n_bytes: int, n_items: int, instr) -> tuple[float, str, str]:
@@ -888,23 +902,34 @@ def _searches(tmp: str, bxi: str, fq: str, kernels):
 
 
 def _new_kernels():
-    """The placement and window-key wrappers (each with a count)."""
+    """The wrappers of the hand kernels for code that XLA compiles in the
+    JAX package (each with a count): placement, window keys, and the
+    epilogue's two modes (AND words, per-hash words)."""
     from colorid_tpu_torch.ops.extract import window_keys
     from colorid_tpu_torch.ops.hash_torch import placement
+    from colorid_tpu_torch.ops.query import _accumulate_tail, _accumulate_words
 
-    return placement, window_keys
+    return placement, window_keys, _accumulate_tail, _accumulate_words
+
+
+# the epilogue mode each main path ends in: the classic stream's per-hash
+# words, the probe stream's residual pass through the generic gather
+EPILOGUE_OF = {"classic": "_accumulate_words", "blocked": "_accumulate_tail"}
 
 
 def _check_new_kernels(used: dict, what: str) -> None:
     """On the card, search -f 1 must have placed its k-mers and extracted
     its windows through the kernels, and search -s (k-mers counted on the
-    host, as the reference does) placed its k-mers through the kernel."""
+    host, as the reference does) placed its k-mers through the kernel; both
+    searches must have ended in the epilogue kernel."""
     if DEVICE != "cuda":
         return
-    if min(used["placement"]) == 0 or used["window_keys"][0] == 0:
+    if (min(used["placement"]) == 0 or used["window_keys"][0] == 0
+            or min(used[EPILOGUE_OF[what]]) == 0):
         raise AssertionError(
-            f"{what}: search -f 1 and search -s did not run through the placement "
-            f"and window-key kernels (launches in (search -f 1, search -s): {used})"
+            f"{what}: search -f 1 and search -s did not run through the placement, "
+            f"window-key and epilogue kernels (launches in (search -f 1, search -s): "
+            f"{used})"
         )
 
 
@@ -948,7 +973,8 @@ def classic_path_phase(tmp: str, inputs, card: str):
         f"{reads_launches}); search -s {t_perfect:.1f}s; classic_word "
         f"launches={launches}; stream batches={sizes} n_drop={n_drop}; launches in "
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
-        f"{used['window_keys']} on {card}")
+        f"{used['window_keys']}, epilogue {used['_accumulate_words']} (words mode) on "
+        f"{card}")
     _check_new_kernels(used, "classic")
     if DEVICE == "cuda" and (launches == 0 or reads_launches == 0):
         raise AssertionError(
@@ -1017,7 +1043,8 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         f"{reads_launches}); search -s {t_perfect:.1f}s; stream_probe "
         f"launches={launches}; streamed segments={sizes} n_drop={n_drop}; launches in "
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
-        f"{used['window_keys']} on {card}")
+        f"{used['window_keys']}, epilogue {used['_accumulate_tail']} (residual pass) on "
+        f"{card}")
     _check_new_kernels(used, "blocked")
     if index.blocked != 4:
         raise AssertionError(f"build --blocked chose layout {index.blocked}, not v4")
@@ -1044,7 +1071,11 @@ def blocked_path_phase(tmp: str, inputs, card: str):
 # -- phase 4: stream vs generic parity and rates ----------------------------
 
 
-def classic_parity_phase(bxi: str, fq: str, card: str) -> None:
+def classic_parity_phase(bxi: str, fq: str, card: str):
+    """The classic index: search_keys through the classic stream against
+    the generic gather, the device-resident stream dispatch against both,
+    their rates, and the profile of one device-resident dispatch. Returns
+    that dispatch (a function of no arguments)."""
     import numpy as np
     import torch
 
@@ -1101,11 +1132,10 @@ def classic_parity_phase(bxi: str, fq: str, card: str) -> None:
         f"generic={max(rates['generic']):.0f} device_resident_stream={n / dt:.0f} "
         f"(best of 2 host-clock runs incl. H2D+fetch; device-resident mean of "
         f"{reps}) on {card}")
+    dispatch = lambda: stream_eng.search_keys_dev_classic_async(pk_dev, qc_dev, K)[0]  # noqa: E731
     if DEVICE == "cuda":
-        profile_dispatch(
-            lambda: stream_eng.search_keys_dev_classic_async(pk_dev, qc_dev, K)[0],
-            "classic", card,
-        )
+        profile_dispatch(dispatch, "classic", card)
+    return dispatch
 
 
 def blocked_parity_phase(bxi: str, fq: str, card: str):
@@ -1238,6 +1268,168 @@ def real_segment(dispatch, card: str) -> float:
     if not equal:
         raise AssertionError("stream_probe kernel != twin on the real segment")
     return ms
+
+
+# -- phase 4-epilogue: the epilogue kernel on the classic dispatch's inputs ----
+
+EPI_N = 1 << 23  # rows of the synthetic one-word AND-words case
+
+
+def _epi_accs(C: int, W: int, capO: int, n_over: int = 0):
+    """Fresh accumulators on the card (ops/query.py::new_accumulators) with
+    n_over entries already in the overflow list."""
+    import torch
+
+    from colorid_tpu_torch.ops.query import new_accumulators
+
+    accs = new_accumulators(C, W, capO, DEVICE)
+    m = min(n_over, capO)
+    accs[0][C + W + 1] = n_over
+    accs[2][:m] = torch.arange(m, device=DEVICE, dtype=torch.int32) % max(C, 1)
+    accs[3][:m] = torch.arange(m, device=DEVICE, dtype=torch.int32) + 5000
+    return accs
+
+
+def _epi_andw_case(g, N: int, C: int, W: int, hot: bool):
+    """Synthetic AND-words inputs on the card: 60 % one-color rows (on 3
+    colors where ``hot``), 20 % empty, 20 % with about one in eight colors;
+    bits at and above C in a third of the rows; present 90 %, mask 95 %;
+    frequencies 1-18 with 0.5 % at or above FREQ_CAP (hot: the unique hits
+    pile onto a few histogram bins) or 1-40 with 5 %. Returns (andw int32
+    [N, W], present, mask, q)."""
+    import torch
+
+    def rnd(shape, hi=2**32):
+        return torch.randint(0, hi, shape, generator=g, dtype=torch.int64, device=DEVICE)
+
+    kind = rnd((N,), 10)
+    col = rnd((N,), 3 if hot else C)
+    words = torch.arange(W, device=DEVICE)
+    lane = torch.arange(32 * W, device=DEVICE).view(W, 32)
+    cmask = ((lane < C).to(torch.int64) << torch.arange(32, device=DEVICE)).sum(dim=1)
+    one = torch.where((col // 32)[:, None] == words, (1 << (col % 32))[:, None], 0)
+    x = torch.where((kind < 6)[:, None], one, 0)
+    x = torch.where((kind >= 8)[:, None], rnd((N, W)) & rnd((N, W)) & rnd((N, W)) & cmask, x)
+    x |= torch.where((rnd((N,), 3) == 0)[:, None], rnd((N, W)) & ~cmask & 0xFFFFFFFF, 0)
+    q = rnd((N,), 19 if hot else 41).clamp(min=1)
+    big = rnd((N,), 1000) < (5 if hot else 50)
+    q = torch.where(big, rnd((N,), 5000) + 1024, q).to(torch.int32)
+    return _as_i32(x), rnd((N,), 10) < 9, rnd((N,), 20) < 19, q
+
+
+def _epi_compare(what: str, kernel, twin, accs, args, kw) -> int:
+    """The kernel and its twin on copies of the same accumulators: every
+    accumulator bitwise equal. Returns the max |kernel - twin|."""
+    import torch
+
+    got = kernel(*[a.clone() for a in accs], *args, **kw)
+    want = twin(*[a.clone() for a in accs], *args, **kw)
+    sync()
+    err = max(max_abs_diff(x, y) for x, y in zip(got, want))
+    n_over = int(want[0][-1])
+    log(f"[kernel] epilogue {what}: stats, hist, over_col, over_freq bitwise_equal="
+        f"{err == 0} max_abs_err={err}; n_over {int(accs[0][-1])} -> {n_over} of capO "
+        f"{accs[2].numel()}; histogram {int(want[1].sum() - accs[1].sum())} unique hits "
+        f"on {int((want[1] != accs[1]).sum())} bins")
+    if err:
+        raise AssertionError(f"epilogue kernel != twin ({what}): max_abs_err {err}")
+    return err
+
+
+def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> dict:
+    """The epilogue kernel against its twins, bitwise on all four
+    accumulators: in words mode on the inputs that the device-resident
+    classic dispatch hands it (the [main] cell's 8,650,752-slot batch, H 4,
+    C 21, its real frequencies), and in AND-words mode at W 1 / C 32 with
+    hot histogram bins (shared-memory histogram), at W 8 / C 200 (the
+    global-atomic histogram) and with an overflow list that starts at 1,000
+    and runs past capO. Its time, the twin's and the bound on the classic
+    batch; times of the two AND-words cases."""
+    import torch
+
+    from colorid_tpu_torch.ops import query as tq
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    t0 = time.time()
+    calls = []
+    real = sq._accumulate_words
+
+    def observed(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    sq._accumulate_words = observed
+    try:
+        classic_dispatch()
+        sync()
+    finally:
+        sq._accumulate_words = real
+    a, kw = calls[-1]
+    stats, _hist, over_col, _of, wordsH, mask, q, base_idx = a
+    N, H = wordsH.shape
+    C = stats.numel() - 3  # stats is [C + W + 2] with W 1
+    capO = over_col.numel()
+    errs = []
+    accs = _epi_accs(C, 1, capO)
+    args = (wordsH, mask, q, base_idx)
+    errs.append(_epi_compare(f"classic dispatch (words mode, N={N}, H {H}, C {C})",
+                             tq._accumulate_words, tq._accumulate_words_plain, accs, args, kw))
+    ms = cuda_ms(lambda: tq._accumulate_words(*accs, *args, **kw), 20)
+    plain_ms = cuda_ms(lambda: tq._accumulate_words_plain(*accs, *args, **kw), 3)
+    fresh = _epi_accs(C, 1, capO)
+    after = tq._accumulate_words(*[x.clone() for x in fresh], *args, **kw)
+    n_kept = min(int(after[0][-1]), capO)
+    n_bytes = (4 * wordsH.numel() + mask.numel() + 4 * q.numel()
+               + (0 if kw.get("gidx") is q or kw.get("gidx") is None else 4 * N)
+               + 2 * 4 * (stats.numel() + fresh[1].numel()) + 8 * n_kept)
+    instr = sass_loop_instructions("epilogue.cu", "epilogue_kernelILi4ELb1E", outer=True)
+    bound_ms, bound_by, how = _bound(n_bytes, N, instr)
+    log(f"[kernel] epilogue classic N={N} H={H} C={C} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms=null (no single PyTorch call computes the epilogue) "
+        f"bound_ms={bound_ms:.4f} bound_by={bound_by} ({how}; the tile loop's body) "
+        f"launches on the main path={main_launches} on {card}")
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    times = {}
+    for what, N2, C2, W2, hot, n_over, cap in (
+        ("AND words W 1 C 32 hot bins", EPI_N, 32, 1, True, 0, capO),
+        ("AND words W 8 C 200 (global-atomic histogram)", 1 << 21, 200, 8, False, 0, capO),
+        ("AND words W 1 C 21 overflow from 1,000 past capO", 1 << 20, 21, 1, False, 1000,
+         11_000),
+    ):
+        andw, present, msk, q2 = _epi_andw_case(g, N2, C2, W2, hot)
+        accs2 = _epi_accs(C2, W2, cap, n_over)
+        args2 = (andw, present, msk, q2, W2, 7_000_000)
+        errs.append(_epi_compare(f"{what} (N={N2})", tq._accumulate_tail,
+                                 tq._accumulate_tail_plain, accs2, args2, {}))
+        if n_over:
+            after = tq._accumulate_tail(*[x.clone() for x in accs2], *args2)
+            if int(after[0][-1]) <= cap:
+                raise AssertionError("the overflow case did not run past capO")
+            continue
+        times[what] = (cuda_ms(lambda: tq._accumulate_tail(*accs2, *args2), 20),
+                       cuda_ms(lambda: tq._accumulate_tail_plain(*accs2, *args2), 3))
+        del andw, present, msk, q2, accs2
+    log("[kernel] epilogue AND-words times: " + "; ".join(
+        f"{w}: ms={k:.4f} plain_ms={p:.4f}" for w, (k, p) in times.items())
+        + f" on {card}")
+    log(f"[kernel] epilogue phase took {time.time() - t0:.1f}s")
+    del accs, fresh, after, calls, a, args
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "name": "epilogue",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/epilogue.cu",
+        "replaces": "colorid_tpu/ops/query.py:319",
+        "launches": main_launches,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
 
 # -- phase 4a: the port's bench on this cell ----------------------------------
@@ -3233,8 +3425,9 @@ def ptxas_summary(logs) -> list[str]:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             # the identifier runs from the last digit of its length prefix
-            k = re.search(r"([A-Za-z_]+_kernel)(?:I((?:L[ib]-?\d+E)+)E)?", m.group(1))
-            vals = re.findall(r"L[ib](-?\d+)E", k.group(2) or "") if k else []
+            k = re.search(r"([A-Za-z_]+_kernel)(?:I((?:L[ib]n?\d+E)+)E)?", m.group(1))
+            vals = [v.replace("n", "-")
+                    for v in re.findall(r"L[ib](n?\d+)E", k.group(2) or "")] if k else []
             name = (k.group(1) + (f"<{','.join(vals)}>" if vals else "")) if k else m.group(1)
         elif "spill" in line:
             spill = "no spills" if re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
@@ -3298,7 +3491,8 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream") -> None:
     ours = "; ".join(
         f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
         and name.split("_kernel")[0] in (
-            "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys")
+            "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
+            "epilogue", "epilogue_scan", "epilogue_overflow")
     )
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
     log(f"[profile] {what}: one {label} dispatch: device {dev_ms:.2f} ms of "
@@ -3494,21 +3688,26 @@ def main() -> int:
             inputs = synth_inputs(tmp)
             log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
                 f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
-            placement, window_keys = _new_kernels()
-            placement.launches = window_keys.launches = 0
+            placement, window_keys, tail, words = _new_kernels()
+            placement.launches = window_keys.launches = tail.launches = words.launches = 0
             classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
                 tmp, inputs, card)
             blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
             placement_row["launches"] = placement.launches
             window_row["launches"] = window_keys.launches
+            epilogue_launches = tail.launches + words.launches
         with phase("parity"):
-            classic_parity_phase(classic_bxi, inputs[1], card)
+            classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
+        with phase("epilogue"):
+            epilogue_row = epilogue_kernel_phase(classic_dispatch, epilogue_launches, card)
+        del classic_dispatch
         with phase("bench"):
             benched = bench_phase(tmp, classic_bxi, blocked_bxi, card)
         for row, name in ((classic_row, "classic_words"), (probe_row, "stream_probe"),
                           (placement_row, "placement"), (window_row, "window_keys")):
             row["launches"] += benched[name]
+        epilogue_row["launches"] += benched["_accumulate_tail"] + benched["_accumulate_words"]
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):
@@ -3546,7 +3745,8 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
         + f"; whole script {time.time() - t_script:.1f}s on {card}")
-    print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row]}))
+    print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row,
+                                  epilogue_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

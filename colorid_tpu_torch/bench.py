@@ -45,7 +45,7 @@ estimate of 4 M queried k-mers/s for multithreaded Rust, vs_baseline =
 value / 4e6.
 
 Prints exactly one JSON line on stdout, and on stderr the card, each
-phase's per-dispatch span and the launches of the five kernel wrappers.
+phase's per-dispatch span and the launches of the seven kernel wrappers.
 Exits 2 without a card unless ``--device cpu`` is given (no number), and 1
 after the line when a phase failed or a parity check did not hold.
 """
@@ -532,20 +532,23 @@ def emit_json(rates: dict, parity: list[str], device: str) -> None:
 
 
 def kernel_wrappers():
-    """The five kernel wrappers, each with its launch count."""
+    """The seven kernel wrappers, each with its launch count (the epilogue
+    kernel has two: its AND-words and its per-hash-words mode)."""
     from .ops.extract import window_keys
     from .ops.hash_torch import placement
+    from .ops.query import _accumulate_tail, _accumulate_words
     from .ops.stream_query import classic_words, stream_probe, stream_probe_raw
 
-    return classic_words, stream_probe, stream_probe_raw, placement, window_keys
+    return (classic_words, stream_probe, stream_probe_raw, placement, window_keys,
+            _accumulate_tail, _accumulate_words)
 
 
 # the kernels each phase must launch on the card (the wrappers' counts)
 PHASE_KERNELS = {
-    "stream": ("stream_probe", "placement"),
-    "generic": ("placement",),
-    "fused": ("stream_probe", "placement", "window_keys"),
-    "classic": ("classic_words", "placement"),
+    "stream": ("stream_probe", "placement", "_accumulate_tail"),
+    "generic": ("placement", "_accumulate_tail"),
+    "fused": ("stream_probe", "placement", "window_keys", "_accumulate_tail"),
+    "classic": ("classic_words", "placement", "_accumulate_tail", "_accumulate_words"),
     "read_id": ("placement", "window_keys"),
 }
 

@@ -54,6 +54,12 @@ KERNELS = {
         "window_keys_launch",
         [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _I32, _VP],
     ),
+    "epilogue": (
+        "epilogue.cu",
+        "epilogue_launch",
+        [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I32, _I32, _I32, _VP, _VP, _VP,
+         _VP, _I64, _VP, _VP],
+    ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})
 

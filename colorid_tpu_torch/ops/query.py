@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import kernels
 from .hash_torch import M32, _to_i32, device_rows
 
 FREQ_CAP = 1024  # per-color on-device frequency histogram width
@@ -213,7 +214,136 @@ def _accumulate_tail(
     base_idx, gidx=None,
 ):
     """Shared epilogue over pre-gathered per-k-mer AND words: counts,
-    uniq-hit detection, frequency histogram/overflow, global AND.
+    uniq-hit detection, frequency histogram/overflow, global AND (the
+    contract of _accumulate_tail_plain), in place on the accumulators.
+
+    A CUDA tensor launches csrc/epilogue.cu on the current stream; a CPU
+    tensor takes the plain twin. Nothing here waits for the device.
+    ``_accumulate_tail.launches`` counts kernel launches (none for N = 0)."""
+    dev = andw.device
+    if dev.type == "cpu":
+        return _accumulate_tail_plain(
+            stats, hist, over_col, over_freq, andw, present, mask, qcounts,
+            wpad, base_idx, gidx,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"_accumulate_tail: unsupported device {dev}")
+    if andw.dim() != 2 or andw.shape[1] != wpad:
+        raise ValueError(f"_accumulate_tail: andw must be [N, {wpad}]")
+    if _epilogue(stats, hist, over_col, over_freq, andw, present, mask,
+                 qcounts, base_idx, gidx, wpad, "_accumulate_tail"):
+        _accumulate_tail.launches += 1
+    return stats, hist, over_col, over_freq
+
+
+_accumulate_tail.launches = 0
+
+
+def _accumulate_words(
+    stats, hist, over_col, over_freq, wordsH, mask, qcounts, base_idx,
+    gidx=None,
+):
+    """_accumulate_tail over per-hash row words (W = 1): wordsH int32
+    [N, H] holds each k-mer's H one-word rows in k-mer order; their AND is
+    its AND word and it is present when none of them is zero (the
+    contract of _accumulate_words_plain).
+
+    A CUDA tensor launches csrc/epilogue.cu, which reads wordsH directly
+    (no AND or presence tensor is made); a CPU tensor takes the plain twin.
+    ``_accumulate_words.launches`` counts kernel launches."""
+    dev = wordsH.device
+    if dev.type == "cpu":
+        return _accumulate_words_plain(
+            stats, hist, over_col, over_freq, wordsH, mask, qcounts, base_idx,
+            gidx,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"_accumulate_words: unsupported device {dev}")
+    if wordsH.dim() != 2 or wordsH.shape[1] < 1:
+        raise ValueError("_accumulate_words: wordsH must be [N, H] with H >= 1")
+    if _epilogue(stats, hist, over_col, over_freq, wordsH, None, mask,
+                 qcounts, base_idx, gidx, 1, "_accumulate_words"):
+        _accumulate_words.launches += 1
+    return stats, hist, over_col, over_freq
+
+
+_accumulate_words.launches = 0
+
+EPI_TILE = 512  # rows per tile of csrc/epilogue.cu (its THREADS)
+
+
+def _epilogue(stats, hist, over_col, over_freq, words, present, mask,
+              qcounts, base_idx, gidx, W: int, what: str) -> bool:
+    """Check the card's inputs and launch csrc/epilogue.cu: AND words
+    [N, W] with ``present``, or (present None, W = 1) per-hash words
+    [N, H]. Returns whether it launched (N > 0)."""
+    accs = (stats, hist, over_col, over_freq)
+    ins = [words, mask, qcounts] + [t for t in (present, gidx) if t is not None]
+    dev = words.device
+    if any(t.device != dev for t in accs + tuple(ins)):
+        raise ValueError(f"{what}: tensors on different devices")
+    if any(t.dtype != torch.int32 for t in accs + (words, qcounts)) or (
+        gidx is not None and gidx.dtype != torch.int32
+    ):
+        raise TypeError(f"{what}: int32 words, frequencies, payloads and accumulators")
+    if mask.dtype != torch.bool or (present is not None and present.dtype != torch.bool):
+        raise TypeError(f"{what}: bool present and mask")
+    if any(not t.is_contiguous() for t in accs):
+        raise ValueError(f"{what}: the accumulators must be contiguous")
+    N, H = words.shape[0], (0 if present is not None else words.shape[1])
+    C = stats.shape[0] - W - 2
+    if (stats.dim() != 1 or not 0 <= C <= 32 * W or hist.shape != (C, FREQ_CAP)
+            or over_col.dim() != 1 or over_freq.shape != over_col.shape):
+        raise ValueError(f"{what}: accumulators out of shape for {C} colors, W {W}")
+    if any(t.shape != (N,) for t in ins[1:]):
+        raise ValueError(f"{what}: present, mask, qcounts and gidx must be [N]")
+    if N == 0:
+        return False
+    words, mask, qcounts = words.contiguous(), mask.contiguous(), qcounts.contiguous()
+    present = None if present is None else present.contiguous()
+    gidx = None if gidx is None else gidx.contiguous()
+    if H in (2, 4) and words.data_ptr() % (4 * H):
+        raise ValueError(f"{what}: [N, {H}] words must be {4 * H}-byte aligned")
+    n_tiles = -(-N // EPI_TILE)
+    scratch = torch.empty(2 * n_tiles, dtype=torch.int64, device=dev)
+    fn = kernels.kernel("epilogue")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            words.data_ptr(), None if present is None else present.data_ptr(),
+            mask.data_ptr(), qcounts.data_ptr(),
+            None if gidx is None else gidx.data_ptr(), int(base_idx), N, W, H,
+            C, stats.data_ptr(), hist.data_ptr(), over_col.data_ptr(),
+            over_freq.data_ptr(), over_col.shape[0], scratch.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"epilogue kernel launch failed: CUDA error {err}")
+    return True
+
+
+def _accumulate_words_plain(
+    stats, hist, over_col, over_freq, wordsH, mask, qcounts, base_idx,
+    gidx=None,
+):
+    """Plain PyTorch twin of _accumulate_words: the AND of each k-mer's H
+    words and its presence (every word nonzero), then
+    _accumulate_tail_plain with W = 1."""
+    andw = wordsH[:, 0]
+    for h in range(1, wordsH.shape[1]):
+        andw = andw & wordsH[:, h]
+    present = (wordsH != 0).all(dim=1)
+    return _accumulate_tail_plain(
+        stats, hist, over_col, over_freq, andw[:, None], present, mask,
+        qcounts, 1, base_idx, gidx,
+    )
+
+
+def _accumulate_tail_plain(
+    stats, hist, over_col, over_freq, andw, present, mask, qcounts, wpad,
+    base_idx, gidx=None,
+):
+    """Plain PyTorch twin of the epilogue kernel: counts, uniq-hit
+    detection, frequency histogram/overflow, global AND.
 
     stats int32 [C + wpad + 2] = (per-color counts, and-words, all-valid
     flag, n_over); hist int32 [C, FREQ_CAP]; over_col/over_freq int32

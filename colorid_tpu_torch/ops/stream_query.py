@@ -7,7 +7,8 @@ flattens the H*P row probes, sorts them by row, pulls each probe's single
 u32 row word through the classic word kernel (csrc/classic_word.cu), patches
 the probes that fell outside their chunk's window, un-sorts the words back
 to probe order and recombines each k-mer's H words with the shared
-AND/count/histogram epilogue (ops/query.py::_accumulate_tail).
+AND/count/histogram epilogue (ops/query.py::_accumulate_words, the kernel
+csrc/epilogue.cu).
 
 Blocked. The blocked layouts v2/v3/v4 (ops/blocked.py) keep a k-mer's H
 rows in one 512-byte block, hash h in its own lane group. This path hashes
@@ -35,7 +36,7 @@ from .hash_torch import M32, bloom_rows_device, device_blkoff
 from .query import (
     FREQ_CAP,
     _accumulate_one,
-    _accumulate_tail,
+    _accumulate_words,
     _and_over_hashes,
     _and_words,
     _bit_counts,
@@ -212,17 +213,13 @@ def stream_accumulate_classic_exact(
 
     # un-sort to probe order by scattering to the sort permutation (the JAX
     # package sorts by the permutation instead; the result is identical),
-    # then per-k-mer AND across the H words
+    # then the epilogue over each k-mer's H words (their AND and presence
+    # inside the kernel)
     words_u = torch.empty_like(words)
     words_u[gidx_s] = words
-    wordsH = words_u.view(P0, H)
-    andw = wordsH[:, 0]
-    for h in range(1, H):
-        andw = andw & wordsH[:, h]
-    present = (wordsH != 0).all(dim=1)
-    _accumulate_tail(
-        stats, hist, over_col, over_freq, andw[:, None], present,
-        qcounts > 0, qcounts, 1, 0, gidx=qcounts,
+    _accumulate_words(
+        stats, hist, over_col, over_freq, words_u.view(P0, H), qcounts > 0,
+        qcounts, 0, gidx=qcounts,
     )
     return stats, hist, over_col, over_freq, n_drop
 

@@ -5,8 +5,8 @@ the card has no jax), so they run there without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Each kernel (the classic word kernel, the blocked probe kernel and its raw
-mode, the placement and window-key kernels) must equal its plain twin bit
-for bit, count its launches and refuse what it cannot take; the engines on the card (single-device, and a (1, 4)
+mode, the placement, window-key and search-epilogue kernels) must equal its
+plain twin bit for bit, count its launches and refuse what it cannot take; the engines on the card (single-device, and a (1, 4)
 color and row mesh on the one card) must give the CPU's SearchResult,
 through the kernels."""
 
@@ -986,3 +986,156 @@ def test_window_keys_kernel_refuses_mixed_devices(cuda_device):
         te.window_keys(w.to(cuda_device), lens, None, k=21, L=64)
     empty = te.window_keys(*_on(cuda_device, w[:0], lens[:0], vb[:0]), k=21, L=64)
     assert empty.shape == (0, 44)
+
+
+# -- the search epilogue kernel -----------------------------------------------
+
+EPI_COLORS = [1, 20, 21, 32, 33, 70, 200, 9000]  # 9000: counts past shared memory
+
+
+def _epi_inputs(C: int, hot: bool, seed: int):
+    """AND-words-mode inputs (N not a multiple of the kernel's 512-row
+    tile): (wpad, andw, present, mask, q) numpy arrays; ``hot`` puts the
+    hits on 3 colors at frequencies 0-18."""
+    from colorid_tpu_torch.ops import query as tq
+
+    rng = np.random.default_rng(seed)
+    n = 3 * 4096 + 37 if C < 1000 else 4 * 512 + 37
+    wpad = tq.row_wpad((C + 31) // 32)
+    andw = ts.epi_andw(rng, n, min(C, 3) if hot else C, wpad, high=not hot)
+    present = rng.random(n) < 0.85
+    q = ts.epi_qcounts(rng, n, hot=hot)
+    return wpad, andw, present, q > 0, q
+
+
+def _epi_on(dev, accs):
+    return tuple(torch.from_numpy(a.copy()).to(dev) for a in accs)
+
+
+def _epi_kernel_calls(monkeypatch, fn, accs, args, kw, n_calls=2):
+    """fn on the card n_calls times from the same accumulators, with the
+    twin made unreachable: each call launches once; returns the results."""
+    from colorid_tpu_torch.ops import query as tq
+
+    def unreachable(*a, **k):
+        raise AssertionError("a CUDA call reached _accumulate_tail_plain")
+
+    monkeypatch.setattr(tq, "_accumulate_tail_plain", unreachable)
+    outs = []
+    for _ in range(n_calls):
+        before = fn.launches
+        out = fn(*_epi_on("cuda", accs), *args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        outs.append(out)
+    monkeypatch.undo()
+    return outs
+
+
+def _epi_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.int32
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("C", EPI_COLORS)
+def test_epilogue_kernel_matches_twins(cuda_device, monkeypatch, C, hot):
+    """AND-words mode: the kernel equals the twin on the card and on the
+    CPU bit for bit, twice, with bits at and above C, an overflow list that
+    starts at 20 and runs past capO, the k-mer index payload from a nonzero
+    base_idx and a given payload; C 1-55 keep the histogram in shared
+    memory, wider C take the global-atomic branch, C 9000 also the global
+    counts."""
+    from colorid_tpu_torch.ops import query as tq
+
+    wpad, andw, present, mask, q = _epi_inputs(C, hot, 10 * C + hot)
+    accs = ts.epi_accs(C, wpad, 40, n_over=20, seed=C)
+    gidx = np.random.default_rng(C).integers(0, 2**31, q.shape[0]).astype(np.int32)
+    for base_idx, g in ((123_456_789, None), (0, gidx)):
+        args_cpu = (ts.t32(andw), torch.from_numpy(present), torch.from_numpy(mask),
+                    torch.from_numpy(q), wpad, base_idx)
+        gk = None if g is None else torch.from_numpy(g)
+        want = tq._accumulate_tail(*_epi_on("cpu", accs), *args_cpu, gidx=gk)
+        args = tuple(a.to(cuda_device) if torch.is_tensor(a) else a for a in args_cpu)
+        gc = None if gk is None else gk.to(cuda_device)
+        twin = tq._accumulate_tail_plain(*_epi_on(cuda_device, accs), *args, gidx=gc)
+        _epi_equal(twin, want)
+        for got in _epi_kernel_calls(monkeypatch, tq._accumulate_tail, accs, args,
+                                     dict(gidx=gc)):
+            _epi_equal(got, want)
+        assert int(want[0][C + wpad + 1]) > 40 or hot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("C", [c for c in EPI_COLORS if c <= 32])
+def test_epilogue_kernel_words_mode_matches_twins(cuda_device, monkeypatch, C, hot):
+    """Words mode (the classic stream's per-hash words, W = 1) at H 1, 2, 4
+    (one load) and 3 (the loop): the kernel equals _accumulate_words_plain
+    on the card and on the CPU, twice; exact-mode payloads."""
+    from colorid_tpu_torch.ops import query as tq
+
+    for H in (1, 2, 3, 4):
+        rng = np.random.default_rng(100 * C + 10 * H + hot)
+        n = 3 * 4096 + 37
+        words = ts.epi_words(rng, n, min(C, 3) if hot else C, H)
+        q = torch.from_numpy(ts.epi_qcounts(rng, n, hot=hot))
+        accs = ts.epi_accs(C, 1, 60, n_over=20, seed=H)
+        want = tq._accumulate_words(*_epi_on("cpu", accs), ts.t32(words), q > 0, q, 0, gidx=q)
+        wd, qd = ts.t32(words).to(cuda_device), q.to(cuda_device)
+        args = (wd, qd > 0, qd, 0)
+        _epi_equal(tq._accumulate_words_plain(*_epi_on(cuda_device, accs), *args, gidx=qd),
+                   want)
+        for got in _epi_kernel_calls(monkeypatch, tq._accumulate_words, accs, args,
+                                     dict(gidx=qd)):
+            _epi_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_refuses_and_skips(cuda_device):
+    """Misaligned [N, 4] words and mixed devices are refused; N = 0 launches
+    nothing and changes nothing."""
+    from colorid_tpu_torch.ops import query as tq
+
+    accs = _epi_on(cuda_device, ts.epi_accs(21, 1, 16, seed=1))
+    buf = torch.zeros(4 * 64 + 1, dtype=torch.int32, device=cuda_device)
+    q = torch.ones(64, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        tq._accumulate_words(*accs, buf[1:].view(64, 4), q > 0, q, 0)
+    with pytest.raises(ValueError, match="different devices"):
+        tq._accumulate_words(*accs, buf[:256].view(64, 4), (q > 0).cpu(), q, 0)
+    before = (tq._accumulate_tail.launches, tq._accumulate_words.launches)
+    snap = [a.clone() for a in accs]
+    tq._accumulate_words(*accs, buf[:0].view(0, 4), q[:0] > 0, q[:0], 0)
+    tq._accumulate_tail(*accs, buf[:0].view(0, 1), q[:0] > 0, q[:0] > 0, q[:0], 1, 0)
+    assert (tq._accumulate_tail.launches, tq._accumulate_words.launches) == before
+    _epi_equal(accs, snap)
+
+
+@pytest.mark.cuda
+def test_classic_engine_ends_in_the_epilogue_kernel(cuda_device, monkeypatch, tmp_path):
+    """search_keys on the card through the classic stream launches the
+    epilogue's words mode, and the generic gather (COLORID_STREAM=0) its
+    AND-words mode; both give the CPU's SearchResult."""
+    from colorid_tpu_torch.ops import query as tq
+
+    gs = ts.genomes(4, 50_000, seed=2)
+    _man, refs = ts.write_panel(tmp_path, gs)
+    index = build_index(refs, 375_000, 4, 27, verbose=False)
+    nc = native.NativeCounter(27)
+    assert nc.add_many(np.ascontiguousarray(ts.reads(gs[:2], 800, 2000, seed=12)))
+    packed, qcounts = nc.dump_packed(0)
+    want = QueryEngine(index, device="cpu").search_keys(
+        None, qcounts=qcounts, packed_all=packed, k=27)
+    card = QueryEngine(index, device=cuda_device)
+    assert card._use_stream_classic(packed.shape[0], 27)
+    monkeypatch.setenv("COLORID_STREAM", "0")
+    generic = QueryEngine(index, device=cuda_device)
+    for fn, engine in ((tq._accumulate_words, card), (tq._accumulate_tail, generic)):
+        before = fn.launches
+        got = engine.search_keys(None, qcounts=qcounts, packed_all=packed, k=27)
+        assert fn.launches > before
+        for field in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))

@@ -299,3 +299,78 @@ def write_mesh_inputs(d: str, gs, K: int, L: int) -> dict:
     inp["sets"] = sets
     inp["batch"] = [(f"r{i}", [r]) for i, r in enumerate(batch)]
     return inp
+
+
+# -- inputs of the search epilogue (ops/query.py::_accumulate_tail and
+# _accumulate_words, csrc/epilogue.cu's twins) ---------------------------------
+
+EPI_FREQ_CAP = 1024  # ops/query.py::FREQ_CAP
+
+
+def epi_andw(rng, n: int, C: int, wpad: int, high: bool = False) -> np.ndarray:
+    """Per-k-mer AND words uint32 [n, wpad]: a mix of empty rows,
+    single-color (uniq) rows and multi-color rows over colors < C. With
+    ``high`` also bits at and above C: random ones, and the top bit in
+    every row, which the global AND keeps and everything else drops."""
+    kind = rng.integers(0, 4, n)
+    bits = np.zeros((n, wpad * 32), dtype=bool)
+    if C:
+        bits[np.arange(n), rng.integers(0, C, n)] = kind == 1
+        bits[:, :C] |= (rng.random((n, C)) < 0.2) & (kind >= 2)[:, None]
+    if high and C < wpad * 32:
+        bits[:, C:] |= rng.random((n, wpad * 32 - C)) < 0.3
+        bits[:, -1] = True
+    return np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+
+
+def epi_words(rng, n: int, C: int, H: int, p_absent: float = 0.05) -> np.ndarray:
+    """Per-hash one-word rows uint32 [n, H] of the classic stream: each
+    k-mer's words share an empty, one-color or several-color core over
+    colors < C, plus noise bits (at and above C too, and always the top
+    one where C < 32) that the AND over H mostly removes; a fraction
+    p_absent of the words is zero (the k-mer is then not present)."""
+    core = epi_andw(rng, n, C, 1)[:, 0]
+    noise = rng.random((n, H, 32)) < 0.02 ** (1 / H)  # 2 % of a bit survive the AND
+    if C < 32:
+        noise[:, :, 31] = True
+    nw = np.packbits(noise, axis=2, bitorder="little").view(np.uint32)[:, :, 0]
+    words = core[:, None] | nw
+    words[rng.random((n, H)) < p_absent] = 0
+    return words
+
+
+def epi_qcounts(rng, n: int, hot: bool = False) -> np.ndarray:
+    """Frequencies int32 [n] (0 marks padding): with ``hot`` only 0-18, so
+    the unique hits pile onto a few histogram bins, as reads at a few x
+    coverage of a few genomes do; else 0-40 with frequencies straddling
+    FREQ_CAP and far above it."""
+    if hot:
+        return rng.integers(0, 19, n).astype(np.int32)
+    q = rng.integers(0, 40, n).astype(np.int32)
+    big = rng.random(n) < 0.1
+    q[big] = rng.integers(EPI_FREQ_CAP - 3, EPI_FREQ_CAP + 3000, int(big.sum()))
+    q[rng.random(n) < 0.02] = EPI_FREQ_CAP - 1
+    q[rng.random(n) < 0.02] = EPI_FREQ_CAP
+    return q
+
+
+def epi_accs(C: int, wpad: int, capO: int, n_over: int = 0, seed: int = 0):
+    """Accumulators (stats, hist, over_col, over_freq) as numpy int32 arrays
+    that a search may hold before this batch: counts, AND words with some
+    bits cleared, the all-valid flag 1, a histogram with some counts, and
+    n_over entries already in the overflow list (the slots beyond it
+    zero)."""
+    rng = np.random.default_rng(seed)
+    andw = rng.integers(0, 2**32, wpad, dtype=np.uint32) | np.uint32(0xF0FFFFFF)
+    stats = np.concatenate([
+        rng.integers(0, 100, C).astype(np.int32),
+        andw.view(np.int32) if seed else np.full(wpad, -1, np.int32),
+        np.array([1, n_over], np.int32),
+    ])
+    hist = (rng.integers(0, 3, (C, EPI_FREQ_CAP)) * (seed > 0)).astype(np.int32)
+    over_col = np.zeros(capO, np.int32)
+    over_freq = np.zeros(capO, np.int32)
+    m = min(n_over, capO)
+    over_col[:m] = rng.integers(0, max(C, 1), m)
+    over_freq[:m] = rng.integers(EPI_FREQ_CAP, 1 << 20, m)
+    return stats, hist, over_col, over_freq
