@@ -36,7 +36,7 @@ Phases, each printing its lines (any failure exits non-zero):
    search -f 1 ran (search -s counts its k-mers on the host),
    no stream batch may fall back, and the blocked TSV must be
    byte-identical with COLORID_STREAM=0; both searches of each index must
-   end in the epilogue kernel (the classic stream in its per-hash-words
+   end in the epilogue kernel (the classic stream in its sorted-words
    mode, the probe stream's residual pass in its AND-words mode).
 4. parity, for each index: the same search_keys through the generic gather
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
@@ -45,11 +45,13 @@ Phases, each printing its lines (any failure exits non-zero):
    the probe kernel on the inputs that the blocked dispatch hands it, against
    its twin and timed alone ("real segment").
 4-epilogue. The epilogue kernel against its twins, all four accumulators
-   bitwise: on the inputs that the device-resident classic dispatch hands
-   it (8,650,752 slots, H 4, C 21) and on synthetic AND-words batches (W 1
-   / C 32 with hot histogram bins, W 8 / C 200 on the global-atomic
-   histogram, an overflow list from 1,000 past capO); its time, the
-   twin's, the bound and the main path's launches.
+   bitwise: in its sorted-words mode on the inputs that the device-resident
+   classic dispatch hands it (8,650,752 k-mers, H 4, C 21: the words in row
+   order, the rows, the sort's permutation, the window plan), in its
+   AND-words mode on that batch's AND words and on synthetic batches (W 1
+   / C 32 with hot histogram bins, W 8 / C 200, an overflow list from 1,000
+   past capO); each one's time, its twin's and its bound, and the main
+   path's launches.
 
 4a. bench: python -m colorid_tpu_torch.bench in a subprocess on phase 3's
    two indexes (handed over in its cache under its names): rc 0, one JSON
@@ -904,17 +906,17 @@ def _searches(tmp: str, bxi: str, fq: str, kernels):
 def _new_kernels():
     """The wrappers of the hand kernels for code that XLA compiles in the
     JAX package (each with a count): placement, window keys, and the
-    epilogue's two modes (AND words, per-hash words)."""
+    epilogue's two modes (AND words, the classic stream's sorted words)."""
     from colorid_tpu_torch.ops.extract import window_keys
     from colorid_tpu_torch.ops.hash_torch import placement
-    from colorid_tpu_torch.ops.query import _accumulate_tail, _accumulate_words
+    from colorid_tpu_torch.ops.query import _accumulate_sorted_words, _accumulate_tail
 
-    return placement, window_keys, _accumulate_tail, _accumulate_words
+    return placement, window_keys, _accumulate_tail, _accumulate_sorted_words
 
 
-# the epilogue mode each main path ends in: the classic stream's per-hash
+# the epilogue mode each main path ends in: the classic stream's sorted
 # words, the probe stream's residual pass through the generic gather
-EPILOGUE_OF = {"classic": "_accumulate_words", "blocked": "_accumulate_tail"}
+EPILOGUE_OF = {"classic": "_accumulate_sorted_words", "blocked": "_accumulate_tail"}
 
 
 def _check_new_kernels(used: dict, what: str) -> None:
@@ -973,7 +975,8 @@ def classic_path_phase(tmp: str, inputs, card: str):
         f"{reads_launches}); search -s {t_perfect:.1f}s; classic_word "
         f"launches={launches}; stream batches={sizes} n_drop={n_drop}; launches in "
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
-        f"{used['window_keys']}, epilogue {used['_accumulate_words']} (words mode) on "
+        f"{used['window_keys']}, epilogue {used['_accumulate_sorted_words']} "
+        f"(sorted-words mode) on "
         f"{card}")
     _check_new_kernels(used, "classic")
     if DEVICE == "cuda" and (launches == 0 or reads_launches == 0):
@@ -1336,15 +1339,25 @@ def _epi_compare(what: str, kernel, twin, accs, args, kw) -> int:
     return err
 
 
+def _epi_row_bound(N: int, W: int, n_kept: int, C: int, instr) -> tuple[float, str, str]:
+    """The AND-words pass's bound over N rows of W words: each row's words,
+    present, mask and frequency read once, the accumulators read and
+    written, the overflow entries written; its instructions are the tile
+    loop's (four rows a thread at W 1, one row at W > 1)."""
+    n_bytes = N * (4 * W + 6) + 2 * 4 * (C + W + 2 + C * 1024) + 8 * n_kept
+    return _bound(n_bytes, N // 4 if W == 1 else N, instr)
+
+
 def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> dict:
     """The epilogue kernel against its twins, bitwise on all four
-    accumulators: in words mode on the inputs that the device-resident
-    classic dispatch hands it (the [main] cell's 8,650,752-slot batch, H 4,
-    C 21, its real frequencies), and in AND-words mode at W 1 / C 32 with
-    hot histogram bins (shared-memory histogram), at W 8 / C 200 (the
-    global-atomic histogram) and with an overflow list that starts at 1,000
-    and runs past capO. Its time, the twin's and the bound on the classic
-    batch; times of the two AND-words cases."""
+    accumulators: in the sorted-words mode on the inputs that the
+    device-resident classic dispatch hands it (the [main] cell's 8,650,752
+    k-mers, H 4, C 21: the word kernel's 34,603,008 words in row order, the
+    rows, the sort's permutation, the window plan, its real frequencies);
+    in the AND-words mode on that batch's AND words (the row pass alone), at
+    W 1 / C 32 with hot histogram bins, at W 8 / C 200 and with an overflow
+    list that starts at 1,000 and runs past capO. Times, the twins' and the
+    bounds of each."""
     import torch
 
     from colorid_tpu_torch.ops import query as tq
@@ -1352,48 +1365,78 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
 
     t0 = time.time()
     calls = []
-    real = sq._accumulate_words
+    real = sq._accumulate_sorted_words
 
     def observed(*a, **kw):
         calls.append((a, kw))
         return real(*a, **kw)
 
-    sq._accumulate_words = observed
+    sq._accumulate_sorted_words = observed
     try:
         classic_dispatch()
         sync()
     finally:
-        sq._accumulate_words = real
+        sq._accumulate_sorted_words = real
     a, kw = calls[-1]
-    stats, _hist, over_col, _of, wordsH, mask, q, base_idx = a
-    N, H = wordsH.shape
+    stats, _hist, over_col, _of = a[:4]
+    args = a[4:]
+    words_s, row_s, gidx_s, tb, reread, blocks2, mask, q, _base = args
+    P, N, H = words_s.numel(), q.numel(), kw["num_hash"]
     C = stats.numel() - 3  # stats is [C + W + 2] with W 1
     capO = over_col.numel()
     errs = []
     accs = _epi_accs(C, 1, capO)
-    args = (wordsH, mask, q, base_idx)
-    errs.append(_epi_compare(f"classic dispatch (words mode, N={N}, H {H}, C {C})",
-                             tq._accumulate_words, tq._accumulate_words_plain, accs, args, kw))
-    ms = cuda_ms(lambda: tq._accumulate_words(*accs, *args, **kw), 20)
-    plain_ms = cuda_ms(lambda: tq._accumulate_words_plain(*accs, *args, **kw), 3)
-    fresh = _epi_accs(C, 1, capO)
-    after = tq._accumulate_words(*[x.clone() for x in fresh], *args, **kw)
+    errs.append(_epi_compare(
+        f"classic dispatch (sorted-words mode, P={P} probes, N={N} k-mers, H {H}, C {C}, "
+        f"{int(reread.sum())} re-read chunks of {tb.numel()})",
+        tq._accumulate_sorted_words, tq._accumulate_sorted_words_plain, accs, args, kw))
+    ms = cuda_ms(lambda: tq._accumulate_sorted_words(*accs, *args, **kw), 20)
+    plain_ms = cuda_ms(lambda: tq._accumulate_sorted_words_plain(*accs, *args, **kw), 3)
+    after = tq._accumulate_sorted_words(*_epi_accs(C, 1, capO), *args, **kw)
     n_kept = min(int(after[0][-1]), capO)
-    n_bytes = (4 * wordsH.numel() + mask.numel() + 4 * q.numel()
-               + (0 if kw.get("gidx") is q or kw.get("gidx") is None else 4 * N)
-               + 2 * 4 * (stats.numel() + fresh[1].numel()) + 8 * n_kept)
-    instr = sass_loop_instructions("epilogue.cu", "epilogue_kernelILi4ELb1E", outer=True)
-    bound_ms, bound_by, how = _bound(n_bytes, N, instr)
-    log(f"[kernel] epilogue classic N={N} H={H} C={C} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms=null (no single PyTorch call computes the epilogue) "
-        f"bound_ms={bound_ms:.4f} bound_by={bound_by} ({how}; the tile loop's body) "
-        f"launches on the main path={main_launches} on {card}")
+    _tb, inwin2d = sq.classic_plan(row_s, blocks2.shape[0])
+    reread_rows = row_s.view(tb.numel(), -1)[~inwin2d & reread[:, None]]
+    n_bytes = (16 * P + 32 * sectors(reread_rows.to(torch.int64), 1) + 5 * tb.numel()
+               + 2 * 5 * N + 5 * N + 2 * 4 * (C + 3 + C * 1024) + 8 * n_kept)
+    i_sorted = sass_loop_instructions("epilogue.cu", "epilogue_sorted_kernelILi2E")
+    i_row = sass_loop_instructions("epilogue.cu", "epilogue_kernelILb1E", outer=True)
+    # instructions per 4 probes: the first pass's per 4 probes, the row
+    # pass's per 4 k-mers (N = P / H of them)
+    instr = None if i_sorted is None or i_row is None else round(i_sorted + i_row * N / P, 2)
+    bound_ms, bound_by, how = _bound(n_bytes, P // 4, instr)
+    log(f"[kernel] epilogue classic sorted-words P={P} N={N} H={H} C={C} ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms=null (no single PyTorch call computes the "
+        f"epilogue) bound_ms={bound_ms:.4f} bound_by={bound_by} ({how}; per 4 probes: "
+        f"the first pass's loop {i_sorted} and the row pass's tile loop {i_row} per 4 "
+        f"k-mers, weighted) launches on the main path={main_launches} on {card}")
+
+    # the row pass alone: the AND-words mode on this batch's AND words
+    wordsH = tq._patch_unsort_plain(*args[:6], tile_rows=kw["tile_rows"],
+                                    nt=kw["nt"]).view(N, H)
+    andw = wordsH[:, :1].clone()
+    for h in range(1, H):
+        andw &= wordsH[:, h:h + 1]
+    present = (wordsH != 0).all(dim=1)
+    del wordsH
+    row_args = (andw, present, mask, q, 1, 0)
+    row_kw = {"gidx": kw.get("gidx")}
+    errs.append(_epi_compare(f"classic dispatch's AND words (AND-words mode, N={N}, C {C})",
+                             tq._accumulate_tail, tq._accumulate_tail_plain, accs, row_args,
+                             row_kw))
+    row_ms = cuda_ms(lambda: tq._accumulate_tail(*accs, *row_args, **row_kw), 20)
+    row_plain = cuda_ms(lambda: tq._accumulate_tail_plain(*accs, *row_args, **row_kw), 3)
+    row_bound, row_by, row_how = _epi_row_bound(N, 1, n_kept, C, i_row)
+    log(f"[kernel] epilogue AND-words row pass on the classic batch N={N} W 1 C {C} "
+        f"ms={row_ms:.4f} plain_ms={row_plain:.4f} bound_ms={row_bound:.4f} "
+        f"bound_by={row_by} ({row_how}; per 4 rows) on {card}")
+    del andw, present, row_args
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     times = {}
+    i_wide = sass_loop_instructions("epilogue.cu", "epilogue_kernelILb0E", outer=True)
     for what, N2, C2, W2, hot, n_over, cap in (
         ("AND words W 1 C 32 hot bins", EPI_N, 32, 1, True, 0, capO),
-        ("AND words W 8 C 200 (global-atomic histogram)", 1 << 21, 200, 8, False, 0, capO),
+        ("AND words W 8 C 200", 1 << 21, 200, 8, False, 0, capO),
         ("AND words W 1 C 21 overflow from 1,000 past capO", 1 << 20, 21, 1, False, 1000,
          11_000),
     ):
@@ -1403,18 +1446,20 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
         errs.append(_epi_compare(f"{what} (N={N2})", tq._accumulate_tail,
                                  tq._accumulate_tail_plain, accs2, args2, {}))
         if n_over:
-            after = tq._accumulate_tail(*[x.clone() for x in accs2], *args2)
-            if int(after[0][-1]) <= cap:
+            after2 = tq._accumulate_tail(*[x.clone() for x in accs2], *args2)
+            if int(after2[0][-1]) <= cap:
                 raise AssertionError("the overflow case did not run past capO")
             continue
+        kept = min(int(tq._accumulate_tail(*[x.clone() for x in accs2], *args2)[0][-1]), cap)
         times[what] = (cuda_ms(lambda: tq._accumulate_tail(*accs2, *args2), 20),
-                       cuda_ms(lambda: tq._accumulate_tail_plain(*accs2, *args2), 3))
+                       cuda_ms(lambda: tq._accumulate_tail_plain(*accs2, *args2), 3),
+                       _epi_row_bound(N2, W2, kept, C2, i_row if W2 == 1 else i_wide))
         del andw, present, msk, q2, accs2
     log("[kernel] epilogue AND-words times: " + "; ".join(
-        f"{w}: ms={k:.4f} plain_ms={p:.4f}" for w, (k, p) in times.items())
-        + f" on {card}")
+        f"{w}: ms={k:.4f} plain_ms={p:.4f} bound_ms={b[0]:.4f} bound_by={b[1]} ({b[2]})"
+        for w, (k, p, b) in times.items()) + f" on {card}")
     log(f"[kernel] epilogue phase took {time.time() - t0:.1f}s")
-    del accs, fresh, after, calls, a, args
+    del accs, after, calls, a, args
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return {
@@ -3492,13 +3537,16 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream") -> None:
         f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
-            "epilogue", "epilogue_scan", "epilogue_overflow")
+            "epilogue", "epilogue_sorted", "epilogue_overflow")
     )
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
+    ix = [(ms, n) for ms, n, name in rows if name.startswith("index")]
     log(f"[profile] {what}: one {label} dispatch: device {dev_ms:.2f} ms of "
         f"{wall_ms:.2f} ms host-clock span (idle share "
         f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); element-wise launches "
-        f"x{sum(n for _, n in ew)}={sum(ms for ms, _ in ew):.2f}ms; top kernels: {top}; "
+        f"x{sum(n for _, n in ew)}={sum(ms for ms, _ in ew):.2f}ms; index kernels (gathers "
+        f"and scatters) x{sum(n for _, n in ix)}={sum(ms for ms, _ in ix):.3f}ms; "
+        f"top kernels: {top}; "
         f"the port's own: {ours or 'none'} on {card}")
 
 
@@ -3688,14 +3736,15 @@ def main() -> int:
             inputs = synth_inputs(tmp)
             log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
                 f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
-            placement, window_keys, tail, words = _new_kernels()
-            placement.launches = window_keys.launches = tail.launches = words.launches = 0
+            placement, window_keys, tail, sorted_words = _new_kernels()
+            placement.launches = window_keys.launches = tail.launches = 0
+            sorted_words.launches = 0
             classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
                 tmp, inputs, card)
             blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
             placement_row["launches"] = placement.launches
             window_row["launches"] = window_keys.launches
-            epilogue_launches = tail.launches + words.launches
+            epilogue_launches = tail.launches + sorted_words.launches
         with phase("parity"):
             classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
@@ -3707,7 +3756,8 @@ def main() -> int:
         for row, name in ((classic_row, "classic_words"), (probe_row, "stream_probe"),
                           (placement_row, "placement"), (window_row, "window_keys")):
             row["launches"] += benched[name]
-        epilogue_row["launches"] += benched["_accumulate_tail"] + benched["_accumulate_words"]
+        epilogue_row["launches"] += (benched["_accumulate_tail"]
+                                     + benched["_accumulate_sorted_words"])
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):

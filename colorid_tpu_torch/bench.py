@@ -533,14 +533,15 @@ def emit_json(rates: dict, parity: list[str], device: str) -> None:
 
 def kernel_wrappers():
     """The seven kernel wrappers, each with its launch count (the epilogue
-    kernel has two: its AND-words and its per-hash-words mode)."""
+    kernel has two: its AND-words mode and the classic stream's
+    sorted-words mode)."""
     from .ops.extract import window_keys
     from .ops.hash_torch import placement
-    from .ops.query import _accumulate_tail, _accumulate_words
+    from .ops.query import _accumulate_sorted_words, _accumulate_tail
     from .ops.stream_query import classic_words, stream_probe, stream_probe_raw
 
     return (classic_words, stream_probe, stream_probe_raw, placement, window_keys,
-            _accumulate_tail, _accumulate_words)
+            _accumulate_tail, _accumulate_sorted_words)
 
 
 # the kernels each phase must launch on the card (the wrappers' counts)
@@ -548,7 +549,7 @@ PHASE_KERNELS = {
     "stream": ("stream_probe", "placement", "_accumulate_tail"),
     "generic": ("placement", "_accumulate_tail"),
     "fused": ("stream_probe", "placement", "window_keys", "_accumulate_tail"),
-    "classic": ("classic_words", "placement", "_accumulate_tail", "_accumulate_words"),
+    "classic": ("classic_words", "placement", "_accumulate_tail", "_accumulate_sorted_words"),
     "read_id": ("placement", "window_keys"),
 }
 

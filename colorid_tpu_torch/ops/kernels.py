@@ -57,8 +57,15 @@ KERNELS = {
     "epilogue": (
         "epilogue.cu",
         "epilogue_launch",
-        [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I32, _I32, _I32, _VP, _VP, _VP,
-         _VP, _I64, _VP, _VP],
+        [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I32, _I32, _VP, _VP, _VP, _VP,
+         _I64, _VP, _VP],
+    ),
+    "epilogue_sorted": (
+        "epilogue.cu",
+        "epilogue_sorted_launch",
+        [_VP, _VP, _VP, _I64, _VP, _VP, _I32, _I64, _I32, _VP, _I64, _I32,
+         _VP, _VP, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _VP, _I64, _VP,
+         _VP],
     ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})

@@ -239,81 +239,142 @@ def _accumulate_tail(
 _accumulate_tail.launches = 0
 
 
-def _accumulate_words(
-    stats, hist, over_col, over_freq, wordsH, mask, qcounts, base_idx,
-    gidx=None,
+def _accumulate_sorted_words(
+    stats, hist, over_col, over_freq, words_s, row_s, gidx_s, tb, reread, blocks2,
+    mask, qcounts, base_idx, gidx=None, *, num_hash: int, tile_rows: int, nt: int,
 ):
-    """_accumulate_tail over per-hash row words (W = 1): wordsH int32
-    [N, H] holds each k-mer's H one-word rows in k-mer order; their AND is
-    its AND word and it is present when none of them is zero (the
-    contract of _accumulate_words_plain).
+    """_accumulate_tail over per-hash one-word rows (W = 1) that arrive in
+    row order, as the classic stream's word kernel leaves them (the
+    contract of _accumulate_sorted_words_plain). words_s, row_s int32 [P]
+    and the sort's permutation gidx_s int64 [P] (probe gidx_s[j] belongs to
+    k-mer gidx_s[j] // num_hash); tb int32 and reread bool [n_chunks], pc
+    = P // n_chunks a power of two >= 4: chunk c read its words from rows
+    [tb[c] * tile_rows, (tb[c] + nt) * tile_rows), and where reread[c] a
+    probe outside that window reads its word again from blocks2. mask,
+    qcounts, gidx [P // num_hash] in k-mer order.
 
-    A CUDA tensor launches csrc/epilogue.cu, which reads wordsH directly
-    (no AND or presence tensor is made); a CPU tensor takes the plain twin.
-    ``_accumulate_words.launches`` counts kernel launches."""
-    dev = wordsH.device
+    A CUDA tensor launches csrc/epilogue.cu's sorted-words mode: each
+    probe's word ANDs into its k-mer's word in place (no un-sorted copy of
+    the words is made), then the AND-words pass. A CPU tensor takes the
+    plain twin. ``_accumulate_sorted_words.launches`` counts kernel
+    launches (none for P = 0)."""
+    dev = words_s.device
     if dev.type == "cpu":
-        return _accumulate_words_plain(
-            stats, hist, over_col, over_freq, wordsH, mask, qcounts, base_idx,
-            gidx,
+        return _accumulate_sorted_words_plain(
+            stats, hist, over_col, over_freq, words_s, row_s, gidx_s, tb, reread,
+            blocks2, mask, qcounts, base_idx, gidx, num_hash=num_hash,
+            tile_rows=tile_rows, nt=nt,
         )
     if dev.type != "cuda":
-        raise ValueError(f"_accumulate_words: unsupported device {dev}")
-    if wordsH.dim() != 2 or wordsH.shape[1] < 1:
-        raise ValueError("_accumulate_words: wordsH must be [N, H] with H >= 1")
-    if _epilogue(stats, hist, over_col, over_freq, wordsH, None, mask,
-                 qcounts, base_idx, gidx, 1, "_accumulate_words"):
-        _accumulate_words.launches += 1
+        raise ValueError(f"_accumulate_sorted_words: unsupported device {dev}")
+    what = "_accumulate_sorted_words"
+    P, H = words_s.shape[0], num_hash
+    N = qcounts.shape[0]
+    n_chunks = tb.shape[0]
+    pc = P // n_chunks if n_chunks else 0
+    if (words_s.dtype, row_s.dtype, gidx_s.dtype, tb.dtype, reread.dtype, blocks2.dtype) != (
+        torch.int32, torch.int32, torch.int64, torch.int32, torch.bool, torch.int32
+    ):
+        raise TypeError(f"{what}: int32 words_s, row_s, tb, blocks2; int64 gidx_s; bool reread")
+    plan = (words_s, row_s, gidx_s, tb, reread, blocks2)
+    if any(t.device != dev for t in plan) or any(not t.is_contiguous() for t in plan):
+        raise ValueError(f"{what}: the plan's tensors must be contiguous on one device")
+    if (H < 1 or P != N * H or row_s.shape != (P,) or gidx_s.shape != (P,)
+            or reread.shape != (n_chunks,) or pc * n_chunks != P
+            or (P and (pc < 4 or pc & (pc - 1)))):
+        raise ValueError(
+            f"{what}: [P] words, rows and permutation for P = num_hash * N, and one tb "
+            "and reread entry per chunk of a power-of-two >= 4 probes"
+        )
+    if any(t.data_ptr() % 16 for t in (words_s, row_s, gidx_s)):
+        raise ValueError(f"{what}: words_s, row_s and gidx_s must be 16-byte aligned")
+    C = _check_epilogue(stats, hist, over_col, over_freq, dev, mask, qcounts, gidx, 1, what)
+    if P == 0:
+        return stats, hist, over_col, over_freq
+    mask, qcounts = mask.contiguous(), qcounts.contiguous()
+    gidx = None if gidx is None else gidx.contiguous()
+    acc = torch.empty(N, dtype=torch.int32, device=dev)
+    present = torch.empty(N, dtype=torch.bool, device=dev)
+    scratch = _epilogue_scratch(N, dev)
+    fn = kernels.kernel("epilogue_sorted")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            words_s.data_ptr(), row_s.data_ptr(), gidx_s.data_ptr(), P, tb.data_ptr(),
+            reread.data_ptr(), pc.bit_length() - 1, tile_rows, nt, blocks2.data_ptr(),
+            blocks2.numel(), H, acc.data_ptr(), present.data_ptr(), mask.data_ptr(),
+            qcounts.data_ptr(), None if gidx is None else gidx.data_ptr(), int(base_idx),
+            C, stats.data_ptr(), hist.data_ptr(), over_col.data_ptr(),
+            over_freq.data_ptr(), over_col.shape[0], scratch.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"epilogue kernel launch failed: CUDA error {err}")
+    _accumulate_sorted_words.launches += 1
     return stats, hist, over_col, over_freq
 
 
-_accumulate_words.launches = 0
+_accumulate_sorted_words.launches = 0
 
-EPI_TILE = 512  # rows per tile of csrc/epilogue.cu (its THREADS)
+EPI_TILE = 512  # rows per tile of csrc/epilogue.cu, at its narrowest
 
 
-def _epilogue(stats, hist, over_col, over_freq, words, present, mask,
-              qcounts, base_idx, gidx, W: int, what: str) -> bool:
-    """Check the card's inputs and launch csrc/epilogue.cu: AND words
-    [N, W] with ``present``, or (present None, W = 1) per-hash words
-    [N, H]. Returns whether it launched (N > 0)."""
+def _epilogue_scratch(N: int, dev) -> torch.Tensor:
+    """csrc/epilogue.cu's scratch: two counters and a count per tile."""
+    return torch.empty(2 + -(-N // EPI_TILE), dtype=torch.int32, device=dev)
+
+
+def _check_epilogue(stats, hist, over_col, over_freq, dev, mask, qcounts, gidx,
+                    W: int, what: str) -> int:
+    """Check the accumulators and the per-k-mer inputs that every mode of
+    csrc/epilogue.cu takes; returns the number of colors C."""
     accs = (stats, hist, over_col, over_freq)
-    ins = [words, mask, qcounts] + [t for t in (present, gidx) if t is not None]
-    dev = words.device
+    ins = [mask, qcounts] + ([] if gidx is None else [gidx])
     if any(t.device != dev for t in accs + tuple(ins)):
         raise ValueError(f"{what}: tensors on different devices")
-    if any(t.dtype != torch.int32 for t in accs + (words, qcounts)) or (
+    if any(t.dtype != torch.int32 for t in accs + (qcounts,)) or (
         gidx is not None and gidx.dtype != torch.int32
     ):
-        raise TypeError(f"{what}: int32 words, frequencies, payloads and accumulators")
-    if mask.dtype != torch.bool or (present is not None and present.dtype != torch.bool):
-        raise TypeError(f"{what}: bool present and mask")
+        raise TypeError(f"{what}: int32 frequencies, payloads and accumulators")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"{what}: bool mask")
     if any(not t.is_contiguous() for t in accs):
         raise ValueError(f"{what}: the accumulators must be contiguous")
-    N, H = words.shape[0], (0 if present is not None else words.shape[1])
     C = stats.shape[0] - W - 2
     if (stats.dim() != 1 or not 0 <= C <= 32 * W or hist.shape != (C, FREQ_CAP)
             or over_col.dim() != 1 or over_freq.shape != over_col.shape):
         raise ValueError(f"{what}: accumulators out of shape for {C} colors, W {W}")
-    if any(t.shape != (N,) for t in ins[1:]):
+    if any(t.shape != qcounts.shape or t.dim() != 1 for t in ins):
+        raise ValueError(f"{what}: mask, qcounts and gidx must be [N]")
+    return C
+
+
+def _epilogue(stats, hist, over_col, over_freq, andw, present, mask,
+              qcounts, base_idx, gidx, W: int, what: str) -> bool:
+    """Check the card's inputs and launch csrc/epilogue.cu's AND-words mode
+    on AND words [N, W] with ``present``. Returns whether it launched
+    (N > 0)."""
+    dev = andw.device
+    if andw.dtype != torch.int32 or present.dtype != torch.bool:
+        raise TypeError(f"{what}: int32 AND words and bool present")
+    if present.device != dev:
+        raise ValueError(f"{what}: tensors on different devices")
+    C = _check_epilogue(stats, hist, over_col, over_freq, dev, mask, qcounts, gidx, W, what)
+    N = andw.shape[0]
+    if qcounts.shape != (N,) or present.shape != (N,):
         raise ValueError(f"{what}: present, mask, qcounts and gidx must be [N]")
     if N == 0:
         return False
-    words, mask, qcounts = words.contiguous(), mask.contiguous(), qcounts.contiguous()
-    present = None if present is None else present.contiguous()
+    andw, mask, qcounts = andw.contiguous(), mask.contiguous(), qcounts.contiguous()
+    present = present.contiguous()
     gidx = None if gidx is None else gidx.contiguous()
-    if H in (2, 4) and words.data_ptr() % (4 * H):
-        raise ValueError(f"{what}: [N, {H}] words must be {4 * H}-byte aligned")
-    n_tiles = -(-N // EPI_TILE)
-    scratch = torch.empty(2 * n_tiles, dtype=torch.int64, device=dev)
+    scratch = _epilogue_scratch(N, dev)
     fn = kernels.kernel("epilogue")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            words.data_ptr(), None if present is None else present.data_ptr(),
-            mask.data_ptr(), qcounts.data_ptr(),
-            None if gidx is None else gidx.data_ptr(), int(base_idx), N, W, H,
-            C, stats.data_ptr(), hist.data_ptr(), over_col.data_ptr(),
+            andw.data_ptr(), present.data_ptr(), mask.data_ptr(), qcounts.data_ptr(),
+            None if gidx is None else gidx.data_ptr(), int(base_idx), N, W, C,
+            stats.data_ptr(), hist.data_ptr(), over_col.data_ptr(),
             over_freq.data_ptr(), over_col.shape[0], scratch.data_ptr(), stream,
         )
     if err:
@@ -321,12 +382,45 @@ def _epilogue(stats, hist, over_col, over_freq, words, present, mask,
     return True
 
 
+def _accumulate_sorted_words_plain(
+    stats, hist, over_col, over_freq, words_s, row_s, gidx_s, tb, reread, blocks2,
+    mask, qcounts, base_idx, gidx=None, *, num_hash: int, tile_rows: int, nt: int,
+):
+    """Plain PyTorch twin of _accumulate_sorted_words: the residual patch
+    (a probe outside its chunk's window, in a chunk with reread, takes its
+    word from the matrix), the un-sort to probe order by a scatter to the
+    sort's permutation, then _accumulate_words_plain over each k-mer's
+    num_hash words."""
+    words_u = _patch_unsort_plain(words_s, row_s, gidx_s, tb, reread, blocks2,
+                                  tile_rows=tile_rows, nt=nt)
+    return _accumulate_words_plain(
+        stats, hist, over_col, over_freq, words_u.view(-1, num_hash), mask,
+        qcounts, base_idx, gidx,
+    )
+
+
+def _patch_unsort_plain(words_s, row_s, gidx_s, tb, reread, blocks2, *,
+                        tile_rows: int, nt: int) -> torch.Tensor:
+    """The sorted-words twin's first step: the words with the residual
+    patch applied, back in probe order (int32 [P])."""
+    n_chunks = tb.shape[0]
+    if words_s.shape[0]:
+        row = row_s.view(n_chunks, -1).to(torch.int64)
+        lo = tb.to(torch.int64)[:, None] * tile_rows
+        res = ((row < lo) | (row >= lo + nt * tile_rows)) & reread[:, None]
+        fresh = blocks2.reshape(-1)[torch.where(res, row, 0)]
+        words_s = torch.where(res, fresh, words_s.view(n_chunks, -1)).view(-1)
+    words_u = torch.empty_like(words_s)
+    words_u[gidx_s] = words_s
+    return words_u
+
+
 def _accumulate_words_plain(
     stats, hist, over_col, over_freq, wordsH, mask, qcounts, base_idx,
     gidx=None,
 ):
-    """Plain PyTorch twin of _accumulate_words: the AND of each k-mer's H
-    words and its presence (every word nonzero), then
+    """The AND of each k-mer's H one-word rows (wordsH int32 [N, H], in
+    k-mer order) and its presence (every word nonzero), then
     _accumulate_tail_plain with W = 1."""
     andw = wordsH[:, 0]
     for h in range(1, wordsH.shape[1]):

@@ -4,11 +4,11 @@ the blocked (split-lane) probe stream.
 Classic. The classic layout (simple_bloom.rs:19-26) places a k-mer's H rows
 independently: row_i = xxh3_64_with_seed(kmer, i) % bloom_size. This path
 flattens the H*P row probes, sorts them by row, pulls each probe's single
-u32 row word through the classic word kernel (csrc/classic_word.cu), patches
-the probes that fell outside their chunk's window, un-sorts the words back
-to probe order and recombines each k-mer's H words with the shared
-AND/count/histogram epilogue (ops/query.py::_accumulate_words, the kernel
-csrc/epilogue.cu).
+u32 row word through the classic word kernel (csrc/classic_word.cu), and
+hands the words in row order to the shared AND/count/histogram epilogue
+(ops/query.py::_accumulate_sorted_words, the kernel csrc/epilogue.cu),
+which patches the probes that fell outside their chunk's window and ANDs
+each word into its k-mer's word.
 
 Blocked. The blocked layouts v2/v3/v4 (ops/blocked.py) keep a k-mer's H
 rows in one 512-byte block, hash h in its own lane group. This path hashes
@@ -21,8 +21,8 @@ for frequencies the histogram does not cover) is the JAX package's, so all
 accumulators agree with it field by field.
 
 Sorting reorders probes, which is sound because every accumulated statistic
-is permutation-invariant (blocked) or taken after the words are back in
-probe order (classic).
+is permutation-invariant (blocked) or taken after each k-mer's words are
+ANDed together, which no order of the probes changes (classic).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from .hash_torch import M32, bloom_rows_device, device_blkoff
 from .query import (
     FREQ_CAP,
     _accumulate_one,
-    _accumulate_words,
+    _accumulate_sorted_words,
     _and_over_hashes,
     _and_words,
     _bit_counts,
@@ -151,6 +151,19 @@ def classic_plan(row_s: torch.Tensor, n_blocks: int):
     return _window_plan(row_s, n_blocks, PC_CL, NT_CL, unit=T)
 
 
+def classic_residuals(row_s: torch.Tensor, n_blocks: int):
+    """classic_plan's tb and, per chunk, its probes outside the window
+    (int32 [P // PC_CL]) without a per-probe mask: the rows of a chunk are
+    sorted, so its in-window probes are those below the window's end, one
+    binary search a chunk."""
+    r2d = row_s.view(-1, PC_CL)
+    tb = torch.clamp(r2d[:, 0] // (T * T), 0, n_blocks // T - NT_CL).to(torch.int32)
+    # rows lie below bloom_size < 2^31 - 1, so clamping the end keeps the count
+    end = torch.clamp((tb.to(torch.int64) + NT_CL) * (T * T), max=2**31 - 1)
+    inwin = torch.searchsorted(r2d, end.to(torch.int32)[:, None])[:, 0]
+    return tb, (PC_CL - inwin).to(torch.int32)
+
+
 def _window_plan(keys: torch.Tensor, n_blocks: int, pc: int, nt: int,
                  unit: int = 1):
     """For sorted keys (block * unit + a lane below unit: blocks for the
@@ -192,34 +205,21 @@ def stream_accumulate_classic_exact(
     H = num_hash
     rows = bloom_rows_device(packed, k=k, num_hash=H, bloom_size=bloom_size)
     row_s, gidx_s = torch.sort(rows.reshape(-1))
-    tb, inwin2d = classic_plan(row_s, blocks2.shape[0])
-    n_chunks = tb.shape[0]
+    tb, chunk_res = classic_residuals(row_s, blocks2.shape[0])
     words = classic_words(blocks2, row_s, tb, planes=_n_planes(n_colors))
 
     # chunk-granular residual patch: probes outside their chunk's window
     # live in a few low-density chunks; the first NCH_CL such chunks re-read
-    # their words straight from the matrix. The chunk list comes from a
-    # stable sort of the flags (no host round trip); padding entries of
-    # the list point at chunks without residuals and write back unchanged.
-    res2d = ~inwin2d
-    chunk_res = res2d.sum(dim=1, dtype=torch.int32)
+    # their words straight from the matrix, inside the epilogue kernel,
+    # which also takes the words in row order and ANDs each into its
+    # k-mer's word (the JAX package un-sorts them by a second sort first;
+    # the result is identical)
     has_res = chunk_res > 0
     covered = has_res & (torch.cumsum(has_res, dim=0) <= NCH_CL)
     n_drop = (chunk_res * (has_res & ~covered)).sum(dtype=torch.int32)
-    cidx = torch.sort((~covered).to(torch.int8), stable=True).indices[:NCH_CL]
-    w2 = words.view(n_chunks, PC_CL)
-    fresh = blocks2.reshape(-1)[row_s.view(n_chunks, PC_CL)[cidx].to(torch.int64)]
-    w2[cidx] = torch.where(res2d[cidx] & covered[cidx][:, None], fresh, w2[cidx])
-
-    # un-sort to probe order by scattering to the sort permutation (the JAX
-    # package sorts by the permutation instead; the result is identical),
-    # then the epilogue over each k-mer's H words (their AND and presence
-    # inside the kernel)
-    words_u = torch.empty_like(words)
-    words_u[gidx_s] = words
-    _accumulate_words(
-        stats, hist, over_col, over_freq, words_u.view(P0, H), qcounts > 0,
-        qcounts, 0, gidx=qcounts,
+    _accumulate_sorted_words(
+        stats, hist, over_col, over_freq, words, row_s, gidx_s, tb, covered, blocks2,
+        qcounts > 0, qcounts, 0, gidx=qcounts, num_hash=H, tile_rows=T * T, nt=NT_CL,
     )
     return stats, hist, over_col, over_freq, n_drop
 

@@ -1068,58 +1068,111 @@ def test_epilogue_kernel_matches_twins(cuda_device, monkeypatch, C, hot):
         assert int(want[0][C + wpad + 1]) > 40 or hot
 
 
+SORTED_CASES = [(H, C, "mixed") for H in (1, 2, 3, 4) for C in (5, 12, 21, 32)] + [
+    (4, 21, "drop"), (3, 32, "drop")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hot", [False, True])
-@pytest.mark.parametrize("C", [c for c in EPI_COLORS if c <= 32])
-def test_epilogue_kernel_words_mode_matches_twins(cuda_device, monkeypatch, C, hot):
-    """Words mode (the classic stream's per-hash words, W = 1) at H 1, 2, 4
-    (one load) and 3 (the loop): the kernel equals _accumulate_words_plain
-    on the card and on the CPU, twice; exact-mode payloads."""
+@pytest.mark.parametrize("H,C,kind", SORTED_CASES)
+def test_epilogue_sorted_mode_matches_twins(cuda_device, monkeypatch, H, C, kind):
+    """The sorted-words mode (the classic stream's words in row order, H 1,
+    2 and 4 by shifts, 3 by division) on what the stream hands it: equal to
+    _accumulate_sorted_words_plain on the card and on the CPU, twice, with
+    re-read chunks, padding and an overflow list past capO; "drop" leaves
+    more than NCH_CL residual chunks, the rest on the de-offset word."""
+    _sorted_mode_case(cuda_device, monkeypatch, H, C, kind)
+
+
+@pytest.mark.cuda
+def test_epilogue_sorted_mode_in_passes(cuda_device, monkeypatch):
+    """A batch whose per-k-mer arrays (5 bytes a k-mer) pass half the L2
+    runs the first pass over ranges of k-mers: 24 segments, 6,291,456
+    k-mers, two passes on an H100's 50 MB; its 1,536 chunks also leave
+    more than NCH_CL with residual probes (n_drop > 0)."""
+    assert _sorted_mode_case(cuda_device, monkeypatch, 1, 12, "mixed", 24) > 0
+
+
+def _sorted_mode_case(cuda_device, monkeypatch, H, C, kind, segments=1):
+    """The kernel against both twins on sorted_case's batch; returns n_drop."""
     from colorid_tpu_torch.ops import query as tq
 
-    for H in (1, 2, 3, 4):
-        rng = np.random.default_rng(100 * C + 10 * H + hot)
-        n = 3 * 4096 + 37
-        words = ts.epi_words(rng, n, min(C, 3) if hot else C, H)
-        q = torch.from_numpy(ts.epi_qcounts(rng, n, hot=hot))
-        accs = ts.epi_accs(C, 1, 60, n_over=20, seed=H)
-        want = tq._accumulate_words(*_epi_on("cpu", accs), ts.t32(words), q > 0, q, 0, gidx=q)
-        wd, qd = ts.t32(words).to(cuda_device), q.to(cuda_device)
-        args = (wd, qd > 0, qd, 0)
-        _epi_equal(tq._accumulate_words_plain(*_epi_on(cuda_device, accs), *args, gidx=qd),
-                   want)
-        for got in _epi_kernel_calls(monkeypatch, tq._accumulate_words, accs, args,
-                                     dict(gidx=qd)):
-            _epi_equal(got, want)
+    bloom, matrix, packed, q = ts.sorted_case(H, C, kind, seed=10 * H + C, segments=segments)
+    blocks, _ = tq.pack_matrix_blocks(matrix)
+    b2 = ts.t32(blocks)
+    pk, qt = ts.t32(packed), torch.from_numpy(q)
+    accs, args, kw, n_drop = ts.sorted_words_args(
+        b2.to(cuda_device), pk.to(cuda_device), qt.to(cuda_device), H=H, C=C, bloom=bloom)
+    assert bool(args[4].any())
+    assert (n_drop > 0) == (kind == "drop") or segments > 1
+    accs = [a.cpu().numpy() for a in accs]
+    want = tq._accumulate_sorted_words_plain(
+        *_epi_on("cpu", accs), *[a.cpu() if torch.is_tensor(a) else a for a in args],
+        **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+    assert int(want[0][C + 2]) > ts.SORTED_CAPO
+    _epi_equal(tq._accumulate_sorted_words_plain(*_epi_on(cuda_device, accs), *args, **kw),
+               want)
+    for got in _epi_kernel_calls(monkeypatch, tq._accumulate_sorted_words, accs, args, kw):
+        _epi_equal(got, want)
+    return n_drop
 
 
 @pytest.mark.cuda
 def test_epilogue_kernel_refuses_and_skips(cuda_device):
-    """Misaligned [N, 4] words and mixed devices are refused; N = 0 launches
-    nothing and changes nothing."""
+    """Misaligned sorted words and mixed devices are refused; P = 0 and N =
+    0 launch nothing and change nothing."""
     from colorid_tpu_torch.ops import query as tq
 
     accs = _epi_on(cuda_device, ts.epi_accs(21, 1, 16, seed=1))
-    buf = torch.zeros(4 * 64 + 1, dtype=torch.int32, device=cuda_device)
+    buf = torch.zeros(4 * 64 + 4, dtype=torch.int32, device=cuda_device)
+    rows = torch.arange(256, dtype=torch.int32, device=cuda_device)
+    perm = torch.arange(256, device=cuda_device)
+    tb = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    b2 = torch.zeros((512, 128), dtype=torch.int32, device=cuda_device)
     q = torch.ones(64, dtype=torch.int32, device=cuda_device)
+    kw = dict(num_hash=4, tile_rows=16384, nt=2)
     with pytest.raises(ValueError, match="aligned"):
-        tq._accumulate_words(*accs, buf[1:].view(64, 4), q > 0, q, 0)
+        tq._accumulate_sorted_words(*accs, buf[1:257], rows, perm, tb, tb > 0, b2, q > 0, q,
+                                    0, **kw)
     with pytest.raises(ValueError, match="different devices"):
-        tq._accumulate_words(*accs, buf[:256].view(64, 4), (q > 0).cpu(), q, 0)
-    before = (tq._accumulate_tail.launches, tq._accumulate_words.launches)
+        tq._accumulate_sorted_words(*accs, buf[:256], rows, perm, tb, tb > 0, b2,
+                                    (q > 0).cpu(), q, 0, **kw)
+    before = (tq._accumulate_tail.launches, tq._accumulate_sorted_words.launches)
     snap = [a.clone() for a in accs]
-    tq._accumulate_words(*accs, buf[:0].view(0, 4), q[:0] > 0, q[:0], 0)
+    tq._accumulate_sorted_words(*accs, buf[:0], rows[:0], perm[:0], tb[:0], tb[:0] > 0, b2,
+                                q[:0] > 0, q[:0], 0, **kw)
     tq._accumulate_tail(*accs, buf[:0].view(0, 1), q[:0] > 0, q[:0] > 0, q[:0], 1, 0)
-    assert (tq._accumulate_tail.launches, tq._accumulate_words.launches) == before
+    assert (tq._accumulate_tail.launches, tq._accumulate_sorted_words.launches) == before
     _epi_equal(accs, snap)
 
 
 @pytest.mark.cuda
 def test_classic_engine_ends_in_the_epilogue_kernel(cuda_device, monkeypatch, tmp_path):
     """search_keys on the card through the classic stream launches the
-    epilogue's words mode, and the generic gather (COLORID_STREAM=0) its
-    AND-words mode; both give the CPU's SearchResult."""
+    epilogue's sorted-words mode and no indexed gather or scatter (the
+    residual patch and the un-sort live in the kernel), and the generic
+    gather (COLORID_STREAM=0) its AND-words mode; both give the CPU's
+    SearchResult."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
     from colorid_tpu_torch.ops import query as tq
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    stream_ops = Ops()
+    stream_fn = sq.stream_accumulate_classic_exact
+
+    def recorded(*a, **kw):
+        with stream_ops:
+            return stream_fn(*a, **kw)
+
+    monkeypatch.setattr(sq, "stream_accumulate_classic_exact", recorded)
 
     gs = ts.genomes(4, 50_000, seed=2)
     _man, refs = ts.write_panel(tmp_path, gs)
@@ -1129,13 +1182,17 @@ def test_classic_engine_ends_in_the_epilogue_kernel(cuda_device, monkeypatch, tm
     packed, qcounts = nc.dump_packed(0)
     want = QueryEngine(index, device="cpu").search_keys(
         None, qcounts=qcounts, packed_all=packed, k=27)
+    indexed = {"index", "index_put", "index_put_"}
+    assert indexed & stream_ops.names  # the CPU twin's un-sort, seen
     card = QueryEngine(index, device=cuda_device)
     assert card._use_stream_classic(packed.shape[0], 27)
     monkeypatch.setenv("COLORID_STREAM", "0")
     generic = QueryEngine(index, device=cuda_device)
-    for fn, engine in ((tq._accumulate_words, card), (tq._accumulate_tail, generic)):
+    for fn, engine in ((tq._accumulate_sorted_words, card), (tq._accumulate_tail, generic)):
         before = fn.launches
+        stream_ops.names.clear()
         got = engine.search_keys(None, qcounts=qcounts, packed_all=packed, k=27)
         assert fn.launches > before
+        assert not indexed & stream_ops.names, stream_ops.names
         for field in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
             np.testing.assert_array_equal(getattr(got, field), getattr(want, field))

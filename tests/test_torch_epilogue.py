@@ -1,10 +1,12 @@
 """The search epilogue's wrappers (colorid_tpu_torch/ops/query.py::
-_accumulate_tail and _accumulate_words, csrc/epilogue.cu's twins on the
-CPU) against the JAX package: the same random inputs, made with numpy, give
-exactly the same accumulators (stats, histogram and overflow arrays element
-for element). _accumulate_words against the JAX classic stream's AND over
-the H hash words, its presence test and jq._accumulate_tail
-(colorid_tpu/ops/stream_query.py, stream_accumulate_classic_exact);
+_accumulate_tail and _accumulate_sorted_words, csrc/epilogue.cu's twins on
+the CPU) against the JAX package: the same random inputs, made with numpy,
+give exactly the same accumulators (stats, histogram and overflow arrays
+element for element). _accumulate_words_plain, the sorted-words twin's last
+step, against the JAX classic stream's AND over the H hash words, its
+presence test and jq._accumulate_tail (colorid_tpu/ops/stream_query.py,
+stream_accumulate_classic_exact; the whole sorted-words mode is in
+test_torch_sorted_epilogue.py);
 _accumulate_tail on what test_torch_query.py does not cover: bits at and
 above C, an all-padding batch, an empty one, an overflow list that starts
 past zero and runs past capO, the k-mer index payload from a nonzero
@@ -59,7 +61,7 @@ def test_accumulate_words_matches_jax_classic(H, C):
             q[-400:] = 0  # padding tail
         jacc = _jax_words(wordsH, q, jacc)
         qt = torch.from_numpy(q)
-        tacc = tq._accumulate_words(*tacc, ts.t32(wordsH), qt > 0, qt, 0, gidx=qt)
+        tacc = tq._accumulate_words_plain(*tacc, ts.t32(wordsH), qt > 0, qt, 0, gidx=qt)
         _assert_acc_equal(tacc, jacc)
     stats = tacc[0].numpy()
     assert stats[C + 2] > capO  # the overflow list did overflow
@@ -153,14 +155,20 @@ def test_cpu_tensors_take_the_twins_and_launch_nothing(monkeypatch):
     monkeypatch.setattr(tq, "_accumulate_tail_plain", recorded)
     rng = np.random.default_rng(9)
     C, capO = 21, 64
-    before = (tq._accumulate_tail.launches, tq._accumulate_words.launches)
+    before = (tq._accumulate_tail.launches, tq._accumulate_sorted_words.launches)
     acc = tuple(torch.from_numpy(a) for a in ts.epi_accs(C, 1, capO))
     q = torch.from_numpy(ts.epi_qcounts(rng, 600))
     tq._accumulate_tail(*acc, ts.t32(ts.epi_andw(rng, 600, C, 1)),
                         torch.ones(600, dtype=torch.bool), q > 0, q, 1, 0)
-    tq._accumulate_words(*acc, ts.t32(ts.epi_words(rng, 600, C, 4)), q > 0, q, 0, gidx=q)
-    assert calls == ["cpu", "cpu"]  # the words twin ends in the tail twin
-    assert (tq._accumulate_tail.launches, tq._accumulate_words.launches) == before
+    words = ts.t32(ts.epi_words(rng, 600, C, 4).reshape(-1))
+    row_s = torch.arange(2400, dtype=torch.int32)
+    tb = torch.zeros(600, dtype=torch.int32)
+    tq._accumulate_sorted_words(
+        *acc, words, row_s, torch.arange(2400), tb, tb > 0,
+        torch.zeros((512, 128), dtype=torch.int32), q > 0, q, 0, gidx=q, num_hash=4,
+        tile_rows=16384, nt=2)
+    assert calls == ["cpu", "cpu"]  # the sorted-words twin ends in the tail twin
+    assert (tq._accumulate_tail.launches, tq._accumulate_sorted_words.launches) == before
 
 
 def test_other_devices_are_refused():
@@ -172,6 +180,9 @@ def test_other_devices_are_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         tq._accumulate_tail(*acc, torch.zeros((16, 1), dtype=torch.int32, device=meta),
                             m, m, q, 1, 0)
+    w = torch.zeros(64, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        tq._accumulate_words(*acc, torch.zeros((16, 4), dtype=torch.int32, device=meta),
-                             m, q, 0)
+        tq._accumulate_sorted_words(
+            *acc, w, w, w.long(), w[:16], m, torch.zeros((512, 128), dtype=torch.int32,
+                                                         device=meta),
+            m, q, 0, num_hash=4, tile_rows=16384, nt=2)

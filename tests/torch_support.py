@@ -302,7 +302,7 @@ def write_mesh_inputs(d: str, gs, K: int, L: int) -> dict:
 
 
 # -- inputs of the search epilogue (ops/query.py::_accumulate_tail and
-# _accumulate_words, csrc/epilogue.cu's twins) ---------------------------------
+# _accumulate_words_plain, csrc/epilogue.cu's twins) ----------------------------
 
 EPI_FREQ_CAP = 1024  # ops/query.py::FREQ_CAP
 
@@ -374,3 +374,72 @@ def epi_accs(C: int, wpad: int, capO: int, n_over: int = 0, seed: int = 0):
     over_col[:m] = rng.integers(0, max(C, 1), m)
     over_freq[:m] = rng.integers(EPI_FREQ_CAP, 1 << 20, m)
     return stats, hist, over_col, over_freq
+
+
+# -- inputs of the classic stream's sorted-words epilogue ----------------------
+# (ops/query.py::_accumulate_sorted_words and its twin)
+
+SORTED_P0 = 262144  # ops/stream_query.py::EPC_CL: one stream segment of k-mers
+SORTED_CAPO = 256
+
+
+def sorted_case(H: int, C: int, kind: str, seed: int, segments: int = 1):
+    """A classic stream batch of segments * SORTED_P0 k-mers (k 31) for H hashes and C
+    colors: (bloom_size, matrix uint32 [bloom, 1], packed uint32 [P0, 2],
+    qcounts int32 [P0]). Each color bit of a row is set with a probability
+    that leaves about 1.5 colors in the AND of H rows, 5 % of the rows are
+    zero, and where C < 32 a third of the rows also carry bits at and above
+    C (the word kernel masks them in its window, a re-read keeps them).
+    The last 5 % of the slots are padding (packed 0, frequency 0); 10 % of
+    the frequencies lie at or above FREQ_CAP, so the overflow list runs past
+    SORTED_CAPO. ``kind`` "mixed": bloom 4.5 P0 H rows, so that a fifth of
+    the chunks have probes outside their window, all of them re-read;
+    "drop": 10 P0 H rows, every chunk has some and more than NCH_CL do, so
+    n_drop > 0 and the rest keep the de-offset word."""
+    rng = np.random.default_rng(seed)
+    P0 = segments * SORTED_P0
+    bloom = int((10 if kind == "drop" else 4.5) * P0 * H)
+    p = (1.5 / C) ** (1 / H)
+    bits = rng.random((bloom, C)) < p
+    matrix = np.packbits(bits, axis=1, bitorder="little")
+    matrix = np.pad(matrix, ((0, 0), (0, 4 - matrix.shape[1]))).view(np.uint32)
+    if C < 32:
+        high = rng.random(bloom) < 1 / 3
+        noise = rng.integers(0, 2**32, bloom, dtype=np.uint32) & ~np.uint32((1 << C) - 1)
+        matrix[high, 0] |= noise[high] | np.uint32(1 << 31)
+    matrix[rng.random(bloom) < 0.05] = 0
+    packed = rand_packed(rng, P0, 31)
+    q = rng.integers(1, 40, P0).astype(np.int32)
+    big = rng.random(P0) < 0.1
+    q[big] = rng.integers(EPI_FREQ_CAP, EPI_FREQ_CAP + 4000, int(big.sum()))
+    n_pad = P0 // 20
+    packed[-n_pad:] = 0
+    q[-n_pad:] = 0
+    return bloom, matrix, packed, q
+
+
+def sorted_words_args(blocks2, packed, q, *, H: int, C: int, bloom: int):
+    """What ops/stream_query.py::stream_accumulate_classic_exact hands the
+    sorted-words epilogue for these tensors (on their device), captured
+    from the call itself: (accumulators, args, keywords, n_drop) with fresh
+    zero accumulators of capacity SORTED_CAPO."""
+    from colorid_tpu_torch.ops import query as tq
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    seen = []
+
+    def capture(*a, **kw):
+        seen.append((a[4:], kw))
+        return a[:4]
+
+    accs = tq.new_accumulators(C, 1, SORTED_CAPO, blocks2.device)
+    real = sq._accumulate_sorted_words
+    sq._accumulate_sorted_words = capture
+    try:
+        n_drop = sq.stream_accumulate_classic_exact(
+            *accs, blocks2, packed, q, wpad=1, k=31, num_hash=H, bloom_size=bloom,
+            n_colors=C)[4]
+    finally:
+        sq._accumulate_sorted_words = real
+    (args, kw), = seen
+    return accs, args, kw, int(n_drop)
