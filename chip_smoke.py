@@ -24,7 +24,8 @@ Phases, each printing its lines (any failure exits non-zero):
    SASS instructions of their loop body at the card's issue rate);
    stream_probe_raw also on stream_probe's inputs, as the time of the
    gather that both share; placement and window_keys also across a grid
-   of k, H, bloom_size, layout, stride and N bases.
+   of k, H, bloom_size, layout, stride and N bases; placement also in its
+   packed mode (the blocked stream's sort key and packed offsets).
 3. main path, twice, through the port's CLI at the bench configuration's
    size (21 synthetic ~3 Mbp genomes, -k 31 -n 4 -s 50000000; search -f 1
    on 400,000 x 150 bp reads from 3 of them, its k-mers counted on the card
@@ -52,6 +53,17 @@ Phases, each printing its lines (any failure exits non-zero):
    / C 32 with hot histogram bins, W 8 / C 200, an overflow list from 1,000
    past capO); each one's time, its twin's and its bound, and the main
    path's launches.
+4-stream_tail. Kernel D (the blocked stream's plan, tail and residual
+   gather) against its twins, bitwise, on the inputs that the
+   device-resident blocked dispatch hands each entry point (9,437,184
+   slots, the frequency in an int32 key); the card's route against the
+   twins' route on the card (all four accumulators and n_drop) on that
+   batch, in clipped mode with int64 keys, with every frequency above the
+   histogram (the overflow list past OVER_CAP and capO) and on a sparse
+   batch (more residual chunks than nch); kernel A's packed mode on the
+   dispatch's k-mers; the times of D1-D3 and their twins', the byte bound,
+   the main path's launches. The blocked
+   dispatch's [profile] line must show no index kernel.
 
 4a. bench: python -m colorid_tpu_torch.bench in a subprocess on phase 3's
    two indexes (handed over in its cache under its names): rc 0, one JSON
@@ -444,6 +456,40 @@ def probe_bytes(blk_s, off_s, qc, wpad: int, num_hash: int, per_probe: int,
     return blk_s.numel() * per_probe + 32 * n + 2 * 4 * acc_words, n
 
 
+def stream_tail_bytes(P: int, *, pc: int, n_slots: int, n_listed: int, W: int, C: int,
+                      hw: int, key_bytes: int, qc_gather: bool, gidx: bool, n_res: int,
+                      res_sectors: int, n_kept: int) -> int:
+    """Bytes that kernel D (csrc/stream_tail.cu) must move for one stream
+    batch of P probes in chunks of pc, each input read once and each output
+    written once.
+    D1, the plan: from the sort (key_bytes > 0) the key, the permutation (8)
+    and offp through it (4), qcounts through it where the key holds no
+    frequency (4), blk_s, off_s, qc_s written (12); from probes sorted
+    already (key_bytes 0) blk_s and qc_s read (8); then gidx_s written (4)
+    where the batch has a global index, qcw (4) a probe, and tb, chunk_res,
+    chunk_real (12) a chunk.
+    D2, the tail: uniq and qc_s (8) a probe; the probe kernel's counts and
+    histogram (4 (32 W + cp hw), cp >= C: counted as C) and the
+    accumulators' histogram band read and written (8 C hw); the stats read
+    and written; the chunk counts read (8 a chunk); the tile counts written
+    and read (16 a tile of 2,048); the list written (4 a slot); each kept
+    overflow entry's uniq, qc and payload read and its two slots written (20).
+    D3, the residual gather: per slot pc rows of andw, present, mask, q and
+    gidx written (4 W + 10); per row of a listed chunk its block and
+    frequency read (8); per residual probe its offsets and payload (8) and
+    the 32-byte sectors its rows touch (res_sectors)."""
+    n_chunks, n_tiles = P // pc, -(-P // 2048)
+    if key_bytes:
+        d1 = P * (key_bytes + 8 + 4 + 4 * qc_gather + 12)
+    else:
+        d1 = P * 8
+    d1 += P * (4 * gidx + 4) + 12 * n_chunks
+    d2 = (8 * P + 4 * (32 * W + C * hw) + 8 * C * hw + 8 * (C + W + 2) + 8 * n_chunks
+          + 16 * n_tiles + 4 * n_slots + 20 * n_kept)
+    d3 = n_slots * pc * (4 * W + 10) + 8 * n_listed * pc + 8 * n_res + 32 * res_sectors
+    return d1 + d2 + d3
+
+
 def raw_kernel_phase(card: str) -> dict:
     """stream_probe_raw against its twin at the color-sharded path's shape
     (one shard: wpad 32, H 2, 16,777,216 probes sorted by block over
@@ -646,8 +692,11 @@ def max_abs_diff(a, b) -> int:
 
 
 def placement_err(a, b) -> int:
-    """max_abs_diff over placement's rows, or its block and offsets."""
+    """max_abs_diff over placement's rows, its block and offsets, or its
+    packed mode's key and packed offsets."""
     if isinstance(a, tuple):
+        if not isinstance(a[1], list):
+            return max(max_abs_diff(a[0], b[0]), max_abs_diff(a[1], b[1]))
         return max([max_abs_diff(a[0], b[0])] + [max_abs_diff(x, y) for x, y in zip(a[1], b[1])])
     return max_abs_diff(a, b)
 
@@ -674,10 +723,21 @@ def placement_kernel_phase(card: str) -> dict:
     v4[:n_live] = _rand_kmers(g, n_live, K)
     ckw = dict(k=K, num_hash=HASHES, bloom_size=BLOOM)
     vkw = dict(k=K, num_hash=HASHES, bloom_size=BLOOM, rpb=128, version=4, blkoff=True)
+    # the packed mode as the device-resident v4 dispatch runs it: an int32
+    # key with the exact frequency in its low 11 bits
+    q4 = torch.zeros(P4, dtype=torch.int32, device="cuda")
+    q4[:n_live] = torch.randint(1, 19, (n_live,), generator=g, device="cuda", dtype=torch.int32)
+    kkw = dict(k=K, num_hash=HASHES, bloom_size=BLOOM, rpb=128, version=4, qbits=11, qmin=0,
+               qmax=2047)
     n_checked, errs = 0, {}
     for what, src, kw in (("classic", classic, ckw), ("v4", v4, vkw),
-                          ("v4 sort keys", _key_of(v4), vkw)):
-        got, want = ht.placement(src, **kw), ht.placement_plain(src, **kw)
+                          ("v4 sort keys", _key_of(v4), vkw), ("v4 packed mode", v4, kkw),
+                          ("v4 packed mode, int64 key", v4, dict(kkw, key64=True))):
+        if "qbits" in kw:
+            got = ht.placement_keyoff(src, q4, **kw)
+            want = ht.placement_keyoff_plain(src, q4, **kw)
+        else:
+            got, want = ht.placement(src, **kw), ht.placement_plain(src, **kw)
         errs[what] = placement_err(got, want)
         if errs[what]:
             raise AssertionError(f"placement kernel != twin ({what}): max_abs_err {errs[what]}")
@@ -706,19 +766,41 @@ def placement_kernel_phase(card: str) -> dict:
                             raise AssertionError(f"placement kernel != twin ({kw}): "
                                                  f"max_abs_err {err}")
                         n_checked += 1
+                    # the packed mode: the block as the key, or with a
+                    # clipped frequency in its low 11 bits
+                    qg = torch.randint(0, 3000, (src.shape[0],), generator=g, device="cuda",
+                                       dtype=torch.int32)
+                    for v in (1, 2, 3, 4) if H <= 4 else ():
+                        for m in (dict(), dict(qbits=11, qmax=1024)):
+                            kw = dict(k=k, num_hash=H, bloom_size=bloom, rpb=128, version=v, **m)
+                            qq = qg if m else None
+                            err = placement_err(ht.placement_keyoff(src, qq, **kw),
+                                                ht.placement_keyoff_plain(src, qq, **kw))
+                            errs["grid"] = max(errs["grid"], err)
+                            if err:
+                                raise AssertionError(f"placement kernel != twin (packed "
+                                                     f"mode, {kw}): max_abs_err {err}")
+                            n_checked += 1
     log(f"[kernel] placement: bitwise equal to its twin (max_abs_err "
         f"{', '.join(f'{w} {e}' for w, e in errs.items())}) on the classic batch "
         f"(P={P0}, {n_live} k-mers, k {K}, H {HASHES}, bloom {BLOOM}), the v4 batch "
         f"(P={P4}, {BLOOM // 128} blocks of rpb 128; packed and sort keys) and a grid "
         f"of k {list(GRID_K)} x H 1/2/4/8 x bloom 1,000,003 / 2^31-1 x classic, v1-v4 "
-        f"rows and block/offsets x packed / sort keys: {n_checked} cases on {card}")
+        f"rows and block/offsets x packed / sort keys, and the packed mode (v4 dispatch's "
+        f"int32 key with an exact frequency and its int64 form; the grid's v1-v4 at H <= 4, "
+        f"the key as the block or with a clipped frequency): {n_checked} cases on {card}")
     out = {}
     for what, src, kw, instance, out_bytes in (
-        ("classic", classic, ckw, "placement_kernelILi2ELi4ELb0E", 4 * HASHES),
-        ("v4", v4, vkw, "placement_kernelILi7ELi4ELb1E", 8 * (HASHES + 1)),
+        ("classic", classic, ckw, "placement_kernelILi2ELi4ELi0E", 4 * HASHES),
+        ("v4", v4, vkw, "placement_kernelILi7ELi4ELi1E", 8 * (HASHES + 1)),
+        ("v4 packed mode", v4, kkw, "placement_kernelILi7ELi4ELi2E", 4 + 4 + 4),
     ):
-        ms = cuda_ms(lambda: ht.placement(src, **kw), 20)
-        plain_ms = cuda_ms(lambda: ht.placement_plain(src, **kw), 3)
+        if "qbits" in kw:
+            ms = cuda_ms(lambda: ht.placement_keyoff(src, q4, **kw), 20)
+            plain_ms = cuda_ms(lambda: ht.placement_keyoff_plain(src, q4, **kw), 3)
+        else:
+            ms = cuda_ms(lambda: ht.placement(src, **kw), 20)
+            plain_ms = cuda_ms(lambda: ht.placement_plain(src, **kw), 3)
         n = src.shape[0]
         instr = sass_loop_instructions("placement.cu", instance)
         bound_ms, bound_by, how = _bound(n * (8 + out_bytes), n, instr)
@@ -726,7 +808,7 @@ def placement_kernel_phase(card: str) -> dict:
             f"library_ms=null (no single PyTorch call hashes or places k-mers) "
             f"bound_ms={bound_ms:.4f} bound_by={bound_by} ({how}) on {card}")
         out[what] = (ms, plain_ms, bound_ms, bound_by)
-    del classic, v4
+    del classic, v4, q4
     torch.cuda.empty_cache()
     ms, plain_ms, bound_ms, bound_by = out["classic"]
     return {
@@ -744,6 +826,11 @@ def placement_kernel_phase(card: str) -> dict:
         "v4_ms": out["v4"][0],
         "v4_plain_ms": out["v4"][1],
         "v4_bound_ms": out["v4"][2],
+        "packed_ms": out["v4 packed mode"][0],
+        "packed_plain_ms": out["v4 packed mode"][1],
+        "packed_bound_ms": out["v4 packed mode"][2],
+        "packed_bound_by": out["v4 packed mode"][3],
+        "packed_max_abs_err": max(errs["v4 packed mode"], errs["v4 packed mode, int64 key"]),
     }
 
 
@@ -914,6 +1001,14 @@ def _new_kernels():
     return placement, window_keys, _accumulate_tail, _accumulate_sorted_words
 
 
+def _glue_kernels():
+    """The wrappers of kernel D, the blocked stream's glue: its plan, tail
+    and residual gather (each with a count)."""
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    return tuple(getattr(sq, n) for n in TAIL_WRAPPERS)
+
+
 # the epilogue mode each main path ends in: the classic stream's sorted
 # words, the probe stream's residual pass through the generic gather
 EPILOGUE_OF = {"classic": "_accumulate_sorted_words", "blocked": "_accumulate_tail"}
@@ -926,12 +1021,13 @@ def _check_new_kernels(used: dict, what: str) -> None:
     searches must have ended in the epilogue kernel."""
     if DEVICE != "cuda":
         return
+    glue = TAIL_WRAPPERS if what == "blocked" else ()
     if (min(used["placement"]) == 0 or used["window_keys"][0] == 0
-            or min(used[EPILOGUE_OF[what]]) == 0):
+            or min(used[EPILOGUE_OF[what]]) == 0 or any(min(used[n]) == 0 for n in glue)):
         raise AssertionError(
             f"{what}: search -f 1 and search -s did not run through the placement, "
-            f"window-key and epilogue kernels (launches in (search -f 1, search -s): "
-            f"{used})"
+            f"window-key, epilogue{' and stream glue' if glue else ''} kernels (launches "
+            f"in (search -f 1, search -s): {used})"
         )
 
 
@@ -1030,7 +1126,7 @@ def blocked_path_phase(tmp: str, inputs, card: str):
              "-b", prefix, "-r", man, "-t", "8"])
         t_build = time.time() - t0
         tsv, perfect, t_search, t_perfect, used = _searches(
-            tmp, prefix + ".bxi", fq, (sq.stream_probe, *_new_kernels()))
+            tmp, prefix + ".bxi", fq, (sq.stream_probe, *_new_kernels(), *_glue_kernels()))
     finally:
         for (o, n, _), fn in zip(owners, saved):
             setattr(o, n, fn)
@@ -1046,8 +1142,9 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         f"{reads_launches}); search -s {t_perfect:.1f}s; stream_probe "
         f"launches={launches}; streamed segments={sizes} n_drop={n_drop}; launches in "
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
-        f"{used['window_keys']}, epilogue {used['_accumulate_tail']} (residual pass) on "
-        f"{card}")
+        f"{used['window_keys']}, epilogue {used['_accumulate_tail']} (residual pass), "
+        f"stream glue (plan, tail, residual) {used['stream_chunk_plan']}, "
+        f"{used['stream_tail']}, {used['stream_residual']} on {card}")
     _check_new_kernels(used, "blocked")
     if index.blocked != 4:
         raise AssertionError(f"build --blocked chose layout {index.blocked}, not v4")
@@ -1141,12 +1238,15 @@ def classic_parity_phase(bxi: str, fq: str, card: str):
     return dispatch
 
 
-def blocked_parity_phase(bxi: str, fq: str, card: str):
+def blocked_parity_phase(bxi: str, fq: str, card: str, strict: bool = True):
     """The blocked index: search_keys with the probe stream against the
     generic gather, the two device-resident dispatches against both, their
-    rates, and the profile of one device-resident stream dispatch. On the
-    card also the probe kernel on the real segment's inputs (see
-    real_segment); returns its ms there, or None on the CPU."""
+    rates, and the profile of one device-resident stream dispatch (which
+    must launch no index kernel where ``strict``: kernel D replaced them;
+    --compare's turns of an older checkout are not strict). On the card also
+    the probe kernel on the real segment's inputs (see real_segment).
+    Returns (its ms there or None on the CPU, the device-resident stream
+    dispatch)."""
     import numpy as np
     import torch
 
@@ -1220,9 +1320,10 @@ def blocked_parity_phase(bxi: str, fq: str, card: str):
         f"(best of 2 host-clock runs each; device-resident: mean of {reps} "
         f"dispatches of {P} slots, max_freq={max_freq} in_key={in_key}) on {card}")
     if DEVICE != "cuda":
-        return None
-    profile_dispatch(lambda: dispatches["stream"]()[0], "blocked", card)
-    return real_segment(dispatches["stream"], card)
+        return None, dispatches["stream"]
+    profile_dispatch(lambda: dispatches["stream"]()[0], "blocked", card,
+                     forbid=("index_elementwise_kernel", "indexFuncLargeIndex") if strict else ())
+    return real_segment(dispatches["stream"], card), dispatches["stream"]
 
 
 def real_segment(dispatch, card: str) -> float:
@@ -1474,6 +1575,220 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }
+
+
+# -- phase 4-stream_tail: kernel D on the blocked dispatch's inputs -----------
+
+TAIL_WRAPPERS = ("stream_chunk_plan", "stream_tail", "stream_residual")
+SPARSE_CHUNKS = 300  # chunks of the sparse batch: more residual chunks than nch
+
+
+def _clone(x):
+    import torch
+
+    return x.clone() if torch.is_tensor(x) else x
+
+
+def _outputs_err(got, want) -> int:
+    """max_abs_diff over two tuples of outputs (None where both have none)."""
+    errs = []
+    for x, y in zip(got, want):
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                raise AssertionError("a kernel output is missing on one side")
+            continue
+        errs.append(max_abs_diff(x, y))
+    return max(errs)
+
+
+def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) -> dict:
+    """Kernel D (csrc/stream_tail.cu) against its twins, bitwise: each entry
+    point (the plan D1 from the sorted key, the tail D2 with the four
+    accumulators, the residual gather D3) on the inputs that the
+    device-resident blocked dispatch hands it (the real blocked segment,
+    9,437,184 slots, the frequency in an int32 key); and the card's route
+    (kernel A's packed mode, the key sort, kernel D, the probe kernel, the
+    epilogue) against the twins' route (_stream_core_plain) on the card, all
+    four accumulators and n_drop: on that batch, on it in clipped mode with
+    a global index and int64 keys, with every frequency raised by 1,024
+    (every unique hit big: more than OVER_CAP, from an overflow list 1,000
+    slots below capO) and on a sparse batch (its first SPARSE_CHUNKS
+    chunks' k-mers over the whole matrix: more residual chunks than nch,
+    n_drop > 0); and kernel A's packed mode against its twin on the
+    dispatch's k-mers. The times of D1-D3 and of their twins on the real
+    batch, and their bound (stream_tail_bytes; D1's loop for the
+    operations)."""
+    import torch
+
+    from colorid_tpu_torch.ops import hash_torch as ht
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    t0 = time.time()
+    seen: dict = {}
+    names = TAIL_WRAPPERS + ("stream_accumulate_hash_exact",)
+    reals = {n: getattr(sq, n) for n in names}
+
+    def observer(name):
+        def observed(*a, **kw):
+            seen[name] = ([_clone(x) for x in a], {k: _clone(v) for k, v in kw.items()})
+            return reals[name](*a, **kw)
+
+        # each wrapper counts its launches on the module's name, the observer now
+        observed.launches = getattr(reals[name], "launches", 0)
+        return observed
+
+    for n in names:
+        setattr(sq, n, observer(n))
+    try:
+        blocked_dispatch()
+        sync()
+    finally:
+        for n in names:
+            if n in TAIL_WRAPPERS:
+                reals[n].launches = getattr(sq, n).launches
+            setattr(sq, n, reals[n])
+    errs, outs, ms, plain_ms = {}, {}, {}, {}
+    for n in TAIL_WRAPPERS:
+        a, kw = seen[n]
+        twin = getattr(sq, n + "_plain")
+        pair = []
+        for fn in (reals[n], twin):
+            args = [_clone(x) for x in a]
+            res = fn(*args, **kw)
+            res = res if isinstance(res, tuple) else (res,)
+            pair.append(list(res) + (args[:4] if n == "stream_tail" else []))
+        sync()
+        errs[n] = _outputs_err(*pair)
+        outs[n] = pair[0]
+        if errs[n]:
+            raise AssertionError(f"{n} kernel != twin on the real segment: max_abs_err {errs[n]}")
+        args = [_clone(x) for x in a]
+        ms[n] = cuda_ms(lambda: reals[n](*args, **kw), 20)
+        plain_ms[n] = cuda_ms(lambda: twin(*args, **kw), 3)
+
+    # the bound from this batch's inputs
+    pa, pkw = seen["stream_chunk_plan"]
+    key_s = pkw["key_s"]
+    P = key_s.numel()
+    ta, tkw = seen["stream_tail"]
+    stats0, over_col = ta[0], ta[2]
+    C, W = tkw["n_colors"], tkw["wpad"]
+    hw = ta[8].shape[1]
+    capO = over_col.numel()
+    cidx, n_cov = outs["stream_tail"][0], int(outs["stream_tail"][1])
+    stats1 = outs["stream_tail"][3]
+    before, after = int(stats0[C + W + 1]), int(stats1[C + W + 1])
+    n_kept = max(0, min(after, capO) - min(before, capO))
+    ra, rkw = seen["stream_residual"]
+    mask = outs["stream_residual"][2]
+    c = cidx[:n_cov].to(torch.int64)
+    rows = (torch.arange(sq.PC, device=c.device) + c[:, None] * sq.PC).reshape(-1)
+    live_rows = rows[mask[: n_cov * sq.PC]]
+    blk_l = ra[1][live_rows].to(torch.int64)
+    off_l = ra[2][live_rows].to(torch.int64)
+    starts = torch.cat([blk_l * 128 + ((off_l >> (8 * h)) & 0xFF) * W
+                        for h in range(rkw["num_hash"])])
+    n_res = int(mask.sum())
+    n_bytes = stream_tail_bytes(
+        P, pc=sq.PC, n_slots=cidx.numel(), n_listed=n_cov, W=W, C=C, hw=hw,
+        key_bytes=key_s.element_size(), qc_gather=pkw["qbits"] == 0,
+        gidx=pkw["base0"] is not None, n_res=n_res,
+        res_sectors=sectors(starts, W) if n_res else 0, n_kept=n_kept)
+    instr = sass_loop_instructions("stream_tail.cu", "plan_kernel", outer=True)
+    bound_ms, bound_by, how = _bound(n_bytes, P, instr)
+    total, total_plain = sum(ms.values()), sum(plain_ms.values())
+    log(f"[kernel] stream_tail real segment: P={P} ({P // sq.PC} chunks, key "
+        f"{key_s.dtype}, qbits {pkw['qbits']}), {n_cov} residual chunks listed of "
+        f"{cidx.numel()} slots, {n_res} residual probes, {n_kept} overflow entries kept; "
+        f"bitwise_equal=True for plan, tail (stats, hist, over_col, over_freq, list, "
+        f"n_drop) and residual (max_abs_err {max(errs.values())}); ms plan="
+        f"{ms['stream_chunk_plan']:.4f} tail={ms['stream_tail']:.4f} residual="
+        f"{ms['stream_residual']:.4f} total={total:.4f}; plain_ms plan="
+        f"{plain_ms['stream_chunk_plan']:.4f} tail={plain_ms['stream_tail']:.4f} residual="
+        f"{plain_ms['stream_residual']:.4f} total={total_plain:.4f}; library_ms=null (no "
+        f"single PyTorch call computes the plan, the tail or the gather) bound_ms="
+        f"{bound_ms:.4f} bound_by={bound_by} ({how}; D1's loop) launches on the main "
+        f"path={main_launches} on {card}")
+    del outs, seen["stream_chunk_plan"], seen["stream_tail"], seen["stream_residual"]
+
+    # the whole route against the twins' route on the card
+    pa, pkw = seen["stream_accumulate_hash_exact"]
+    stats, hist, over_col, over_freq, blocks2, packed, qcounts = pa[:7]
+    geo = {k: v for k, v in pkw.items() if k != "qc_in_key"}
+    in_key = pkw["qc_in_key"] and sq._qc_in_key_ok(geo["bloom_size"], geo["rpb"])
+    # kernel A's packed mode on the dispatch's own k-mers, as the route ran it
+    kkw = dict(k=geo["k"], num_hash=geo["num_hash"], bloom_size=geo["bloom_size"],
+               rpb=geo["rpb"], version=geo["bv"], qbits=sq.QKEY_BITS if in_key else 0,
+               qmin=0, qmax=sq.QKEY_MASK, key64=not sq._key32(geo["bloom_size"], geo["rpb"]))
+    qq = qcounts if in_key else None
+    got = ht.placement_keyoff(packed, qq, **kkw)
+    errs["placement_keyoff"] = placement_err(got, ht.placement_keyoff_plain(packed, qq, **kkw))
+    sync()
+    log(f"[kernel] stream_tail placement packed mode on the dispatch's {packed.shape[0]} "
+        f"k-mers (key {got[0].dtype}, qbits {kkw['qbits']}): bitwise_equal="
+        f"{errs['placement_keyoff'] == 0} max_abs_err {errs['placement_keyoff']}")
+    if errs["placement_keyoff"]:
+        raise AssertionError("placement packed mode != twin on the blocked dispatch's k-mers")
+    del got
+    P = packed.shape[0]
+    n_sp = SPARSE_CHUNKS * sq.PC
+    cases = (
+        ("the dispatch's batch", packed, qcounts, 0, None, in_key, False),
+        ("clipped mode, global index, int64 keys", packed, qcounts.clamp(max=65535), 0,
+         7_000_000, True, True),
+        ("every frequency + 1,024 (big past OVER_CAP), overflow list from capO - 1,000",
+         packed, torch.where(qcounts > 0, qcounts + 1024, 0), capO - 1000, None, False,
+         False),
+        (f"sparse: {n_sp} slots over the whole matrix", packed[:n_sp].contiguous(),
+         qcounts[:n_sp].contiguous(), 0, None, in_key, False),
+    )
+    key32 = sq._key32
+    drops = []
+    for what, pk, q, n_over, base0, qkey, key64 in cases:
+        got = []
+        for route in (True, False):
+            acc = _epi_accs(C, W, capO, n_over)
+            sq._key32 = (lambda bloom_size, rpb: False) if key64 else key32
+            try:
+                got.append(sq._stream_accumulate(
+                    *acc, blocks2, pk, q, base0, qbits=sq.QKEY_BITS if qkey else 0,
+                    qmin=None if base0 is not None else 0,
+                    qmax=sq.FREQ_CAP if base0 is not None else sq.QKEY_MASK,
+                    kernels_route=route, **geo))
+            finally:
+                sq._key32 = key32
+        sync()
+        err = max(max_abs_diff(x, y) for x, y in zip(*got))
+        nd = int(got[0][4])
+        drops.append(nd)
+        log(f"[kernel] stream_tail route {what}: stats, hist, over_col, over_freq, n_drop "
+            f"bitwise_equal={err == 0} (card's route vs twins' route) n_over "
+            f"{n_over} -> {int(got[0][0][C + W + 1])} of capO {capO}, n_drop {nd}")
+        if err:
+            raise AssertionError(f"stream_tail route != twins' route ({what}): {err}")
+        errs[what] = err
+    if DEVICE == "cuda" and (drops[0] or not drops[2] or not drops[3]):
+        raise AssertionError(f"stream_tail: n_drop {drops}: the real batch must drop "
+                             "nothing, the big and the sparse batch must")
+    log(f"[kernel] stream_tail phase took {time.time() - t0:.1f}s")
+    del seen, pa, stats, hist, over_col, over_freq, blocks2, packed, qcounts
+    torch.cuda.empty_cache()
+    return {
+        "name": "stream_tail",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/stream_tail.cu",
+        "replaces": "colorid_tpu/ops/stream_query.py:895",
+        "launches": main_launches,
+        "max_abs_err": max(errs.values()),
+        "ms": total,
+        "plain_ms": total_plain,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "plan_ms": ms["stream_chunk_plan"],
+        "tail_ms": ms["stream_tail"],
+        "residual_ms": ms["stream_residual"],
     }
 
 
@@ -3498,11 +3813,13 @@ def ptxas_summary(logs) -> list[str]:
     return lines
 
 
-def profile_dispatch(fn, what: str, card: str, label: str = "stream") -> None:
+def profile_dispatch(fn, what: str, card: str, label: str = "stream",
+                     forbid: tuple = ()) -> None:
     """Where one dispatch (a stream dispatch unless ``label`` says other)
     spends its device time:
     torch.profiler's per-kernel device totals, and the device's idle share
-    of the dispatch's host-clock span."""
+    of the dispatch's host-clock span. Fails if a kernel named in
+    ``forbid`` ran in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3537,17 +3854,23 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream") -> None:
         f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
-            "epilogue", "epilogue_sorted", "epilogue_overflow")
+            "epilogue", "epilogue_sorted", "epilogue_overflow", "plan", "tail_count",
+            "tail_overflow", "tail_finish", "residual")
     )
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
+    sort = [(ms, n) for ms, n, name in rows if "RadixSort" in name]
     ix = [(ms, n) for ms, n, name in rows if name.startswith("index")]
     log(f"[profile] {what}: one {label} dispatch: device {dev_ms:.2f} ms of "
         f"{wall_ms:.2f} ms host-clock span (idle share "
         f"{max(0.0, 1 - dev_ms / wall_ms):.3f}); element-wise launches "
         f"x{sum(n for _, n in ew)}={sum(ms for ms, _ in ew):.2f}ms; index kernels (gathers "
-        f"and scatters) x{sum(n for _, n in ix)}={sum(ms for ms, _ in ix):.3f}ms; "
+        f"and scatters) x{sum(n for _, n in ix)}={sum(ms for ms, _ in ix):.3f}ms; radix sort "
+        f"passes x{sum(n for _, n in sort)}={sum(ms for ms, _ in sort):.3f}ms; "
         f"top kernels: {top}; "
         f"the port's own: {ours or 'none'} on {card}")
+    ran = [f"{name} x{n}" for ms, n, name in rows if name in forbid]
+    if ran:
+        raise AssertionError(f"[profile] {what}: {ran} ran in the dispatch")
 
 
 # -- --compare: two checkouts in turns on one card ------------------------------
@@ -3612,7 +3935,8 @@ def compare_turn(root: str, tmp: str) -> int:
          for key in ("words", "lens", "vbits", "mates", "src")}
     dev = on_device((a["words"], a["lens"], a["vbits"]))
     classic_parity_phase(cell["classic"], cell["fq"], card)
-    blocked_parity_phase(cell["blocked"], cell["fq"], card)
+    blocked_parity_phase(cell["blocked"], cell["fq"], card,
+                         strict=os.path.abspath(root) == HERE)
     with contextlib.redirect_stderr(io.StringIO()):
         query = _count_query_kmers(cell["fq"], None, K, 15, 1, False)
     answers = {}
@@ -3739,18 +4063,27 @@ def main() -> int:
             placement, window_keys, tail, sorted_words = _new_kernels()
             placement.launches = window_keys.launches = tail.launches = 0
             sorted_words.launches = 0
+            glue = _glue_kernels()
+            for kn in glue:
+                kn.launches = 0
             classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
                 tmp, inputs, card)
             blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
             placement_row["launches"] = placement.launches
             window_row["launches"] = window_keys.launches
             epilogue_launches = tail.launches + sorted_words.launches
+            glue_launches = {kn.__name__: kn.launches for kn in glue}
         with phase("parity"):
             classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
-            probe_row["real_segment_ms"] = blocked_parity_phase(blocked_bxi, inputs[1], card)
+            probe_row["real_segment_ms"], blocked_dispatch = blocked_parity_phase(
+                blocked_bxi, inputs[1], card)
         with phase("epilogue"):
             epilogue_row = epilogue_kernel_phase(classic_dispatch, epilogue_launches, card)
         del classic_dispatch
+        with phase("stream_tail"):
+            tail_row = stream_tail_kernel_phase(blocked_dispatch, glue_launches["stream_tail"],
+                                                card)
+        del blocked_dispatch
         with phase("bench"):
             benched = bench_phase(tmp, classic_bxi, blocked_bxi, card)
         for row, name in ((classic_row, "classic_words"), (probe_row, "stream_probe"),
@@ -3758,6 +4091,9 @@ def main() -> int:
             row["launches"] += benched[name]
         epilogue_row["launches"] += (benched["_accumulate_tail"]
                                      + benched["_accumulate_sorted_words"])
+        tail_row["launches"] += benched["stream_tail"]
+        for name in ("stream_chunk_plan", "stream_residual"):
+            tail_row[name.split("_")[-1] + "_launches"] = glue_launches[name] + benched[name]
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):
@@ -3796,7 +4132,7 @@ def main() -> int:
     log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
         + f"; whole script {time.time() - t_script:.1f}s on {card}")
     print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row,
-                                  epilogue_row]}))
+                                  epilogue_row, tail_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

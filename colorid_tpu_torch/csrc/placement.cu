@@ -23,10 +23,16 @@
 //                         block = (x * n_blocks) >> 64, m = fmix64(v),
 //                         off_h = h * grp + ((m >> (g_bits * h)) & (grp - 1))
 // written as rows int32 [n, H] (classic row_h, or block * rpb + off_h), or
-// (BLKOFF) as int64 [H + 1, n]: the block, then each hash's offset.
+// (BLKOFF) as int64 [H + 1, n]: the block, then each hash's offset, or
+// (KEYOFF, the blocked probe stream's packed mode) as a sort key [n] and
+// the offsets packed 8 bits a hash into one int32 [n] (the probe kernel's
+// encoding, ops/hash_torch.py::pack_offsets): the key is the block, or with
+// qbits > 0 block << qbits | clamp(q[i], qlo, qhi), int32 where the caller
+// knows every key is below 2^31, else int64.
 //
 // What bounds it on an H100: at H = 4 both sides are close. Bytes: 8 in and
-// 16 (rows) or 40 (BLKOFF) out per k-mer against 3.35 TB/s. Operations: the
+// 16 (rows), 40 (BLKOFF) or 8 to 16 (KEYOFF, with the frequency read) out
+// per k-mer against 3.35 TB/s. Operations: the
 // XXH3 of four seeds is some hundreds of integer instructions per k-mer
 // (64-bit products are several 32-bit IMADs), against one warp instruction
 // per clock on each of the SM's four schedulers (chip_smoke.py counts the
@@ -84,12 +90,19 @@ struct Consts {
   uint64_t p64_1, pmx1, pmx2, fmix1, fmix2;
 };
 
+enum Out : int { OUT_ROWS = 0, OUT_BLKOFF = 1, OUT_KEYOFF = 2 };
+
 struct Params {
   const uint64_t* src;
   uint64_t flip;
   int64_t n;
   int32_t* rows;    // [n, H] or nullptr
   int64_t* blkoff;  // [H + 1, n] or nullptr
+  void* key;        // [n] int32 or int64 (key64), or nullptr
+  int32_t* offp;    // [n] with key
+  const int32_t* q; // [n] with qbits > 0
+  int qbits, key64;
+  int32_t qlo, qhi;
   int k, H;
   uint64_t mod, mod_inv;  // bloom_size (classic) or n_blocks (v1/v2)
   uint64_t n_blocks;      // v3/v4
@@ -221,12 +234,32 @@ __host__ __device__ constexpr int xxh_class() {
                                                         : 2;
 }
 
+// KEYOFF: k-mer i's sort key, and its offsets packed 8 bits a hash.
+__device__ __forceinline__ void put_keyoff(const Params& p, int64_t i, uint64_t block,
+                                           uint64_t offs) {
+  int64_t kv = (int64_t)block;
+  if (p.qbits) {
+    const int32_t q = min(max(p.q[i], p.qlo), p.qhi);
+    kv = (kv << p.qbits) | (int64_t)q;
+  }
+  if (p.key64)
+    reinterpret_cast<int64_t*>(p.key)[i] = kv;
+  else
+    reinterpret_cast<int32_t*>(p.key)[i] = (int32_t)kv;
+  p.offp[i] = (int32_t)(uint32_t)offs;
+}
+
 // Writes the HT outputs of k-mer i: rows (block * rpb already added for a
-// blocked layout), or the block and the offsets.
-template <int HT, bool BLKOFF>
+// blocked layout), the block and the offsets, or the key and packed offsets.
+template <int HT, int OUT>
 __device__ __forceinline__ void put(const Params& p, int64_t i, const uint32_t* vals,
                                     uint64_t block) {
-  if constexpr (BLKOFF) {
+  if constexpr (OUT == OUT_KEYOFF) {
+    uint64_t o = 0;
+#pragma unroll
+    for (int h = 0; h < HT; ++h) o |= (uint64_t)vals[h] << (8 * h);
+    put_keyoff(p, i, block, o);
+  } else if constexpr (OUT == OUT_BLKOFF) {
     p.blkoff[i] = (int64_t)block;
 #pragma unroll
     for (int h = 0; h < HT; ++h) p.blkoff[(1 + h) * p.n + i] = vals[h];
@@ -282,10 +315,11 @@ __device__ __forceinline__ uint64_t place_fixed(const Params& p, uint64_t v,
   }
 }
 
-template <int PATH, int HT, bool BLKOFF>
+template <int PATH, int HT, int OUT>
 __global__ void __launch_bounds__(THREADS) placement_kernel(const Params p) {
   constexpr int CLS = xxh_class<PATH>();
-  constexpr bool ROW_BLOCKS = PATH > PATH_CL_17_32 && !BLKOFF;
+  constexpr bool BLKOFF = OUT == OUT_BLKOFF;
+  constexpr bool ROW_BLOCKS = PATH > PATH_CL_17_32 && OUT == OUT_ROWS;
   const int64_t stride = (int64_t)gridDim.x * THREADS;
   if constexpr (HT > 0) {
     SeedConsts sc[HT];
@@ -301,7 +335,7 @@ __global__ void __launch_bounds__(THREADS) placement_kernel(const Params p) {
 #pragma unroll
         for (int h = 0; h < HT; ++h) vals[h] += base;
       }
-      put<HT, BLKOFF>(p, i, vals, block);
+      put<HT, OUT>(p, i, vals, block);
     }
   } else {
     // any other H: one hash at a time, each output written as it is made
@@ -327,6 +361,7 @@ __global__ void __launch_bounds__(THREADS) placement_kernel(const Params p) {
       }
       if constexpr (ROW_BLOCKS) base = (uint32_t)(block * (uint64_t)p.rpb);
       if constexpr (BLKOFF) p.blkoff[i] = (int64_t)block;
+      uint64_t offs = 0;  // KEYOFF
 #pragma unroll 1
       for (int h = 0; h < p.H; ++h) {
         uint32_t val;
@@ -340,70 +375,60 @@ __global__ void __launch_bounds__(THREADS) placement_kernel(const Params p) {
             val = h == 0 ? (uint32_t)(hv >> 32) & p.gmask
                          : (uint32_t)h * p.gstep + ((uint32_t)hv & p.gmask);
         }
-        if constexpr (BLKOFF)
+        if constexpr (OUT == OUT_KEYOFF)
+          offs |= (uint64_t)val << (8 * h);
+        else if constexpr (BLKOFF)
           p.blkoff[(1 + h) * p.n + i] = val;
         else
           p.rows[i * p.H + h] = (int32_t)(val + base);
       }
+      if constexpr (OUT == OUT_KEYOFF) put_keyoff(p, i, block, offs);
     }
   }
 }
 
-template <int PATH, int HT, bool BLKOFF>
+template <int PATH, int HT, int OUT>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, placement_kernel<PATH, HT, BLKOFF>, THREADS, 0);
+      &per_sm, placement_kernel<PATH, HT, OUT>, THREADS, 0);
   const int64_t needed = (p.n + THREADS - 1) / THREADS;
   const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   const int64_t blocks = needed < resident ? needed : resident;
-  placement_kernel<PATH, HT, BLKOFF><<<(unsigned int)blocks, THREADS, 0, stream>>>(p);
+  placement_kernel<PATH, HT, OUT><<<(unsigned int)blocks, THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int PATH, bool BLKOFF>
+template <int PATH, int OUT>
 cudaError_t launch_h(const Params& p, cudaStream_t stream) {
   switch (p.H) {
-    case 1: return launch<PATH, 1, BLKOFF>(p, stream);
-    case 2: return launch<PATH, 2, BLKOFF>(p, stream);
-    case 4: return launch<PATH, 4, BLKOFF>(p, stream);
-    default: return launch<PATH, 0, BLKOFF>(p, stream);
+    case 1: return launch<PATH, 1, OUT>(p, stream);
+    case 2: return launch<PATH, 2, OUT>(p, stream);
+    case 4: return launch<PATH, 4, OUT>(p, stream);
+    default: return launch<PATH, 0, OUT>(p, stream);
   }
 }
 
 template <int PATH>
 cudaError_t launch_out(const Params& p, cudaStream_t stream) {
   if constexpr (PATH <= PATH_CL_17_32) {
-    return launch_h<PATH, false>(p, stream);
+    return launch_h<PATH, OUT_ROWS>(p, stream);
   } else {
-    return p.blkoff ? launch_h<PATH, true>(p, stream) : launch_h<PATH, false>(p, stream);
+    return p.key      ? launch_h<PATH, OUT_KEYOFF>(p, stream)
+           : p.blkoff ? launch_h<PATH, OUT_BLKOFF>(p, stream)
+                      : launch_h<PATH, OUT_ROWS>(p, stream);
   }
 }
 
-}  // namespace
-
-// src: n u64 values (16-byte aligned when rows are stored as vectors);
-// rows [n, H] int32 or blkoff [H + 1, n] int64 (exactly one non-null;
-// classic takes rows). version 0 = classic, 1..4 = the blocked layouts.
-// consts: the 12 u64 of struct Consts. The wrapper checks the envelope
-// (4 <= k <= 32, H >= 1, 0 < bloom_size < 2^31, rpb a power of two).
-extern "C" int placement_launch(const void* src, uint64_t flip, int64_t n, void* rows,
-                                void* blkoff, int32_t k, int32_t H, int32_t version,
-                                int64_t bloom_size, int64_t rpb, const void* consts,
-                                void* stream) {
-  if (n <= 0) return 0;
+// The envelope every output takes; on success fills p's placement fields.
+// version 0 = classic, 1..4 = the blocked layouts.
+int place(Params& p, int32_t k, int32_t H, int32_t version, int64_t bloom_size, int64_t rpb,
+          const void* consts, cudaStream_t st) {
   if (k < 4 || k > 32 || H < 1 || version < 0 || version > 4 || bloom_size <= 0 ||
-      bloom_size >= (1ll << 31) || (rows == nullptr) == (blkoff == nullptr) ||
-      (version == 0 && rows == nullptr))
+      bloom_size >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  Params p{};
-  p.src = (const uint64_t*)src;
-  p.flip = flip;
-  p.n = n;
-  p.rows = (int32_t*)rows;
-  p.blkoff = (int64_t*)blkoff;
   p.k = k;
   p.H = H;
   p.rpb = rpb;
@@ -415,7 +440,6 @@ extern "C" int placement_launch(const void* src, uint64_t flip, int64_t n, void*
   p.c.fmix1 = cs[10];
   p.c.fmix2 = cs[11];
   const int cls = k <= 8 ? 0 : k <= 16 ? 1 : 2;
-  cudaStream_t st = (cudaStream_t)stream;
   if (version == 0) {
     p.mod = (uint64_t)bloom_size;
     p.mod_inv = ~0ull / p.mod;
@@ -443,4 +467,52 @@ extern "C" int placement_launch(const void* src, uint64_t flip, int64_t n, void*
   while ((2u << g_bits) <= grp) ++g_bits;  // grp.bit_length() - 1
   p.g_bits = g_bits;
   return (int)(version == 3 ? launch_out<PATH_V3>(p, st) : launch_out<PATH_V4>(p, st));
+}
+
+}  // namespace
+
+// src: n u64 values (16-byte aligned when rows are stored as vectors);
+// rows [n, H] int32 or blkoff [H + 1, n] int64 (exactly one non-null;
+// classic takes rows). version 0 = classic, 1..4 = the blocked layouts.
+// consts: the 12 u64 of struct Consts. The wrapper checks the envelope
+// (4 <= k <= 32, H >= 1, 0 < bloom_size < 2^31, rpb a power of two).
+extern "C" int placement_launch(const void* src, uint64_t flip, int64_t n, void* rows,
+                                void* blkoff, int32_t k, int32_t H, int32_t version,
+                                int64_t bloom_size, int64_t rpb, const void* consts,
+                                void* stream) {
+  if (n <= 0) return 0;
+  if ((rows == nullptr) == (blkoff == nullptr) || (version == 0 && rows == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.src = (const uint64_t*)src;
+  p.flip = flip;
+  p.n = n;
+  p.rows = (int32_t*)rows;
+  p.blkoff = (int64_t*)blkoff;
+  return place(p, k, H, version, bloom_size, rpb, consts, (cudaStream_t)stream);
+}
+
+// The KEYOFF output of a blocked layout (version 1..4, H <= 4): key [n]
+// (int32, or int64 when key64) and offp int32 [n]; with qbits > 0 the key
+// carries clamp(q[i], qlo, qhi) in its low qbits (q int32 [n]).
+extern "C" int placement_keyoff_launch(const void* src, uint64_t flip, int64_t n, void* key,
+                                       int32_t key64, void* offp, const void* q, int32_t qbits,
+                                       int32_t qlo, int32_t qhi, int32_t k, int32_t H,
+                                       int32_t version, int64_t bloom_size, int64_t rpb,
+                                       const void* consts, void* stream) {
+  if (n <= 0) return 0;
+  if (!key || !offp || version < 1 || H > 4 || qbits < 0 || qbits > 31 || (qbits && !q))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.src = (const uint64_t*)src;
+  p.flip = flip;
+  p.n = n;
+  p.key = key;
+  p.key64 = key64;
+  p.offp = (int32_t*)offp;
+  p.q = (const int32_t*)q;
+  p.qbits = qbits;
+  p.qlo = qlo;
+  p.qhi = qhi;
+  return place(p, k, H, version, bloom_size, rpb, consts, (cudaStream_t)stream);
 }

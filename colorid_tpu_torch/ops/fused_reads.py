@@ -27,21 +27,21 @@ from __future__ import annotations
 import torch
 
 from .extract import SENT_KEY, _run_counts, window_keys
-from .hash_torch import placement
-from .stream_query import PC, _stream_core, pack_offsets
+from .hash_torch import placement_keyoff
+from .stream_query import PC, _stream_core
 
 
 def _probe(stats, hist, over_col, over_freq, blocks2, s, qc, *, k: int,
            wpad: int, num_hash: int, bloom_size: int, rpb: int,
            n_colors: int, bv: int):
     """Value-addressed placement of the key-sorted slots s (int64 keys,
-    block order by monotonicity) and the exact-mode probe stream, with the
+    block order by monotonicity; kernel A's packed mode: the block as its
+    key and the packed offsets) and the exact-mode probe stream, with the
     frequency as its own overflow payload. Returns n_drop."""
-    blk, offs = placement(s, k=k, num_hash=num_hash, bloom_size=bloom_size,
-                          rpb=rpb, version=bv, blkoff=True)
+    blk_s, off_s = placement_keyoff(s, None, k=k, num_hash=num_hash,
+                                    bloom_size=bloom_size, rpb=rpb, version=bv)
     *_, n_drop = _stream_core(
-        stats, hist, over_col, over_freq, blocks2,
-        blk.to(torch.int32), pack_offsets(offs), qc, qc,
+        stats, hist, over_col, over_freq, blocks2, blk_s, off_s, qc, qc,
         wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=n_colors,
     )
     return n_drop

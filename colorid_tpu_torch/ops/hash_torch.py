@@ -6,9 +6,10 @@ square and a 64-bit product; no XXH3).
 The host ships each canonical k-mer as its 2-bit packing (8 bytes) instead
 of row indices (4 bytes x num_hash); the hash runs on the device.
 
-``placement`` is the entry every caller reaches: on a CUDA tensor it
-launches csrc/placement.cu (native 64-bit integers, one launch per batch);
-on a CPU tensor it runs the plain twin below, elementwise tensor ops.
+``placement`` is the entry every caller reaches (``placement_keyoff``, its
+packed mode, for the blocked probe stream): on a CUDA tensor it launches
+csrc/placement.cu (native 64-bit integers, one launch per batch); on a CPU
+tensor it runs the plain twin below, elementwise tensor ops.
 
 The twin: PyTorch has no unsigned 32/64-bit shift, add or remainder on
 every device, and ``>>`` on a signed value is arithmetic. So a u64 value is
@@ -382,6 +383,99 @@ def placement_plain(src: torch.Tensor, *, k: int, num_hash: int,
     return torch.stack([base + o for o in offs], dim=1).to(torch.int32)
 
 
+def pack_offsets(offs: list) -> torch.Tensor:
+    """Per-hash in-block offsets (int64, < 128) -> one int32 with 8 bits per
+    hash (the probe kernel's ``off`` encoding; at most 4 hashes of 7 bits,
+    so the value stays below 2^31)."""
+    offp = offs[0]
+    for h in range(1, len(offs)):
+        offp = offp | (offs[h] << (8 * h))
+    return offp.to(torch.int32)
+
+
+def placement_keyoff_plain(src: torch.Tensor, qcounts: torch.Tensor | None, *, k: int,
+                           num_hash: int, bloom_size: int, rpb: int, version: int,
+                           qbits: int = 0, qmin: int | None = None,
+                           qmax: int | None = None, key64: bool = False):
+    """Plain PyTorch twin of the placement kernel's packed mode (same
+    contract as ``placement_keyoff``): the block and offsets of
+    ``placement_plain``, ``pack_offsets`` and the key."""
+    block, offs = placement_plain(src, k=k, num_hash=num_hash, bloom_size=bloom_size,
+                                  rpb=rpb, version=version, blkoff=True)
+    offp = pack_offsets(offs)
+    if not qbits:
+        return block.to(torch.int32), offp
+    q = qcounts if qmin is None and qmax is None else qcounts.clamp(qmin, qmax)
+    key = (block << qbits) | q.to(torch.int64)
+    return key if key64 else key.to(torch.int32), offp
+
+
+def placement_keyoff(src: torch.Tensor, qcounts: torch.Tensor | None, *, k: int,
+                     num_hash: int, bloom_size: int, rpb: int, version: int,
+                     qbits: int = 0, qmin: int | None = None, qmax: int | None = None,
+                     key64: bool = False):
+    """The placement kernel's packed mode, for the blocked probe stream: the
+    sort key and the packed offsets of each k-mer of ``src`` (as for
+    ``placement``) under the blocked layout ``version`` (1-4, num_hash <=
+    4). Returns (key, offp int32 [N] in ``pack_offsets``' encoding). With
+    qbits == 0 the key is the block, int32; else block << qbits |
+    clamp(qcounts, qmin, qmax) (qcounts int32 [N]), int64 where ``key64``
+    and int32 otherwise, which holds the same value where every key is
+    below 2^31 (the caller's guard).
+
+    A CUDA tensor launches csrc/placement.cu (8 to 16 bytes out a k-mer
+    where the block/offsets output writes 8 (H + 1)); a CPU tensor takes
+    the plain twin. Each launch counts in ``placement.launches``."""
+    _check_placement(src, k, num_hash, bloom_size, rpb, version, True)
+    if not 1 <= num_hash <= 4:
+        raise ValueError("placement_keyoff: num_hash must be 1..4 (8 bits an offset)")
+    if qbits:
+        if not 0 < qbits < 32:
+            raise ValueError("placement_keyoff: qbits must be 0..31")
+        if (qcounts is None or qcounts.dtype != torch.int32 or qcounts.shape != (src.shape[0],)
+                or qcounts.device != src.device or not qcounts.is_contiguous()):
+            raise ValueError("placement_keyoff: qbits > 0 takes contiguous int32 qcounts [N] "
+                             "on the k-mers' device")
+    kw = dict(k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb, version=version,
+              qbits=qbits, qmin=qmin, qmax=qmax, key64=key64)
+    dev = src.device
+    if dev.type == "cpu":
+        return placement_keyoff_plain(src, qcounts, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"placement_keyoff: unsupported device {dev}")
+    n = src.shape[0]
+    key = torch.empty(n, dtype=torch.int64 if key64 and qbits else torch.int32, device=dev)
+    offp = torch.empty(n, dtype=torch.int32, device=dev)
+    lo = -(2**31) if qmin is None else max(qmin, -(2**31))
+    hi = 2**31 - 1 if qmax is None else min(qmax, 2**31 - 1)
+    _launch_placement(
+        "placement_keyoff", src, key.data_ptr(), int(key.dtype == torch.int64),
+        offp.data_ptr(), qcounts.data_ptr() if qbits else None, qbits, lo, hi, k,
+        num_hash, version, bloom_size, rpb,
+    )
+    return key, offp
+
+
+def _launch_placement(entry: str, src: torch.Tensor, *args) -> None:
+    """Launch csrc/placement.cu's ``entry`` on src's device: (src, its
+    flip, N, *args, the constants, the current stream); counts the launch
+    in ``placement.launches``. N == 0 launches nothing."""
+    n = src.shape[0]
+    if not n:
+        return
+    if src.data_ptr() % 8:
+        raise ValueError("placement: the k-mers must be 8-byte aligned")
+    fn = kernels.kernel(entry)
+    consts = (ctypes.c_uint64 * len(_KERNEL_CONSTS))(*_KERNEL_CONSTS)
+    flip = _KEY_FLIP if src.dtype == torch.int64 else 0
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = fn(src.data_ptr(), flip, n, *args, ctypes.addressof(consts), stream)
+    if err:
+        raise RuntimeError(f"placement kernel launch failed: CUDA error {err}")
+    placement.launches += 1
+
+
 def _check_placement(src, k, num_hash, bloom_size, rpb, version, blkoff):
     if not (
         (src.dtype == torch.int32 and src.dim() == 2 and src.shape[1] == 2)
@@ -441,22 +535,8 @@ def placement(src: torch.Tensor, *, k: int, num_hash: int, bloom_size: int,
     else:
         out = torch.empty((n, H), dtype=torch.int32, device=dev)
         rows_ptr, blk_ptr = out.data_ptr(), None
-    if n:
-        if src.data_ptr() % 8:
-            raise ValueError("placement: the k-mers must be 8-byte aligned")
-        fn = kernels.kernel("placement")
-        consts = (ctypes.c_uint64 * len(_KERNEL_CONSTS))(*_KERNEL_CONSTS)
-        flip = _KEY_FLIP if src.dtype == torch.int64 else 0
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(
-                src.data_ptr(), flip, n, rows_ptr, blk_ptr, k, H,
-                version if rpb else 0, bloom_size, rpb,
-                ctypes.addressof(consts), stream,
-            )
-        if err:
-            raise RuntimeError(f"placement kernel launch failed: CUDA error {err}")
-        placement.launches += 1
+    _launch_placement("placement", src, rows_ptr, blk_ptr, k, H, version if rpb else 0,
+                      bloom_size, rpb)
     return (out[0], list(out[1:])) if blkoff else out
 
 

@@ -49,6 +49,12 @@ KERNELS = {
         "placement_launch",
         [_VP, _U64, _I64, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _VP, _VP],
     ),
+    "placement_keyoff": (
+        "placement.cu",
+        "placement_keyoff_launch",
+        [_VP, _U64, _I64, _VP, _I32, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32,
+         _I64, _I64, _VP, _VP],
+    ),
     "window_keys": (
         "window_keys.cu",
         "window_keys_launch",
@@ -66,6 +72,24 @@ KERNELS = {
         [_VP, _VP, _VP, _I64, _VP, _VP, _I32, _I64, _I32, _VP, _I64, _I32,
          _VP, _VP, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _VP, _I64, _VP,
          _VP],
+    ),
+    "stream_plan": (
+        "stream_tail.cu",
+        "stream_plan_launch",
+        [_VP, _I32, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _VP, _VP, _VP,
+         _VP, _VP, _I64, _I32, _I32, _I64, _VP],
+    ),
+    "stream_tail": (
+        "stream_tail.cu",
+        "stream_tail_launch",
+        [_VP, _VP, _VP, _I64, _I32, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _VP, _I64,
+         _I64, _VP, _VP, _I64, _I32, _I32, _VP, _VP, _VP, _VP],
+    ),
+    "stream_residual": (
+        "stream_tail.cu",
+        "stream_residual_launch",
+        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
+         _I32, _VP, _VP, _VP, _VP, _VP, _VP],
     ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})

@@ -32,11 +32,12 @@ import os
 import torch
 
 from . import kernels
-from .hash_torch import M32, bloom_rows_device, device_blkoff
+from .hash_torch import M32, bloom_rows_device, device_blkoff, pack_offsets, placement_keyoff
 from .query import (
     FREQ_CAP,
     _accumulate_one,
     _accumulate_sorted_words,
+    _accumulate_tail,
     _and_over_hashes,
     _and_words,
     _bit_counts,
@@ -291,16 +292,6 @@ def _qc_in_key_ok(bloom_size: int, rpb: int) -> bool:
     return n_blocks <= (1 << (32 - QKEY_BITS))
 
 
-def pack_offsets(offs: list) -> torch.Tensor:
-    """Per-hash in-block offsets (int64, < 128) -> one int32 with 8 bits per
-    hash (the probe kernel's ``off`` encoding; at most 4 hashes of 7 bits,
-    so the value stays below 2^31)."""
-    offp = offs[0]
-    for h in range(1, len(offs)):
-        offp = offp | (offs[h] << (8 * h))
-    return offp.to(torch.int32)
-
-
 def _probe_gather(blocks2, blk_s, off_s, num_hash: int, wpad: int):
     """Per probe, the AND over its H rows' words and which rows are
     nonzero: (andw int32 [P, W], nz bool [P, H]). A block outside the
@@ -534,19 +525,25 @@ def stream_plan(blk_s: torch.Tensor, n_blocks: int, wpad: int):
     return _window_plan(blk_s, n_blocks, PC, _nt_win(wpad))
 
 
-def _residual_chunks(inwin2d, qc2d, nch: int):
-    """The chunk-granular residual plan: res2d bool [n_chunks, PC], the
-    counted probes outside their chunk's window; cidx, the (at most nch)
-    chunks that re-run through the generic gather, as a stable sort of the
-    flags (no host round trip; its padding entries are chunks that are not
-    covered); covered bool [n_chunks]; and n_drop, the residual probes of
-    the chunks beyond the capacity (int32 scalar)."""
-    res2d = (~inwin2d) & (qc2d > 0)
-    chunk_res = res2d.sum(dim=1, dtype=torch.int32)
+def _residual_plan(chunk_res: torch.Tensor, nch: int):
+    """From each chunk's residual probes (int32 [n_chunks]): covered bool
+    [n_chunks], the first nch chunks that have some; n_drop, the residual
+    probes of the chunks beyond them (int32 scalar); and cidx, the covered
+    chunks first, as a stable sort of the flags cut to nch (no host round
+    trip; its padding entries are chunks that are not covered)."""
     has_res = chunk_res > 0
     covered = has_res & (torch.cumsum(has_res, dim=0) <= nch)
     n_drop = (chunk_res * (has_res & ~covered)).sum(dtype=torch.int32)
     cidx = torch.sort((~covered).to(torch.int8), stable=True).indices[:nch]
+    return covered, n_drop, cidx
+
+
+def _residual_chunks(inwin2d, qc2d, nch: int):
+    """The chunk-granular residual plan: res2d bool [n_chunks, PC], the
+    counted probes outside their chunk's window, and ``_residual_plan``'s
+    cidx, covered and n_drop."""
+    res2d = (~inwin2d) & (qc2d > 0)
+    covered, n_drop, cidx = _residual_plan(res2d.sum(dim=1, dtype=torch.int32), nch)
     return res2d, cidx, covered, n_drop
 
 
@@ -601,6 +598,374 @@ def stream_raw_local(blocks2, blk_s, off_s, qc_s, *, wpad: int, num_hash: int,
     return counts, nhits, colorsum, presmask, n_drop
 
 
+def _stream_core_plain(
+    stats, hist, over_col, over_freq, blocks2, blk_s, off_s, qc_s, gidx_s,
+    *, wpad: int, num_hash: int, rpb: int, n_colors: int,
+):
+    """Plain PyTorch twin of the sorted-probe body (same contract as
+    ``_stream_core``), as tensor ops: the window plan, the probe kernel's
+    twin, the merge, the overflow list and the residual pass through the
+    generic gather, all of them over every probe. Nothing here waits for the
+    device: where the JAX package branches on a device value, this does the
+    work unconditionally with masks."""
+    C, W = n_colors, wpad
+    dev = blk_s.device
+    hw = _hist_w(C)
+    n_chunks = blk_s.shape[0] // PC
+    tb, inwin2d = stream_plan(blk_s, blocks2.shape[0], W)
+
+    qcw = torch.where(inwin2d.view(-1), qc_s, 0)
+    counts_out = torch.zeros(32 * W, dtype=torch.int32, device=dev)
+    hist_out = torch.zeros((_hist_rows(C), hw), dtype=torch.int32, device=dev)
+    uniq = stream_probe(
+        blocks2, blk_s, off_s, qcw, counts_out, hist_out,
+        num_hash=num_hash, wpad=W, n_colors=C,
+    )
+
+    n_big = _merge_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s,
+                         counts_out, hist_out, (qcw > 0).sum(), W)
+
+    # residual pass, chunk-granular: out-of-window probes live in a few
+    # sparse chunks; the first nch such chunks re-run whole through the
+    # generic gather with their in-window probes masked out. The chunk list
+    # is a stable sort of the flags; its padding entries are masked too.
+    qc2d = qc_s.view(n_chunks, PC)
+    res2d, cidx, covered, n_drop_res = _residual_chunks(inwin2d, qc2d, _nch(W))
+    rvalid = (res2d[cidx] & covered[cidx][:, None]).reshape(-1)
+    rows_res = _residual_rows(blk_s, off_s, cidx, num_hash, rpb)
+    _accumulate_one(
+        stats, hist, over_col, over_freq, blocks2, rows_res, rvalid,
+        qc2d[cidx].reshape(-1) * rvalid, W, 0, rpb,
+        gidx=gidx_s.view(n_chunks, PC)[cidx].reshape(-1),
+    )
+    n_drop = (n_big - OVER_CAP).clamp(min=0).to(torch.int32) + n_drop_res
+    return stats, hist, over_col, over_freq, n_drop
+
+
+# --- kernel D (csrc/stream_tail.cu): the plan, the tail, the residual gather --
+
+
+def _check_i32(name: str, tensors, dev, P: int | None = None):
+    """Contiguous int32 tensors on ``dev`` (and of length P where given)."""
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} takes int32 tensors")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices")
+        if P is not None and t.shape != (P,):
+            raise ValueError(f"{name}: the probe streams must be [P]")
+
+
+def _launch(name: str, *args) -> None:
+    """Launch kernel D's entry point ``name`` with ``args`` (tensors as
+    their pointers) and the current stream of the first tensor's device."""
+    fn = kernels.kernel(name)
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def stream_chunk_plan_plain(n_blocks: int, wpad: int, *, blk_s=None, off_s=None,
+                            qc_s=None, key_s=None, perm=None, offp=None,
+                            qcounts=None, qbits: int = 0, base0: int | None = None):
+    """Plain PyTorch twin of kernel D1 (same contract as
+    ``stream_chunk_plan``)."""
+    gidx_s = None
+    if key_s is not None:
+        if qbits:
+            blk_s = (key_s >> qbits).to(torch.int32)
+            qc_s = (key_s & ((1 << qbits) - 1)).to(torch.int32)
+        else:
+            blk_s = key_s.to(torch.int32)
+            qc_s = qcounts[perm]
+        off_s = offp[perm]
+        if base0 is not None:
+            gidx_s = (perm + base0).to(torch.int32)
+    tb, inwin2d = stream_plan(blk_s, n_blocks, wpad)
+    qc2d = qc_s.view(-1, PC)
+    qcw = torch.where(inwin2d, qc2d, 0)
+    chunk_res = (~inwin2d & (qc2d > 0)).sum(dim=1, dtype=torch.int32)
+    chunk_real = (qcw > 0).sum(dim=1, dtype=torch.int32)
+    return blk_s, off_s, qc_s, gidx_s, qcw.view(-1), tb, chunk_res, chunk_real
+
+
+def stream_chunk_plan(n_blocks: int, wpad: int, *, blk_s=None, off_s=None, qc_s=None,
+                      key_s=None, perm=None, offp=None, qcounts=None, qbits: int = 0,
+                      base0: int | None = None):
+    """The window plan of a sorted probe stream over a matrix of n_blocks
+    blocks, in chunks of PC probes: (blk_s, off_s, qc_s, gidx_s, qcw, tb,
+    chunk_res, chunk_real), int32 [P] and [P // PC].
+
+    Either the probes sorted already (blk_s, off_s, qc_s int32 [P], handed
+    back as they are; gidx_s None), or the sort's output: key_s [P] (int32,
+    or int64) the block, with qbits > 0 shifted above the frequency in its
+    low qbits, perm int64 [P] its permutation, offp int32 [P] and, where
+    qbits == 0, qcounts int32 [P] in k-mer order; then blk_s, off_s =
+    offp[perm], qc_s (the key's bits or qcounts[perm]) and, where base0 is
+    given, gidx_s = perm + base0. tb is each chunk's first window tile
+    (stream_plan's), qcw = qc_s where the probe's block lies in its chunk's
+    window and 0 elsewhere, chunk_res the chunk's probes outside it with
+    qc_s > 0, chunk_real its probes with qcw > 0.
+
+    A CUDA tensor launches csrc/stream_tail.cu's plan kernel (D1); a CPU
+    tensor takes the plain twin. ``stream_chunk_plan.launches`` counts
+    kernel launches."""
+    kw = dict(blk_s=blk_s, off_s=off_s, qc_s=qc_s, key_s=key_s, perm=perm, offp=offp,
+              qcounts=qcounts, qbits=qbits, base0=base0)
+    name = "stream_chunk_plan"
+    if key_s is not None:
+        P, dev = key_s.shape[0], key_s.device
+        if key_s.dim() != 1 or key_s.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name}: key_s must be int32 or int64 [P]")
+        if perm is None or perm.dtype != torch.int64 or perm.shape != (P,):
+            raise TypeError(f"{name}: perm must be the sort's int64 [P] permutation")
+        if not (key_s.is_contiguous() and perm.is_contiguous()) or perm.device != dev:
+            raise ValueError(f"{name}: key_s and perm contiguous on one device")
+        _check_i32(name, [offp] + ([] if qbits else [qcounts]), dev, P)
+        if not 0 <= qbits <= 30:
+            raise ValueError(f"{name}: qbits must be 0..30")
+    else:
+        P, dev = blk_s.shape[0], blk_s.device
+        _check_i32(name, (blk_s, off_s, qc_s), dev, P)
+    if PC <= 0 or PC % 32 or P % PC:
+        raise ValueError(f"{name}: P must be a multiple of PC={PC} (a multiple of 32)")
+    if dev.type == "cpu":
+        return stream_chunk_plan_plain(n_blocks, wpad, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    n_chunks = P // PC
+    keyed = key_s is not None
+    i32 = dict(dtype=torch.int32, device=dev)
+    if keyed:
+        blk_s, off_s, qc_s = (torch.empty(P, **i32) for _ in range(3))
+    gidx_s = torch.empty(P, **i32) if keyed and base0 is not None else None
+    qcw = torch.empty(P, **i32)
+    tb, chunk_res, chunk_real = (torch.empty(n_chunks, **i32) for _ in range(3))
+    if P:
+        _launch(
+            "stream_plan", key_s if keyed else None, int(keyed and key_s.dtype == torch.int64),
+            qbits, perm if keyed else None, offp if keyed else None,
+            qcounts if keyed and not qbits else None, int(base0 or 0),
+            int(gidx_s is not None), blk_s, off_s, qc_s, gidx_s, qcw, tb, chunk_res,
+            chunk_real, P, PC, _nt_win(wpad), n_blocks // T - _nt_win(wpad),
+        )
+        stream_chunk_plan.launches += 1
+    return blk_s, off_s, qc_s, gidx_s, qcw, tb, chunk_res, chunk_real
+
+
+stream_chunk_plan.launches = 0
+
+
+def _merge_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out,
+                 hist_out, n_real, W: int):
+    """The probe kernel's outputs merged into the accumulators in place
+    (``stream_tail``'s statistics and overflow list); returns n_big."""
+    P = uniq.shape[0]
+    hw = hist_out.shape[1]
+    C = hist.shape[0]
+    # global AND and all-valid from the counts: bit c of the AND over valid
+    # k-mers is 1 iff every one of the n_valid k-mers hit color c (all-ones
+    # when n_valid == 0); ok iff every real k-mer was valid
+    n_valid = (uniq > -2).sum()
+    and_b = _and_words(counts_out, n_valid, W)
+    hist[:, :hw] += hist_out[:C]
+
+    # uniq-hit frequencies the kernel histogram does not cover (>= hw): the
+    # first OVER_CAP of them, in probe order, append at the running n_over
+    n_over_before = stats[C + W + 1].to(torch.int64)
+    big = (uniq >= 0) & (qc_s >= hw)
+    n_big = big.sum()
+    capO = over_col.shape[0]
+    pos = torch.cumsum(big, dim=0) - 1
+    to = n_over_before + pos
+    keep = big & (pos < OVER_CAP) & (to < capO)
+    spread = torch.arange(P, device=uniq.device) % capO
+    oidx = torch.where(keep, to, spread)
+    over_col.index_add_(0, oidx, torch.where(keep, uniq, 0))
+    over_freq.index_add_(0, oidx, torch.where(keep, gidx_s, 0))
+
+    stats[:C] += counts_out[:C]
+    # the running AND keeps what earlier segments found
+    stats[C : C + W] &= _to_i32(and_b)
+    stats[C + W] *= (n_valid == n_real).to(stats.dtype)
+    stats[C + W + 1] += n_big.clamp(max=OVER_CAP).to(stats.dtype)
+    return n_big
+
+
+def stream_tail_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out,
+                      hist_out, chunk_res, chunk_real, *, wpad: int, n_colors: int):
+    """Plain PyTorch twin of kernel D2 (same contract as ``stream_tail``):
+    the chunk list is ``_residual_plan``'s cidx cut to min(nch, n_chunks)
+    slots, -1 past the covered chunks."""
+    n_big = _merge_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out,
+                         hist_out, chunk_real.sum(), wpad)
+    covered, n_drop_res, order = _residual_plan(chunk_res, _nch(wpad))
+    n_cov = covered.sum(dtype=torch.int32)
+    slot = torch.arange(order.shape[0], device=order.device)
+    cidx = torch.where(slot < n_cov, order, -1).to(torch.int32)
+    return cidx, n_cov, (n_big - OVER_CAP).clamp(min=0).to(torch.int32) + n_drop_res
+
+
+def stream_tail(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out,
+                hist_out, chunk_res, chunk_real, *, wpad: int, n_colors: int):
+    """The probe stream's tail after the probe kernel, in place on the
+    accumulators (stats int32 [C + W + 2], hist int32 [C, FREQ_CAP],
+    over_col / over_freq int32 [capO]): hist[:, :hw] += hist_out[:C];
+    stats[:C] += counts_out[:C]; the AND words (bit c set where counts_out[c]
+    equals n_valid = #{uniq > -2}) ANDed into stats[C : C + W]; the
+    all-valid flag times (n_valid == sum(chunk_real)); the first OVER_CAP
+    big probes (uniq >= 0 and qc_s >= hw), in probe order, added as (uniq,
+    gidx_s) at slots n_over + rank below capO, and n_over += min(n_big,
+    OVER_CAP). Returns the residual plan from chunk_res (cidx int32
+    [min(nch, n_chunks)], the first nch chunks with residual probes in
+    chunk order, then -1; their count n_cov) and n_drop = max(n_big -
+    OVER_CAP, 0) + the residual probes left out, int32 device scalars.
+
+    uniq, qc_s, gidx_s int32 [P]; counts_out int32 [32 * W] and hist_out
+    int32 [cp, hw] from the probe kernel; chunk_res, chunk_real int32
+    [P // PC] from the plan. A CUDA tensor launches csrc/stream_tail.cu's
+    tail (D2: a pass over the probes, the overflow list, which returns at
+    once when no probe is big, and one block for the rest); a CPU tensor
+    takes the plain twin. ``stream_tail.launches`` counts calls that
+    launched it."""
+    name = "stream_tail"
+    dev = uniq.device
+    P = uniq.shape[0]
+    _check_i32(name, (uniq, qc_s, gidx_s), dev, P)
+    _check_i32(name, (counts_out, hist_out, chunk_res, chunk_real, stats, hist, over_col,
+                      over_freq), dev)
+    C, W = n_colors, wpad
+    n_chunks = chunk_res.shape[0]
+    cp, hw = hist_out.shape
+    if (stats.shape != (C + W + 2,) or hist.shape != (C, FREQ_CAP) or counts_out.shape
+            != (32 * W,) or not C <= cp or not 1 <= hw <= FREQ_CAP or C > 32 * W
+            or chunk_real.shape != (n_chunks,) or over_freq.shape != over_col.shape
+            or n_chunks * PC != P):
+        raise ValueError(f"{name}: accumulators, kernel outputs or chunk counts out of shape")
+    if dev.type == "cpu":
+        return stream_tail_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s,
+                                 counts_out, hist_out, chunk_res, chunk_real, wpad=W,
+                                 n_colors=C)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    nch = _nch(W)
+    n_slots = min(nch, n_chunks)
+    i32 = dict(dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * -(-P // 2048), **i32)  # valid and big probes a tile
+    cidx = torch.empty(n_slots, **i32)
+    meta = torch.empty(2, **i32)  # n_cov, n_drop
+    _launch("stream_tail", uniq, qc_s, gidx_s, P, hw, counts_out, hist_out, C, W, stats,
+            hist, over_col, over_freq, over_col.shape[0], OVER_CAP, chunk_res,
+            chunk_real, n_chunks, nch, n_slots, scratch, cidx, meta)
+    stream_tail.launches += 1
+    return cidx, meta[0], meta[1]
+
+
+stream_tail.launches = 0
+
+
+def stream_residual_plain(blocks2, blk_s, off_s, qc_s, gidx_s, tb, cidx, n_cov, *,
+                          wpad: int, num_hash: int, rpb: int):
+    """Plain PyTorch twin of kernel D3 (same contract as
+    ``stream_residual``)."""
+    n_slots = cidx.shape[0]
+    dev = blk_s.device
+    listed = torch.arange(n_slots, device=dev) < n_cov
+    c = torch.where(listed, cidx, 0).to(torch.int64)
+    lim = (tb.to(torch.int64)[c] + _nt_win(wpad)) * T
+    qc2d = qc_s.view(-1, PC)[c]
+    live = (~(blk_s.view(-1, PC)[c] < lim[:, None]) & (qc2d > 0) & listed[:, None]).reshape(-1)
+    g = _gather_rows_blocked(blocks2, _residual_rows(blk_s, off_s, c, num_hash, rpb), wpad, rpb)
+    andw = torch.where(live[:, None], _and_over_hashes(g), 0)
+    present = (g != 0).any(dim=2).all(dim=1) & live
+    q = torch.where(live, qc2d.reshape(-1), 0)
+    gidx = torch.where(live, gidx_s.view(-1, PC)[c].reshape(-1), 0)
+    return andw, present, live, q, gidx
+
+
+def stream_residual(blocks2, blk_s, off_s, qc_s, gidx_s, tb, cidx, n_cov, *, wpad: int,
+                    num_hash: int, rpb: int):
+    """The residual pass's gather: for each slot j < n_cov of the chunk list
+    cidx (``stream_tail``'s), the probes of chunk cidx[j] outside its
+    window (block >= (tb + nt) * T) with qc_s > 0: the H rows of each
+    (``_residual_rows``), their AND (int32 [W]) and presence (every row has
+    a nonzero word) from the blocked gather. Returns the epilogue's
+    AND-words inputs (andw int32 [n_slots * PC, W], present bool, mask bool,
+    q int32, gidx int32 [n_slots * PC]): slot j's rows at [j * PC, (j + 1)
+    * PC), mask set on those probes with their qc_s and gidx_s; every other
+    row all zero.
+
+    A CUDA tensor launches csrc/stream_tail.cu's residual kernel (D3; a
+    slot past n_cov writes its zeros and stops, so nothing waits for the
+    device); a CPU tensor takes the plain twin. ``stream_residual.launches``
+    counts kernel launches."""
+    name = "stream_residual"
+    dev = blk_s.device
+    P = blk_s.shape[0]
+    _check_i32(name, (blk_s, off_s, qc_s, gidx_s), dev, P)
+    _check_i32(name, (blocks2, tb, cidx, n_cov), dev)
+    n_slots = cidx.shape[0]
+    if (blocks2.dim() != 2 or blocks2.shape[1] != 128 or P % PC or tb.shape != (P // PC,)
+            or n_cov.shape != () or n_slots > P // PC or num_hash not in STREAM_HASHES
+            or wpad not in STREAM_WPADS or rpb * wpad > 128):
+        raise ValueError(f"{name}: inputs out of shape")
+    kw = dict(wpad=wpad, num_hash=num_hash, rpb=rpb)
+    if dev.type == "cpu":
+        return stream_residual_plain(blocks2, blk_s, off_s, qc_s, gidx_s, tb, cidx, n_cov, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    N = n_slots * PC
+    andw = torch.empty((N, wpad), dtype=torch.int32, device=dev)
+    present, mask = (torch.empty(N, dtype=torch.bool, device=dev) for _ in range(2))
+    q, gidx = (torch.empty(N, dtype=torch.int32, device=dev) for _ in range(2))
+    if n_slots:
+        _launch("stream_residual", blocks2, blocks2.shape[0], blk_s, off_s, qc_s, gidx_s,
+                tb, cidx, n_cov, n_slots, PC, _nt_win(wpad), num_hash, wpad, rpb, andw,
+                present, mask, q, gidx)
+        stream_residual.launches += 1
+    return andw, present, mask, q, gidx
+
+
+stream_residual.launches = 0
+
+
+def _stream_core_kernels(
+    stats, hist, over_col, over_freq, blocks2, plan, gidx_s,
+    *, wpad: int, num_hash: int, rpb: int, n_colors: int,
+):
+    """The sorted-probe body through kernel D around the probe kernel:
+    ``plan`` is stream_chunk_plan's output, gidx_s the overflow payload
+    (plan's gidx_s, or qc_s in exact mode). The probe kernel over the
+    window's probes, the tail (D2), the residual gather (D3) of the listed
+    chunks and the epilogue's AND-words mode (kernel C) over the list's
+    capacity. On CPU tensors every wrapper takes its twin."""
+    blk_s, off_s, qc_s, _gidx, qcw, tb, chunk_res, chunk_real = plan
+    C, W = n_colors, wpad
+    cp, hw = _hist_rows(C), _hist_w(C)
+    acc = torch.zeros(32 * W + cp * hw, dtype=torch.int32, device=blk_s.device)
+    counts_out, hist_out = acc[: 32 * W], acc[32 * W :].view(cp, hw)
+    uniq = stream_probe(
+        blocks2, blk_s, off_s, qcw, counts_out, hist_out,
+        num_hash=num_hash, wpad=W, n_colors=C,
+    )
+    cidx, n_cov, n_drop = stream_tail(
+        stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out, hist_out,
+        chunk_res, chunk_real, wpad=W, n_colors=C,
+    )
+    andw, present, mask, q, gidx = stream_residual(
+        blocks2, blk_s, off_s, qc_s, gidx_s, tb, cidx, n_cov,
+        wpad=W, num_hash=num_hash, rpb=rpb,
+    )
+    _accumulate_tail(stats, hist, over_col, over_freq, andw, present, mask, q, W, 0,
+                     gidx=gidx)
+    return stats, hist, over_col, over_freq, n_drop
+
+
 def _stream_core(
     stats, hist, over_col, over_freq, blocks2, blk_s, off_s, qc_s, gidx_s,
     *, wpad: int, num_hash: int, rpb: int, n_colors: int,
@@ -614,67 +979,15 @@ def _stream_core(
     accumulators IN PLACE; returns (..., n_drop), an int32 device scalar
     that is nonzero when a capacity was exceeded.
 
-    Nothing here waits for the device: where the JAX package branches on a
-    device value, this does the work unconditionally with masks."""
-    P = blk_s.shape[0]
-    C, W = n_colors, wpad
-    dev = blk_s.device
-    hw = _hist_w(C)
-    nch = _nch(W)
-    n_chunks = P // PC
-    tb, inwin2d = stream_plan(blk_s, blocks2.shape[0], W)
-
-    qcw = torch.where(inwin2d.view(-1), qc_s, 0)
-    counts_out = torch.zeros(32 * W, dtype=torch.int32, device=dev)
-    hist_out = torch.zeros((_hist_rows(C), hw), dtype=torch.int32, device=dev)
-    uniq = stream_probe(
-        blocks2, blk_s, off_s, qcw, counts_out, hist_out,
-        num_hash=num_hash, wpad=W, n_colors=C,
-    )
-
-    # global AND and all-valid from the counts: bit c of the AND over valid
-    # k-mers is 1 iff every one of the n_valid k-mers hit color c (all-ones
-    # when n_valid == 0); ok iff every real k-mer was valid
-    n_valid = (uniq > -2).sum()
-    n_real = (qcw > 0).sum()
-    and_b = _and_words(counts_out, n_valid, W)
-    hist[:, :hw] += hist_out[:C]
-
-    # uniq-hit frequencies the kernel histogram does not cover (>= hw): the
-    # first OVER_CAP of them, in probe order, append at the running n_over
-    n_over_before = stats[C + W + 1].to(torch.int64)
-    big = (uniq >= 0) & (qc_s >= hw)
-    n_big = big.sum()
-    capO = over_col.shape[0]
-    pos = torch.cumsum(big, dim=0) - 1
-    to = n_over_before + pos
-    keep = big & (pos < OVER_CAP) & (to < capO)
-    spread = torch.arange(P, device=dev) % capO
-    oidx = torch.where(keep, to, spread)
-    over_col.index_add_(0, oidx, torch.where(keep, uniq, 0))
-    over_freq.index_add_(0, oidx, torch.where(keep, gidx_s, 0))
-
-    stats[:C] += counts_out[:C]
-    # the running AND keeps what earlier segments found
-    stats[C : C + W] &= _to_i32(and_b)
-    stats[C + W] *= (n_valid == n_real).to(stats.dtype)
-    stats[C + W + 1] += n_big.clamp(max=OVER_CAP).to(stats.dtype)
-
-    # residual pass, chunk-granular: out-of-window probes live in a few
-    # sparse chunks; the first nch such chunks re-run whole through the
-    # generic gather with their in-window probes masked out. The chunk list
-    # is a stable sort of the flags; its padding entries are masked too.
-    qc2d = qc_s.view(n_chunks, PC)
-    res2d, cidx, covered, n_drop_res = _residual_chunks(inwin2d, qc2d, nch)
-    rvalid = (res2d[cidx] & covered[cidx][:, None]).reshape(-1)
-    rows_res = _residual_rows(blk_s, off_s, cidx, num_hash, rpb)
-    _accumulate_one(
-        stats, hist, over_col, over_freq, blocks2, rows_res, rvalid,
-        qc2d[cidx].reshape(-1) * rvalid, W, 0, rpb,
-        gidx=gidx_s.view(n_chunks, PC)[cidx].reshape(-1),
-    )
-    n_drop = (n_big - OVER_CAP).clamp(min=0).to(torch.int32) + n_drop_res
-    return stats, hist, over_col, over_freq, n_drop
+    CUDA tensors go through kernel D (``_stream_core_kernels``), CPU
+    tensors through the twin ``_stream_core_plain``; both give the same
+    accumulators bit for bit. Nothing here waits for the device."""
+    kw = dict(wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=n_colors)
+    if blk_s.device.type == "cpu":
+        return _stream_core_plain(stats, hist, over_col, over_freq, blocks2, blk_s, off_s,
+                                  qc_s, gidx_s, **kw)
+    plan = stream_chunk_plan(blocks2.shape[0], wpad, blk_s=blk_s, off_s=off_s, qc_s=qc_s)
+    return _stream_core_kernels(stats, hist, over_col, over_freq, blocks2, plan, gidx_s, **kw)
 
 
 def _check_stream_batch(packed, qcounts):
@@ -682,6 +995,62 @@ def _check_stream_batch(packed, qcounts):
         raise TypeError("stream batch: int32 packed k-mers and frequencies")
     if packed.shape[0] % PC or qcounts.shape[0] != packed.shape[0]:
         raise ValueError(f"stream batch must be padded to a multiple of {PC}")
+
+
+def _key32(bloom_size: int, rpb: int) -> bool:
+    """Whether every sort key block << QKEY_BITS | qc lies below 2^31
+    (n_blocks <= 2^20), so that the sort takes int32 keys: the same values
+    as the int64 keys, so the same stable permutation. Larger blocks would
+    turn negative as int32 and sort first."""
+    return -(-bloom_size // rpb) << QKEY_BITS <= 2**31
+
+
+def _sorted_probes_plain(packed, qcounts, *, qbits: int, qmin, qmax, k: int,
+                         num_hash: int, bloom_size: int, rpb: int, bv: int):
+    """The twin's packing and sort: (blk_s, off_s, qc_s, perm) of a stream
+    batch, with min/max-clamped frequencies in the low qbits of an int64 key
+    where qbits > 0, else sorted by block with the frequencies gathered."""
+    blk, offs = device_blkoff(
+        packed, k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb, version=bv,
+    )
+    offp = pack_offsets(offs)
+    if qbits:
+        # sort diet: the clipped frequency rides in the key's low bits
+        key = (blk << qbits) | qcounts.clamp(qmin, qmax).to(torch.int64)
+        key_s, perm = torch.sort(key, stable=True)
+        blk_s = (key_s >> qbits).to(torch.int32)
+        qc_s = (key_s & ((1 << qbits) - 1)).to(torch.int32)
+    else:
+        blk_s, perm = torch.sort(blk.to(torch.int32), stable=True)
+        qc_s = qcounts[perm]
+    return blk_s, offp[perm], qc_s, perm
+
+
+def _stream_accumulate(stats, hist, over_col, over_freq, blocks2, packed, qcounts,
+                       base0, *, qbits: int, qmin, qmax, wpad: int, k: int,
+                       num_hash: int, bloom_size: int, rpb: int, n_colors: int, bv: int,
+                       kernels_route: bool):
+    """Both stream_accumulate_hash variants: base0 None is exact mode (the
+    frequency is its own overflow payload). kernels_route: kernel A's packed
+    mode, an int32 key sort where ``_key32`` holds, kernel D; else the
+    twin's packing and ``_stream_core_plain``."""
+    place = dict(k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb)
+    core = dict(wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=n_colors)
+    if not kernels_route:
+        blk_s, off_s, qc_s, perm = _sorted_probes_plain(
+            packed, qcounts, qbits=qbits, qmin=qmin, qmax=qmax, bv=bv, **place)
+        gidx_s = qc_s if base0 is None else (perm + base0).to(torch.int32)
+        return _stream_core_plain(stats, hist, over_col, over_freq, blocks2, blk_s,
+                                  off_s, qc_s, gidx_s, **core)
+    key, offp = placement_keyoff(
+        packed, qcounts if qbits else None, version=bv, qbits=qbits, qmin=qmin,
+        qmax=qmax, key64=not _key32(bloom_size, rpb), **place)
+    key_s, perm = torch.sort(key, stable=True)
+    plan = stream_chunk_plan(blocks2.shape[0], wpad, key_s=key_s, perm=perm, offp=offp,
+                             qcounts=qcounts, qbits=qbits, base0=base0)
+    gidx_s = plan[2] if base0 is None else plan[3]
+    return _stream_core_kernels(stats, hist, over_col, over_freq, blocks2, plan, gidx_s,
+                                **core)
 
 
 def stream_accumulate_hash(
@@ -702,28 +1071,17 @@ def stream_accumulate_hash(
     v2/v3/v4 indexes: same in-place stats/hist/overflow contract (overflow
     entries record the global k-mer index), one probe-kernel launch per
     segment. Also returns n_drop: nonzero means the segment must be re-run
-    on the generic path (overflow or residual capacity exceeded)."""
+    on the generic path (overflow or residual capacity exceeded).
+
+    On the card: kernel A's packed mode (the sort key and packed offsets),
+    one stable sort of the key (int32 where ``_key32`` holds), kernel D and
+    the probe kernel; CPU tensors take the twins' route."""
     _check_stream_batch(packed, qcounts)
-    P = packed.shape[0]
-    blk, offs = device_blkoff(
-        packed, k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb,
-        version=bv,
-    )
-    offp = pack_offsets(offs)
-    if _qc_in_key_ok(bloom_size, rpb):
-        # sort diet: min(freq, FREQ_CAP) rides in the key's low bits. The
-        # key is int64: as a signed int32 it would mis-order blocks >= 2^20
-        key = (blk << QKEY_BITS) | qcounts.clamp(max=FREQ_CAP).to(torch.int64)
-        key_s, perm = torch.sort(key, stable=True)
-        blk_s = (key_s >> QKEY_BITS).to(torch.int32)
-        qc_s = (key_s & QKEY_MASK).to(torch.int32)
-    else:
-        blk_s, perm = torch.sort(blk.to(torch.int32), stable=True)
-        qc_s = qcounts[perm]
-    return _stream_core(
-        stats, hist, over_col, over_freq, blocks2,
-        blk_s, offp[perm], qc_s, (perm + base0).to(torch.int32),
-        wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=n_colors,
+    return _stream_accumulate(
+        stats, hist, over_col, over_freq, blocks2, packed, qcounts, base0,
+        qbits=QKEY_BITS if _qc_in_key_ok(bloom_size, rpb) else 0, qmin=None,
+        qmax=FREQ_CAP, wpad=wpad, k=k, num_hash=num_hash, bloom_size=bloom_size,
+        rpb=rpb, n_colors=n_colors, bv=bv, kernels_route=packed.device.type != "cpu",
     )
 
 
@@ -750,21 +1108,10 @@ def stream_accumulate_hash_exact(
     < 2^QKEY_BITS (and the block-index guard _qc_in_key_ok holds); larger
     values would be clipped, in the overflow payload too."""
     _check_stream_batch(packed, qcounts)
-    blk, offs = device_blkoff(
-        packed, k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb,
-        version=bv,
-    )
-    offp = pack_offsets(offs)
-    if qc_in_key and _qc_in_key_ok(bloom_size, rpb):
-        key = (blk << QKEY_BITS) | qcounts.clamp(0, QKEY_MASK).to(torch.int64)
-        key_s, perm = torch.sort(key, stable=True)
-        blk_s = (key_s >> QKEY_BITS).to(torch.int32)
-        qc_s = (key_s & QKEY_MASK).to(torch.int32)
-    else:
-        blk_s, perm = torch.sort(blk.to(torch.int32), stable=True)
-        qc_s = qcounts[perm]
-    return _stream_core(
-        stats, hist, over_col, over_freq, blocks2,
-        blk_s, offp[perm], qc_s, qc_s,
-        wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=n_colors,
+    in_key = qc_in_key and _qc_in_key_ok(bloom_size, rpb)
+    return _stream_accumulate(
+        stats, hist, over_col, over_freq, blocks2, packed, qcounts, None,
+        qbits=QKEY_BITS if in_key else 0, qmin=0, qmax=QKEY_MASK, wpad=wpad, k=k,
+        num_hash=num_hash, bloom_size=bloom_size, rpb=rpb, n_colors=n_colors, bv=bv,
+        kernels_route=packed.device.type != "cpu",
     )

@@ -49,3 +49,28 @@ def test_probe_bytes_at_wpad_1_share_sectors():
     # block 2's sectors of rows 0-7, 8-15 and 120-127
     assert n_sectors == 3
     assert n_bytes == 2 * 16 + 3 * 32 + 2 * 4 * (32 + 32 * 1024)
+
+
+def test_stream_tail_bytes_from_the_sort_and_from_sorted_probes():
+    """Kernel D's bytes for 4,096 probes in two chunks of 2,048 (two tiles),
+    W 1, C 21, hw 1,024, one slot of the residual list: from an int32 key
+    with the frequency in it (no gather of qcounts) and a global index,
+    three residual probes on two sectors and one kept overflow entry; and
+    the same batch sorted already, in exact mode, with nothing listed."""
+    P, pc = 4096, 2048
+    d2 = 8 * P + 4 * (32 + 21 * 1024) + 8 * 21 * 1024 + 8 * 24 + 8 * 2 + 16 * 2 + 4 * 1
+    keyed = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=1, W=1, C=21, hw=1024,
+                                 key_bytes=4, qc_gather=False, gidx=True, n_res=3,
+                                 res_sectors=2, n_kept=1)
+    d1 = P * (4 + 8 + 4 + 12) + P * (4 + 4) + 12 * 2
+    d3 = pc * (4 + 10) + 8 * pc + 8 * 3 + 32 * 2
+    assert keyed == d1 + d2 + 20 + d3
+    # an int64 key without the frequency gathers qcounts through the sort
+    wide = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=1, W=1, C=21, hw=1024,
+                                key_bytes=8, qc_gather=True, gidx=True, n_res=3,
+                                res_sectors=2, n_kept=1)
+    assert wide - keyed == P * (4 + 4)
+    sorted_ = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=0, W=1, C=21, hw=1024,
+                                   key_bytes=0, qc_gather=False, gidx=False, n_res=0,
+                                   res_sectors=0, n_kept=0)
+    assert sorted_ == P * 8 + P * 4 + 12 * 2 + d2 + pc * (4 + 10)

@@ -5,7 +5,9 @@ the card has no jax), so they run there without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Each kernel (the classic word kernel, the blocked probe kernel and its raw
-mode, the placement, window-key and search-epilogue kernels) must equal its
+mode, the placement kernel and its packed mode, the window-key and
+search-epilogue kernels, and the blocked stream's plan, tail and residual
+kernels) must equal its
 plain twin bit for bit, count its launches and refuse what it cannot take; the engines on the card (single-device, and a (1, 4)
 color and row mesh on the one card) must give the CPU's SearchResult,
 through the kernels."""
@@ -1196,3 +1198,160 @@ def test_classic_engine_ends_in_the_epilogue_kernel(cuda_device, monkeypatch, tm
         assert not indexed & stream_ops.names, stream_ops.names
         for field in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
             np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+# -- kernel A's packed mode and kernel D (the blocked stream's glue) ----------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [9, 16, 31])
+def test_placement_keyoff_matches_twin(cuda_device, k):
+    """Kernel A's packed mode (the sort key and the packed offsets) on v1-v4
+    at H 1-4, from packed k-mers and from sort keys with sentinels: the key
+    as the block, with a clipped or exact frequency in its low 11 bits
+    (negative frequencies too), int32 and int64, equal to the twin, twice."""
+    from colorid_tpu_torch.ops import extract as te
+    from colorid_tpu_torch.ops import hash_torch as ht
+
+    rng = np.random.default_rng(k)
+    keys = rng.choice(ts.ACGT, size=(5000, k))
+    pk = ts.t32(ht.pack_keys_host(keys)).to(cuda_device)
+    p64 = pk.to(torch.int64) & 0xFFFFFFFF
+    sk = te._sort_key(p64[:, 0], p64[:, 1])
+    sk[::97] = te.SENT_KEY
+    q = torch.from_numpy(rng.integers(-5, 5000, 5000).astype(np.int32)).to(cuda_device)
+    modes = [dict(), dict(qbits=11, qmax=1024), dict(qbits=11, qmin=0, qmax=2047),
+             dict(qbits=11, qmax=1024, key64=True), dict(qbits=11, qmin=0, qmax=2047, key64=True)]
+    for src in (pk, sk):
+        for H in (1, 2, 3, 4):
+            for bloom in (1_000_003, 2**27 + 5, 2**31 - 1):
+                for version in (1, 2, 3, 4):
+                    for rpb in (128, 8):
+                        if version > 1 and H > rpb:
+                            continue
+                        for m in modes:
+                            kw = dict(k=k, num_hash=H, bloom_size=bloom, rpb=rpb,
+                                      version=version, **m)
+                            qq = q if m else None
+                            before = ht.placement.launches
+                            got = [ht.placement_keyoff(src, qq, **kw) for _ in range(2)]
+                            assert ht.placement.launches == before + 2
+                            want = ht.placement_keyoff_plain(src, qq, **kw)
+                            for g in got:
+                                for x, y in zip(g, want):
+                                    assert x.device.type == "cuda" and x.dtype == y.dtype
+                                    assert torch.equal(x, y), (src.dtype, H, bloom, kw)
+
+
+_TAIL_WRAPPERS = ("stream_chunk_plan", "stream_tail", "stream_residual")
+
+
+def _capture_tail(monkeypatch):
+    """Record each kernel D wrapper's arguments as it is called (tensors
+    cloned first: the tail adds into the accumulators)."""
+    seen = {}
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    for name in _TAIL_WRAPPERS:
+        real = getattr(sq, name)
+
+        def rec(*a, _real=real, _name=name, **kw):
+            seen[_name] = ([clone(x) for x in a], {k: clone(v) for k, v in kw.items()})
+            return _real(*a, **kw)
+
+        rec.launches = real.launches  # the wrapper counts on its module name
+        monkeypatch.setattr(sq, name, rec)
+    return seen
+
+
+def _tensors_equal(got, want, what):
+    for i, (x, y) in enumerate(zip(got, want)):
+        if x is None or y is None:
+            assert x is None and y is None, (what, i)
+            continue
+        assert x.device.type == "cuda" and x.dtype == y.dtype, (what, i, x.dtype, y.dtype)
+        assert torch.equal(x, y), (what, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ts.STREAM_TAIL_CASES))
+def test_stream_tail_kernels_match_twins(cuda_device, monkeypatch, name):
+    """Each batch of STREAM_TAIL_CASES through the card's route: every
+    accumulator and n_drop equal to the twins' route on the card and on the
+    CPU (from accumulators that already hold counts, a histogram and an
+    overflow list); and each kernel D entry point on the inputs the route
+    handed it equal to its twin, the accumulators included: the skip paths
+    ('skip'), residual chunks past the capacity ('sparse', n_drop > 0), big
+    probes past OVER_CAP and an overflow list past capO ('overflow'), one
+    chunk, W 1 / 2 / 8 and H 1 / 2 / 4."""
+    from colorid_tpu_torch.ops import query as tq
+
+    geo, blocks, pk, qc, mode = ts.stream_tail_case(name)
+    C, W = geo["n_colors"], geo["wpad"]
+    capO, n_over = pk.shape[0], 30
+    if name == "sparse":
+        monkeypatch.setattr(sq, "_nch", lambda wpad: 2)
+    if name == "overflow":
+        monkeypatch.setattr(sq, "OVER_CAP", 300)
+        capO, n_over = 350, 200
+    accs = ts.epi_accs(C, W, capO, n_over, seed=3)
+    want = ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, "cpu", False)
+    plain = ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, cuda_device, False)
+    _tensors_equal(plain, [w.to(cuda_device) for w in want], "twins' route on the card")
+    before = [getattr(sq, n).launches for n in _TAIL_WRAPPERS]
+    epi = tq._accumulate_tail.launches
+    seen = _capture_tail(monkeypatch)
+    got = ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, cuda_device, True)
+    torch.cuda.synchronize()
+    assert [getattr(sq, n).launches for n in _TAIL_WRAPPERS] == [b + 1 for b in before]
+    assert tq._accumulate_tail.launches == epi + 1
+    _tensors_equal(got, [w.to(cuda_device) for w in want], "the card's route")
+    if name in ("sparse", "overflow"):
+        assert int(got[4]) > 0
+    for fn_name in _TAIL_WRAPPERS:
+        a, kw = seen[fn_name]
+        twin = getattr(sq, fn_name + "_plain")
+        outs = []
+        for fn in (getattr(sq, fn_name), twin):
+            args = [x.clone() if torch.is_tensor(x) else x for x in a]
+            res = fn(*args, **kw)
+            res = res if isinstance(res, tuple) else (res,)
+            outs.append(list(res) + (args[:4] if fn_name == "stream_tail" else []))
+        _tensors_equal(outs[0], outs[1], fn_name)
+
+
+@pytest.mark.cuda
+def test_fused_probe_on_card_matches_cpu(cuda_device, monkeypatch):
+    """The fused reads path's _probe on sorted keys with SENT_KEY padding:
+    kernel A's packed mode and kernel D's plan on probes sorted already,
+    equal to the CPU's twins."""
+    from colorid_tpu_torch.ops import extract as te
+    from colorid_tpu_torch.ops import fused_reads as tfr
+
+    geo, blocks, pk, _qc, _mode = ts.stream_tail_case("w2_h4")
+    C, W = geo["n_colors"], geo["wpad"]
+    p = torch.from_numpy(pk.astype(np.int64))
+    keys = te._sort_key(p[:, 0], p[:, 1])
+    keys[-1000:] = te.SENT_KEY
+    s = torch.sort(keys).values
+    qc = torch.from_numpy(np.random.default_rng(7).integers(0, 3000, s.shape[0]).astype(np.int32))
+    qc[-1000:] = 0
+    accs = ts.epi_accs(C, W, s.shape[0], 10, seed=4)
+    kw = dict(k=31, wpad=W, num_hash=geo["num_hash"], bloom_size=geo["bloom_size"],
+              rpb=geo["rpb"], n_colors=C, bv=4)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        acc = [torch.from_numpy(a.copy()).to(dev) for a in accs]
+        nd = tfr._probe(*acc, ts.t32(blocks).to(dev), s.to(dev), qc.to(dev), **kw)
+        outs.append([x.to(cuda_device) for x in (*acc, nd)])
+    before = sq.stream_chunk_plan.launches
+    seen = _capture_tail(monkeypatch)
+    acc = [torch.from_numpy(a.copy()).to(cuda_device) for a in accs]
+    tfr._probe(*acc, ts.t32(blocks).to(cuda_device), s.to(cuda_device), qc.to(cuda_device), **kw)
+    assert sq.stream_chunk_plan.launches == before + 1
+    _tensors_equal(outs[1], outs[0], "fused _probe")
+    a, kw2 = seen["stream_chunk_plan"]
+    _tensors_equal(sq.stream_chunk_plan(*a, **kw2), sq.stream_chunk_plan_plain(*a, **kw2),
+                   "stream_chunk_plan, sorted probes")

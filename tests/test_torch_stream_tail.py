@@ -1,0 +1,217 @@
+"""The blocked probe stream's glue (colorid_tpu_torch/ops/stream_query.py:
+stream_accumulate_hash[_exact], _stream_core and the fused reads path's
+_probe) against the JAX package's (stream_accumulate_hash[_exact],
+_stream_core, with its Pallas kernel in interpret mode) on the same seeded
+inputs, on the CPU. Both routes of the port run: the twins' route
+(_stream_core_plain, which a CPU tensor takes) and the card's route
+(kernel A's packed mode, the key sort, kernel D, the probe kernel and the
+epilogue) with every wrapper on its plain twin. Everything is an integer:
+tolerance 0, element for element, the overflow list in order, n_drop
+included. The kernels themselves run only on a CUDA card
+(tests/test_torch_cuda.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from colorid_tpu.ops import stream_query as jsq
+from colorid_tpu.ops.hash_jax import _v3_blkoff as j_v3_blkoff
+from colorid_tpu_torch.ops import fused_reads as tfr
+from colorid_tpu_torch.ops import stream_query as tsq
+from colorid_tpu_torch.ops.extract import _sort_key
+from colorid_tpu_torch.ops.hash_torch import placement_keyoff
+from tests import torch_support as ts
+
+NAMES = ("stats", "hist", "over_col", "over_freq", "n_drop")
+
+
+def _accs(C, wpad, capO, n_over):
+    # the AND words start all ones: the JAX package replaces them where the
+    # port ANDs into them (test_torch_stream_engine.py pins that)
+    return ts.epi_accs(C, wpad, capO, n_over, seed=0)
+
+
+def _jax(geo, blocks, pk, qc, mode, accs, base0):
+    jb = jnp.asarray(blocks)
+    args = (*(jnp.asarray(a) for a in accs), jb, jsq.byte_plane_blocks(jb), jnp.asarray(pk))
+    if mode == "clipped":
+        return jsq.stream_accumulate_hash(
+            *args, jnp.asarray(qc.astype(np.uint16)), jnp.int32(base0), **geo)
+    return jsq.stream_accumulate_hash_exact(
+        *args, jnp.asarray(qc), qc_in_key=mode == "exact_key", **geo)
+
+
+def _same(got, want):
+    for name, g, w in zip(NAMES, got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+
+
+def _residual_counts(geo, blocks, pk, qc):
+    """Per chunk, its counted probes outside the chunk's window."""
+    blk_s, off_s, qc_s, _perm = tsq._sorted_probes_plain(
+        ts.t32(pk), torch.from_numpy(qc), qbits=0, qmin=None, qmax=None, k=geo["k"],
+        num_hash=geo["num_hash"], bloom_size=geo["bloom_size"], rpb=geo["rpb"], bv=geo["bv"])
+    return tsq.stream_chunk_plan(blocks.shape[0], geo["wpad"], blk_s=blk_s, off_s=off_s,
+                                 qc_s=qc_s)[6]
+
+
+@pytest.mark.parametrize("name", sorted(ts.STREAM_TAIL_CASES))
+def test_both_routes_match_jax(name, monkeypatch):
+    """Each case through the JAX package, the port's public function (the
+    twins' route) and the card's route with its twins: every accumulator
+    and n_drop equal. 'skip' has no residual and no big probe; 'sparse'
+    has more residual chunks than the capacity (patched to 2), so n_drop >
+    0; 'overflow' has more big probes than OVER_CAP (patched to 300) from
+    an overflow list that starts at 200 and runs past capO."""
+    geo, blocks, pk, qc, mode = ts.stream_tail_case(name)
+    C, W = geo["n_colors"], geo["wpad"]
+    capO, n_over, base0 = pk.shape[0], 0, 4096
+    if name == "sparse":
+        for m in (tsq, jsq):
+            monkeypatch.setattr(m, "_nch", lambda wpad: 2)
+    if name == "overflow":
+        for m in (tsq, jsq):
+            monkeypatch.setattr(m, "OVER_CAP", 300)
+        capO, n_over = 350, 200
+    accs = _accs(C, W, capO, n_over)
+    want = _jax(geo, blocks, pk, qc, mode, accs, base0)
+    plain = tsq.stream_accumulate_hash(
+        *(torch.from_numpy(a.copy()) for a in accs), ts.t32(blocks), ts.t32(pk),
+        torch.from_numpy(qc), base0, **geo,
+    ) if mode == "clipped" else tsq.stream_accumulate_hash_exact(
+        *(torch.from_numpy(a.copy()) for a in accs), ts.t32(blocks), ts.t32(pk),
+        torch.from_numpy(qc), qc_in_key=mode == "exact_key", **geo,
+    )
+    _same(plain, want)
+    launches = (tsq.stream_chunk_plan.launches, tsq.stream_tail.launches,
+                tsq.stream_residual.launches)
+    _same(ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, "cpu", True, base0), want)
+    assert launches == (tsq.stream_chunk_plan.launches, tsq.stream_tail.launches,
+                        tsq.stream_residual.launches)  # CPU tensors: the twins
+
+    stats = plain[0].numpy()
+    n_res = _residual_counts(geo, blocks, pk, qc)
+    n_big_before = int(stats[C + W + 1]) - n_over
+    if name == "skip":
+        assert int(n_res.sum()) == 0 and n_big_before == 0 and int(plain[4]) == 0
+        # absent rows among the counted probes: n_valid < n_real
+        assert stats[C + W] == 0
+    else:
+        assert n_big_before > 0
+        assert (int(n_res.sum()) > 0) == (name != "overflow")  # it is dense
+    if name == "sparse":
+        assert int((n_res > 0).sum()) > 2 and int(plain[4]) > 0
+    if name == "overflow":
+        # n_over advanced by OVER_CAP, the big probes beyond it in n_drop
+        assert n_big_before == 300 and int(plain[4]) > 0
+        assert int(stats[C + W + 1]) > capO  # the list ran past capO
+    if name == "one_chunk":
+        assert pk.shape[0] == tsq.PC
+
+
+def test_fused_probe_matches_jax():
+    """The fused reads path's _probe (kernel A's packed mode on sorted int64
+    keys, the block as the key, then _stream_core) on key-sorted slots with
+    repeats and SENT_KEY padding, against JAX's _v3_blkoff and _stream_core:
+    through the twins' route and through the card's with its twins."""
+    geo, blocks, pk, _qc, _mode = ts.stream_tail_case("w2_h4")
+    geo = dict(geo, bv=4)
+    C, W = geo["n_colors"], geo["wpad"]
+    rng = np.random.default_rng(7)
+    p = torch.from_numpy(pk.astype(np.int64))
+    keys = _sort_key(p[:, 0], p[:, 1])
+    keys[-1000:] = tfr.SENT_KEY
+    s = torch.sort(keys).values
+    qc = torch.from_numpy(rng.integers(0, 3000, s.shape[0]).astype(np.int32))
+    qc[-1000:] = 0
+    capO = s.shape[0]
+    accs = _accs(C, W, capO, 0)
+    kw = dict(k=31, wpad=W, num_hash=geo["num_hash"], bloom_size=geo["bloom_size"],
+              rpb=geo["rpb"], n_colors=C, bv=4)
+    got = [torch.from_numpy(a.copy()) for a in accs]
+    n_drop = tfr._probe(*got, ts.t32(blocks), s, qc, **kw)
+
+    lo = (s & 0xFFFFFFFF).numpy().astype(np.uint32)
+    hi = ((s >> 32) + 2**31).numpy().astype(np.uint32)
+    blk, offs = j_v3_blkoff(jnp.asarray(lo), jnp.asarray(hi), 31, geo["num_hash"],
+                            geo["bloom_size"], geo["rpb"], version=4)
+    jb = jnp.asarray(blocks)
+    jq = jnp.asarray(qc.numpy())
+    want = jsq._stream_core(
+        *(jnp.asarray(a) for a in accs), jb, jsq.byte_plane_blocks(jb), blk,
+        jsq.pack_offsets(offs), jq, jq, wpad=W, num_hash=geo["num_hash"],
+        rpb=geo["rpb"], n_colors=C,
+    )
+    _same((*got, n_drop), want)
+    assert int(got[0][C + W + 1]) > 0
+
+    blk_s, off_s = placement_keyoff(s, None, k=31, num_hash=geo["num_hash"],
+                                    bloom_size=geo["bloom_size"], rpb=geo["rpb"], version=4)
+    plan = tsq.stream_chunk_plan(blocks.shape[0], W, blk_s=blk_s, off_s=off_s, qc_s=qc)
+    acc2 = [torch.from_numpy(a.copy()) for a in accs]
+    out = tsq._stream_core_kernels(*acc2, ts.t32(blocks), plan, qc, wpad=W,
+                                   num_hash=geo["num_hash"], rpb=geo["rpb"], n_colors=C)
+    _same(out, want)
+
+
+@pytest.mark.parametrize("n_blocks", [1 << 20, (1 << 20) + 1])
+def test_int32_key_gives_the_int64_keys_permutation(n_blocks):
+    """Kernel A's packed key at the int32 guard's edge (rpb 128, v4 H 4, the
+    largest k-mer value in the last block): at 2^20 blocks the int32 keys
+    hold the int64 keys' values, so their stable sorts give the same
+    permutation; at 2^20 + 1 the guard picks int64, where an int32 key
+    would wrap negative and sort first."""
+    rng = np.random.default_rng(n_blocks % 97)
+    n = 20_000
+    pk = ts.rand_packed(rng, n)
+    pk[-1] = (0xFFFFFFFF, 0x3FFFFFFF)  # 4^31 - 1: the last block
+    qc = torch.from_numpy(rng.integers(0, 3000, n).astype(np.int32))
+    kw = dict(k=31, num_hash=4, bloom_size=n_blocks * 128, rpb=128, version=4,
+              qbits=tsq.QKEY_BITS, qmin=None, qmax=tsq.FREQ_CAP)
+    key64, off64 = placement_keyoff(ts.t32(pk), qc, key64=True, **kw)
+    key32, off32 = placement_keyoff(ts.t32(pk), qc, **kw)
+    assert key64.dtype == torch.int64 and key32.dtype == torch.int32
+    assert torch.equal(off32, off64)
+    assert int(key64[-1]) >> tsq.QKEY_BITS == n_blocks - 1
+    ok = tsq._key32(n_blocks * 128, 128)
+    assert ok == (n_blocks == 1 << 20)
+    perm64 = torch.sort(key64, stable=True).indices
+    perm32 = torch.sort(key32, stable=True).indices
+    assert torch.equal(perm32, perm64) == ok
+    assert torch.equal(key32.to(torch.int64), key64) == ok
+
+
+@pytest.mark.parametrize("key64", [False, True])
+def test_key_width_gives_the_same_answers(key64, monkeypatch):
+    """The card's route with int32 and with int64 keys (forced) on the
+    'w2_h4' batch gives the twins' route's answers."""
+    geo, blocks, pk, qc, _mode = ts.stream_tail_case("w2_h4")
+    monkeypatch.setattr(tsq, "_key32", lambda bloom_size, rpb: not key64)
+    accs = _accs(geo["n_colors"], geo["wpad"], pk.shape[0], 0)
+    want = ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", False)
+    got = ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", True)
+    _same(got, [w.numpy() for w in want])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    geo, blocks, pk, qc, _mode = ts.stream_tail_case("one_chunk")
+    z = torch.zeros(tsq.PC, dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of"):
+        tsq.stream_chunk_plan(1024, 2, blk_s=z[:100], off_s=z[:100], qc_s=z[:100])
+    with pytest.raises(TypeError, match="int32"):
+        tsq.stream_chunk_plan(1024, 2, blk_s=z.to(torch.int64), off_s=z, qc_s=z)
+    with pytest.raises(TypeError, match="perm"):
+        tsq.stream_chunk_plan(1024, 2, key_s=z, perm=z, offp=z, qcounts=z)
+    with pytest.raises(ValueError, match="num_hash"):
+        placement_keyoff(ts.t32(pk), None, k=31, num_hash=8, bloom_size=65536, rpb=64,
+                         version=2)
+    with pytest.raises(ValueError, match="qcounts"):
+        placement_keyoff(ts.t32(pk), None, k=31, num_hash=2, bloom_size=65536, rpb=64,
+                         version=2, qbits=11)
+    accs = [torch.from_numpy(a) for a in _accs(40, 2, 64, 0)]
+    out = tsq.stream_chunk_plan(blocks.shape[0], 2, blk_s=z, off_s=z, qc_s=z)
+    with pytest.raises(ValueError, match="out of shape"):
+        tsq.stream_tail(*accs, z, z, z, torch.zeros(32, dtype=torch.int32),
+                        torch.zeros((64, 1024), dtype=torch.int32), out[6], out[7],
+                        wpad=2, n_colors=40)

@@ -443,3 +443,64 @@ def sorted_words_args(blocks2, packed, q, *, H: int, C: int, bloom: int):
         sq._accumulate_sorted_words = real
     (args, kw), = seen
     return accs, args, kw, int(n_drop)
+
+
+# -- batches of the blocked probe stream's glue (ops/stream_query.py, kernel
+# D and kernel A's packed mode) -----------------------------------------------
+
+STREAM_TAIL_CASES = {
+    # name: (C, bloom_size, H, layout, live k-mers, slots, frequencies below,
+    #        absent rows, thin, mode). "skip": every probe in its chunk's
+    #        window and every frequency below hw, so the overflow list and
+    #        the residual pass have nothing to do; the others leave probes
+    #        outside their windows and frequencies at and above hw. thin: a
+    #        color bit is set with probability 2^-thin, so that about a third
+    #        of the present k-mers hit one color
+    "skip": (21, 128 * 768, 4, 4, 8000, 8192, 500, 0.3, 1, "exact_key"),
+    "one_chunk": (40, 64 * 1024, 2, 2, 1900, 2048, 3000, 0.3, 3, "clipped"),
+    "w8_h1": (200, 60_000, 1, 2, 6000, 8192, 1500, 0.5, 8, "exact"),
+    "w2_h4": (40, 64 * 4000, 4, 4, 12000, 12288, 3000, 0.3, 1, "clipped"),
+    "sparse": (21, 3_000_000, 2, 4, 10000, 10240, 2000, 0.2, 2, "clipped"),
+    "overflow": (21, 128 * 768, 4, 4, 14000, 14336, 3000, 0.3, 1, "exact"),
+}
+
+
+def stream_tail_case(name: str):
+    """One batch of STREAM_TAIL_CASES: (geometry kwargs of
+    stream_accumulate_hash, blocks uint32 [n_blocks, 128], packed uint32
+    [P, 2] with the live k-mers first, frequencies int32 [P] with 0 on the
+    padding, mode "clipped" / "exact" / "exact_key")."""
+    from colorid_tpu_torch.ops.query import pack_matrix_blocks
+
+    C, bloom_size, H, bv, n, P, fmax, absent, thin, mode = STREAM_TAIL_CASES[name]
+    rng = np.random.default_rng(sorted(STREAM_TAIL_CASES).index(name) + 90)
+    bloom, matrix, _names = rand_blocked_matrix(rng, C, bloom_size, absent, thin)
+    blocks, wpad = pack_matrix_blocks(matrix)
+    pk = np.zeros((P, 2), np.uint32)
+    pk[:n] = rand_packed(rng, n)
+    qc = np.zeros(P, np.int32)
+    qc[:n] = rng.integers(1, fmax, n)
+    geo = dict(wpad=wpad, k=31, num_hash=H, bloom_size=bloom, rpb=128 // wpad,
+               n_colors=C, bv=bv)
+    return geo, blocks, pk, qc, mode
+
+
+def stream_tail_run(geo, blocks, pk, qc, mode, accs, device, kernels_route: bool,
+                    base0: int = 4096):
+    """stream_accumulate_hash[_exact]'s body (ops/stream_query.py::
+    _stream_accumulate) on one batch of STREAM_TAIL_CASES, on ``device``:
+    the card's route (kernel A's packed mode, the key sort, kernel D; its
+    wrappers take their twins on the CPU) or the twins' route. accs: numpy
+    accumulators, copied. Returns (stats, hist, over_col, over_freq,
+    n_drop)."""
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    in_key = mode != "exact" and sq._qc_in_key_ok(geo["bloom_size"], geo["rpb"])
+    clipped = mode == "clipped"
+    return sq._stream_accumulate(
+        *(torch.from_numpy(a.copy()).to(device) for a in accs),
+        t32(blocks).to(device), t32(pk).to(device), torch.from_numpy(qc).to(device),
+        base0 if clipped else None, qbits=sq.QKEY_BITS if in_key else 0,
+        qmin=None if clipped else 0, qmax=sq.FREQ_CAP if clipped else sq.QKEY_MASK,
+        kernels_route=kernels_route, **geo,
+    )
