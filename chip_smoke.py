@@ -16,7 +16,8 @@ Phases, each printing its lines (any failure exits non-zero):
    kernel from csrc/ (set-up time).
 2. kernel: each kernel (classic_word, stream_probe, stream_probe_raw, and
    the hand kernels for code that the JAX package leaves to XLA: placement
-   and window_keys; the third, the epilogue, in phase 4-epilogue) against
+   and window_keys; the epilogue, the stream glue and the key sort in
+   phases 4-epilogue, 4-stream_tail and 4-sort) against
    its plain PyTorch twin on the card at its main
    path's shapes (bitwise), with its time, the twin's, one PyTorch library
    call's where one computes the same function, and the least time the
@@ -53,17 +54,31 @@ Phases, each printing its lines (any failure exits non-zero):
    / C 32 with hot histogram bins, W 8 / C 200, an overflow list from 1,000
    past capO); each one's time, its twin's and its bound, and the main
    path's launches.
+4-sort. Kernel E (the streams' key sort with its payloads) against its
+   twin, bitwise, on the inputs that the device-resident dispatches hand
+   it (the blocked batch's 30-bit key with its packed offsets, also with
+   the generated index from a base; the classic batch's 26-bit rows with
+   their index widened to int64) and on edge cases (all keys equal, keys
+   descending, bits 1 and 31, P not a multiple of the tile, P 300, the
+   blocks of a matrix past 2^20 blocks with three operands); E's time on
+   each dispatch's batch beside its twin's, torch.sort's with the gathers
+   (the library call) and the bound; and past 2^20 blocks, E's sort of the
+   21-bit block with three operands beside torch.sort of the int64 key
+   block << 11 | frequency with the gathers (the route it replaced there).
+   The blocked and classic dispatches' [profile] lines must show no
+   torch.sort radix kernel.
 4-stream_tail. Kernel D (the blocked stream's plan, tail and residual
    gather) against its twins, bitwise, on the inputs that the
    device-resident blocked dispatch hands each entry point (9,437,184
-   slots, the frequency in an int32 key); the card's route against the
-   twins' route on the card (all four accumulators and n_drop) on that
-   batch, in clipped mode with int64 keys, with every frequency above the
-   histogram (the overflow list past OVER_CAP and capO) and on a sparse
-   batch (more residual chunks than nch); kernel A's packed mode on the
-   dispatch's k-mers; the times of D1-D3 and their twins', the byte bound,
-   the main path's launches. The blocked
-   dispatch's [profile] line must show no index kernel.
+   slots, the frequency in an int32 key that kernel E sorted with its
+   payloads); the card's route against the twins' route on the card (all
+   four accumulators and n_drop) on that batch, in clipped mode with the
+   index carried by kernel E, without the frequency in the key as past
+   2^20 blocks (three operands), with every frequency above the histogram (the overflow list
+   past OVER_CAP and capO) and on a sparse batch (more residual chunks
+   than nch); kernel A's packed mode on the dispatch's k-mers; the times
+   of D1-D3 and their twins', the byte bound, the main path's launches.
+   The blocked dispatch's [profile] line must show no index kernel.
 
 4a. bench: python -m colorid_tpu_torch.bench in a subprocess on phase 3's
    two indexes (handed over in its cache under its names): rc 0, one JSON
@@ -457,17 +472,15 @@ def probe_bytes(blk_s, off_s, qc, wpad: int, num_hash: int, per_probe: int,
 
 
 def stream_tail_bytes(P: int, *, pc: int, n_slots: int, n_listed: int, W: int, C: int,
-                      hw: int, key_bytes: int, qc_gather: bool, gidx: bool, n_res: int,
-                      res_sectors: int, n_kept: int) -> int:
+                      hw: int, key_bytes: int, n_res: int, res_sectors: int,
+                      n_kept: int) -> int:
     """Bytes that kernel D (csrc/stream_tail.cu) must move for one stream
     batch of P probes in chunks of pc, each input read once and each output
     written once.
-    D1, the plan: from the sort (key_bytes > 0) the key, the permutation (8)
-    and offp through it (4), qcounts through it where the key holds no
-    frequency (4), blk_s, off_s, qc_s written (12); from probes sorted
-    already (key_bytes 0) blk_s and qc_s read (8); then gidx_s written (4)
-    where the batch has a global index, qcw (4) a probe, and tb, chunk_res,
-    chunk_real (12) a chunk.
+    D1, the plan: from the key sorted with its payloads by kernel E
+    (key_bytes > 0) the key read and blk_s, qc_s written (8); from probes
+    sorted already (key_bytes 0) blk_s and qc_s read (8); then qcw (4) a
+    probe, and tb, chunk_res, chunk_real (12) a chunk.
     D2, the tail: uniq and qc_s (8) a probe; the probe kernel's counts and
     histogram (4 (32 W + cp hw), cp >= C: counted as C) and the
     accumulators' histogram band read and written (8 C hw); the stats read
@@ -479,15 +492,19 @@ def stream_tail_bytes(P: int, *, pc: int, n_slots: int, n_listed: int, W: int, C
     frequency read (8); per residual probe its offsets and payload (8) and
     the 32-byte sectors its rows touch (res_sectors)."""
     n_chunks, n_tiles = P // pc, -(-P // 2048)
-    if key_bytes:
-        d1 = P * (key_bytes + 8 + 4 + 4 * qc_gather + 12)
-    else:
-        d1 = P * 8
-    d1 += P * (4 * gidx + 4) + 12 * n_chunks
+    d1 = P * (key_bytes + 8 + 4) + 12 * n_chunks
     d2 = (8 * P + 4 * (32 * W + C * hw) + 8 * C * hw + 8 * (C + W + 2) + 8 * n_chunks
           + 16 * n_tiles + 4 * n_slots + 20 * n_kept)
     d3 = n_slots * pc * (4 * W + 10) + 8 * n_listed * pc + 8 * n_res + 32 * res_sectors
     return d1 + d2 + d3
+
+
+def sort_bytes(P: int, *, n_operands: int, index: bool, index64: bool) -> int:
+    """Bytes that kernel E (csrc/radix_sort.cu) must move to sort P keys:
+    the key and each int32 operand read once (the index is generated, not
+    read), the key, each operand and the index written once (8 bytes for
+    an int64 index)."""
+    return P * (4 + 4 * n_operands + 4 + 4 * n_operands + (8 if index64 else 4) * index)
 
 
 def raw_kernel_phase(card: str) -> dict:
@@ -731,8 +748,7 @@ def placement_kernel_phase(card: str) -> dict:
                qmax=2047)
     n_checked, errs = 0, {}
     for what, src, kw in (("classic", classic, ckw), ("v4", v4, vkw),
-                          ("v4 sort keys", _key_of(v4), vkw), ("v4 packed mode", v4, kkw),
-                          ("v4 packed mode, int64 key", v4, dict(kkw, key64=True))):
+                          ("v4 sort keys", _key_of(v4), vkw), ("v4 packed mode", v4, kkw)):
         if "qbits" in kw:
             got = ht.placement_keyoff(src, q4, **kw)
             want = ht.placement_keyoff_plain(src, q4, **kw)
@@ -767,13 +783,22 @@ def placement_kernel_phase(card: str) -> dict:
                                                  f"max_abs_err {err}")
                         n_checked += 1
                     # the packed mode: the block as the key, or with a
-                    # clipped frequency in its low 11 bits
+                    # clipped frequency in its low 11 bits where that key
+                    # fits int32 (refused past 2^20 blocks)
                     qg = torch.randint(0, 3000, (src.shape[0],), generator=g, device="cuda",
                                        dtype=torch.int32)
                     for v in (1, 2, 3, 4) if H <= 4 else ():
                         for m in (dict(), dict(qbits=11, qmax=1024)):
                             kw = dict(k=k, num_hash=H, bloom_size=bloom, rpb=128, version=v, **m)
                             qq = qg if m else None
+                            if m and -(-bloom // 128) << 11 > 2**31:
+                                try:
+                                    ht.placement_keyoff(src, qq, **kw)
+                                except ValueError:
+                                    n_checked += 1
+                                    continue
+                                raise AssertionError(f"placement packed mode took a key "
+                                                     f"past int32 ({kw})")
                             err = placement_err(ht.placement_keyoff(src, qq, **kw),
                                                 ht.placement_keyoff_plain(src, qq, **kw))
                             errs["grid"] = max(errs["grid"], err)
@@ -787,8 +812,9 @@ def placement_kernel_phase(card: str) -> dict:
         f"(P={P4}, {BLOOM // 128} blocks of rpb 128; packed and sort keys) and a grid "
         f"of k {list(GRID_K)} x H 1/2/4/8 x bloom 1,000,003 / 2^31-1 x classic, v1-v4 "
         f"rows and block/offsets x packed / sort keys, and the packed mode (v4 dispatch's "
-        f"int32 key with an exact frequency and its int64 form; the grid's v1-v4 at H <= 4, "
-        f"the key as the block or with a clipped frequency): {n_checked} cases on {card}")
+        f"int32 key with an exact frequency; the grid's v1-v4 at H <= 4, the key as the "
+        f"block or with a clipped frequency, refused past 2^20 blocks): {n_checked} cases "
+        f"on {card}")
     out = {}
     for what, src, kw, instance, out_bytes in (
         ("classic", classic, ckw, "placement_kernelILi2ELi4ELi0E", 4 * HASHES),
@@ -830,7 +856,7 @@ def placement_kernel_phase(card: str) -> dict:
         "packed_plain_ms": out["v4 packed mode"][1],
         "packed_bound_ms": out["v4 packed mode"][2],
         "packed_bound_by": out["v4 packed mode"][3],
-        "packed_max_abs_err": max(errs["v4 packed mode"], errs["v4 packed mode, int64 key"]),
+        "packed_max_abs_err": errs["v4 packed mode"],
     }
 
 
@@ -1003,10 +1029,11 @@ def _new_kernels():
 
 def _glue_kernels():
     """The wrappers of kernel D, the blocked stream's glue: its plan, tail
-    and residual gather (each with a count)."""
+    and residual gather, and of kernel E, the streams' key sort (each with
+    a count)."""
     from colorid_tpu_torch.ops import stream_query as sq
 
-    return tuple(getattr(sq, n) for n in TAIL_WRAPPERS)
+    return tuple(getattr(sq, n) for n in TAIL_WRAPPERS + ("sort_payloads",))
 
 
 # the epilogue mode each main path ends in: the classic stream's sorted
@@ -1018,16 +1045,20 @@ def _check_new_kernels(used: dict, what: str) -> None:
     """On the card, search -f 1 must have placed its k-mers and extracted
     its windows through the kernels, and search -s (k-mers counted on the
     host, as the reference does) placed its k-mers through the kernel; both
-    searches must have ended in the epilogue kernel."""
+    searches must have ended in the epilogue kernel. Kernel E sorts both
+    classic searches' rows and the blocked search -s's keys (the blocked
+    search -f 1 takes the fused route, whose keys arrive sorted)."""
     if DEVICE != "cuda":
         return
     glue = TAIL_WRAPPERS if what == "blocked" else ()
+    sorted_ = used["sort_payloads"] if what == "classic" else used["sort_payloads"][1:]
     if (min(used["placement"]) == 0 or used["window_keys"][0] == 0
-            or min(used[EPILOGUE_OF[what]]) == 0 or any(min(used[n]) == 0 for n in glue)):
+            or min(used[EPILOGUE_OF[what]]) == 0 or any(min(used[n]) == 0 for n in glue)
+            or min(sorted_) == 0):
         raise AssertionError(
             f"{what}: search -f 1 and search -s did not run through the placement, "
-            f"window-key, epilogue{' and stream glue' if glue else ''} kernels (launches "
-            f"in (search -f 1, search -s): {used})"
+            f"window-key, epilogue, sort{' and stream glue' if glue else ''} kernels "
+            f"(launches in (search -f 1, search -s): {used})"
         )
 
 
@@ -1058,7 +1089,7 @@ def classic_path_phase(tmp: str, inputs, card: str):
              "-b", prefix, "-r", man, "-t", "8"])
         t_build = time.time() - t0
         tsv, perfect, t_search, t_perfect, used = _searches(
-            tmp, prefix + ".bxi", fq, (sq.classic_words, *_new_kernels()))
+            tmp, prefix + ".bxi", fq, (sq.classic_words, *_new_kernels(), sq.sort_payloads))
     finally:
         sq.stream_accumulate_classic_exact = stream_fn
     launches = sq.classic_words.launches
@@ -1072,8 +1103,7 @@ def classic_path_phase(tmp: str, inputs, card: str):
         f"launches={launches}; stream batches={sizes} n_drop={n_drop}; launches in "
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
         f"{used['window_keys']}, epilogue {used['_accumulate_sorted_words']} "
-        f"(sorted-words mode) on "
-        f"{card}")
+        f"(sorted-words mode), sort {used['sort_payloads']} on {card}")
     _check_new_kernels(used, "classic")
     if DEVICE == "cuda" and (launches == 0 or reads_launches == 0):
         raise AssertionError(
@@ -1144,7 +1174,8 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
         f"{used['window_keys']}, epilogue {used['_accumulate_tail']} (residual pass), "
         f"stream glue (plan, tail, residual) {used['stream_chunk_plan']}, "
-        f"{used['stream_tail']}, {used['stream_residual']} on {card}")
+        f"{used['stream_tail']}, {used['stream_residual']}, sort {used['sort_payloads']} "
+        f"on {card}")
     _check_new_kernels(used, "blocked")
     if index.blocked != 4:
         raise AssertionError(f"build --blocked chose layout {index.blocked}, not v4")
@@ -1171,11 +1202,13 @@ def blocked_path_phase(tmp: str, inputs, card: str):
 # -- phase 4: stream vs generic parity and rates ----------------------------
 
 
-def classic_parity_phase(bxi: str, fq: str, card: str):
+def classic_parity_phase(bxi: str, fq: str, card: str, strict: bool = True):
     """The classic index: search_keys through the classic stream against
     the generic gather, the device-resident stream dispatch against both,
-    their rates, and the profile of one device-resident dispatch. Returns
-    that dispatch (a function of no arguments)."""
+    their rates, and the profile of one device-resident dispatch (which
+    must launch no torch.sort radix kernel where ``strict``: kernel E sorts
+    the rows; --compare's turns of an older checkout are not strict).
+    Returns that dispatch (a function of no arguments)."""
     import numpy as np
     import torch
 
@@ -1234,7 +1267,7 @@ def classic_parity_phase(bxi: str, fq: str, card: str):
         f"{reps}) on {card}")
     dispatch = lambda: stream_eng.search_keys_dev_classic_async(pk_dev, qc_dev, K)[0]  # noqa: E731
     if DEVICE == "cuda":
-        profile_dispatch(dispatch, "classic", card)
+        profile_dispatch(dispatch, "classic", card, forbid_like=("RadixSort",) if strict else ())
     return dispatch
 
 
@@ -1242,7 +1275,8 @@ def blocked_parity_phase(bxi: str, fq: str, card: str, strict: bool = True):
     """The blocked index: search_keys with the probe stream against the
     generic gather, the two device-resident dispatches against both, their
     rates, and the profile of one device-resident stream dispatch (which
-    must launch no index kernel where ``strict``: kernel D replaced them;
+    must launch no index kernel and no torch.sort radix kernel where
+    ``strict``: kernels D and E replaced them;
     --compare's turns of an older checkout are not strict). On the card also
     the probe kernel on the real segment's inputs (see real_segment).
     Returns (its ms there or None on the CPU, the device-resident stream
@@ -1322,7 +1356,8 @@ def blocked_parity_phase(bxi: str, fq: str, card: str, strict: bool = True):
     if DEVICE != "cuda":
         return None, dispatches["stream"]
     profile_dispatch(lambda: dispatches["stream"]()[0], "blocked", card,
-                     forbid=("index_elementwise_kernel", "indexFuncLargeIndex") if strict else ())
+                     forbid=("index_elementwise_kernel", "indexFuncLargeIndex") if strict else (),
+                     forbid_like=("RadixSort",) if strict else ())
     return real_segment(dispatches["stream"], card), dispatches["stream"]
 
 
@@ -1607,11 +1642,14 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
     point (the plan D1 from the sorted key, the tail D2 with the four
     accumulators, the residual gather D3) on the inputs that the
     device-resident blocked dispatch hands it (the real blocked segment,
-    9,437,184 slots, the frequency in an int32 key); and the card's route
-    (kernel A's packed mode, the key sort, kernel D, the probe kernel, the
-    epilogue) against the twins' route (_stream_core_plain) on the card, all
-    four accumulators and n_drop: on that batch, on it in clipped mode with
-    a global index and int64 keys, with every frequency raised by 1,024
+    9,437,184 slots, the frequency in an int32 key that kernel E sorted
+    with its payloads); and the card's route (kernel A's packed mode, the
+    key sort, kernel D, the probe kernel, the epilogue) against the twins'
+    route (_stream_core_plain) on the card, all four accumulators and
+    n_drop: on that batch, on it in clipped mode with a global index (the
+    frequency in the key: kernel E carries the index; the frequency out of
+    the key, as past 2^20 blocks: kernel E's three operands), with every
+    frequency raised by 1,024
     (every unique hit big: more than OVER_CAP, from an overflow list 1,000
     slots below capO) and on a sparse batch (its first SPARSE_CHUNKS
     chunks' k-mers over the whole matrix: more residual chunks than nch,
@@ -1667,10 +1705,11 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
         ms[n] = cuda_ms(lambda: reals[n](*args, **kw), 20)
         plain_ms[n] = cuda_ms(lambda: twin(*args, **kw), 3)
 
-    # the bound from this batch's inputs
+    # the bound from this batch's inputs: D1 on kernel E's sorted key (or
+    # on probes sorted already)
     pa, pkw = seen["stream_chunk_plan"]
-    key_s = pkw["key_s"]
-    P = key_s.numel()
+    key_s = pkw.get("key_s")
+    P = (key_s if key_s is not None else pkw["blk_s"]).numel()
     ta, tkw = seen["stream_tail"]
     stats0, over_col = ta[0], ta[2]
     C, W = tkw["n_colors"], tkw["wpad"]
@@ -1692,14 +1731,15 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
     n_res = int(mask.sum())
     n_bytes = stream_tail_bytes(
         P, pc=sq.PC, n_slots=cidx.numel(), n_listed=n_cov, W=W, C=C, hw=hw,
-        key_bytes=key_s.element_size(), qc_gather=pkw["qbits"] == 0,
-        gidx=pkw["base0"] is not None, n_res=n_res,
+        key_bytes=0 if key_s is None else key_s.element_size(), n_res=n_res,
         res_sectors=sectors(starts, W) if n_res else 0, n_kept=n_kept)
     instr = sass_loop_instructions("stream_tail.cu", "plan_kernel", outer=True)
     bound_ms, bound_by, how = _bound(n_bytes, P, instr)
     total, total_plain = sum(ms.values()), sum(plain_ms.values())
-    log(f"[kernel] stream_tail real segment: P={P} ({P // sq.PC} chunks, key "
-        f"{key_s.dtype}, qbits {pkw['qbits']}), {n_cov} residual chunks listed of "
+    how_in = ("probes sorted already" if key_s is None else
+              f"key {key_s.dtype}, qbits {pkw['qbits']}, sorted with its payloads")
+    log(f"[kernel] stream_tail real segment: P={P} ({P // sq.PC} chunks, {how_in}), "
+        f"{n_cov} residual chunks listed of "
         f"{cidx.numel()} slots, {n_res} residual probes, {n_kept} overflow entries kept; "
         f"bitwise_equal=True for plan, tail (stats, hist, over_col, over_freq, list, "
         f"n_drop) and residual (max_abs_err {max(errs.values())}); ms plan="
@@ -1720,7 +1760,7 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
     # kernel A's packed mode on the dispatch's own k-mers, as the route ran it
     kkw = dict(k=geo["k"], num_hash=geo["num_hash"], bloom_size=geo["bloom_size"],
                rpb=geo["rpb"], version=geo["bv"], qbits=sq.QKEY_BITS if in_key else 0,
-               qmin=0, qmax=sq.QKEY_MASK, key64=not sq._key32(geo["bloom_size"], geo["rpb"]))
+               qmin=0, qmax=sq.QKEY_MASK)
     qq = qcounts if in_key else None
     got = ht.placement_keyoff(packed, qq, **kkw)
     errs["placement_keyoff"] = placement_err(got, ht.placement_keyoff_plain(packed, qq, **kkw))
@@ -1734,30 +1774,26 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
     P = packed.shape[0]
     n_sp = SPARSE_CHUNKS * sq.PC
     cases = (
-        ("the dispatch's batch", packed, qcounts, 0, None, in_key, False),
-        ("clipped mode, global index, int64 keys", packed, qcounts.clamp(max=65535), 0,
-         7_000_000, True, True),
+        ("the dispatch's batch", packed, qcounts, 0, None, in_key),
+        ("clipped mode, global index (kernel E carries the index)", packed,
+         qcounts.clamp(max=65535), 0, 7_000_000, True),
+        ("clipped mode, the frequency not in the key, as past 2^20 blocks (kernel E's "
+         "three operands)", packed, qcounts.clamp(max=65535), 0, 7_000_000, False),
         ("every frequency + 1,024 (big past OVER_CAP), overflow list from capO - 1,000",
-         packed, torch.where(qcounts > 0, qcounts + 1024, 0), capO - 1000, None, False,
-         False),
+         packed, torch.where(qcounts > 0, qcounts + 1024, 0), capO - 1000, None, False),
         (f"sparse: {n_sp} slots over the whole matrix", packed[:n_sp].contiguous(),
-         qcounts[:n_sp].contiguous(), 0, None, in_key, False),
+         qcounts[:n_sp].contiguous(), 0, None, in_key),
     )
-    key32 = sq._key32
     drops = []
-    for what, pk, q, n_over, base0, qkey, key64 in cases:
+    for what, pk, q, n_over, base0, qkey in cases:
         got = []
         for route in (True, False):
             acc = _epi_accs(C, W, capO, n_over)
-            sq._key32 = (lambda bloom_size, rpb: False) if key64 else key32
-            try:
-                got.append(sq._stream_accumulate(
-                    *acc, blocks2, pk, q, base0, qbits=sq.QKEY_BITS if qkey else 0,
-                    qmin=None if base0 is not None else 0,
-                    qmax=sq.FREQ_CAP if base0 is not None else sq.QKEY_MASK,
-                    kernels_route=route, **geo))
-            finally:
-                sq._key32 = key32
+            got.append(sq._stream_accumulate(
+                *acc, blocks2, pk, q, base0, qbits=sq.QKEY_BITS if qkey else 0,
+                qmin=None if base0 is not None else 0,
+                qmax=sq.FREQ_CAP if base0 is not None else sq.QKEY_MASK,
+                kernels_route=route, **geo))
         sync()
         err = max(max_abs_diff(x, y) for x, y in zip(*got))
         nd = int(got[0][4])
@@ -1768,7 +1804,7 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
         if err:
             raise AssertionError(f"stream_tail route != twins' route ({what}): {err}")
         errs[what] = err
-    if DEVICE == "cuda" and (drops[0] or not drops[2] or not drops[3]):
+    if DEVICE == "cuda" and (drops[0] or not drops[3] or not drops[4]):
         raise AssertionError(f"stream_tail: n_drop {drops}: the real batch must drop "
                              "nothing, the big and the sparse batch must")
     log(f"[kernel] stream_tail phase took {time.time() - t0:.1f}s")
@@ -1790,6 +1826,182 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
         "tail_ms": ms["stream_tail"],
         "residual_ms": ms["stream_residual"],
     }
+
+
+# -- phase 4-sort: kernel E on both dispatches' inputs ------------------------
+
+SORT_EDGE_P = 1 << 20  # keys of each synthetic edge case of [kernel] sort
+
+
+def _sort_args(a, kw):
+    """A sort_payloads call's (key, bits, operands, keywords)."""
+    kw = dict(kw)
+    ops = tuple(a[2]) if len(a) > 2 else tuple(kw.pop("operands", ()))
+    return a[0], a[1], ops, kw
+
+
+def sort_kernel_phase(classic_dispatch, blocked_dispatch, main_launches: int,
+                      card: str) -> dict:
+    """Kernel E (csrc/radix_sort.cu) against its twin, bitwise, on the
+    inputs that the device-resident dispatches hand it: the blocked batch's
+    key (the frequency in its low bits, 30 bits) with its packed offsets,
+    the same with the generated index from base0 7,000,000, the classic
+    batch's rows (26 bits) with their index widened to int64; and on edge
+    cases: all keys equal, keys descending, bits 1 and 31, P not a multiple
+    of the tile, a P of a few hundred, the blocked batch's blocks times 3
+    (past 2^20 blocks, 21 bits, where the frequency leaves the key) with
+    three operands. The time of E, of its twin and of torch.sort(stable)
+    with the operands gathered through its permutation (the library call)
+    on each dispatch's batch, and the bound (sort_bytes: the bytes bind;
+    the operations are a few integer instructions a key a pass, which the
+    SASS of a straight-line kernel with its branches does not count); on
+    the blocks past 2^20, E beside torch.sort of the int64 key block << 11
+    | frequency with the offsets and the index gathered through its
+    permutation (the route that geometry took before E)."""
+    import torch
+
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    t0 = time.time()
+    real = sq.sort_payloads
+    seen = {}
+
+    def observer(what):
+        def observed(*a, **kw):
+            seen[what] = _sort_args(a, kw)
+            return real(*a, **kw)
+
+        observed.launches = real.launches  # the wrapper counts on its module name
+        return observed
+
+    for what, dispatch in (("blocked", blocked_dispatch), ("classic", classic_dispatch)):
+        sq.sort_payloads = observer(what)
+        try:
+            dispatch()
+            sync()
+        finally:
+            real.launches = sq.sort_payloads.launches
+            sq.sort_payloads = real
+        if what not in seen:
+            raise AssertionError(f"the {what} dispatch did not sort with kernel E")
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    n = SORT_EDGE_P
+
+    def rand(P, hi, lo=0):
+        return torch.randint(lo, hi, (P,), generator=g, device=DEVICE, dtype=torch.int32)
+
+    bkey, bbits, bops, bkw = seen["blocked"]
+    ckey, cbits, cops, ckw = seen["classic"]
+    cases = [
+        ("blocked dispatch (exact mode: key + packed offsets)", bkey, bbits, bops, bkw),
+        ("blocked dispatch with the index from base0 7,000,000", bkey, bbits, bops,
+         dict(index=True, base=7_000_000)),
+        ("classic dispatch (rows + index as int64)", ckey, cbits, cops, ckw),
+        ("all keys equal", torch.full((n,), 12345, dtype=torch.int32, device=DEVICE), 30,
+         (rand(n, 2**31 - 1, -(2**31)),), dict(index=True)),
+        ("keys descending", (2**21 - 1) - torch.arange(n, dtype=torch.int32, device=DEVICE),
+         21, (), dict(index=True, index64=True)),
+        ("bits 1", rand(n, 2), 1, (rand(n, 2**31 - 1),), dict(index=True)),
+        ("bits 31", rand(n, 2**31 - 1), 31, (rand(n, 2**31 - 1),), {}),
+        ("P not a multiple of the tile", rand(n + 1234, 2**26), 26, (),
+         dict(index=True, index64=True)),
+        ("a P of 300", rand(300, 2**20), 20, (rand(300, 100), rand(300, 100)),
+         dict(index=True, base=11)),
+    ]
+    blk = ((bkey >> sq.QKEY_BITS) * 3).contiguous()  # past 2^20 blocks
+    bqc = (bkey & sq.QKEY_MASK).contiguous()
+    cases.append(("the blocked batch's blocks times 3 (past 2^20 blocks, qbits 0) with three "
+                  "operands", blk, sq.key_bits(int(blk.max())), (bops[0], bqc),
+                  dict(index=True, base=7_000_000)))
+    errs = []
+    for what, key, bits, ops, kw in cases:
+        before = real.launches
+        got = real(key, bits, ops, **kw)
+        want = sq.sort_payloads_plain(key, bits, ops, **kw)
+        sync()
+        err = max(max_abs_diff(x, y) for x, y in zip(got, want))
+        errs.append(err)
+        log(f"[kernel] sort {what}: P={key.numel()} bits {bits} ({len(sq.sort_passes(bits))} "
+            f"passes), {len(ops)} operands, index {kw.get('index', False)}"
+            f"{' int64' if kw.get('index64') else ''}: bitwise_equal={err == 0} "
+            f"launched={real.launches - before}")
+        if err or (DEVICE == "cuda" and real.launches != before + 1):
+            raise AssertionError(f"sort kernel != twin ({what}): max_abs_err {err}")
+        del got, want
+
+    times = {}
+    for name, (what, key, bits, ops, kw) in zip(("blocked", "blocked_index", "classic"),
+                                                 cases[:3]):
+        P = key.numel()
+
+        def library(key=key, ops=ops, kw=kw):
+            key_s, perm = torch.sort(key, stable=True)
+            out = [key_s] + [o[perm] for o in ops]
+            if kw.get("index"):
+                out.append(perm + kw.get("base", 0) if kw.get("index64")
+                           else (perm + kw.get("base", 0)).to(torch.int32))
+            return out
+
+        ms = cuda_ms(lambda: real(key, bits, ops, **kw), 20)
+        plain = cuda_ms(lambda: sq.sort_payloads_plain(key, bits, ops, **kw), 3)
+        lib = cuda_ms(library, 20)
+        n_bytes = sort_bytes(P, n_operands=len(ops), index=kw.get("index", False),
+                             index64=kw.get("index64", False))
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        times[name] = (ms, plain, lib, bound_ms, "bytes")
+        log(f"[kernel] sort {what}: P={P} bits {bits} ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} (torch.sort(stable) + the operands gathered through its "
+            f"permutation) bound_ms={bound_ms:.4f} bound_by=bytes (bytes={n_bytes}, each "
+            f"input read once and each output written once; operations not counted) "
+            f"launches on the main path={main_launches} on {card}")
+
+    # past 2^20 blocks: E on the block alone with three operands, beside
+    # torch.sort of the int64 key with the frequency in it and the gathers
+    what, key, bits, ops, kw = cases[-1]
+    key64 = (key.to(torch.int64) << sq.QKEY_BITS) | bqc
+
+    def int64_route():
+        key_s, perm = torch.sort(key64, stable=True)
+        return key_s, ops[0][perm], (perm + kw["base"]).to(torch.int32)
+
+    ms = cuda_ms(lambda: real(key, bits, ops, **kw), 20)
+    sort64 = cuda_ms(lambda: torch.sort(key64, stable=True), 20)
+    route64 = cuda_ms(int64_route, 20)
+    n_bytes = sort_bytes(key.numel(), n_operands=len(ops), index=True, index64=False)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    times["wide"] = (ms, route64, sort64, bound_ms)
+    log(f"[kernel] sort past 2^20 blocks: P={key.numel()} bits {bits}, max block "
+        f"{int(key.max())}: kernel E with the offsets, the frequencies and the index "
+        f"ms={ms:.4f}; torch.sort(int64 key block << 11 | frequency, stable) ms={sort64:.4f}, "
+        f"with the offsets and the index gathered through its permutation ms={route64:.4f}; "
+        f"E's bound_ms={bound_ms:.4f} bound_by=bytes (bytes={n_bytes}) on {card}")
+    del key64
+    log(f"[kernel] sort phase took {time.time() - t0:.1f}s")
+    del seen, cases, bkey, bops, ckey, blk, bqc, key, ops
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    ms, plain, lib, bound_ms, bound_by = times["blocked"]
+    row = {
+        "name": "sort_payloads",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/radix_sort.cu",
+        "replaces": "colorid_tpu/ops/stream_query.py:623",
+        "launches": main_launches,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": lib,
+    }
+    for name in ("blocked_index", "classic"):
+        for key, v in zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                          times[name]):
+            row[f"{name}_{key}"] = v
+    for key, v in zip(("ms", "int64_route_ms", "int64_sort_ms", "bound_ms"), times["wide"]):
+        row[f"wide_{key}"] = v
+    return row
 
 
 # -- phase 4a: the port's bench on this cell ----------------------------------
@@ -3814,12 +4026,12 @@ def ptxas_summary(logs) -> list[str]:
 
 
 def profile_dispatch(fn, what: str, card: str, label: str = "stream",
-                     forbid: tuple = ()) -> None:
+                     forbid: tuple = (), forbid_like: tuple = ()) -> None:
     """Where one dispatch (a stream dispatch unless ``label`` says other)
     spends its device time:
     torch.profiler's per-kernel device totals, and the device's idle share
     of the dispatch's host-clock span. Fails if a kernel named in
-    ``forbid`` ran in it."""
+    ``forbid``, or whose name holds a string of ``forbid_like``, ran in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3855,7 +4067,8 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
             "epilogue", "epilogue_sorted", "epilogue_overflow", "plan", "tail_count",
-            "tail_overflow", "tail_finish", "residual")
+            "tail_overflow", "tail_finish", "residual", "sort_hist", "sort_bases",
+            "sort_pass")
     )
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
     sort = [(ms, n) for ms, n, name in rows if "RadixSort" in name]
@@ -3868,7 +4081,8 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         f"passes x{sum(n for _, n in sort)}={sum(ms for ms, _ in sort):.3f}ms; "
         f"top kernels: {top}; "
         f"the port's own: {ours or 'none'} on {card}")
-    ran = [f"{name} x{n}" for ms, n, name in rows if name in forbid]
+    ran = [f"{name} x{n}" for ms, n, name in rows
+           if name in forbid or any(f in name for f in forbid_like)]
     if ran:
         raise AssertionError(f"[profile] {what}: {ran} ran in the dispatch")
 
@@ -3934,9 +4148,9 @@ def compare_turn(root: str, tmp: str) -> int:
     a = {key: np.load(os.path.join(tmp, key + ".npy"))
          for key in ("words", "lens", "vbits", "mates", "src")}
     dev = on_device((a["words"], a["lens"], a["vbits"]))
-    classic_parity_phase(cell["classic"], cell["fq"], card)
-    blocked_parity_phase(cell["blocked"], cell["fq"], card,
-                         strict=os.path.abspath(root) == HERE)
+    strict = os.path.abspath(root) == HERE
+    classic_parity_phase(cell["classic"], cell["fq"], card, strict=strict)
+    blocked_parity_phase(cell["blocked"], cell["fq"], card, strict=strict)
     with contextlib.redirect_stderr(io.StringIO()):
         query = _count_query_kmers(cell["fq"], None, K, 15, 1, False)
     answers = {}
@@ -4077,6 +4291,9 @@ def main() -> int:
             classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"], blocked_dispatch = blocked_parity_phase(
                 blocked_bxi, inputs[1], card)
+        with phase("sort"):
+            sort_row = sort_kernel_phase(classic_dispatch, blocked_dispatch,
+                                         glue_launches["sort_payloads"], card)
         with phase("epilogue"):
             epilogue_row = epilogue_kernel_phase(classic_dispatch, epilogue_launches, card)
         del classic_dispatch
@@ -4092,6 +4309,7 @@ def main() -> int:
         epilogue_row["launches"] += (benched["_accumulate_tail"]
                                      + benched["_accumulate_sorted_words"])
         tail_row["launches"] += benched["stream_tail"]
+        sort_row["launches"] += benched["sort_payloads"]
         for name in ("stream_chunk_plan", "stream_residual"):
             tail_row[name.split("_")[-1] + "_launches"] = glue_launches[name] + benched[name]
         with phase("reads"):
@@ -4132,7 +4350,7 @@ def main() -> int:
     log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
         + f"; whole script {time.time() - t_script:.1f}s on {card}")
     print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row,
-                                  epilogue_row, tail_row]}))
+                                  epilogue_row, tail_row, sort_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

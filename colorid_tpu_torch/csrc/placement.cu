@@ -27,8 +27,8 @@
 // (KEYOFF, the blocked probe stream's packed mode) as a sort key [n] and
 // the offsets packed 8 bits a hash into one int32 [n] (the probe kernel's
 // encoding, ops/hash_torch.py::pack_offsets): the key is the block, or with
-// qbits > 0 block << qbits | clamp(q[i], qlo, qhi), int32 where the caller
-// knows every key is below 2^31, else int64.
+// qbits > 0 block << qbits | clamp(q[i], qlo, qhi), int32 (the caller
+// knows every key is below 2^31).
 //
 // What bounds it on an H100: at H = 4 both sides are close. Bytes: 8 in and
 // 16 (rows), 40 (BLKOFF) or 8 to 16 (KEYOFF, with the frequency read) out
@@ -98,10 +98,10 @@ struct Params {
   int64_t n;
   int32_t* rows;    // [n, H] or nullptr
   int64_t* blkoff;  // [H + 1, n] or nullptr
-  void* key;        // [n] int32 or int64 (key64), or nullptr
+  int32_t* key;     // [n] or nullptr
   int32_t* offp;    // [n] with key
   const int32_t* q; // [n] with qbits > 0
-  int qbits, key64;
+  int qbits;
   int32_t qlo, qhi;
   int k, H;
   uint64_t mod, mod_inv;  // bloom_size (classic) or n_blocks (v1/v2)
@@ -242,10 +242,7 @@ __device__ __forceinline__ void put_keyoff(const Params& p, int64_t i, uint64_t 
     const int32_t q = min(max(p.q[i], p.qlo), p.qhi);
     kv = (kv << p.qbits) | (int64_t)q;
   }
-  if (p.key64)
-    reinterpret_cast<int64_t*>(p.key)[i] = kv;
-  else
-    reinterpret_cast<int32_t*>(p.key)[i] = (int32_t)kv;
+  p.key[i] = (int32_t)kv;
   p.offp[i] = (int32_t)(uint32_t)offs;
 }
 
@@ -492,11 +489,11 @@ extern "C" int placement_launch(const void* src, uint64_t flip, int64_t n, void*
   return place(p, k, H, version, bloom_size, rpb, consts, (cudaStream_t)stream);
 }
 
-// The KEYOFF output of a blocked layout (version 1..4, H <= 4): key [n]
-// (int32, or int64 when key64) and offp int32 [n]; with qbits > 0 the key
-// carries clamp(q[i], qlo, qhi) in its low qbits (q int32 [n]).
+// The KEYOFF output of a blocked layout (version 1..4, H <= 4): key int32
+// [n] and offp int32 [n]; with qbits > 0 the key carries clamp(q[i], qlo,
+// qhi) in its low qbits (q int32 [n]), every key below 2^31.
 extern "C" int placement_keyoff_launch(const void* src, uint64_t flip, int64_t n, void* key,
-                                       int32_t key64, void* offp, const void* q, int32_t qbits,
+                                       void* offp, const void* q, int32_t qbits,
                                        int32_t qlo, int32_t qhi, int32_t k, int32_t H,
                                        int32_t version, int64_t bloom_size, int64_t rpb,
                                        const void* consts, void* stream) {
@@ -507,8 +504,7 @@ extern "C" int placement_keyoff_launch(const void* src, uint64_t flip, int64_t n
   p.src = (const uint64_t*)src;
   p.flip = flip;
   p.n = n;
-  p.key = key;
-  p.key64 = key64;
+  p.key = (int32_t*)key;
   p.offp = (int32_t*)offp;
   p.q = (const int32_t*)q;
   p.qbits = qbits;

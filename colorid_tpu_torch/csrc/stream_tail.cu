@@ -18,13 +18,13 @@
 // Three entry points, in the order the stream runs them (probes in chunks of
 // pc; T = 128 blocks a tile; a chunk's window is nt tiles from its tb):
 //
-// stream_plan_launch (D1), one block a chunk. From the sorted key (the
-// block, and with qbits > 0 the clipped frequency in its low qbits) and the
-// sort's permutation, or from probes sorted already: blk_s, off_s =
-// offp[perm], qc_s (the key's bits, or qcounts[perm]) and gidx_s = perm +
-// base0; then tb[c] = clamp(blk_s[c * pc] // T, 0, tb_hi), the window test
-// blk < (tb + nt) * T, qcw = qc where in the window, else 0, and per chunk
-// its residual probes (outside, qc > 0) and its counted ones (qcw > 0).
+// stream_plan_launch (D1), one block a chunk. From the key sorted with its
+// payloads by kernel E (csrc/radix_sort.cu), the frequency in its low qbits:
+// blk_s and qc_s, its bits (off_s and gidx_s came sorted); or from probes
+// sorted already (E sorted the block alone, with the frequency as an
+// operand); then tb[c] = clamp(blk_s[c * pc] // T, 0, tb_hi), the window
+// test blk < (tb + nt) * T, qcw = qc where in the window, else 0, and per
+// chunk its residual probes (outside, qc > 0) and its counted ones (qcw > 0).
 //
 // stream_tail_launch (D2), after the probe kernel: three launches.
 //   D2a, one block a tile of 2,048 probes: the tile's valid probes (uniq >
@@ -47,9 +47,8 @@
 // (andw [slots * pc, W], present, mask, q, gidx); every other row is zero
 // and masked, and a slot past the count writes its zeros and stops.
 //
-// What bounds it on an H100: bytes. D1 reads the key, the permutation and
-// offp through it (a gather, mostly from L2: 4 bytes a probe of 38 MB at
-// the main cell) and writes five int32 streams, some 36 bytes a probe; D2
+// What bounds it on an H100: bytes. D1 reads the sorted key and writes
+// blk_s, qc_s and qcw, 16 bytes a probe (12 from probes sorted already); D2
 // reads uniq and qc, 8 bytes a probe; D3 and the epilogue touch a few MB.
 // The operations are a few dozen integer instructions a probe.
 //
@@ -97,16 +96,10 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
 }
 
 struct PlanParams {
-  const void* key;         // sorted keys [P] (int32, int64 if key64), or nullptr: presorted
-  const int64_t* perm;     // [P] the sort's permutation
-  const int32_t* offp;     // [P] packed offsets, k-mer order
-  const int32_t* qcounts;  // [P] frequencies, k-mer order (when qbits == 0)
-  int64_t base0;
-  int32_t key64, qbits, gidx_out;
+  const int32_t* key;  // [P] sorted keys, the frequency in the low qbits, or nullptr
+  int32_t qbits;
   int32_t* blk_s;  // [P] written from the key, or read
-  int32_t* off_s;
   int32_t* qc_s;
-  int32_t* gidx_s;
   int32_t* qcw;
   int32_t* tb;          // [n_chunks]
   int32_t* chunk_res;   // [n_chunks]
@@ -115,18 +108,13 @@ struct PlanParams {
   int64_t tb_hi;
 };
 
-__device__ __forceinline__ int64_t key_at(const PlanParams& p, int64_t j) {
-  return p.key64 ? reinterpret_cast<const int64_t*>(p.key)[j]
-                 : (int64_t)reinterpret_cast<const int32_t*>(p.key)[j];
-}
-
 __global__ void __launch_bounds__(THREADS) plan_kernel(PlanParams p) {
   __shared__ long long s_red[WARPS];
   __shared__ int s_tb;
   const int64_t c = blockIdx.x;
   const int64_t i0 = c * p.pc;
   if (threadIdx.x == 0) {
-    const int64_t first = p.key ? (int32_t)(key_at(p, i0) >> p.qbits) : p.blk_s[i0];
+    const int64_t first = p.key ? p.key[i0] >> p.qbits : p.blk_s[i0];
     long long t = floor_div(first, T);
     t = t < 0 ? 0 : t;
     s_tb = (int)(t > p.tb_hi ? p.tb_hi : t);
@@ -138,20 +126,12 @@ __global__ void __launch_bounds__(THREADS) plan_kernel(PlanParams p) {
   int res = 0, real = 0;
   for (int64_t j = i0 + threadIdx.x; j < i0 + p.pc; j += THREADS) {
     int32_t blk, qc;
-    if (p.key) {
-      const int64_t kv = key_at(p, j);
-      const int64_t src = p.perm[j];
-      if (p.qbits) {
-        blk = (int32_t)(kv >> p.qbits);
-        qc = (int32_t)(kv & qmask);
-      } else {
-        blk = (int32_t)kv;
-        qc = p.qcounts[src];
-      }
+    if (p.key) {  // sorted with its payloads: the frequency in the key
+      const int32_t kv = p.key[j];
+      blk = kv >> p.qbits;
+      qc = kv & qmask;
       p.blk_s[j] = blk;
       p.qc_s[j] = qc;
-      p.off_s[j] = p.offp[src];
-      if (p.gidx_out) p.gidx_s[j] = (int32_t)(uint32_t)(uint64_t)(src + p.base0);
     } else {
       blk = p.blk_s[j];
       qc = p.qc_s[j];
@@ -415,34 +395,23 @@ __global__ void __launch_bounds__(THREADS) residual_kernel(ResParams p) {
 
 }  // namespace
 
-// D1. key: sorted keys [P] (int32, or int64 when key64) with perm int64 [P],
-// offp [P] and (qbits == 0) qcounts [P] in k-mer order; blk_s, off_s, qc_s
-// and (gidx_out) gidx_s [P] are written. key == nullptr: blk_s and qc_s are
-// read (probes sorted already). qcw [P] and tb, chunk_res, chunk_real
-// [P / pc] are written. P % pc == 0; tb_hi = n_blocks / 128 - nt.
-extern "C" int stream_plan_launch(const void* key, int32_t key64, int32_t qbits, const void* perm,
-                                  const void* offp, const void* qcounts, int64_t base0,
-                                  int32_t gidx_out, void* blk_s, void* off_s, void* qc_s,
-                                  void* gidx_s, void* qcw, void* tb, void* chunk_res,
-                                  void* chunk_real, int64_t P, int32_t pc, int32_t nt,
-                                  int64_t tb_hi, void* stream) {
-  if (P < 0 || pc <= 0 || P % pc || nt < 1 || qbits < 0 || qbits > 30 ||
-      (key && (!perm || !offp || (!qbits && !qcounts) || (gidx_out && !gidx_s))))
+// D1. key: the int32 key [P] sorted with its payloads (kernel E), the
+// frequency in its low qbits (1..30); blk_s and qc_s [P] are written. key ==
+// nullptr: blk_s and qc_s are read (probes sorted already). qcw [P] and tb,
+// chunk_res, chunk_real [P / pc] are written. P % pc == 0; tb_hi = n_blocks /
+// 128 - nt.
+extern "C" int stream_plan_launch(const void* key, int32_t qbits, void* blk_s, void* qc_s,
+                                  void* qcw, void* tb, void* chunk_res, void* chunk_real,
+                                  int64_t P, int32_t pc, int32_t nt, int64_t tb_hi,
+                                  void* stream) {
+  if (P < 0 || pc <= 0 || P % pc || nt < 1 || (key && (qbits < 1 || qbits > 30)))
     return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
   PlanParams p{};
-  p.key = key;
-  p.perm = (const int64_t*)perm;
-  p.offp = (const int32_t*)offp;
-  p.qcounts = (const int32_t*)qcounts;
-  p.base0 = base0;
-  p.key64 = key64;
+  p.key = (const int32_t*)key;
   p.qbits = key ? qbits : 0;
-  p.gidx_out = key ? gidx_out : 0;
   p.blk_s = (int32_t*)blk_s;
-  p.off_s = (int32_t*)off_s;
   p.qc_s = (int32_t*)qc_s;
-  p.gidx_s = (int32_t*)gidx_s;
   p.qcw = (int32_t*)qcw;
   p.tb = (int32_t*)tb;
   p.chunk_res = (int32_t*)chunk_res;

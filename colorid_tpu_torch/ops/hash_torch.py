@@ -396,7 +396,7 @@ def pack_offsets(offs: list) -> torch.Tensor:
 def placement_keyoff_plain(src: torch.Tensor, qcounts: torch.Tensor | None, *, k: int,
                            num_hash: int, bloom_size: int, rpb: int, version: int,
                            qbits: int = 0, qmin: int | None = None,
-                           qmax: int | None = None, key64: bool = False):
+                           qmax: int | None = None):
     """Plain PyTorch twin of the placement kernel's packed mode (same
     contract as ``placement_keyoff``): the block and offsets of
     ``placement_plain``, ``pack_offsets`` and the key."""
@@ -406,22 +406,19 @@ def placement_keyoff_plain(src: torch.Tensor, qcounts: torch.Tensor | None, *, k
     if not qbits:
         return block.to(torch.int32), offp
     q = qcounts if qmin is None and qmax is None else qcounts.clamp(qmin, qmax)
-    key = (block << qbits) | q.to(torch.int64)
-    return key if key64 else key.to(torch.int32), offp
+    return ((block << qbits) | q.to(torch.int64)).to(torch.int32), offp
 
 
 def placement_keyoff(src: torch.Tensor, qcounts: torch.Tensor | None, *, k: int,
                      num_hash: int, bloom_size: int, rpb: int, version: int,
-                     qbits: int = 0, qmin: int | None = None, qmax: int | None = None,
-                     key64: bool = False):
+                     qbits: int = 0, qmin: int | None = None, qmax: int | None = None):
     """The placement kernel's packed mode, for the blocked probe stream: the
     sort key and the packed offsets of each k-mer of ``src`` (as for
     ``placement``) under the blocked layout ``version`` (1-4, num_hash <=
     4). Returns (key, offp int32 [N] in ``pack_offsets``' encoding). With
     qbits == 0 the key is the block, int32; else block << qbits |
-    clamp(qcounts, qmin, qmax) (qcounts int32 [N]), int64 where ``key64``
-    and int32 otherwise, which holds the same value where every key is
-    below 2^31 (the caller's guard).
+    clamp(qcounts, qmin, qmax) (qcounts int32 [N]), int32 too: every key
+    must lie below 2^31, ceil(bloom_size / rpb) << qbits <= 2^31.
 
     A CUDA tensor launches csrc/placement.cu (8 to 16 bytes out a k-mer
     where the block/offsets output writes 8 (H + 1)); a CPU tensor takes
@@ -432,26 +429,28 @@ def placement_keyoff(src: torch.Tensor, qcounts: torch.Tensor | None, *, k: int,
     if qbits:
         if not 0 < qbits < 32:
             raise ValueError("placement_keyoff: qbits must be 0..31")
+        if -(-bloom_size // rpb) << qbits > 2**31:
+            raise ValueError("placement_keyoff: block << qbits | frequency must fit int32")
         if (qcounts is None or qcounts.dtype != torch.int32 or qcounts.shape != (src.shape[0],)
                 or qcounts.device != src.device or not qcounts.is_contiguous()):
             raise ValueError("placement_keyoff: qbits > 0 takes contiguous int32 qcounts [N] "
                              "on the k-mers' device")
     kw = dict(k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb, version=version,
-              qbits=qbits, qmin=qmin, qmax=qmax, key64=key64)
+              qbits=qbits, qmin=qmin, qmax=qmax)
     dev = src.device
     if dev.type == "cpu":
         return placement_keyoff_plain(src, qcounts, **kw)
     if dev.type != "cuda":
         raise ValueError(f"placement_keyoff: unsupported device {dev}")
     n = src.shape[0]
-    key = torch.empty(n, dtype=torch.int64 if key64 and qbits else torch.int32, device=dev)
+    key = torch.empty(n, dtype=torch.int32, device=dev)
     offp = torch.empty(n, dtype=torch.int32, device=dev)
     lo = -(2**31) if qmin is None else max(qmin, -(2**31))
     hi = 2**31 - 1 if qmax is None else min(qmax, 2**31 - 1)
     _launch_placement(
-        "placement_keyoff", src, key.data_ptr(), int(key.dtype == torch.int64),
-        offp.data_ptr(), qcounts.data_ptr() if qbits else None, qbits, lo, hi, k,
-        num_hash, version, bloom_size, rpb,
+        "placement_keyoff", src, key.data_ptr(), offp.data_ptr(),
+        qcounts.data_ptr() if qbits else None, qbits, lo, hi, k, num_hash, version,
+        bloom_size, rpb,
     )
     return key, offp
 

@@ -52,8 +52,8 @@ KERNELS = {
     "placement_keyoff": (
         "placement.cu",
         "placement_keyoff_launch",
-        [_VP, _U64, _I64, _VP, _I32, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32,
-         _I64, _I64, _VP, _VP],
+        [_VP, _U64, _I64, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I64, _I64,
+         _VP, _VP],
     ),
     "window_keys": (
         "window_keys.cu",
@@ -76,8 +76,7 @@ KERNELS = {
     "stream_plan": (
         "stream_tail.cu",
         "stream_plan_launch",
-        [_VP, _I32, _I32, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _VP, _VP, _VP, _VP,
-         _VP, _VP, _I64, _I32, _I32, _I64, _VP],
+        [_VP, _I32, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I64, _VP],
     ),
     "stream_tail": (
         "stream_tail.cu",
@@ -90,6 +89,12 @@ KERNELS = {
         "stream_residual_launch",
         [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
          _I32, _VP, _VP, _VP, _VP, _VP, _VP],
+    ),
+    "sort_payloads": (
+        "radix_sort.cu",
+        "radix_sort_launch",
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I64, _I32,
+         _I64, _I32, _VP, _I64, _VP],
     ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})

@@ -177,6 +177,137 @@ def _window_plan(keys: torch.Tensor, n_blocks: int, pc: int, nt: int,
     return tb, k2d < (tb[:, None].to(torch.int64) + nt) * (T * unit)
 
 
+# --- kernel E (csrc/radix_sort.cu): the streams' key sort with its payloads --
+
+SORT_DIGIT_BITS = 8  # kernel E's widest digit: 256 buckets a pass
+SORT_MAX_OPS = 3  # operand streams a sort carries, the index included
+SORT_MAX_KEYS = 2**30 - 1  # keys a sort takes: kernel E keeps a tile's counts in 30 bits
+_SORT_TILE = 4096  # csrc/radix_sort.cu's keys a tile
+
+
+def sort_passes(bits: int) -> list[int]:
+    """Kernel E's digit widths, low digit first, for keys of ``bits`` bits:
+    ceil(bits / SORT_DIGIT_BITS) digits as equal as they come, the first
+    bits % n of them one bit wider (30: 8, 8, 7, 7; 26: 7, 7, 6, 6; 31: 8,
+    8, 8, 7)."""
+    n = -(-bits // SORT_DIGIT_BITS)
+    q, r = divmod(bits, n)
+    return [q + (i < r) for i in range(n)]
+
+
+def key_bits(max_key: int) -> int:
+    """The bits a sort of keys in [0, max_key] must look at (at least 1)."""
+    return max(1, int(max_key).bit_length())
+
+
+def blocked_key_bits(bloom_size: int, rpb: int, qbits: int) -> int:
+    """Bits of the blocked stream's sort key: the block (below
+    ceil(bloom_size / rpb)) above qbits bits of frequency; 30 at -s
+    50,000,000, rpb 128, qbits 11."""
+    n_blocks = -(-bloom_size // rpb)
+    return key_bits(((n_blocks - 1) << qbits) | ((1 << qbits) - 1))
+
+
+def classic_key_bits(bloom_size: int) -> int:
+    """Bits of the classic stream's sort key, a row below bloom_size; 26 at
+    -s 50,000,000."""
+    return key_bits(bloom_size - 1)
+
+
+def _check_sort_args(key, bits: int, operands, index: bool, base: int, index64: bool):
+    name = "sort_payloads"
+    if key.dtype != torch.int32 or key.dim() != 1 or not key.is_contiguous():
+        raise TypeError(f"{name}: the key must be contiguous int32 [P]")
+    P = key.shape[0]
+    _check_i32(name, operands, key.device, P)
+    if not 1 <= bits <= 31:
+        raise ValueError(f"{name}: bits must be 1..31 (non-negative int32 keys)")
+    if len(operands) + index > SORT_MAX_OPS:
+        raise ValueError(f"{name}: at most {SORT_MAX_OPS} operands, the index included")
+    if P > SORT_MAX_KEYS:
+        raise ValueError(f"{name}: at most {SORT_MAX_KEYS} keys (a tile's counts are 30 bits)")
+    if index64 and not (index and 0 <= base and base + P <= 2**31):
+        raise ValueError(f"{name}: index64 takes the index with 0 <= base, base + P <= 2^31")
+
+
+def sort_payloads_plain(key, bits: int, operands=(), *, index: bool = False, base: int = 0,
+                        index64: bool = False):
+    """Plain PyTorch twin of kernel E (same contract as ``sort_payloads``):
+    the same LSD passes with the same digit widths (``sort_passes``), each
+    the digit of every key, its stable order (a stable sort of the digit
+    alone: the order of a counting sort) and the key and the operands
+    gathered through it. Checks every key's range."""
+    _check_sort_args(key, bits, operands, index, base, index64)
+    if key.numel() and (int(key.min()) < 0 or int(key.max()) >> bits):
+        raise ValueError(f"sort_payloads: a key outside [0, 2^{bits})")
+    ops = list(operands)
+    if index:
+        ops.append((torch.arange(key.shape[0], device=key.device) + base).to(torch.int32))
+    shift = 0
+    for width in sort_passes(bits):
+        order = torch.sort((key >> shift) & ((1 << width) - 1), stable=True).indices
+        key = key[order]
+        ops = [o[order] for o in ops]
+        shift += width
+    if index64:
+        ops[-1] = ops[-1].to(torch.int64)
+    return (key, *ops)
+
+
+def _sort_scratch(P: int) -> int:
+    """int32 of kernel E's scratch for P keys: a status word per tile and
+    bucket, the tile counter (32 words), and four passes' histograms."""
+    return ((-(-P // _SORT_TILE) + 4) << SORT_DIGIT_BITS) + 32
+
+
+def sort_payloads(key, bits: int, operands=(), *, index: bool = False, base: int = 0,
+                  index64: bool = False):
+    """Stable sort of a non-negative int32 key [P] by its low ``bits``
+    bits (every key below 2^bits), carrying int32 operands [P]: the JAX
+    package's lax.sort((key, *operands), num_keys=1), made stable. Returns
+    (key_s, *operands_s), and with ``index`` last the index_s of the
+    generated operand base + i (int32, wrapping as uint32; int64 with
+    ``index64``, which needs 0 <= base and base + P <= 2^31). At most
+    SORT_MAX_OPS operands, the index included, and P <= SORT_MAX_KEYS. Equals
+    torch.sort(key, stable=True) with the operands gathered through its
+    permutation.
+
+    A CUDA tensor launches csrc/radix_sort.cu (kernel E: one histogram of
+    every pass's digit, then one launch an LSD pass of
+    ``sort_passes(bits)``; the key's range is the caller's guarantee
+    there); a CPU tensor takes the plain twin, which checks the range.
+    ``sort_payloads.launches`` counts calls that launched it."""
+    operands = tuple(operands)
+    dev = key.device
+    if dev.type == "cpu":
+        return sort_payloads_plain(key, bits, operands, index=index, base=base,
+                                   index64=index64)
+    _check_sort_args(key, bits, operands, index, base, index64)
+    if dev.type != "cuda":
+        raise ValueError(f"sort_payloads: unsupported device {dev}")
+    P = key.shape[0]
+    n_ops = len(operands) + index
+    two = P and len(sort_passes(bits)) > 1  # ping-pong buffers
+    i32 = dict(dtype=torch.int32, device=dev)
+    key_s = torch.empty(P, **i32)
+    outs = [torch.empty(P, **i32) for _ in operands]
+    if index:
+        outs.append(torch.empty(P, dtype=torch.int64 if index64 else torch.int32, device=dev))
+    tmp = [torch.empty(P, **i32) if two else None for _ in range(n_ops + 1)]
+    scratch = torch.empty(_sort_scratch(P), **i32)
+    pad = [None] * (SORT_MAX_OPS - n_ops)
+    ins = list(operands) + [None] * (SORT_MAX_OPS - len(operands))
+    if P:
+        _launch("sort_payloads", key, key_s, tmp[0], *ins, *outs, *pad, *tmp[1:], *pad,
+                n_ops, n_ops - 1 if index else -1, int(base), int(index64), P, bits, scratch,
+                scratch.numel())
+        sort_payloads.launches += 1
+    return (key_s, *outs)
+
+
+sort_payloads.launches = 0
+
+
 def stream_accumulate_classic_exact(
     stats, hist, over_col, over_freq, blocks2,
     packed: torch.Tensor,  # int32 [P0, 2]; P0 % EPC_CL == 0
@@ -197,15 +328,30 @@ def stream_accumulate_classic_exact(
 
     Nothing here waits for the device. The epilogue runs once over the
     whole batch: every statistic accumulates in k-mer order, so that
-    equals the JAX package's scan over EPC_CL segments."""
+    equals the JAX package's scan over EPC_CL segments. For the same
+    reason a batch of more than SORT_MAX_KEYS rows, more than kernel E
+    sorts at once, runs as EPC_CL-aligned pieces of at most that many rows
+    into the same accumulators, in order, their n_drop summed."""
     if wpad != 1:
         raise ValueError("classic stream kernel supports wpad == 1")
     P0 = packed.shape[0]
     if P0 % EPC_CL:
         raise ValueError(f"stream batch must be padded to a multiple of {EPC_CL}")
     H = num_hash
+    step = SORT_MAX_KEYS // (H * EPC_CL) * EPC_CL
+    if P0 > step:
+        geo = dict(wpad=wpad, k=k, num_hash=H, bloom_size=bloom_size, n_colors=n_colors)
+        n_drop = torch.zeros((), dtype=torch.int32, device=packed.device)
+        for s in range(0, P0, step):
+            n_drop += stream_accumulate_classic_exact(
+                stats, hist, over_col, over_freq, blocks2, packed[s:s + step],
+                qcounts[s:s + step], **geo)[4]
+        return stats, hist, over_col, over_freq, n_drop
     rows = bloom_rows_device(packed, k=k, num_hash=H, bloom_size=bloom_size)
-    row_s, gidx_s = torch.sort(rows.reshape(-1))
+    # kernel E: the rows sorted with their probe index, widened to int64 for
+    # the epilogue (the JAX package sorts (rows, gidx) the same way)
+    row_s, gidx_s = sort_payloads(rows.reshape(-1), classic_key_bits(bloom_size), index=True,
+                                  index64=True)
     tb, chunk_res = classic_residuals(row_s, blocks2.shape[0])
     words = classic_words(blocks2, row_s, tb, planes=_n_planes(n_colors))
 
@@ -287,9 +433,13 @@ def _hist_rows(n_colors: int) -> int:
 
 
 def _qc_in_key_ok(bloom_size: int, rpb: int) -> bool:
-    """Static guard: the block index must fit the key's high bits."""
+    """Static guard: every sort key block << QKEY_BITS | qc must be a
+    non-negative int32, kernel E's key (n_blocks <= 2^20). Past it the
+    stream sorts the block alone with the frequency as an operand; the JAX
+    package's int64 keys take the frequency up to 2^21 blocks, and the
+    answers are the same (the order inside a block is irrelevant)."""
     n_blocks = (bloom_size + rpb - 1) // rpb
-    return n_blocks <= (1 << (32 - QKEY_BITS))
+    return n_blocks << QKEY_BITS <= 2**31
 
 
 def _probe_gather(blocks2, blk_s, off_s, num_hash: int, wpad: int):
@@ -671,43 +821,32 @@ def _launch(name: str, *args) -> None:
 
 
 def stream_chunk_plan_plain(n_blocks: int, wpad: int, *, blk_s=None, off_s=None,
-                            qc_s=None, key_s=None, perm=None, offp=None,
-                            qcounts=None, qbits: int = 0, base0: int | None = None):
+                            qc_s=None, key_s=None, qbits: int = 0):
     """Plain PyTorch twin of kernel D1 (same contract as
     ``stream_chunk_plan``)."""
-    gidx_s = None
     if key_s is not None:
-        if qbits:
-            blk_s = (key_s >> qbits).to(torch.int32)
-            qc_s = (key_s & ((1 << qbits) - 1)).to(torch.int32)
-        else:
-            blk_s = key_s.to(torch.int32)
-            qc_s = qcounts[perm]
-        off_s = offp[perm]
-        if base0 is not None:
-            gidx_s = (perm + base0).to(torch.int32)
+        blk_s = key_s >> qbits
+        qc_s = key_s & ((1 << qbits) - 1)
     tb, inwin2d = stream_plan(blk_s, n_blocks, wpad)
     qc2d = qc_s.view(-1, PC)
     qcw = torch.where(inwin2d, qc2d, 0)
     chunk_res = (~inwin2d & (qc2d > 0)).sum(dim=1, dtype=torch.int32)
     chunk_real = (qcw > 0).sum(dim=1, dtype=torch.int32)
-    return blk_s, off_s, qc_s, gidx_s, qcw.view(-1), tb, chunk_res, chunk_real
+    return blk_s, off_s, qc_s, qcw.view(-1), tb, chunk_res, chunk_real
 
 
 def stream_chunk_plan(n_blocks: int, wpad: int, *, blk_s=None, off_s=None, qc_s=None,
-                      key_s=None, perm=None, offp=None, qcounts=None, qbits: int = 0,
-                      base0: int | None = None):
+                      key_s=None, qbits: int = 0):
     """The window plan of a sorted probe stream over a matrix of n_blocks
-    blocks, in chunks of PC probes: (blk_s, off_s, qc_s, gidx_s, qcw, tb,
-    chunk_res, chunk_real), int32 [P] and [P // PC].
+    blocks, in chunks of PC probes: (blk_s, off_s, qc_s, qcw, tb, chunk_res,
+    chunk_real), int32 [P] and [P // PC].
 
-    Either the probes sorted already (blk_s, off_s, qc_s int32 [P], handed
-    back as they are; gidx_s None), or the sort's output: key_s [P] (int32,
-    or int64) the block, with qbits > 0 shifted above the frequency in its
-    low qbits, perm int64 [P] its permutation, offp int32 [P] and, where
-    qbits == 0, qcounts int32 [P] in k-mer order; then blk_s, off_s =
-    offp[perm], qc_s (the key's bits or qcounts[perm]) and, where base0 is
-    given, gidx_s = perm + base0. tb is each chunk's first window tile
+    Two ways in. The probes sorted already (blk_s, off_s, qc_s int32 [P],
+    handed back as they are). Or the key sorted with its payloads (kernel
+    E's output): key_s int32 [P], the block above the frequency in its low
+    qbits (1..30), and off_s int32 [P] sorted with it; then blk_s and qc_s
+    are the key's bits and off_s is handed back. tb is each chunk's first
+    window tile
     (stream_plan's), qcw = qc_s where the probe's block lies in its chunk's
     window and 0 elsewhere, chunk_res the chunk's probes outside it with
     qc_s > 0, chunk_real its probes with qcw > 0.
@@ -715,20 +854,13 @@ def stream_chunk_plan(n_blocks: int, wpad: int, *, blk_s=None, off_s=None, qc_s=
     A CUDA tensor launches csrc/stream_tail.cu's plan kernel (D1); a CPU
     tensor takes the plain twin. ``stream_chunk_plan.launches`` counts
     kernel launches."""
-    kw = dict(blk_s=blk_s, off_s=off_s, qc_s=qc_s, key_s=key_s, perm=perm, offp=offp,
-              qcounts=qcounts, qbits=qbits, base0=base0)
+    kw = dict(blk_s=blk_s, off_s=off_s, qc_s=qc_s, key_s=key_s, qbits=qbits)
     name = "stream_chunk_plan"
     if key_s is not None:
         P, dev = key_s.shape[0], key_s.device
-        if key_s.dim() != 1 or key_s.dtype not in (torch.int32, torch.int64):
-            raise TypeError(f"{name}: key_s must be int32 or int64 [P]")
-        if perm is None or perm.dtype != torch.int64 or perm.shape != (P,):
-            raise TypeError(f"{name}: perm must be the sort's int64 [P] permutation")
-        if not (key_s.is_contiguous() and perm.is_contiguous()) or perm.device != dev:
-            raise ValueError(f"{name}: key_s and perm contiguous on one device")
-        _check_i32(name, [offp] + ([] if qbits else [qcounts]), dev, P)
-        if not 0 <= qbits <= 30:
-            raise ValueError(f"{name}: qbits must be 0..30")
+        _check_i32(name, (key_s, off_s), dev, P)
+        if not 1 <= qbits <= 30:
+            raise ValueError(f"{name}: a key sorted with its payloads needs qbits 1..30")
     else:
         P, dev = blk_s.shape[0], blk_s.device
         _check_i32(name, (blk_s, off_s, qc_s), dev, P)
@@ -739,23 +871,18 @@ def stream_chunk_plan(n_blocks: int, wpad: int, *, blk_s=None, off_s=None, qc_s=
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     n_chunks = P // PC
-    keyed = key_s is not None
     i32 = dict(dtype=torch.int32, device=dev)
-    if keyed:
-        blk_s, off_s, qc_s = (torch.empty(P, **i32) for _ in range(3))
-    gidx_s = torch.empty(P, **i32) if keyed and base0 is not None else None
+    if key_s is not None:
+        blk_s, qc_s = torch.empty(P, **i32), torch.empty(P, **i32)
     qcw = torch.empty(P, **i32)
     tb, chunk_res, chunk_real = (torch.empty(n_chunks, **i32) for _ in range(3))
     if P:
         _launch(
-            "stream_plan", key_s if keyed else None, int(keyed and key_s.dtype == torch.int64),
-            qbits, perm if keyed else None, offp if keyed else None,
-            qcounts if keyed and not qbits else None, int(base0 or 0),
-            int(gidx_s is not None), blk_s, off_s, qc_s, gidx_s, qcw, tb, chunk_res,
-            chunk_real, P, PC, _nt_win(wpad), n_blocks // T - _nt_win(wpad),
+            "stream_plan", key_s, qbits, blk_s, qc_s, qcw, tb, chunk_res, chunk_real, P, PC,
+            _nt_win(wpad), n_blocks // T - _nt_win(wpad),
         )
         stream_chunk_plan.launches += 1
-    return blk_s, off_s, qc_s, gidx_s, qcw, tb, chunk_res, chunk_real
+    return blk_s, off_s, qc_s, qcw, tb, chunk_res, chunk_real
 
 
 stream_chunk_plan.launches = 0
@@ -940,11 +1067,11 @@ def _stream_core_kernels(
 ):
     """The sorted-probe body through kernel D around the probe kernel:
     ``plan`` is stream_chunk_plan's output, gidx_s the overflow payload
-    (plan's gidx_s, or qc_s in exact mode). The probe kernel over the
+    (the index that kernel E sorted with the key, or qc_s in exact mode). The probe kernel over the
     window's probes, the tail (D2), the residual gather (D3) of the listed
     chunks and the epilogue's AND-words mode (kernel C) over the list's
     capacity. On CPU tensors every wrapper takes its twin."""
-    blk_s, off_s, qc_s, _gidx, qcw, tb, chunk_res, chunk_real = plan
+    blk_s, off_s, qc_s, qcw, tb, chunk_res, chunk_real = plan
     C, W = n_colors, wpad
     cp, hw = _hist_rows(C), _hist_w(C)
     acc = torch.zeros(32 * W + cp * hw, dtype=torch.int32, device=blk_s.device)
@@ -997,14 +1124,6 @@ def _check_stream_batch(packed, qcounts):
         raise ValueError(f"stream batch must be padded to a multiple of {PC}")
 
 
-def _key32(bloom_size: int, rpb: int) -> bool:
-    """Whether every sort key block << QKEY_BITS | qc lies below 2^31
-    (n_blocks <= 2^20), so that the sort takes int32 keys: the same values
-    as the int64 keys, so the same stable permutation. Larger blocks would
-    turn negative as int32 and sort first."""
-    return -(-bloom_size // rpb) << QKEY_BITS <= 2**31
-
-
 def _sorted_probes_plain(packed, qcounts, *, qbits: int, qmin, qmax, k: int,
                          num_hash: int, bloom_size: int, rpb: int, bv: int):
     """The twin's packing and sort: (blk_s, off_s, qc_s, perm) of a stream
@@ -1032,7 +1151,9 @@ def _stream_accumulate(stats, hist, over_col, over_freq, blocks2, packed, qcount
                        kernels_route: bool):
     """Both stream_accumulate_hash variants: base0 None is exact mode (the
     frequency is its own overflow payload). kernels_route: kernel A's packed
-    mode, an int32 key sort where ``_key32`` holds, kernel D; else the
+    mode, kernel E's sort of the int32 key with its payloads (the offsets;
+    the frequencies where qbits == 0; the index from base0 where given),
+    kernel D's plan on the sorted streams, then kernel D. Otherwise the
     twin's packing and ``_stream_core_plain``."""
     place = dict(k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb)
     core = dict(wpad=wpad, num_hash=num_hash, rpb=rpb, n_colors=n_colors)
@@ -1044,11 +1165,16 @@ def _stream_accumulate(stats, hist, over_col, over_freq, blocks2, packed, qcount
                                   off_s, qc_s, gidx_s, **core)
     key, offp = placement_keyoff(
         packed, qcounts if qbits else None, version=bv, qbits=qbits, qmin=qmin,
-        qmax=qmax, key64=not _key32(bloom_size, rpb), **place)
-    key_s, perm = torch.sort(key, stable=True)
-    plan = stream_chunk_plan(blocks2.shape[0], wpad, key_s=key_s, perm=perm, offp=offp,
-                             qcounts=qcounts, qbits=qbits, base0=base0)
-    gidx_s = plan[2] if base0 is None else plan[3]
+        qmax=qmax, **place)
+    ops = (offp,) if qbits else (offp, qcounts)
+    out = sort_payloads(key, blocked_key_bits(bloom_size, rpb, qbits), ops,
+                        index=base0 is not None, base=base0 or 0)
+    n_blocks = blocks2.shape[0]
+    if qbits:
+        plan = stream_chunk_plan(n_blocks, wpad, key_s=out[0], off_s=out[1], qbits=qbits)
+    else:
+        plan = stream_chunk_plan(n_blocks, wpad, blk_s=out[0], off_s=out[1], qc_s=out[2])
+    gidx_s = plan[2] if base0 is None else out[-1]
     return _stream_core_kernels(stats, hist, over_col, over_freq, blocks2, plan, gidx_s,
                                 **core)
 
@@ -1074,8 +1200,8 @@ def stream_accumulate_hash(
     on the generic path (overflow or residual capacity exceeded).
 
     On the card: kernel A's packed mode (the sort key and packed offsets),
-    one stable sort of the key (int32 where ``_key32`` holds), kernel D and
-    the probe kernel; CPU tensors take the twins' route."""
+    kernel E's sort of the int32 key with its payloads, kernel D and the
+    probe kernel; CPU tensors take the twins' route."""
     _check_stream_batch(packed, qcounts)
     return _stream_accumulate(
         stats, hist, over_col, over_freq, blocks2, packed, qcounts, base0,

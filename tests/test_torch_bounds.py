@@ -53,24 +53,31 @@ def test_probe_bytes_at_wpad_1_share_sectors():
 
 def test_stream_tail_bytes_from_the_sort_and_from_sorted_probes():
     """Kernel D's bytes for 4,096 probes in two chunks of 2,048 (two tiles),
-    W 1, C 21, hw 1,024, one slot of the residual list: from an int32 key
-    with the frequency in it (no gather of qcounts) and a global index,
-    three residual probes on two sectors and one kept overflow entry; and
-    the same batch sorted already, in exact mode, with nothing listed."""
+    W 1, C 21, hw 1,024, one slot of the residual list: from the int32 key
+    with the frequency in it that kernel E sorted with its payloads (the key
+    read, blk_s and qc_s written; the offsets and the index came from the
+    sort), three residual probes on two sectors and one kept overflow
+    entry; and the same batch sorted already (the block sorted alone, the
+    frequency an operand), in exact mode, with nothing listed."""
     P, pc = 4096, 2048
     d2 = 8 * P + 4 * (32 + 21 * 1024) + 8 * 21 * 1024 + 8 * 24 + 8 * 2 + 16 * 2 + 4 * 1
     keyed = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=1, W=1, C=21, hw=1024,
-                                 key_bytes=4, qc_gather=False, gidx=True, n_res=3,
-                                 res_sectors=2, n_kept=1)
-    d1 = P * (4 + 8 + 4 + 12) + P * (4 + 4) + 12 * 2
+                                 key_bytes=4, n_res=3, res_sectors=2, n_kept=1)
+    d1 = P * (4 + 8) + P * 4 + 12 * 2
     d3 = pc * (4 + 10) + 8 * pc + 8 * 3 + 32 * 2
     assert keyed == d1 + d2 + 20 + d3
-    # an int64 key without the frequency gathers qcounts through the sort
-    wide = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=1, W=1, C=21, hw=1024,
-                                key_bytes=8, qc_gather=True, gidx=True, n_res=3,
-                                res_sectors=2, n_kept=1)
-    assert wide - keyed == P * (4 + 4)
     sorted_ = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=0, W=1, C=21, hw=1024,
-                                   key_bytes=0, qc_gather=False, gidx=False, n_res=0,
-                                   res_sectors=0, n_kept=0)
+                                   key_bytes=0, n_res=0, res_sectors=0, n_kept=0)
     assert sorted_ == P * 8 + P * 4 + 12 * 2 + d2 + pc * (4 + 10)
+
+
+def test_sort_bytes_read_each_input_and_write_each_output_once():
+    """Kernel E's bytes: 16 a probe for the blocked exact key with its
+    offsets, and for the classic rows with an int64 index (not read: made
+    in the first pass); 20 for the clipped key, its offsets and an int32
+    index; 24 with qbits 0 (key, offsets, frequencies)."""
+    P = 9_437_184
+    assert cs.sort_bytes(P, n_operands=1, index=False, index64=False) == 16 * P
+    assert cs.sort_bytes(34_603_008, n_operands=0, index=True, index64=True) == 16 * 34_603_008
+    assert cs.sort_bytes(P, n_operands=1, index=True, index64=False) == 20 * P
+    assert cs.sort_bytes(P, n_operands=2, index=False, index64=False) == 24 * P

@@ -6,8 +6,8 @@ the card has no jax), so they run there without the repo's conftest:
 
 Each kernel (the classic word kernel, the blocked probe kernel and its raw
 mode, the placement kernel and its packed mode, the window-key and
-search-epilogue kernels, and the blocked stream's plan, tail and residual
-kernels) must equal its
+search-epilogue kernels, the blocked stream's plan, tail and residual
+kernels, and the streams' key sort) must equal its
 plain twin bit for bit, count its launches and refuse what it cannot take; the engines on the card (single-device, and a (1, 4)
 color and row mesh on the one card) must give the CPU's SearchResult,
 through the kernels."""
@@ -1191,10 +1191,11 @@ def test_classic_engine_ends_in_the_epilogue_kernel(cuda_device, monkeypatch, tm
     monkeypatch.setenv("COLORID_STREAM", "0")
     generic = QueryEngine(index, device=cuda_device)
     for fn, engine in ((tq._accumulate_sorted_words, card), (tq._accumulate_tail, generic)):
-        before = fn.launches
+        before, sorts = fn.launches, sq.sort_payloads.launches
         stream_ops.names.clear()
         got = engine.search_keys(None, qcounts=qcounts, packed_all=packed, k=27)
         assert fn.launches > before
+        assert (sq.sort_payloads.launches > sorts) == (engine is card)  # kernel E's rows
         assert not indexed & stream_ops.names, stream_ops.names
         for field in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
             np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
@@ -1209,7 +1210,8 @@ def test_placement_keyoff_matches_twin(cuda_device, k):
     """Kernel A's packed mode (the sort key and the packed offsets) on v1-v4
     at H 1-4, from packed k-mers and from sort keys with sentinels: the key
     as the block, with a clipped or exact frequency in its low 11 bits
-    (negative frequencies too), int32 and int64, equal to the twin, twice."""
+    (negative frequencies too), equal to the twin, twice; a frequency in
+    the key of a matrix past 2^20 blocks is refused."""
     from colorid_tpu_torch.ops import extract as te
     from colorid_tpu_torch.ops import hash_torch as ht
 
@@ -1220,8 +1222,7 @@ def test_placement_keyoff_matches_twin(cuda_device, k):
     sk = te._sort_key(p64[:, 0], p64[:, 1])
     sk[::97] = te.SENT_KEY
     q = torch.from_numpy(rng.integers(-5, 5000, 5000).astype(np.int32)).to(cuda_device)
-    modes = [dict(), dict(qbits=11, qmax=1024), dict(qbits=11, qmin=0, qmax=2047),
-             dict(qbits=11, qmax=1024, key64=True), dict(qbits=11, qmin=0, qmax=2047, key64=True)]
+    modes = [dict(), dict(qbits=11, qmax=1024), dict(qbits=11, qmin=0, qmax=2047)]
     for src in (pk, sk):
         for H in (1, 2, 3, 4):
             for bloom in (1_000_003, 2**27 + 5, 2**31 - 1):
@@ -1233,6 +1234,10 @@ def test_placement_keyoff_matches_twin(cuda_device, k):
                             kw = dict(k=k, num_hash=H, bloom_size=bloom, rpb=rpb,
                                       version=version, **m)
                             qq = q if m else None
+                            if m and -(-bloom // rpb) << 11 > 2**31:
+                                with pytest.raises(ValueError, match="fit int32"):
+                                    ht.placement_keyoff(src, qq, **kw)
+                                continue
                             before = ht.placement.launches
                             got = [ht.placement_keyoff(src, qq, **kw) for _ in range(2)]
                             assert ht.placement.launches == before + 2
@@ -1301,12 +1306,13 @@ def test_stream_tail_kernels_match_twins(cuda_device, monkeypatch, name):
     plain = ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, cuda_device, False)
     _tensors_equal(plain, [w.to(cuda_device) for w in want], "twins' route on the card")
     before = [getattr(sq, n).launches for n in _TAIL_WRAPPERS]
-    epi = tq._accumulate_tail.launches
+    epi, sorts = tq._accumulate_tail.launches, sq.sort_payloads.launches
     seen = _capture_tail(monkeypatch)
     got = ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, cuda_device, True)
     torch.cuda.synchronize()
     assert [getattr(sq, n).launches for n in _TAIL_WRAPPERS] == [b + 1 for b in before]
     assert tq._accumulate_tail.launches == epi + 1
+    assert sq.sort_payloads.launches == sorts + 1  # kernel E sorted the int32 key
     _tensors_equal(got, [w.to(cuda_device) for w in want], "the card's route")
     if name in ("sparse", "overflow"):
         assert int(got[4]) > 0
@@ -1355,3 +1361,104 @@ def test_fused_probe_on_card_matches_cpu(cuda_device, monkeypatch):
     a, kw2 = seen["stream_chunk_plan"]
     _tensors_equal(sq.stream_chunk_plan(*a, **kw2), sq.stream_chunk_plan_plain(*a, **kw2),
                    "stream_chunk_plan, sorted probes")
+
+
+# -- kernel E (the streams' key sort with its payloads) -------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ts.SORT_CASES))
+def test_sort_kernel_matches_twin(cuda_device, name):
+    """Kernel E against its twin, twice, bit for bit: random 30-bit keys
+    with an operand and the index from a base, duplicates, all keys equal,
+    keys descending with the index widened to int64, bits 1 and 31, P not a
+    multiple of the tile, a P of a few hundred, the qbits == 0 batch's three
+    operands, an index that wraps past 2^32, and P = 0 (no launch). The
+    inputs stay as they were."""
+    key, bits, ops, index, base, index64 = ts.sort_case(name)
+    k = torch.from_numpy(key).to(cuda_device)
+    o = [torch.from_numpy(a).to(cuda_device) for a in ops]
+    kw = dict(index=index, base=base, index64=index64)
+    want = sq.sort_payloads_plain(k, bits, o, **kw)
+    snap = [k.clone()] + [x.clone() for x in o]
+    for _ in range(2):
+        before = sq.sort_payloads.launches
+        got = sq.sort_payloads(k, bits, o, **kw)
+        torch.cuda.synchronize()
+        assert sq.sort_payloads.launches == before + (key.shape[0] > 0)
+        _tensors_equal(got, want, f"sort_payloads {name}")
+    _tensors_equal([k] + o, snap, "the sort's inputs")
+
+
+@pytest.mark.cuda
+def test_sort_kernel_at_a_dispatch_size(cuda_device):
+    """A blocked dispatch's size (2,359,296 probes, 30 bits, the packed
+    offsets and the index) and a classic one's (1,048,576 rows, 26 bits,
+    the index as int64): equal to torch.sort(stable) with the gathers."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    for P, bits, n_ops, index64 in ((2_359_296, 30, 1, False), (1 << 20, 26, 0, True)):
+        key = torch.randint(0, 2**bits, (P,), generator=g, device=cuda_device,
+                            dtype=torch.int32)
+        ops = [torch.randint(-(2**31), 2**31 - 1, (P,), generator=g, device=cuda_device,
+                             dtype=torch.int32) for _ in range(n_ops)]
+        got = sq.sort_payloads(key, bits, ops, index=True, index64=index64)
+        key_s, perm = torch.sort(key, stable=True)
+        want = [key_s] + [x[perm] for x in ops] + [perm if index64 else perm.to(torch.int32)]
+        _tensors_equal(got, want, f"sort_payloads P={P}")
+
+
+@pytest.mark.cuda
+def test_sort_kernel_refuses(cuda_device):
+    k = torch.arange(64, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="different devices"):
+        sq.sort_payloads(k, 8, [k.cpu()])
+    with pytest.raises(ValueError, match="at most"):
+        sq.sort_payloads(k, 8, [k, k, k], index=True)
+    with pytest.raises(TypeError, match="int32"):
+        sq.sort_payloads(k.to(torch.int64), 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["w2_h4", "skip"])
+def test_plan_on_sorted_key_matches_presorted_mode(cuda_device, name):
+    """Kernel D1 on the key sorted with its payloads by kernel E against D1
+    on the same probes handed over sorted already (the key's bits unpacked
+    by torch ops), on the same batch: blk_s, off_s, qc_s, qcw, tb and the
+    chunk counts equal, and each equal to its twin."""
+    from colorid_tpu_torch.ops.hash_torch import placement_keyoff
+
+    geo, blocks, pk, qc, _mode = ts.stream_tail_case(name)
+    q = torch.from_numpy(qc).to(cuda_device)
+    key, offp = placement_keyoff(
+        ts.t32(pk).to(cuda_device), q, k=geo["k"], num_hash=geo["num_hash"],
+        bloom_size=geo["bloom_size"], rpb=geo["rpb"], version=geo["bv"], qbits=sq.QKEY_BITS,
+        qmin=0, qmax=sq.QKEY_MASK)
+    n_blocks, W = blocks.shape[0], geo["wpad"]
+    bits = sq.blocked_key_bits(geo["bloom_size"], geo["rpb"], sq.QKEY_BITS)
+    key_s, off_s = sq.sort_payloads(key, bits, [offp])
+    free = dict(key_s=key_s, off_s=off_s, qbits=sq.QKEY_BITS)
+    presorted = dict(blk_s=key_s >> sq.QKEY_BITS, off_s=off_s, qc_s=key_s & sq.QKEY_MASK)
+    before = sq.stream_chunk_plan.launches
+    got = sq.stream_chunk_plan(n_blocks, W, **free)
+    want = sq.stream_chunk_plan(n_blocks, W, **presorted)
+    torch.cuda.synchronize()
+    assert sq.stream_chunk_plan.launches == before + 2
+    assert got[1] is off_s
+    _tensors_equal(got, want, "plan: sorted key vs presorted")
+    _tensors_equal(got, sq.stream_chunk_plan_plain(n_blocks, W, **free), "plan twin")
+
+
+@pytest.mark.cuda
+def test_card_route_past_2_20_blocks(cuda_device, monkeypatch):
+    """Past 2^20 blocks (forced: the frequency out of the key) kernel E
+    sorts the block alone with the offsets, the frequencies and the index,
+    one launch; the twins' route's answers."""
+    geo, blocks, pk, qc, _mode = ts.stream_tail_case("w2_h4")
+    monkeypatch.setattr(sq, "_qc_in_key_ok", lambda bloom_size, rpb: False)
+    accs = ts.epi_accs(geo["n_colors"], geo["wpad"], pk.shape[0], 0, seed=5)
+    want = ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", False)
+    before = sq.sort_payloads.launches
+    got = ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, cuda_device, True)
+    torch.cuda.synchronize()
+    assert sq.sort_payloads.launches == before + 1
+    _tensors_equal(got, [w.to(cuda_device) for w in want], "frequency out of the key")

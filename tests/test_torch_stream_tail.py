@@ -4,8 +4,9 @@ _probe) against the JAX package's (stream_accumulate_hash[_exact],
 _stream_core, with its Pallas kernel in interpret mode) on the same seeded
 inputs, on the CPU. Both routes of the port run: the twins' route
 (_stream_core_plain, which a CPU tensor takes) and the card's route
-(kernel A's packed mode, the key sort, kernel D, the probe kernel and the
-epilogue) with every wrapper on its plain twin. Everything is an integer:
+(kernel A's packed mode, kernel E's sort of the key with its payloads,
+kernel D's plan on the sorted streams, the probe kernel, the rest of
+kernel D and the epilogue) with every wrapper on its plain twin. Everything is an integer:
 tolerance 0, element for element, the overflow list in order, n_drop
 included. The kernels themselves run only on a CUDA card
 (tests/test_torch_cuda.py)."""
@@ -53,7 +54,7 @@ def _residual_counts(geo, blocks, pk, qc):
         ts.t32(pk), torch.from_numpy(qc), qbits=0, qmin=None, qmax=None, k=geo["k"],
         num_hash=geo["num_hash"], bloom_size=geo["bloom_size"], rpb=geo["rpb"], bv=geo["bv"])
     return tsq.stream_chunk_plan(blocks.shape[0], geo["wpad"], blk_s=blk_s, off_s=off_s,
-                                 qc_s=qc_s)[6]
+                                 qc_s=qc_s)[5]
 
 
 @pytest.mark.parametrize("name", sorted(ts.STREAM_TAIL_CASES))
@@ -158,40 +159,85 @@ def test_fused_probe_matches_jax():
 @pytest.mark.parametrize("n_blocks", [1 << 20, (1 << 20) + 1])
 def test_int32_key_gives_the_int64_keys_permutation(n_blocks):
     """Kernel A's packed key at the int32 guard's edge (rpb 128, v4 H 4, the
-    largest k-mer value in the last block): at 2^20 blocks the int32 keys
-    hold the int64 keys' values, so their stable sorts give the same
-    permutation; at 2^20 + 1 the guard picks int64, where an int32 key
-    would wrap negative and sort first."""
+    largest k-mer value in the last block): at 2^20 blocks the int32 key
+    holds the int64 key block << 11 | qc, so kernel E's sort (its twin
+    here) gives the int64 keys' stable permutation; at 2^20 + 1 the guard
+    takes the frequency out of the key, kernel A refuses it in the key (an
+    int32 key would wrap negative and sort first), and the block alone,
+    sorted with the offsets and the frequencies as operands, gives the same
+    blocks and, inside each block, the k-mer order."""
     rng = np.random.default_rng(n_blocks % 97)
     n = 20_000
     pk = ts.rand_packed(rng, n)
     pk[-1] = (0xFFFFFFFF, 0x3FFFFFFF)  # 4^31 - 1: the last block
     qc = torch.from_numpy(rng.integers(0, 3000, n).astype(np.int32))
-    kw = dict(k=31, num_hash=4, bloom_size=n_blocks * 128, rpb=128, version=4,
-              qbits=tsq.QKEY_BITS, qmin=None, qmax=tsq.FREQ_CAP)
-    key64, off64 = placement_keyoff(ts.t32(pk), qc, key64=True, **kw)
-    key32, off32 = placement_keyoff(ts.t32(pk), qc, **kw)
-    assert key64.dtype == torch.int64 and key32.dtype == torch.int32
-    assert torch.equal(off32, off64)
-    assert int(key64[-1]) >> tsq.QKEY_BITS == n_blocks - 1
-    ok = tsq._key32(n_blocks * 128, 128)
-    assert ok == (n_blocks == 1 << 20)
+    geo = dict(k=31, num_hash=4, bloom_size=n_blocks * 128, rpb=128, version=4)
+    kw = dict(geo, qbits=tsq.QKEY_BITS, qmin=None, qmax=tsq.FREQ_CAP)
+    blk, off = placement_keyoff(ts.t32(pk), None, **geo)
+    assert int(blk[-1]) == n_blocks - 1
+    key64 = (blk.to(torch.int64) << tsq.QKEY_BITS) | qc.clamp(max=tsq.FREQ_CAP)
     perm64 = torch.sort(key64, stable=True).indices
-    perm32 = torch.sort(key32, stable=True).indices
-    assert torch.equal(perm32, perm64) == ok
-    assert torch.equal(key32.to(torch.int64), key64) == ok
+    ok = tsq._qc_in_key_ok(n_blocks * 128, 128)
+    assert ok == (n_blocks == 1 << 20)
+    bits = tsq.blocked_key_bits(n_blocks * 128, 128, tsq.QKEY_BITS if ok else 0)
+    if ok:
+        key32, off32 = placement_keyoff(ts.t32(pk), qc, **kw)
+        assert key32.dtype == torch.int32 and torch.equal(off32, off)
+        assert torch.equal(key32.to(torch.int64), key64) and bits == 31
+        key_s, off_s = tsq.sort_payloads(key32, bits, [off32])
+        assert torch.equal(key_s.to(torch.int64), key64[perm64])
+        assert torch.equal(off_s, off[perm64])
+    else:
+        with pytest.raises(ValueError, match="fit int32"):
+            placement_keyoff(ts.t32(pk), qc, **kw)
+        assert bits == 21
+        blk_s, off_s, qc_s = tsq.sort_payloads(blk, bits, [off, qc])
+        perm = torch.sort(blk, stable=True).indices
+        assert torch.equal(blk_s, blk[perm]) and torch.equal(off_s, off[perm])
+        assert torch.equal(qc_s, qc[perm])
+        assert torch.equal(blk_s.to(torch.int64), key64[perm64] >> tsq.QKEY_BITS)
+
+
+def test_frequency_out_of_the_key_with_a_global_index_matches_jax(monkeypatch):
+    """Where the frequency does not fit the key (``_qc_in_key_ok`` false,
+    patched in both packages), clipped mode sorts the block with three
+    operands (offsets, frequencies, the index from base0): the card's route
+    with its twins and the twins' route equal the JAX package's
+    stream_accumulate_hash."""
+    geo, blocks, pk, qc, _mode = ts.stream_tail_case("w2_h4")
+    P = 5 * tsq.PC  # a batch shape no other test traces
+    pk, qc = pk[:P], qc[:P]
+    for m in (tsq, jsq):
+        monkeypatch.setattr(m, "_qc_in_key_ok", lambda bloom_size, rpb: False)
+    calls = []
+    real = tsq.sort_payloads
+
+    def recorded(*a, **kw):
+        calls.append((a[1], len(a[2]), kw))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tsq, "sort_payloads", recorded)
+    accs = _accs(geo["n_colors"], geo["wpad"], P, 0)
+    want = _jax(geo, blocks, pk, qc, "clipped", accs, 4096)
+    _same(ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", True), want)
+    _same(ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", False), want)
+    bits = tsq.blocked_key_bits(geo["bloom_size"], geo["rpb"], 0)
+    assert calls == [(bits, 2, dict(index=True, base=4096))]
 
 
 @pytest.mark.parametrize("key64", [False, True])
 def test_key_width_gives_the_same_answers(key64, monkeypatch):
-    """The card's route with int32 and with int64 keys (forced) on the
-    'w2_h4' batch gives the twins' route's answers."""
+    """Past 2^20 blocks (``_qc_in_key_ok`` false, patched in the port only:
+    key64) the port sorts the block alone where the JAX package's int64 key
+    still carries the frequency; on the 'w2_h4' batch in clipped mode both
+    of the port's routes give the JAX package's answers either way."""
     geo, blocks, pk, qc, _mode = ts.stream_tail_case("w2_h4")
-    monkeypatch.setattr(tsq, "_key32", lambda bloom_size, rpb: not key64)
+    monkeypatch.setattr(tsq, "_qc_in_key_ok", lambda bloom_size, rpb: not key64)
+    assert jsq._qc_in_key_ok(geo["bloom_size"], geo["rpb"])
     accs = _accs(geo["n_colors"], geo["wpad"], pk.shape[0], 0)
-    want = ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", False)
-    got = ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", True)
-    _same(got, [w.numpy() for w in want])
+    want = _jax(geo, blocks, pk, qc, "clipped", accs, 4096)
+    _same(ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", False), want)
+    _same(ts.stream_tail_run(geo, blocks, pk, qc, "clipped", accs, "cpu", True), want)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -201,8 +247,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tsq.stream_chunk_plan(1024, 2, blk_s=z[:100], off_s=z[:100], qc_s=z[:100])
     with pytest.raises(TypeError, match="int32"):
         tsq.stream_chunk_plan(1024, 2, blk_s=z.to(torch.int64), off_s=z, qc_s=z)
-    with pytest.raises(TypeError, match="perm"):
-        tsq.stream_chunk_plan(1024, 2, key_s=z, perm=z, offp=z, qcounts=z)
+    with pytest.raises(ValueError, match="qbits"):
+        tsq.stream_chunk_plan(1024, 2, key_s=z, off_s=z, qbits=0)
     with pytest.raises(ValueError, match="num_hash"):
         placement_keyoff(ts.t32(pk), None, k=31, num_hash=8, bloom_size=65536, rpb=64,
                          version=2)
@@ -213,5 +259,5 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     out = tsq.stream_chunk_plan(blocks.shape[0], 2, blk_s=z, off_s=z, qc_s=z)
     with pytest.raises(ValueError, match="out of shape"):
         tsq.stream_tail(*accs, z, z, z, torch.zeros(32, dtype=torch.int32),
-                        torch.zeros((64, 1024), dtype=torch.int32), out[6], out[7],
+                        torch.zeros((64, 1024), dtype=torch.int32), out[5], out[6],
                         wpad=2, n_colors=40)

@@ -504,3 +504,47 @@ def stream_tail_run(geo, blocks, pk, qc, mode, accs, device, kernels_route: bool
         qmin=None if clipped else 0, qmax=sq.FREQ_CAP if clipped else sq.QKEY_MASK,
         kernels_route=kernels_route, **geo,
     )
+
+
+# -- batches of the streams' key sort (ops/stream_query.py::sort_payloads,
+# kernel E) ---------------------------------------------------------------------
+
+SORT_CASES = {
+    # name: (P, bits, key kind, int32 operands, index, base, index64)
+    "random_30": (100_000, 30, "random", 1, True, 7_000_000, False),
+    "duplicates": (50_000, 12, "few", 2, False, 0, False),
+    "all_equal": (20_000, 3, "equal", 1, True, 0, False),
+    "descending": (30_000, 21, "descending", 0, True, 0, True),
+    "bits_1": (10_000, 1, "random", 1, True, 0, False),
+    "bits_31": (40_000, 31, "random", 1, False, 0, False),
+    "ragged_tile": (3 * 4096 + 123, 26, "random", 0, True, 0, True),
+    "few_hundred": (300, 20, "random", 2, True, 11, False),
+    "qbits_0_three_operands": (16_384, 19, "random", 2, True, 4096, False),
+    "index_wraps": (5_000, 16, "random", 0, True, 2**32 - 2_000, False),
+    "empty": (0, 10, "random", 1, True, 0, False),
+}
+
+
+def sort_case(name: str):
+    """One batch of SORT_CASES: (key int32 [P] in [0, 2^bits), bits, a list
+    of int32 operands [P] over the whole int32 range, index, base,
+    index64)."""
+    P, bits, kind, n_ops, index, base, index64 = SORT_CASES[name]
+    rng = np.random.default_rng(sorted(SORT_CASES).index(name) + 300)
+    if kind == "random":
+        key = rng.integers(0, 2**bits, P)
+    elif kind == "few":
+        key = rng.integers(0, 50, P)
+    elif kind == "equal":
+        key = np.full(P, 5)
+    else:
+        key = (2**bits - 1) - np.arange(P) * 7
+    ops = [rng.integers(-(2**31), 2**31, P).astype(np.int32) for _ in range(n_ops)]
+    return key.astype(np.int32), bits, ops, index, base, index64
+
+
+def sort_index(P: int, base: int, index64: bool) -> np.ndarray:
+    """The generated index operand base + i: int32 wrapping as uint32, or
+    int64."""
+    idx = np.arange(P, dtype=np.int64) + base
+    return idx if index64 else (idx & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
