@@ -7,8 +7,9 @@
 With --compare it measures this checkout against the one at OTHER_ROOT (for
 example the parent commit, unpacked with git archive) on one cell, in the
 turns other, this, this, other, each a fresh process: the [parity],
-[reads], [fused] and [mproc] phases below with their [profile] lines. It
-prints no result line.
+[kernel] sort (kernel E on both dispatches' own sort inputs), [reads],
+[fused] and [mproc] phases below with their [profile] lines. It prints
+no result line.
 
 Phases, each printing its lines (any failure exits non-zero):
 
@@ -60,9 +61,12 @@ Phases, each printing its lines (any failure exits non-zero):
    the generated index from a base; the classic batch's 26-bit rows with
    their index widened to int64) and on edge cases (all keys equal, keys
    descending, bits 1 and 31, P not a multiple of the tile, P 300, the
-   blocks of a matrix past 2^20 blocks with three operands); E's time on
-   each dispatch's batch beside its twin's, torch.sort's with the gathers
-   (the library call) and the bound; and past 2^20 blocks, E's sort of the
+   blocks of a matrix past 2^20 blocks with three operands, and at
+   2,097,152 keys the main cell's skew: a key with 10 % of the probes, four
+   rows with 1 % each, every key's top bits equal, one pass); each
+   dispatch's digit skew; E's time on each dispatch's batch beside its
+   twin's, torch.sort's with the gathers (the library call) and the bound,
+   each of its launches apart; and past 2^20 blocks, E's sort of the
    21-bit block with three operands beside torch.sort of the int64 key
    block << 11 | frequency with the gathers (the route it replaced there).
    The blocked and classic dispatches' [profile] lines must show no
@@ -1840,29 +1844,12 @@ def _sort_args(a, kw):
     return a[0], a[1], ops, kw
 
 
-def sort_kernel_phase(classic_dispatch, blocked_dispatch, main_launches: int,
-                      card: str) -> dict:
-    """Kernel E (csrc/radix_sort.cu) against its twin, bitwise, on the
-    inputs that the device-resident dispatches hand it: the blocked batch's
-    key (the frequency in its low bits, 30 bits) with its packed offsets,
-    the same with the generated index from base0 7,000,000, the classic
-    batch's rows (26 bits) with their index widened to int64; and on edge
-    cases: all keys equal, keys descending, bits 1 and 31, P not a multiple
-    of the tile, a P of a few hundred, the blocked batch's blocks times 3
-    (past 2^20 blocks, 21 bits, where the frequency leaves the key) with
-    three operands. The time of E, of its twin and of torch.sort(stable)
-    with the operands gathered through its permutation (the library call)
-    on each dispatch's batch, and the bound (sort_bytes: the bytes bind;
-    the operations are a few integer instructions a key a pass, which the
-    SASS of a straight-line kernel with its branches does not count); on
-    the blocks past 2^20, E beside torch.sort of the int64 key block << 11
-    | frequency with the offsets and the index gathered through its
-    permutation (the route that geometry took before E)."""
-    import torch
-
+def _sort_capture(classic_dispatch, blocked_dispatch) -> dict:
+    """The sort_payloads calls (key, bits, operands, keywords) that the
+    blocked and the classic device-resident dispatch make, each run once;
+    the launches of the wrapper kept as they were counted."""
     from colorid_tpu_torch.ops import stream_query as sq
 
-    t0 = time.time()
     real = sq.sort_payloads
     seen = {}
 
@@ -1884,6 +1871,117 @@ def sort_kernel_phase(classic_dispatch, blocked_dispatch, main_launches: int,
             sq.sort_payloads = real
         if what not in seen:
             raise AssertionError(f"the {what} dispatch did not sort with kernel E")
+    return seen
+
+
+def _sort_library(key, ops, kw):
+    """torch.sort(stable) of the key with the operands and the index
+    gathered through its permutation: the library call E stands beside."""
+    import torch
+
+    key_s, perm = torch.sort(key, stable=True)
+    out = [key_s] + [o[perm] for o in ops]
+    if kw.get("index"):
+        out.append(perm + kw.get("base", 0) if kw.get("index64")
+                   else (perm + kw.get("base", 0)).to(torch.int32))
+    return out
+
+
+def _launch_ms(fn) -> list:
+    """The device kernels of one call of fn, in launch order: [(name, ms)]
+    (torch.profiler; [] where the trace has no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    out = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].split("::")[-1].strip() or e.name[:30]
+        out.append((e.time_range.start, name, e.time_range.elapsed_us() / 1e3))
+    return [(n, ms) for _, n, ms in sorted(out)]
+
+
+def sort_turn_phase(classic_dispatch, blocked_dispatch, card: str) -> None:
+    """--compare's [kernel] sort: kernel E of the turn's checkout on the
+    blocked and the classic dispatch's own sort inputs, bitwise against its
+    twin, and its time beside torch.sort's with the gathers."""
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    seen = _sort_capture(classic_dispatch, blocked_dispatch)
+    for what in ("blocked", "classic"):
+        key, bits, ops, kw = seen[what]
+        err = max(max_abs_diff(x, y) for x, y in zip(sq.sort_payloads(key, bits, ops, **kw),
+                                                      sq.sort_payloads_plain(key, bits, ops,
+                                                                             **kw)))
+        if err:
+            raise AssertionError(f"sort kernel != twin ({what} dispatch): max_abs_err {err}")
+        ms = cuda_ms(lambda: sq.sort_payloads(key, bits, ops, **kw), 20)
+        lib = cuda_ms(lambda: _sort_library(key, ops, kw), 20)
+        log(f"[kernel] sort {what} dispatch: P={key.numel()} bits {bits} passes "
+            f"{sq.sort_passes(bits)} bitwise_equal=True ms={ms:.4f} library_ms={lib:.4f} on "
+            f"{card}")
+
+
+def _digit_stats(key, bits: int) -> str:
+    """Per pass of the sort's plan, the largest digit's share of the
+    probes; and the most frequent key's."""
+    import torch
+
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    parts, shift = [], 0
+    for w in sq.sort_passes(bits):
+        c = torch.bincount(((key >> shift) & ((1 << w) - 1)).to(torch.int64), minlength=1 << w)
+        parts.append(f"{w} bits: largest digit {int(c.max())} "
+                     f"({100 * int(c.max()) / key.numel():.2f} %)")
+        shift += w
+    _vals, counts = torch.unique(key, return_counts=True)
+    top = int(counts.max())
+    return (f"{'; '.join(parts)}; most frequent key {top} probes "
+            f"({100 * top / key.numel():.2f} %)")
+
+
+def sort_kernel_phase(classic_dispatch, blocked_dispatch, main_launches: int,
+                      card: str) -> dict:
+    """Kernel E (csrc/radix_sort.cu) against its twin, bitwise, on the
+    inputs that the device-resident dispatches hand it: the blocked batch's
+    key (the frequency in its low bits, 30 bits) with its packed offsets,
+    the same with the generated index from base0 7,000,000, the classic
+    batch's rows (26 bits) with their index widened to int64, each with
+    its digits' skew (the largest digit of each pass, the most frequent
+    key: the padding); and on edge cases: all keys equal, keys descending,
+    bits 1 and 31, P not a multiple of the tile, a P of a few hundred, the
+    blocked batch's blocks times 3 (past 2^20 blocks, 21 bits, where the
+    frequency leaves the key) with three operands, and at 2,097,152 keys
+    the main cell's skew: a key with 10 % of the probes, four 26-bit rows
+    with 1 % each (index int64), every key's top bits equal, and bits <=
+    10 (one pass). The time of E, of its twin and of torch.sort(stable)
+    with the operands gathered through its permutation (the library call)
+    on each dispatch's batch, each of E's launches apart (torch.profiler,
+    in launch order), and the bound (sort_bytes: the bytes bind; the
+    operations are a few integer instructions a key a pass, which the SASS
+    of a straight-line kernel with its branches does not count); on the
+    blocks past 2^20, E beside torch.sort of the int64 key block << 11 |
+    frequency with the offsets and the index gathered through its
+    permutation (the route that geometry took before E)."""
+    import torch
+
+    from colorid_tpu_torch.ops import stream_query as sq
+
+    t0 = time.time()
+    real = sq.sort_payloads
+    seen = _sort_capture(classic_dispatch, blocked_dispatch)
+    for what in ("blocked", "classic"):
+        key, bits = seen[what][:2]
+        log(f"[kernel] sort {what} dispatch's digits: P={key.numel()} bits {bits}, passes "
+            f"{sq.sort_passes(bits)}: {_digit_stats(key, bits)} on {card}")
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
     n = SORT_EDGE_P
@@ -1909,6 +2007,23 @@ def sort_kernel_phase(classic_dispatch, blocked_dispatch, main_launches: int,
         ("a P of 300", rand(300, 2**20), 20, (rand(300, 100), rand(300, 100)),
          dict(index=True, base=11)),
     ]
+    # the main cell's skew at 2 * SORT_EDGE_P keys
+    m = 2 * n
+    hot = rand(m, 2**30)
+    hot[torch.randperm(m, generator=g, device=DEVICE)[:m // 10]] = 987_654_321
+    rows = rand(m, 2**26)
+    rows[torch.randperm(m, generator=g, device=DEVICE)[:4 * (m // 100)]] = rand(
+        4, 2**26).repeat_interleave(m // 100)
+    cases += [
+        ("a key with 10 % of the probes", hot, 30, (rand(m, 2**31 - 1, -(2**31)),),
+         dict(index=True)),
+        ("four rows with 1 % each", rows, 26, (), dict(index=True, index64=True)),
+        ("every key's top bits equal", rand(m, 2**22) + (3 << 27), 30,
+         (rand(m, 2**31 - 1, -(2**31)),), {}),
+        ("bits 8, one pass", rand(m, 2**8), 8, (rand(m, 2**31 - 1),),
+         dict(index=True, index64=True)),
+    ]
+    del hot, rows
     blk = ((bkey >> sq.QKEY_BITS) * 3).contiguous()  # past 2^20 blocks
     bqc = (bkey & sq.QKEY_MASK).contiguous()
     cases.append(("the blocked batch's blocks times 3 (past 2^20 blocks, qbits 0) with three "
@@ -1934,18 +2049,13 @@ def sort_kernel_phase(classic_dispatch, blocked_dispatch, main_launches: int,
     for name, (what, key, bits, ops, kw) in zip(("blocked", "blocked_index", "classic"),
                                                  cases[:3]):
         P = key.numel()
-
-        def library(key=key, ops=ops, kw=kw):
-            key_s, perm = torch.sort(key, stable=True)
-            out = [key_s] + [o[perm] for o in ops]
-            if kw.get("index"):
-                out.append(perm + kw.get("base", 0) if kw.get("index64")
-                           else (perm + kw.get("base", 0)).to(torch.int32))
-            return out
-
         ms = cuda_ms(lambda: real(key, bits, ops, **kw), 20)
         plain = cuda_ms(lambda: sq.sort_payloads_plain(key, bits, ops, **kw), 3)
-        lib = cuda_ms(library, 20)
+        lib = cuda_ms(lambda: _sort_library(key, ops, kw), 20)
+        stages = _launch_ms(lambda: real(key, bits, ops, **kw))
+        log(f"[kernel] sort {what}: each launch in order, ms: "
+            + ("; ".join(f"{k} {t:.4f}" for k, t in stages) or "not measured (no device "
+               "time in the trace)") + f" on {card}")
         n_bytes = sort_bytes(P, n_operands=len(ops), index=kw.get("index", False),
                              index64=kw.get("index64", False))
         bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -4067,8 +4177,8 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
             "epilogue", "epilogue_sorted", "epilogue_overflow", "plan", "tail_count",
-            "tail_overflow", "tail_finish", "residual", "sort_hist", "sort_bases",
-            "sort_pass")
+            "tail_overflow", "tail_finish", "residual", "sort_upsweep", "sort_bases",
+            "sort_chunk_scan", "sort_pass")
     )
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
     sort = [(ms, n) for ms, n, name in rows if "RadixSort" in name]
@@ -4123,7 +4233,8 @@ def compare_turn(root: str, tmp: str) -> int:
     """One turn of --compare (chip_smoke.py --compare-turn ROOT DIR): the
     package of the checkout at ROOT, first on sys.path, on DIR's cell:
     the parity phases of both indexes ([parity], [profile] classic and
-    blocked), search_reads and one order-free read_id dispatch on each
+    blocked), kernel E on both dispatches' sort inputs ([kernel] sort),
+    search_reads and one order-free read_id dispatch on each
     ([reads], [profile]), the fused phase ([fused]) and the [mproc] phase,
     each with its own checks. Prints the search_reads answers on a line
     of their own."""
@@ -4149,8 +4260,11 @@ def compare_turn(root: str, tmp: str) -> int:
          for key in ("words", "lens", "vbits", "mates", "src")}
     dev = on_device((a["words"], a["lens"], a["vbits"]))
     strict = os.path.abspath(root) == HERE
-    classic_parity_phase(cell["classic"], cell["fq"], card, strict=strict)
-    blocked_parity_phase(cell["blocked"], cell["fq"], card, strict=strict)
+    classic_dispatch = classic_parity_phase(cell["classic"], cell["fq"], card, strict=strict)
+    _seg, blocked_dispatch = blocked_parity_phase(cell["blocked"], cell["fq"], card,
+                                                  strict=strict)
+    sort_turn_phase(classic_dispatch, blocked_dispatch, card)
+    del classic_dispatch, blocked_dispatch
     with contextlib.redirect_stderr(io.StringIO()):
         query = _count_query_kmers(cell["fq"], None, K, 15, 1, False)
     answers = {}

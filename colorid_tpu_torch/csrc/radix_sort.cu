@@ -19,76 +19,83 @@
 // int64 (the classic route's permutation, which the epilogue takes as
 // int64).
 //
-// The passes: npass = ceil(bits / 8) digits of equal width (30 bits: 8, 8,
-// 7, 7; 26: 7, 7, 6, 6), low digit first, over tiles of 4,096 keys:
-//   histogram, once: every pass's digit counts from one read of the keys,
-//     then each pass's digit bases (an exclusive scan);
-//   one kernel a pass (a chained scan with decoupled look-back, onesweep):
-//     each block takes the next tile in order from an atomic counter, and
-//     each of its 8 warps ranks its 512 keys in rounds of 32 (the lanes of
-//     equal digit from one ballot a digit bit, warp-private 16-bit
-//     counters); the tile publishes its digit counts, then for each digit
-//     walks back over the tiles before it, adding their counts until a
-//     tile whose count already covers every tile before it, and publishes
-//     that sum; the keys and then each operand are staged in shared memory
-//     in the tile's digit order, and thread i writes staged element i to
-//     its digit's base + the tiles before + (i - the digit's start in the
-//     tile): a digit's keys go out as one contiguous run. The operands
-//     that are read come into shared memory by cp.async while the keys
-//     are ranked.
+// The passes: npass = ceil(bits / 10) digits of equal width (30 bits: 10,
+// 10, 10; 26: 9, 9, 8; 21: 7, 7, 7), low digit first, over tiles of 8,192
+// keys (512 threads x 16):
+//   upsweep, once: one read of the keys counts every pass's digits (the
+//     digits' bases, an exclusive scan), and, a chunk of 4 tiles a block in
+//     order, each tile's first digits and the tiles' before it in its chunk;
+//     a scan over the chunks gives each chunk's first place of each digit;
+//   one kernel a pass: each warp ranks its 512 keys of the tile in rounds of
+//     32 (the lanes of equal digit by one ballot a digit bit, warp-private
+//     16-bit counters), the block finds each digit's start in the tile,
+//     stages the keys in shared memory in digit order with their local
+//     index, and thread i writes staged key i to its digit's place + (i -
+//     the digit's start in the tile): a digit's keys go out as one
+//     contiguous run. Each operand then comes into the keys' space
+//     (cp.async) and goes out through the local index to the same places;
+//     the index is made there. The first pass takes its digits' places from
+//     the upsweep and waits for nothing; a later pass takes the next tile
+//     in order from an atomic counter, publishes its digit counts at once,
+//     and for each digit walks back over the tiles before it (a decoupled
+//     look-back, onesweep), adding their counts until a tile whose count
+//     covers every tile before it.
 // Tiles are in key order, warps in tile order, rounds in warp order, lanes
 // in round order, so the sort is stable. Passes ping-pong between the
 // outputs and the wrapper's scratch buffers so that the last pass lands in
-// the outputs and the inputs are never written.
+// the outputs and the inputs are never written. Every launch is fixed on
+// the host: nothing waits for the device.
 //
-// Why this shape, from the design's runs on an H100 (chip_smoke.py's
-// [kernel] sort times the result):
-// - The look-back waits only on tiles taken before it, whose blocks are
-//   already running and publish before they wait themselves, so it always
-//   ends. Against a reduce-then-scan design (an upsweep a pass, blocks over
-//   contiguous spans) it reads the keys once less a pass, and the tiles in
-//   flight are neighbours, so a digit's runs from them fill the same lines
-//   of L2 at about the same time; the scattered runs were what bounded the
-//   spans' design.
-// - 8-bit digits: at 10 bits a digit's run in a tile of 4,096 keys is 4
-//   keys (half a sector) and the per-digit bookkeeping of a tile rivals its
-//   keys'; each pass took about twice as long, more than the pass it saves.
-// - Ballots, not __match_any_sync, for the lanes of equal digit: the match
-//   instruction was slower at this size.
+// Why this shape (sort_bench.py's runs of each candidate on an H100 80GB
+// HBM3 at 700 W, PERF.md): on this card a tile's rank round costs
+// about as much as a whole onesweep pass, so what pays is fewer rounds,
+// not fewer bytes. A hybrid MSD shape (one partition on the top 10-12 bits,
+// then each bucket sorted in shared memory) moves half the bytes of the
+// 8-bit design before this one (four passes over 4,096-key tiles) but ranks
+// five rounds where that ranked four, and its buckets over capacity (the
+// padding's hot keys) take passes of their own: 0.68-0.78 ms on the
+// blocked batch against 0.47. 10-bit digits take three rounds for the
+// 30-bit blocked key and the 26-bit classic rows; tiles of 8,192 keys keep
+// a digit's run in a tile at 8 keys or more (a 32-byte sector of int32).
+// The look-back at 1,024 digits a tile costs a later pass some 0.04 ms on
+// the blocked batch, so the first pass, whose counts the histogram's read
+// can give, does without it; a reduce-then-scan for every pass reads the
+// keys once more a pass, which costs the classic batch more than the
+// look-back. At 512 threads two blocks share an SM within 64 registers a
+// thread: the digit loop stays a loop (unrolled by width it spilled
+// hundreds of bytes), and one block an SM without spills was slower.
 //
-// What bounds it on an H100: bytes, and the instructions of the rank. Per
-// probe and pass the key and each operand are read once and written once;
-// the byte bound counts each input read once and each output written once
-// over the whole sort (16 bytes a probe for the blocked exact key + offsets,
-// and for the classic rows + int64 index). What the design saves against
-// torch.sort: passes over the key's own bits only, and int32 operands
-// carried in the sort instead of an int64 permutation that a gather then
-// follows.
+// What bounds it on an H100: the rank's instructions (a ballot a key and
+// digit bit), the look-back's latency and the scattered runs; the byte
+// bound (chip_smoke.py::sort_bytes) counts each input read once and each
+// output written once (16 bytes a probe for the blocked exact key +
+// offsets, and for the classic rows + int64 index), where each pass reads
+// and writes the key and each operand.
 //
 // Bound to Python with ctypes (colorid_tpu_torch/ops/kernels.py): a plain C
-// entry point that launches every pass on the caller's stream and returns
-// cudaGetLastError(); the wrapper allocates outputs, ping-pong buffers and
-// the scratch (tile status words, the tile counter, the histograms).
+// entry point that launches every kernel on the caller's stream and
+// returns cudaGetLastError(); the wrapper allocates outputs, ping-pong
+// buffers and the scratch (histograms, tile counters, tile status words,
+// the first pass's tile and chunk counts).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int KPT = 16;              // keys a thread a tile
-constexpr int KPW = 32 * KPT;        // keys a warp a tile
-constexpr int TILE = THREADS * KPT;  // 4,096 keys
-constexpr int DMAX = 8;              // widest digit
-constexpr int RMAX = 1 << DMAX;      // most buckets: 256, one a thread in the digit steps
 constexpr int MAX_OPS = 3;
-constexpr int MAX_PASSES = 4;        // 31 bits at most
-constexpr int HIST_BLOCKS = 264;     // the histogram kernel's grid
+constexpr int DMAX = 10;         // widest digit
+constexpr int RMAX = 1 << DMAX;  // most digits: 1,024
+constexpr int MAX_PASSES = 4;    // 31 bits at most
+constexpr int THREADS = 512;     // the pass kernel's block
+constexpr int KPT = 16;          // keys a thread a tile
+constexpr int TILE = THREADS * KPT;  // 8,192 keys
+constexpr int CHUNK = 4;         // tiles an upsweep block counts in order
+constexpr int SWEEP_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
-// a tile's status word for one digit: a flag in the top two bits (0: not
-// yet, AGG: the tile's own count, INC: the count of every tile up to this
-// one) over a 30-bit count
+// a tile's status word for one digit in a later pass: a flag in the top
+// two bits (0: not yet, AGG: the tile's own count, INC: the count of every
+// tile up to this one) over a 30-bit count
 constexpr uint32_t AGG = 1u << 30, INC = 2u << 30, CNT = (1u << 30) - 1;
 
 struct PassParams {
@@ -101,24 +108,36 @@ struct PassParams {
   int32_t gen_idx;   // this pass generates the index
   int32_t idx64;     // this pass writes the index as int64
   int64_t base;      // the index's first value
-  int64_t P;
+  int32_t P;
   int32_t shift, dbits;
-  uint32_t* status;      // [n_tiles, RMAX], zero before the pass
-  int32_t* counter;      // the next tile to take, zero before the pass
-  const int32_t* bases;  // [RMAX] the digits' first places in the output
+  // the first pass: each tile's counts of the tiles before it in its chunk,
+  // each chunk's places ([n_tiles | n_chunks, 2^dbits])
+  const int32_t* tile_pre;
+  const int32_t* chunk_base;
+  // a later pass: the digits' places, the tiles' status words ([n_tiles,
+  // 2^dbits], zero before the pass) and the tile counter
+  const int32_t* bases;
+  uint32_t* status;
+  int32_t* counter;
 };
 
-struct HistParams {
+struct SweepParams {
   const int32_t* key;
-  int64_t P;
+  int32_t P;
+  int32_t shift, dbits;  // the first pass's digit
+  int32_t* tile_pre;     // [n_tiles, 2^dbits] out
+  int32_t* chunk_sum;    // [n_chunks, 2^dbits] out
+  // every pass's digits over all keys
   int32_t npass;
-  int32_t shift[MAX_PASSES], dbits[MAX_PASSES];
+  int32_t hshift[MAX_PASSES], hdbits[MAX_PASSES];
   int32_t* ghist;  // [MAX_PASSES, RMAX]
 };
 
 // The exclusive scan of v over the block in thread order; *total gets the
 // sum. s_tmp holds one int a warp.
+template <int NT>
 __device__ __forceinline__ int block_exclusive_scan(int v, int* s_tmp, int* total) {
+  constexpr int WARPS = NT / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int incl = v;
 #pragma unroll
@@ -140,31 +159,37 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* s_tmp, int* tota
   return before + incl - v;
 }
 
-// cp.async: a 16-byte copy from global to shared memory that holds no
-// register while it is in flight; commit groups; wait until at most N of
-// this thread's groups are in flight.
+// cp.async: copies from global to shared memory that hold no register
+// while in flight (16 bytes, or 4); wait for all of this thread's.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
 }
-__device__ __forceinline__ uint32_t digit_of(int32_t key, int shift, uint32_t mask) {
-  return ((uint32_t)key >> shift) & mask;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
-// Copy n <= TILE int32 from global to shared memory with cp.async, 16
-// bytes a thread at a time (from and to 16-byte aligned), the ragged end
-// by plain stores.
-__device__ __forceinline__ void copy_tile(int32_t* to, const int32_t* from, int n) {
-  for (int c = threadIdx.x; c * 4 < n; c += THREADS) {
-    if (c * 4 + 4 <= n)
-      cp_async16(to + c * 4, from + c * 4);
-    else
-      for (int q = c * 4; q < n; ++q) to[q] = from[q];
+// Copy n int32 from global to shared memory (16-byte aligned) with
+// cp.async: 16 bytes a thread at a time where `from` is 16-byte aligned,
+// else 4; then wait for them.
+__device__ __forceinline__ void copy_in(int32_t* to, const int32_t* from, int n) {
+  if ((reinterpret_cast<uintptr_t>(from) & 15) == 0) {
+    for (int c = threadIdx.x; c * 4 < n; c += THREADS) {
+      if (c * 4 + 4 <= n)
+        cp_async16(to + c * 4, from + c * 4);
+      else
+        for (int q = c * 4; q < n; ++q) cp_async4(to + q, from + q);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += THREADS) cp_async4(to + i, from + i);
   }
+  cp_async_wait_all();
+}
+__device__ __forceinline__ uint32_t digit_of(uint32_t key, int shift, uint32_t mask) {
+  return (key >> shift) & mask;
 }
 // The lanes of the warp whose digit equals this lane's, among the lanes
 // with ok set (all of them where full): one ballot a digit bit.
@@ -182,232 +207,324 @@ __device__ __forceinline__ unsigned warp_peers(uint32_t d, bool ok, int dbits, b
   return peers;
 }
 
-// Every pass's digit histogram, from one read of the keys (shared-memory
-// atomics, then one global atomic a block and bucket).
-__global__ void __launch_bounds__(THREADS) sort_hist_kernel(HistParams p) {
+// The upsweep, from one read of the keys: each block counts the first
+// pass's digits of CHUNK tiles in order (shared-memory atomics), writing
+// each tile's counts of the tiles before it in the chunk and the chunk's
+// counts, and every pass's digits of those tiles (one global atomic a block
+// and bucket).
+__global__ void __launch_bounds__(SWEEP_THREADS) sort_upsweep_kernel(SweepParams p) {
+  __shared__ int s_cnt[RMAX], s_run[RMAX];
   __shared__ int s_hist[MAX_PASSES * RMAX];
-  for (int i = threadIdx.x; i < MAX_PASSES * RMAX; i += THREADS) s_hist[i] = 0;
-  __syncthreads();
-  const bool vec = (reinterpret_cast<uintptr_t>(p.key) & 15) == 0;
-  const int64_t n4 = vec ? p.P / 4 : 0;
-  const int4* k4 = reinterpret_cast<const int4*>(p.key);
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  for (int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x; j < n4; j += stride) {
-    const int4 v = __ldg(k4 + j);
+  const int R = 1 << p.dbits;
+  const uint32_t mask = R - 1;
+  const int tid = threadIdx.x;
+  const int n_tiles = (p.P + TILE - 1) / TILE;
+  for (int i = tid; i < R; i += SWEEP_THREADS) s_run[i] = 0;
+  for (int i = tid; i < p.npass * RMAX; i += SWEEP_THREADS) s_hist[i] = 0;
+  const int t_end = min(n_tiles, (int)(blockIdx.x + 1) * CHUNK);
+  for (int t = blockIdx.x * CHUNK; t < t_end; ++t) {
+    for (int i = tid; i < R; i += SWEEP_THREADS) s_cnt[i] = 0;
+    __syncthreads();
+    const int t0 = t * TILE;
+    const int n = min(TILE, p.P - t0);
+    const int32_t* k = p.key + t0;
+    const bool vec = (reinterpret_cast<uintptr_t>(k) & 15) == 0;
+    const int n4 = vec ? n / 4 : 0;
+    for (int j = tid; j < n4; j += SWEEP_THREADS) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(k) + j);
+      const uint32_t kk[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z, (uint32_t)v.w};
 #pragma unroll
-    for (int q = 0; q < MAX_PASSES; ++q) {  // unrolled: p.shift[q] a constant offset
-      if (q >= p.npass) break;
-      const uint32_t m = (1u << p.dbits[q]) - 1;
-      int* h = s_hist + q * RMAX;
-      atomicAdd(&h[digit_of(v.x, p.shift[q], m)], 1);
-      atomicAdd(&h[digit_of(v.y, p.shift[q], m)], 1);
-      atomicAdd(&h[digit_of(v.z, p.shift[q], m)], 1);
-      atomicAdd(&h[digit_of(v.w, p.shift[q], m)], 1);
-    }
-  }
-  for (int64_t j = n4 * 4 + (int64_t)blockIdx.x * THREADS + threadIdx.x; j < p.P; j += stride) {
+      for (int u = 0; u < 4; ++u) {
+        atomicAdd(&s_cnt[digit_of(kk[u], p.shift, mask)], 1);
 #pragma unroll
-    for (int q = 0; q < MAX_PASSES; ++q) {
-      if (q >= p.npass) break;
-      atomicAdd(&s_hist[q * RMAX + digit_of(p.key[j], p.shift[q], (1u << p.dbits[q]) - 1)], 1);
+        for (int q = 0; q < MAX_PASSES; ++q) {
+          if (q >= p.npass) break;
+          atomicAdd(&s_hist[q * RMAX + digit_of(kk[u], p.hshift[q], (1u << p.hdbits[q]) - 1)], 1);
+        }
+      }
     }
+    for (int j = n4 * 4 + tid; j < n; j += SWEEP_THREADS) {
+      const uint32_t kk = (uint32_t)k[j];
+      atomicAdd(&s_cnt[digit_of(kk, p.shift, mask)], 1);
+#pragma unroll
+      for (int q = 0; q < MAX_PASSES; ++q) {
+        if (q >= p.npass) break;
+        atomicAdd(&s_hist[q * RMAX + digit_of(kk, p.hshift[q], (1u << p.hdbits[q]) - 1)], 1);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < R; i += SWEEP_THREADS) {
+      p.tile_pre[(size_t)t * R + i] = s_run[i];
+      s_run[i] += s_cnt[i];
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < p.npass * RMAX; i += THREADS)
+  for (int i = tid; i < R; i += SWEEP_THREADS) p.chunk_sum[(size_t)blockIdx.x * R + i] = s_run[i];
+  for (int i = tid; i < p.npass * RMAX; i += SWEEP_THREADS)
     if (s_hist[i]) atomicAdd(&p.ghist[i], s_hist[i]);
 }
 
 // Each pass's digit bases: the exclusive scan of its histogram, in place
-// (one block).
-__global__ void __launch_bounds__(THREADS) sort_bases_kernel(int32_t* ghist, int npass) {
-  __shared__ int s_tmp[WARPS];
+// (one block a pass).
+__global__ void __launch_bounds__(RMAX) sort_bases_kernel(int32_t* ghist) {
+  __shared__ int s_tmp[RMAX / 32];
+  int32_t* h = ghist + blockIdx.x * RMAX;
   int all;
-  for (int q = 0; q < npass; ++q) {
-    const int d = threadIdx.x;
-    const int v = d < RMAX ? ghist[q * RMAX + d] : 0;
-    const int ex = block_exclusive_scan(v, s_tmp, &all);
-    if (d < RMAX) ghist[q * RMAX + d] = ex;
+  const int ex = block_exclusive_scan<RMAX>(h[threadIdx.x], s_tmp, &all);
+  h[threadIdx.x] = ex;
+}
+
+// Each chunk's first place of each digit, in place over the chunks'
+// counts: the digit's base + the counts of the chunks before. A block takes
+// 32 digits (a lane each), its 8 warps a range of chunks each.
+__global__ void __launch_bounds__(256) sort_chunk_scan_kernel(int32_t* chunk, int n_chunks,
+                                                              int dbits, const int32_t* bases) {
+  __shared__ int s_part[8][32];
+  const int R = 1 << dbits;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = blockIdx.x * 32 + lane;
+  const int c0 = warp * n_chunks / 8, c1 = (warp + 1) * n_chunks / 8;
+  int sum = 0;
+  if (d < R)
+    for (int c = c0; c < c1; ++c) sum += chunk[(size_t)c * R + d];
+  s_part[warp][lane] = sum;
+  __syncthreads();
+  if (d >= R) return;
+  int run = bases[d];
+  for (int w = 0; w < warp; ++w) run += s_part[w][lane];
+  for (int c = c0; c < c1; ++c) {
+    const int v = chunk[(size_t)c * R + d];
+    chunk[(size_t)c * R + d] = run;
+    run += v;
   }
 }
 
-// The pass kernel's dynamic shared memory for n_ops operands: the stage,
-// the digit starts and output places, the warps' counters and a tile of
-// each operand, copied in early.
-constexpr int pass_smem(int n_ops) {
-  return TILE * 4 + 2 * RMAX * 4 + WARPS * RMAX * 2 + n_ops * TILE * 4;
+// The pass kernel's dynamic shared memory for a digit of dbits bits: the
+// keys (then each operand), the local index, the warps' counters, the
+// digits' starts in the tile and their places in the output.
+constexpr int pass_smem(int dbits) {
+  return TILE * 6 + (THREADS / 32) * (2 << dbits) + (8 << dbits) + 16;
 }
 
-// One pass: each block takes the next tile in order (an atomic counter, so
-// that a tile only waits on tiles whose blocks already run), ranks its keys
-// by the digit, publishes its digit counts, looks back over the tiles
-// before it for each digit's first place, and scatters the tile's keys and
-// operands through shared memory in digit order.
-__global__ void __launch_bounds__(THREADS, 3) sort_pass_kernel(PassParams p) {
-  extern __shared__ __align__(16) int32_t s_dyn[];
-  int32_t* s_stage = s_dyn;          // [TILE]
-  int32_t* s_start = s_stage + TILE;  // [RMAX] the digit's first place in the tile
-  int32_t* s_run = s_start + RMAX;    // [RMAX] the digit's first place in the output
-  uint16_t* s_wcnt = reinterpret_cast<uint16_t*>(s_run + RMAX);  // [WARPS, RMAX]: count, then offset
-  int32_t* s_pref = reinterpret_cast<int32_t*>(s_wcnt + WARPS * RMAX);  // [n_ops, TILE] operands
-  __shared__ int s_tmp[WARPS];
-  __shared__ int s_tile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
+// One pass over a tile: the warps rank its keys by the digit, the block
+// finds each digit's start in the tile and its place in the output (the
+// first pass: the chunk's place + the tiles before in the chunk, from the
+// upsweep; LOOK, a later pass: the tiles before, by look-back), stages the
+// keys in digit order, and writes the keys, then each operand, in digit
+// runs.
+template <bool LOOK>
+__global__ void __launch_bounds__(THREADS, 2) sort_pass_kernel(PassParams p) {
+  constexpr int WARPS = THREADS / 32, KPW = 32 * KPT;
   const int R = 1 << p.dbits;
   const uint32_t mask = R - 1;
-  if (tid == 0) s_tile = atomicAdd(p.counter, 1);
-  __syncthreads();
-  const int64_t t = s_tile;
-  const int64_t t0 = t * TILE;
-  const int n = p.P - t0 < TILE ? (int)(p.P - t0) : TILE;
-  // the operands that are read (not the generated index) and 16-byte
-  // aligned are copied into shared memory while the keys are ranked, a
-  // commit group each (waited for one by one)
-  // (every loop over the operands is unrolled, so that p.op_in[s] and
-  // p.op_out[s] are constant offsets into the parameters: indexed at run
-  // time they would be copied to the stack)
-  unsigned pre = 0;  // bit s: operand s comes from s_pref
-#pragma unroll
-  for (int s = 0; s < MAX_OPS; ++s)
-    if (s < p.n_ops && !(s == p.idx_slot && p.gen_idx) &&
-        (reinterpret_cast<uintptr_t>(p.op_in[s]) & 15) == 0)
-      pre |= 1u << s;
-#pragma unroll
-  for (int s = 0; s < MAX_OPS; ++s) {
-    if (pre >> s & 1) copy_tile(s_pref + s * TILE, p.op_in[s] + t0, n);
-    cp_async_commit();
+  const int E = R > THREADS ? R / THREADS : 1;  // digits a thread, contiguous
+  extern __shared__ __align__(16) int32_t s_dyn[];
+  __shared__ int s_tmp[WARPS];
+  __shared__ int s_tile;
+  int32_t* s_key = s_dyn;                                        // [TILE]
+  uint16_t* s_idx = reinterpret_cast<uint16_t*>(s_key + TILE);  // [TILE]
+  uint16_t* s_wc = s_idx + TILE;                                 // [WARPS, R]
+  int* s_start = reinterpret_cast<int*>(s_wc + WARPS * R);      // [R + 1]
+  int* s_run = s_start + R + 1;                                  // [R]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
+  // a later pass takes the next tile in order (an atomic counter, so that
+  // a tile only waits on tiles whose blocks already run)
+  if (LOOK) {
+    if (tid == 0) s_tile = atomicAdd(p.counter, 1);
+    __syncthreads();
   }
-  int32_t key[KPT];
+  const int t = LOOK ? s_tile : blockIdx.x;
+  const int t0 = t * TILE;
+  const int n = min(TILE, p.P - t0);
+  for (int i = tid; i < WARPS * R; i += THREADS) s_wc[i] = 0;
+  uint32_t key[KPT], pos[KPT];
 #pragma unroll
   for (int r = 0; r < KPT; ++r) {
-    const int local = warp * KPW + r * 32 + lane;
-    key[r] = local < n ? p.key_in[t0 + local] : 0;
-  }
-  {
-    // zero the warps' counters of this digit width, two at a time
-    const int hb = p.dbits - 1;  // R / 2 = 1 << hb
-    uint32_t* wc32 = reinterpret_cast<uint32_t*>(s_wcnt);
-    for (int i = tid; i < (WARPS << hb); i += THREADS)
-      wc32[(i >> hb) * (RMAX / 2) + (i & ((1 << hb) - 1))] = 0;
+    const int slot = warp * KPW + r * 32 + lane;
+    key[r] = slot < n ? (uint32_t)p.key_in[t0 + slot] : 0u;
   }
   __syncthreads();
-  // rank: each warp its KPW keys, in rounds of 32; the rounds' peers
-  // first (independent ballots), then the chain through the counters
-  uint16_t* wc = s_wcnt + warp * RMAX;
-  int pos[KPT];  // the rank among the warp's keys of the same digit, then the place in the tile
-  unsigned peers[KPT];
-  const bool full = n == TILE;
+  // rank: each warp its KPW keys, in rounds of 32; the rounds' peers first
+  // (independent), then the chain through the warp's counters
+  uint16_t* wc = s_wc + warp * R;
+  const bool full = (warp + 1) * KPW <= n;
 #pragma unroll
   for (int r = 0; r < KPT; ++r) {
     const bool ok = full || warp * KPW + r * 32 + lane < n;
-    peers[r] = warp_peers(digit_of(key[r], p.shift, mask), ok, p.dbits, full);
+    pos[r] = warp_peers(digit_of(key[r], p.shift, mask), ok, p.dbits, full);
   }
+  const unsigned below = (1u << lane) - 1;
 #pragma unroll
   for (int r = 0; r < KPT; ++r) {
     const bool ok = full || warp * KPW + r * 32 + lane < n;
     const uint32_t d = digit_of(key[r], p.shift, mask);
+    const unsigned peers = pos[r];
     const int c = ok ? wc[d] : 0;
     __syncwarp();
-    if (ok && lane == __ffs(peers[r]) - 1) wc[d] = (uint16_t)(c + __popc(peers[r]));
+    if (ok && lane == __ffs(peers) - 1) wc[d] = (uint16_t)(c + __popc(peers));
     __syncwarp();
-    pos[r] = c + __popc(peers[r] & ((1u << lane) - 1));
+    pos[r] = c + __popc(peers & below);
   }
   __syncthreads();
-  // per digit (thread d): the warps' offsets among the tile's keys of that
-  // digit and the tile's count, published at once for the tiles after it
-  const int d = tid;
-  int cnt = 0;
-  if (d < R) {
+  // per digit: the warps' offsets among the tile's keys of that digit and
+  // the digits' starts in the tile; the first pass's places from its chunk
+  // and the tiles before it there, while a later pass publishes the tile's
+  // counts at once for the tiles after it
+  int local = 0;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const int c = s_wcnt[w * RMAX + d];
-      s_wcnt[w * RMAX + d] = (uint16_t)cnt;
-      cnt += c;
+  for (int e = 0; e < E; ++e) {
+    const int d = tid * E + e;
+    if (d < R) {
+      int cnt = 0;
+#pragma unroll 4
+      for (int w = 0; w < WARPS; ++w) {
+        const int c = s_wc[w * R + d];
+        s_wc[w * R + d] = (uint16_t)cnt;
+        cnt += c;
+      }
+      if (LOOK)
+        *(volatile uint32_t*)(p.status + (size_t)t * R + d) = (t == 0 ? INC : AGG) | (uint32_t)cnt;
+      s_start[d] = local;
+      local += cnt;
     }
-    volatile uint32_t* st = p.status + t * RMAX + d;
-    *st = (t == 0 ? INC : AGG) | (uint32_t)cnt;
   }
   int all;
-  const int ex = block_exclusive_scan(cnt, s_tmp, &all);
-  if (d < R) {
-    s_start[d] = ex;
-    // look back over the tiles before this one: their counts until one
-    // that holds the count of every tile up to it
-    int excl = 0;
-    for (int64_t tp = t - 1; tp >= 0;) {
-      const uint32_t v = *(volatile uint32_t*)(p.status + tp * RMAX + d);
-      const uint32_t flag = v & ~CNT;
-      if (!flag) continue;
-      excl += (int)(v & CNT);
-      if (flag == INC) break;
-      --tp;
+  const int ex = block_exclusive_scan<THREADS>(local, s_tmp, &all);
+  if (!LOOK) {
+    const int* pre = p.tile_pre + (size_t)t * R;
+    const int* cbase = p.chunk_base + (size_t)(t / CHUNK) * R;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = tid * E + e;
+      if (d < R) {
+        const int start = s_start[d] + ex;
+        s_start[d] = start;
+        s_run[d] = cbase[d] + pre[d] - start;
+      }
     }
-    if (t > 0) *(volatile uint32_t*)(p.status + t * RMAX + d) = INC | (uint32_t)(excl + cnt);
-    s_run[d] = p.bases[d] + excl;
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = tid * E + e;
+      if (d < R) s_start[d] += ex;
+    }
+    if (tid == 0) s_start[R] = n;
   }
   __syncthreads();
-  // stage the keys in the tile's digit order
+  // stage the keys and their local index in the tile's digit order
 #pragma unroll
   for (int r = 0; r < KPT; ++r) {
-    const int local = warp * KPW + r * 32 + lane;
-    if (local < n) {
-      const uint32_t dd = digit_of(key[r], p.shift, mask);
-      pos[r] += s_start[dd] + wc[dd];
-      s_stage[pos[r]] = key[r];
+    const int slot = warp * KPW + r * 32 + lane;
+    if (slot < n) {
+      const uint32_t d = digit_of(key[r], p.shift, mask);
+      const int at = (int)pos[r] + s_start[d] + wc[d];
+      s_key[at] = (int32_t)key[r];
+      s_idx[at] = (uint16_t)slot;
     }
   }
-  __syncthreads();
-  // staged element i goes to its digit's first place + (i - its start in
-  // the tile): a digit's keys go out as one contiguous run
+  if (!LOOK) __syncthreads();
+  if (LOOK) {
+    // a later pass's places: per digit (a thread's digits in flight
+    // together), the counts of the tiles before this one, walked back over
+    // until a tile whose count holds every tile before it
+    constexpr int DPT = RMAX / THREADS;
+    int excl[DPT], tp[DPT];
+    unsigned todo = 0;
+#pragma unroll
+    for (int k = 0; k < DPT; ++k) {
+      excl[k] = 0;
+      tp[k] = t - 1;
+      if (t > 0 && k * THREADS + tid < R) todo |= 1u << k;
+    }
+    while (todo) {
+#pragma unroll
+      for (int k = 0; k < DPT; ++k) {
+        if (todo >> k & 1) {
+          const uint32_t v =
+              *(volatile uint32_t*)(p.status + (size_t)tp[k] * R + k * THREADS + tid);
+          const uint32_t flag = v & ~CNT;
+          if (flag) {
+            excl[k] += (int)(v & CNT);
+            if (flag == INC) todo &= ~(1u << k);
+            else --tp[k];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < DPT; ++k) {
+      const int d = k * THREADS + tid;
+      if (d < R) {
+        const int start = s_start[d];
+        if (t > 0)
+          *(volatile uint32_t*)(p.status + (size_t)t * R + d) =
+              INC | (uint32_t)(excl[k] + s_start[d + 1] - start);
+        s_run[d] = p.bases[d] + excl[k] - start;
+      }
+    }
+    __syncthreads();
+  }
+  // staged key i goes to its digit's place + (i - its start in the tile):
+  // a digit's keys go out as one contiguous run
   int dst[KPT];
 #pragma unroll
   for (int j = 0; j < KPT; ++j) {
     const int i = j * THREADS + tid;
     if (i < n) {
-      const int32_t k = s_stage[i];
-      const uint32_t dd = digit_of(k, p.shift, mask);
-      dst[j] = s_run[dd] + i - s_start[dd];
+      const int32_t k = s_key[i];
+      dst[j] = s_run[digit_of((uint32_t)k, p.shift, mask)] + i;
       p.key_out[dst[j]] = k;
     }
   }
+  // each operand through the keys' space, in the same order (every loop
+  // over the operands is unrolled, so that p.op_in[s] and p.op_out[s] are
+  // constant offsets into the parameters)
 #pragma unroll
   for (int s = 0; s < MAX_OPS; ++s) {
     if (s >= p.n_ops) break;
     const bool gen = s == p.idx_slot && p.gen_idx;
-    const bool from_smem = pre >> s & 1;
-    const int32_t* in = p.op_in[s];
-    if (from_smem) {  // operand s's group and those before it have landed
-      if (s == 0) cp_async_wait<MAX_OPS - 1>();
-      else if (s == 1) cp_async_wait<MAX_OPS - 2>();
-      else cp_async_wait<0>();
+    if (!gen) {
+      __syncthreads();  // the keys (or the operand before) are written out
+      copy_in(s_key, p.op_in[s] + t0, n);
+      __syncthreads();
     }
-    __syncthreads();  // the stage's readers are done (and the copy has landed)
-#pragma unroll
-    for (int r = 0; r < KPT; ++r) {
-      const int local = warp * KPW + r * 32 + lane;
-      const int64_t g = t0 + local;
-      if (local < n)
-        s_stage[pos[r]] = from_smem ? s_pref[s * TILE + local]
-                          : gen     ? (int32_t)(uint32_t)(uint64_t)(p.base + g)
-                                    : in[g];
-    }
-    __syncthreads();
     if (s == p.idx_slot && p.idx64) {
       int64_t* out = static_cast<int64_t*>(p.op_out[s]);
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int i = j * THREADS + tid;
-        if (i < n) out[dst[j]] = (int64_t)s_stage[i];
+        if (i < n) {
+          const int src = s_idx[i];
+          out[dst[j]] = gen ? p.base + t0 + src : (int64_t)s_key[src];
+        }
       }
     } else {
       int32_t* out = static_cast<int32_t*>(p.op_out[s]);
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int i = j * THREADS + tid;
-        if (i < n) out[dst[j]] = s_stage[i];
+        if (i < n) {
+          const int src = s_idx[i];
+          out[dst[j]] = gen ? (int32_t)(uint32_t)(uint64_t)(p.base + t0 + src) : s_key[src];
+        }
       }
     }
   }
-  cp_async_wait<0>();  // nothing is left in flight
+}
+
+template <bool LOOK>
+cudaError_t launch_pass(const PassParams& p, int n_tiles, cudaStream_t st, int dev) {
+  static bool opted[64];
+  cudaError_t e;
+  if (!opted[dev]) {
+    if ((e = cudaFuncSetAttribute(sort_pass_kernel<LOOK>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, pass_smem(DMAX))) !=
+        cudaSuccess)
+      return e;
+    opted[dev] = true;
+  }
+  sort_pass_kernel<LOOK><<<n_tiles, THREADS, pass_smem(p.dbits), st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -416,70 +533,79 @@ __global__ void __launch_bounds__(THREADS, 3) sort_pass_kernel(PassParams p) {
 // key_out int32 [P]; key_tmp int32 [P] (unused with one pass). n_ops
 // operands: op_in[s] int32 [P] (nullptr for the index slot idx_slot,
 // generated as base + i), op_out[s] int32 [P] (int64 [P] for the index
-// where idx64; base + P <= 2^31 then), op_tmp[s] int32 [P]. scratch:
-// scratch_ints int32, at least ceil(P / 4096) * 256 + 32 + 4 * 256. Inputs
-// are never written.
+// where idx64; base + P <= 2^31 then), op_tmp: int32 [n_ops * P] (unused
+// with one pass). scratch: scratch_ints int32, at least the wrapper's
+// _sort_scratch. Inputs are never written.
 extern "C" int radix_sort_launch(const void* key_in, void* key_out, void* key_tmp,
                                  const void* op_in0, const void* op_in1, const void* op_in2,
-                                 void* op_out0, void* op_out1, void* op_out2, void* op_tmp0,
-                                 void* op_tmp1, void* op_tmp2, int32_t n_ops, int32_t idx_slot,
-                                 int64_t base, int32_t idx64, int64_t P, int32_t bits,
-                                 void* scratch, int64_t scratch_ints, void* stream) {
+                                 void* op_out0, void* op_out1, void* op_out2, void* op_tmp,
+                                 int32_t n_ops, int32_t idx_slot, int64_t base, int32_t idx64,
+                                 int64_t P, int32_t bits, void* scratch, int64_t scratch_ints,
+                                 void* stream) {
   const void* op_in[MAX_OPS] = {op_in0, op_in1, op_in2};
   void* op_out[MAX_OPS] = {op_out0, op_out1, op_out2};
-  void* op_tmp[MAX_OPS] = {op_tmp0, op_tmp1, op_tmp2};
-  if (P < 0 || P > CNT || bits < 1 || bits > 31 || n_ops < 0 || n_ops > MAX_OPS ||
+  if (P < 0 || P >= (1 << 30) || bits < 1 || bits > 31 || n_ops < 0 || n_ops > MAX_OPS ||
       idx_slot < -1 || idx_slot >= n_ops || (idx64 && idx_slot < 0) || !key_in || !key_out)
     return (int)cudaErrorInvalidValue;
   const int npass = (bits + DMAX - 1) / DMAX;
   for (int s = 0; s < n_ops; ++s)
-    if (!op_out[s] || (s != idx_slot && !op_in[s]) || (npass > 1 && !op_tmp[s]))
-      return (int)cudaErrorInvalidValue;
-  if (npass > 1 && !key_tmp) return (int)cudaErrorInvalidValue;
+    if (!op_out[s] || (s != idx_slot && !op_in[s])) return (int)cudaErrorInvalidValue;
+  if (npass > 1 && (!key_tmp || (n_ops && !op_tmp))) return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  const int64_t n_tiles = (P + TILE - 1) / TILE;
-  const int64_t need = n_tiles * RMAX + 32 + MAX_PASSES * RMAX;
+  const int n_tiles = (int)((P + TILE - 1) / TILE);
+  const int n_chunks = (n_tiles + CHUNK - 1) / CHUNK;
+  SweepParams sw{};
+  sw.P = (int32_t)P;
+  sw.npass = npass;
+  int shift = 0, widest = 0;
+  for (int q = 0; q < npass; ++q) {  // equal digits, the first bits % npass one bit wider
+    sw.hdbits[q] = bits / npass + (q < bits % npass);
+    sw.hshift[q] = shift;
+    shift += sw.hdbits[q];
+    widest = sw.hdbits[q] > widest ? sw.hdbits[q] : widest;
+  }
+  // the scratch: the histograms and the later passes' tile counters and
+  // status words (zeroed at once), then the first pass's counts of the
+  // tiles before each tile in its chunk and each chunk's counts
+  int64_t status_ints = 0;
+  for (int q = 1; q < npass; ++q) status_ints += (int64_t)n_tiles << sw.hdbits[q];
+  const int64_t zeroed = MAX_PASSES * RMAX + 32 * MAX_PASSES + status_ints;
+  const int64_t need = zeroed + ((int64_t)(n_tiles + n_chunks) << sw.hdbits[0]);
   if (scratch_ints < need) return (int)cudaErrorInvalidValue;
-  // the pass kernel's shared memory may pass 48 KB: opt in once a device
-  static bool opted[64];
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!opted[dev]) {
-    if ((e = cudaFuncSetAttribute(sort_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  pass_smem(MAX_OPS))) != cudaSuccess)
-      return (int)e;
-    opted[dev] = true;
-  }
   cudaStream_t st = (cudaStream_t)stream;
-  uint32_t* status = static_cast<uint32_t*>(scratch);
-  int32_t* counter = static_cast<int32_t*>(scratch) + n_tiles * RMAX;
-  int32_t* ghist = counter + 32;
-  HistParams h{};
-  h.key = static_cast<const int32_t*>(key_in);
-  h.P = P;
-  h.npass = npass;
-  int shift = 0;
-  for (int q = 0; q < npass; ++q) {  // equal digits, the first bits % npass one bit wider
-    h.dbits[q] = bits / npass + (q < bits % npass);
-    h.shift[q] = shift;
-    shift += h.dbits[q];
-  }
-  h.ghist = ghist;
-  if ((e = cudaMemsetAsync(ghist, 0, MAX_PASSES * RMAX * 4, st)) != cudaSuccess) return (int)e;
-  const int64_t hb = (P + 4 * THREADS - 1) / (4 * THREADS);
-  sort_hist_kernel<<<(unsigned)(hb < HIST_BLOCKS ? hb : HIST_BLOCKS), THREADS, 0, st>>>(h);
+  int32_t* ghist = static_cast<int32_t*>(scratch);
+  int32_t* counters = ghist + MAX_PASSES * RMAX;
+  uint32_t* status = reinterpret_cast<uint32_t*>(counters + 32 * MAX_PASSES);
+  int32_t* tile_pre = static_cast<int32_t*>(scratch) + zeroed;
+  int32_t* chunk = tile_pre + ((int64_t)n_tiles << sw.hdbits[0]);
+  if ((e = cudaMemsetAsync(scratch, 0, zeroed * 4, st)) != cudaSuccess) return (int)e;
+  // the first pass's digit: each tile's and each chunk's counts, and every
+  // pass's histogram, from one read of the keys; the digits' bases; the
+  // chunks' places
+  sw.key = static_cast<const int32_t*>(key_in);
+  sw.shift = sw.hshift[0];
+  sw.dbits = sw.hdbits[0];
+  sw.ghist = ghist;
+  sw.tile_pre = tile_pre;
+  sw.chunk_sum = chunk;
+  sort_upsweep_kernel<<<n_chunks, SWEEP_THREADS, 0, st>>>(sw);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  sort_bases_kernel<<<1, THREADS, 0, st>>>(ghist, npass);
+  sort_bases_kernel<<<npass, RMAX, 0, st>>>(ghist);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  sort_chunk_scan_kernel<<<((1 << sw.dbits) + 31) / 32, 256, 0, st>>>(chunk, n_chunks, sw.dbits,
+                                                                      ghist);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   PassParams p{};
-  p.P = P;
+  p.P = (int32_t)P;
   p.n_ops = n_ops;
   p.idx_slot = idx_slot;
   p.base = base;
-  p.status = status;
-  p.counter = counter;
+  p.tile_pre = tile_pre;
+  p.chunk_base = chunk;
   const void* cur_key = key_in;
   const void* cur_op[MAX_OPS] = {op_in[0], op_in[1], op_in[2]};
   for (int pass = 0; pass < npass; ++pass) {
@@ -488,16 +614,19 @@ extern "C" int radix_sort_launch(const void* key_in, void* key_out, void* key_tm
     p.key_out = static_cast<int32_t*>(to_out ? key_out : key_tmp);
     for (int s = 0; s < MAX_OPS; ++s) {
       p.op_in[s] = s < n_ops ? static_cast<const int32_t*>(cur_op[s]) : nullptr;
-      p.op_out[s] = s < n_ops ? (to_out ? op_out[s] : op_tmp[s]) : nullptr;
+      p.op_out[s] = s < n_ops ? (to_out ? op_out[s] : static_cast<int32_t*>(op_tmp) + s * P)
+                              : nullptr;
     }
     p.gen_idx = pass == 0;
     p.idx64 = idx64 && pass == npass - 1;
-    p.shift = h.shift[pass];
-    p.dbits = h.dbits[pass];
+    p.shift = sw.hshift[pass];
+    p.dbits = sw.hdbits[pass];
     p.bases = ghist + pass * RMAX;
-    if ((e = cudaMemsetAsync(status, 0, (n_tiles * RMAX + 32) * 4, st)) != cudaSuccess) return (int)e;
-    sort_pass_kernel<<<(unsigned)n_tiles, THREADS, pass_smem(n_ops), st>>>(p);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    p.status = status;
+    p.counter = counters + 32 * pass;
+    if (pass) status += (int64_t)n_tiles << p.dbits;
+    e = pass ? launch_pass<true>(p, n_tiles, st, dev) : launch_pass<false>(p, n_tiles, st, dev);
+    if (e != cudaSuccess) return (int)e;
     cur_key = p.key_out;
     for (int s = 0; s < n_ops; ++s) cur_op[s] = p.op_out[s];
   }

@@ -93,8 +93,8 @@ KERNELS = {
     "sort_payloads": (
         "radix_sort.cu",
         "radix_sort_launch",
-        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I64, _I32,
-         _I64, _I32, _VP, _I64, _VP],
+        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I64, _I32, _I64, _I32,
+         _VP, _I64, _VP],
     ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})

@@ -179,17 +179,18 @@ def _window_plan(keys: torch.Tensor, n_blocks: int, pc: int, nt: int,
 
 # --- kernel E (csrc/radix_sort.cu): the streams' key sort with its payloads --
 
-SORT_DIGIT_BITS = 8  # kernel E's widest digit: 256 buckets a pass
+SORT_DIGIT_BITS = 10  # kernel E's widest digit: 1,024 buckets a pass
 SORT_MAX_OPS = 3  # operand streams a sort carries, the index included
 SORT_MAX_KEYS = 2**30 - 1  # keys a sort takes: kernel E keeps a tile's counts in 30 bits
-_SORT_TILE = 4096  # csrc/radix_sort.cu's keys a tile
+_SORT_TILE = 8192  # csrc/radix_sort.cu's keys a tile
+_SORT_CHUNK = 4  # csrc/radix_sort.cu's tiles an upsweep block counts in order
 
 
 def sort_passes(bits: int) -> list[int]:
     """Kernel E's digit widths, low digit first, for keys of ``bits`` bits:
     ceil(bits / SORT_DIGIT_BITS) digits as equal as they come, the first
-    bits % n of them one bit wider (30: 8, 8, 7, 7; 26: 7, 7, 6, 6; 31: 8,
-    8, 8, 7)."""
+    bits % n of them one bit wider (30: 10, 10, 10; 26: 9, 9, 8; 21: 7, 7,
+    7; 31: 8, 8, 8, 7)."""
     n = -(-bits // SORT_DIGIT_BITS)
     q, r = divmod(bits, n)
     return [q + (i < r) for i in range(n)]
@@ -254,10 +255,16 @@ def sort_payloads_plain(key, bits: int, operands=(), *, index: bool = False, bas
     return (key, *ops)
 
 
-def _sort_scratch(P: int) -> int:
-    """int32 of kernel E's scratch for P keys: a status word per tile and
-    bucket, the tile counter (32 words), and four passes' histograms."""
-    return ((-(-P // _SORT_TILE) + 4) << SORT_DIGIT_BITS) + 32
+def _sort_scratch(P: int, bits: int) -> int:
+    """int32 of kernel E's scratch for P keys of ``bits`` bits
+    (csrc/radix_sort.cu's layout): four passes' histograms (1,024 buckets
+    each) and tile counters (32 words each), a status word per tile and
+    bucket of each later pass, then per bucket of the first pass a count for
+    each tile of _SORT_TILE keys and each chunk of _SORT_CHUNK tiles."""
+    n_tiles = -(-P // _SORT_TILE)
+    first, *later = sort_passes(bits)
+    return (4 * 1024 + 4 * 32 + sum(n_tiles << w for w in later)
+            + ((n_tiles + -(-n_tiles // _SORT_CHUNK)) << first))
 
 
 def sort_payloads(key, bits: int, operands=(), *, index: bool = False, base: int = 0,
@@ -272,10 +279,12 @@ def sort_payloads(key, bits: int, operands=(), *, index: bool = False, base: int
     torch.sort(key, stable=True) with the operands gathered through its
     permutation.
 
-    A CUDA tensor launches csrc/radix_sort.cu (kernel E: one histogram of
-    every pass's digit, then one launch an LSD pass of
-    ``sort_passes(bits)``; the key's range is the caller's guarantee
-    there); a CPU tensor takes the plain twin, which checks the range.
+    A CUDA tensor launches csrc/radix_sort.cu (kernel E: one read of the
+    keys for every pass's histogram and the first pass's tile counts, then
+    one launch an LSD pass of ``sort_passes(bits)``, the later ones with a
+    decoupled look-back; every launch fixed on the host, nothing waits for
+    the device; the key's range is the caller's guarantee there); a CPU
+    tensor takes the plain twin, which checks the range.
     ``sort_payloads.launches`` counts calls that launched it."""
     operands = tuple(operands)
     dev = key.device
@@ -293,13 +302,14 @@ def sort_payloads(key, bits: int, operands=(), *, index: bool = False, base: int
     outs = [torch.empty(P, **i32) for _ in operands]
     if index:
         outs.append(torch.empty(P, dtype=torch.int64 if index64 else torch.int32, device=dev))
-    tmp = [torch.empty(P, **i32) if two else None for _ in range(n_ops + 1)]
-    scratch = torch.empty(_sort_scratch(P), **i32)
-    pad = [None] * (SORT_MAX_OPS - n_ops)
+    key_tmp = torch.empty(P, **i32) if two else None
+    op_tmp = torch.empty(n_ops * P, **i32) if two and n_ops else None
+    scratch = torch.empty(_sort_scratch(P, bits), **i32)
     ins = list(operands) + [None] * (SORT_MAX_OPS - len(operands))
+    pad = [None] * (SORT_MAX_OPS - n_ops)
     if P:
-        _launch("sort_payloads", key, key_s, tmp[0], *ins, *outs, *pad, *tmp[1:], *pad,
-                n_ops, n_ops - 1 if index else -1, int(base), int(index64), P, bits, scratch,
+        _launch("sort_payloads", key, key_s, key_tmp, *ins, *outs, *pad, op_tmp, n_ops,
+                n_ops - 1 if index else -1, int(base), int(index64), P, bits, scratch,
                 scratch.numel())
         sort_payloads.launches += 1
     return (key_s, *outs)

@@ -1373,8 +1373,11 @@ def test_sort_kernel_matches_twin(cuda_device, name):
     with an operand and the index from a base, duplicates, all keys equal,
     keys descending with the index widened to int64, bits 1 and 31, P not a
     multiple of the tile, a P of a few hundred, the qbits == 0 batch's three
-    operands, an index that wraps past 2^32, and P = 0 (no launch). The
-    inputs stay as they were."""
+    operands, an index that wraps past 2^32, P = 0 (no launch), and the
+    skew of the main cell's batches: a key with 10 % of the probes, four
+    with 1 % each, every key with the same top bits, and bits <= 10 (one
+    pass, the index written as int64 there). The inputs stay as they
+    were."""
     key, bits, ops, index, base, index64 = ts.sort_case(name)
     k = torch.from_numpy(key).to(cuda_device)
     o = [torch.from_numpy(a).to(cuda_device) for a in ops]
@@ -1405,6 +1408,72 @@ def test_sort_kernel_at_a_dispatch_size(cuda_device):
         key_s, perm = torch.sort(key, stable=True)
         want = [key_s] + [x[perm] for x in ops] + [perm if index64 else perm.to(torch.int32)]
         _tensors_equal(got, want, f"sort_payloads P={P}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hot_key", "hot_rows", "one_bucket", "one_pass", "one_digit"])
+def test_sort_kernel_skewed_at_a_million(cuda_device, kind):
+    """Kernel E against its twin on the card, bit for bit, at 2,000,000
+    keys with the skew the main cell's batches bring: a key with 10 % of the
+    probes (the blocked padding: one digit's run spans every tile), four
+    keys with 1 % each as 26-bit rows with the index as int64 (the classic
+    padding), every key with the same top bits, bits <= 10 (one pass, the
+    index written as int64 there), and a low digit that is 0 in every key
+    (a pass whose tiles hold one digit each)."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    P = 2_000_000
+
+    def rand(n, hi, lo=0):
+        return torch.randint(lo, hi, (n,), generator=g, device=cuda_device, dtype=torch.int32)
+
+    bits, kw = 30, dict(index=True, base=123)
+    if kind == "hot_key":
+        key = rand(P, 2**30)
+        key[torch.randperm(P, generator=g, device=cuda_device)[:P // 10]] = 987_654_321
+    elif kind == "hot_rows":
+        bits, kw = 26, dict(index=True, index64=True)
+        key = rand(P, 2**26)
+        pick = torch.randperm(P, generator=g, device=cuda_device)[:4 * (P // 100)]
+        key[pick] = rand(4, 2**26).repeat_interleave(P // 100)
+    elif kind == "one_bucket":
+        key = rand(P, 2**22) + (3 << 27)
+    elif kind == "one_pass":
+        bits, kw = 8, dict(index=True, index64=True)
+        key = rand(P, 2**8)
+    else:
+        key = rand(P, 2**20) << 10
+    assert (len(sq.sort_passes(bits)) == 1) == (kind == "one_pass")
+    ops = [rand(P, 2**31 - 1, -(2**31))]
+    want = sq.sort_payloads_plain(key, bits, ops, **kw)
+    before = sq.sort_payloads.launches
+    got = sq.sort_payloads(key, bits, ops, **kw)
+    torch.cuda.synchronize()
+    assert sq.sort_payloads.launches == before + 1
+    _tensors_equal(got, want, f"sort_payloads {kind}")
+
+
+@pytest.mark.cuda
+def test_sort_kernel_adds_no_host_sync(cuda_device):
+    """At the blocked batch's shape (9,437,184 probes, 30 bits, the packed
+    offsets) kernel E runs with torch's sync debug mode set to raise: the
+    wrapper and every launch of its passes, sized on the host, wait for
+    nothing on the device."""
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    P = 9_437_184
+    key = torch.randint(0, 2**30, (P,), generator=g, device=cuda_device, dtype=torch.int32)
+    key[: P // 10] = 5  # the padding's hot key
+    offp = torch.randint(-(2**31), 2**31 - 1, (P,), generator=g, device=cuda_device,
+                         dtype=torch.int32)
+    sq.sort_payloads(key, 30, [offp])  # the build and the first launch outside the mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sq.sort_payloads(key, 30, [offp])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    key_s, perm = torch.sort(key, stable=True)
+    _tensors_equal(got, [key_s, offp[perm]], "sort_payloads under the sync debug mode")
 
 
 @pytest.mark.cuda

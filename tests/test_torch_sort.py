@@ -48,11 +48,23 @@ def test_twin_matches_jax_and_torch_sort(name):
 
 @pytest.mark.parametrize("bits", range(1, 32))
 def test_passes_cover_the_key(bits):
-    """The digit widths E takes: ceil(bits / 8) digits that sum to bits,
-    none wider than 8 and none two bits narrower than another."""
+    """The digit widths E takes: ceil(bits / 10) digits that sum to bits,
+    none wider than 10 and none two bits narrower than another."""
     w = sq.sort_passes(bits)
     assert sum(w) == bits and len(w) == -(-bits // sq.SORT_DIGIT_BITS)
     assert max(w) <= sq.SORT_DIGIT_BITS and max(w) - min(w) <= 1
+
+
+@pytest.mark.parametrize("bits", [21, 26, 30])
+def test_digit_runs_fill_a_sector(bits):
+    """At the main cell's keys (30 bits blocked, 26 the classic rows, 21
+    past 2^20 blocks) a digit's run in a tile of _SORT_TILE uniform keys
+    averages 8 keys or more, a 32-byte sector of int32: the width the tile
+    was sized for; and the tile's 16-bit places and the kernel's 30-bit
+    counts hold."""
+    for w in sq.sort_passes(bits):
+        assert sq._SORT_TILE >> w >= 8
+    assert sq._SORT_TILE < 2**16 and sq.SORT_MAX_KEYS < 2**30
 
 
 @pytest.mark.parametrize("bloom_size,rpb,qbits,want", [
@@ -71,11 +83,11 @@ def test_key_bits_at_the_cells_geometry(bloom_size, rpb, qbits, want):
         # the frequency rides in the key where that key fits int32
         assert sq._qc_in_key_ok(bloom_size, rpb) == (want <= (31 if qbits else 20))
     if want in (26, 30):
-        # both main-cell keys: four passes, where torch.sort makes four over 32 bits
-        assert len(sq.sort_passes(want)) == 4
+        # both main-cell keys: three passes, where torch.sort makes four over 32 bits
+        assert len(sq.sort_passes(want)) == 3
 
 
-@pytest.mark.parametrize("digits", [[8, 8, 7, 7], [7, 7, 6, 6]])
+@pytest.mark.parametrize("digits", [[10, 10, 10], [9, 9, 8]])
 def test_passes_are_lsd_stable(digits):
     """Each pass leaves the keys ordered by the digits sorted so far, with
     ties in input order: the stability the next pass relies on, checked

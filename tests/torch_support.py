@@ -522,7 +522,15 @@ SORT_CASES = {
     "qbits_0_three_operands": (16_384, 19, "random", 2, True, 4096, False),
     "index_wraps": (5_000, 16, "random", 0, True, 2**32 - 2_000, False),
     "empty": (0, 10, "random", 1, True, 0, False),
+    # the skew the main cell's batches bring
+    "hot_key_10pct": (200_000, 30, "hot1", 1, False, 0, False),  # the blocked padding's key
+    "hot_rows_1pct": (200_000, 26, "hot4", 0, True, 0, True),  # the classic padding's rows
+    "one_bucket": (100_000, 30, "one_bucket", 1, True, 0, False),  # every key's top bits equal
+    "one_pass": (100_000, 4, "random", 1, True, 0, True),  # one digit is the whole sort
 }
+
+
+SORT_SKEWED = ("hot_key_10pct", "hot_rows_1pct", "one_bucket", "one_pass")
 
 
 def sort_case(name: str):
@@ -530,13 +538,22 @@ def sort_case(name: str):
     of int32 operands [P] over the whole int32 range, index, base,
     index64)."""
     P, bits, kind, n_ops, index, base, index64 = SORT_CASES[name]
-    rng = np.random.default_rng(sorted(SORT_CASES).index(name) + 300)
+    first = sorted(n for n in SORT_CASES if n not in SORT_SKEWED)
+    seed = first.index(name) + 300 if name in first else SORT_SKEWED.index(name) + 400
+    rng = np.random.default_rng(seed)
     if kind == "random":
         key = rng.integers(0, 2**bits, P)
     elif kind == "few":
         key = rng.integers(0, 50, P)
     elif kind == "equal":
         key = np.full(P, 5)
+    elif kind in ("hot1", "hot4"):
+        key = rng.integers(0, 2**bits, P)
+        hot = rng.integers(0, 2**bits, 1 if kind == "hot1" else 4)
+        share = P // 10 if kind == "hot1" else P // 100
+        key[rng.permutation(P)[:share * len(hot)]] = np.repeat(hot, share)
+    elif kind == "one_bucket":
+        key = (5 << (bits - 4)) + rng.integers(0, 2**(bits - 4), P)
     else:
         key = (2**bits - 1) - np.arange(P) * 7
     ops = [rng.integers(-(2**31), 2**31, P).astype(np.int32) for _ in range(n_ops)]
