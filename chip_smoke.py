@@ -71,8 +71,9 @@ Phases, each printing its lines (any failure exits non-zero):
    block << 11 | frequency with the gathers (the route it replaced there).
    The blocked and classic dispatches' [profile] lines must show no
    torch.sort radix kernel.
-4-stream_tail. Kernel D (the blocked stream's plan, tail and residual
-   gather) against its twins, bitwise, on the inputs that the
+4-stream_tail. Kernel D (the blocked stream's plan with its residual
+   chunk list, and its tail with the residual gather: two launches a
+   batch) against its twins, bitwise, on the inputs that the
    device-resident blocked dispatch hands each entry point (9,437,184
    slots, the frequency in an int32 key that kernel E sorted with its
    payloads); the card's route against the twins' route on the card (all
@@ -81,8 +82,11 @@ Phases, each printing its lines (any failure exits non-zero):
    2^20 blocks (three operands), with every frequency above the histogram (the overflow list
    past OVER_CAP and capO) and on a sparse batch (more residual chunks
    than nch); kernel A's packed mode on the dispatch's k-mers; the times
-   of D1-D3 and their twins', the byte bound, the main path's launches.
-   The blocked dispatch's [profile] line must show no index kernel.
+   of D1 and D2 and their twins', the byte bound beside the five-launch
+   design's, the main path's launches (one plan and one tail a batch).
+   The blocked dispatch's [profile] line must show no index kernel; it
+   sums kernel D's kernels and gives the host's enqueue time of one
+   dispatch.
 
 4a. bench: python -m colorid_tpu_torch.bench in a subprocess on phase 3's
    two indexes (handed over in its cache under its names): rc 0, one JSON
@@ -226,6 +230,44 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_times(prof) -> dict:
+    """A torch.profiler trace's device work by kernel: {name: [ms, count]},
+    the name without namespace, template or arguments (the aten ops that
+    launched the kernels repeat their time and are left out)."""
+    import torch
+
+    by: dict[str, list] = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        key = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+        name = key.split("<")[0].split("(")[0].split("::")[-1].strip() or e.key[:40]
+        acc = by.setdefault(name, [0.0, 0])
+        acc[0] += us / 1e3
+        acc[1] += e.count
+    return by
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms a call of fn() keeps the card busy, its kernels and
+    memsets summed (torch.profiler over reps calls, after a warm-up call):
+    unlike cuda_ms, not paced by the host where a call's host work takes
+    longer than its device work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for ms, _n in device_times(prof).values()) / reps
 
 
 # -- phase 2: each kernel against its twin ---------------------------------------
@@ -480,21 +522,39 @@ def stream_tail_bytes(P: int, *, pc: int, n_slots: int, n_listed: int, W: int, C
                       n_kept: int) -> int:
     """Bytes that kernel D (csrc/stream_tail.cu) must move for one stream
     batch of P probes in chunks of pc, each input read once and each output
-    written once.
+    its consumers read written once; the look-back's status words and
+    tickets are scratch and not counted.
     D1, the plan: from the key sorted with its payloads by kernel E
     (key_bytes > 0) the key read and blk_s, qc_s written (8); from probes
     sorted already (key_bytes 0) blk_s and qc_s read (8); then qcw (4) a
-    probe, and tb, chunk_res, chunk_real (12) a chunk.
+    probe; the list (4 a slot) and its three counts (12) written.
     D2, the tail: uniq and qc_s (8) a probe; the probe kernel's counts and
     histogram (4 (32 W + cp hw), cp >= C: counted as C) and the
     accumulators' histogram band read and written (8 C hw); the stats read
-    and written; the chunk counts read (8 a chunk); the tile counts written
-    and read (16 a tile of 2,048); the list written (4 a slot); each kept
-    overflow entry's uniq, qc and payload read and its two slots written (20).
-    D3, the residual gather: per slot pc rows of andw, present, mask, q and
-    gidx written (4 W + 10); per row of a listed chunk its block and
-    frequency read (8); per residual probe its offsets and payload (8) and
-    the 32-byte sectors its rows touch (res_sectors)."""
+    and written; the plan's list and counts read (4 a slot, 12) and n_drop
+    written (4); each kept overflow entry's payload read and its two slots
+    read and written (20). The residual gather: per slot pc rows of andw,
+    present, mask, q and gidx written (4 W + 10); per row of a listed chunk
+    its qc_s and qcw read (8); per residual probe its block, offsets and
+    payload (12) and the 32-byte sectors its rows touch (res_sectors)."""
+    d1 = P * (key_bytes + 8 + 4) + 4 * n_slots + 12
+    d2 = (8 * P + 4 * (32 * W + C * hw) + 8 * C * hw + 8 * (C + W + 2) + 4 * n_slots + 12
+          + 4 + 20 * n_kept)
+    gather = n_slots * pc * (4 * W + 10) + 8 * n_listed * pc + 12 * n_res + 32 * res_sectors
+    return d1 + d2 + gather
+
+
+def stream_tail_bytes_five_launches(P: int, *, pc: int, n_slots: int, n_listed: int, W: int,
+                                    C: int, hw: int, key_bytes: int, n_res: int,
+                                    res_sectors: int, n_kept: int) -> int:
+    """The byte count of kernel D's earlier five-launch design, printed
+    beside ``stream_tail_bytes`` so that the two bounds can be compared.
+    D1 wrote tb, chunk_res and chunk_real (12 a chunk) and no list; D2 read
+    the chunk counts (8 a chunk), wrote and read its tile counts (16 a tile
+    of 2,048) and wrote the list (4 a slot); D3 read blk_s and qc_s (8) a
+    row of a listed chunk and the offsets and payload (8) of a residual
+    probe. The rest as ``stream_tail_bytes``, without the plan's counts and
+    n_drop."""
     n_chunks, n_tiles = P // pc, -(-P // 2048)
     d1 = P * (key_bytes + 8 + 4) + 12 * n_chunks
     d2 = (8 * P + 4 * (32 * W + C * hw) + 8 * C * hw + 8 * (C + W + 2) + 8 * n_chunks
@@ -1064,6 +1124,10 @@ def _check_new_kernels(used: dict, what: str) -> None:
             f"window-key, epilogue, sort{' and stream glue' if glue else ''} kernels "
             f"(launches in (search -f 1, search -s): {used})"
         )
+    if glue and used["stream_chunk_plan"] != used["stream_tail"]:
+        raise AssertionError(f"{what}: kernel D's plan and tail launched "
+                             f"{used['stream_chunk_plan']} and {used['stream_tail']} times: "
+                             "one each a stream batch")
 
 
 def classic_path_phase(tmp: str, inputs, card: str):
@@ -1177,8 +1241,8 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         f"launches={launches}; streamed segments={sizes} n_drop={n_drop}; launches in "
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
         f"{used['window_keys']}, epilogue {used['_accumulate_tail']} (residual pass), "
-        f"stream glue (plan, tail, residual) {used['stream_chunk_plan']}, "
-        f"{used['stream_tail']}, {used['stream_residual']}, sort {used['sort_payloads']} "
+        f"stream glue (plan, tail) {used['stream_chunk_plan']}, {used['stream_tail']}, "
+        f"sort {used['sort_payloads']} "
         f"on {card}")
     _check_new_kernels(used, "blocked")
     if index.blocked != 4:
@@ -1361,7 +1425,7 @@ def blocked_parity_phase(bxi: str, fq: str, card: str, strict: bool = True):
         return None, dispatches["stream"]
     profile_dispatch(lambda: dispatches["stream"]()[0], "blocked", card,
                      forbid=("index_elementwise_kernel", "indexFuncLargeIndex") if strict else (),
-                     forbid_like=("RadixSort",) if strict else ())
+                     forbid_like=("RadixSort",) if strict else (), enqueue=True)
     return real_segment(dispatches["stream"], card), dispatches["stream"]
 
 
@@ -1619,7 +1683,7 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
 
 # -- phase 4-stream_tail: kernel D on the blocked dispatch's inputs -----------
 
-TAIL_WRAPPERS = ("stream_chunk_plan", "stream_tail", "stream_residual")
+TAIL_WRAPPERS = ("stream_chunk_plan", "stream_tail")
 SPARSE_CHUNKS = 300  # chunks of the sparse batch: more residual chunks than nch
 
 
@@ -1643,12 +1707,13 @@ def _outputs_err(got, want) -> int:
 
 def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) -> dict:
     """Kernel D (csrc/stream_tail.cu) against its twins, bitwise: each entry
-    point (the plan D1 from the sorted key, the tail D2 with the four
-    accumulators, the residual gather D3) on the inputs that the
-    device-resident blocked dispatch hands it (the real blocked segment,
-    9,437,184 slots, the frequency in an int32 key that kernel E sorted
-    with its payloads); and the card's route (kernel A's packed mode, the
-    key sort, kernel D, the probe kernel, the epilogue) against the twins'
+    point (the plan D1 from the sorted key with the residual chunk list,
+    the tail D2 with the four accumulators and the residual gather) on the
+    inputs that the device-resident blocked dispatch hands it (the real
+    blocked segment, 9,437,184 slots, the frequency in an int32 key that
+    kernel E sorted with its payloads), and one launch of each a batch in
+    that dispatch; and the card's route (kernel A's packed mode, the key
+    sort, kernel D, the probe kernel, the epilogue) against the twins'
     route (_stream_core_plain) on the card, all four accumulators and
     n_drop: on that batch, on it in clipped mode with a global index (the
     frequency in the key: kernel E carries the index; the frequency out of
@@ -1658,9 +1723,9 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
     slots below capO) and on a sparse batch (its first SPARSE_CHUNKS
     chunks' k-mers over the whole matrix: more residual chunks than nch,
     n_drop > 0); and kernel A's packed mode against its twin on the
-    dispatch's k-mers. The times of D1-D3 and of their twins on the real
-    batch, and their bound (stream_tail_bytes; D1's loop for the
-    operations)."""
+    dispatch's k-mers. The times of D1 and D2 and of their twins on the
+    real batch, and their bound (stream_tail_bytes, beside the five-launch
+    design's count; D1's loop for the operations)."""
     import torch
 
     from colorid_tpu_torch.ops import hash_torch as ht
@@ -1668,12 +1733,16 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
 
     t0 = time.time()
     seen: dict = {}
-    names = TAIL_WRAPPERS + ("stream_accumulate_hash_exact",)
+    names = TAIL_WRAPPERS + ("stream_accumulate_hash_exact", "_stream_core_kernels")
     reals = {n: getattr(sq, n) for n in names}
+    batches = []
 
     def observer(name):
         def observed(*a, **kw):
-            seen[name] = ([_clone(x) for x in a], {k: _clone(v) for k, v in kw.items()})
+            if name == "_stream_core_kernels":
+                batches.append(a[5][0].numel())
+            else:
+                seen[name] = ([_clone(x) for x in a], {k: _clone(v) for k, v in kw.items()})
             return reals[name](*a, **kw)
 
         # each wrapper counts its launches on the module's name, the observer now
@@ -1688,9 +1757,13 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
     finally:
         for n in names:
             if n in TAIL_WRAPPERS:
+                launched = getattr(sq, n).launches - reals[n].launches
+                if DEVICE == "cuda" and launched != len(batches):
+                    raise AssertionError(f"{n}: {launched} launches for {len(batches)} stream "
+                                         "batches in the blocked dispatch; one a batch")
                 reals[n].launches = getattr(sq, n).launches
             setattr(sq, n, reals[n])
-    errs, outs, ms, plain_ms = {}, {}, {}, {}
+    errs, outs, ms, plain_ms, span_ms, host_us = {}, {}, {}, {}, {}, {}
     for n in TAIL_WRAPPERS:
         a, kw = seen[n]
         twin = getattr(sq, n + "_plain")
@@ -1698,7 +1771,6 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
         for fn in (reals[n], twin):
             args = [_clone(x) for x in a]
             res = fn(*args, **kw)
-            res = res if isinstance(res, tuple) else (res,)
             pair.append(list(res) + (args[:4] if n == "stream_tail" else []))
         sync()
         errs[n] = _outputs_err(*pair)
@@ -1706,7 +1778,9 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
         if errs[n]:
             raise AssertionError(f"{n} kernel != twin on the real segment: max_abs_err {errs[n]}")
         args = [_clone(x) for x in a]
-        ms[n] = cuda_ms(lambda: reals[n](*args, **kw), 20)
+        ms[n] = device_ms(lambda: reals[n](*args, **kw), 20)
+        span_ms[n] = cuda_ms(lambda: reals[n](*args, **kw), 20)
+        host_us[n] = enqueue_us(lambda: reals[n](*args, **kw))[0]
         plain_ms[n] = cuda_ms(lambda: twin(*args, **kw), 3)
 
     # the bound from this batch's inputs: D1 on kernel E's sorted key (or
@@ -1717,44 +1791,53 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
     ta, tkw = seen["stream_tail"]
     stats0, over_col = ta[0], ta[2]
     C, W = tkw["n_colors"], tkw["wpad"]
-    hw = ta[8].shape[1]
+    hw = ta[7].shape[1]
     capO = over_col.numel()
-    cidx, n_cov = outs["stream_tail"][0], int(outs["stream_tail"][1])
-    stats1 = outs["stream_tail"][3]
+    cidx, meta = outs["stream_chunk_plan"][4], outs["stream_chunk_plan"][5]
+    n_cov = int(meta[1])
+    stats1 = outs["stream_tail"][6]
     before, after = int(stats0[C + W + 1]), int(stats1[C + W + 1])
     n_kept = max(0, min(after, capO) - min(before, capO))
-    ra, rkw = seen["stream_residual"]
-    mask = outs["stream_residual"][2]
+    mask = outs["stream_tail"][2]
     c = cidx[:n_cov].to(torch.int64)
     rows = (torch.arange(sq.PC, device=c.device) + c[:, None] * sq.PC).reshape(-1)
     live_rows = rows[mask[: n_cov * sq.PC]]
-    blk_l = ra[1][live_rows].to(torch.int64)
-    off_l = ra[2][live_rows].to(torch.int64)
+    blk_l = ta[8][live_rows].to(torch.int64)
+    off_l = ta[9][live_rows].to(torch.int64)
     starts = torch.cat([blk_l * 128 + ((off_l >> (8 * h)) & 0xFF) * W
-                        for h in range(rkw["num_hash"])])
+                        for h in range(tkw["num_hash"])])
     n_res = int(mask.sum())
-    n_bytes = stream_tail_bytes(
-        P, pc=sq.PC, n_slots=cidx.numel(), n_listed=n_cov, W=W, C=C, hw=hw,
-        key_bytes=0 if key_s is None else key_s.element_size(), n_res=n_res,
-        res_sectors=sectors(starts, W) if n_res else 0, n_kept=n_kept)
+    counts = dict(pc=sq.PC, n_slots=cidx.numel(), n_listed=n_cov, W=W, C=C, hw=hw,
+                  key_bytes=0 if key_s is None else key_s.element_size(), n_res=n_res,
+                  res_sectors=sectors(starts, W) if n_res else 0, n_kept=n_kept)
+    n_bytes = stream_tail_bytes(P, **counts)
+    old_bytes = stream_tail_bytes_five_launches(P, **counts)
+    # D1's largest loop, whose body takes 4 probes (16-byte accesses)
     instr = sass_loop_instructions("stream_tail.cu", "plan_kernel", outer=True)
-    bound_ms, bound_by, how = _bound(n_bytes, P, instr)
+    bound_ms, bound_by, how = _bound(n_bytes, P // 4, instr)
     total, total_plain = sum(ms.values()), sum(plain_ms.values())
     how_in = ("probes sorted already" if key_s is None else
               f"key {key_s.dtype}, qbits {pkw['qbits']}, sorted with its payloads")
     log(f"[kernel] stream_tail real segment: P={P} ({P // sq.PC} chunks, {how_in}), "
-        f"{n_cov} residual chunks listed of "
-        f"{cidx.numel()} slots, {n_res} residual probes, {n_kept} overflow entries kept; "
-        f"bitwise_equal=True for plan, tail (stats, hist, over_col, over_freq, list, "
-        f"n_drop) and residual (max_abs_err {max(errs.values())}); ms plan="
-        f"{ms['stream_chunk_plan']:.4f} tail={ms['stream_tail']:.4f} residual="
-        f"{ms['stream_residual']:.4f} total={total:.4f}; plain_ms plan="
-        f"{plain_ms['stream_chunk_plan']:.4f} tail={plain_ms['stream_tail']:.4f} residual="
-        f"{plain_ms['stream_residual']:.4f} total={total_plain:.4f}; library_ms=null (no "
+        f"{len(batches)} batch(es) in the dispatch, 2 launches each (plan, tail); "
+        f"{n_cov} residual chunks listed of {cidx.numel()} slots, {n_res} residual probes, "
+        f"{n_kept} overflow entries kept; "
+        f"bitwise_equal=True for plan (streams, list, counts) and tail (stats, hist, "
+        f"over_col, over_freq, residual rows, n_drop) (max_abs_err {max(errs.values())}); "
+        f"ms plan={ms['stream_chunk_plan']:.4f} tail={ms['stream_tail']:.4f} "
+        f"total={total:.4f} (device time a call, memsets included: torch.profiler over 20 "
+        f"calls); span of 20 calls back to back (CUDA events, host-paced where a call's host "
+        f"work outlasts its kernels) plan={span_ms['stream_chunk_plan']:.4f} "
+        f"tail={span_ms['stream_tail']:.4f}; host us a call plan="
+        f"{host_us['stream_chunk_plan']:.1f} tail={host_us['stream_tail']:.1f} (median of 20); "
+        f"plain_ms plan={plain_ms['stream_chunk_plan']:.4f} "
+        f"tail={plain_ms['stream_tail']:.4f} total={total_plain:.4f}; library_ms=null (no "
         f"single PyTorch call computes the plan, the tail or the gather) bound_ms="
-        f"{bound_ms:.4f} bound_by={bound_by} ({how}; D1's loop) launches on the main "
-        f"path={main_launches} on {card}")
-    del outs, seen["stream_chunk_plan"], seen["stream_tail"], seen["stream_residual"]
+        f"{bound_ms:.4f} bound_by={bound_by} ({how}: items of 4 probes in D1's loop); the "
+        f"five-launch design's count on this batch {old_bytes} bytes = "
+        f"{old_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+        f"launches on the main path={main_launches} on {card}")
+    del outs, seen["stream_chunk_plan"], seen["stream_tail"]
 
     # the whole route against the twins' route on the card
     pa, pkw = seen["stream_accumulate_hash_exact"]
@@ -1828,7 +1911,8 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
         "library_ms": None,
         "plan_ms": ms["stream_chunk_plan"],
         "tail_ms": ms["stream_tail"],
-        "residual_ms": ms["stream_residual"],
+        "span_ms": sum(span_ms.values()),
+        "bound_ms_five_launch_count": old_bytes / HBM_BYTES_PER_S * 1e3,
     }
 
 
@@ -4135,37 +4219,55 @@ def ptxas_summary(logs) -> list[str]:
     return lines
 
 
+# kernel D's kernels by name: the two-launch design's plan and tail, and the
+# earlier five-launch design's plan, three tail kernels and residual gather
+D_KERNELS = ("plan", "tail", "tail_count", "tail_overflow", "tail_finish", "residual")
+
+
+def enqueue_us(fn, reps: int = 20) -> tuple[float, float]:
+    """(median, min) microseconds of host clock that one call of ``fn``
+    takes to return, each call on an idle card (synchronised before):
+    the host's work to enqueue a dispatch that waits for nothing."""
+    import statistics
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times), min(times)
+
+
 def profile_dispatch(fn, what: str, card: str, label: str = "stream",
-                     forbid: tuple = (), forbid_like: tuple = ()) -> None:
+                     forbid: tuple = (), forbid_like: tuple = (),
+                     enqueue: bool = False) -> None:
     """Where one dispatch (a stream dispatch unless ``label`` says other)
     spends its device time:
-    torch.profiler's per-kernel device totals, and the device's idle share
-    of the dispatch's host-clock span. Fails if a kernel named in
-    ``forbid``, or whose name holds a string of ``forbid_like``, ran in it."""
+    torch.profiler's per-kernel device totals, kernel D's kernels summed,
+    and the device's idle share of the dispatch's host-clock span; with
+    ``enqueue``, the host clock that one dispatch takes to enqueue
+    (``enqueue_us``). Fails if a kernel named in ``forbid``, or whose name
+    holds a string of ``forbid_like``, ran in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    host = ""
+    if enqueue:
+        med, low = enqueue_us(fn)
+        host = f"host enqueue of one dispatch {med:.1f} us (median of 20; min {low:.1f}); "
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    # device kernels only (the aten ops that launched them repeat their
-    # time), grouped by the kernel's name without namespace or template
-    by_name: dict[str, list] = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        key = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-        name = key.split("<")[0].split("(")[0].split("::")[-1].strip() or e.key[:40]
-        acc = by_name.setdefault(name, [0.0, 0])
-        acc[0] += us / 1e3
-        acc[1] += e.count
+    by_name = device_times(prof)
     if not by_name:
         log(f"[profile] {what}: no device time in the trace: not measured on {card}")
         return
@@ -4176,10 +4278,11 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
-            "epilogue", "epilogue_sorted", "epilogue_overflow", "plan", "tail_count",
-            "tail_overflow", "tail_finish", "residual", "sort_upsweep", "sort_bases",
-            "sort_chunk_scan", "sort_pass")
+            "epilogue", "epilogue_sorted", "epilogue_overflow", *D_KERNELS, "sort_upsweep",
+            "sort_bases", "sort_chunk_scan", "sort_pass")
     )
+    d = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in D_KERNELS
+         and name.endswith("_kernel")]
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
     sort = [(ms, n) for ms, n, name in rows if "RadixSort" in name]
     ix = [(ms, n) for ms, n, name in rows if name.startswith("index")]
@@ -4189,6 +4292,7 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         f"x{sum(n for _, n in ew)}={sum(ms for ms, _ in ew):.2f}ms; index kernels (gathers "
         f"and scatters) x{sum(n for _, n in ix)}={sum(ms for ms, _ in ix):.3f}ms; radix sort "
         f"passes x{sum(n for _, n in sort)}={sum(ms for ms, _ in sort):.3f}ms; "
+        f"kernel D x{sum(n for _, n in d)}={sum(ms for ms, _ in d):.4f}ms; {host}"
         f"top kernels: {top}; "
         f"the port's own: {ours or 'none'} on {card}")
     ran = [f"{name} x{n}" for ms, n, name in rows
@@ -4424,8 +4528,8 @@ def main() -> int:
                                      + benched["_accumulate_sorted_words"])
         tail_row["launches"] += benched["stream_tail"]
         sort_row["launches"] += benched["sort_payloads"]
-        for name in ("stream_chunk_plan", "stream_residual"):
-            tail_row[name.split("_")[-1] + "_launches"] = glue_launches[name] + benched[name]
+        tail_row["plan_launches"] = (glue_launches["stream_chunk_plan"]
+                                     + benched["stream_chunk_plan"])
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):

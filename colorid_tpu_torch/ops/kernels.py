@@ -76,19 +76,13 @@ KERNELS = {
     "stream_plan": (
         "stream_tail.cu",
         "stream_plan_launch",
-        [_VP, _I32, _VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I64, _VP],
+        [_VP, _I32, _VP, _VP, _VP, _I64, _I32, _I32, _I64, _I32, _I32, _VP, _VP],
     ),
     "stream_tail": (
         "stream_tail.cu",
         "stream_tail_launch",
-        [_VP, _VP, _VP, _I64, _I32, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _VP, _I64,
-         _I64, _VP, _VP, _I64, _I32, _I32, _VP, _VP, _VP, _VP],
-    ),
-    "stream_residual": (
-        "stream_tail.cu",
-        "stream_residual_launch",
-        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
-         _I32, _VP, _VP, _VP, _VP, _VP, _VP],
+        [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _VP,
+         _I64, _I64, _VP, _VP, _I32, _I32, _I32, _I32, _VP, _I64, _VP, _VP, _VP],
     ),
     "sort_payloads": (
         "radix_sort.cu",

@@ -802,7 +802,10 @@ def _stream_core_plain(
     return stats, hist, over_col, over_freq, n_drop
 
 
-# --- kernel D (csrc/stream_tail.cu): the plan, the tail, the residual gather --
+# --- kernel D (csrc/stream_tail.cu): the plan, then the tail with the residual gather
+
+_TAIL_TILE = 2048  # csrc/stream_tail.cu's probes a tile of the tail
+_TAIL_HEAD = 8  # csrc/stream_tail.cu's counters at the head of the tail's scratch
 
 
 def _check_i32(name: str, tensors, dev, P: int | None = None):
@@ -818,9 +821,15 @@ def _check_i32(name: str, tensors, dev, P: int | None = None):
             raise ValueError(f"{name}: the probe streams must be [P]")
 
 
+def _check_aligned(name: str, tensors) -> None:
+    """The [P] streams that a kernel loads as 16-byte vectors."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the probe streams must be 16-byte aligned")
+
+
 def _launch(name: str, *args) -> None:
-    """Launch kernel D's entry point ``name`` with ``args`` (tensors as
-    their pointers) and the current stream of the first tensor's device."""
+    """Launch kernel ``name``'s entry point with ``args`` (tensors as their
+    pointers) and the current stream of the first tensor's device."""
     fn = kernels.kernel(name)
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
@@ -833,37 +842,46 @@ def _launch(name: str, *args) -> None:
 def stream_chunk_plan_plain(n_blocks: int, wpad: int, *, blk_s=None, off_s=None,
                             qc_s=None, key_s=None, qbits: int = 0):
     """Plain PyTorch twin of kernel D1 (same contract as
-    ``stream_chunk_plan``)."""
+    ``stream_chunk_plan``): the window plan, then ``_residual_plan``'s list
+    cut to min(nch, n_chunks) slots, -1 past the covered chunks."""
     if key_s is not None:
         blk_s = key_s >> qbits
         qc_s = key_s & ((1 << qbits) - 1)
-    tb, inwin2d = stream_plan(blk_s, n_blocks, wpad)
+    _tb, inwin2d = stream_plan(blk_s, n_blocks, wpad)
     qc2d = qc_s.view(-1, PC)
     qcw = torch.where(inwin2d, qc2d, 0)
     chunk_res = (~inwin2d & (qc2d > 0)).sum(dim=1, dtype=torch.int32)
-    chunk_real = (qcw > 0).sum(dim=1, dtype=torch.int32)
-    return blk_s, off_s, qc_s, qcw.view(-1), tb, chunk_res, chunk_real
+    covered, n_drop_res, order = _residual_plan(chunk_res, _nch(wpad))
+    n_cov = covered.sum(dtype=torch.int32)
+    slot = torch.arange(order.shape[0], device=order.device)
+    cidx = torch.where(slot < n_cov, order, -1).to(torch.int32)
+    meta = torch.stack([(qcw > 0).sum(dtype=torch.int32), n_cov, n_drop_res])
+    return blk_s, off_s, qc_s, qcw.view(-1), cidx, meta
 
 
 def stream_chunk_plan(n_blocks: int, wpad: int, *, blk_s=None, off_s=None, qc_s=None,
                       key_s=None, qbits: int = 0):
     """The window plan of a sorted probe stream over a matrix of n_blocks
-    blocks, in chunks of PC probes: (blk_s, off_s, qc_s, qcw, tb, chunk_res,
-    chunk_real), int32 [P] and [P // PC].
+    blocks, in chunks of PC probes, and its residual chunk list: (blk_s,
+    off_s, qc_s, qcw int32 [P], cidx int32 [min(nch, P // PC)], meta int32
+    [3]).
 
     Two ways in. The probes sorted already (blk_s, off_s, qc_s int32 [P],
     handed back as they are). Or the key sorted with its payloads (kernel
     E's output): key_s int32 [P], the block above the frequency in its low
     qbits (1..30), and off_s int32 [P] sorted with it; then blk_s and qc_s
-    are the key's bits and off_s is handed back. tb is each chunk's first
-    window tile
-    (stream_plan's), qcw = qc_s where the probe's block lies in its chunk's
-    window and 0 elsewhere, chunk_res the chunk's probes outside it with
-    qc_s > 0, chunk_real its probes with qcw > 0.
+    are the key's bits and off_s is handed back. Each chunk's window starts
+    at tile tb = clamp(blk_s[c * PC] // T, 0, n_blocks // T - nt); qcw =
+    qc_s where the probe's block lies in its chunk's window and 0
+    elsewhere. cidx lists the first nch = _nch(wpad) chunks that have
+    residual probes (outside the window, qc_s > 0), in chunk order, then -1;
+    meta = (n_real, the probes with qcw > 0; n_cov, the chunks listed; the
+    residual probes of the chunks past the list).
 
-    A CUDA tensor launches csrc/stream_tail.cu's plan kernel (D1); a CPU
-    tensor takes the plain twin. ``stream_chunk_plan.launches`` counts
-    kernel launches."""
+    A CUDA tensor launches csrc/stream_tail.cu's plan kernel (D1: one block
+    a chunk, the list by a look-back over the chunks; the [P] streams must
+    be 16-byte aligned); a CPU tensor takes the plain twin.
+    ``stream_chunk_plan.launches`` counts kernel launches."""
     kw = dict(blk_s=blk_s, off_s=off_s, qc_s=qc_s, key_s=key_s, qbits=qbits)
     name = "stream_chunk_plan"
     if key_s is not None:
@@ -880,19 +898,22 @@ def stream_chunk_plan(n_blocks: int, wpad: int, *, blk_s=None, off_s=None, qc_s=
         return stream_chunk_plan_plain(n_blocks, wpad, **kw)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    n_chunks = P // PC
-    i32 = dict(dtype=torch.int32, device=dev)
+    _check_aligned(name, (key_s,) if key_s is not None else (blk_s, qc_s))
+    n_chunks, nch, nt = P // PC, _nch(wpad), _nt_win(wpad)
+    n_slots = min(nch, n_chunks)
+    # one buffer: qcw (and blk_s, qc_s from the key), then meta and a pad
+    # word, the look-back's status words and cidx
+    k = 3 if key_s is not None else 1
+    buf = torch.empty(k * P + 4 + n_chunks + n_slots, dtype=torch.int32, device=dev)
+    qcw = buf[:P]
     if key_s is not None:
-        blk_s, qc_s = torch.empty(P, **i32), torch.empty(P, **i32)
-    qcw = torch.empty(P, **i32)
-    tb, chunk_res, chunk_real = (torch.empty(n_chunks, **i32) for _ in range(3))
+        blk_s, qc_s = buf[P:2 * P], buf[2 * P:3 * P]
+    _launch("stream_plan", key_s, qbits, blk_s, qc_s, qcw, P, PC, nt, n_blocks // T - nt, nch,
+            n_slots, buf[k * P:])
     if P:
-        _launch(
-            "stream_plan", key_s, qbits, blk_s, qc_s, qcw, tb, chunk_res, chunk_real, P, PC,
-            _nt_win(wpad), n_blocks // T - _nt_win(wpad),
-        )
         stream_chunk_plan.launches += 1
-    return blk_s, off_s, qc_s, qcw, tb, chunk_res, chunk_real
+    m = k * P
+    return blk_s, off_s, qc_s, qcw, buf[m + 4 + n_chunks:], buf[m:m + 3]
 
 
 stream_chunk_plan.launches = 0
@@ -934,141 +955,97 @@ def _merge_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_ou
     return n_big
 
 
-def stream_tail_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out,
-                      hist_out, chunk_res, chunk_real, *, wpad: int, n_colors: int):
-    """Plain PyTorch twin of kernel D2 (same contract as ``stream_tail``):
-    the chunk list is ``_residual_plan``'s cidx cut to min(nch, n_chunks)
-    slots, -1 past the covered chunks."""
+def stream_tail_plain(stats, hist, over_col, over_freq, blocks2, uniq, counts_out, hist_out,
+                      blk_s, off_s, qc_s, qcw, gidx_s, cidx, meta, *, wpad: int,
+                      num_hash: int, rpb: int, n_colors: int):
+    """Plain PyTorch twin of kernel D2 (same contract as ``stream_tail``)."""
     n_big = _merge_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out,
-                         hist_out, chunk_real.sum(), wpad)
-    covered, n_drop_res, order = _residual_plan(chunk_res, _nch(wpad))
-    n_cov = covered.sum(dtype=torch.int32)
-    slot = torch.arange(order.shape[0], device=order.device)
-    cidx = torch.where(slot < n_cov, order, -1).to(torch.int32)
-    return cidx, n_cov, (n_big - OVER_CAP).clamp(min=0).to(torch.int32) + n_drop_res
-
-
-def stream_tail(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out,
-                hist_out, chunk_res, chunk_real, *, wpad: int, n_colors: int):
-    """The probe stream's tail after the probe kernel, in place on the
-    accumulators (stats int32 [C + W + 2], hist int32 [C, FREQ_CAP],
-    over_col / over_freq int32 [capO]): hist[:, :hw] += hist_out[:C];
-    stats[:C] += counts_out[:C]; the AND words (bit c set where counts_out[c]
-    equals n_valid = #{uniq > -2}) ANDed into stats[C : C + W]; the
-    all-valid flag times (n_valid == sum(chunk_real)); the first OVER_CAP
-    big probes (uniq >= 0 and qc_s >= hw), in probe order, added as (uniq,
-    gidx_s) at slots n_over + rank below capO, and n_over += min(n_big,
-    OVER_CAP). Returns the residual plan from chunk_res (cidx int32
-    [min(nch, n_chunks)], the first nch chunks with residual probes in
-    chunk order, then -1; their count n_cov) and n_drop = max(n_big -
-    OVER_CAP, 0) + the residual probes left out, int32 device scalars.
-
-    uniq, qc_s, gidx_s int32 [P]; counts_out int32 [32 * W] and hist_out
-    int32 [cp, hw] from the probe kernel; chunk_res, chunk_real int32
-    [P // PC] from the plan. A CUDA tensor launches csrc/stream_tail.cu's
-    tail (D2: a pass over the probes, the overflow list, which returns at
-    once when no probe is big, and one block for the rest); a CPU tensor
-    takes the plain twin. ``stream_tail.launches`` counts calls that
-    launched it."""
-    name = "stream_tail"
-    dev = uniq.device
-    P = uniq.shape[0]
-    _check_i32(name, (uniq, qc_s, gidx_s), dev, P)
-    _check_i32(name, (counts_out, hist_out, chunk_res, chunk_real, stats, hist, over_col,
-                      over_freq), dev)
-    C, W = n_colors, wpad
-    n_chunks = chunk_res.shape[0]
-    cp, hw = hist_out.shape
-    if (stats.shape != (C + W + 2,) or hist.shape != (C, FREQ_CAP) or counts_out.shape
-            != (32 * W,) or not C <= cp or not 1 <= hw <= FREQ_CAP or C > 32 * W
-            or chunk_real.shape != (n_chunks,) or over_freq.shape != over_col.shape
-            or n_chunks * PC != P):
-        raise ValueError(f"{name}: accumulators, kernel outputs or chunk counts out of shape")
-    if dev.type == "cpu":
-        return stream_tail_plain(stats, hist, over_col, over_freq, uniq, qc_s, gidx_s,
-                                 counts_out, hist_out, chunk_res, chunk_real, wpad=W,
-                                 n_colors=C)
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    nch = _nch(W)
-    n_slots = min(nch, n_chunks)
-    i32 = dict(dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * -(-P // 2048), **i32)  # valid and big probes a tile
-    cidx = torch.empty(n_slots, **i32)
-    meta = torch.empty(2, **i32)  # n_cov, n_drop
-    _launch("stream_tail", uniq, qc_s, gidx_s, P, hw, counts_out, hist_out, C, W, stats,
-            hist, over_col, over_freq, over_col.shape[0], OVER_CAP, chunk_res,
-            chunk_real, n_chunks, nch, n_slots, scratch, cidx, meta)
-    stream_tail.launches += 1
-    return cidx, meta[0], meta[1]
-
-
-stream_tail.launches = 0
-
-
-def stream_residual_plain(blocks2, blk_s, off_s, qc_s, gidx_s, tb, cidx, n_cov, *,
-                          wpad: int, num_hash: int, rpb: int):
-    """Plain PyTorch twin of kernel D3 (same contract as
-    ``stream_residual``)."""
-    n_slots = cidx.shape[0]
-    dev = blk_s.device
-    listed = torch.arange(n_slots, device=dev) < n_cov
+                         hist_out, meta[0], wpad)
+    listed = torch.arange(cidx.shape[0], device=cidx.device) < meta[1]
     c = torch.where(listed, cidx, 0).to(torch.int64)
-    lim = (tb.to(torch.int64)[c] + _nt_win(wpad)) * T
     qc2d = qc_s.view(-1, PC)[c]
-    live = (~(blk_s.view(-1, PC)[c] < lim[:, None]) & (qc2d > 0) & listed[:, None]).reshape(-1)
+    live = (listed[:, None] & (qc2d > 0) & (qcw.view(-1, PC)[c] == 0)).reshape(-1)
     g = _gather_rows_blocked(blocks2, _residual_rows(blk_s, off_s, c, num_hash, rpb), wpad, rpb)
     andw = torch.where(live[:, None], _and_over_hashes(g), 0)
     present = (g != 0).any(dim=2).all(dim=1) & live
     q = torch.where(live, qc2d.reshape(-1), 0)
     gidx = torch.where(live, gidx_s.view(-1, PC)[c].reshape(-1), 0)
-    return andw, present, live, q, gidx
+    n_drop = (n_big - OVER_CAP).clamp(min=0).to(torch.int32) + meta[2]
+    return andw, present, live, q, gidx, n_drop
 
 
-def stream_residual(blocks2, blk_s, off_s, qc_s, gidx_s, tb, cidx, n_cov, *, wpad: int,
-                    num_hash: int, rpb: int):
-    """The residual pass's gather: for each slot j < n_cov of the chunk list
-    cidx (``stream_tail``'s), the probes of chunk cidx[j] outside its
-    window (block >= (tb + nt) * T) with qc_s > 0: the H rows of each
-    (``_residual_rows``), their AND (int32 [W]) and presence (every row has
-    a nonzero word) from the blocked gather. Returns the epilogue's
-    AND-words inputs (andw int32 [n_slots * PC, W], present bool, mask bool,
-    q int32, gidx int32 [n_slots * PC]): slot j's rows at [j * PC, (j + 1)
-    * PC), mask set on those probes with their qc_s and gidx_s; every other
-    row all zero.
+def stream_tail(stats, hist, over_col, over_freq, blocks2, uniq, counts_out, hist_out,
+                blk_s, off_s, qc_s, qcw, gidx_s, cidx, meta, *, wpad: int, num_hash: int,
+                rpb: int, n_colors: int):
+    """The probe stream's tail after the probe kernel, in place on the
+    accumulators (stats int32 [C + W + 2], hist int32 [C, FREQ_CAP],
+    over_col / over_freq int32 [capO]), and the residual pass's gather.
 
-    A CUDA tensor launches csrc/stream_tail.cu's residual kernel (D3; a
-    slot past n_cov writes its zeros and stops, so nothing waits for the
-    device); a CPU tensor takes the plain twin. ``stream_residual.launches``
-    counts kernel launches."""
-    name = "stream_residual"
-    dev = blk_s.device
-    P = blk_s.shape[0]
-    _check_i32(name, (blk_s, off_s, qc_s, gidx_s), dev, P)
-    _check_i32(name, (blocks2, tb, cidx, n_cov), dev)
-    n_slots = cidx.shape[0]
-    if (blocks2.dim() != 2 or blocks2.shape[1] != 128 or P % PC or tb.shape != (P // PC,)
-            or n_cov.shape != () or n_slots > P // PC or num_hash not in STREAM_HASHES
-            or wpad not in STREAM_WPADS or rpb * wpad > 128):
-        raise ValueError(f"{name}: inputs out of shape")
-    kw = dict(wpad=wpad, num_hash=num_hash, rpb=rpb)
+    The tail: hist[:, :hw] += hist_out[:C]; stats[:C] += counts_out[:C];
+    the AND words (bit c set where counts_out[c] equals n_valid = #{uniq >
+    -2}) ANDed into stats[C : C + W]; the all-valid flag times (n_valid ==
+    n_real); the first OVER_CAP big probes (uniq >= 0 and qc_s >= hw), in
+    probe order, added as (uniq, gidx_s) at slots n_over + rank below capO,
+    and n_over += min(n_big, OVER_CAP).
+    The gather: for each slot j < n_cov of the list cidx, the probes of
+    chunk cidx[j] outside its window (qcw == 0) with qc_s > 0: the H rows of
+    each (``_residual_rows``), their AND (int32 [W]) and presence (every
+    row has a nonzero word) from the blocked gather.
+    Returns the epilogue's AND-words inputs (andw int32 [n_slots * PC, W],
+    present bool, mask bool, q int32, gidx int32 [n_slots * PC]: slot j's
+    rows at [j * PC, (j + 1) * PC), mask set on those probes with their
+    qc_s and gidx_s, every other row all zero) and n_drop = max(n_big -
+    OVER_CAP, 0) + meta[2], an int32 device scalar.
+
+    uniq int32 [P] and counts_out int32 [32 * W], hist_out int32 [cp, hw]
+    from the probe kernel; blk_s, off_s, qc_s, qcw, cidx and meta
+    (n_real, n_cov, the residual probes past the list) from
+    ``stream_chunk_plan``; gidx_s int32 [P] the overflow payload; blocks2
+    int32 [Rb, 128] the matrix. A CUDA tensor launches csrc/stream_tail.cu's
+    tail (D2: one launch, a block a tile of probes and a thread a row of
+    the list's capacity; uniq and qc_s must be 16-byte aligned); a CPU
+    tensor takes the plain twin. ``stream_tail.launches`` counts kernel
+    launches."""
+    name = "stream_tail"
+    dev = uniq.device
+    P = uniq.shape[0]
+    _check_i32(name, (uniq, blk_s, off_s, qc_s, qcw, gidx_s), dev, P)
+    _check_i32(name, (blocks2, counts_out, hist_out, cidx, meta, stats, hist, over_col,
+                      over_freq), dev)
+    C, W = n_colors, wpad
+    cp, hw = hist_out.shape
+    if (stats.shape != (C + W + 2,) or hist.shape != (C, FREQ_CAP) or counts_out.shape
+            != (32 * W,) or not C <= cp or not 1 <= hw <= FREQ_CAP or C > 32 * W
+            or over_freq.shape != over_col.shape or P % PC or meta.shape != (3,)
+            or cidx.shape != (min(_nch(W), P // PC),) or blocks2.dim() != 2
+            or blocks2.shape[1] != 128 or num_hash not in STREAM_HASHES
+            or W not in STREAM_WPADS or rpb * W > 128):
+        raise ValueError(f"{name}: accumulators, kernel outputs or the plan out of shape")
+    kw = dict(wpad=W, num_hash=num_hash, rpb=rpb, n_colors=C)
+    args = (stats, hist, over_col, over_freq, blocks2, uniq, counts_out, hist_out, blk_s,
+            off_s, qc_s, qcw, gidx_s, cidx, meta)
     if dev.type == "cpu":
-        return stream_residual_plain(blocks2, blk_s, off_s, qc_s, gidx_s, tb, cidx, n_cov, **kw)
+        return stream_tail_plain(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    N = n_slots * PC
-    andw = torch.empty((N, wpad), dtype=torch.int32, device=dev)
-    present, mask = (torch.empty(N, dtype=torch.bool, device=dev) for _ in range(2))
-    q, gidx = (torch.empty(N, dtype=torch.int32, device=dev) for _ in range(2))
-    if n_slots:
-        _launch("stream_residual", blocks2, blocks2.shape[0], blk_s, off_s, qc_s, gidx_s,
-                tb, cidx, n_cov, n_slots, PC, _nt_win(wpad), num_hash, wpad, rpb, andw,
-                present, mask, q, gidx)
-        stream_residual.launches += 1
-    return andw, present, mask, q, gidx
+    _check_aligned(name, (uniq, qc_s))
+    N = cidx.shape[0] * PC
+    n_tiles = max(1, -(-P // _TAIL_TILE))
+    # andw, q, gidx, then n_drop, a pad word and the scratch (tickets, sums,
+    # the look-back's status words); present and mask
+    out32 = torch.empty(N * W + 2 * N + 2 + _TAIL_HEAD + n_tiles, dtype=torch.int32,
+                        device=dev)
+    out8 = torch.empty(2 * N, dtype=torch.bool, device=dev)
+    _launch("stream_tail", uniq, qc_s, qcw, gidx_s, blk_s, off_s, P, hw, counts_out,
+            hist_out, C, W, stats, hist, over_col, over_freq, over_col.shape[0], OVER_CAP,
+            cidx, meta, cidx.shape[0], PC, num_hash, rpb, blocks2, blocks2.shape[0], out32,
+            out8)
+    stream_tail.launches += 1
+    return (out32[:N * W].view(N, W), out8[:N], out8[N:], out32[N * W:N * W + N],
+            out32[N * W + N:N * W + 2 * N], out32[N * W + 2 * N])
 
 
-stream_residual.launches = 0
+stream_tail.launches = 0
 
 
 def _stream_core_kernels(
@@ -1076,12 +1053,13 @@ def _stream_core_kernels(
     *, wpad: int, num_hash: int, rpb: int, n_colors: int,
 ):
     """The sorted-probe body through kernel D around the probe kernel:
-    ``plan`` is stream_chunk_plan's output, gidx_s the overflow payload
-    (the index that kernel E sorted with the key, or qc_s in exact mode). The probe kernel over the
-    window's probes, the tail (D2), the residual gather (D3) of the listed
-    chunks and the epilogue's AND-words mode (kernel C) over the list's
-    capacity. On CPU tensors every wrapper takes its twin."""
-    blk_s, off_s, qc_s, qcw, tb, chunk_res, chunk_real = plan
+    ``plan`` is stream_chunk_plan's output (D1), gidx_s the overflow payload
+    (the index that kernel E sorted with the key, or qc_s in exact mode).
+    The probe kernel over the window's probes, the tail with the residual
+    gather of the listed chunks (D2) and the epilogue's AND-words mode
+    (kernel C) over the list's capacity. On CPU tensors every wrapper takes
+    its twin."""
+    blk_s, off_s, qc_s, qcw, cidx, meta = plan
     C, W = n_colors, wpad
     cp, hw = _hist_rows(C), _hist_w(C)
     acc = torch.zeros(32 * W + cp * hw, dtype=torch.int32, device=blk_s.device)
@@ -1090,13 +1068,9 @@ def _stream_core_kernels(
         blocks2, blk_s, off_s, qcw, counts_out, hist_out,
         num_hash=num_hash, wpad=W, n_colors=C,
     )
-    cidx, n_cov, n_drop = stream_tail(
-        stats, hist, over_col, over_freq, uniq, qc_s, gidx_s, counts_out, hist_out,
-        chunk_res, chunk_real, wpad=W, n_colors=C,
-    )
-    andw, present, mask, q, gidx = stream_residual(
-        blocks2, blk_s, off_s, qc_s, gidx_s, tb, cidx, n_cov,
-        wpad=W, num_hash=num_hash, rpb=rpb,
+    andw, present, mask, q, gidx, n_drop = stream_tail(
+        stats, hist, over_col, over_freq, blocks2, uniq, counts_out, hist_out, blk_s, off_s,
+        qc_s, qcw, gidx_s, cidx, meta, wpad=W, num_hash=num_hash, rpb=rpb, n_colors=C,
     )
     _accumulate_tail(stats, hist, over_col, over_freq, andw, present, mask, q, W, 0,
                      gidx=gidx)

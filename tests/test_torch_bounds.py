@@ -55,19 +55,38 @@ def test_stream_tail_bytes_from_the_sort_and_from_sorted_probes():
     """Kernel D's bytes for 4,096 probes in two chunks of 2,048 (two tiles),
     W 1, C 21, hw 1,024, one slot of the residual list: from the int32 key
     with the frequency in it that kernel E sorted with its payloads (the key
-    read, blk_s and qc_s written; the offsets and the index came from the
-    sort), three residual probes on two sectors and one kept overflow
+    read, blk_s, qc_s and qcw written; the offsets and the index came from
+    the sort), three residual probes on two sectors and one kept overflow
     entry; and the same batch sorted already (the block sorted alone, the
     frequency an operand), in exact mode, with nothing listed."""
     P, pc = 4096, 2048
-    d2 = 8 * P + 4 * (32 + 21 * 1024) + 8 * 21 * 1024 + 8 * 24 + 8 * 2 + 16 * 2 + 4 * 1
+    d2 = (8 * P + 4 * (32 + 21 * 1024) + 8 * 21 * 1024 + 8 * 24 + 4 * 1 + 12 + 4)
     keyed = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=1, W=1, C=21, hw=1024,
                                  key_bytes=4, n_res=3, res_sectors=2, n_kept=1)
+    d1 = P * (4 + 8 + 4) + 4 * 1 + 12
+    gather = pc * (4 + 10) + 8 * pc + 12 * 3 + 32 * 2
+    assert keyed == d1 + d2 + 20 + gather
+    sorted_ = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=0, W=1, C=21, hw=1024,
+                                   key_bytes=0, n_res=0, res_sectors=0, n_kept=0)
+    assert sorted_ == P * (8 + 4) + 4 + 12 + d2 + pc * (4 + 10)
+
+
+def test_stream_tail_bytes_of_the_five_launch_design():
+    """The count that kernel D's five-launch design was held to (printed
+    beside the new one): the chunks' tb and counts written and read, the
+    tiles' counts written and read, the list written, blk_s and qc_s read a
+    row of a listed chunk and the offsets and payload a residual probe."""
+    P, pc = 4096, 2048
+    d2 = 8 * P + 4 * (32 + 21 * 1024) + 8 * 21 * 1024 + 8 * 24 + 8 * 2 + 16 * 2 + 4 * 1
+    keyed = cs.stream_tail_bytes_five_launches(
+        P, pc=pc, n_slots=1, n_listed=1, W=1, C=21, hw=1024, key_bytes=4, n_res=3,
+        res_sectors=2, n_kept=1)
     d1 = P * (4 + 8) + P * 4 + 12 * 2
     d3 = pc * (4 + 10) + 8 * pc + 8 * 3 + 32 * 2
     assert keyed == d1 + d2 + 20 + d3
-    sorted_ = cs.stream_tail_bytes(P, pc=pc, n_slots=1, n_listed=0, W=1, C=21, hw=1024,
-                                   key_bytes=0, n_res=0, res_sectors=0, n_kept=0)
+    sorted_ = cs.stream_tail_bytes_five_launches(
+        P, pc=pc, n_slots=1, n_listed=0, W=1, C=21, hw=1024, key_bytes=0, n_res=0,
+        res_sectors=0, n_kept=0)
     assert sorted_ == P * 8 + P * 4 + 12 * 2 + d2 + pc * (4 + 10)
 
 

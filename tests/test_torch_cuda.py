@@ -1248,7 +1248,7 @@ def test_placement_keyoff_matches_twin(cuda_device, k):
                                     assert torch.equal(x, y), (src.dtype, H, bloom, kw)
 
 
-_TAIL_WRAPPERS = ("stream_chunk_plan", "stream_tail", "stream_residual")
+_TAIL_WRAPPERS = ("stream_chunk_plan", "stream_tail")
 
 
 def _capture_tail(monkeypatch):
@@ -1286,21 +1286,18 @@ def test_stream_tail_kernels_match_twins(cuda_device, monkeypatch, name):
     """Each batch of STREAM_TAIL_CASES through the card's route: every
     accumulator and n_drop equal to the twins' route on the card and on the
     CPU (from accumulators that already hold counts, a histogram and an
-    overflow list); and each kernel D entry point on the inputs the route
-    handed it equal to its twin, the accumulators included: the skip paths
-    ('skip'), residual chunks past the capacity ('sparse', n_drop > 0), big
-    probes past OVER_CAP and an overflow list past capO ('overflow'), one
-    chunk, W 1 / 2 / 8 and H 1 / 2 / 4."""
+    overflow list); two launches of kernel D a batch (its plan and its tail
+    with the residual gather); and each kernel D entry point on the inputs
+    the route handed it equal to its twin, the accumulators included: the
+    skip paths ('skip'), residual chunks past the capacity ('sparse' at 2,
+    'past_nch' at 128: n_drop > 0), big probes past OVER_CAP and an overflow
+    list past capO ('overflow', and over 40 tiles 'overflow_tiles'), big
+    probes only in the last tile, one chunk, W 1 / 2 / 8 and H 1 / 2 / 4."""
     from colorid_tpu_torch.ops import query as tq
 
     geo, blocks, pk, qc, mode = ts.stream_tail_case(name)
     C, W = geo["n_colors"], geo["wpad"]
-    capO, n_over = pk.shape[0], 30
-    if name == "sparse":
-        monkeypatch.setattr(sq, "_nch", lambda wpad: 2)
-    if name == "overflow":
-        monkeypatch.setattr(sq, "OVER_CAP", 300)
-        capO, n_over = 350, 200
+    capO, n_over = ts.patch_tail_caps(name, monkeypatch, (sq,)) or (pk.shape[0], 30)
     accs = ts.epi_accs(C, W, capO, n_over, seed=3)
     want = ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, "cpu", False)
     plain = ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, cuda_device, False)
@@ -1314,7 +1311,7 @@ def test_stream_tail_kernels_match_twins(cuda_device, monkeypatch, name):
     assert tq._accumulate_tail.launches == epi + 1
     assert sq.sort_payloads.launches == sorts + 1  # kernel E sorted the int32 key
     _tensors_equal(got, [w.to(cuda_device) for w in want], "the card's route")
-    if name in ("sparse", "overflow"):
+    if name in ("sparse", "past_nch", "overflow", "overflow_tiles"):
         assert int(got[4]) > 0
     for fn_name in _TAIL_WRAPPERS:
         a, kw = seen[fn_name]
@@ -1326,6 +1323,35 @@ def test_stream_tail_kernels_match_twins(cuda_device, monkeypatch, name):
             res = res if isinstance(res, tuple) else (res,)
             outs.append(list(res) + (args[:4] if fn_name == "stream_tail" else []))
         _tensors_equal(outs[0], outs[1], fn_name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["past_nch", "overflow_tiles", "big_last_tile", "sparse"])
+def test_stream_tail_look_backs_hold_over_twenty_runs(cuda_device, monkeypatch, name):
+    """The cases whose outputs rest on a look-back (the plan's chunk list
+    past nch and at a capacity of 2, the overflow list over 40 tiles and
+    from the last tile alone): each entry point run 20 times on the inputs
+    the route handed it, each run on fresh outputs and scratch, equal to
+    its twin every time, so that an ordering race between the blocks
+    shows."""
+    geo, blocks, pk, qc, mode = ts.stream_tail_case(name)
+    capO, n_over = ts.patch_tail_caps(name, monkeypatch, (sq,)) or (pk.shape[0], 30)
+    accs = ts.epi_accs(geo["n_colors"], geo["wpad"], capO, n_over, seed=6)
+    seen = _capture_tail(monkeypatch)
+    ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, cuda_device, True)
+    torch.cuda.synchronize()
+    for fn_name in _TAIL_WRAPPERS:
+        a, kw = seen[fn_name]
+        fn, twin = getattr(sq, fn_name), getattr(sq, fn_name + "_plain")
+
+        def run(f):
+            args = [x.clone() if torch.is_tensor(x) else x for x in a]
+            res = f(*args, **kw)
+            return list(res) + (args[:4] if fn_name == "stream_tail" else [])
+
+        want = run(twin)
+        for i in range(20):
+            _tensors_equal(run(fn), want, f"{fn_name} run {i}")
 
 
 @pytest.mark.cuda

@@ -50,11 +50,11 @@ def _same(got, want):
 
 def _residual_counts(geo, blocks, pk, qc):
     """Per chunk, its counted probes outside the chunk's window."""
-    blk_s, off_s, qc_s, _perm = tsq._sorted_probes_plain(
+    blk_s, _off_s, qc_s, _perm = tsq._sorted_probes_plain(
         ts.t32(pk), torch.from_numpy(qc), qbits=0, qmin=None, qmax=None, k=geo["k"],
         num_hash=geo["num_hash"], bloom_size=geo["bloom_size"], rpb=geo["rpb"], bv=geo["bv"])
-    return tsq.stream_chunk_plan(blocks.shape[0], geo["wpad"], blk_s=blk_s, off_s=off_s,
-                                 qc_s=qc_s)[5]
+    _tb, inwin2d = tsq.stream_plan(blk_s, blocks.shape[0], geo["wpad"])
+    return (~inwin2d & (qc_s.view(-1, tsq.PC) > 0)).sum(dim=1, dtype=torch.int32), qc_s
 
 
 @pytest.mark.parametrize("name", sorted(ts.STREAM_TAIL_CASES))
@@ -63,18 +63,17 @@ def test_both_routes_match_jax(name, monkeypatch):
     twins' route) and the card's route with its twins: every accumulator
     and n_drop equal. 'skip' has no residual and no big probe; 'sparse'
     has more residual chunks than the capacity (patched to 2), so n_drop >
-    0; 'overflow' has more big probes than OVER_CAP (patched to 300) from
-    an overflow list that starts at 200 and runs past capO."""
+    0; 'past_nch' more than the real capacity of 128; 'overflow' has more
+    big probes than OVER_CAP (patched to 300) from an overflow list that
+    starts at 200 and runs past capO; 'overflow_tiles' big probes in 40
+    tiles past OVER_CAP (patched to 2,000) from 3,500 of capO 5,000;
+    'big_last_tile' big probes only in the last tile."""
     geo, blocks, pk, qc, mode = ts.stream_tail_case(name)
     C, W = geo["n_colors"], geo["wpad"]
     capO, n_over, base0 = pk.shape[0], 0, 4096
-    if name == "sparse":
-        for m in (tsq, jsq):
-            monkeypatch.setattr(m, "_nch", lambda wpad: 2)
-    if name == "overflow":
-        for m in (tsq, jsq):
-            monkeypatch.setattr(m, "OVER_CAP", 300)
-        capO, n_over = 350, 200
+    caps = ts.patch_tail_caps(name, monkeypatch, (tsq, jsq))
+    if caps:
+        capO, n_over = caps
     accs = _accs(C, W, capO, n_over)
     want = _jax(geo, blocks, pk, qc, mode, accs, base0)
     plain = tsq.stream_accumulate_hash(
@@ -85,14 +84,13 @@ def test_both_routes_match_jax(name, monkeypatch):
         torch.from_numpy(qc), qc_in_key=mode == "exact_key", **geo,
     )
     _same(plain, want)
-    launches = (tsq.stream_chunk_plan.launches, tsq.stream_tail.launches,
-                tsq.stream_residual.launches)
+    launches = (tsq.stream_chunk_plan.launches, tsq.stream_tail.launches)
     _same(ts.stream_tail_run(geo, blocks, pk, qc, mode, accs, "cpu", True, base0), want)
-    assert launches == (tsq.stream_chunk_plan.launches, tsq.stream_tail.launches,
-                        tsq.stream_residual.launches)  # CPU tensors: the twins
+    assert launches == (tsq.stream_chunk_plan.launches,
+                        tsq.stream_tail.launches)  # CPU tensors: the twins
 
     stats = plain[0].numpy()
-    n_res = _residual_counts(geo, blocks, pk, qc)
+    n_res, qc_s = _residual_counts(geo, blocks, pk, qc)
     n_big_before = int(stats[C + W + 1]) - n_over
     if name == "skip":
         assert int(n_res.sum()) == 0 and n_big_before == 0 and int(plain[4]) == 0
@@ -100,15 +98,56 @@ def test_both_routes_match_jax(name, monkeypatch):
         assert stats[C + W] == 0
     else:
         assert n_big_before > 0
-        assert (int(n_res.sum()) > 0) == (name != "overflow")  # it is dense
+        dense = ("overflow", "overflow_tiles", "big_last_tile")
+        assert (int(n_res.sum()) > 0) == (name not in dense)
     if name == "sparse":
         assert int((n_res > 0).sum()) > 2 and int(plain[4]) > 0
+    if name == "past_nch":
+        has = (n_res > 0).nonzero().view(-1)
+        assert has.numel() > 128 and int(n_res[has[128:]].sum()) == int(plain[4]) > 0
     if name == "overflow":
         # n_over advanced by OVER_CAP, the big probes beyond it in n_drop
         assert n_big_before == 300 and int(plain[4]) > 0
         assert int(stats[C + W + 1]) > capO  # the list ran past capO
+    if name == "overflow_tiles":
+        big_tiles = (qc_s.view(-1, 2048) >= ts.BIG_FREQ).any(dim=1)
+        assert int(big_tiles.sum()) == big_tiles.numel() == 40
+        assert n_big_before == 2000 and int(plain[4]) > 0
+        assert int(stats[C + W + 1]) > capO
+    if name == "big_last_tile":
+        big = (qc_s >= ts.BIG_FREQ).nonzero().view(-1)
+        assert int(big.min()) >= qc_s.numel() - 2048 and int(plain[4]) == 0
     if name == "one_chunk":
         assert pk.shape[0] == tsq.PC
+
+
+@pytest.mark.parametrize("name", ["past_nch", "sparse", "w2_h4"])
+def test_plan_list_matches_the_jax_formulas(name):
+    """Kernel D1's list (its twin here) against the JAX package's own
+    formulas on each chunk's residual probes (colorid_tpu/ops/
+    stream_query.py: covered = has_res & cumsum(has_res) <= nch, the list
+    jnp.nonzero(has_res, size=nch), n_drop_res = n_res - n_proc), at the
+    real capacity: cidx (-1 where the JAX list holds its fill value
+    n_chunks), n_cov and the residual probes past the list; n_real the
+    probes in their window."""
+    geo, blocks, pk, qc, _mode = ts.stream_tail_case(name)
+    n_res, _qc_s = _residual_counts(geo, blocks, pk, qc)
+    blk_s, off_s, qc_s, _perm = tsq._sorted_probes_plain(
+        ts.t32(pk), torch.from_numpy(qc), qbits=0, qmin=None, qmax=None, k=geo["k"],
+        num_hash=geo["num_hash"], bloom_size=geo["bloom_size"], rpb=geo["rpb"], bv=geo["bv"])
+    W = geo["wpad"]
+    plan = tsq.stream_chunk_plan(blocks.shape[0], W, blk_s=blk_s, off_s=off_s, qc_s=qc_s)
+    cidx, meta = plan[4].numpy(), plan[5].numpy()
+    nch, n_chunks = jsq._nch(W), n_res.shape[0]
+    chunk_res = jnp.asarray(n_res.numpy())
+    has_res = chunk_res > 0
+    covered = has_res & (jnp.cumsum(has_res.astype(jnp.int32)) <= nch)
+    n_proc = jnp.sum(chunk_res * covered.astype(jnp.int32))
+    jlist = np.asarray(jnp.nonzero(has_res, size=nch, fill_value=n_chunks)[0])
+    n_cov = int(covered.sum())
+    np.testing.assert_array_equal(cidx, np.where(jlist < n_chunks, jlist, -1)[:len(cidx)])
+    assert list(meta) == [int((plan[3] > 0).sum()), n_cov, int(chunk_res.sum() - n_proc)]
+    assert (meta[2] > 0) == (name == "past_nch")  # 'sparse' fits 128 chunks
 
 
 def test_fused_probe_matches_jax():
@@ -256,8 +295,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         placement_keyoff(ts.t32(pk), None, k=31, num_hash=2, bloom_size=65536, rpb=64,
                          version=2, qbits=11)
     accs = [torch.from_numpy(a) for a in _accs(40, 2, 64, 0)]
-    out = tsq.stream_chunk_plan(blocks.shape[0], 2, blk_s=z, off_s=z, qc_s=z)
-    with pytest.raises(ValueError, match="out of shape"):
-        tsq.stream_tail(*accs, z, z, z, torch.zeros(32, dtype=torch.int32),
-                        torch.zeros((64, 1024), dtype=torch.int32), out[5], out[6],
-                        wpad=2, n_colors=40)
+    blk_s, off_s, qc_s, qcw, cidx, meta = tsq.stream_chunk_plan(blocks.shape[0], 2, blk_s=z,
+                                                                off_s=z, qc_s=z)
+    tail = (torch.zeros(64, dtype=torch.int32), torch.zeros((64, 1024), dtype=torch.int32),
+            blk_s, off_s, qc_s, qcw, z, cidx, meta)
+    b = ts.t32(blocks)
+    kw = dict(wpad=2, num_hash=2, rpb=64, n_colors=40)
+    with pytest.raises(ValueError, match="out of shape"):  # counts of one word
+        tsq.stream_tail(*accs, b, z, tail[0][:32], *tail[1:], **kw)
+    with pytest.raises(ValueError, match="out of shape"):  # a list of another capacity
+        tsq.stream_tail(*accs, b, z, *tail[:7], cidx[:0], meta, **kw)
+    out = tsq.stream_tail(*accs, b, z, *tail, **kw)  # the twin on what the plan gave
+    assert out[0].shape == (tsq.PC, 2) and int(out[5]) == 0

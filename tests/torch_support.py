@@ -462,18 +462,54 @@ STREAM_TAIL_CASES = {
     "w2_h4": (40, 64 * 4000, 4, 4, 12000, 12288, 3000, 0.3, 1, "clipped"),
     "sparse": (21, 3_000_000, 2, 4, 10000, 10240, 2000, 0.2, 2, "clipped"),
     "overflow": (21, 128 * 768, 4, 4, 14000, 14336, 3000, 0.3, 1, "exact"),
+    # 220 chunks of 2,048 probes over 156,288 blocks: 152 chunks span more
+    # than their window, so more than nch = 128 chunks have residual probes
+    # and the chunks past the list hold some
+    "past_nch": (21, 20_000_000, 2, 4, 449_000, 450_560, 2000, 0.2, 2, "clipped"),
+    # 40 tiles, big probes in every one, past OVER_CAP and capO
+    # (STREAM_TAIL_CAPS)
+    "overflow_tiles": (21, 128 * 2048, 4, 4, 80_000, 81_920, 3000, 0.3, 1, "exact"),
+    # 40 tiles, big probes only in the last one (sorted by block): its
+    # look-back walks the whole batch
+    "big_last_tile": (21, 128 * 4096, 4, 4, 80_000, 81_920, 1000, 0.3, 1, "exact"),
 }
+# the seed order: a case keeps its seed when cases are added
+_TAIL_SEEDS = ("one_chunk", "overflow", "skip", "sparse", "w2_h4", "w8_h1", "past_nch",
+               "overflow_tiles", "big_last_tile")
+# what a test patches for a case: the residual chunk capacity (_nch), and
+# OVER_CAP with the overflow list's capacity and its entries before the batch
+STREAM_TAIL_CAPS = {
+    "sparse": dict(nch=2),
+    "overflow": dict(over_cap=300, capO=350, n_over=200),
+    "overflow_tiles": dict(over_cap=2000, capO=5000, n_over=3500),
+}
+BIG_FREQ = 1024  # the histogram's width at these color counts: frequencies from it are big
+
+
+def patch_tail_caps(name: str, monkeypatch, modules):
+    """STREAM_TAIL_CAPS[name] patched into each of ``modules`` (the port's
+    stream_query, and the JAX package's where a test runs both); returns
+    (capO, n_over), or None where the case keeps the defaults."""
+    caps = STREAM_TAIL_CAPS.get(name, {})
+    for m in modules:
+        if "nch" in caps:
+            monkeypatch.setattr(m, "_nch", lambda wpad: caps["nch"])
+        if "over_cap" in caps:
+            monkeypatch.setattr(m, "OVER_CAP", caps["over_cap"])
+    return (caps["capO"], caps["n_over"]) if "capO" in caps else None
 
 
 def stream_tail_case(name: str):
     """One batch of STREAM_TAIL_CASES: (geometry kwargs of
     stream_accumulate_hash, blocks uint32 [n_blocks, 128], packed uint32
     [P, 2] with the live k-mers first, frequencies int32 [P] with 0 on the
-    padding, mode "clipped" / "exact" / "exact_key")."""
+    padding, mode "clipped" / "exact" / "exact_key"). In "big_last_tile"
+    the probes of the last tile of 2,048 in block order (the sort the
+    stream runs) get frequencies from BIG_FREQ."""
     from colorid_tpu_torch.ops.query import pack_matrix_blocks
 
     C, bloom_size, H, bv, n, P, fmax, absent, thin, mode = STREAM_TAIL_CASES[name]
-    rng = np.random.default_rng(sorted(STREAM_TAIL_CASES).index(name) + 90)
+    rng = np.random.default_rng(_TAIL_SEEDS.index(name) + 90)
     bloom, matrix, _names = rand_blocked_matrix(rng, C, bloom_size, absent, thin)
     blocks, wpad = pack_matrix_blocks(matrix)
     pk = np.zeros((P, 2), np.uint32)
@@ -482,6 +518,14 @@ def stream_tail_case(name: str):
     qc[:n] = rng.integers(1, fmax, n)
     geo = dict(wpad=wpad, k=31, num_hash=H, bloom_size=bloom, rpb=128 // wpad,
                n_colors=C, bv=bv)
+    if name == "big_last_tile":
+        from colorid_tpu_torch.ops import stream_query as sq
+
+        perm = sq._sorted_probes_plain(
+            t32(pk), torch.from_numpy(qc), qbits=0, qmin=None, qmax=None, k=31, num_hash=H,
+            bloom_size=bloom, rpb=geo["rpb"], bv=bv)[3].numpy()
+        last = perm[-2048:]
+        qc[last] = np.where(qc[last] > 0, rng.integers(BIG_FREQ, 2000, 2048), 0)
     return geo, blocks, pk, qc, mode
 
 
