@@ -17,8 +17,9 @@ Phases, each printing its lines (any failure exits non-zero):
    kernel from csrc/ (set-up time).
 2. kernel: each kernel (classic_word, stream_probe, stream_probe_raw, and
    the hand kernels for code that the JAX package leaves to XLA: placement
-   and window_keys; the epilogue, the stream glue and the key sort in
-   phases 4-epilogue, 4-stream_tail and 4-sort) against
+   and window_keys; the epilogue, the stream glue, the key sort and the
+   reads routes' run counts in phases 4-epilogue, 4-stream_tail, 4-sort
+   and 4c-run_counts) against
    its plain PyTorch twin on the card at its main
    path's shapes (bitwise), with its time, the twin's, one PyTorch library
    call's where one computes the same function, and the least time the
@@ -40,7 +41,10 @@ Phases, each printing its lines (any failure exits non-zero):
    no stream batch may fall back, and the blocked TSV must be
    byte-identical with COLORID_STREAM=0; both searches of each index must
    end in the epilogue kernel (the classic stream in its sorted-words
-   mode, the probe stream's residual pass in its AND-words mode).
+   mode, the probe stream's residual pass in its AND-words mode), and
+   search -f 1 must count its k-mers through kernel F (the counted route's
+   compaction on the classic index, the chunked fused route on the
+   blocked one).
 4. parity, for each index: the same search_keys through the generic gather
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
    both paths and for the device-resident dispatches, and one
@@ -113,9 +117,19 @@ Phases, each printing its lines (any failure exits non-zero):
    windows) on the blocked index through the chunked fused route (the
    default above COLORID_FUSED_MAX_WINDOWS), the single fused dispatch and
    the counted route (extract_count, then the probe stream): the same
-   answers, stream_probe launched and n_drop 0 on both fused routes;
-   k-mers/s and a device breakdown of each; search_reads_fused_async on
+   answers, stream_probe launched and n_drop 0 on both fused routes,
+   kernel F launched in each route; k-mers/s and a device breakdown of
+   each (kernel F's three kernels summed); search_reads_fused_async on
    two halves, one stacked fetch, equal to search_reads on each half.
+4c-run_counts. Kernel F (the reads routes' run counts, -f filter and
+   compactions) against its twin, bitwise, in each mode on the inputs that
+   those routes hand it on the 400,000 reads: pairs in the single fused
+   dispatch, counts, partition and totals in the chunked route, compact in
+   the counted route; and on edge cases of them (a SENT run of 1,500,000
+   slots, P not a multiple of its tile). Each mode's device time a call,
+   its twin's and its byte bound, the phase's seconds, and the main path's
+   launches by phase ([main]'s search -f 1 must launch it on both
+   indexes).
 4d. serve: the HTTP server on the card (a thread of this process) on
    both indexes: /healthz and /info against the index; /search with 20,000
    of the reads (filter 1, 0, -1, gene) equal to host counting, launching
@@ -232,10 +246,90 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: the edges of a trace
+TRACE_PAD_S = 0.05  # idle host time on either side of a trace's calls
+TRACE_LEAD = 8  # markers of ~1 ms before the calls: a trace loses its first records
+TRACE_TAIL = 2  # markers after the calls
+
+
+def _kernel_name(key: str) -> str:
+    """A device event's name without namespace, template or arguments."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("<")[0].split("(")[0].split("::")[-1].strip() or key[:40]
+
+
+def trace(fn, reps: int = 1, attempts: int = 3):
+    """(torch.profiler trace, host-clock ms, gap) of reps calls of fn(),
+    after a warm-up call. The calls sit between TRACE_LEAD launches of a
+    marker kernel (MARKER) of about 1 ms each and TRACE_TAIL more, with
+    TRACE_PAD_S of idle host time on either side inside the profiler's
+    window. After a minute or two in one process the profiler loses a
+    trace's first device records, a few ms of them (a run of 860 s
+    recorded no kernel of some 1.5 ms traces): the leading markers take
+    that loss. A trace without a marker on either side of its device
+    events is taken again, up to ``attempts`` times; gap is "" for a
+    complete trace, else what ``trace_gap`` says of the last. A trace
+    that lost any marker is logged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            for _ in range(TRACE_LEAD):
+                torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+            for _ in range(TRACE_TAIL):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        gap, lost = trace_gap(prof)
+        if lost:
+            log(f"[profile] a trace lost markers: {lost}")
+        if not gap:
+            break
+    return prof, wall_ms, gap
+
+
+def trace_gap(prof) -> tuple[str, str]:
+    """(gap, lost): gap "" where the trace has a marker before its device
+    events and one after them, else says so; lost "" where it kept every
+    marker, else how many it kept on each side and where its device and
+    host events lie (ms after the trace's start)."""
+    import torch
+
+    host, dev, marks = [], [], []
+    for e in prof.events():
+        span = (e.time_range.start / 1e3, e.time_range.end / 1e3)
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append(span)
+        else:
+            (marks if _kernel_name(e.name) == MARKER else dev).append(span)
+    first = min((s for s, _ in dev), default=None)
+    before = (sum(1 for s, _ in marks if s <= first) if dev
+              else min(TRACE_LEAD, len(marks)))
+    after = len(marks) - before
+    if before == TRACE_LEAD and after == TRACE_TAIL:
+        return "", ""
+    where = lambda x: (f"{min(s for s, _ in x):.1f}-{max(e for _, e in x):.1f} ms" if x
+                       else "none")  # noqa: E731
+    lost = (f"{before} of {TRACE_LEAD} before the calls, {after} of {TRACE_TAIL} after; "
+            f"device events {where(dev)}, host events {where(host)}")
+    return ("" if before and after else f"trace incomplete: {lost}"), lost
+
+
 def device_times(prof) -> dict:
     """A torch.profiler trace's device work by kernel: {name: [ms, count]},
     the name without namespace, template or arguments (the aten ops that
-    launched the kernels repeat their time and are left out)."""
+    launched the kernels repeat their time and are left out, and so is
+    the marker kernel)."""
     import torch
 
     by: dict[str, list] = {}
@@ -245,29 +339,30 @@ def device_times(prof) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        key = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
-        name = key.split("<")[0].split("(")[0].split("::")[-1].strip() or e.key[:40]
+        name = _kernel_name(e.key)
+        if name == MARKER:
+            continue
         acc = by.setdefault(name, [0.0, 0])
         acc[0] += us / 1e3
         acc[1] += e.count
     return by
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device ms a call of fn() keeps the card busy, its kernels and
-    memsets summed (torch.profiler over reps calls, after a warm-up call):
-    unlike cuda_ms, not paced by the host where a call's host work takes
-    longer than its device work."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ms for ms, _n in device_times(prof).values()) / reps
+def device_ms(fn, reps: int, kernels: tuple) -> tuple[float, str]:
+    """(mean device ms a call of fn() keeps the card busy, its kernels and
+    memsets summed, over a trace of reps calls; the trace's gap): unlike
+    cuda_ms, not paced by the host where a call's host work takes longer
+    than its device work. A trace whose count of the named kernels is not
+    the same positive number for every call is taken again, up to three
+    times, and then raises."""
+    for _attempt in range(3):
+        prof, _ms, gap = trace(fn, reps)
+        by = device_times(prof)
+        n = sum(by[k][1] for k in kernels if k in by)
+        if n and n % reps == 0:
+            return sum(ms for ms, _n in by.values()) / reps, gap
+    raise AssertionError(f"device_ms: {n} launches of {kernels} in {reps} calls "
+                         f"({gap or 'markers on both sides'})")
 
 
 # -- phase 2: each kernel against its twin ---------------------------------------
@@ -561,6 +656,23 @@ def stream_tail_bytes_five_launches(P: int, *, pc: int, n_slots: int, n_listed: 
           + 16 * n_tiles + 4 * n_slots + 20 * n_kept)
     d3 = n_slots * pc * (4 * W + 10) + 8 * n_listed * pc + 8 * n_res + 32 * res_sectors
     return d1 + d2 + d3
+
+
+def run_counts_bytes(P: int, *, mode: str, weights: bool = False, rounds: int = 0,
+                     cap: int = 0) -> int:
+    """The bytes kernel F's function must move, each input read once and
+    each output written once: the weights (4 bytes a slot, where given, and
+    always in partition mode) and the sorted keys (8 a slot; in partition
+    mode only those of the min(cap, P) slots it writes, since liveness
+    comes from the weights alone); out, by mode, select the keys and counts
+    of P >> rounds slots (the counts alone at 0 rounds: the keys pass
+    through), compact the limbs and counts of every slot (12, the zero tail
+    included), partition 12 a slot up to cap; and the int32 n_unique."""
+    n_out = min(cap, P) if mode == "partition" else P >> rounds
+    reads = (8 * n_out if mode == "partition" else 8 * P) + (
+        4 * P if weights or mode == "partition" else 0)
+    writes = n_out * (4 if mode == "select" and not rounds else 12)
+    return reads + writes + 4
 
 
 def sort_bytes(P: int, *, n_operands: int, index: bool, index64: bool) -> int:
@@ -1093,11 +1205,12 @@ def _new_kernels():
 
 def _glue_kernels():
     """The wrappers of kernel D, the blocked stream's glue: its plan, tail
-    and residual gather, and of kernel E, the streams' key sort (each with
-    a count)."""
+    and residual gather, of kernel E, the streams' key sort, and of kernel
+    F, the reads routes' run counts (each with a count)."""
     from colorid_tpu_torch.ops import stream_query as sq
 
-    return tuple(getattr(sq, n) for n in TAIL_WRAPPERS + ("sort_payloads",))
+    return tuple(getattr(sq, n) for n in TAIL_WRAPPERS + ("sort_payloads",)) + (
+        _f_modules()[0].run_counts,)
 
 
 # the epilogue mode each main path ends in: the classic stream's sorted
@@ -1111,17 +1224,20 @@ def _check_new_kernels(used: dict, what: str) -> None:
     host, as the reference does) placed its k-mers through the kernel; both
     searches must have ended in the epilogue kernel. Kernel E sorts both
     classic searches' rows and the blocked search -s's keys (the blocked
-    search -f 1 takes the fused route, whose keys arrive sorted)."""
+    search -f 1 takes the fused route, whose keys arrive sorted). Kernel F
+    counts search -f 1's k-mers: the counted route's compaction on the
+    classic index, the chunked fused route's counts, partition and merge on
+    the blocked one."""
     if DEVICE != "cuda":
         return
     glue = TAIL_WRAPPERS if what == "blocked" else ()
     sorted_ = used["sort_payloads"] if what == "classic" else used["sort_payloads"][1:]
     if (min(used["placement"]) == 0 or used["window_keys"][0] == 0
             or min(used[EPILOGUE_OF[what]]) == 0 or any(min(used[n]) == 0 for n in glue)
-            or min(sorted_) == 0):
+            or min(sorted_) == 0 or used["run_counts"][0] == 0):
         raise AssertionError(
             f"{what}: search -f 1 and search -s did not run through the placement, "
-            f"window-key, epilogue, sort{' and stream glue' if glue else ''} kernels "
+            f"window-key, epilogue, sort, run-count{' and stream glue' if glue else ''} kernels "
             f"(launches in (search -f 1, search -s): {used})"
         )
     if glue and used["stream_chunk_plan"] != used["stream_tail"]:
@@ -1157,7 +1273,8 @@ def classic_path_phase(tmp: str, inputs, card: str):
              "-b", prefix, "-r", man, "-t", "8"])
         t_build = time.time() - t0
         tsv, perfect, t_search, t_perfect, used = _searches(
-            tmp, prefix + ".bxi", fq, (sq.classic_words, *_new_kernels(), sq.sort_payloads))
+            tmp, prefix + ".bxi", fq, (sq.classic_words, *_new_kernels(), sq.sort_payloads,
+                                       _f_modules()[0].run_counts))
     finally:
         sq.stream_accumulate_classic_exact = stream_fn
     launches = sq.classic_words.launches
@@ -1171,7 +1288,8 @@ def classic_path_phase(tmp: str, inputs, card: str):
         f"launches={launches}; stream batches={sizes} n_drop={n_drop}; launches in "
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
         f"{used['window_keys']}, epilogue {used['_accumulate_sorted_words']} "
-        f"(sorted-words mode), sort {used['sort_payloads']} on {card}")
+        f"(sorted-words mode), sort {used['sort_payloads']}, run counts "
+        f"{used['run_counts']} on {card}")
     _check_new_kernels(used, "classic")
     if DEVICE == "cuda" and (launches == 0 or reads_launches == 0):
         raise AssertionError(
@@ -1242,7 +1360,7 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
         f"{used['window_keys']}, epilogue {used['_accumulate_tail']} (residual pass), "
         f"stream glue (plan, tail) {used['stream_chunk_plan']}, {used['stream_tail']}, "
-        f"sort {used['sort_payloads']} "
+        f"sort {used['sort_payloads']}, run counts {used['run_counts']} "
         f"on {card}")
     _check_new_kernels(used, "blocked")
     if index.blocked != 4:
@@ -1763,7 +1881,7 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
                                          "batches in the blocked dispatch; one a batch")
                 reals[n].launches = getattr(sq, n).launches
             setattr(sq, n, reals[n])
-    errs, outs, ms, plain_ms, span_ms, host_us = {}, {}, {}, {}, {}, {}
+    errs, outs, ms, plain_ms, span_ms, host_us, gaps = {}, {}, {}, {}, {}, {}, {}
     for n in TAIL_WRAPPERS:
         a, kw = seen[n]
         twin = getattr(sq, n + "_plain")
@@ -1778,7 +1896,8 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
         if errs[n]:
             raise AssertionError(f"{n} kernel != twin on the real segment: max_abs_err {errs[n]}")
         args = [_clone(x) for x in a]
-        ms[n] = device_ms(lambda: reals[n](*args, **kw), 20)
+        ms[n], gaps[n] = device_ms(lambda: reals[n](*args, **kw), 20,
+                                   tuple(k + "_kernel" for k in D_KERNELS))
         span_ms[n] = cuda_ms(lambda: reals[n](*args, **kw), 20)
         host_us[n] = enqueue_us(lambda: reals[n](*args, **kw))[0]
         plain_ms[n] = cuda_ms(lambda: twin(*args, **kw), 3)
@@ -1826,7 +1945,8 @@ def stream_tail_kernel_phase(blocked_dispatch, main_launches: int, card: str) ->
         f"over_col, over_freq, residual rows, n_drop) (max_abs_err {max(errs.values())}); "
         f"ms plan={ms['stream_chunk_plan']:.4f} tail={ms['stream_tail']:.4f} "
         f"total={total:.4f} (device time a call, memsets included: torch.profiler over 20 "
-        f"calls); span of 20 calls back to back (CUDA events, host-paced where a call's host "
+        f"calls; {'; '.join(g for g in gaps.values() if g) or 'traces complete'}); span "
+        f"of 20 calls back to back (CUDA events, host-paced where a call's host "
         f"work outlasts its kernels) plan={span_ms['stream_chunk_plan']:.4f} "
         f"tail={span_ms['stream_tail']:.4f}; host us a call plan="
         f"{host_us['stream_chunk_plan']:.1f} tail={host_us['stream_tail']:.1f} (median of 20); "
@@ -1973,21 +2093,17 @@ def _sort_library(key, ops, kw):
 
 def _launch_ms(fn) -> list:
     """The device kernels of one call of fn, in launch order: [(name, ms)]
-    (torch.profiler; [] where the trace has no device time)."""
+    ([] where the trace lost device events or has none)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync()
+    prof, _ms, gap = trace(fn)
+    if gap:
+        return []
     out = []
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        name = _kernel_name(e.name)
+        if e.device_type != torch.autograd.DeviceType.CUDA or name == MARKER:
             continue
-        name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
-        name = name.split("(")[0].split("<")[0].split("::")[-1].strip() or e.name[:30]
         out.append((e.time_range.start, name, e.time_range.elapsed_us() / 1e3))
     return [(n, ms) for _, n, ms in sorted(out)]
 
@@ -2138,8 +2254,8 @@ def sort_kernel_phase(classic_dispatch, blocked_dispatch, main_launches: int,
         lib = cuda_ms(lambda: _sort_library(key, ops, kw), 20)
         stages = _launch_ms(lambda: real(key, bits, ops, **kw))
         log(f"[kernel] sort {what}: each launch in order, ms: "
-            + ("; ".join(f"{k} {t:.4f}" for k, t in stages) or "not measured (no device "
-               "time in the trace)") + f" on {card}")
+            + ("; ".join(f"{k} {t:.4f}" for k, t in stages) or "not measured (no complete "
+               "trace)") + f" on {card}")
         n_bytes = sort_bytes(P, n_operands=len(ops), index=kw.get("index", False),
                              index64=kw.get("index64", False))
         bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -2675,6 +2791,8 @@ def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
         return eng._search_reads_counted(*dev, k=K, L=L, filter_t=1, d=1)
 
     routes, fused_launches = {}, 0
+    te = _f_modules()[0]
+    has_f = hasattr(te, "run_counts")  # an older checkout under --compare has no kernel F
     fr.fused_search_reads, fr.fused_merge_query = map(observer, saved)
     try:
         for name, fn, max_w, want in (
@@ -2688,6 +2806,7 @@ def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
             try:
                 dispatches.clear()
                 sq.stream_probe.launches = 0
+                f_before = te.run_counts.launches if has_f else 0
                 secs = []
                 for _ in range(3):
                     sync()
@@ -2695,16 +2814,21 @@ def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
                     out = fn()
                     secs.append(time.time() - t0)
                 launches = sq.stream_probe.launches
+                f_launches = te.run_counts.launches - f_before if has_f else None
                 fused_launches += launches if want else 0
                 seen = [(f, int(nd)) for f, nd in dispatches]
                 if seen != ([(want, 0)] * 3 if want else []):
                     raise AssertionError(f"[fused] {name}: dispatches {seen}")
                 if DEVICE == "cuda" and launches < 3:
                     raise AssertionError(f"[fused] {name}: stream_probe launched {launches} times")
+                if DEVICE == "cuda" and has_f and f_launches < 3:
+                    raise AssertionError(f"[fused] {name}: kernel F launched {f_launches} times")
                 log(f"[fused] {name} route: {out[1]} k-mers from {n_windows} windows of "
                     f"{R} device-resident reads, {out[1] / min(secs):.0f} k-mers/s (best of "
                     f"3, one fetch each: {', '.join(f'{t:.4f}' for t in secs)} s); "
-                    f"stream_probe launches {launches} in 3 calls; "
+                    f"stream_probe launches {launches} in 3 calls; run_counts (kernel F) "
+                    f"launches {'none: not in this checkout' if f_launches is None else f_launches} "
+                    f"in 3 calls; "
                     f"dispatches {seen[:1]} x{len(seen)} on {card}")
                 if DEVICE == "cuda":
                     profile_dispatch(lambda: fn()[1], f"fused {name}", card,
@@ -2750,6 +2874,157 @@ def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return fused_launches + async_launches
+
+
+F_KERNELS = ("run_counts_select", "run_counts_summary", "run_counts_scan", "run_counts_write")
+F_CALLS = ("pairs", "counts", "partition", "totals", "compact")  # pairs first: the row's ms
+F_ROUTE_OF = {"pairs": "single", "counts": "chunked", "partition": "chunked",
+              "totals": "chunked", "compact": "counted"}
+
+
+def _f_call(w, kw) -> str:
+    """Which of the routes' calls of kernel F (F_CALLS) these arguments
+    make: in select mode, the merge's totals carry weights, the single
+    route's pairs a filter and chunk A's counts neither."""
+    if kw["mode"] != "select":
+        return kw["mode"]
+    return "totals" if w is not None else "pairs" if kw.get("filter_t") else "counts"
+
+
+def _f_modules():
+    """The modules through whose names the reads routes call kernel F."""
+    from colorid_tpu_torch.ops import extract as te
+    from colorid_tpu_torch.ops import fused_reads as fr
+
+    return te, fr
+
+
+def run_counts_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
+    """Kernel F (csrc/run_counts.cu) against its twin run_counts_plain,
+    bitwise, in each of the routes' calls (F_CALLS) on the [fused] cell's
+    own sorted keys: the arguments of its first such call in search_reads
+    on the 400,000 device-resident reads through the single fused dispatch
+    (pairs: select mode with the filter), the chunked route (counts: select
+    with no filter; partition; totals: select with weights) and the counted
+    route (compact); then on edge cases of them (a SENT run of 1,500,000
+    slots, P not a multiple of the tile). Each call's time (CUDA events
+    over 20 calls back to back), its twin's (CUDA events, 3 calls), its
+    byte bound (run_counts_bytes) and the phase's seconds; F's device time
+    by kernel comes from counts_bench.py (this late in the script
+    torch.profiler has lost F's kernels). Launches made here are taken off
+    F's count again; the caller fills in the row's launches on the main
+    path."""
+    import torch
+
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+
+    t0 = time.time()
+    te, fr = _f_modules()
+    real, count0 = te.run_counts, te.run_counts.launches
+    seen: dict = {}
+
+    def observed(s, w=None, **kw):
+        seen.setdefault(_f_call(w, kw), (s.clone(), None if w is None else w.clone(), dict(kw)))
+        return real(s, w, **kw)
+
+    observed.launches = count0  # the wrapper counts its launches on the module's name
+
+    dev, L = reads["dev"], reads["L"]
+    n_windows = dev[0].shape[0] * (L - K + 1)
+    eng = QueryEngine(BigsiIndex.load(blocked_bxi), device=DEVICE)
+    te.run_counts = fr.run_counts = observed
+    before = os.environ.get("COLORID_FUSED_MAX_WINDOWS")
+    try:
+        eng.search_reads(*dev, k=K, L=L, filter_t=1)  # chunked
+        os.environ["COLORID_FUSED_MAX_WINDOWS"] = str(n_windows)
+        try:
+            eng.search_reads(*dev, k=K, L=L, filter_t=1)  # single
+        finally:
+            if before is None:
+                os.environ.pop("COLORID_FUSED_MAX_WINDOWS", None)
+            else:
+                os.environ["COLORID_FUSED_MAX_WINDOWS"] = before
+        eng._search_reads_counted(*dev, k=K, L=L, filter_t=1, d=1)
+        sync()
+    finally:
+        te.run_counts = fr.run_counts = real
+    del eng
+    if sorted(seen) != sorted(F_CALLS):
+        raise AssertionError(f"[kernel] run_counts: the routes made the calls {sorted(seen)}")
+    rows, errs = {}, {}
+    for call in F_CALLS:
+        s, w, kw = seen[call]
+        kw = dict(kw)
+        mode = kw.pop("mode")
+        got = real(s, w, mode=mode, **kw)
+        want = te.run_counts_plain(s, w, mode=mode, **kw)
+        sync()
+        errs[call] = _outputs_err(got, want)
+        if errs[call]:
+            raise AssertionError(f"[kernel] run_counts {call}: kernel != twin, max_abs_err "
+                                 f"{errs[call]}")
+        P = s.numel()
+        bound = run_counts_bytes(P, mode=mode, weights=w is not None,
+                                 rounds=kw.get("rounds", 0),
+                                 cap=kw.get("cap", 0)) / HBM_BYTES_PER_S * 1e3
+        if DEVICE == "cuda":
+            ms = cuda_ms(lambda: real(s, w, mode=mode, **kw), 20)
+            plain = cuda_ms(lambda: te.run_counts_plain(s, w, mode=mode, **kw), 3)
+        else:
+            ms = plain = 0.0
+        rows[call] = dict(P=P, ms=ms, plain_ms=plain, bound_ms=bound, n=int(got[2]))
+        log(f"[kernel] run_counts {call} ({F_ROUTE_OF[call]} route's own input: {mode} mode, "
+            f"P={P}, {', '.join(f'{k}={v}' for k, v in kw.items()) or 'no filter'}, w "
+            f"{'int32' if w is not None else 'none'}): bitwise_equal=True (keys, counts, "
+            f"n={int(got[2])}); ms={ms:.4f} (a call, "
+            f"{'one launch and a memset' if mode == 'select' else 'three launches'}"
+            f": CUDA events over 20 calls back to back, device-bound: a call's host work is "
+            f"shorter than its kernels) plain_ms={plain:.4f} library_ms=null bound_ms="
+            f"{bound:.4f} bound_by=bytes ({ms and bound / ms:.2f} of the bound) on {card}")
+        del got, want
+    # edge cases on the card's inputs: the SENT run past 1,048,576 slots, P
+    # not a multiple of the tile
+    s, w, kw = seen["pairs"]
+    s_sent = s.clone()
+    s_sent[-1_500_000:] = te.SENT_KEY
+    cut = (s.numel() // te.RUN_TILE - 1) * te.RUN_TILE + 8
+    edges = (("SENT run of 1,500,000 slots", "pairs", s_sent, None, kw),
+             ("SENT run of 1,500,000 slots", "compact", s_sent, None,
+              dict(mode="compact", filter_t=1)),
+             (f"P={cut}, not a multiple of the tile", "pairs", s[:cut], None, kw),
+             (f"P={cut}, not a multiple of the tile", "totals", s[:cut].contiguous(),
+              torch.ones(cut, dtype=torch.int32, device=s.device),
+              dict(mode="select", filter_t=2)))
+    for what, call, es, ew, ekw in edges:
+        err = _outputs_err(real(es, ew, **ekw), te.run_counts_plain(es, ew, **ekw))
+        sync()
+        errs[f"{call} {what}"] = err
+        log(f"[kernel] run_counts {call}, {what}: bitwise_equal={err == 0}")
+        if err:
+            raise AssertionError(f"[kernel] run_counts {call} on {what}: max_abs_err {err}")
+    te.run_counts.launches = count0
+    secs = time.time() - t0
+    log(f"[kernel] run_counts phase took {secs:.1f}s on {card}")
+    del seen, s, w, s_sent
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    first = rows["pairs"]
+    return {
+        "name": "run_counts",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/run_counts.cu",
+        "replaces": "colorid_tpu/ops/fused_reads.py:97",
+        "launches": None,
+        "max_abs_err": max(errs.values()),
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "by_mode": rows,
+        "phase_s": secs,
+    }
 
 
 def _http(url: str, payload=None):
@@ -4253,20 +4528,11 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
     ``enqueue``, the host clock that one dispatch takes to enqueue
     (``enqueue_us``). Fails if a kernel named in ``forbid``, or whose name
     holds a string of ``forbid_like``, ran in it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
     host = ""
     if enqueue:
         med, low = enqueue_us(fn)
         host = f"host enqueue of one dispatch {med:.1f} us (median of 20; min {low:.1f}); "
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
+    prof, wall_ms, gap = trace(fn)
     by_name = device_times(prof)
     if not by_name:
         log(f"[profile] {what}: no device time in the trace: not measured on {card}")
@@ -4279,8 +4545,10 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
             "epilogue", "epilogue_sorted", "epilogue_overflow", *D_KERNELS, "sort_upsweep",
-            "sort_bases", "sort_chunk_scan", "sort_pass")
+            "sort_bases", "sort_chunk_scan", "sort_pass", *F_KERNELS)
     )
+    f = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in F_KERNELS
+         and name.endswith("_kernel")]
     d = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in D_KERNELS
          and name.endswith("_kernel")]
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
@@ -4292,9 +4560,11 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         f"x{sum(n for _, n in ew)}={sum(ms for ms, _ in ew):.2f}ms; index kernels (gathers "
         f"and scatters) x{sum(n for _, n in ix)}={sum(ms for ms, _ in ix):.3f}ms; radix sort "
         f"passes x{sum(n for _, n in sort)}={sum(ms for ms, _ in sort):.3f}ms; "
-        f"kernel D x{sum(n for _, n in d)}={sum(ms for ms, _ in d):.4f}ms; {host}"
+        f"kernel D x{sum(n for _, n in d)}={sum(ms for ms, _ in d):.4f}ms; "
+        f"kernel F x{sum(n for _, n in f)}={sum(ms for ms, _ in f):.4f}ms; {host}"
         f"top kernels: {top}; "
-        f"the port's own: {ours or 'none'} on {card}")
+        f"the port's own: {ours or 'none'}; {gap or 'trace complete (markers on both sides)'} on "
+        f"{card}")
     ran = [f"{name} x{n}" for ms, n, name in rows
            if name in forbid or any(f in name for f in forbid_like)]
     if ran:
@@ -4530,12 +4800,22 @@ def main() -> int:
         sort_row["launches"] += benched["sort_payloads"]
         tail_row["plan_launches"] = (glue_launches["stream_chunk_plan"]
                                      + benched["stream_chunk_plan"])
+        f_before = _f_modules()[0].run_counts.launches
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):
             probe_row["launches"] += fused_phase(blocked_bxi, reads, card)
+        with phase("run_counts"):
+            counts_row = run_counts_kernel_phase(blocked_bxi, reads, card)
         with phase("serve"):
             served = serve_phase(classic_bxi, blocked_bxi, reads, card)
+        # kernel F on the main path: [main], [bench], [reads], [fused], [serve]
+        f_phases = {"main": glue_launches["run_counts"], "bench": benched["run_counts"],
+                    "reads+fused+serve": _f_modules()[0].run_counts.launches - f_before}
+        counts_row["launches"] = sum(f_phases.values())
+        counts_row["launches_by_phase"] = f_phases
+        log(f"[kernel] run_counts launches on the main path {counts_row['launches']} "
+            f"({f_phases}) on {card}")
         classic_row["launches"] += served[0]
         probe_row["launches"] += served[1]
         shr = {key: reads[key] for key in ("pairs", "src", "blocked_all", "single", "L")}
@@ -4568,7 +4848,7 @@ def main() -> int:
     log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
         + f"; whole script {time.time() - t_script:.1f}s on {card}")
     print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row,
-                                  epilogue_row, tail_row, sort_row]}))
+                                  epilogue_row, tail_row, sort_row, counts_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -257,6 +257,138 @@ def _run_counts(s: torch.Tensor):
     return new, start[run + 1] - iota
 
 
+# Kernel F (csrc/run_counts.cu): run lengths, the -f filter and the
+# compactions of the reads routes, over value-sorted keys. Its modes, and
+# what each returns as (keys, q, n):
+#   select: each run's total (its length, or the sum of its weights w) at
+#     its start where kept, 0 elsewhere, after ``rounds`` pairwise selects:
+#     s [P >> rounds] (s itself at 0 rounds), q int32, n_unique. The single
+#     route's pairs (filter_t, rounds), chunk A's counts (filter_t 0) and
+#     the merge's cross-chunk totals (w);
+#   compact: extract_count's compaction: packed int32 [P, 2] (lo, hi) limbs
+#     and q int32 [P], the kept runs first in key order, zero after,
+#     n_unique;
+#   partition: chunk A2's stable partition on w != 0: the first cap of the
+#     live slots then the dead ones, each in key order, as s, w, and n_live.
+RUN_COUNTS_MODES = {"select": 0, "compact": 1, "partition": 2}
+RUN_TILE = 4096  # keys a tile of kernel F
+_I64 = (-(2**63), 2**63 - 1)
+
+
+def run_counts_plain(s: torch.Tensor, w: torch.Tensor | None = None, *, mode: str,
+                     filter_t: int = 0, rounds: int = 0, cap: int = 0):
+    """Plain PyTorch twin of kernel F (``run_counts``' contract): the port's
+    torch code of each mode. A run of equal keys is kept where its key is
+    not SENT_KEY and its total (its length, or the sum of its w) is
+    > filter_t and > 0."""
+    if mode == "partition":
+        order = torch.sort((w == 0).to(torch.int8), stable=True).indices[:cap]
+        return s[order], w[order], (w != 0).sum(dtype=torch.int32)
+    new, count = _run_counts(s)
+    if w is not None:
+        # a run's total as a prefix-sum difference (the grand total is the
+        # read set's window count, below 2^31 by search_reads' guard)
+        cs = torch.cat([w.new_zeros(1, dtype=torch.int64),
+                        torch.cumsum(w, dim=0, dtype=torch.int64)])
+        iota = torch.arange(s.shape[0], device=s.device)
+        count = cs[iota + count] - cs[iota]
+    keep = new & (s != SENT_KEY) & (count > filter_t) & (count > 0)
+    n_unique = keep.sum(dtype=torch.int32)
+    if mode == "compact":
+        N = s.shape[0]
+        pos = torch.cumsum(keep, dim=0) - 1
+        to = torch.where(keep, pos, N)  # slot N collects what is dropped
+        lo, hi = _key_limbs(s)
+        out = torch.zeros((N + 1, 2), dtype=torch.int32, device=s.device)
+        out.index_copy_(0, to, torch.stack([_to_i32(lo), _to_i32(hi)], dim=1))
+        qc = torch.zeros(N + 1, dtype=torch.int32, device=s.device)
+        qc.index_copy_(0, to, count.to(torch.int32))
+        return out[:N], qc[:N], n_unique
+    qc = torch.where(keep, count, 0).to(torch.int32)
+    # pairwise compaction: for filter_t >= 1 every kept group start is
+    # followed by >= filter_t more identical slots, so two kept starts are
+    # always > filter_t slots apart and a pair of adjacent slots holds at
+    # most ONE kept probe; each round halves the stream with an element-wise
+    # select. Round r is sound while 2^r <= filter_t + 1. A keptless pair
+    # keeps the even slot's real sorted value, so the block stream stays
+    # monotone for the probe kernel's tile windows.
+    for _ in range(rounds):
+        k2 = keep.view(-1, 2)
+        pick = k2[:, 1]
+        s = torch.where(pick, s.view(-1, 2)[:, 1], s.view(-1, 2)[:, 0])
+        qc = torch.where(pick, qc.view(-1, 2)[:, 1], qc.view(-1, 2)[:, 0])
+        keep = k2[:, 0] | pick
+    return s, qc, n_unique
+
+
+def run_counts(s: torch.Tensor, w: torch.Tensor | None = None, *, mode: str,
+               filter_t: int = 0, rounds: int = 0, cap: int = 0):
+    """Kernel F over the sorted int64 keys s [P]: (keys, q, n) of ``mode``
+    (see RUN_COUNTS_MODES above). w int32 [P]: optional in select mode
+    (without rounds), needed in partition mode, none in compact mode;
+    rounds 0-3 in select mode only, P a multiple of 2^rounds; cap >= 0 in
+    partition mode.
+
+    A CUDA tensor launches csrc/run_counts.cu on the current stream (select:
+    one launch after a memset of n_unique; compact, partition: three, the
+    tiles' counts, one scan, the tiles' outputs; nothing waits for the
+    host); a CPU tensor takes the plain twin ``run_counts_plain``.
+    ``run_counts.launches`` counts calls that launched it."""
+    if mode not in RUN_COUNTS_MODES:
+        raise ValueError(f"run_counts: unknown mode {mode!r}")
+    if s.dtype != torch.int64 or s.dim() != 1 or not s.is_contiguous():
+        raise ValueError("run_counts takes a contiguous int64 key vector")
+    P = s.shape[0]
+    if (w is None and mode == "partition") or (
+            w is not None and mode != "partition" and (mode != "select" or rounds)):
+        raise ValueError(f"run_counts: weights go with select mode (no rounds) and partition "
+                         f"mode, not {mode} (rounds {rounds})")
+    if w is not None and (w.dtype != torch.int32 or w.shape != (P,) or not w.is_contiguous()
+                          or w.device != s.device):
+        raise ValueError("run_counts takes contiguous int32 weights [P] on the keys' device")
+    if not 0 <= rounds <= 3 or (rounds and mode != "select") or P % (1 << rounds):
+        raise ValueError(f"run_counts: rounds {rounds} (0-3, select mode, P a multiple of "
+                         f"2^rounds; P={P})")
+    if mode == "partition" and cap < 0:
+        raise ValueError("run_counts: cap >= 0")
+    if P >= 2**31:
+        raise ValueError(f"run_counts: {P} keys, beyond int32 counts")
+    filter_t = min(max(int(filter_t), _I64[0]), _I64[1])
+    dev = s.device
+    if dev.type == "cpu":
+        return run_counts_plain(s, w, mode=mode, filter_t=filter_t, rounds=rounds, cap=cap)
+    if dev.type != "cuda":
+        raise ValueError(f"run_counts: unsupported device {dev}")
+    i64, i32 = dict(dtype=torch.int64, device=dev), dict(dtype=torch.int32, device=dev)
+    n_out = min(cap, P) if mode == "partition" else P >> rounds
+    out_s = pk = scratch = None
+    if mode == "compact":
+        keys = pk = torch.empty((P, 2), **i32)
+    elif mode == "partition" or rounds:
+        keys = out_s = torch.empty(n_out, **i64)
+    else:
+        keys = s  # the keys pass through
+    q = torch.empty(n_out, **i32)
+    n = torch.empty((), **i32)
+    if P == 0:
+        return keys, q, n.zero_()
+    if mode in ("compact", "partition"):  # the tiles' counts, tail weights and bases
+        scratch = torch.empty(3 * (-(-P // RUN_TILE)), **i64)
+    ptr = [None if t is None else t.data_ptr() for t in (w, out_s, pk, scratch)]
+    fn = kernels.kernel("run_counts")
+    with torch.cuda.device(dev):
+        err = fn(s.data_ptr(), ptr[0], P, RUN_COUNTS_MODES[mode], filter_t, rounds, cap,
+                 ptr[1], q.data_ptr(), ptr[2], n.data_ptr(), ptr[3],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"run_counts kernel launch failed: CUDA error {err}")
+    run_counts.launches += 1
+    return keys, q, n
+
+
+run_counts.launches = 0
+
+
 def extract_count(
     reads_packed: torch.Tensor,  # int32 [R, ceil(L/16)] (uint32 bit view)
     lens: torch.Tensor,  # int32 [R] true read lengths (<= L)
@@ -276,22 +408,13 @@ def extract_count(
     slot is zero, so qcounts == 0 there (the query's padding marker).
     Windows are taken at stride ``d`` (kmerize step_by) and only where the
     window fits the read's true length; counting replicates clean_map's
-    strictly-greater filter (kmer.rs:826-837). Nothing waits for the host.
+    strictly-greater filter (kmer.rs:826-837), in kernel F's compact mode.
+    Nothing waits for the host.
     """
     s = torch.sort(
         window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
     ).values
-    N = s.shape[0]
-    new, count = _run_counts(s)
-    keep = new & (s != SENT_KEY) & (count > filter_t)
-    pos = torch.cumsum(keep, dim=0) - 1
-    to = torch.where(keep, pos, N)  # slot N collects what is dropped
-    lo, hi = _key_limbs(s)
-    out = torch.zeros((N + 1, 2), dtype=torch.int32, device=s.device)
-    out.index_copy_(0, to, torch.stack([_to_i32(lo), _to_i32(hi)], dim=1))
-    qc = torch.zeros(N + 1, dtype=torch.int32, device=s.device)
-    qc.index_copy_(0, to, count.to(torch.int32))
-    return out[:N], qc[:N], keep.sum().to(torch.int32)
+    return run_counts(s, mode="compact", filter_t=filter_t)
 
 
 def count_histogram(
@@ -308,13 +431,13 @@ def count_histogram(
     hist[c] = number of distinct canonical k-mers seen exactly c times
     (c >= cap clips into the top bin), int32 [cap]. Device-side twin of the
     counting in extract_count so a search without -f can infer the cutoff
-    from one small fetch before filtering."""
+    from one small fetch before filtering; the run lengths come from kernel
+    F's select mode with no filter (qc > 0 exactly at the runs that count)."""
     s = torch.sort(
         window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
     ).values
-    new, count = _run_counts(s)
-    keep = new & (s != SENT_KEY)
-    c = torch.where(keep, count.clamp(0, cap - 1), cap)
+    _s, qc, _n = run_counts(s, mode="select")
+    c = torch.where(qc > 0, qc.clamp(0, cap - 1), cap)
     hist = torch.zeros(cap + 1, dtype=torch.int32, device=s.device)
     hist.index_add_(0, c, torch.ones_like(c, dtype=torch.int32))
     return hist[:cap]

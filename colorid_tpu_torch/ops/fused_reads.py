@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .extract import SENT_KEY, _run_counts, window_keys
+from .extract import SENT_KEY, run_counts, window_keys
 from .hash_torch import placement_keyoff
 from .stream_query import PC, _stream_core
 
@@ -86,26 +86,12 @@ def fused_search_reads(
     # so pad the stream so that the final length stays a multiple of PC
     rounds = min(3, (filter_t + 1).bit_length() - 1) if filter_t >= 1 else 0
     s, _ = _pad_sent(s, None, PC << rounds)
-    # ONE sort: k-mer value order == block order (monotone addressing)
+    # ONE sort: k-mer value order == block order (monotone addressing);
+    # then kernel F's select mode: run counts, the filter and the pairwise
+    # compaction (each round halves the stream; run_counts_plain says why
+    # it is sound)
     s = torch.sort(s).values
-    new, count = _run_counts(s)
-    keep = new & (s != SENT_KEY) & (count > filter_t)
-    n_unique = keep.sum(dtype=torch.int32)
-    qc = torch.where(keep, count, 0).to(torch.int32)
-
-    # pairwise compaction: for filter_t >= 1 every kept group start is
-    # followed by >= filter_t more identical slots, so two kept starts are
-    # always > filter_t slots apart and a pair of adjacent slots holds at
-    # most ONE kept probe; each round halves the stream with an element-wise
-    # select. Round r is sound while 2^r <= filter_t + 1. A keptless pair
-    # keeps the even slot's real sorted value, so the block stream stays
-    # monotone for the probe kernel's tile windows.
-    for _ in range(rounds):
-        k2 = keep.view(-1, 2)
-        pick = k2[:, 1]
-        s = torch.where(pick, s.view(-1, 2)[:, 1], s.view(-1, 2)[:, 0])
-        qc = torch.where(pick, qc.view(-1, 2)[:, 1], qc.view(-1, 2)[:, 0])
-        keep = k2[:, 0] | pick
+    s, qc, n_unique = run_counts(s, mode="select", filter_t=filter_t, rounds=rounds)
 
     n_drop = _probe(
         stats, hist, over_col, over_freq, blocks2, s, qc, k=k, wpad=wpad,
@@ -118,7 +104,7 @@ def fused_search_reads(
 # ---------------------------------------------------------------------------
 # The chunked fused pipeline: no dispatch spans more than one read chunk's
 # windows. Each chunk runs extract + sort + count (A) and compacts its
-# unique k-mers with a stable sort of the liveness flag (A2); ONE merge (B)
+# unique k-mers with a stable partition on the liveness flag (A2); ONE merge (B)
 # re-sorts the concatenated compacted streams, sums duplicate counts ACROSS
 # chunks, applies the global strictly-greater frequency filter
 # (kmer.rs:826-837: per-chunk filtering would drop k-mers whose occurrences
@@ -143,18 +129,16 @@ def extract_sorted_counts(
     s = torch.sort(
         window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
     ).values
-    new, count = _run_counts(s)
-    keep = new & (s != SENT_KEY)
-    return s, torch.where(keep, count, 0).to(torch.int32), keep.sum(dtype=torch.int32)
+    return run_counts(s, mode="select")  # no filter: the counts are partials
 
 
 def compact_sorted(s: torch.Tensor, qc: torch.Tensor, *, cap: int):
     """Dispatch A2: the live entries (qc > 0) first, each part in key
     order, sliced to the first ``cap``. The input is already key-sorted, so
-    a stable sort of the dead flag gives the JAX package's three-key
-    (dead, hi, lo) order. Callers size cap from dispatch A's n_unique."""
-    order = torch.sort((qc == 0).to(torch.int8), stable=True).indices[:cap]
-    return s[order], qc[order]
+    a stable partition on the dead flag (kernel F's partition mode) gives
+    the JAX package's three-key (dead, hi, lo) order. Callers size cap from
+    dispatch A's n_unique."""
+    return run_counts(s, qc, mode="partition", cap=cap)[:2]
 
 
 def fused_merge_query(
@@ -179,16 +163,9 @@ def fused_merge_query(
     s, qc = _pad_sent(s_c.reshape(-1), qc_c.reshape(-1), PC)
     s, perm = torch.sort(s)
     qc = qc[perm]
-    new, count = _run_counts(s)
-    # a group's total as a prefix-sum difference (the grand total is the
-    # read set's window count, below 2^31 by search_reads' guard)
-    cs = torch.cat([qc.new_zeros(1, dtype=torch.int64),
-                    torch.cumsum(qc, dim=0, dtype=torch.int64)])
-    iota = torch.arange(s.shape[0], device=s.device)
-    total = cs[iota + count] - cs[iota]
-    keep = new & (s != SENT_KEY) & (total > filter_t) & (total > 0)
-    n_unique = keep.sum(dtype=torch.int32)
-    qcm = torch.where(keep, total, 0).to(torch.int32)
+    # kernel F's select mode with the counts as weights: each k-mer's
+    # counts summed across chunks, then the global filter
+    s, qcm, n_unique = run_counts(s, qc, mode="select", filter_t=filter_t)
     n_drop = _probe(
         stats, hist, over_col, over_freq, blocks2, s, qcm, k=k, wpad=wpad,
         num_hash=num_hash, bloom_size=bloom_size, rpb=rpb, n_colors=n_colors,

@@ -84,6 +84,11 @@ KERNELS = {
         [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _VP, _VP, _I32, _I32, _VP, _VP, _VP, _VP,
          _I64, _I64, _VP, _VP, _I32, _I32, _I32, _I32, _VP, _I64, _VP, _VP, _VP],
     ),
+    "run_counts": (
+        "run_counts.cu",
+        "run_counts_launch",
+        [_VP, _VP, _I64, _I32, _I64, _I32, _I64, _VP, _VP, _VP, _VP, _VP, _VP],
+    ),
     "sort_payloads": (
         "radix_sort.cu",
         "radix_sort_launch",

@@ -100,3 +100,21 @@ def test_sort_bytes_read_each_input_and_write_each_output_once():
     assert cs.sort_bytes(34_603_008, n_operands=0, index=True, index64=True) == 16 * 34_603_008
     assert cs.sort_bytes(P, n_operands=1, index=True, index64=False) == 20 * P
     assert cs.sort_bytes(P, n_operands=2, index=False, index64=False) == 24 * P
+
+
+def test_run_counts_bytes_read_the_keys_once_and_write_each_mode_once():
+    P = 4096
+    # select: the keys, then keys and counts of P >> rounds slots (counts
+    # alone at 0 rounds: the keys pass through), and n_unique
+    assert cs.run_counts_bytes(P, mode="select") == 8 * P + 4 * P + 4
+    assert cs.run_counts_bytes(P, mode="select", rounds=1) == 8 * P + 12 * (P // 2) + 4
+    assert cs.run_counts_bytes(P, mode="select", rounds=3) == 8 * P + 12 * (P // 8) + 4
+    # with weights, select also reads the int32 weights
+    assert cs.run_counts_bytes(P, mode="select", weights=True) == 12 * P + 4 * P + 4
+    # partition reads every weight (liveness) but only the keys it writes
+    assert cs.run_counts_bytes(P, mode="partition", cap=100) == 4 * P + 20 * 100 + 4
+    assert cs.run_counts_bytes(P, mode="partition", cap=10 * P) == 4 * P + 20 * P + 4
+    assert cs.run_counts_bytes(P, mode="partition", weights=True, cap=100) == (
+        4 * P + 20 * 100 + 4)
+    # compact writes the limbs and counts of every slot, the zero tail too
+    assert cs.run_counts_bytes(P, mode="compact") == 8 * P + 12 * P + 4

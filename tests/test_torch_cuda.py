@@ -7,7 +7,8 @@ the card has no jax), so they run there without the repo's conftest:
 Each kernel (the classic word kernel, the blocked probe kernel and its raw
 mode, the placement kernel and its packed mode, the window-key and
 search-epilogue kernels, the blocked stream's plan, tail and residual
-kernels, and the streams' key sort) must equal its
+kernels, the streams' key sort, and the reads routes' run counts in each
+mode) must equal its
 plain twin bit for bit, count its launches and refuse what it cannot take; the engines on the card (single-device, and a (1, 4)
 color and row mesh on the one card) must give the CPU's SearchResult,
 through the kernels."""
@@ -1557,3 +1558,140 @@ def test_card_route_past_2_20_blocks(cuda_device, monkeypatch):
     torch.cuda.synchronize()
     assert sq.sort_payloads.launches == before + 1
     _tensors_equal(got, [w.to(cuda_device) for w in want], "frequency out of the key")
+
+
+# -- kernel F (the reads routes' run counts, filter and compactions) -----------
+
+
+def _run_counts_calls(s, w):
+    """(mode, weights, keywords) of each mode of kernel F on keys s: select
+    at filter_t 0, 1, 3, 7, 15 (0-3 rounds), with no filter, and with
+    weights at filter_t 1; compact at 0 and 3; partition of the counts with
+    cap below, at and above the live count."""
+    from colorid_tpu_torch.ops.extract import run_counts_plain
+
+    calls = [("select", None, dict(filter_t=ft, rounds=min(3, (ft + 1).bit_length() - 1)))
+             for ft in (0, 1, 3, 7, 15)]
+    calls += [("select", None, {}), ("select", w, dict(filter_t=1)),
+              ("compact", None, dict(filter_t=0)), ("compact", None, dict(filter_t=3))]
+    qc = run_counts_plain(s, mode="select")[1]
+    n = int((qc != 0).sum())
+    calls += [("partition", qc, dict(cap=cap)) for cap in (max(n - 1000, 0), n, n + 1000)]
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ts.RUN_COUNTS_CASES)
+def test_run_counts_kernel_matches_twin(cuda_device, name):
+    """Every mode on the card's sizes (a SENT run past 1,048,576 slots, runs
+    over 40 tiles, runs ending on a tile's last slot, P not a multiple of
+    the tile), twice: bit for bit the twin's, one launch a call."""
+    from colorid_tpu_torch.ops.extract import run_counts, run_counts_plain
+
+    s, w = (torch.from_numpy(a).to(cuda_device) for a in ts.run_counts_case(name, big=True))
+    for mode, ww, kw in _run_counts_calls(s, w):
+        want = run_counts_plain(s, ww, mode=mode, **kw)
+        for _ in range(2):
+            before = run_counts.launches
+            got = run_counts(s, ww, mode=mode, **kw)
+            torch.cuda.synchronize()
+            assert run_counts.launches == before + 1
+            for g, x in zip(got, want):
+                assert g.device == s.device and g.dtype == x.dtype, (mode, kw)
+                assert torch.equal(g, x), (name, mode, kw)
+
+
+@pytest.mark.cuda
+def test_run_counts_compact_past_2_31_bytes(cuda_device):
+    """compact mode on 180,000,000 keys: its limbs and counts (2.16 GB)
+    pass 2^31 bytes, the zero tail included."""
+    from colorid_tpu_torch.ops.extract import SENT_KEY, run_counts, run_counts_plain
+
+    P = 180_000_000
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    s = torch.sort(torch.randint(-(2**40), 2**40, (P,), device=cuda_device, generator=g) // 2**17
+                   ).values
+    s[-3_000_000:] = SENT_KEY
+    got = run_counts(s, mode="compact", filter_t=1)
+    want = run_counts_plain(s, mode="compact", filter_t=1)
+    assert int(got[2]) == int(want[2]) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_run_counts_adds_no_host_sync_and_refuses(cuda_device):
+    from colorid_tpu_torch.ops.extract import run_counts
+
+    s, w = (torch.from_numpy(a) for a in ts.run_counts_case("random"))
+    calls = [(mode, None if ww is None else ww.to(cuda_device), kw)
+             for mode, ww, kw in _run_counts_calls(s, w)]
+    s, w = s.to(cuda_device), w.to(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for mode, ww, kw in calls:
+            run_counts(s, ww, mode=mode, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    bad = (
+        (s.to(torch.int32), None, dict(mode="select")),
+        (s[::2], None, dict(mode="select")),
+        (s, None, dict(mode="compact", rounds=1)),
+        (s, w, dict(mode="select", rounds=1)),
+        (s, w, dict(mode="compact")),
+        (s, None, dict(mode="partition")),
+        (s, w.cpu(), dict(mode="select")),
+        (s[:-1], None, dict(mode="select", rounds=3)),
+        (s, w, dict(mode="partition", cap=-1)),
+        (s, None, dict(mode="pairs")),
+        (s, None, dict(mode="sort")),
+    )
+    for keys, ww, kw in bad:
+        with pytest.raises(ValueError):
+            run_counts(keys, ww, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["single", "chunked", "counted"])
+def test_reads_routes_run_kernel_f_on_card(cuda_device, monkeypatch, v4_panel, route):
+    """search_reads through the single fused dispatch (select with the
+    filter), the chunked route (select, partition, select with weights) and
+    the counted route (compact), and count_histogram (select): the card's
+    answers equal the CPU's, overflow lists in order, through kernel F; no
+    twin of F runs on the card."""
+    from colorid_tpu_torch.ops import extract as te
+
+    _gs, index, batch = v4_panel
+    if route == "chunked":
+        monkeypatch.setenv("COLORID_FUSED_MAX_WINDOWS", "150000")
+    real = te.run_counts_plain
+
+    def cpu_only(s, *a, **kw):
+        assert s.device.type == "cpu", "kernel F's twin ran on the card"
+        return real(s, *a, **kw)
+
+    monkeypatch.setattr(te, "run_counts_plain", cpu_only)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        eng = QueryEngine(index, device=dev)
+        before = te.run_counts.launches
+        if route == "counted":
+            out = eng._search_reads_counted(*(eng._to_dev(x) for x in batch), k=27, L=160,
+                                            filter_t=1, d=1)
+        else:
+            out = eng.search_reads(*batch, k=27, L=160, filter_t=1)
+        launched = te.run_counts.launches - before
+        assert launched == 0 if dev == "cpu" else launched >= (3 if route == "chunked" else 1)
+        outs.append(out)
+    (want, n_want), (got, n_got) = outs
+    assert n_got == n_want > 0 and len(want.over_colors) > 0
+    for f in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert got.all_valid == want.all_valid
+    if route == "counted":
+        from colorid_tpu_torch.ops.extract import count_histogram
+
+        args = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)) for x in batch]
+        want_h = count_histogram(*args, k=27, L=160, cap=2048)
+        got_h = count_histogram(*(a.to(cuda_device) for a in args), k=27, L=160, cap=2048)
+        assert torch.equal(got_h.cpu(), want_h) and int(want_h[1:].sum()) > 0

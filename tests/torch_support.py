@@ -609,3 +609,96 @@ def sort_index(P: int, base: int, index64: bool) -> np.ndarray:
     int64."""
     idx = np.arange(P, dtype=np.int64) + base
     return idx if index64 else (idx & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+# -- kernel F (csrc/run_counts.cu): run counts over sorted keys ----------------
+
+RUN_TILE = 4096  # keys a tile of kernel F (ops/extract.py::RUN_TILE)
+SENT_KEY = 2**63 - 1  # ops/extract.py::SENT_KEY
+RUN_COUNTS_CASES = ("random", "sent_run", "long_run", "tile_edges", "all_sent", "extremes",
+                    "tiny")
+
+
+def run_counts_case(name: str, big: bool = False):
+    """Kernel F's inputs for one of RUN_COUNTS_CASES: (sorted int64 keys
+    [P], int32 weights [P] in 0-3 with zeros, for its select mode with
+    weights and its partition mode), P a multiple of 8 but not of the tile. ``big`` gives the card's
+    sizes: about 2.5 M keys, the padding's SENT run over 1,048,576 slots,
+    runs over 40 tiles.
+      random: runs of mixed lengths over signed keys, a SENT tail;
+      sent_run: the SENT run spans many tiles;
+      long_run: runs longer than a tile, one ending where SENT begins;
+      tile_edges: runs that end on a tile's last slot, and one slot either
+        side of it;
+      all_sent: nothing but padding;
+      extremes: keys at the ends of int64 (the sign bit set, 2^63 - 2);
+      tiny: eight keys, one tile."""
+    rng = np.random.default_rng(RUN_COUNTS_CASES.index(name) + 500)
+    T = RUN_TILE
+    P = (610 if big else 5) * T + 1232
+    n_sent = (1 << 20) + 4 * T + 8 if big else 2 * T + 24
+    if name == "random":
+        vals = rng.integers(-(2**62), 2**62, P // 3)
+        s = np.sort(np.concatenate([rng.choice(vals, P - P // 20), np.full(P // 20, SENT_KEY)]))
+    elif name == "sent_run":
+        vals = rng.integers(0, 2**40, (P - n_sent) // 2)
+        s = np.concatenate([np.sort(rng.choice(vals, P - n_sent)), np.full(n_sent, SENT_KEY)])
+    elif name == "long_run":
+        span = (40 if big else 1) * T + 517
+        vals = np.sort(rng.integers(-(2**50), 2**50, P // 8))
+        s = np.sort(rng.choice(vals, P - 2 * span - 100))
+        s = np.sort(np.concatenate([s, np.full(span, vals[len(vals) // 3]),
+                                    np.full(span, 2**62)]))
+        s = np.concatenate([s, np.full(100, SENT_KEY)])
+    elif name == "tile_edges":
+        # runs ending at T - 1 (a tile's last slot), 2T - 2, 2T - 1 (one
+        # slot long), 2T + 1, 3T - 2, 4T - 1 (from 3T - 1: one slot in tile 2)
+        lens = [T, T - 1, 1, 2, T - 3, T + 1]
+        lens += [int(x) for x in rng.integers(1, 40, (P - sum(lens)) // 40)]
+        lens.append(P - sum(lens))
+        s = np.repeat(np.arange(len(lens), dtype=np.int64) * 1_000_003 - 5_000_000, lens)
+    elif name == "all_sent":
+        s = np.full(P, SENT_KEY)
+    elif name == "extremes":
+        ends = [-(2**63), -(2**63) + 1, -1, 0, 2**63 - 2]
+        s = np.sort(np.concatenate([np.repeat(ends, P // 10),
+                                    rng.integers(-(2**63), 2**63 - 1, P - 5 * (P // 10) - 64),
+                                    np.full(64, SENT_KEY)]))
+    else:
+        s = np.array([-5, -5, 3, 3, 3, 9, SENT_KEY, SENT_KEY])
+    s = s.astype(np.int64)
+    assert len(s) % 8 == 0 and np.all(s[1:] >= s[:-1])
+    return s, rng.integers(0, 4, len(s)).astype(np.int32)
+
+
+def run_counts_ref(s: np.ndarray, w, mode: str, filter_t: int = 0, rounds: int = 0,
+                   cap: int = 0):
+    """A numpy reference of kernel F's contract (ops/extract.py::run_counts),
+    run by run: (keys, q, n)."""
+    P = len(s)
+    if mode == "partition":
+        order = np.concatenate([np.flatnonzero(w != 0), np.flatnonzero(w == 0)])[:cap]
+        return s[order], w[order], int((w != 0).sum())
+    starts = np.flatnonzero(np.r_[True, s[1:] != s[:-1]]) if P else np.zeros(0, np.int64)
+    ends = np.r_[starts[1:], P]
+    cs = np.r_[0, np.cumsum(np.ones(P, np.int64) if w is None else w, dtype=np.int64)]
+    tot = cs[ends] - cs[starts]
+    keep = (s[starts] != SENT_KEY) & (tot > filter_t) & (tot > 0)
+    kept, kt = starts[keep], tot[keep]
+    if mode == "compact":
+        pk = np.zeros((P, 2), np.int32)
+        u = s[kept].view(np.uint64) ^ np.uint64(1 << 63)
+        pk[: len(kept)] = u.view(np.int32).reshape(-1, 2)
+        q = np.zeros(P, np.int32)
+        q[: len(kept)] = kt.astype(np.int32)
+        return pk, q, len(kept)
+    q = np.zeros(P, np.int32)
+    q[kept] = kt.astype(np.int32)
+    G = 1 << rounds
+    if G == 1:
+        return s, q, len(kept)
+    sel = np.arange(0, P, G)  # each group's first slot, unless a kept start follows
+    grp = kept // G
+    sel[grp] = np.maximum.reduceat(kept, np.r_[0, np.flatnonzero(np.diff(grp)) + 1]) if len(
+        kept) else sel[grp]
+    return s[sel], q[sel], len(kept)
