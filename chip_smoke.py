@@ -119,15 +119,17 @@ Phases, each printing its lines (any failure exits non-zero):
    the counted route (extract_count, then the probe stream): the same
    answers, stream_probe launched and n_drop 0 on both fused routes,
    kernel F launched in each route; k-mers/s and a device breakdown of
-   each (kernel F's three kernels summed); search_reads_fused_async on
+   each (kernel F's kernels summed); search_reads_fused_async on
    two halves, one stacked fetch, equal to search_reads on each half.
 4c-run_counts. Kernel F (the reads routes' run counts, -f filter and
    compactions) against its twin, bitwise, in each mode on the inputs that
    those routes hand it on the 400,000 reads: pairs in the single fused
    dispatch, counts, partition and totals in the chunked route, compact in
    the counted route; and on edge cases of them (a SENT run of 1,500,000
-   slots, P not a multiple of its tile). Each mode's device time a call,
-   its twin's and its byte bound, the phase's seconds, and the main path's
+   slots, P not a multiple of its tile, every slot kept, thousands of
+   tiles that keep nothing or hold no live slot, partition at caps from 0
+   to P). Each mode's time a call, its twin's, its byte bound and the
+   share of it reached, the phase's seconds, and the main path's
    launches by phase ([main]'s search -f 1 must launch it on both
    indexes).
 4d. serve: the HTTP server on the card (a thread of this process) on
@@ -2327,7 +2329,8 @@ def bench_phase(tmp: str, classic_bxi: str, blocked_bxi: str, card: str) -> dict
     cell, so none is built twice: rc 0, one JSON line with every rate above
     0, no parity key, this card's name, the fused rate timed on queued
     single fused dispatches. Returns the kernel wrappers' launches in the
-    bench's run."""
+    bench's run, and under "run_counts_by_mode" kernel F's by mode (all
+    of them made in the bench's phases)."""
     import torch
 
     from colorid_tpu_torch.bench import cell_stamp, write_stamp
@@ -2346,17 +2349,23 @@ def bench_phase(tmp: str, classic_bxi: str, blocked_bxi: str, card: str) -> dict
         timeout=BENCH_TIMEOUT,
     )
     dt = time.time() - t0
-    launches = None
+    launches = by_mode = None
     for line in r.stderr.splitlines():
         if line.startswith("[launches] "):
             launches = json.loads(line.split(" ", 1)[1])
+        if line.startswith("[launches by mode] run_counts "):
+            by_mode = json.loads(line.split(" ", 4)[4])
         if line.startswith(("[", "card:", "query:", "loading", "building", "parity", "PARITY",
                             "fused route")):
             log(f"[bench] | {line}")
     lines = [l for l in r.stdout.splitlines() if l.strip()]
-    if r.returncode != 0 or len(lines) != 1 or launches is None:
+    if r.returncode != 0 or len(lines) != 1 or launches is None or by_mode is None:
         print(r.stderr[-4000:], file=sys.stderr)
         raise AssertionError(f"[bench] rc {r.returncode}, stdout {lines}")
+    if sum(by_mode.values()) != launches["run_counts"]:
+        raise AssertionError(f"[bench] kernel F launched {by_mode} by mode, "
+                             f"{launches['run_counts']} in the phases")
+    launches["run_counts_by_mode"] = by_mode
     rec = json.loads(lines[0])
     want = torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu"
     rates = [rec.get(f"{k}_kmers_per_s", 0) for k in BENCH_RATES] + [
@@ -2876,7 +2885,11 @@ def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
     return fused_launches + async_launches
 
 
-F_KERNELS = ("run_counts_select", "run_counts_summary", "run_counts_scan", "run_counts_write")
+# kernel F's kernels in this checkout and, for --compare's turns of the parent,
+# PR 19's summary, scan and write kernels of compact and partition modes
+F_KERNELS = ("run_counts_select", "run_counts_compact", "run_counts_zero", "run_counts_live",
+             "run_counts_partition", "run_counts_summary", "run_counts_scan",
+             "run_counts_write")
 F_CALLS = ("pairs", "counts", "partition", "totals", "compact")  # pairs first: the row's ms
 F_ROUTE_OF = {"pairs": "single", "counts": "chunked", "partition": "chunked",
               "totals": "chunked", "compact": "counted"}
@@ -2907,7 +2920,10 @@ def run_counts_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
     (pairs: select mode with the filter), the chunked route (counts: select
     with no filter; partition; totals: select with weights) and the counted
     route (compact); then on edge cases of them (a SENT run of 1,500,000
-    slots, P not a multiple of the tile). Each call's time (CUDA events
+    slots, P not a multiple of the tile; compact with every slot kept and
+    with the first 90 % of the keys kept nowhere; partition at caps from 0
+    to P, and with no live slot in the first 90 % of the chunk). Each
+    call's time (CUDA events
     over 20 calls back to back), its twin's (CUDA events, 3 calls), its
     byte bound (run_counts_bytes) and the phase's seconds; F's device time
     by kernel comes from counts_bench.py (this late in the script
@@ -2922,13 +2938,15 @@ def run_counts_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
     t0 = time.time()
     te, fr = _f_modules()
     real, count0 = te.run_counts, te.run_counts.launches
+    modes0 = dict(real.launches_by_mode)
     seen: dict = {}
 
     def observed(s, w=None, **kw):
         seen.setdefault(_f_call(w, kw), (s.clone(), None if w is None else w.clone(), dict(kw)))
         return real(s, w, **kw)
 
-    observed.launches = count0  # the wrapper counts its launches on the module's name
+    # the wrapper counts its launches on the module's name
+    observed.launches, observed.launches_by_mode = count0, real.launches_by_mode
 
     dev, L = reads["dev"], reads["L"]
     n_windows = dev[0].shape[0] * (L - K + 1)
@@ -2978,24 +2996,42 @@ def run_counts_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
             f"P={P}, {', '.join(f'{k}={v}' for k, v in kw.items()) or 'no filter'}, w "
             f"{'int32' if w is not None else 'none'}): bitwise_equal=True (keys, counts, "
             f"n={int(got[2])}); ms={ms:.4f} (a call, "
-            f"{'one launch and a memset' if mode == 'select' else 'three launches'}"
+            f"{'one launch and a memset' if mode == 'select' else 'two launches and a memset'}"
             f": CUDA events over 20 calls back to back, device-bound: a call's host work is "
             f"shorter than its kernels) plain_ms={plain:.4f} library_ms=null bound_ms="
             f"{bound:.4f} bound_by=bytes ({ms and bound / ms:.2f} of the bound) on {card}")
         del got, want
     # edge cases on the card's inputs: the SENT run past 1,048,576 slots, P
-    # not a multiple of the tile
+    # not a multiple of the tile; compact with every slot kept (no zero
+    # tail) and with the first 90 % of the keys distinct (runs of 1: thousands
+    # of tiles that keep nothing at -f 1, a long look-back); partition at
+    # caps from 0 to P, and with no live slot in the first 90 % of the chunk
     s, w, kw = seen["pairs"]
     s_sent = s.clone()
     s_sent[-1_500_000:] = te.SENT_KEY
     cut = (s.numel() // te.RUN_TILE - 1) * te.RUN_TILE + 8
+    distinct = torch.unique(s[s != te.SENT_KEY])
+    late = s.clone()
+    m = late.numel() * 9 // 10
+    late[:m] = late[m] - m + torch.arange(m, device=s.device)  # below late[m], distinct
+    pc, pw, pkw = seen["partition"]
+    n_live = int((pw != 0).sum())
+    pw_late = pw.clone()
+    pw_late[:pw.numel() * 9 // 10] = 0
+    compact = dict(mode="compact", filter_t=1)
     edges = (("SENT run of 1,500,000 slots", "pairs", s_sent, None, kw),
-             ("SENT run of 1,500,000 slots", "compact", s_sent, None,
-              dict(mode="compact", filter_t=1)),
+             ("SENT run of 1,500,000 slots", "compact", s_sent, None, compact),
              (f"P={cut}, not a multiple of the tile", "pairs", s[:cut], None, kw),
              (f"P={cut}, not a multiple of the tile", "totals", s[:cut].contiguous(),
               torch.ones(cut, dtype=torch.int32, device=s.device),
-              dict(mode="select", filter_t=2)))
+              dict(mode="select", filter_t=2)),
+             (f"every slot kept (P={distinct.numel()}, no zero tail)", "compact", distinct, None,
+              dict(mode="compact", filter_t=0)),
+             ("the first 90 % of the keys kept nowhere", "compact", late, None, compact),
+             *((f"cap {cap} (n_live {n_live})", "partition", pc, pw, dict(mode="partition", cap=cap))
+               for cap in (0, n_live // 3, n_live, pc.numel())),
+             ("no live slot in the first 90 %", "partition", pc, pw_late,
+              dict(mode="partition", cap=pkw["cap"])))
     for what, call, es, ew, ekw in edges:
         err = _outputs_err(real(es, ew, **ekw), te.run_counts_plain(es, ew, **ekw))
         sync()
@@ -3004,9 +3040,10 @@ def run_counts_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
         if err:
             raise AssertionError(f"[kernel] run_counts {call} on {what}: max_abs_err {err}")
     te.run_counts.launches = count0
+    te.run_counts.launches_by_mode.update(modes0)
     secs = time.time() - t0
     log(f"[kernel] run_counts phase took {secs:.1f}s on {card}")
-    del seen, s, w, s_sent
+    del seen, s, w, s_sent, distinct, late, pc, pw, pw_late
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     first = rows["pairs"]
@@ -4768,6 +4805,8 @@ def main() -> int:
             glue = _glue_kernels()
             for kn in glue:
                 kn.launches = 0
+            f_modes = _f_modules()[0].run_counts.launches_by_mode
+            f_modes.update(dict.fromkeys(f_modes, 0))
             classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
                 tmp, inputs, card)
             blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
@@ -4775,6 +4814,7 @@ def main() -> int:
             window_row["launches"] = window_keys.launches
             epilogue_launches = tail.launches + sorted_words.launches
             glue_launches = {kn.__name__: kn.launches for kn in glue}
+            f_main = dict(f_modes)
         with phase("parity"):
             classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"], blocked_dispatch = blocked_parity_phase(
@@ -4800,7 +4840,7 @@ def main() -> int:
         sort_row["launches"] += benched["sort_payloads"]
         tail_row["plan_launches"] = (glue_launches["stream_chunk_plan"]
                                      + benched["stream_chunk_plan"])
-        f_before = _f_modules()[0].run_counts.launches
+        f_later = dict(f_modes)
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):
@@ -4809,13 +4849,16 @@ def main() -> int:
             counts_row = run_counts_kernel_phase(blocked_bxi, reads, card)
         with phase("serve"):
             served = serve_phase(classic_bxi, blocked_bxi, reads, card)
-        # kernel F on the main path: [main], [bench], [reads], [fused], [serve]
-        f_phases = {"main": glue_launches["run_counts"], "bench": benched["run_counts"],
-                    "reads+fused+serve": _f_modules()[0].run_counts.launches - f_before}
-        counts_row["launches"] = sum(f_phases.values())
-        counts_row["launches_by_phase"] = f_phases
+        # kernel F on the main path by mode, as its wrapper counts them in
+        # [main], in the port bench's process and in [reads]..[serve]
+        f_by_phase = {"main": f_main, "bench": benched["run_counts_by_mode"],
+                      "reads+fused+serve": {m: f_modes[m] - f_later[m] for m in f_modes}}
+        by_mode = {m: sum(c[m] for c in f_by_phase.values()) for m in f_modes}
+        counts_row["launches"] = sum(by_mode.values())
+        counts_row["launches_by_phase"] = {k: sum(c.values()) for k, c in f_by_phase.items()}
+        counts_row["launches_by_mode"] = by_mode
         log(f"[kernel] run_counts launches on the main path {counts_row['launches']} "
-            f"({f_phases}) on {card}")
+            f"({f_by_phase}) on {card}")
         classic_row["launches"] += served[0]
         probe_row["launches"] += served[1]
         shr = {key: reads[key] for key in ("pairs", "src", "blocked_all", "single", "L")}

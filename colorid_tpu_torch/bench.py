@@ -665,6 +665,8 @@ def main(argv: list[str] | None = None) -> int:
     if rid:
         rates["read_id"] = rid
     log(f"[launches] {json.dumps(totals)}")
+    f = next(kn for kn in wrappers if kn.__name__ == "run_counts")
+    log(f"[launches by mode] run_counts {json.dumps(f.launches_by_mode)}")
     if not any(rates.get(k) for k in RATES):
         log("bench: no rate measured")
         return 1

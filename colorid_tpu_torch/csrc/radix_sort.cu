@@ -81,6 +81,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "look_back.cuh"
+
 namespace {
 
 constexpr int MAX_OPS = 3;
@@ -93,10 +95,11 @@ constexpr int TILE = THREADS * KPT;  // 8,192 keys
 constexpr int CHUNK = 4;         // tiles an upsweep block counts in order
 constexpr int SWEEP_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
-// a tile's status word for one digit in a later pass: a flag in the top
-// two bits (0: not yet, AGG: the tile's own count, INC: the count of every
-// tile up to this one) over a 30-bit count
-constexpr uint32_t AGG = 1u << 30, INC = 2u << 30, CNT = (1u << 30) - 1;
+// a tile's status word for one digit in a later pass (csrc/look_back.cuh):
+// a flag in the top two bits (0: not yet, AGG: the tile's own count, INC:
+// the count of every tile up to this one) over a 30-bit count
+using Status = LookBack<uint32_t>;
+constexpr uint32_t AGG = Status::AGG, INC = Status::INC, CNT = Status::CNT;
 
 struct PassParams {
   const int32_t* key_in;
@@ -383,7 +386,7 @@ __global__ void __launch_bounds__(THREADS, 2) sort_pass_kernel(PassParams p) {
         cnt += c;
       }
       if (LOOK)
-        *(volatile uint32_t*)(p.status + (size_t)t * R + d) = (t == 0 ? INC : AGG) | (uint32_t)cnt;
+        Status::publish(p.status, (int64_t)t * R + d, (t == 0 ? INC : AGG) | (uint32_t)cnt);
       s_start[d] = local;
       local += cnt;
     }
@@ -440,8 +443,7 @@ __global__ void __launch_bounds__(THREADS, 2) sort_pass_kernel(PassParams p) {
 #pragma unroll
       for (int k = 0; k < DPT; ++k) {
         if (todo >> k & 1) {
-          const uint32_t v =
-              *(volatile uint32_t*)(p.status + (size_t)tp[k] * R + k * THREADS + tid);
+          const uint32_t v = Status::read(p.status, (int64_t)tp[k] * R + k * THREADS + tid);
           const uint32_t flag = v & ~CNT;
           if (flag) {
             excl[k] += (int)(v & CNT);
@@ -457,8 +459,8 @@ __global__ void __launch_bounds__(THREADS, 2) sort_pass_kernel(PassParams p) {
       if (d < R) {
         const int start = s_start[d];
         if (t > 0)
-          *(volatile uint32_t*)(p.status + (size_t)t * R + d) =
-              INC | (uint32_t)(excl[k] + s_start[d + 1] - start);
+          Status::publish(p.status, (int64_t)t * R + d,
+                          INC | (uint32_t)(excl[k] + s_start[d + 1] - start));
         s_run[d] = p.bases[d] + excl[k] - start;
       }
     }

@@ -38,28 +38,58 @@
 // tiles (the padding's SENT run spans millions of slots): a start's total
 // needs the next start, which for the tile's last start lies past the
 // tile. The block finds it by reading on past its end until a key differs
-// (256 keys, then twice as many a round up to a tile; usually the first
-// few keys), and not at all where that run is SENT, which is never kept.
+// (256 keys, loaded with the tile, then twice as many a round up to a tile;
+// usually the first few keys), and not at all where that run is SENT,
+// which is never kept.
 //   select mode: one launch (after a memset of n_unique): each tile's
 //     totals, its groups' picks staged in shared memory and written with
 //     16-byte stores; n_unique by one atomic a block.
-//   compact and partition modes: three launches: each tile's kept runs (or
-//     live slots) and its tail weight; one block's exclusive sum of them,
-//     each tile's base and n_unique; each tile's outputs staged in shared
-//     memory and written in contiguous runs at its base (compact mode also
-//     zeroes its part of [n_unique, P)).
-// Positions and sums are int64.
+//   compact mode: one launch reads the keys (after a memset of the tiles'
+//     status words): each tile's kept runs, their number published at once,
+//     its place by a decoupled look-back over the tiles before it, its
+//     outputs staged in shared memory and written as one run with 16-byte
+//     stores; the last tile writes n_unique. A second launch reads no key:
+//     it zeroes [n_unique, P) from n_unique on the card.
+//   partition mode: two launches (after the same memset). The first reads
+//     only the weights (liveness is w != 0), 16 bytes a load, a block four
+//     tiles: their live slots and, by the same look-back over the blocks,
+//     the live slots before each tile; the last block writes n_live. A
+//     dead slot's place, n_live + (slots before)
+//     - (live before), needs n_live, which only the end of that launch
+//     knows: so the second launch places the slots. A tile whose live and
+//     dead slots all land at or past cap returns before it loads anything;
+//     any other reads its weights, ranks them, and reads only the keys of
+//     the slots it writes below cap, through each slot's place in the tile
+//     staged in shared memory; its live run and its dead run go out
+//     contiguously, with 16-byte stores where aligned.
+// Blocks start in index order, so a look-back (csrc/look_back.cuh) waits
+// only on tiles that have started, and each publishes before it waits. A
+// status word is 64 bits: a flag in the top two bits over a count, which
+// reaches P < 2^31 (the 30 bits of csrc/stream_tail.cu's 32-bit word would
+// not hold it). Positions and sums are int64.
 //
 // What bounds it on an H100: bytes. The function reads the keys and the
 // weights once (partition mode only the keys of the slots it writes) and
 // writes its outputs once: up to 12 bytes a slot read, 4 to 12 written by
-// mode. Select mode reads them once, and a few keys past each
-// tile; compact and partition read them twice, because a tile's place
-// depends on every tile before it and the counts come from the keys. The
-// operations are a few integer instructions a key. An earlier design
-// scanned the tiles' summaries for where runs end (an affine recurrence
-// over the tiles, one block): 0.06-0.08 ms of the 0.46 ms at 52 M keys,
-// and the keys read twice in every mode (PERF.md §6, kernel F).
+// mode. Select and compact modes read the keys once, and a few keys past
+// each tile; partition mode reads the weights twice (4 bytes a slot, once
+// to count and once to place). The operations are a few integer
+// instructions a key.
+//
+// Why this shape (counts_bench.py's candidates on an H100 80GB HBM3 at
+// 700 W, PERF.md): the look-back is what compact's tile launch
+// waits on (0.34 ms a call at 52 M keys, 0.23 with the places faked and no
+// look-back): a tile waits until every tile before it down to one that
+// has its full prefix has published. More blocks an SM hide some of it
+// (80 registers a thread and no weights in registers: three blocks, 0.38
+// -> 0.34 ms); wider look-back rounds, a pause between reads, 64
+// registers (spills), and a persistent grid that copies its next tile in
+// (cp.async) while it waits were all slower. The zero tail as its own
+// launch beat a memset of the outputs before the tile launch (0.57 against
+// 0.58 ms a call), and a count launch a block four tiles beat one a tile
+// (0.048 against 0.054 ms); a bit mask of the live slots in place of the
+// second read of the weights made the placing launch slower (0.197 against
+// 0.172 ms).
 //
 // Bound to Python with ctypes (colorid_tpu_torch/ops/kernels.py): a plain C
 // entry point that launches on the caller's stream and returns
@@ -67,6 +97,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "look_back.cuh"
 
 namespace {
 
@@ -76,10 +108,13 @@ constexpr int ITEMS = 16;  // consecutive keys a thread
 constexpr int TILE = THREADS * ITEMS;
 constexpr int PADDED = TILE + TILE / 16;
 constexpr size_t SMEM = PADDED * (sizeof(int64_t) + sizeof(int32_t));
-constexpr int SCAN_THREADS = 1024;
-constexpr int SCAN_ITEMS = 4;  // tiles a scan thread takes a round
+constexpr int LIVE_SUB = 4;   // tiles a block of partition's count takes
+constexpr int ZERO_BLOCKS = 1056;  // the zero tail's grid at most: 8 blocks an SM
 constexpr int64_t SENT = INT64_MAX;
 constexpr unsigned FULL = 0xffffffffu;
+// a tile's status word: the flag in the top two bits over a count
+using Status = LookBack<uint64_t>;
+constexpr uint64_t AGG = Status::AGG, INC = Status::INC;
 
 enum Mode : int { SELECT = 0, COMPACT = 1, PARTITION = 2 };
 
@@ -93,10 +128,9 @@ struct Params {
   int64_t* out_s;
   int32_t* out_q;
   int64_t* out_pk;
-  int64_t* kept;    // [n_tiles] compact: each tile's kept runs; partition: its live slots
-  int64_t* tail_w;  // [n_tiles] compact: the weight from each tile's first slot to the
-                    // first run start past it (or to P)
-  int64_t* base;    // [n_tiles] the kept runs (live slots) of the tiles before each
+  uint64_t* status;  // compact: [n_tiles]; partition: [n_tiles / LIVE_SUB, rounded up];
+                     // zero before the first launch
+  int64_t* live_before;  // partition: [n_tiles] the live slots of the tiles before each
   int32_t* n_unique;
 };
 
@@ -106,13 +140,14 @@ struct Scratch {
   int32_t wf_pos[WARPS];  // each warp's first start in the tile, or -1
   int64_t prev;           // the key before the tile
   int64_t last_key;       // the key of the tile's last start
+  int64_t excl;           // compact: the kept runs of the tiles before this one
 };
 
 // a thread's keys and their weights, in registers
 struct Items {
   int64_t key[ITEMS];
   int32_t w[ITEMS];
-  uint32_t starts;   // bit i: item i starts a run (partition: is live)
+  uint32_t starts;   // bit i: item i starts a run
   int64_t tp;        // the weight before the thread's items in the tile
   int64_t tw;        // the thread's weight
   int64_t tile_w;    // the tile's weight
@@ -124,9 +159,8 @@ struct Items {
 
 __device__ __forceinline__ int pad(int e) { return e + (e >> 4); }
 
-// exclusive sum over the block's NT threads (every thread calls it); total
-// is the block's sum
-template <int NT>
+// exclusive sum over the block's threads (every thread calls it); total is
+// the block's sum
 __device__ __forceinline__ int64_t block_excl_sum(int64_t v, int64_t* warp_tot, int64_t& total) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   int64_t x = v;
@@ -138,23 +172,22 @@ __device__ __forceinline__ int64_t block_excl_sum(int64_t v, int64_t* warp_tot, 
   if (lane == 31) warp_tot[wid] = x;
   __syncthreads();
   if (wid == 0) {
-    int64_t t = lane < NT / 32 ? warp_tot[lane] : 0;
+    int64_t t = lane < WARPS ? warp_tot[lane] : 0;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int64_t y = __shfl_up_sync(FULL, t, d);
       if (lane >= d) t += y;
     }
-    if (lane < NT / 32) warp_tot[lane] = t;
+    if (lane < WARPS) warp_tot[lane] = t;
   }
   __syncthreads();
   const int64_t before = wid ? warp_tot[wid - 1] : 0;
-  total = warp_tot[NT / 32 - 1];
+  total = warp_tot[WARPS - 1];
   __syncthreads();
   return before + x - v;
 }
 
-// the minimum over the block's NT threads (every thread calls it and gets it)
-template <int NT>
+// the minimum over the block's threads (every thread calls it and gets it)
 __device__ __forceinline__ int64_t block_min(int64_t v, int64_t* warp_tot) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
@@ -162,19 +195,64 @@ __device__ __forceinline__ int64_t block_min(int64_t v, int64_t* warp_tot) {
   __syncthreads();
   int64_t r = warp_tot[0];
 #pragma unroll
-  for (int i = 1; i < NT / 32; ++i) r = min(r, warp_tot[i]);
+  for (int i = 1; i < WARPS; ++i) r = min(r, warp_tot[i]);
   __syncthreads();
   return r;
 }
 
+// Unit t's place among n units (tiles, or partition's groups of them), its
+// own count being c: publishes c, walks back (warp 0; unit 0 waits for
+// nothing), publishes c and every count before it, and the last unit
+// writes the total to n_unique. Returns the counts of the units before t
+// to warp 0's threads.
+__device__ __forceinline__ int64_t tile_place(const Params& p, int64_t t, int64_t n, int64_t c) {
+  if (threadIdx.x == 0) Status::publish(p.status, t, (t ? AGG : INC) | (uint64_t)c);
+  const int64_t excl = t ? (int64_t)Status::look_back(p.status, t) : 0;
+  if (threadIdx.x == 0) {
+    if (t) Status::publish(p.status, t, INC | (uint64_t)(excl + c));
+    if (t == n - 1) *p.n_unique = (int32_t)(excl + c);
+  }
+  return excl;
+}
+
+// dst[0, len) = val(0), ..., val(len - 1) by the block's threads, in 16-byte
+// stores where dst is aligned
+template <class F>
+__device__ __forceinline__ void write_run64(int64_t* dst, int64_t len, F val) {
+  if (len <= 0) return;
+  const int head = (int)min(len, (int64_t)(((uintptr_t)dst >> 3) & 1));
+  const int nv = (int)((len - head) >> 1);
+  if ((int)threadIdx.x < head) dst[0] = val(0);
+  longlong2* dv = reinterpret_cast<longlong2*>(dst + head);
+  for (int v = threadIdx.x; v < nv; v += THREADS)
+    dv[v] = make_longlong2(val(head + 2 * v), val(head + 2 * v + 1));
+  if (threadIdx.x == 0 && head + 2 * nv < len) dst[len - 1] = val((int)len - 1);
+}
+
+template <class F>
+__device__ __forceinline__ void write_run32(int32_t* dst, int64_t len, F val) {
+  if (len <= 0) return;
+  const int head = (int)min(len, (int64_t)((4 - (((uintptr_t)dst >> 2) & 3)) & 3));
+  const int nv = (int)((len - head) >> 2), done = head + 4 * nv;
+  if ((int)threadIdx.x < head) dst[threadIdx.x] = val((int)threadIdx.x);
+  int4* dv = reinterpret_cast<int4*>(dst + head);
+  for (int v = threadIdx.x; v < nv; v += THREADS) {
+    const int e = head + 4 * v;
+    dv[v] = make_int4(val(e), val(e + 1), val(e + 2), val(e + 3));
+  }
+  if ((int)threadIdx.x < len - done) dst[done + threadIdx.x] = val(done + (int)threadIdx.x);
+}
+
 // Stage tile t in shared memory, take the thread's items into registers,
-// and (but in partition mode) find where the runs start and the weights
-// before them. Every thread calls it; sk and sw may be written after the
-// next __syncthreads (in every mode but partition, before it returns).
-template <int MODE>
+// and find where the runs start and the weights before them. Every thread
+// calls it; sk and sw may be written after the next __syncthreads. W: the
+// call may have weights (p.w, where not nullptr); without, every slot
+// weighs 1 and the weights take no registers.
+template <bool W>
 __device__ __forceinline__ void load_items(const Params& p, int64_t t, int n, int64_t* sk,
                                            int32_t* sw, Scratch& sc, Items& it) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5, i0 = tid * ITEMS;
+  const int32_t* const pw = W ? p.w : nullptr;
   const int64_t base = t * TILE;
   const int64_t* ks = p.s + base;
   if (n == TILE && !((uintptr_t)ks & 15)) {
@@ -188,8 +266,8 @@ __device__ __forceinline__ void load_items(const Params& p, int64_t t, int n, in
   } else {
     for (int e = tid; e < TILE; e += THREADS) sk[pad(e)] = e < n ? ks[e] : SENT;
   }
-  if (p.w) {
-    const int32_t* ws = p.w + base;
+  if (pw) {
+    const int32_t* ws = pw + base;
     if (n == TILE && !((uintptr_t)ws & 15)) {
 #pragma unroll
       for (int r = 0; r < TILE / 4 / THREADS; ++r) {
@@ -206,10 +284,10 @@ __device__ __forceinline__ void load_items(const Params& p, int64_t t, int n, in
     }
   }
   if (tid == 0) sc.prev = base ? p.s[base - 1] : SENT;
-  if (MODE != PARTITION) {  // the first keys past the tile, for tail_weight
+  {  // the first keys past the tile, for tail_weight
     const int64_t e = base + TILE + tid;
     it.peek_key = e < p.P ? p.s[e] : SENT;
-    it.peek_w = p.w && e < p.P ? p.w[e] : 0;
+    it.peek_w = pw && e < p.P ? pw[e] : 0;
   }
   __syncthreads();
   int64_t prev = i0 ? sk[pad(i0 - 1)] : sc.prev;
@@ -220,15 +298,18 @@ __device__ __forceinline__ void load_items(const Params& p, int64_t t, int n, in
     const int e = i0 + i;
     const bool valid = e < n;
     it.key[i] = sk[pad(e)];
-    it.w[i] = valid ? (p.w ? sw[pad(e)] : 1) : 0;
-    const bool st = MODE == PARTITION ? valid && it.w[i] != 0
-                                      : valid && (base + e == 0 || it.key[i] != prev);
+    it.w[i] = valid ? (pw ? sw[pad(e)] : 1) : 0;
+    const bool st = valid && (base + e == 0 || it.key[i] != prev);
     prev = it.key[i];
     it.starts |= (uint32_t)st << i;
     it.tw += it.w[i];
   }
-  if (MODE == PARTITION) return;
-  it.tp = block_excl_sum<THREADS>(it.tw, sc.warp_tot, it.tile_w);
+  if (pw) {
+    it.tp = block_excl_sum(it.tw, sc.warp_tot, it.tile_w);
+  } else {  // a slot weighs 1: the weight before the thread is its first slot
+    it.tp = min(i0, n);
+    it.tile_w = n;
+  }
   // the thread's first start and the weight before it
   const int f = it.starts ? __ffs(it.starts) - 1 : ITEMS;
   int64_t pre_f = it.tp;
@@ -252,7 +333,6 @@ __device__ __forceinline__ void load_items(const Params& p, int64_t t, int n, in
     }
 }
 
-
 // The weight from the tile's first slot to the first run start past the
 // tile (or to P). Only the run that the tile's last start opens can cross
 // the tile's end: the block reads on from the end, 256 keys (loaded with the
@@ -261,7 +341,9 @@ __device__ __forceinline__ void load_items(const Params& p, int64_t t, int n, in
 // run is never kept, so its end is not looked for (it may span millions of
 // slots); a long run of another key costs its length in reads, once, in
 // the block of its start. Every thread calls it and gets the same value.
+template <bool W>
 __device__ int64_t tail_weight(const Params& p, int64_t end, const Items& it, Scratch& sc) {
+  const int32_t* const pw = W ? p.w : nullptr;
   if (it.starts && !it.nxt_in) {  // the key of this thread's last start (no dynamic index:
     int64_t k = 0;                  // the items stay in registers)
 #pragma unroll
@@ -279,22 +361,23 @@ __device__ int64_t tail_weight(const Params& p, int64_t end, const Items& it, Sc
   for (int chunk = THREADS; end < p.P; chunk = min(2 * chunk, TILE)) {
     const bool peeked = chunk == THREADS;  // the first round: the keys in registers
     const int64_t m = min((int64_t)chunk, p.P - end);
-    int64_t first = m;  // the first slot of [end, end + m) whose key is not K
-    if (peeked) {
-      if (threadIdx.x < m && it.peek_key != K) first = threadIdx.x;
+    int64_t stop;  // the first slot of [end, end + m) whose key is not K, else m
+    if (peeked) {  // the keys are sorted: those equal to K come first
+      stop = __syncthreads_count(threadIdx.x < m && it.peek_key == K);
     } else {
+      int64_t first = m;
       for (int64_t e = threadIdx.x; e < m; e += THREADS)
         if (p.s[end + e] != K) {
           first = e;
           break;
         }
+      stop = block_min(first, sc.warp_tot);
     }
-    const int64_t stop = block_min<THREADS>(first, sc.warp_tot);
-    if (p.w) {
+    if (pw) {
       int64_t ws = peeked && threadIdx.x < stop ? it.peek_w : 0, tot;
       for (int64_t e = threadIdx.x + (peeked ? THREADS : 0); e < stop; e += THREADS)
-        ws += p.w[end + e];
-      block_excl_sum<THREADS>(ws, sc.warp_tot, tot);
+        ws += pw[end + e];
+      block_excl_sum(ws, sc.warp_tot, tot);
       extra += tot;
     } else {
       extra += stop;
@@ -345,9 +428,9 @@ __device__ __forceinline__ uint32_t run_totals(const Params& p, const Items& it,
 template <int LG>
 __global__ void __launch_bounds__(THREADS) run_counts_select_kernel(Params p) {
   TILE_SETUP;
-  load_items<SELECT>(p, t, n, sk, sw, sc, it);
+  load_items<true>(p, t, n, sk, sw, sc, it);
   int32_t q[ITEMS];
-  const uint32_t kept = run_totals(p, it, tail_weight(p, base + n, it, sc), q);
+  const uint32_t kept = run_totals(p, it, tail_weight<true>(p, base + n, it, sc), q);
   constexpr int G = 1 << LG, NO = ITEMS / G;
 #pragma unroll
   for (int g = 0; g < NO; ++g) {
@@ -364,7 +447,7 @@ __global__ void __launch_bounds__(THREADS) run_counts_select_kernel(Params p) {
     sw[pad(o)] = qs;
   }
   int64_t kt;
-  block_excl_sum<THREADS>(__popc(kept), sc.warp_tot, kt);  // its syncs also order sk, sw
+  block_excl_sum(__popc(kept), sc.warp_tot, kt);  // its syncs also order sk, sw
   if (tid == 0 && kt) atomicAdd(p.n_unique, (int)kt);
   const int no = n >> LG;
   const int64_t ob = t * (TILE >> LG);
@@ -390,90 +473,21 @@ __global__ void __launch_bounds__(THREADS) run_counts_select_kernel(Params p) {
   }
 }
 
-// compact and partition modes, first launch: each tile's kept runs (with
-// its tail_w) or live slots
-template <int MODE>
-__global__ void __launch_bounds__(THREADS) run_counts_summary_kernel(Params p) {
+// compact mode, the launch that reads the keys (no weights): the tile's
+// kept runs, their place by the look-back, and their limbs and totals
+// written at it; three blocks an SM, so that two compute while one waits
+// on its look-back.
+__global__ void __launch_bounds__(THREADS, 3) run_counts_compact_kernel(Params p) {
   TILE_SETUP;
-  load_items<MODE>(p, t, n, sk, sw, sc, it);
-  int64_t mine;
-  int64_t tail_w = 0;
-  if (MODE == PARTITION) {
-    mine = __popc(it.starts);
-  } else {
-    int32_t q[ITEMS];
-    tail_w = tail_weight(p, base + n, it, sc);
-    mine = __popc(run_totals(p, it, tail_w, q));
-  }
-  int64_t kt;
-  block_excl_sum<THREADS>(mine, sc.warp_tot, kt);
-  if (tid == 0) {
-    p.kept[t] = kt;
-    if (MODE == COMPACT) p.tail_w[t] = tail_w;
-  }
-}
-
-// second launch, one block: the exclusive sum of the tiles' counts (each
-// thread SCAN_ITEMS consecutive tiles a round), and n_unique
-__global__ void __launch_bounds__(SCAN_THREADS) run_counts_scan_kernel(Params p) {
-  __shared__ int64_t warp_tot[32];
-  constexpr int CH = SCAN_THREADS * SCAN_ITEMS;
-  int64_t run = 0;
-  for (int64_t lo = 0; lo < p.n_tiles; lo += CH) {
-    const int64_t u0 = lo + (int64_t)threadIdx.x * SCAN_ITEMS;
-    int64_t kept[SCAN_ITEMS], mine = 0;
-#pragma unroll
-    for (int k = 0; k < SCAN_ITEMS; ++k) {
-      kept[k] = u0 + k < p.n_tiles ? p.kept[u0 + k] : 0;
-      mine += kept[k];
-    }
-    int64_t round_total;
-    int64_t b = run + block_excl_sum<SCAN_THREADS>(mine, warp_tot, round_total);
-#pragma unroll
-    for (int k = 0; k < SCAN_ITEMS; ++k)
-      if (u0 + k < p.n_tiles) {
-        p.base[u0 + k] = b;
-        b += kept[k];
-      }
-    run += round_total;
-  }
-  if (threadIdx.x == 0) *p.n_unique = (int32_t)run;
-}
-
-// compact and partition modes, third launch: the tile's outputs at its base
-template <int MODE>
-__global__ void __launch_bounds__(THREADS) run_counts_write_kernel(Params p) {
-  TILE_SETUP;
-  const int i0 = tid * ITEMS;
-  load_items<MODE>(p, t, n, sk, sw, sc, it);
-  const int64_t tb = p.base[t];
-  if (MODE == PARTITION) {
-    // the tile's live slots, then its dead ones, staged in order
-    int64_t nl;
-    int l = (int)block_excl_sum<THREADS>(__popc(it.starts), sc.warp_tot, nl);
-    int d = (int)nl + i0 - l;
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i)
-      if (i0 + i < n) {
-        const int at = ((it.starts >> i) & 1) ? l++ : d++;
-        sk[at] = it.key[i];
-        sw[at] = it.w[i];
-      }
-    __syncthreads();
-    const int64_t dead0 = (int64_t)*p.n_unique + base - tb;  // the tile's first dead slot
-    for (int e = tid; e < n; e += THREADS) {
-      const int64_t dst = e < nl ? tb + e : dead0 + (e - nl);
-      if (dst < p.cap) {
-        p.out_s[dst] = sk[e];
-        p.out_q[dst] = sw[e];
-      }
-    }
-    return;
-  }
+  load_items<false>(p, t, n, sk, sw, sc, it);
   int32_t q[ITEMS];
-  const uint32_t kept = run_totals(p, it, p.tail_w[t], q);
+  const uint32_t kept = run_totals(p, it, tail_weight<false>(p, base + n, it, sc), q);
   int64_t kt;
-  int r = (int)block_excl_sum<THREADS>(__popc(kept), sc.warp_tot, kt);
+  int r = (int)block_excl_sum(__popc(kept), sc.warp_tot, kt);  // its syncs free sk, sw
+  if (tid < 32) {
+    const int64_t excl = tile_place(p, t, p.n_tiles, kt);
+    if (tid == 0) sc.excl = excl;
+  }
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i)
     if ((kept >> i) & 1) {
@@ -482,15 +496,149 @@ __global__ void __launch_bounds__(THREADS) run_counts_write_kernel(Params p) {
       ++r;
     }
   __syncthreads();
-  for (int e = tid; e < kt; e += THREADS) {
-    p.out_pk[tb + e] = sk[e];
-    p.out_q[tb + e] = sw[e];
+  write_run64(p.out_pk + sc.excl, kt, [&](int e) { return sk[e]; });
+  write_run32(p.out_q + sc.excl, kt, [&](int e) { return sw[e]; });
+}
+
+// compact mode, second launch (no key read): out_pk and out_q zero on
+// [n_unique, P), the grid's threads in turn, 16-byte stores from the first
+// 16-byte boundary
+template <class T, class V>
+__device__ __forceinline__ void zero_range(T* a, int64_t lo, int64_t hi, int64_t g,
+                                           int64_t stride) {
+  constexpr int K = sizeof(V) / sizeof(T);
+  const int64_t mis = (int64_t)(((uintptr_t)(a + lo) / sizeof(T)) % K);
+  const int64_t v_lo = min(hi, lo + (mis ? K - mis : 0));  // the first 16-byte boundary
+  const int64_t nv = (hi - v_lo) / K, v_hi = v_lo + nv * K;
+  for (int64_t e = lo + g; e < v_lo; e += stride) a[e] = 0;
+  for (int64_t e = v_hi + g; e < hi; e += stride) a[e] = 0;
+  V* av = reinterpret_cast<V*>(a + v_lo);
+  const V z = {};
+  for (int64_t v0 = (int64_t)blockIdx.x * THREADS * 4 + threadIdx.x; v0 < nv;
+       v0 += (int64_t)gridDim.x * THREADS * 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (v0 + k * THREADS < nv) av[v0 + k * THREADS] = z;
   }
-  // this tile's part of the zero tail [n_unique, P)
-  for (int64_t z = max((int64_t)*p.n_unique, base) + tid; z < base + n; z += THREADS) {
-    p.out_pk[z] = 0;
-    p.out_q[z] = 0;
+}
+
+__global__ void __launch_bounds__(THREADS) run_counts_zero_kernel(Params p) {
+  const int64_t nu = *p.n_unique;
+  const int64_t g = (int64_t)blockIdx.x * THREADS + threadIdx.x,
+                stride = (int64_t)gridDim.x * THREADS;
+  zero_range<int64_t, longlong2>(p.out_pk, nu, p.P, g, stride);
+  zero_range<int32_t, int4>(p.out_q, nu, p.P, g, stride);
+}
+
+// partition mode, first launch (no key read): the live slots of LIVE_SUB
+// tiles from their weights, 16 bytes a load, the group's place by the
+// look-back, and each tile's live slots before it
+__global__ void __launch_bounds__(THREADS) run_counts_live_kernel(Params p) {
+  __shared__ int32_t warp_cnt[WARPS][LIVE_SUB];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int64_t g = blockIdx.x, t0 = g * LIVE_SUB;
+  constexpr int R = TILE / 4 / THREADS;  // 16-byte loads a thread a tile
+  int c[LIVE_SUB];
+  const int4* w4 = reinterpret_cast<const int4*>(p.w + t0 * TILE);
+  if ((t0 + LIVE_SUB) * TILE <= p.P && !((uintptr_t)w4 & 15)) {  // every load in flight at once
+    int4 x[LIVE_SUB * R];
+#pragma unroll
+    for (int r = 0; r < LIVE_SUB * R; ++r) x[r] = __ldg(w4 + r * THREADS + tid);
+#pragma unroll
+    for (int k = 0; k < LIVE_SUB; ++k) {
+      c[k] = 0;
+#pragma unroll
+      for (int r = k * R; r < (k + 1) * R; ++r)
+        c[k] += (x[r].x != 0) + (x[r].y != 0) + (x[r].z != 0) + (x[r].w != 0);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < LIVE_SUB; ++k) {
+      c[k] = 0;
+      const int64_t base = (t0 + k) * TILE;
+      for (int64_t e = base + tid; e < min(base + TILE, p.P); e += THREADS) c[k] += p.w[e] != 0;
+    }
   }
+#pragma unroll
+  for (int k = 0; k < LIVE_SUB; ++k) {
+#pragma unroll
+    for (int o = 16; o; o >>= 1) c[k] += __shfl_xor_sync(FULL, c[k], o);
+    if (lane == 0) warp_cnt[wid][k] = c[k];
+  }
+  __syncthreads();
+  if (wid) return;
+  int64_t own = 0;  // lane k < LIVE_SUB: tile t0 + k's live slots
+  if (lane < LIVE_SUB)
+#pragma unroll
+    for (int v = 0; v < WARPS; ++v) own += warp_cnt[v][lane];
+  int64_t pre = own;  // inclusive over the group's tiles
+#pragma unroll
+  for (int d = 1; d < LIVE_SUB; d <<= 1) {
+    const int64_t y = __shfl_up_sync(FULL, pre, d);
+    if (lane >= d) pre += y;
+  }
+  const int64_t total = __shfl_sync(FULL, pre, LIVE_SUB - 1);
+  const int64_t excl = tile_place(p, g, (p.n_tiles + LIVE_SUB - 1) / LIVE_SUB, total);
+  if (lane < LIVE_SUB && t0 + lane < p.n_tiles) p.live_before[t0 + lane] = excl + pre - own;
+}
+
+// partition mode, second launch: the tile's live slots at the live ones
+// before it, its dead ones at n_live + its dead ones before it, the first
+// cap places of them
+__global__ void __launch_bounds__(THREADS) run_counts_partition_kernel(Params p) {
+  __shared__ __align__(16) int32_t sw[PADDED];  // the weights, then the live ones in order
+  __shared__ uint16_t src[TILE];                // each place's slot in the tile
+  __shared__ int64_t warp_tot[32];
+  const int tid = threadIdx.x, i0 = tid * ITEMS;
+  const int64_t t = blockIdx.x, base = t * TILE;
+  const int n = (int)min((int64_t)TILE, p.P - base);
+  const int64_t n_live = *p.n_unique, excl = p.live_before[t];
+  const int64_t nl = (t + 1 < p.n_tiles ? p.live_before[t + 1] : n_live) - excl;
+  const int64_t dead0 = n_live + base - excl;
+  const int64_t n_lw = min(nl, p.cap - excl), n_dw = min(n - nl, p.cap - dead0);
+  if (n_lw <= 0 && n_dw <= 0) return;  // nothing below cap: no load
+  const int32_t* ws = p.w + base;
+  if (n == TILE && !((uintptr_t)ws & 15)) {
+#pragma unroll
+    for (int r = 0; r < TILE / 4 / THREADS; ++r) {
+      const int v = r * THREADS + tid;
+      const int4 x = __ldg(reinterpret_cast<const int4*>(ws) + v);
+      const int e = pad(4 * v);
+      sw[e] = x.x;
+      sw[e + 1] = x.y;
+      sw[e + 2] = x.z;
+      sw[e + 3] = x.w;
+    }
+  } else {
+    for (int e = tid; e < TILE; e += THREADS) sw[pad(e)] = e < n ? ws[e] : 0;
+  }
+  __syncthreads();
+  int32_t w[ITEMS];
+  uint32_t live = 0;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    w[i] = sw[pad(i0 + i)];
+    live |= (uint32_t)(w[i] != 0) << i;
+  }
+  int64_t nl_b;
+  int l = (int)block_excl_sum(__popc(live), warp_tot, nl_b);  // its syncs free sw
+  int d = (int)nl_b + i0 - l;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i)
+    if (i0 + i < n) {
+      if ((live >> i) & 1) {
+        sw[l] = w[i];
+        src[l++] = (uint16_t)(i0 + i);
+      } else {
+        src[d++] = (uint16_t)(i0 + i);
+      }
+    }
+  __syncthreads();
+  const int64_t* ks = p.s + base;
+  write_run64(p.out_s + excl, n_lw, [&](int k) { return ks[src[k]]; });
+  write_run32(p.out_q + excl, n_lw, [&](int k) { return sw[k]; });
+  write_run64(p.out_s + dead0, n_dw, [&](int k) { return ks[src[nl + k]]; });
+  write_run32(p.out_q + dead0, n_dw, [](int) { return 0; });  // a dead slot's w is 0
 }
 
 // the tile kernels take SMEM bytes of dynamic shared memory, past the 48 KB
@@ -521,7 +669,8 @@ cudaError_t launch_tiles(F* fn, int slot, const Params& p, cudaStream_t st, int 
 // int32 [P >> rounds], out_s int64 [P >> rounds] where rounds > 0), 1
 // compact (out_pk int64 [P], out_q int32 [P]), 2 partition (cap >= 0;
 // out_s int64 and out_q int32 [min(cap, P)], none at cap 0); n_unique
-// int32 [1]; scratch (modes 1 and 2) 24 bytes a tile of 4,096 keys.
+// int32 [1]; scratch 8 bytes (mode 1) or 16 bytes (mode 2) a tile of 4,096
+// keys.
 extern "C" int run_counts_launch(const void* s, const void* w, int64_t P, int32_t mode,
                                  int64_t filter_t, int32_t rounds, int64_t cap, void* out_s,
                                  void* out_q, void* out_pk, void* n_unique, void* scratch,
@@ -549,9 +698,8 @@ extern "C" int run_counts_launch(const void* s, const void* w, int64_t P, int32_
   p.out_s = (int64_t*)out_s;
   p.out_q = (int32_t*)out_q;
   p.out_pk = (int64_t*)out_pk;
-  p.kept = (int64_t*)scratch;
-  p.tail_w = p.kept + p.n_tiles;
-  p.base = p.tail_w + p.n_tiles;
+  p.status = (uint64_t*)scratch;
+  p.live_before = (int64_t*)scratch + p.n_tiles;
   p.n_unique = (int32_t*)n_unique;
   if (mode == SELECT) {
     if ((e = cudaMemsetAsync(n_unique, 0, sizeof(int32_t), st)) != cudaSuccess) return (int)e;
@@ -562,11 +710,18 @@ extern "C" int run_counts_launch(const void* s, const void* w, int64_t P, int32_
       default: return (int)launch_tiles(run_counts_select_kernel<3>, 3, p, st, dev);
     }
   }
-  e = mode == COMPACT ? launch_tiles(run_counts_summary_kernel<COMPACT>, 4, p, st, dev)
-                      : launch_tiles(run_counts_summary_kernel<PARTITION>, 5, p, st, dev);
-  if (e != cudaSuccess) return (int)e;
-  run_counts_scan_kernel<<<1, SCAN_THREADS, 0, st>>>(p);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)(mode == COMPACT ? launch_tiles(run_counts_write_kernel<COMPACT>, 6, p, st, dev)
-                               : launch_tiles(run_counts_write_kernel<PARTITION>, 7, p, st, dev));
+  const int64_t n_units = mode == COMPACT ? p.n_tiles : (p.n_tiles + LIVE_SUB - 1) / LIVE_SUB;
+  if ((e = cudaMemsetAsync(scratch, 0, n_units * sizeof(uint64_t), st)) != cudaSuccess)
+    return (int)e;
+  if (mode == COMPACT) {
+    if ((e = launch_tiles(run_counts_compact_kernel, 4, p, st, dev)) != cudaSuccess)
+      return (int)e;
+    const int64_t zb = min((int64_t)ZERO_BLOCKS, (P + 8 * THREADS - 1) / (8 * THREADS));
+    run_counts_zero_kernel<<<(unsigned)zb, THREADS, 0, st>>>(p);
+    return (int)cudaGetLastError();
+  }
+  run_counts_live_kernel<<<(unsigned)n_units, THREADS, 0, st>>>(p);
+  if ((e = cudaGetLastError()) != cudaSuccess || !cap) return (int)e;
+  run_counts_partition_kernel<<<(unsigned)p.n_tiles, THREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
 }

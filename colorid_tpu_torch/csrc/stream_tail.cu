@@ -48,8 +48,8 @@
 //     multiplies the all-valid flag by (n_valid == n_real), adds min(n_big,
 //     over_cap) to n_over and writes n_drop = max(n_big - over_cap, 0) +
 //     the plan's dropped residual probes.
-// Blocks start in index order, so a look-back waits only on blocks that
-// have started and publish without waiting themselves.
+// Blocks start in index order, so a look-back (csrc/look_back.cuh) waits
+// only on blocks that have started and publish without waiting themselves.
 //
 // What bounds it on an H100: bytes. D1 reads the sorted key and writes
 // blk_s, qc_s and qcw, 16 bytes a probe (12 from probes sorted already); D2
@@ -78,6 +78,8 @@
 #include <initializer_list>
 #include <cuda_runtime.h>
 
+#include "look_back.cuh"
+
 namespace {
 
 constexpr int T = 128;  // blocks a tile
@@ -89,9 +91,8 @@ constexpr int TILE = TT * 8;  // probes a tile of D2: two 16-byte loads a thread
 constexpr int FREQ_CAP = 1024;
 constexpr unsigned FULL = 0xffffffffu;
 // a look-back status word: the flag in the top two bits, a count below
-constexpr uint32_t AGG = 1u << 30;  // the tile's own count
-constexpr uint32_t INC = 2u << 30;  // the count of the tile and every tile before it
-constexpr uint32_t CNT = AGG - 1;
+using Status = LookBack<uint32_t>;
+constexpr uint32_t AGG = Status::AGG, INC = Status::INC;
 // D2's counters at the head of its scratch (int32 words): [1] the done
 // ticket, [4, 8) n_valid and n_big as 64-bit sums
 constexpr int TAIL_HEAD = 8;
@@ -104,32 +105,6 @@ __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
-}
-
-__device__ __forceinline__ void publish(uint32_t* status, int64_t t, uint32_t v) {
-  *(volatile uint32_t*)(status + t) = v;
-}
-
-// The sum of the counts of the tiles before tile t > 0, by a decoupled
-// look-back over status (a whole warp, 32 tiles a round; every lane returns
-// it): a round waits until the tiles up to the nearest one flagged INC have
-// published, and stops there.
-__device__ uint32_t look_back(const uint32_t* status, int64_t t) {
-  const int lane = threadIdx.x & 31;
-  uint32_t excl = 0;
-  for (int64_t hi = t - 1; hi >= 0;) {
-    const int64_t j = hi - lane;
-    const uint32_t v = j >= 0 ? *(const volatile uint32_t*)(status + j) : INC;
-    const unsigned inc = __ballot_sync(FULL, (v & ~CNT) == INC);
-    const unsigned waiting = __ballot_sync(FULL, (v & ~CNT) == 0);
-    const int stop = inc ? __ffs(inc) - 1 : 31;  // the lanes up to stop count
-    const unsigned need = stop == 31 ? FULL : (2u << stop) - 1;
-    if (waiting & need) continue;  // read the round again
-    excl += (uint32_t)warp_sum(lane <= stop ? (int)(v & CNT) : 0);
-    if (inc) break;
-    hi -= 32;
-  }
-  return excl;
 }
 
 struct PlanParams {
@@ -214,14 +189,14 @@ __global__ void __launch_bounds__(THREADS) plan_kernel(PlanParams p) {
   real = warp_sum(lane < WARPS ? s_red[1][lane] : 0);
   if (lane == 0 && real) atomicAdd(p.meta, real);
   if (res == 0) {  // nothing to list: publish and go, no wait
-    if (lane == 0) publish(p.status, c, c == 0 ? INC : AGG);
+    if (lane == 0) Status::publish(p.status, c, c == 0 ? INC : AGG);
     return;
   }
-  if (lane == 0) publish(p.status, c, (c == 0 ? INC : AGG) | 1);
+  if (lane == 0) Status::publish(p.status, c, (c == 0 ? INC : AGG) | 1);
   // only a chunk with residual probes walks back, for its rank in the list
-  const uint32_t rank = c ? look_back(p.status, c) : 0;
+  const uint32_t rank = c ? Status::look_back(p.status, c) : 0;
   if (lane == 0) {
-    if (c) publish(p.status, c, INC | (rank + 1));
+    if (c) Status::publish(p.status, c, INC | (rank + 1));
     if (rank < (uint32_t)p.nch) {
       p.cidx[rank] = (int32_t)c;
       atomicAdd(p.meta + 1, 1);  // n_cov: the chunks listed
@@ -359,7 +334,7 @@ __device__ void tail_tile(const TailParams& p) {
     nb += s_red[1][w];
   }
   if (tid == 0) {
-    publish(p.status, t, (t == 0 ? INC : AGG) | (uint32_t)nb);
+    Status::publish(p.status, t, (t == 0 ? INC : AGG) | (uint32_t)nb);
     unsigned long long* sums = reinterpret_cast<unsigned long long*>(p.head + 4);
     if (v) atomicAdd(sums, (unsigned long long)v);
     if (nb) atomicAdd(sums + 1, (unsigned long long)nb);
@@ -372,9 +347,9 @@ __device__ void tail_tile(const TailParams& p) {
   if (nb) {  // the same for the whole block: its first rank, then its entries in probe order
     const long long n_over = p.stats[p.C + p.W + 1];  // the finisher adds to it after every tile
     if (warp == 0) {
-      const uint32_t first = t ? look_back(p.status, t) : 0;
+      const uint32_t first = t ? Status::look_back(p.status, t) : 0;
       if (lane == 0) {
-        if (t) publish(p.status, t, INC | (first + (uint32_t)nb));
+        if (t) Status::publish(p.status, t, INC | (first + (uint32_t)nb));
         s_first = first;
       }
     }

@@ -330,10 +330,15 @@ def run_counts(s: torch.Tensor, w: torch.Tensor | None = None, *, mode: str,
     partition mode.
 
     A CUDA tensor launches csrc/run_counts.cu on the current stream (select:
-    one launch after a memset of n_unique; compact, partition: three, the
-    tiles' counts, one scan, the tiles' outputs; nothing waits for the
-    host); a CPU tensor takes the plain twin ``run_counts_plain``.
-    ``run_counts.launches`` counts calls that launched it."""
+    one launch after a memset of n_unique; compact: after a memset of the
+    tiles' status words, one launch that reads the keys and places each
+    tile by a look-back, then one that zeroes the tail from n_unique;
+    partition: after the same memset, a count of the live slots from the
+    weights alone, then the placing launch, which reads only the keys of
+    the slots it writes below cap; nothing waits for the host); a CPU
+    tensor takes the plain twin ``run_counts_plain``.
+    ``run_counts.launches`` counts calls that launched it,
+    ``run_counts.launches_by_mode`` the same by mode."""
     if mode not in RUN_COUNTS_MODES:
         raise ValueError(f"run_counts: unknown mode {mode!r}")
     if s.dtype != torch.int64 or s.dim() != 1 or not s.is_contiguous():
@@ -372,8 +377,9 @@ def run_counts(s: torch.Tensor, w: torch.Tensor | None = None, *, mode: str,
     n = torch.empty((), **i32)
     if P == 0:
         return keys, q, n.zero_()
-    if mode in ("compact", "partition"):  # the tiles' counts, tail weights and bases
-        scratch = torch.empty(3 * (-(-P // RUN_TILE)), **i64)
+    if mode in ("compact", "partition"):  # the look-back's status words (and partition's
+        # live slots before each tile)
+        scratch = torch.empty((1 + (mode == "partition")) * (-(-P // RUN_TILE)), **i64)
     ptr = [None if t is None else t.data_ptr() for t in (w, out_s, pk, scratch)]
     fn = kernels.kernel("run_counts")
     with torch.cuda.device(dev):
@@ -383,10 +389,12 @@ def run_counts(s: torch.Tensor, w: torch.Tensor | None = None, *, mode: str,
     if err:
         raise RuntimeError(f"run_counts kernel launch failed: CUDA error {err}")
     run_counts.launches += 1
+    run_counts.launches_by_mode[mode] += 1
     return keys, q, n
 
 
 run_counts.launches = 0
+run_counts.launches_by_mode = dict.fromkeys(RUN_COUNTS_MODES, 0)
 
 
 def extract_count(

@@ -131,12 +131,15 @@ def build_all() -> float:
 
 def _build_locked() -> float:
     t0 = time.time()
+    # a library is stale when older than its source or any shared header
+    headers = [os.path.getmtime(os.path.join(CSRC, h))
+               for h in os.listdir(CSRC) if h.endswith(".cuh")]
     stale = [
         src
         for src in SOURCES
         if not os.path.exists(_so_path(src))
         or os.path.getmtime(_so_path(src))
-        < os.path.getmtime(os.path.join(CSRC, src))
+        < max([os.path.getmtime(os.path.join(CSRC, src)), *headers])
     ]
     if not stale:
         return 0.0

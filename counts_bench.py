@@ -16,9 +16,10 @@ chip_smoke.py's [fused] cell, on seeded synthetic keys:
 - compact: the counted route's extract_count at -f 1 on all 52,000,000.
 
 Each call prints one JSON line: F's device time a call (a torch.profiler
-trace of 5 calls between two markers, chip_smoke.py::trace, its kernels
-summed and apart, and whether the trace kept markers on both sides of
-its calls), the span of
+trace of 5 calls between two markers, chip_smoke.py::trace: the calls'
+kernels and memsets, whatever their names in the checkout timed, summed
+and apart, and whether the trace kept markers on both sides of its
+calls), the span of
 20 calls by CUDA events, the host clock one call takes to enqueue on an
 idle card (median of 20), the byte bound (chip_smoke.py::run_counts_bytes)
 and a digest of the outputs (equal across checkouts when both are right). The card's name
@@ -27,7 +28,8 @@ and power limit and the kernel library's ptxas report come first:
     python3 counts_bench.py [--root DIR]
 
 DIR: another checkout whose colorid_tpu_torch to time (the parent, or a
-patched copy, for turns in one call). Exits 2 without a card."""
+copy with a candidate's csrc/run_counts.cu, for turns in one call; outputs
+equal by digest across them). Exits 2 without a card."""
 
 import hashlib
 import json
@@ -39,7 +41,6 @@ import chip_smoke as cs
 SEED = 2026
 R, NW, VALID, DISTINCT = 400_000, 130, 120, 9_500_000
 REPS = 20
-F_KERNELS = tuple(k + "_kernel" for k in cs.F_KERNELS)
 
 
 def cell_keys(torch, dev):
@@ -116,12 +117,11 @@ def main(argv) -> int:
         host_us = cs.enqueue_us(call, REPS)[0]
         prof, _ms, gap = cs.trace(call, 5)
         by = {k: [t / 5, n / 5] for k, (t, n) in cs.device_times(prof).items()}
-        f = {k: v for k, v in by.items() if k in F_KERNELS}
         n_bytes = cs.run_counts_bytes(**bound_args)
         print(json.dumps({
             "call": name, "mode": bound_args["mode"], "P": bound_args["P"], "n": int(out[2]),
-            "kernel_f_ms": round(sum(v[0] for v in f.values()), 4),
-            "kernel_f_launches": sum(v[1] for v in f.values()),
+            "kernel_f_ms": round(sum(v[0] for v in by.values()), 4),
+            "kernel_f_launches": sum(v[1] for v in by.values()),
             "bound_ms": round(n_bytes / cs.HBM_BYTES_PER_S * 1e3, 4),
             "span_ms": round(span, 4),
             "kernels_ms": {k: [round(v[0], 4), v[1]] for k, v in sorted(by.items())},

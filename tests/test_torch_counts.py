@@ -256,7 +256,9 @@ def test_count_histogram_on_deep_runs_matches_jax(cap):
 @pytest.mark.parametrize("name", ts.RUN_COUNTS_CASES)
 def test_twin_matches_reference_on_edge_cases(name):
     """Every mode on keys whose runs cross tiles, end on a tile's last slot,
-    span many tiles as SENT, or sit at the ends of int64: run_counts on CPU
+    span many tiles as SENT, or sit at the ends of int64, where every slot
+    is kept or hundreds of tiles keep nothing, partition at caps from 0 to
+    P: run_counts on CPU
     tensors (the twin, no launch) equals tests/torch_support.py::
     run_counts_ref."""
     s, w = ts.run_counts_case(name)
@@ -268,7 +270,8 @@ def test_twin_matches_reference_on_edge_cases(name):
     calls += [("select", None, {}), ("select", wt, dict(filter_t=1)),
               ("select", wt, dict(filter_t=6)), ("compact", None, dict(filter_t=0)),
               ("compact", None, dict(filter_t=3))]
-    calls += [("partition", qc, dict(cap=c)) for c in (max(n - 7, 0), n, n + 9)]
+    calls += [("partition", qc, dict(cap=c))
+              for c in (0, n // 3, max(n - 7, 0), n, n + 9, len(s))]
     before = te.run_counts.launches
     for mode, ww, kw in calls:
         got = te.run_counts(st, ww, mode=mode, **kw)

@@ -1567,7 +1567,8 @@ def _run_counts_calls(s, w):
     """(mode, weights, keywords) of each mode of kernel F on keys s: select
     at filter_t 0, 1, 3, 7, 15 (0-3 rounds), with no filter, and with
     weights at filter_t 1; compact at 0 and 3; partition of the counts with
-    cap below, at and above the live count."""
+    cap 0, a third of the live count, below, at and above it, and P (every
+    dead slot written)."""
     from colorid_tpu_torch.ops.extract import run_counts_plain
 
     calls = [("select", None, dict(filter_t=ft, rounds=min(3, (ft + 1).bit_length() - 1)))
@@ -1576,7 +1577,8 @@ def _run_counts_calls(s, w):
               ("compact", None, dict(filter_t=0)), ("compact", None, dict(filter_t=3))]
     qc = run_counts_plain(s, mode="select")[1]
     n = int((qc != 0).sum())
-    calls += [("partition", qc, dict(cap=cap)) for cap in (max(n - 1000, 0), n, n + 1000)]
+    calls += [("partition", qc, dict(cap=cap))
+              for cap in (0, n // 3, max(n - 1000, 0), n, n + 1000, s.numel())]
     return calls
 
 
@@ -1601,22 +1603,60 @@ def test_run_counts_kernel_matches_twin(cuda_device, name):
                 assert torch.equal(g, x), (name, mode, kw)
 
 
+def _keys_past_2_31_bytes(dev):
+    """180,000,000 sorted keys, runs of about 1, the last 3,000,000 SENT:
+    compact mode's limbs and counts (2.16 GB) pass 2^31 bytes."""
+    from colorid_tpu_torch.ops.extract import SENT_KEY
+
+    P = 180_000_000
+    g = torch.Generator(device=dev).manual_seed(19)
+    s = torch.sort(torch.randint(-(2**40), 2**40, (P,), device=dev, generator=g) // 2**17
+                   ).values
+    s[-3_000_000:] = SENT_KEY
+    return s
+
+
 @pytest.mark.cuda
 def test_run_counts_compact_past_2_31_bytes(cuda_device):
     """compact mode on 180,000,000 keys: its limbs and counts (2.16 GB)
     pass 2^31 bytes, the zero tail included."""
-    from colorid_tpu_torch.ops.extract import SENT_KEY, run_counts, run_counts_plain
+    from colorid_tpu_torch.ops.extract import run_counts, run_counts_plain
 
-    P = 180_000_000
-    g = torch.Generator(device=cuda_device).manual_seed(19)
-    s = torch.sort(torch.randint(-(2**40), 2**40, (P,), device=cuda_device, generator=g) // 2**17
-                   ).values
-    s[-3_000_000:] = SENT_KEY
+    s = _keys_past_2_31_bytes(cuda_device)
     got = run_counts(s, mode="compact", filter_t=1)
     want = run_counts_plain(s, mode="compact", filter_t=1)
     assert int(got[2]) == int(want[2]) > 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kept_late", "all_kept", "past_2_31_bytes"])
+def test_run_counts_look_backs_hold_over_twenty_runs(cuda_device, name):
+    """compact and partition, whose tiles take their places by a look-back
+    over the tiles before them (every slot kept; a long chain of tiles with
+    nothing kept or live; compact past 2^31 bytes): each call 20 times, each
+    run on fresh scratch and on outputs that the run before filled with
+    junk once it was checked, equal to the twin every time, so that an
+    ordering race between the blocks shows."""
+    from colorid_tpu_torch.ops.extract import run_counts, run_counts_plain
+
+    if name == "past_2_31_bytes":
+        s = _keys_past_2_31_bytes(cuda_device)
+        calls = [("compact", None, dict(filter_t=1))]
+    else:
+        s, w = (torch.from_numpy(a).to(cuda_device) for a in ts.run_counts_case(name, big=True))
+        calls = [c for c in _run_counts_calls(s, w) if c[0] != "select"]
+    for mode, ww, kw in calls:
+        want = run_counts_plain(s, ww, mode=mode, **kw)
+        for i in range(20):
+            got = run_counts(s, ww, mode=mode, **kw)
+            torch.cuda.synchronize()
+            for g, x in zip(got, want):
+                assert torch.equal(g, x), (name, mode, kw, i)
+            for g in got:
+                g.fill_(-7)
+            del got
 
 
 @pytest.mark.cuda

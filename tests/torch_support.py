@@ -616,7 +616,7 @@ def sort_index(P: int, base: int, index64: bool) -> np.ndarray:
 RUN_TILE = 4096  # keys a tile of kernel F (ops/extract.py::RUN_TILE)
 SENT_KEY = 2**63 - 1  # ops/extract.py::SENT_KEY
 RUN_COUNTS_CASES = ("random", "sent_run", "long_run", "tile_edges", "all_sent", "extremes",
-                    "tiny")
+                    "tiny", "all_kept", "kept_late")
 
 
 def run_counts_case(name: str, big: bool = False):
@@ -632,7 +632,14 @@ def run_counts_case(name: str, big: bool = False):
         side of it;
       all_sent: nothing but padding;
       extremes: keys at the ends of int64 (the sign bit set, 2^63 - 2);
-      tiny: eight keys, one tile."""
+      tiny: eight keys, one tile;
+      all_kept: every slot its own key, no SENT: at filter 0 every tile
+        keeps a full tile and compact mode's zero tail is empty;
+      kept_late: one run over every tile but the last few (its start the
+        only kept run and, in partition mode on its counts, the only live
+        slot there), then runs of 1 to 39 and a SENT tail: a look-back
+        over hundreds of tiles that keep nothing, and whole tiles whose
+        slots all land past a cap."""
     rng = np.random.default_rng(RUN_COUNTS_CASES.index(name) + 500)
     T = RUN_TILE
     P = (610 if big else 5) * T + 1232
@@ -664,6 +671,16 @@ def run_counts_case(name: str, big: bool = False):
         s = np.sort(np.concatenate([np.repeat(ends, P // 10),
                                     rng.integers(-(2**63), 2**63 - 1, P - 5 * (P // 10) - 64),
                                     np.full(64, SENT_KEY)]))
+    elif name == "all_kept":
+        s = np.unique(rng.integers(-(2**62), 2**62, P + 64))[:P]
+    elif name == "kept_late":
+        late = (8 if big else 2) * T + 1232
+        lens = [P - late]
+        while sum(lens) < P - 104:
+            lens.append(int(rng.integers(1, 40)))
+        lens.append(P - 64 - sum(lens))
+        s = np.concatenate([np.repeat(np.arange(len(lens), dtype=np.int64) * 7919 - 10**6, lens),
+                            np.full(64, SENT_KEY)])
     else:
         s = np.array([-5, -5, 3, 3, 3, 9, SENT_KEY, SENT_KEY])
     s = s.astype(np.int64)
