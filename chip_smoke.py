@@ -17,9 +17,9 @@ Phases, each printing its lines (any failure exits non-zero):
    kernel from csrc/ (set-up time).
 2. kernel: each kernel (classic_word, stream_probe, stream_probe_raw, and
    the hand kernels for code that the JAX package leaves to XLA: placement
-   and window_keys; the epilogue, the stream glue, the key sort and the
-   reads routes' run counts in phases 4-epilogue, 4-stream_tail, 4-sort
-   and 4c-run_counts) against
+   and window_keys; the epilogue, the stream glue, the key sort, the
+   reads routes' run counts and their value sort in phases 4-epilogue,
+   4-stream_tail, 4-sort, 4c-run_counts and 4c-value_sort) against
    its plain PyTorch twin on the card at its main
    path's shapes (bitwise), with its time, the twin's, one PyTorch library
    call's where one computes the same function, and the least time the
@@ -132,6 +132,16 @@ Phases, each printing its lines (any failure exits non-zero):
    share of it reached, the phase's seconds, and the main path's
    launches by phase ([main]'s search -f 1 must launch it on both
    indexes).
+4c-value_sort. Kernel G (the reads routes' value sort of the int64 keys
+   over their 2k bits) against its twin, bitwise, on the keys those
+   routes hand it on the 400,000 reads: the single fused dispatch's
+   52,002,816, a chunk's and the merge's with the counts as payload in
+   the chunked route, the counted route's. Each one's time, its twin's,
+   torch.sort(stable) (+ the gather) as the library's, its byte bound,
+   the single call's launches apart, the phase's seconds and the main
+   path's launches by phase ([main]'s search -f 1 must launch it on both
+   indexes). The [profile] fused lines sum G's kernels and must show no
+   torch.sort radix kernel.
 4d. serve: the HTTP server on the card (a thread of this process) on
    both indexes: /healthz and /info against the index; /search with 20,000
    of the reads (filter 1, 0, -1, gene) equal to host counting, launching
@@ -685,6 +695,41 @@ def sort_bytes(P: int, *, n_operands: int, index: bool, index64: bool) -> int:
     return P * (4 + 4 * n_operands + 4 + 4 * n_operands + (8 if index64 else 4) * index)
 
 
+def value_sort_bytes(P: int, *, payload: bool) -> int:
+    """Bytes that kernel G (csrc/value_sort.cu) must move to sort P int64
+    keys: each key read once and written once, and the int32 payload, where
+    there is one, the same: 16 bytes a key, 24 with the payload."""
+    return P * (16 + 8 * payload)
+
+
+def synth_window_keys(P: int, k: int, device, seed: int = SEED):
+    """P sort keys as the reads routes hand kernel G, made on ``device``
+    from ``seed``: the canonical k-windows (ops/extract.py::window_keys) of
+    reads of READ_LEN bases packed at 160, at seeded places of one seeded
+    genome of 3 x GENOME_LEN bases (the cell's coverage: each k-mer about
+    5 times), half of them reverse-complemented; SENT_KEY where a window
+    runs past its read (10 of 130 at k 31, the cell's 8 %)."""
+    import torch
+
+    from colorid_tpu_torch.ops.extract import window_keys
+
+    L = 160
+    NW = L - k + 1
+    R = -(-P // NW)
+    g = torch.Generator(device=device).manual_seed(seed)
+    genome = torch.randint(0, 4, (N_SOURCES * GENOME_LEN,), generator=g, device=device)
+    start = torch.randint(0, genome.numel() - READ_LEN, (R,), generator=g, device=device)
+    codes = genome[start[:, None] + torch.arange(READ_LEN, device=device)]
+    rc = torch.rand(R, generator=g, device=device) < 0.5
+    codes = torch.where(rc[:, None], 3 - codes.flip(1), codes)
+    codes = torch.nn.functional.pad(codes, (0, L - READ_LEN))
+    shifts = 2 * (15 - torch.arange(16, device=device))
+    words = (codes.view(R, L // 16, 16) << shifts).sum(-1)  # in [0, 2^32)
+    words = (words - ((words >> 31) << 32)).to(torch.int32)  # the uint32 bit view
+    lens = torch.full((R,), READ_LEN, dtype=torch.int32, device=device)
+    return window_keys(words, lens, k=k, L=L).reshape(-1)[:P].contiguous()
+
+
 def raw_kernel_phase(card: str) -> dict:
     """stream_probe_raw against its twin at the color-sharded path's shape
     (one shard: wpad 32, H 2, 16,777,216 probes sorted by block over
@@ -1207,12 +1252,14 @@ def _new_kernels():
 
 def _glue_kernels():
     """The wrappers of kernel D, the blocked stream's glue: its plan, tail
-    and residual gather, of kernel E, the streams' key sort, and of kernel
-    F, the reads routes' run counts (each with a count)."""
+    and residual gather, of kernel E, the streams' key sort, of kernel F,
+    the reads routes' run counts, and of kernel G, their value sort (each
+    with a count)."""
     from colorid_tpu_torch.ops import stream_query as sq
 
+    te = _f_modules()[0]
     return tuple(getattr(sq, n) for n in TAIL_WRAPPERS + ("sort_payloads",)) + (
-        _f_modules()[0].run_counts,)
+        te.run_counts, te.value_sort)
 
 
 # the epilogue mode each main path ends in: the classic stream's sorted
@@ -1229,17 +1276,19 @@ def _check_new_kernels(used: dict, what: str) -> None:
     search -f 1 takes the fused route, whose keys arrive sorted). Kernel F
     counts search -f 1's k-mers: the counted route's compaction on the
     classic index, the chunked fused route's counts, partition and merge on
-    the blocked one."""
+    the blocked one. Kernel G sorts search -f 1's windows on both (the
+    counted route's, the chunked fused route's chunks and merge)."""
     if DEVICE != "cuda":
         return
     glue = TAIL_WRAPPERS if what == "blocked" else ()
     sorted_ = used["sort_payloads"] if what == "classic" else used["sort_payloads"][1:]
     if (min(used["placement"]) == 0 or used["window_keys"][0] == 0
             or min(used[EPILOGUE_OF[what]]) == 0 or any(min(used[n]) == 0 for n in glue)
-            or min(sorted_) == 0 or used["run_counts"][0] == 0):
+            or min(sorted_) == 0 or used["run_counts"][0] == 0 or used["value_sort"][0] == 0):
         raise AssertionError(
             f"{what}: search -f 1 and search -s did not run through the placement, "
-            f"window-key, epilogue, sort, run-count{' and stream glue' if glue else ''} kernels "
+            f"window-key, epilogue, sort, run-count, value-sort"
+            f"{' and stream glue' if glue else ''} kernels "
             f"(launches in (search -f 1, search -s): {used})"
         )
     if glue and used["stream_chunk_plan"] != used["stream_tail"]:
@@ -1276,7 +1325,7 @@ def classic_path_phase(tmp: str, inputs, card: str):
         t_build = time.time() - t0
         tsv, perfect, t_search, t_perfect, used = _searches(
             tmp, prefix + ".bxi", fq, (sq.classic_words, *_new_kernels(), sq.sort_payloads,
-                                       _f_modules()[0].run_counts))
+                                       _f_modules()[0].run_counts, _f_modules()[0].value_sort))
     finally:
         sq.stream_accumulate_classic_exact = stream_fn
     launches = sq.classic_words.launches
@@ -1291,7 +1340,7 @@ def classic_path_phase(tmp: str, inputs, card: str):
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
         f"{used['window_keys']}, epilogue {used['_accumulate_sorted_words']} "
         f"(sorted-words mode), sort {used['sort_payloads']}, run counts "
-        f"{used['run_counts']} on {card}")
+        f"{used['run_counts']}, value sort {used['value_sort']} on {card}")
     _check_new_kernels(used, "classic")
     if DEVICE == "cuda" and (launches == 0 or reads_launches == 0):
         raise AssertionError(
@@ -1362,8 +1411,8 @@ def blocked_path_phase(tmp: str, inputs, card: str):
         f"(search -f 1, search -s): placement {used['placement']}, window_keys "
         f"{used['window_keys']}, epilogue {used['_accumulate_tail']} (residual pass), "
         f"stream glue (plan, tail) {used['stream_chunk_plan']}, {used['stream_tail']}, "
-        f"sort {used['sort_payloads']}, run counts {used['run_counts']} "
-        f"on {card}")
+        f"sort {used['sort_payloads']}, run counts {used['run_counts']}, value sort "
+        f"{used['value_sort']} on {card}")
     _check_new_kernels(used, "blocked")
     if index.blocked != 4:
         raise AssertionError(f"build --blocked chose layout {index.blocked}, not v4")
@@ -2802,6 +2851,7 @@ def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
     routes, fused_launches = {}, 0
     te = _f_modules()[0]
     has_f = hasattr(te, "run_counts")  # an older checkout under --compare has no kernel F
+    has_g = hasattr(te, "value_sort")  # nor kernel G
     fr.fused_search_reads, fr.fused_merge_query = map(observer, saved)
     try:
         for name, fn, max_w, want in (
@@ -2840,8 +2890,10 @@ def fused_phase(blocked_bxi: str, reads: dict, card: str) -> int:
                     f"in 3 calls; "
                     f"dispatches {seen[:1]} x{len(seen)} on {card}")
                 if DEVICE == "cuda":
+                    # with kernel G in the checkout no torch.sort runs on the route
                     profile_dispatch(lambda: fn()[1], f"fused {name}", card,
-                                     label=f"{name} search_reads")
+                                     label=f"{name} search_reads",
+                                     forbid_like=("RadixSort",) if has_g else ())
             finally:
                 if max_w and before is None:
                     os.environ.pop("COLORID_FUSED_MAX_WINDOWS")
@@ -3060,6 +3112,128 @@ def run_counts_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
         "bound_by": "bytes",
         "library_ms": None,
         "by_mode": rows,
+        "phase_s": secs,
+    }
+
+
+# kernel G's kernels; the sorts it takes the place of on the reads routes
+G_KERNELS = ("vsort_upsweep", "vsort_bases", "vsort_chunk_scan", "vsort_pass")
+G_CALLS = ("single", "chunk", "merge", "counted")  # single first: the row's ms
+
+
+def value_sort_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
+    """Kernel G (csrc/value_sort.cu) against its twin value_sort_plain,
+    bitwise, on the [fused] cell's own keys: the arguments of its first
+    call in search_reads on the 400,000 device-resident reads through the
+    single fused dispatch (52,002,816 keys), the chunked route (a chunk's
+    keys; the merge's keys with the counts as payload) and the counted
+    route (extract_count's windows). Each call's time (CUDA events over 20
+    calls back to back), its twin's (3 calls), torch.sort(stable) (+ the
+    payload's gather) as the library's, its byte bound (value_sort_bytes);
+    the single call's launches apart (torch.profiler). Launches made here
+    are taken off G's count again; the caller fills in the row's launches
+    on the main path."""
+    import torch
+
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+
+    t0 = time.time()
+    te, fr = _f_modules()
+    real, count0 = te.value_sort, te.value_sort.launches
+    seen: dict = {}
+    route = [""]
+
+    def observed(key, payload=None, *, bits):
+        call = "merge" if payload is not None else route[0]
+        seen.setdefault(call, (key.clone(), None if payload is None else payload.clone(), bits))
+        return real(key, payload, bits=bits)
+
+    observed.launches = count0  # the wrapper counts its launches on the module's name
+    dev, L = reads["dev"], reads["L"]
+    n_windows = dev[0].shape[0] * (L - K + 1)
+    eng = QueryEngine(BigsiIndex.load(blocked_bxi), device=DEVICE)
+    te.value_sort = fr.value_sort = observed
+    before = os.environ.get("COLORID_FUSED_MAX_WINDOWS")
+    try:
+        route[0] = "chunk"
+        eng.search_reads(*dev, k=K, L=L, filter_t=1)
+        os.environ["COLORID_FUSED_MAX_WINDOWS"] = str(n_windows)
+        route[0] = "single"
+        try:
+            eng.search_reads(*dev, k=K, L=L, filter_t=1)
+        finally:
+            if before is None:
+                os.environ.pop("COLORID_FUSED_MAX_WINDOWS", None)
+            else:
+                os.environ["COLORID_FUSED_MAX_WINDOWS"] = before
+        route[0] = "counted"
+        eng._search_reads_counted(*dev, k=K, L=L, filter_t=1, d=1)
+        sync()
+    finally:
+        te.value_sort = fr.value_sort = real
+    del eng
+    if sorted(seen) != sorted(G_CALLS):
+        raise AssertionError(f"[kernel] value_sort: the routes made the calls {sorted(seen)}")
+    rows, errs = {}, {}
+    for call in G_CALLS:
+        key, pay, bits = seen[call]
+        got = real(key, pay, bits=bits)
+        want = te.value_sort_plain(key, pay, bits=bits)
+        sync()
+        errs[call] = _outputs_err(got if pay is not None else (got,),
+                                  want if pay is not None else (want,))
+        if errs[call]:
+            raise AssertionError(f"[kernel] value_sort {call}: kernel != twin, max_abs_err "
+                                 f"{errs[call]}")
+        del got, want
+        P = key.numel()
+        bound = value_sort_bytes(P, payload=pay is not None) / HBM_BYTES_PER_S * 1e3
+        stages = []
+        if DEVICE == "cuda":
+            ms = cuda_ms(lambda: real(key, pay, bits=bits), 20)
+            plain = cuda_ms(lambda: te.value_sort_plain(key, pay, bits=bits), 3)
+
+            def library():
+                key_s, perm = torch.sort(key, stable=True)
+                return key_s if pay is None else (key_s, pay[perm])
+
+            lib = cuda_ms(library, 20)
+            if call == "single":
+                stages = _launch_ms(lambda: real(key, pay, bits=bits))
+        else:
+            ms = plain = lib = 0.0
+        n_sent = int((key == te.SENT_KEY).sum())
+        rows[call] = dict(P=P, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound)
+        log(f"[kernel] value_sort {call} ({call if call != 'merge' else 'chunked'} route's own "
+            f"keys: P={P}, bits={bits}, passes {te.value_sort_passes(bits)}, "
+            f"{'an int32 payload' if pay is not None else 'keys only'}, {n_sent} SENT): "
+            f"bitwise_equal=True; ms={ms:.4f} (CUDA events over 20 calls back to back) "
+            f"plain_ms={plain:.4f} library_ms={lib:.4f} (torch.sort(stable)"
+            f"{' + the gather' if pay is not None else ''}) bound_ms={bound:.4f} "
+            f"bound_by=bytes ({ms and bound / ms:.2f} of the bound)"
+            f"{'; launches ' + ', '.join(f'{n} {t:.4f}' for n, t in stages) if stages else ''}"
+            f" on {card}")
+    te.value_sort.launches = count0
+    secs = time.time() - t0
+    log(f"[kernel] value_sort phase took {secs:.1f}s on {card}")
+    del seen
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    first = rows["single"]
+    return {
+        "name": "value_sort",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/value_sort.cu",
+        "replaces": "colorid_tpu/ops/fused_reads.py:97",
+        "launches": None,
+        "max_abs_err": max(errs.values()),
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": first["library_ms"],
+        "by_call": rows,
         "phase_s": secs,
     }
 
@@ -4582,11 +4756,13 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
             "epilogue", "epilogue_sorted", "epilogue_overflow", *D_KERNELS, "sort_upsweep",
-            "sort_bases", "sort_chunk_scan", "sort_pass", *F_KERNELS)
+            "sort_bases", "sort_chunk_scan", "sort_pass", *F_KERNELS, *G_KERNELS)
     )
     f = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in F_KERNELS
          and name.endswith("_kernel")]
     d = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in D_KERNELS
+         and name.endswith("_kernel")]
+    g = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in G_KERNELS
          and name.endswith("_kernel")]
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
     sort = [(ms, n) for ms, n, name in rows if "RadixSort" in name]
@@ -4598,7 +4774,8 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         f"and scatters) x{sum(n for _, n in ix)}={sum(ms for ms, _ in ix):.3f}ms; radix sort "
         f"passes x{sum(n for _, n in sort)}={sum(ms for ms, _ in sort):.3f}ms; "
         f"kernel D x{sum(n for _, n in d)}={sum(ms for ms, _ in d):.4f}ms; "
-        f"kernel F x{sum(n for _, n in f)}={sum(ms for ms, _ in f):.4f}ms; {host}"
+        f"kernel F x{sum(n for _, n in f)}={sum(ms for ms, _ in f):.4f}ms; "
+        f"kernel G x{sum(n for _, n in g)}={sum(ms for ms, _ in g):.4f}ms; {host}"
         f"top kernels: {top}; "
         f"the port's own: {ours or 'none'}; {gap or 'trace complete (markers on both sides)'} on "
         f"{card}")
@@ -4805,7 +4982,8 @@ def main() -> int:
             glue = _glue_kernels()
             for kn in glue:
                 kn.launches = 0
-            f_modes = _f_modules()[0].run_counts.launches_by_mode
+            te = _f_modules()[0]
+            f_modes = te.run_counts.launches_by_mode
             f_modes.update(dict.fromkeys(f_modes, 0))
             classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
                 tmp, inputs, card)
@@ -4815,6 +4993,7 @@ def main() -> int:
             epilogue_launches = tail.launches + sorted_words.launches
             glue_launches = {kn.__name__: kn.launches for kn in glue}
             f_main = dict(f_modes)
+            g_main = te.value_sort.launches
         with phase("parity"):
             classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"], blocked_dispatch = blocked_parity_phase(
@@ -4841,12 +5020,15 @@ def main() -> int:
         tail_row["plan_launches"] = (glue_launches["stream_chunk_plan"]
                                      + benched["stream_chunk_plan"])
         f_later = dict(f_modes)
+        g_later = te.value_sort.launches
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):
             probe_row["launches"] += fused_phase(blocked_bxi, reads, card)
         with phase("run_counts"):
             counts_row = run_counts_kernel_phase(blocked_bxi, reads, card)
+        with phase("value_sort"):
+            g_row = value_sort_kernel_phase(blocked_bxi, reads, card)
         with phase("serve"):
             served = serve_phase(classic_bxi, blocked_bxi, reads, card)
         # kernel F on the main path by mode, as its wrapper counts them in
@@ -4859,6 +5041,14 @@ def main() -> int:
         counts_row["launches_by_mode"] = by_mode
         log(f"[kernel] run_counts launches on the main path {counts_row['launches']} "
             f"({f_by_phase}) on {card}")
+        # kernel G on the main path, as its wrapper counts them in [main], in
+        # the port bench's process and in [reads]..[serve]
+        g_by_phase = {"main": g_main, "bench": benched["value_sort"],
+                      "reads+fused+serve": te.value_sort.launches - g_later}
+        g_row["launches"] = sum(g_by_phase.values())
+        g_row["launches_by_phase"] = g_by_phase
+        log(f"[kernel] value_sort launches on the main path {g_row['launches']} "
+            f"({g_by_phase}) on {card}")
         classic_row["launches"] += served[0]
         probe_row["launches"] += served[1]
         shr = {key: reads[key] for key in ("pairs", "src", "blocked_all", "single", "L")}
@@ -4891,7 +5081,7 @@ def main() -> int:
     log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
         + f"; whole script {time.time() - t_script:.1f}s on {card}")
     print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row,
-                                  epilogue_row, tail_row, sort_row, counts_row]}))
+                                  epilogue_row, tail_row, sort_row, counts_row, g_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

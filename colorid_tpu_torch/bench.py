@@ -45,7 +45,7 @@ estimate of 4 M queried k-mers/s for multithreaded Rust, vs_baseline =
 value / 4e6.
 
 Prints exactly one JSON line on stdout, and on stderr the card, each
-phase's per-dispatch span and the launches of the eleven kernel wrappers.
+phase's per-dispatch span and the launches of the twelve kernel wrappers.
 Exits 2 without a card unless ``--device cpu`` is given (no number), and 1
 after the line when a phase failed or a parity check did not hold.
 """
@@ -532,12 +532,12 @@ def emit_json(rates: dict, parity: list[str], device: str) -> None:
 
 
 def kernel_wrappers():
-    """The eleven kernel wrappers, each with its launch count (the epilogue
+    """The twelve kernel wrappers, each with its launch count (the epilogue
     kernel has two: its AND-words mode and the classic stream's
     sorted-words mode; the blocked stream's glue two: its plan, and its
     tail with the residual gather; the streams' key sort one; the reads
-    routes' run counts one, for all its modes)."""
-    from .ops.extract import run_counts, window_keys
+    routes' run counts one, for all its modes, and their value sort one)."""
+    from .ops.extract import run_counts, value_sort, window_keys
     from .ops.hash_torch import placement
     from .ops.query import _accumulate_sorted_words, _accumulate_tail
     from .ops.stream_query import (
@@ -547,7 +547,7 @@ def kernel_wrappers():
 
     return (classic_words, stream_probe, stream_probe_raw, placement, window_keys,
             _accumulate_tail, _accumulate_sorted_words, stream_chunk_plan, stream_tail,
-            sort_payloads, run_counts)
+            sort_payloads, run_counts, value_sort)
 
 
 # the kernels each phase must launch on the card (the wrappers' counts)
@@ -556,7 +556,7 @@ PHASE_KERNELS = {
                "stream_tail", "sort_payloads"),
     "generic": ("placement", "_accumulate_tail"),
     "fused": ("stream_probe", "placement", "window_keys", "_accumulate_tail",
-              "stream_chunk_plan", "stream_tail", "run_counts"),
+              "stream_chunk_plan", "stream_tail", "run_counts", "value_sort"),
     "classic": ("classic_words", "placement", "_accumulate_tail", "_accumulate_sorted_words",
                 "sort_payloads"),
     "read_id": ("placement", "window_keys"),

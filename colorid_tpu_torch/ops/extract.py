@@ -397,6 +397,123 @@ run_counts.launches = 0
 run_counts.launches_by_mode = dict.fromkeys(RUN_COUNTS_MODES, 0)
 
 
+# Kernel G (csrc/value_sort.cu): the reads routes' value sort, a stable LSD
+# radix sort of the int64 sort keys over the low ``bits`` = 2k bits of
+# key ^ 2^63, keys only or with one int32 payload.
+VALUE_SORT_DIGIT_BITS = 9  # the widest digit, 8-11 (sort_bench.py times them)
+VALUE_SORT_STATUS32_KEYS = 2**30 - 1  # keys whose tile counts fit 32-bit status words
+VALUE_SORT_TILE = 8192  # keys a tile of kernel G
+_VALUE_SORT_CHUNK = 8  # tiles an upsweep block of kernel G counts in order
+_FLIP = -(2**63)  # the sign bit, as an int64
+
+
+def value_sort_passes(bits: int) -> list[int]:
+    """Kernel G's digit widths, low digit first, for ``bits`` bits:
+    ceil(bits / VALUE_SORT_DIGIT_BITS) digits as equal as they come, the
+    first bits % n of them one bit wider (62 at 9: 9, 9, 9, 9, 9, 9, 8)."""
+    n = -(-bits // VALUE_SORT_DIGIT_BITS)
+    q, r = divmod(bits, n)
+    return [q + (i < r) for i in range(n)]
+
+
+def _check_value_sort(key, payload, bits: int):
+    if key.dtype != torch.int64 or key.dim() != 1 or not key.is_contiguous():
+        raise TypeError("value_sort: the key must be contiguous int64 [P]")
+    if payload is not None and (
+        payload.dtype != torch.int32 or payload.shape != key.shape
+        or not payload.is_contiguous() or payload.device != key.device
+    ):
+        raise ValueError("value_sort: the payload must be contiguous int32 [P] on the key's "
+                         "device")
+    if not 2 <= bits <= 64:
+        raise ValueError(f"value_sort: bits must be 2..64 (2k), not {bits}")
+    if key.shape[0] >= 2**31:
+        raise ValueError(f"value_sort: {key.shape[0]} keys, beyond int32 places")
+
+
+def value_sort_plain(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: int):
+    """Plain PyTorch twin of kernel G (``value_sort``'s contract): the same
+    LSD passes with the same digit widths (``value_sort_passes``), each a
+    stable sort of the digit of key ^ 2^63 (taken with masks: torch has no
+    unsigned 64-bit shift) with the key and the payload gathered through it.
+
+    The key contract: keys are ``_sort_key`` values of canonical k-mers of
+    length k, or SENT_KEY, and bits = 2k. No canonical value has all ones
+    in its low 2k bits (the all-T k-mer's canonical form is all A), so under
+    that contract the result equals torch.sort(key, stable=True) (with the
+    payload gathered through its permutation), SENT_KEY last; at bits = 64
+    it does for any keys."""
+    _check_value_sort(key, payload, bits)
+    flipped = key ^ _FLIP
+    shift = 0
+    for width in value_sort_passes(bits):
+        order = torch.sort((flipped >> shift) & ((1 << width) - 1), stable=True).indices
+        key, flipped = key[order], flipped[order]
+        if payload is not None:
+            payload = payload[order]
+        shift += width
+    return key if payload is None else (key, payload)
+
+
+def _value_sort_scratch(P: int, bits: int, wide: bool) -> int:
+    """int32 of kernel G's scratch for P keys (csrc/value_sort.cu's layout):
+    eight passes' histograms (2,048 buckets each) and tile counters (32
+    words each), a status word (two int32 where ``wide``) per tile and
+    bucket of each later pass, then per bucket of the first pass a count for
+    each tile and each chunk of _VALUE_SORT_CHUNK tiles."""
+    n_tiles = -(-P // VALUE_SORT_TILE)
+    first, *later = value_sort_passes(bits)
+    return (8 * 2048 + 8 * 32 + (1 + wide) * sum(n_tiles << w for w in later)
+            + ((n_tiles + -(-n_tiles // _VALUE_SORT_CHUNK)) << first))
+
+
+def value_sort(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: int):
+    """Stable sort of the int64 sort keys [P] by the low ``bits`` bits of
+    key ^ 2^63, with an optional int32 payload [P]: the JAX package's
+    lax.sort((hi, lo), num_keys=2) and lax.sort((hi, lo, qc), num_keys=2)
+    of the reads routes. Returns the sorted keys, or (keys, payload) with a
+    payload; new tensors, the inputs are never written. bits = 2k, 2 to 64:
+    under ``value_sort_plain``'s key contract the result equals
+    torch.sort(key, stable=True) (and the payload gathered through it).
+
+    A CUDA tensor launches csrc/value_sort.cu (kernel G: one read of the
+    keys for every pass's histogram and the first pass's tile counts, then
+    one launch an LSD pass of ``value_sort_passes(bits)``, the later ones
+    with a decoupled look-back; every launch fixed on the host, nothing
+    waits for the device); a CPU tensor takes the plain twin.
+    ``value_sort.launches`` counts calls that launched it."""
+    _check_value_sort(key, payload, bits)
+    dev = key.device
+    if dev.type == "cpu":
+        return value_sort_plain(key, payload, bits=bits)
+    if dev.type != "cuda":
+        raise ValueError(f"value_sort: unsupported device {dev}")
+    P = key.shape[0]
+    key_s = torch.empty_like(key)
+    pay_s = None if payload is None else torch.empty_like(payload)
+    if P:
+        two = len(value_sort_passes(bits)) > 1  # ping-pong buffers
+        key_tmp = torch.empty_like(key) if two else None
+        pay_tmp = torch.empty_like(payload) if two and payload is not None else None
+        wide = P > VALUE_SORT_STATUS32_KEYS
+        scratch = torch.empty(_value_sort_scratch(P, bits, wide), dtype=torch.int32, device=dev)
+        ptr = [None if t is None else t.data_ptr()
+               for t in (key_tmp, payload, pay_s, pay_tmp)]
+        fn = kernels.kernel("value_sort")
+        with torch.cuda.device(dev):
+            err = fn(key.data_ptr(), key_s.data_ptr(), ptr[0], ptr[1], ptr[2], ptr[3], P, bits,
+                     VALUE_SORT_DIGIT_BITS, wide,
+                     scratch.data_ptr(), scratch.numel(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"value_sort kernel launch failed: CUDA error {err}")
+        value_sort.launches += 1
+    return key_s if payload is None else (key_s, pay_s)
+
+
+value_sort.launches = 0
+
+
 def extract_count(
     reads_packed: torch.Tensor,  # int32 [R, ceil(L/16)] (uint32 bit view)
     lens: torch.Tensor,  # int32 [R] true read lengths (<= L)
@@ -419,9 +536,8 @@ def extract_count(
     strictly-greater filter (kmer.rs:826-837), in kernel F's compact mode.
     Nothing waits for the host.
     """
-    s = torch.sort(
-        window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
-    ).values
+    s = value_sort(window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1),
+                   bits=2 * k)
     return run_counts(s, mode="compact", filter_t=filter_t)
 
 
@@ -441,9 +557,8 @@ def count_histogram(
     counting in extract_count so a search without -f can infer the cutoff
     from one small fetch before filtering; the run lengths come from kernel
     F's select mode with no filter (qc > 0 exactly at the runs that count)."""
-    s = torch.sort(
-        window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
-    ).values
+    s = value_sort(window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1),
+                   bits=2 * k)
     _s, qc, _n = run_counts(s, mode="select")
     c = torch.where(qc > 0, qc.clamp(0, cap - 1), cap)
     hist = torch.zeros(cap + 1, dtype=torch.int32, device=s.device)

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .extract import SENT_KEY, run_counts, window_keys
+from .extract import SENT_KEY, run_counts, value_sort, window_keys
 from .hash_torch import placement_keyoff
 from .stream_query import PC, _stream_core
 
@@ -90,7 +90,7 @@ def fused_search_reads(
     # then kernel F's select mode: run counts, the filter and the pairwise
     # compaction (each round halves the stream; run_counts_plain says why
     # it is sound)
-    s = torch.sort(s).values
+    s = value_sort(s, bits=2 * k)
     s, qc, n_unique = run_counts(s, mode="select", filter_t=filter_t, rounds=rounds)
 
     n_drop = _probe(
@@ -126,9 +126,8 @@ def extract_sorted_counts(
     SENT_KEY). NO frequency filter: the counts are per-chunk partials.
     Returns (s int64 [R * NW] sorted keys, qc int32 [R * NW], n_unique
     int32 device scalar)."""
-    s = torch.sort(
-        window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1)
-    ).values
+    s = value_sort(window_keys(reads_packed, lens, valid_bits, k=k, L=L, d=d).reshape(-1),
+                   bits=2 * k)
     return run_counts(s, mode="select")  # no filter: the counts are partials
 
 
@@ -161,8 +160,9 @@ def fused_merge_query(
     probe stream. Same contract as fused_search_reads; the probe count is
     S * CAP padded to a multiple of PC."""
     s, qc = _pad_sent(s_c.reshape(-1), qc_c.reshape(-1), PC)
-    s, perm = torch.sort(s)
-    qc = qc[perm]
+    # over all 64 bits: the chunk streams come from the caller, so their
+    # keys are not known here to be canonical k-mers of 2k bits
+    s, qc = value_sort(s, qc, bits=64)
     # kernel F's select mode with the counts as weights: each k-mer's
     # counts summed across chunks, then the global filter
     s, qcm, n_unique = run_counts(s, qc, mode="select", filter_t=filter_t)

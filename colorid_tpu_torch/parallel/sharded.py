@@ -55,7 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..engine import _i32
-from ..ops.extract import SENT_KEY, _key_limbs, _sort_key, extract_count
+from ..ops.extract import SENT_KEY, _key_limbs, _sort_key, extract_count, value_sort
 from ..ops.hash_torch import M32, device_rows
 from ..ops.query import (
     BIG,
@@ -562,13 +562,13 @@ def extract_merge_datashard(reads, lens, *, mesh, k, L, filter_t, d=1):
 
     Each data slice counts its own reads' canonical windows
     (ops/extract.py::extract_count, no filter); the per-slice sets then
-    merge on the home device: concatenated, sorted once, the counts of a
-    key summed over its whole run, the strictly-greater filter applied
-    (the reference counts over the whole fastq before it filters,
-    batch_search_pe.rs:28-39, so a per-slice filter would change the
-    result). Slice s owns the sorted array's entries [s * T, (s + 1) * T),
-    T = R * (L - k + 1) / n_data, and keeps the keys whose run starts
-    there, compacted to the front. Returns (keys int32 [n_data * T, 2]
+    merge on the home device: concatenated, sorted once (kernel G, the counts
+    as its payload), the counts of a key summed over its whole run, the
+    strictly-greater filter applied (the reference counts over the whole
+    fastq before it filters, batch_search_pe.rs:28-39, so a per-slice filter
+    would change the result). Slice s owns the sorted array's entries
+    [s * T, (s + 1) * T), T = R * (L - k + 1) / n_data, and keeps the keys
+    whose run starts there, compacted to the front. Returns (keys int32 [n_data * T, 2]
     (the (lo, hi) bit views), qcounts int32 [n_data * T] (0 = padding),
     n_owned int32 [n_data]).
 
@@ -584,8 +584,8 @@ def extract_merge_datashard(reads, lens, *, mesh, k, L, filter_t, d=1):
         # the slice's padding slots (qc == 0) sort last, as (2^32-1, 2^32-1)
         keys.append(torch.where(qc == 0, SENT_KEY, _sort_key(pk[:, 0], pk[:, 1])).to(home))
         qcs.append(qc.to(home))
-    s, order = torch.sort(torch.cat(keys))
-    q = torch.cat(qcs)[order].to(torch.int64)
+    s, q = value_sort(torch.cat(keys), torch.cat(qcs), bits=2 * k)
+    q = q.to(torch.int64)
     N = s.shape[0]
     new = torch.ones(N, dtype=torch.bool, device=home)
     new[1:] = s[1:] != s[:-1]

@@ -118,3 +118,13 @@ def test_run_counts_bytes_read_the_keys_once_and_write_each_mode_once():
         4 * P + 20 * 100 + 4)
     # compact writes the limbs and counts of every slot, the zero tail too
     assert cs.run_counts_bytes(P, mode="compact") == 8 * P + 12 * P + 4
+
+
+def test_value_sort_bytes_reads_and_writes_each_key_once():
+    """Kernel G's bound: the int64 keys read and written once (16 bytes a
+    key), the int32 payload too where there is one (24); the single
+    route's 52,002,816 keys are 832,045,056 bytes."""
+    assert cs.value_sort_bytes(1, payload=False) == 16
+    assert cs.value_sort_bytes(3, payload=True) == 3 * 24
+    assert cs.value_sort_bytes(0, payload=True) == 0
+    assert cs.value_sort_bytes(52_002_816, payload=False) == 832_045_056

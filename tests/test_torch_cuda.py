@@ -1735,3 +1735,180 @@ def test_reads_routes_run_kernel_f_on_card(cuda_device, monkeypatch, v4_panel, r
         want_h = count_histogram(*args, k=27, L=160, cap=2048)
         got_h = count_histogram(*(a.to(cuda_device) for a in args), k=27, L=160, cap=2048)
         assert torch.equal(got_h.cpu(), want_h) and int(want_h[1:].sum()) > 0
+
+
+# -- kernel G (the reads routes' value sort) -------------------------------------
+
+
+def _value_sort_cases(k, dev):
+    """Kernel G's inputs at k: seeded canonical window keys with the cell's
+    SENT share (chip_smoke.py::synth_window_keys) cut to P = 0, 1, a tile
+    and one either side, three tiles and a part, 40 tiles and a part; all
+    SENT; one distinct key; the keys with their first half SENT."""
+    import chip_smoke as cs
+    from colorid_tpu_torch.ops.extract import SENT_KEY, VALUE_SORT_TILE as T
+
+    keys = cs.synth_window_keys(40 * T + 1234, k, dev, seed=k)
+    cases = {f"P={P}": keys[:P].contiguous() for P in (0, 1, T - 1, T, T + 1, 3 * T + 517,
+                                                      keys.numel())}
+    cases["all SENT"] = torch.full((5 * T + 3,), SENT_KEY, dtype=torch.int64, device=dev)
+    cases["one distinct key"] = keys[:1].repeat(5 * T + 3)
+    half = keys.clone()
+    half[: half.numel() // 2] = SENT_KEY
+    cases["first half SENT"] = half
+    return cases
+
+
+def _payload_of(keys):
+    g = torch.Generator(device=keys.device).manual_seed(keys.numel())
+    return torch.randint(-(2**31), 2**31 - 1, keys.shape, generator=g, device=keys.device,
+                         dtype=torch.int32)
+
+
+def _value_sort_check(keys, payload, k, what):
+    """Kernel G on keys (and payload) against its twin on the card, bitwise,
+    one launch where P > 0, the inputs untouched; both equal
+    torch.sort(stable) (and the payload gathered through it)."""
+    from colorid_tpu_torch.ops import extract as te
+
+    ins = [keys.clone()] + ([] if payload is None else [payload.clone()])
+    want = te.value_sort_plain(keys, payload, bits=2 * k)
+    before = te.value_sort.launches
+    got = te.value_sort(keys, payload, bits=2 * k)
+    torch.cuda.synchronize()
+    assert te.value_sort.launches == before + (keys.numel() > 0), what
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    assert len(got) == len(want) == len(ins)
+    lib = torch.sort(keys, stable=True)
+    for g, w, x, ref in zip(got, want, ins, (lib.values, None if payload is None else
+                                             payload[lib.indices])):
+        assert g.device == keys.device and g.dtype == w.dtype, what
+        assert torch.equal(g, w), what
+        assert torch.equal(g, ref), what
+    assert torch.equal(keys, ins[0]) and (payload is None or torch.equal(payload, ins[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [15, 31, 32])
+@pytest.mark.parametrize("payload", [False, True])
+def test_value_sort_kernel_matches_twin(cuda_device, k, payload):
+    """Kernel G at k 15 (3 passes), 31 (6) and 32 (the sign bit's digit),
+    keys only and with an int32 payload, on every case of
+    _value_sort_cases, twice: bit for bit the twin's and torch.sort's."""
+    for what, keys in _value_sort_cases(k, cuda_device).items():
+        pay = _payload_of(keys) if payload else None
+        for _ in range(2):
+            _value_sort_check(keys, pay, k, f"k={k} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dmax", [8, 9, 10, 11])
+def test_value_sort_digit_widths(cuda_device, monkeypatch, dmax):
+    """Every widest digit the kernel takes (what sort_bench.py times against
+    each other), with and without a payload, and with the 64-bit status
+    words of more than 2^30 keys forced on."""
+    from colorid_tpu_torch.ops import extract as te
+
+    monkeypatch.setattr(te, "VALUE_SORT_DIGIT_BITS", dmax)
+    cases = _value_sort_cases(31, cuda_device)
+    for what in ("P=1", f"P={3 * te.VALUE_SORT_TILE + 517}", "first half SENT"):
+        keys = cases[what]
+        for wide in (False, True):
+            monkeypatch.setattr(te, "VALUE_SORT_STATUS32_KEYS", 0 if wide else 2**30 - 1)
+            for pay in (None, _payload_of(keys)):
+                _value_sort_check(keys, pay, 31, f"dmax {dmax} wide={wide} {what}")
+
+
+@pytest.mark.cuda
+def test_value_sort_at_the_single_routes_size(cuda_device):
+    """52,002,816 keys, the single fused dispatch's (400,000 reads x 130
+    windows padded with SENT), keys only and with a payload."""
+    import chip_smoke as cs
+
+    keys = cs.synth_window_keys(52_002_816, 31, cuda_device)
+    _value_sort_check(keys, None, 31, "52,002,816 keys")
+    _value_sort_check(keys, _payload_of(keys), 31, "52,002,816 keys with a payload")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [False, True])
+def test_value_sort_look_backs_hold_over_twenty_runs(cuda_device, payload):
+    """Kernel G's later passes place each tile by a look-back over the tiles
+    before it: 4,000,000 keys 20 times, each on fresh scratch, equal to the
+    twin every time, so that an ordering race between the blocks shows."""
+    import chip_smoke as cs
+    from colorid_tpu_torch.ops import extract as te
+
+    keys = cs.synth_window_keys(4_000_000, 31, cuda_device, seed=20)
+    pay = _payload_of(keys) if payload else None
+    want = te.value_sort_plain(keys, pay, bits=62)
+    for i in range(20):
+        got = te.value_sort(keys, pay, bits=62)
+        torch.cuda.synchronize()
+        for g, w in zip(*((x if isinstance(x, tuple) else (x,)) for x in (got, want))):
+            assert torch.equal(g, w), i
+        del got
+
+
+@pytest.mark.cuda
+def test_value_sort_adds_no_host_sync_and_refuses(cuda_device):
+    from colorid_tpu_torch.ops import extract as te
+
+    keys = _value_sort_cases(31, cuda_device)[f"P={3 * te.VALUE_SORT_TILE + 517}"]
+    pay = _payload_of(keys)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        te.value_sort(keys, bits=62)
+        te.value_sort(keys, pay, bits=62)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    bad = ((keys.to(torch.int32), None, 62), (keys[::2], None, 62), (keys, pay[1:], 62),
+           (keys, pay.to(torch.int64), 62), (keys, pay.cpu(), 62), (keys, None, 1),
+           (keys, None, 65))
+    for kk, pp, bits in bad:
+        with pytest.raises((TypeError, ValueError)):
+            te.value_sort(kk, pp, bits=bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["single", "chunked", "counted"])
+def test_reads_routes_sort_through_kernel_g_on_card(cuda_device, monkeypatch, v4_panel, route):
+    """search_reads through the single fused dispatch, the chunked route
+    (chunk sorts and the merge with its payload) and the counted route, and
+    count_histogram: the card's answers equal the CPU's through kernel G;
+    no twin of G runs on the card."""
+    from colorid_tpu_torch.ops import extract as te
+
+    _gs, index, batch = v4_panel
+    if route == "chunked":
+        monkeypatch.setenv("COLORID_FUSED_MAX_WINDOWS", "150000")
+    real = te.value_sort_plain
+
+    def cpu_only(key, *a, **kw):
+        assert key.device.type == "cpu", "kernel G's twin ran on the card"
+        return real(key, *a, **kw)
+
+    monkeypatch.setattr(te, "value_sort_plain", cpu_only)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        eng = QueryEngine(index, device=dev)
+        before = te.value_sort.launches
+        if route == "counted":
+            out = eng._search_reads_counted(*(eng._to_dev(x) for x in batch), k=27, L=160,
+                                            filter_t=1, d=1)
+        else:
+            out = eng.search_reads(*batch, k=27, L=160, filter_t=1)
+        launched = te.value_sort.launches - before
+        assert launched == 0 if dev == "cpu" else launched >= (3 if route == "chunked" else 1)
+        outs.append(out)
+    (want, n_want), (got, n_got) = outs
+    assert n_got == n_want > 0
+    for f in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert got.all_valid == want.all_valid
+    if route == "counted":
+        args = [torch.from_numpy(np.ascontiguousarray(x).view(np.int32)) for x in batch]
+        before = te.value_sort.launches
+        got_h = te.count_histogram(*(a.to(cuda_device) for a in args), k=27, L=160, cap=2048)
+        assert te.value_sort.launches == before + 1
+        assert torch.equal(got_h.cpu(), te.count_histogram(*args, k=27, L=160, cap=2048))

@@ -1,0 +1,279 @@
+"""The reads routes' value sort (colorid_tpu_torch/ops/extract.py::
+value_sort, kernel G, on CPU tensors: its plain twin value_sort_plain)
+against the JAX package's sort of the canonical windows (jax.lax.sort((hi,
+lo), num_keys=2), as colorid_tpu/ops/extract.py and fused_reads.py sort
+them, and lax.sort((hi, lo, qc), num_keys=2) of the merges) and against
+torch.sort(stable) with the payload gathered through its permutation, on
+the CPU: windows of numpy-seeded reads with N bases, short reads (SENT
+slots), all-T, all-A and palindromic reads and heavy duplicates, at k 1,
+15, 16, 17, 21, 31 and 32. Integers: tolerance 0, element for element.
+The kernel runs only on a CUDA card (tests/test_torch_cuda.py)."""
+
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from colorid_tpu.ops import extract as je
+from colorid_tpu_torch.ops import extract as te
+from colorid_tpu_torch.ops import fused_reads as tf
+from colorid_tpu_torch.parallel import sharded as tsh
+from tests import torch_support as ts
+
+KS = [1, 15, 16, 17, 21, 31, 32]
+L = 96
+
+
+def _revcomp(s: np.ndarray) -> np.ndarray:
+    return ts._COMP[s[::-1]]
+
+
+def _reads(k: int):
+    """200 reads of up to L bases: random ones with N bases and true
+    lengths from below k up to L; all T, all A, palindromes (a half and its
+    reverse complement); and one read repeated 40 times."""
+    rng = np.random.default_rng(1000 + k)
+    R = 200
+    seqs = ts.ACGT[rng.integers(0, 4, (R, L))]
+    seqs[rng.random((R, L)) < 0.01] = ord("N")
+    lens = rng.integers(max(1, k - 2), L + 1, R).astype(np.int32)
+    seqs[0] = ord("T")
+    seqs[1] = ord("A")
+    for r in (2, 3):
+        half = ts.ACGT[rng.integers(0, 4, L // 2)]
+        seqs[r] = np.concatenate([half, _revcomp(half)])
+    seqs[4, : L // 2] = ord("T")
+    seqs[160:200] = seqs[5]
+    lens[:6] = L
+    lens[160:200] = L
+    return seqs, lens
+
+
+def _windows(k: int):
+    """The JAX package's (lo, hi) uint32 limbs of every window, all ones
+    where the window is not counted (extract_count's construction), and the
+    port's int64 sort keys of the same windows (window_keys' twin)."""
+    seqs, lens = _reads(k)
+    words, vbits = te.pack_reads_valid(seqs)
+    NW = L - k + 1
+    lo, hi = je._window_limbs(je._unpack_codes(jnp.asarray(words), L), k, NW)
+    valid = (np.arange(NW)[None, :] + k <= lens[:, None]) & np.asarray(
+        je._window_valid_ok(jnp.asarray(vbits), L, k, NW))
+    sent = np.uint32(0xFFFFFFFF)
+    lo = np.where(valid, np.asarray(lo), sent).reshape(-1)
+    hi = np.where(valid, np.asarray(hi), sent).reshape(-1)
+    return lo, hi, _window_keys(k)
+
+
+def _limbs(key: torch.Tensor):
+    lo, hi = te._key_limbs(key)
+    return lo.numpy().astype(np.uint32), hi.numpy().astype(np.uint32)
+
+
+def _qc(n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 7, n).astype(np.int32)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_twin_matches_jax_lax_sort(k):
+    """The twin (which a CPU tensor takes; no launch) equals lax.sort((hi,
+    lo), num_keys=2) of the same windows, SENT slots last; the windows hold
+    SENT slots, duplicates and, from the all-T read, the key 0."""
+    lo, hi, key = _windows(k)
+    s_hi, s_lo = jax.lax.sort((jnp.asarray(hi), jnp.asarray(lo)), num_keys=2)
+    before = te.value_sort.launches
+    got = te.value_sort(key, bits=2 * k)
+    assert te.value_sort.launches == before
+    g_lo, g_hi = _limbs(got)
+    np.testing.assert_array_equal(g_hi, np.asarray(s_hi))
+    np.testing.assert_array_equal(g_lo, np.asarray(s_lo))
+    n_sent = int((key == te.SENT_KEY).sum())
+    assert n_sent > 0 and bool((got[-n_sent:] == te.SENT_KEY).all())
+    assert len(torch.unique(key)) < key.numel() - n_sent  # heavy duplicates
+    assert bool((key == te._sort_key(torch.tensor(0), torch.tensor(0))).any())  # all T
+
+
+@pytest.mark.parametrize("k", KS)
+def test_twin_equals_stable_torch_sort(k):
+    """Keys only and with an int32 payload: torch.sort(stable) of the keys,
+    the payload gathered through its permutation, bit for bit."""
+    _lo, _hi, key = _windows(k)
+    q = torch.from_numpy(_qc(key.numel(), k))
+    want = torch.sort(key, stable=True)
+    assert torch.equal(te.value_sort(key, bits=2 * k), want.values)
+    got_k, got_q = te.value_sort(key, q, bits=2 * k)
+    assert got_k.dtype == torch.int64 and got_q.dtype == torch.int32
+    assert torch.equal(got_k, want.values) and torch.equal(got_q, q[want.indices])
+
+
+@pytest.mark.parametrize("k", KS)
+def test_payload_mode_matches_the_jax_merge(k):
+    """With the counts as payload: lax.sort((hi, lo, qc), num_keys=2), the
+    merge's sort, gives the same keys and the same per-run sums of qc (its
+    order among equal keys is not fixed), and the twin is torch.sort(stable)
+    with the gather, bit for bit; the inputs are untouched."""
+    lo, hi, key = _windows(k)
+    qc = _qc(key.numel(), 100 + k)
+    s_hi, s_lo, s_qc = jax.lax.sort((jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(qc)),
+                                    num_keys=2)
+    key0, q = key.clone(), torch.from_numpy(qc.copy())
+    got_k, got_q = te.value_sort(key, q, bits=2 * k)
+    assert torch.equal(key, key0) and np.array_equal(q.numpy(), qc)
+    g_lo, g_hi = _limbs(got_k)
+    np.testing.assert_array_equal(g_hi, np.asarray(s_hi))
+    np.testing.assert_array_equal(g_lo, np.asarray(s_lo))
+    starts = np.flatnonzero(np.r_[True, got_k.numpy()[1:] != got_k.numpy()[:-1]])
+    np.testing.assert_array_equal(np.add.reduceat(got_q.numpy(), starts),
+                                  np.add.reduceat(np.asarray(s_qc), starts))
+    perm = torch.sort(key, stable=True).indices
+    assert torch.equal(got_q, q[perm])
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+def test_no_canonical_key_has_all_ones_in_its_low_2k_bits(k):
+    """The key contract the LSD sort over 2k bits stands on: every
+    canonical window's key ^ 2^63 (its 2k-bit value) is below 2^(2k) and
+    not all ones there, so SENT_KEY alone sorts last; exhaustively for
+    k <= 7, on the windows of random, all-T and all-A reads above."""
+    if k <= 7:
+        v = np.arange(4**k, dtype=np.int64)
+        rc = np.zeros_like(v)
+        for j in range(k):
+            rc |= (3 - ((v >> (2 * j)) & 3)) << (2 * (k - 1 - j))
+        canon = torch.from_numpy(np.minimum(v, rc))
+    else:
+        key = _window_keys(k)
+        canon = key[key != te.SENT_KEY] ^ te._FLIP
+    mask = (1 << (2 * k)) - 1 if k < 32 else -1
+    assert bool((canon & mask == canon).all()) and not bool((canon & mask == mask).any())
+    assert (te.SENT_KEY ^ te._FLIP) & mask == mask
+
+
+def _window_keys(k: int):
+    seqs, lens = _reads(k)
+    words, vbits = te.pack_reads_valid(seqs)
+    return te.window_keys(ts.t32(words), torch.from_numpy(lens), ts.t32(vbits), k=k,
+                          L=L).reshape(-1)
+
+
+@pytest.mark.parametrize("dmax", [8, 9, 10, 11])
+def test_passes_cover_exactly_bits(monkeypatch, dmax):
+    """G's digit widths for every bits of 2-64 at each widest digit the
+    kernel takes: ceil(bits / dmax) digits that sum to bits, none wider than
+    dmax and none two bits narrower than another. The twin sorts with
+    them, so that its passes are the kernel's."""
+    monkeypatch.setattr(te, "VALUE_SORT_DIGIT_BITS", dmax)
+    for bits in range(2, 65):
+        w = te.value_sort_passes(bits)
+        assert sum(w) == bits and len(w) == -(-bits // dmax), bits
+        assert max(w) <= dmax and max(w) - min(w) <= 1, bits
+    _lo, _hi, key = _windows(31)
+    assert torch.equal(te.value_sort_plain(key, bits=62), torch.sort(key, stable=True).values)
+
+
+def test_default_passes_at_the_cells_k():
+    """The default widest digit, 9 bits (sort_bench.py's fastest at k 31):
+    7 passes at the cell's 62 bits, a run of 16 keys a digit in a tile."""
+    assert te.value_sort_passes(62) == [9, 9, 9, 9, 9, 9, 8]
+    assert len(te.value_sort_passes(30)) == 4 and len(te.value_sort_passes(54)) == 6
+    assert te.VALUE_SORT_TILE >> max(te.value_sort_passes(62)) == 16
+    assert te.VALUE_SORT_TILE < 2**16  # a key's place in its tile is a uint16
+
+
+def test_passes_are_lsd_stable():
+    """Each prefix of G's passes leaves the keys ordered by the bits sorted
+    so far, ties in input order (checked through a payload that is the
+    index)."""
+    _lo, _hi, key = _windows(31)
+    idx = torch.arange(key.numel(), dtype=torch.int32)
+    shift = 0
+    for w in te.value_sort_passes(62):
+        shift += w
+        low = ((key ^ te._FLIP) & ((1 << shift) - 1)) ^ te._FLIP  # the low bits alone
+        part, pidx = te.value_sort(low, idx, bits=shift)
+        v = (part ^ te._FLIP) & ((1 << shift) - 1)
+        assert bool((v[1:] >= v[:-1]).all())
+        ties = v[1:] == v[:-1]
+        assert bool((pidx[1:][ties] > pidx[:-1][ties]).all())
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    _lo, _hi, key = _windows(15)
+    q = torch.from_numpy(_qc(key.numel(), 3))
+    with pytest.raises(TypeError, match="int64"):
+        te.value_sort(key.to(torch.int32), bits=30)
+    with pytest.raises(TypeError, match="contiguous"):
+        te.value_sort(key[::2], bits=30)
+    with pytest.raises(ValueError, match="payload"):
+        te.value_sort(key, q[1:], bits=30)
+    with pytest.raises(ValueError, match="payload"):
+        te.value_sort(key, q.to(torch.int64), bits=30)
+    for bits in (0, 1, 65):
+        with pytest.raises(ValueError, match="bits"):
+            te.value_sort(key, bits=bits)
+    with pytest.raises(ValueError, match="device"):
+        te.value_sort(key.to("meta"), bits=30)
+
+
+def test_edge_sizes_and_scratch():
+    """P = 0 and 1, all SENT and one distinct key through the twin; the
+    kernel's scratch: histograms and counters, status words (twice as many
+    int32 where wide) and the first pass's tile and chunk counts."""
+    e = torch.empty(0, dtype=torch.int64)
+    assert te.value_sort(e, bits=62).numel() == 0
+    one = torch.tensor([5 ^ te._FLIP])
+    assert torch.equal(te.value_sort(one, torch.tensor([7], dtype=torch.int32), bits=62)[0], one)
+    for key in (torch.full((9000,), te.SENT_KEY), torch.full((9000,), 3 ^ te._FLIP)):
+        assert torch.equal(te.value_sort(key, bits=62), key)
+    T = te.VALUE_SORT_TILE
+    n_tiles = 3
+    head = 8 * 2048 + 8 * 32
+    later = (5 * 512 + 256) * n_tiles
+    first = (n_tiles + 1) * 512
+    assert te._value_sort_scratch(3 * T, 62, False) == head + later + first
+    assert te._value_sort_scratch(3 * T, 62, True) == head + 2 * later + first
+
+
+@pytest.mark.parametrize("fn,bits", [
+    (te.extract_count, "2 * k"), (te.count_histogram, "2 * k"),
+    (tf.fused_search_reads, "2 * k"), (tf.extract_sorted_counts, "2 * k"),
+    (tf.fused_merge_query, "64"), (tsh.extract_merge_datashard, "2 * k"),
+])
+def test_the_six_sites_sort_with_kernel_g(fn, bits):
+    """Each of the reads routes' value sorts goes through value_sort, none
+    through torch.sort: over 2k bits where the function made its keys from
+    windows itself, over 64 where they come from its caller (the fused
+    merge's chunk streams)."""
+    src = inspect.getsource(fn)
+    assert "torch.sort" not in src and src.count("value_sort(") == 1
+    assert f"bits={bits})" in src
+
+
+@pytest.mark.parametrize("k", [15, 31])
+def test_sites_call_value_sort_over_2k_bits(monkeypatch, k):
+    """extract_count, count_histogram and a chunk's extract_sorted_counts
+    sort their windows once each through value_sort with bits 2k, and give
+    what a torch.sort of the same windows gives."""
+    seqs, lens = _reads(k)
+    words, vbits = te.pack_reads_valid(seqs)
+    args = (ts.t32(words), torch.from_numpy(lens), ts.t32(vbits))
+    calls = []
+    real = te.value_sort
+
+    def recorder(key, payload=None, *, bits):
+        calls.append(bits)
+        return real(key, payload, bits=bits)
+
+    monkeypatch.setattr(te, "value_sort", recorder)
+    monkeypatch.setattr(tf, "value_sort", recorder)
+    pk, qc, n = te.extract_count(*args, k=k, L=L, filter_t=1)
+    hist = te.count_histogram(*args, k=k, L=L, cap=64)
+    s, q, _n = tf.extract_sorted_counts(*args, k=k, L=L, d=1)
+    assert calls == [2 * k] * 3
+    want = torch.sort(te.window_keys(*args, k=k, L=L).reshape(-1)).values
+    assert torch.equal(s, want)
+    assert torch.equal(pk, te.run_counts(want, mode="compact", filter_t=1)[0])
+    assert int(n) > 0 and int(hist.sum()) > 0
