@@ -730,6 +730,33 @@ def synth_window_keys(P: int, k: int, device, seed: int = SEED):
     return window_keys(words, lens, k=k, L=L).reshape(-1)[:P].contiguous()
 
 
+def synth_merge_keys(S: int, n_chunk: int, k: int, device, seed: int = SEED,
+                     cap: int | None = None):
+    """The chunked route's merge input as ops/fused_reads.py::
+    fused_merge_query hands it to kernel G, made on ``device`` from
+    ``seed``: S chunks of n_chunk window keys (synth_window_keys), each
+    sorted with its run counts (extract_sorted_counts' kernels G and F) and
+    partitioned to cap (compact_sorted: the live slots in key order, then
+    the dead ones; by default the engine's cap, the power of two of at
+    least 2^20 above the chunks' most distinct keys, a host read), the rows
+    concatenated and padded with SENT to a multiple of the probe stream's
+    PC. Returns (keys int64, counts int32): at most 2 S sorted runs."""
+    import torch
+
+    from colorid_tpu_torch.ops import fused_reads as fr
+    from colorid_tpu_torch.ops.extract import run_counts, value_sort
+
+    outs = []
+    for c in range(S):
+        s = value_sort(synth_window_keys(n_chunk, k, device, seed=seed + c), bits=2 * k)
+        outs.append(run_counts(s, mode="select"))
+    if cap is None:
+        n_max = int(torch.stack([o[2] for o in outs]).max())
+        cap = min(1 << max(20, max(n_max, 1).bit_length()), n_chunk)
+    rows_s, rows_q = zip(*(fr.compact_sorted(s, qc, cap=cap) for s, qc, _n in outs))
+    return fr._pad_sent(torch.cat(rows_s), torch.cat(rows_q), fr.PC)
+
+
 def raw_kernel_phase(card: str) -> dict:
     """stream_probe_raw against its twin at the color-sharded path's shape
     (one shard: wpad 32, H 2, 16,777,216 probes sorted by block over
@@ -3117,7 +3144,8 @@ def run_counts_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
 
 
 # kernel G's kernels; the sorts it takes the place of on the reads routes
-G_KERNELS = ("vsort_upsweep", "vsort_bases", "vsort_chunk_scan", "vsort_pass")
+G_KERNELS = ("vsort_upsweep", "vsort_bases", "vsort_chunk_scan", "vsort_pass", "vsort_runs",
+             "vsort_merge", "vsort_tail")
 G_CALLS = ("single", "chunk", "merge", "counted")  # single first: the row's ms
 
 
@@ -3130,9 +3158,14 @@ def value_sort_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
     route (extract_count's windows). Each call's time (CUDA events over 20
     calls back to back), its twin's (3 calls), torch.sort(stable) (+ the
     payload's gather) as the library's, its byte bound (value_sort_bytes);
-    the single call's launches apart (torch.profiler). Launches made here
-    are taken off G's count again; the caller fills in the row's launches
-    on the main path."""
+    the path the device took (the merge's rounds and the runs found, or
+    the LSD passes and the SENT keys they skipped; fails unless the merge
+    call, which comes with the runs hint, merged); the single and the merge
+    call's launches apart (torch.profiler), and what the hint costs where
+    it does not pay: the single call's keys with the hint (the LSD path
+    after the runs read and the empty merge launches) beside without.
+    Launches made here are taken off G's count again; the caller fills in
+    the row's launches on the main path."""
     import torch
 
     from colorid_tpu_torch.engine import QueryEngine
@@ -3140,16 +3173,19 @@ def value_sort_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
 
     t0 = time.time()
     te, fr = _f_modules()
-    real, count0 = te.value_sort, te.value_sort.launches
+    real, count0, runs0 = te.value_sort, te.value_sort.launches, te.value_sort.runs_launches
     seen: dict = {}
     route = [""]
 
-    def observed(key, payload=None, *, bits):
+    def observed(key, payload=None, *, bits, runs=False):
         call = "merge" if payload is not None else route[0]
-        seen.setdefault(call, (key.clone(), None if payload is None else payload.clone(), bits))
-        return real(key, payload, bits=bits)
+        seen.setdefault(call, (key.clone(), None if payload is None else payload.clone(), bits,
+                               runs))
+        return real(key, payload, bits=bits, runs=runs)
 
     observed.launches = count0  # the wrapper counts its launches on the module's name
+    observed.runs_launches = runs0
+    observed.keep_stats = False
     dev, L = reads["dev"], reads["L"]
     n_windows = dev[0].shape[0] * (L - K + 1)
     eng = QueryEngine(BigsiIndex.load(blocked_bxi), device=DEVICE)
@@ -3177,21 +3213,56 @@ def value_sort_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
         raise AssertionError(f"[kernel] value_sort: the routes made the calls {sorted(seen)}")
     rows, errs = {}, {}
     for call in G_CALLS:
-        key, pay, bits = seen[call]
-        got = real(key, pay, bits=bits)
+        key, pay, bits, runs = seen[call]
+        if (call == "merge") != runs:
+            raise AssertionError(f"[kernel] value_sort {call}: the runs hint is {runs}")
+        real.keep_stats = True  # a card call keeps its counts: the path it took
+        try:
+            got = real(key, pay, bits=bits, runs=runs)
+            counted = te.value_sort_stats(real.last_stats) if key.is_cuda else None
+        finally:
+            real.keep_stats, real.last_stats = False, None
+        n_sent = int((key == te.SENT_KEY).sum())
         want = te.value_sort_plain(key, pay, bits=bits)
         sync()
         errs[call] = _outputs_err(got if pay is not None else (got,),
                                   want if pay is not None else (want,))
+        if runs:  # the merge path's own twin too
+            merged = te.value_merge_plain(key, pay, bits=bits)
+            errs[call] = max(errs[call], _outputs_err(got if pay is not None else (got,),
+                                                      merged if pay is not None else (merged,)))
+            del merged
         if errs[call]:
             raise AssertionError(f"[kernel] value_sort {call}: kernel != twin, max_abs_err "
                                  f"{errs[call]}")
         del got, want
+        if counted is None:  # a CPU tensor takes the LSD twin: no path to read
+            desc, tails, rounds = 0, [], 0
+            path = "not read (the CPU twin)"
+        else:
+            desc, tails = counted["descents"], counted["tails"]
+            rounds = te.value_sort_merge_rounds(desc + 1, bits) if runs else 0
+            if rounds:
+                path = (f"merge: {rounds} round{'s' * (rounds > 1)} over {desc + 1} runs found "
+                        f"(at most {2 ** te.value_sort_merge_max_rounds(bits)} merge)")
+            else:
+                skip = [q for q, tail in enumerate(tails) if tail]
+                rule = te.value_sort_sent_tails(key, bits)
+                if tails[:len(rule)] != rule:
+                    raise AssertionError(f"[kernel] value_sort {call}: SENT tails {tails} "
+                                         f"against the rule's {rule}")
+                path = (f"LSD passes {te.value_sort_passes(bits)}, {n_sent} SENT keys, left at "
+                        f"the tail by passes {skip or 'none'}"
+                        f"{f' ({desc} descents or more: no merge)' if runs else ''}")
+            if call == "merge" and not rounds:
+                raise AssertionError(f"[kernel] value_sort merge: the chunked route's merge "
+                                     f"took the LSD path ({desc} descents)")
         P = key.numel()
         bound = value_sort_bytes(P, payload=pay is not None) / HBM_BYTES_PER_S * 1e3
         stages = []
+        extra = ""
         if DEVICE == "cuda":
-            ms = cuda_ms(lambda: real(key, pay, bits=bits), 20)
+            ms = cuda_ms(lambda: real(key, pay, bits=bits, runs=runs), 20)
             plain = cuda_ms(lambda: te.value_sort_plain(key, pay, bits=bits), 3)
 
             def library():
@@ -3199,22 +3270,38 @@ def value_sort_kernel_phase(blocked_bxi: str, reads: dict, card: str) -> dict:
                 return key_s if pay is None else (key_s, pay[perm])
 
             lib = cuda_ms(library, 20)
+            if call in ("single", "merge"):
+                stages = _launch_ms(lambda: real(key, pay, bits=bits, runs=runs))
+            if call == "merge":
+                idle = [t for n, t in stages if n.startswith(("vsort_upsweep", "vsort_bases",
+                                                              "vsort_chunk_scan", "vsort_pass",
+                                                              "vsort_tail"))]
+                extra = (f"; the LSD launches that exit on the device's choice x{len(idle)} "
+                         f"{sum(idle):.4f} ms")
             if call == "single":
-                stages = _launch_ms(lambda: real(key, pay, bits=bits))
+                hinted = cuda_ms(lambda: real(key, pay, bits=bits, runs=True), 20)
+                idle = [t for n, t in _launch_ms(lambda: real(key, pay, bits=bits, runs=True))
+                        if n.startswith(("vsort_runs", "vsort_merge"))]
+                extra = (f"; with the runs hint (LSD taken) {hinted:.4f} ms: the runs read and "
+                         f"the empty merge launches x{len(idle)} {sum(idle):.4f} ms")
         else:
             ms = plain = lib = 0.0
-        n_sent = int((key == te.SENT_KEY).sum())
-        rows[call] = dict(P=P, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound)
+        rows[call] = dict(P=P, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                          path=None if counted is None else "merge" if rounds else "lsd",
+                          runs=desc + 1 if runs and counted is not None else None,
+                          rounds=rounds, sent=n_sent, sent_tails=tails)
         log(f"[kernel] value_sort {call} ({call if call != 'merge' else 'chunked'} route's own "
-            f"keys: P={P}, bits={bits}, passes {te.value_sort_passes(bits)}, "
-            f"{'an int32 payload' if pay is not None else 'keys only'}, {n_sent} SENT): "
+            f"keys: P={P}, bits={bits}, {'the runs hint, ' if runs else ''}"
+            f"{'an int32 payload' if pay is not None else 'keys only'}, "
+            f"{n_sent} SENT): path {path}; "
             f"bitwise_equal=True; ms={ms:.4f} (CUDA events over 20 calls back to back) "
             f"plain_ms={plain:.4f} library_ms={lib:.4f} (torch.sort(stable)"
             f"{' + the gather' if pay is not None else ''}) bound_ms={bound:.4f} "
             f"bound_by=bytes ({ms and bound / ms:.2f} of the bound)"
             f"{'; launches ' + ', '.join(f'{n} {t:.4f}' for n, t in stages) if stages else ''}"
-            f" on {card}")
+            f"{extra} on {card}")
     te.value_sort.launches = count0
+    te.value_sort.runs_launches = runs0
     secs = time.time() - t0
     log(f"[kernel] value_sort phase took {secs:.1f}s on {card}")
     del seen
@@ -4993,7 +5080,7 @@ def main() -> int:
             epilogue_launches = tail.launches + sorted_words.launches
             glue_launches = {kn.__name__: kn.launches for kn in glue}
             f_main = dict(f_modes)
-            g_main = te.value_sort.launches
+            g_main, g_runs_main = te.value_sort.launches, te.value_sort.runs_launches
         with phase("parity"):
             classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"], blocked_dispatch = blocked_parity_phase(
@@ -5020,7 +5107,7 @@ def main() -> int:
         tail_row["plan_launches"] = (glue_launches["stream_chunk_plan"]
                                      + benched["stream_chunk_plan"])
         f_later = dict(f_modes)
-        g_later = te.value_sort.launches
+        g_later, g_runs_later = te.value_sort.launches, te.value_sort.runs_launches
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
         with phase("fused"):
@@ -5047,8 +5134,13 @@ def main() -> int:
                       "reads+fused+serve": te.value_sort.launches - g_later}
         g_row["launches"] = sum(g_by_phase.values())
         g_row["launches_by_phase"] = g_by_phase
+        # with the runs hint: the merge sites' calls (the port bench's fused
+        # phase runs the single route only, so none there)
+        g_runs = g_runs_main + te.value_sort.runs_launches - g_runs_later
+        g_row["launches_by_hint"] = {"runs hint (merge sites)": g_runs,
+                                     "no hint (LSD passes)": g_row["launches"] - g_runs}
         log(f"[kernel] value_sort launches on the main path {g_row['launches']} "
-            f"({g_by_phase}) on {card}")
+            f"({g_by_phase}; {g_row['launches_by_hint']}) on {card}")
         classic_row["launches"] += served[0]
         probe_row["launches"] += served[1]
         shr = {key: reads[key] for key in ("pairs", "src", "blocked_all", "single", "L")}

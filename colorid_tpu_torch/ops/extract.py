@@ -397,14 +397,31 @@ run_counts.launches = 0
 run_counts.launches_by_mode = dict.fromkeys(RUN_COUNTS_MODES, 0)
 
 
-# Kernel G (csrc/value_sort.cu): the reads routes' value sort, a stable LSD
-# radix sort of the int64 sort keys over the low ``bits`` = 2k bits of
-# key ^ 2^63, keys only or with one int32 payload.
+# Kernel G (csrc/value_sort.cu): the reads routes' value sort, a stable sort
+# of the int64 sort keys over the low ``bits`` = 2k bits of key ^ 2^63, keys
+# only or with one int32 payload: LSD radix passes, or at the merge sites a
+# merge of the sorted runs the keys come in.
 VALUE_SORT_DIGIT_BITS = 9  # the widest digit, 8-11 (sort_bench.py times them)
 VALUE_SORT_STATUS32_KEYS = 2**30 - 1  # keys whose tile counts fit 32-bit status words
-VALUE_SORT_TILE = 8192  # keys a tile of kernel G
+VALUE_SORT_TILE = 8192  # keys a tile of kernel G's passes
+VALUE_SORT_MERGE_TILE = 4096  # output keys a tile of kernel G's merge rounds
 _VALUE_SORT_CHUNK = 8  # tiles an upsweep block of kernel G counts in order
+# the scratch's head: eight passes' histograms (2,048 buckets each) and
+# tile counters (32 words each), then the stats words: the descents and
+# SENT counts, 64 counts of keys by their low bits all ones, 8 passes' SENT
+# tails, the descents' places, padded to 128 bytes so that the status words
+# after them stay aligned
+_VALUE_SORT_STATS_AT = 8 * 2048 + 8 * 32
+_VALUE_SORT_STATS = -(-(2 + 64 + 8 + 256) // 32) * 32
 _FLIP = -(2**63)  # the sign bit, as an int64
+# The merge mode's path rule: device ms per million keys with an int32
+# payload of the upsweep, an LSD pass and a merge round (sort_bench.py
+# --value, H100 80GB HBM3 at 700 W; PERF.md), and the most rounds the
+# kernel takes (its list of descents holds 255).
+VALUE_SORT_UPSWEEP_MS = 0.00556
+VALUE_SORT_PASS_MS = 0.01154
+VALUE_SORT_ROUND_MS = 0.01076
+VALUE_SORT_MAX_ROUNDS = 8
 
 
 def value_sort_passes(bits: int) -> list[int]:
@@ -414,6 +431,27 @@ def value_sort_passes(bits: int) -> list[int]:
     n = -(-bits // VALUE_SORT_DIGIT_BITS)
     q, r = divmod(bits, n)
     return [q + (i < r) for i in range(n)]
+
+
+def value_sort_merge_max_rounds(bits: int) -> int:
+    """The most merge rounds that cost less than the LSD path's upsweep and
+    passes at ``bits`` bits (VALUE_SORT_*_MS), at most
+    VALUE_SORT_MAX_ROUNDS: the device merges where the keys come as at most
+    2 ** this many runs."""
+    lsd = VALUE_SORT_UPSWEEP_MS + len(value_sort_passes(bits)) * VALUE_SORT_PASS_MS
+    r = 0
+    while r < VALUE_SORT_MAX_ROUNDS and (r + 1) * VALUE_SORT_ROUND_MS < lsd:
+        r += 1
+    return r
+
+
+def value_sort_merge_rounds(runs: int, bits: int) -> int:
+    """The device's path for ``runs`` >= 1 sorted runs under the merge hint:
+    the merge rounds it runs (ceil(log2 runs), at least one: one run is
+    copied through), or 0 where that is more than
+    value_sort_merge_max_rounds(bits) and the LSD passes run."""
+    rounds = max(1, (runs - 1).bit_length())
+    return rounds if rounds <= value_sort_merge_max_rounds(bits) else 0
 
 
 def _check_value_sort(key, payload, bits: int):
@@ -431,11 +469,49 @@ def _check_value_sort(key, payload, bits: int):
         raise ValueError(f"value_sort: {key.shape[0]} keys, beyond int32 places")
 
 
+def _sort_bits(key: torch.Tensor, bits: int) -> torch.Tensor:
+    """The sort's comparison key as an int64 whose signed order is the
+    unsigned order of the low ``bits`` bits of key ^ 2^63 (at 64 bits, the
+    key itself)."""
+    return key if bits == 64 else (key ^ _FLIP) & ((1 << bits) - 1)
+
+
+def value_sort_sent_tails(key: torch.Tensor, bits: int) -> list[int]:
+    """The SENT keys (flipped low ``bits`` bits all ones) that each of
+    kernel G's LSD passes leaves at the tail, csrc/value_sort.cu's rule:
+    none for the first pass; for pass q > 0 all of them where no other key
+    has its q low digits all ones (the passes before have then put every
+    SENT key at the tail in input order, its final place), else none."""
+    widths = value_sort_passes(bits)
+    flipped = key ^ _FLIP
+    lead = torch.zeros_like(key)  # low digits all ones, from the first
+    run = torch.ones_like(key, dtype=torch.bool)
+    shift = 0
+    for w in widths:
+        run &= ((flipped >> shift) & ((1 << w) - 1)) == (1 << w) - 1
+        lead += run
+        shift += w
+    sent = lead == len(widths)
+    n_sent = int(sent.sum())
+    return [0] + [0 if bool((~sent & (lead >= q)).any()) else n_sent
+                  for q in range(1, len(widths))]
+
+
+def value_sort_runs(key: torch.Tensor, bits: int) -> int:
+    """The sorted runs of ``key`` under the sort's comparison: one more than
+    its descents (0 for no keys). A host read."""
+    if key.numel() == 0:
+        return 0
+    c = _sort_bits(key, bits)
+    return 1 + int((c[1:] < c[:-1]).sum())
+
+
 def value_sort_plain(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: int):
-    """Plain PyTorch twin of kernel G (``value_sort``'s contract): the same
-    LSD passes with the same digit widths (``value_sort_passes``), each a
-    stable sort of the digit of key ^ 2^63 (taken with masks: torch has no
-    unsigned 64-bit shift) with the key and the payload gathered through it.
+    """Plain PyTorch twin of kernel G's LSD path (``value_sort``'s
+    contract): the same passes with the same digit widths
+    (``value_sort_passes``), each a stable sort of the digit of key ^ 2^63
+    (taken with masks: torch has no unsigned 64-bit shift) with the key and
+    the payload gathered through it.
 
     The key contract: keys are ``_sort_key`` values of canonical k-mers of
     length k, or SENT_KEY, and bits = 2k. No canonical value has all ones
@@ -455,19 +531,56 @@ def value_sort_plain(key: torch.Tensor, payload: torch.Tensor | None = None, *, 
     return key if payload is None else (key, payload)
 
 
+def value_merge_plain(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: int):
+    """Plain PyTorch twin of kernel G's merge path: the runs found at the
+    descents of the sort's comparison (``_sort_bits``), then rounds that
+    merge runs 2j and 2j + 1 of the round before (a run without a partner
+    copied through) until one is left. A round places each key of run A at
+    its index + the keys of B that sort strictly below it, each key of B at
+    its index + the keys of A that sort at or below it: the stable merge,
+    ties to the earlier run. The same function as ``value_sort_plain`` for
+    any keys."""
+    _check_value_sort(key, payload, bits)
+    c = _sort_bits(key, bits)
+    cuts = [0, *(torch.nonzero(c[1:] < c[:-1]).flatten() + 1).tolist(), key.numel()]
+    runs = [(c[a:b], key[a:b], None if payload is None else payload[a:b])
+            for a, b in zip(cuts[:-1], cuts[1:])]
+    while len(runs) > 1:
+        merged = []
+        for j in range(0, len(runs), 2):
+            if j + 1 == len(runs):
+                merged.append(runs[j])
+                continue
+            (ca, ka, pa), (cb, kb, pb) = runs[j], runs[j + 1]
+            at_a = torch.arange(ca.numel(), device=c.device) + torch.searchsorted(cb, ca)
+            at_b = torch.arange(cb.numel(), device=c.device) + torch.searchsorted(ca, cb,
+                                                                                 right=True)
+            out = []
+            for x, y in ((ca, cb), (ka, kb)) + (() if pa is None else ((pa, pb),)):
+                z = x.new_empty(x.numel() + y.numel())
+                z[at_a], z[at_b] = x, y
+                out.append(z)
+            merged.append((out[0], out[1], out[2] if pa is not None else None))
+        runs = merged
+    _c, key, payload = runs[0]
+    return key if payload is None else (key, payload)
+
+
 def _value_sort_scratch(P: int, bits: int, wide: bool) -> int:
     """int32 of kernel G's scratch for P keys (csrc/value_sort.cu's layout):
-    eight passes' histograms (2,048 buckets each) and tile counters (32
-    words each), a status word (two int32 where ``wide``) per tile and
-    bucket of each later pass, then per bucket of the first pass a count for
-    each tile and each chunk of _VALUE_SORT_CHUNK tiles."""
+    the head (histograms, tile counters, the stats words), a status word
+    (two int32 where ``wide``) per tile and bucket of each later pass, then
+    per bucket of the first pass a count for each tile and each chunk of
+    _VALUE_SORT_CHUNK tiles."""
     n_tiles = -(-P // VALUE_SORT_TILE)
     first, *later = value_sort_passes(bits)
-    return (8 * 2048 + 8 * 32 + (1 + wide) * sum(n_tiles << w for w in later)
+    return (_VALUE_SORT_STATS_AT + _VALUE_SORT_STATS
+            + (1 + wide) * sum(n_tiles << w for w in later)
             + ((n_tiles + -(-n_tiles // _VALUE_SORT_CHUNK)) << first))
 
 
-def value_sort(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: int):
+def value_sort(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: int,
+               runs: bool = False):
     """Stable sort of the int64 sort keys [P] by the low ``bits`` bits of
     key ^ 2^63, with an optional int32 payload [P]: the JAX package's
     lax.sort((hi, lo), num_keys=2) and lax.sort((hi, lo, qc), num_keys=2)
@@ -475,13 +588,23 @@ def value_sort(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: 
     payload; new tensors, the inputs are never written. bits = 2k, 2 to 64:
     under ``value_sort_plain``'s key contract the result equals
     torch.sort(key, stable=True) (and the payload gathered through it).
+    ``runs``: the caller's hint that the keys come as a few sorted runs (the
+    merge sites); the result is the same for any keys.
 
     A CUDA tensor launches csrc/value_sort.cu (kernel G: one read of the
     keys for every pass's histogram and the first pass's tile counts, then
     one launch an LSD pass of ``value_sort_passes(bits)``, the later ones
-    with a decoupled look-back; every launch fixed on the host, nothing
-    waits for the device); a CPU tensor takes the plain twin.
-    ``value_sort.launches`` counts calls that launched it."""
+    with a decoupled look-back and without the SENT keys where
+    ``value_sort_sent_tails`` says so; with ``runs``
+    first one read of the keys that counts the runs and the merge rounds,
+    the device taking the merge where ``value_sort_merge_rounds`` does;
+    every launch fixed on the host, nothing waits for the device); a CPU
+    tensor takes the plain twin ``value_sort_plain``, hint or not.
+    ``value_sort.launches`` counts calls that launched it,
+    ``value_sort.runs_launches`` those of them with the hint; with
+    ``value_sort.keep_stats`` set, ``value_sort.last_stats`` gets what a
+    card call counted (read with ``value_sort_stats``; a copy, one launch
+    more)."""
     _check_value_sort(key, payload, bits)
     dev = key.device
     if dev.type == "cpu":
@@ -492,7 +615,8 @@ def value_sort(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: 
     key_s = torch.empty_like(key)
     pay_s = None if payload is None else torch.empty_like(payload)
     if P:
-        two = len(value_sort_passes(bits)) > 1  # ping-pong buffers
+        max_rounds = value_sort_merge_max_rounds(bits) if runs else 0
+        two = len(value_sort_passes(bits)) > 1 or max_rounds > 0  # ping-pong buffers
         key_tmp = torch.empty_like(key) if two else None
         pay_tmp = torch.empty_like(payload) if two and payload is not None else None
         wide = P > VALUE_SORT_STATUS32_KEYS
@@ -502,16 +626,32 @@ def value_sort(key: torch.Tensor, payload: torch.Tensor | None = None, *, bits: 
         fn = kernels.kernel("value_sort")
         with torch.cuda.device(dev):
             err = fn(key.data_ptr(), key_s.data_ptr(), ptr[0], ptr[1], ptr[2], ptr[3], P, bits,
-                     VALUE_SORT_DIGIT_BITS, wide,
+                     VALUE_SORT_DIGIT_BITS, wide, max_rounds,
                      scratch.data_ptr(), scratch.numel(),
                      torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"value_sort kernel launch failed: CUDA error {err}")
         value_sort.launches += 1
+        value_sort.runs_launches += runs
+        if getattr(value_sort, "keep_stats", False):
+            value_sort.last_stats = scratch[_VALUE_SORT_STATS_AT:][:74].clone()
     return key_s if payload is None else (key_s, pay_s)
 
 
+def value_sort_stats(stats: torch.Tensor) -> dict:
+    """What a card call of value_sort counted (``value_sort.last_stats``):
+    the descents found (0 without the hint; at least 2 **
+    value_sort_merge_max_rounds(bits) where the LSD path ran with it), the
+    SENT keys and each LSD pass's SENT tail (value_sort_sent_tails; all 0
+    where the merge ran)."""
+    w = [int(x) for x in stats.cpu()]
+    return dict(descents=w[0], sent=w[1], tails=w[66:74])
+
+
 value_sort.launches = 0
+value_sort.runs_launches = 0
+value_sort.keep_stats = False
+value_sort.last_stats = None
 
 
 def extract_count(

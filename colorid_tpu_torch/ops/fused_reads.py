@@ -161,8 +161,9 @@ def fused_merge_query(
     S * CAP padded to a multiple of PC."""
     s, qc = _pad_sent(s_c.reshape(-1), qc_c.reshape(-1), PC)
     # over all 64 bits: the chunk streams come from the caller, so their
-    # keys are not known here to be canonical k-mers of 2k bits
-    s, qc = value_sort(s, qc, bits=64)
+    # keys are not known here to be canonical k-mers of 2k bits; each row
+    # is two sorted runs (live slots, then dead slots), so kernel G merges
+    s, qc = value_sort(s, qc, bits=64, runs=True)
     # kernel F's select mode with the counts as weights: each k-mer's
     # counts summed across chunks, then the global filter
     s, qcm, n_unique = run_counts(s, qc, mode="select", filter_t=filter_t)

@@ -98,7 +98,7 @@ KERNELS = {
     "value_sort": (
         "value_sort.cu",
         "value_sort_launch",
-        [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _VP, _I64, _VP],
+        [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _VP, _I64, _VP],
     ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})

@@ -584,7 +584,8 @@ def extract_merge_datashard(reads, lens, *, mesh, k, L, filter_t, d=1):
         # the slice's padding slots (qc == 0) sort last, as (2^32-1, 2^32-1)
         keys.append(torch.where(qc == 0, SENT_KEY, _sort_key(pk[:, 0], pk[:, 1])).to(home))
         qcs.append(qc.to(home))
-    s, q = value_sort(torch.cat(keys), torch.cat(qcs), bits=2 * k)
+    # each slice is one sorted run (its kept keys, then SENT): kernel G merges
+    s, q = value_sort(torch.cat(keys), torch.cat(qcs), bits=2 * k, runs=True)
     q = q.to(torch.int64)
     N = s.shape[0]
     new = torch.ones(N, dtype=torch.bool, device=home)

@@ -21,8 +21,16 @@ at k 31 with the cell's SENT share (chip_smoke.py::synth_window_keys):
 
 - single: 52,002,816 keys only (the single fused dispatch's);
 - chunk: a 26,000,000-key chunk of the chunked route;
-- merge: 33,554,432 keys with an int32 payload (the merge's counts),
-  over all 64 bits as the fused merge sorts them;
+- merge: 33,554,432 keys in no order with an int32 payload (the merge's
+  counts), over all 64 bits as the fused merge sorts them: the LSD path's
+  measure at the merge's size;
+- merge route: the chunked route's own merge input, built as the route
+  builds it (chip_smoke.py::synth_merge_keys: two chunks of 26,000,000
+  windows, each sorted, counted and partitioned to the [fused] cell's
+  cap of 16,777,216, live slots then dead ones: four sorted runs), 33,554,432
+  keys with the counts, with the runs hint where the checkout's G takes
+  one (the merge path), and the merge case's keys with the hint (the LSD
+  path after the runs read);
 
 each checked bitwise against torch.sort(stable) (+ the payload's
 gather), timed beside it and split by launch, and the single case also
@@ -78,16 +86,22 @@ def cases(torch, dev):
     ]
 
 
-def value_cases(torch, dev):
-    """Kernel G's cases: (name, keys, payload or None, bits)."""
+def value_cases(torch, dev, has_runs: bool):
+    """Kernel G's cases: (name, keys, payload or None, bits, runs hint)."""
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     merge = cs.synth_window_keys(P_MERGE, cs.K, dev, seed=SEED + 2)
     qc = torch.randint(0, 6, (P_MERGE,), generator=g, device=dev, dtype=torch.int32)
-    return [
-        ("single", cs.synth_window_keys(P_SINGLE, cs.K, dev), None, 2 * cs.K),
-        ("chunk", cs.synth_window_keys(P_CHUNK, cs.K, dev, seed=SEED + 1), None, 2 * cs.K),
-        ("merge", merge, qc, 64),
+    route, route_qc = cs.synth_merge_keys(2, P_CHUNK, cs.K, dev, seed=SEED + 4, cap=1 << 24)
+    assert route.numel() == P_MERGE
+    cases = [
+        ("single", cs.synth_window_keys(P_SINGLE, cs.K, dev), None, 2 * cs.K, False),
+        ("chunk", cs.synth_window_keys(P_CHUNK, cs.K, dev, seed=SEED + 1), None, 2 * cs.K, False),
+        ("merge", merge, qc, 64, False),
+        ("merge route", route, route_qc, 64, has_runs),
     ]
+    if has_runs:
+        cases.append(("merge with the hint", merge, qc, 64, True))
+    return cases
 
 
 def _value_library(key, payload, stable: bool = True):
@@ -113,11 +127,15 @@ def _same_run_sums(key, a, b) -> bool:
 def value_sort_bench(torch, te, name: str) -> bool:
     """Kernel G's cases (see the module's note); True if every result was
     bitwise torch.sort's."""
+    import inspect
+
     dev = torch.device("cuda")
     has_g = hasattr(te, "value_sort")
+    has_runs = has_g and "runs" in inspect.signature(te.value_sort).parameters
     ok = True
     default = getattr(te, "VALUE_SORT_DIGIT_BITS", None)
-    for what, key, pay, bits in value_cases(torch, dev):
+    for what, key, pay, bits, runs in value_cases(torch, dev, has_runs):
+        hint = {"runs": True} if runs else {}
         variants = [default]
         if has_g and what == "single":
             variants += [d for d in (8, 9, 11) if d != default]
@@ -129,7 +147,7 @@ def value_sort_bench(torch, te, name: str) -> bool:
                 te.VALUE_SORT_DIGIT_BITS = dmax
 
                 def fn():
-                    return te.value_sort(key, pay, bits=bits)
+                    return te.value_sort(key, pay, bits=bits, **hint)
             else:
                 def fn():
                     return _value_library(key, pay, stable=False)
@@ -144,11 +162,22 @@ def value_sort_bench(torch, te, name: str) -> bool:
                     got[0], got[1], want[1]))
             ok &= equal
             del got
+            path = None
+            if hasattr(te, "value_sort_stats"):  # the path the device took, from its counts
+                te.value_sort.keep_stats = True
+                fn()
+                counted = te.value_sort_stats(te.value_sort.last_stats)
+                te.value_sort.keep_stats, te.value_sort.last_stats = False, None
+                desc = counted["descents"]
+                rounds = te.value_sort_merge_rounds(desc + 1, bits) if runs else 0
+                path = (f"merge {rounds} rounds of {desc + 1} runs" if rounds else
+                        f"lsd, SENT tails {counted['tails'][:len(te.value_sort_passes(bits))]}")
             ms = cs.cuda_ms(fn, REPS)
             stages = cs._launch_ms(fn)
             bound = cs.value_sort_bytes(key.numel(), payload=pay is not None) / cs.HBM_BYTES_PER_S
             print(json.dumps({
                 "case": f"value_sort {what}", "P": key.numel(), "payload": pay is not None,
+                "runs_hint": runs, "path": path,
                 "route": "kernel G" if has_g else "torch.sort", "dmax": dmax,
                 "bits": bits, "passes": te.value_sort_passes(bits) if has_g else None,
                 "sent_share": round(float((key == te.SENT_KEY).float().mean()), 4),

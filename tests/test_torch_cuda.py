@@ -1912,3 +1912,259 @@ def test_reads_routes_sort_through_kernel_g_on_card(cuda_device, monkeypatch, v4
         got_h = te.count_histogram(*(a.to(cuda_device) for a in args), k=27, L=160, cap=2048)
         assert te.value_sort.launches == before + 1
         assert torch.equal(got_h.cpu(), te.count_histogram(*args, k=27, L=160, cap=2048))
+
+
+# -- kernel G's merge mode and its SENT keys out of the later passes ------------
+
+
+def _g_stats(keys, payload, bits, runs):
+    """Kernel G on keys with the call's stats kept: (outputs as a tuple,
+    descents found, value_sort_stats of the call)."""
+    from colorid_tpu_torch.ops import extract as te
+
+    te.value_sort.keep_stats = True
+    try:
+        got = te.value_sort(keys, payload, bits=bits, runs=runs)
+        counted = te.value_sort_stats(te.value_sort.last_stats)
+    finally:
+        te.value_sort.keep_stats = False
+        te.value_sort.last_stats = None
+    return (got if isinstance(got, tuple) else (got,)), counted["descents"], counted
+
+
+def _merge_check(keys, payload, bits, what, *, path=None):
+    """Kernel G with the merge hint against value_merge_plain and
+    value_sort_plain (on the card), bitwise; the path the device took is
+    value_sort_merge_rounds' for the runs found (``path``: "merge" or
+    "lsd", where the case fixes it); the inputs untouched."""
+    from colorid_tpu_torch.ops import extract as te
+
+    ins = [keys.clone()] + ([] if payload is None else [payload.clone()])
+    got, desc, _sent = _g_stats(keys, payload, bits, True)
+    runs = te.value_sort_runs(keys, bits)
+    merged = te.value_sort_merge_rounds(max(1, runs), bits) > 0
+    assert desc + 1 == runs or (not merged and desc + 1 >= 2 ** te.value_sort_merge_max_rounds(
+        bits)), (what, desc, runs)
+    if path is not None:
+        assert merged == (path == "merge"), (what, runs)
+    for twin in (te.value_merge_plain, te.value_sort_plain):
+        want = twin(keys, payload, bits=bits)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want, strict=True):
+            assert g.dtype == w.dtype and torch.equal(g, w), (what, twin.__name__)
+        del want
+    assert all(torch.equal(a, b) for a, b in zip(ins, (keys, payload)))
+    return merged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 3])
+def test_value_sort_merge_at_the_routes_size(cuda_device, S):
+    """The chunked route's merge input as the route builds it
+    (chip_smoke.synth_merge_keys: S rows of live-then-dead slots cut at
+    the [fused] cell's cap of 2^24 for two chunks, 33,554,432 keys with the
+    counts as payload, 4 and 6 runs) takes the merge path and equals both
+    twins bit for bit."""
+    import chip_smoke as cs
+
+    keys, qc = cs.synth_merge_keys(S, 52_000_000 // S, 31, cuda_device, cap=33_554_432 // S)
+    assert keys.numel() == 33_554_432
+    assert _merge_check(keys, qc, 64, f"S={S}", path="merge")
+
+
+@pytest.mark.cuda
+def test_value_sort_merge_past_2_30_keys(cuda_device):
+    """Two runs of 2^29 + 1 keys each, every key once in each run, a
+    distinct payload: 2^30 + 2 keys (64-bit status words for the LSD
+    launches that exit). The stable merge puts run A's key before run B's
+    equal key: keys 0, 0, 1, 1, ... and the payload 0, 1, 2, ...; checked
+    in slices."""
+    from colorid_tpu_torch.ops import extract as te
+
+    N = 2**29 + 1
+    v = torch.arange(N, dtype=torch.int64, device=cuda_device)
+    keys = torch.cat([v, v]) ^ te._FLIP
+    del v
+    pay = torch.cat([torch.arange(0, 2 * N, 2, dtype=torch.int32, device=cuda_device),
+                     torch.arange(1, 2 * N, 2, dtype=torch.int32, device=cuda_device)])
+    assert keys.numel() > te.VALUE_SORT_STATUS32_KEYS
+    (got_k, got_p), desc, _sent = _g_stats(keys, pay, 62, True)
+    assert desc == 1
+    del keys, pay
+    step = 1 << 27
+    for a in range(0, 2 * N, step):
+        b = min(a + step, 2 * N)
+        i = torch.arange(a, b, dtype=torch.int64, device=cuda_device)
+        assert torch.equal(got_k[a:b], (i >> 1) ^ te._FLIP), a
+        assert torch.equal(got_p[a:b], i.to(torch.int32)), a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [False, True])
+def test_value_sort_merge_hint_on_random_keys_takes_lsd(cuda_device, monkeypatch, payload):
+    """Keys in no order with the merge hint: the device takes the LSD
+    passes (and with 64-bit status words forced on), bitwise both twins;
+    and with runs fewer than the rule allows, the merge."""
+    from colorid_tpu_torch.ops import extract as te
+
+    cases = _value_sort_cases(31, cuda_device)
+    for what in (f"P={te.VALUE_SORT_TILE + 1}", f"P={3 * te.VALUE_SORT_TILE + 517}",
+                 "first half SENT"):
+        keys = cases[what]
+        pay = _payload_of(keys) if payload else None
+        for wide in (False, True):
+            monkeypatch.setattr(te, "VALUE_SORT_STATUS32_KEYS", 0 if wide else 2**30 - 1)
+            _merge_check(keys, pay, 62, f"{what} wide={wide}", path="lsd")
+            _merge_check(keys, pay, 64, f"{what} wide={wide} 64 bits", path="lsd")
+
+
+def _runs_case(lengths, dev, *, seed, bits, tie=False):
+    """Runs of the given lengths, each sorted under ``bits``: seeded window
+    keys (with their SENT share), or with ``tie`` the same few keys in
+    every run; a distinct payload."""
+    import chip_smoke as cs
+    from colorid_tpu_torch.ops import extract as te
+
+    P = sum(lengths)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if tie:
+        base = cs.synth_window_keys(64, 31, dev, seed=seed)
+        keys = base[torch.randint(0, 64, (P,), generator=g, device=dev)]
+    else:
+        keys = cs.synth_window_keys(max(P, 1), 31, dev, seed=seed)[:P].contiguous()
+    parts, a = [], 0
+    for n in lengths:
+        parts.append(te.value_sort_plain(keys[a:a + n].contiguous(), bits=bits))
+        a += n
+    keys = torch.cat(parts) if parts else keys
+    return keys, torch.randperm(P, generator=g, device=dev).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [62, 64])
+def test_value_sort_merge_small_cases(cuda_device, bits):
+    """One run (copied through), two to nine runs, the rule's most runs and
+    one more (the LSD path), runs that meet at the merge tiles' and the
+    passes' edges, runs of one key, equal keys in every run with distinct
+    payloads (stability), keys only and with the payload, each twice."""
+    from colorid_tpu_torch.ops import extract as te
+
+    T, M = te.VALUE_SORT_TILE, te.VALUE_SORT_MERGE_TILE
+    most = 2 ** te.value_sort_merge_max_rounds(bits)
+    cases = {
+        "one run": [5 * M + 3],
+        "two runs": [M, M + 1],
+        "three runs": [3 * M - 1, 1, 2 * M + 1],
+        "nine runs": [M - 1, M, M + 1, 2 * M, 1, 7, T - 1, T + 1, 3],
+        "runs at tile edges": [T, M, T - M, 2 * T + 1, M - 1],
+        f"{most} runs": [97] * most,
+        f"{most + 1} runs": [97] * (most + 1),
+    }
+    for i, (what, lengths) in enumerate(cases.items()):
+        for tie in (False, True):
+            keys, pay = _runs_case(lengths, cuda_device, seed=100 + i, bits=bits, tie=tie)
+            if te.value_sort_runs(keys, bits) != len(lengths):
+                continue  # two runs that happen to join: another case's count
+            for p in (None, pay):
+                for _ in range(2):
+                    _merge_check(keys, p, bits, f"{what} tie={tie} payload={p is not None}",
+                                 path="merge" if len(lengths) <= most else "lsd")
+
+
+def _sent_cases(dev):
+    """SENT keys out of the later passes, at k 31: seeded window keys with
+    no SENT, all SENT, SENT only in the last tile, SENT across tile edges
+    (runs that start a few keys before an edge and end after the next),
+    SENT every other key; and with keys that are not SENT but whose low 9,
+    18 or 45 bits are all ones (the first, two or five digits: the tail is
+    not pure until a later pass)."""
+    import chip_smoke as cs
+    from colorid_tpu_torch.ops.extract import SENT_KEY, VALUE_SORT_TILE as T
+
+    keys = cs.synth_window_keys(9 * T + 77, 31, dev, seed=7)
+    live = keys[keys != SENT_KEY]
+    out = {"no SENT": live.contiguous(),
+           "all SENT": torch.full((4 * T + 5,), SENT_KEY, dtype=torch.int64, device=dev)}
+    last = live[: 5 * T + 300].clone()
+    last[-200:] = SENT_KEY
+    out["SENT only in the last tile"] = last
+    edges = live[: 6 * T + 11].clone()
+    for t in (1, 2, 4):
+        edges[t * T - 37: (t + 1) * T + 5] = SENT_KEY
+    out["SENT across tile edges"] = edges
+    alt = live[: 3 * T + 9].clone()
+    alt[::2] = SENT_KEY
+    out["SENT every other key"] = alt
+    for low in (9, 18, 45):
+        mixed = keys.clone()
+        mixed[5::97] |= (1 << low) - 1  # not SENT: bit 61 of a canonical value is 0
+        out[f"keys with their low {low} bits all ones"] = mixed
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [False, True])
+def test_value_sort_sent_keys_skip_the_later_passes(cuda_device, payload):
+    """The later passes leave the SENT keys at the tail, in input order with
+    their payloads, once the passes before have put them there (copied to
+    the outputs where the last pass to sort them wrote the scratch buffer):
+    every case of _sent_cases, keys only and with a payload, bitwise the
+    twin's and torch.sort's, the SENT count and each pass's tail the call
+    kept equal to value_sort_sent_tails'."""
+    from colorid_tpu_torch.ops import extract as te
+
+    skipped = 0
+    for what, keys in _sent_cases(cuda_device).items():
+        pay = _payload_of(keys) if payload else None
+        _value_sort_check(keys, pay, 31, what)
+        _got, desc, counted = _g_stats(keys, pay, 62, False)
+        n_sent = int((keys == te.SENT_KEY).sum())
+        want = te.value_sort_sent_tails(keys.cpu(), 62)
+        assert desc == 0 and counted["sent"] == n_sent, what
+        assert counted["tails"][:len(want)] == want, (what, counted["tails"], want)
+        skipped += n_sent > 0 and want[-1] == n_sent
+    assert skipped >= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["merge", "merge keys only", "lsd with the hint", "sent"])
+def test_value_sort_new_paths_hold_over_twenty_runs(cuda_device, case):
+    """Each new path 20 times, its outputs and scratch filled with junk in
+    between (a freed tensor of -1 of their size that the allocator hands
+    out again), equal to the twin every time."""
+    import chip_smoke as cs
+    from colorid_tpu_torch.ops import extract as te
+
+    if case.startswith("merge"):
+        keys, pay = cs.synth_merge_keys(3, 1_500_000, 31, cuda_device, cap=1_100_000)
+        bits, runs = 64, True
+        if case == "merge keys only":
+            pay = None
+    else:
+        keys = cs.synth_window_keys(4_000_000, 31, cuda_device, seed=21)
+        pay = _payload_of(keys)
+        bits, runs = 62, case != "sent"
+    want = te.value_sort_plain(keys, pay, bits=bits)
+    want = want if isinstance(want, tuple) else (want,)
+    for i in range(20):
+        junk = torch.full((keys.numel() * 6,), -1, dtype=torch.int64, device=cuda_device)
+        del junk
+        got = te.value_sort(keys, pay, bits=bits, runs=runs)
+        torch.cuda.synchronize()
+        for g, w in zip((got if isinstance(got, tuple) else (got,)), want, strict=True):
+            assert torch.equal(g, w), i
+        del got
+
+
+@pytest.mark.cuda
+def test_value_sort_merge_adds_no_host_sync(cuda_device):
+    import chip_smoke as cs
+    from colorid_tpu_torch.ops import extract as te
+
+    keys, pay = cs.synth_merge_keys(2, 200_000, 31, cuda_device, cap=150_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        te.value_sort(keys, pay, bits=64, runs=True)
+        te.value_sort(keys, bits=64, runs=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -220,8 +220,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 
 def test_edge_sizes_and_scratch():
     """P = 0 and 1, all SENT and one distinct key through the twin; the
-    kernel's scratch: histograms and counters, status words (twice as many
-    int32 where wide) and the first pass's tile and chunk counts."""
+    kernel's scratch: histograms, counters and the stats words (the runs
+    and SENT counts, the keys by their low digits all ones, the passes' SENT
+    tails, the descents' places), status words (twice as many int32 where
+    wide) and the first pass's tile and chunk counts."""
     e = torch.empty(0, dtype=torch.int64)
     assert te.value_sort(e, bits=62).numel() == 0
     one = torch.tensor([5 ^ te._FLIP])
@@ -230,26 +232,29 @@ def test_edge_sizes_and_scratch():
         assert torch.equal(te.value_sort(key, bits=62), key)
     T = te.VALUE_SORT_TILE
     n_tiles = 3
-    head = 8 * 2048 + 8 * 32
+    head = 8 * 2048 + 8 * 32 + 352  # histograms, counters, the stats words (330, padded)
     later = (5 * 512 + 256) * n_tiles
     first = (n_tiles + 1) * 512
     assert te._value_sort_scratch(3 * T, 62, False) == head + later + first
     assert te._value_sort_scratch(3 * T, 62, True) == head + 2 * later + first
+    assert head % 32 == 0  # the status words after the head start 128-byte aligned
 
 
 @pytest.mark.parametrize("fn,bits", [
-    (te.extract_count, "2 * k"), (te.count_histogram, "2 * k"),
-    (tf.fused_search_reads, "2 * k"), (tf.extract_sorted_counts, "2 * k"),
-    (tf.fused_merge_query, "64"), (tsh.extract_merge_datashard, "2 * k"),
+    (te.extract_count, "2 * k)"), (te.count_histogram, "2 * k)"),
+    (tf.fused_search_reads, "2 * k)"), (tf.extract_sorted_counts, "2 * k)"),
+    (tf.fused_merge_query, "64, runs=True)"), (tsh.extract_merge_datashard, "2 * k, runs=True)"),
 ])
 def test_the_six_sites_sort_with_kernel_g(fn, bits):
     """Each of the reads routes' value sorts goes through value_sort, none
     through torch.sort: over 2k bits where the function made its keys from
     windows itself, over 64 where they come from its caller (the fused
-    merge's chunk streams)."""
+    merge's chunk streams); the two merges, whose keys come as sorted runs,
+    with the runs hint and no other site."""
     src = inspect.getsource(fn)
     assert "torch.sort" not in src and src.count("value_sort(") == 1
-    assert f"bits={bits})" in src
+    assert f"bits={bits}" in src
+    assert ("runs=True" in src) == ("runs=True" in bits)
 
 
 @pytest.mark.parametrize("k", [15, 31])
@@ -277,3 +282,206 @@ def test_sites_call_value_sort_over_2k_bits(monkeypatch, k):
     assert torch.equal(s, want)
     assert torch.equal(pk, te.run_counts(want, mode="compact", filter_t=1)[0])
     assert int(n) > 0 and int(hist.sum()) > 0
+
+
+# -- kernel G's merge mode: its twin value_merge_plain and the path rule ---------
+
+
+def _lax_stable(key: torch.Tensor, qc: torch.Tensor):
+    """jax.lax.sort((hi, lo, qc), num_keys=2, is_stable=True) of the keys'
+    (hi, lo) limbs of key ^ 2^63: the merges' sort in the JAX package, its
+    ties kept in input order. Returns (keys, qc) as numpy arrays."""
+    lo, hi = _limbs(key)
+    s_hi, s_lo, s_qc = jax.lax.sort((jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(qc.numpy())),
+                                    num_keys=2, is_stable=True)
+    k = (np.asarray(s_hi).astype(np.uint64) << np.uint64(32)) | np.asarray(s_lo).astype(np.uint64)
+    return (k ^ np.uint64(1 << 63)).view(np.int64), np.asarray(s_qc)
+
+
+def _merge_holds(key, qc, bits, what):
+    """value_merge_plain equals lax.sort's stable sort and value_sort_plain
+    bit for bit, and value_sort with the runs hint (no launch on a CPU
+    tensor) equals it; returns the runs found."""
+    got_k, got_q = te.value_merge_plain(key, qc, bits=bits)
+    want_k, want_q = _lax_stable(key, qc)
+    np.testing.assert_array_equal(got_k.numpy(), want_k, err_msg=what)
+    np.testing.assert_array_equal(got_q.numpy(), want_q, err_msg=what)
+    lsd = te.value_sort_plain(key, qc, bits=bits)
+    assert torch.equal(got_k, lsd[0]) and torch.equal(got_q, lsd[1]), what
+    before = te.value_sort.launches
+    hinted = te.value_sort(key, qc, bits=bits, runs=True)
+    assert te.value_sort.launches == before
+    assert torch.equal(hinted[0], got_k) and torch.equal(hinted[1], got_q), what
+    assert torch.equal(te.value_merge_plain(key, bits=bits), got_k), what
+    return te.value_sort_runs(key, bits)
+
+
+def _chunk_rows(S: int, k: int, cap: str):
+    """The chunked route's merge input on the seeded reads of _reads(k):
+    S chunks of reads, each through extract_sorted_counts and
+    compact_sorted (live slots in key order, then dead ones) at the
+    engine's cap (a power of two of at least 2^20, so every slot) or at
+    half the chunks' most distinct keys (rows of live slots only), the
+    rows flattened and padded with SENT as fused_merge_query does."""
+    seqs, lens = _reads(k)
+    words, vbits = te.pack_reads_valid(seqs)
+    Rc = -(-seqs.shape[0] // S)
+    outs = [tf.extract_sorted_counts(ts.t32(words[c * Rc:(c + 1) * Rc]),
+                                     torch.from_numpy(lens[c * Rc:(c + 1) * Rc]),
+                                     ts.t32(vbits[c * Rc:(c + 1) * Rc]), k=k, L=L, d=1)
+            for c in range(S)]
+    n_max = max(int(o[2]) for o in outs)
+    width = min(o[0].numel() for o in outs)
+    c = min(1 << max(20, n_max.bit_length()), width) if cap == "engine" else n_max // 2
+    rows = [tf.compact_sorted(s, q, cap=c) for s, q, _n in outs]
+    return tf._pad_sent(torch.cat([r[0] for r in rows]), torch.cat([r[1] for r in rows]), 64)
+
+
+@pytest.mark.parametrize("S", [2, 5])
+@pytest.mark.parametrize("cap", ["engine", "half"])
+def test_merge_twin_on_the_chunked_routes_rows(S, cap):
+    """S rows of live-sorted then dead-sorted slots from compact_sorted on
+    seeded reads (k 31, over all 64 bits as fused_merge_query sorts them):
+    the merge twin is lax.sort's stable sort; up to 2 S runs (a row of
+    live slots only, or whose dead slots are all SENT, is one run)."""
+    key, qc = _chunk_rows(S, 31, cap)
+    runs = _merge_holds(key, qc, 64, f"S={S} cap={cap}")
+    assert S <= runs <= 2 * S and (runs > S if cap == "engine" else runs < 2 * S)
+
+
+@pytest.mark.parametrize("nd", [2, 4])
+def test_merge_twin_on_the_data_shard_slices(monkeypatch, nd):
+    """The n_data slices that extract_merge_datashard hands kernel G (each
+    its kept keys in order, then SENT; the counts as payload, over 2k
+    bits), recorded from the function itself on a CPU mesh: n_data runs,
+    merged as lax.sort's stable sort."""
+    seqs, lens = _reads(27)
+    words, _vbits = te.pack_reads_valid(seqs)
+    seen = []
+    real = te.value_sort
+
+    def recorder(key, payload=None, *, bits, runs=False):
+        seen.append((key.clone(), payload.clone(), bits, runs))
+        return real(key, payload, bits=bits, runs=runs)
+
+    monkeypatch.setattr(tsh, "value_sort", recorder)
+    mesh = tsh.make_mesh(nd, 1, "row", devices=["cpu"])
+    tsh.extract_merge_datashard(ts.t32(words), torch.from_numpy(lens), mesh=mesh, k=27, L=L,
+                                filter_t=1)
+    (key, qc, bits, runs), = seen
+    assert bits == 54 and runs
+    assert _merge_holds(key, qc, bits, f"n_data={nd}") == nd
+
+
+def _sorted_runs(lengths, *, seed, bits, values=None):
+    """Runs of the given lengths, each sorted under ``bits``, of seeded
+    window keys at k 31 (or of ``values`` drawn at random: equal keys in
+    every run), and a distinct payload."""
+    rng = np.random.default_rng(seed)
+    pool = _window_keys(31) if values is None else values
+    parts = [te.value_sort_plain(pool[torch.from_numpy(rng.integers(0, pool.numel(), n))],
+                                 bits=bits) for n in lengths]
+    key = torch.cat(parts) if parts else torch.empty(0, dtype=torch.int64)
+    return key, torch.from_numpy(rng.permutation(key.numel()).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["ties in every run", "a SENT tail in every run",
+                                  "runs at the tile edges", "one run", "no keys",
+                                  "runs of one key", "odd run count"])
+@pytest.mark.parametrize("bits", [62, 64])
+def test_merge_twin_edge_cases(case, bits):
+    """Equal keys in every run with distinct payloads (the stable merge
+    keeps run order among ties), runs that each end in SENT keys with
+    distinct payloads (as the data-shard slices do), runs that meet at the
+    edges of G's merge tiles and pass tiles, one run (copied through), no
+    keys, runs of one key, an odd run count (a run without a partner copied
+    through)."""
+    T, M = te.VALUE_SORT_TILE, te.VALUE_SORT_MERGE_TILE
+    few = _window_keys(31)[:5]
+    lengths, values = {
+        "ties in every run": ([700, 300, 900, 41], few),
+        "a SENT tail in every run": ([500, 260, 333],
+                                     torch.cat([few[:2], torch.tensor([te.SENT_KEY])])),
+        "runs at the tile edges": ([M, T - M, M - 1, 1, T + 1], None),
+        "one run": ([3 * M + 5], None),
+        "no keys": ([], None),
+        "runs of one key": ([1] * 9, None),
+        "odd run count": ([M + 3, 17, 2 * M, 5, 999], None),
+    }[case]
+    key, qc = _sorted_runs(lengths, seed=hash(case) % 1000, bits=bits, values=values)
+    runs = _merge_holds(key, qc, bits, case)
+    # a run of one key, or of a few values, may continue the run before it
+    exact = values is None and min(lengths, default=2) > 1
+    assert runs <= len(lengths) and (runs == len(lengths) or not exact)
+    if values is not None:  # stability: within a key, the payload in run order
+        got_k, got_q = te.value_merge_plain(key, qc, bits=bits)
+        src = torch.empty_like(qc)
+        src[qc.long()] = torch.arange(qc.numel(), dtype=torch.int32)
+        order = src[got_q.long()]
+        ties = got_k[1:] == got_k[:-1]
+        assert bool(ties.any()) and bool((order[1:][ties] > order[:-1][ties]).all())
+
+
+def test_runs_follow_the_sorts_own_comparison():
+    """The runs are found under the low ``bits`` bits of key ^ 2^63,
+    unsigned, not the int64 order: keys ascending as int64 whose low 4
+    bits descend are runs there, and keys whose high bits descend but low
+    bits ascend are one run; the merge twin sorts as the LSD twin does."""
+    up = torch.tensor([0, 16, 32, 48], dtype=torch.int64) + torch.tensor([3, 2, 1, 0])
+    assert te.value_sort_runs(up, 64) == 1 and te.value_sort_runs(up, 4) == 4
+    down = torch.tensor([48, 32, 16, 0], dtype=torch.int64) + torch.tensor([0, 1, 2, 3])
+    assert te.value_sort_runs(down, 64) == 4 and te.value_sort_runs(down, 4) == 1
+    assert te.value_sort_runs(torch.tensor([-5, -1, 0, 7]), 64) == 1
+    for key in (up, down):
+        for bits in (4, 5, 64):
+            assert torch.equal(te.value_merge_plain(key, bits=bits),
+                               te.value_sort_plain(key, bits=bits))
+
+
+def test_merge_path_rule_is_pinned():
+    """The path rule's twin: the most merge rounds that cost less than the
+    upsweep and the passes at each bits, from the card's measured times
+    (VALUE_SORT_*_MS), and the device's path for a run count: the rounds
+    (at least one) or 0 for the LSD passes."""
+    assert [te.value_sort_merge_max_rounds(b) for b in (2, 18, 30, 54, 62, 64)] == RULE_MAX
+    mr = te.value_sort_merge_max_rounds(64)
+    assert [te.value_sort_merge_rounds(r, 64) for r in (1, 2, 3, 4, 5, 6)] == [1, 1, 2, 2, 3, 3]
+    assert te.value_sort_merge_rounds(2 ** mr, 64) == mr
+    assert te.value_sort_merge_rounds(2 ** mr + 1, 64) == 0
+    assert te.value_sort_merge_rounds(10**6, 62) == 0
+    assert te.VALUE_SORT_MAX_ROUNDS == 8  # the kernel lists 255 descents
+    for bits in range(2, 65):
+        r = te.value_sort_merge_max_rounds(bits)
+        lsd = te.VALUE_SORT_UPSWEEP_MS + len(te.value_sort_passes(bits)) * te.VALUE_SORT_PASS_MS
+        assert 0 <= r <= 8 and (r == 8 or (r + 1) * te.VALUE_SORT_ROUND_MS >= lsd)
+        assert r == 0 or r * te.VALUE_SORT_ROUND_MS < lsd
+
+
+RULE_MAX = [1, 2, 4, 6, 8, 8]  # from the card's round and pass times (PERF.md, the path rule)
+
+
+@pytest.mark.parametrize("k", [15, 31])
+def test_sent_tails_rule(k):
+    """value_sort_sent_tails, the twin of the rule by which kernel G's later
+    passes leave the SENT keys at the tail: never the first pass; pass q
+    where no key but SENT has its q low digits all ones. On the windows of
+    _reads(k) the tail is pure from the second pass on (no window key has a
+    first digit of all ones here), and a key with its low 18 bits all ones
+    keeps it mixed through the second pass; the LSD twin's order then has
+    every SENT key at the tail, and a stable sort of the rest below it."""
+    key = _window_keys(k)
+    bits = 2 * k
+    n_sent = int((key == te.SENT_KEY).sum())
+    npass = len(te.value_sort_passes(bits))
+    tails = te.value_sort_sent_tails(key, bits)
+    assert len(tails) == npass and tails[0] == 0 and n_sent > 0
+    assert all(t in (0, n_sent) for t in tails) and tails[1] == n_sent
+    assert tails == sorted(tails)  # once pure, pure in every later pass
+    mixed = key.clone()
+    mixed[3] = (mixed[3] | ((1 << 18) - 1)) if mixed[3] != te.SENT_KEY else mixed[3]
+    mixed[7] |= (1 << 18) - 1
+    first = te.value_sort_passes(bits)[0]
+    cut = 1 + (18 >= first) + (18 >= sum(te.value_sort_passes(bits)[:2]))
+    assert te.value_sort_sent_tails(mixed, bits)[:cut] == [0] * cut
+    got = te.value_sort_plain(mixed, bits=bits)
+    assert bool((got[-n_sent:] == te.SENT_KEY).all())
