@@ -702,6 +702,18 @@ def value_sort_bytes(P: int, *, payload: bool) -> int:
     return P * (16 + 8 * payload)
 
 
+def readid_bytes(n_items: int, item_bytes: int, starts, wpad: int, n_reads: int,
+                 out_cols: int) -> tuple[int, int]:
+    """(bytes, sectors) that kernel H (csrc/readid.cu) must move: item_bytes
+    of input for each of n_items (the order-free pass: a window's int64
+    key; the replay: a k-mer's rows, read and position), the 32-byte
+    sectors of the matrix rows of wpad words starting at ``starts`` (the H
+    rows of every distinct valid k-mer, or of every k-mer that is not
+    padding), and the int32 output of out_cols a read."""
+    n = sectors(starts, wpad)
+    return n_items * item_bytes + 32 * n + 4 * n_reads * out_cols, n
+
+
 def synth_window_keys(P: int, k: int, device, seed: int = SEED):
     """P sort keys as the reads routes hand kernel G, made on ``device``
     from ``seed``: the canonical k-windows (ops/extract.py::window_keys) of
@@ -2425,23 +2437,27 @@ def bench_phase(tmp: str, classic_bxi: str, blocked_bxi: str, card: str) -> dict
         timeout=BENCH_TIMEOUT,
     )
     dt = time.time() - t0
-    launches = by_mode = None
+    launches = by_mode = h_by_mode = None
     for line in r.stderr.splitlines():
         if line.startswith("[launches] "):
             launches = json.loads(line.split(" ", 1)[1])
         if line.startswith("[launches by mode] run_counts "):
             by_mode = json.loads(line.split(" ", 4)[4])
+        if line.startswith("[launches by mode] readid "):
+            h_by_mode = json.loads(line.split(" ", 4)[4])
         if line.startswith(("[", "card:", "query:", "loading", "building", "parity", "PARITY",
                             "fused route")):
             log(f"[bench] | {line}")
     lines = [l for l in r.stdout.splitlines() if l.strip()]
-    if r.returncode != 0 or len(lines) != 1 or launches is None or by_mode is None:
+    if (r.returncode != 0 or len(lines) != 1 or launches is None or by_mode is None
+            or h_by_mode is None):
         print(r.stderr[-4000:], file=sys.stderr)
         raise AssertionError(f"[bench] rc {r.returncode}, stdout {lines}")
     if sum(by_mode.values()) != launches["run_counts"]:
         raise AssertionError(f"[bench] kernel F launched {by_mode} by mode, "
                              f"{launches['run_counts']} in the phases")
     launches["run_counts_by_mode"] = by_mode
+    launches["readid_by_mode"] = h_by_mode
     rec = json.loads(lines[0])
     want = torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu"
     rates = [rec.get(f"{k}_kmers_per_s", 0) for k in BENCH_RATES] + [
@@ -2655,6 +2671,7 @@ def search_reads_phase(name: str, bxi: str, dev, L: int, query, mates, card: str
     from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.index.bigsi import BigsiIndex
     from colorid_tpu_torch.ops import stream_query as sq
+    from colorid_tpu_torch.ops import query as qmod
     from colorid_tpu_torch.ops.extract import pack_reads_valid
     from colorid_tpu_torch.ops.query import query_readid_orderfree_reads
 
@@ -2694,6 +2711,7 @@ def search_reads_phase(name: str, bxi: str, dev, L: int, query, mates, card: str
             lambda: query_readid_orderfree_reads(
                 eng.blocks2, pw, pl, pv, num_reads=N_PROFILE, nm=2, d=1, **geo),
             f"readid {name}", card, label="order-free",
+            forbid_like=READID_FORBID if hasattr(qmod, "readid_orderfree") else (),
         )
     del eng
     if DEVICE == "cuda":
@@ -2723,10 +2741,14 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
     log(f"[reads] {n} pairs ({int((src < 0).sum())} junk, {int((len1 < K).sum())} "
         f"first mates below k, {int(lower.sum())} with lowercase) written in "
         f"{time.time() - t0:.1f}s")
+    from colorid_tpu_torch.ops import query as q
+
     single = {}  # per index: CLI pairs/s and classify_batch seconds
     for name, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
+        h0 = dict(q.readid_launches)
         with read_id_split() as split:
             reads, _counts, dt = read_id_bytes(bxi, full, os.path.join(d, f"{name}_all"))
+        h_used = {m: q.readid_launches[m] - h0[m] for m in h0}
         single[name] = (n / dt, split["classify"])
         share = _check_calls(reads, src, len1, name)
         rest = split["classify"] - split["prepare"] - split["device"]
@@ -2744,12 +2766,20 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
         if got[:2] != want[:2]:
             raise AssertionError(f"{name}: the card's read_id files differ from the CPU's")
         base = read_id_bytes(bxi, routes, os.path.join(d, f"{name}_routes"))
-        route_s = []
+        route_s, h_env = [], {}
         for env in ({"COLORID_RID_SAFE": "0"}, {"COLORID_RID_READS": "0"}):
+            h1 = dict(q.readid_launches)
             other = read_id_bytes(bxi, routes, os.path.join(d, f"{name}_env"), env=env)
             if other[:2] != base[:2]:
                 raise AssertionError(f"{name}: {env} changed read_id's files")
             route_s.append(other[2])
+            h_env[next(iter(env))] = {m: q.readid_launches[m] - h1[m] for m in h1}
+        log(f"[reads] {name}: kernel H launches by mode in CLI read_id: {h_used} on {n} "
+            f"pairs (default route), {h_env} on {N_ROUTES} pairs on {card}")
+        replays = sum(c["replay"] for c in [h_used, *h_env.values()])
+        if DEVICE == "cuda" and (not h_used["orderfree"] or not replays):
+            raise AssertionError(f"{name}: CLI read_id did not launch kernel H in both modes "
+                                 f"(the order-free pass, the replay): {h_used}, {h_env}")
         log(f"[reads] {name}: _reads.txt and _counts.txt byte-identical, card vs "
             f"--device cpu on {N_CHECK} pairs ({got[2]:.2f}s vs {want[2]:.2f}s) and "
             f"default vs COLORID_RID_SAFE=0 vs COLORID_RID_READS=0 on {N_ROUTES} pairs "
@@ -2811,7 +2841,260 @@ def reads_phase(tmp: str, inputs, classic_bxi: str, blocked_bxi: str, card: str)
         search_reads_phase(name, bxi, dev, L, query, mates, card)
     return {"dev": dev, "L": L, "seqs": seqs, "mates": mates, "len1": len1,
             "pairs": full, "src": src, "blocked_all": os.path.join(d, "blocked_all"),
-            "single": single["blocked"]}
+            "single": single["blocked"], "check": check, "dir": d}
+
+
+# -- phase 4b-readid: kernel H, the read classifier's dispatches -----------------
+
+H_KERNELS = ("readid_orderfree", "readid_init", "readid_absent", "readid_count")
+# library kernels that kernel H takes off the read classifier's dispatches: the
+# per-read sort, the row gather and the per-read reductions and scatters
+READID_FORBID = ("RadixSort", "gather", "reduce_kernel", "scatter", "index_elementwise",
+                 "indexFunc")
+READID_GEO = ("num_colors", "wpad", "k", "num_hash", "bloom_size", "rpb", "bv")
+
+
+def _readid_starts(rows, rpb: int, wpad: int):
+    """The word starts of rows [N, H] as kernel H reads them: classic r *
+    wpad; blocked the block of hash 0's row, lanes (r % rpb) * wpad."""
+    import torch
+
+    r = rows.to(torch.int64)
+    if not rpb:
+        return (r * wpad).reshape(-1)
+    return ((r[:, :1] // rpb) * 128 + (r % rpb) * wpad).reshape(-1)
+
+
+def _orderfree_bound(keys, geo: dict, instr) -> tuple:
+    """(bound_ms, bound_by, how, distinct k-mers) of kernel H's order-free
+    mode on keys [R, WR]: each key read once, the sectors of the rows of
+    every distinct valid k-mer, the output; XXH3's SASS instructions a
+    distinct k-mer of a read (kernel A's loop body)."""
+    import torch
+
+    from colorid_tpu_torch.ops.extract import SENT_KEY
+    from colorid_tpu_torch.ops.hash_torch import device_rows
+
+    R, WR = keys.shape
+    s = torch.sort(keys, dim=1).values
+    uniq = s != SENT_KEY
+    uniq[:, 1:] &= s[:, 1:] != s[:, :-1]
+    n_distinct = int(uniq.sum())
+    rows = device_rows(torch.unique(s[uniq]), k=geo["k"], num_hash=geo["num_hash"],
+                       bloom_size=geo["bloom_size"], rpb=geo["rpb"], version=geo["bv"])
+    n_bytes, _n = readid_bytes(R * WR, 8, _readid_starts(rows, geo["rpb"], geo["wpad"]),
+                               geo["wpad"], R, geo["num_colors"] + 3)
+    return _bound(n_bytes, n_distinct, instr) + (n_distinct,)
+
+
+def _exact_bound(rows, pos, geo: dict) -> float:
+    """Kernel H's replay: each k-mer's rows, read and position read once,
+    the sectors of the rows of every k-mer that is not padding, the
+    output (bytes; no XXH3 here)."""
+    from colorid_tpu_torch.ops.query import BIG
+
+    live = pos < BIG
+    n_bytes, _n = readid_bytes(rows.shape[0], rows.shape[1] * rows.element_size() + 8,
+                               _readid_starts(rows[live], geo["rpb"], geo["wpad"]),
+                               geo["wpad"], geo["num_reads"], geo["num_colors"] + 1)
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def _readid_edge_mates(mates, L: int, nm: int, n_reads: int, seed: int):
+    """ASCII mates [n_reads * nm, L] and lengths for the order-free edge
+    cases: from the seeded pairs where they are long enough (random bases
+    past them), read 0 with no window, read 1 mates below k, read 2 all N,
+    read 3 a homopolymer, read 4 mates alike."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    out = acgt[rng.integers(0, 4, (n_reads * nm, L))]
+    flat = mates[:n_reads * nm // 2].reshape(-1, READ_LEN)
+    out[:flat.shape[0], :min(L, READ_LEN)] = flat[:, :min(L, READ_LEN)]
+    lens = np.full(n_reads * nm, L, dtype=np.int32)
+    lens[:nm], lens[nm:2 * nm] = 0, K - 1
+    out[2 * nm:3 * nm], out[3 * nm:4 * nm] = ord("N"), ord("A")
+    out[4 * nm + 1] = out[4 * nm]
+    return out, lens
+
+
+def _readid_keys(seqs, lens, L: int, nm: int):
+    """Kernel B's window keys [R, nm * (L - K + 1)] of ASCII mates, on the
+    card, as query_readid_orderfree_reads hands them to kernel H."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch.ops.extract import pack_reads_valid, window_keys
+
+    w, vb = pack_reads_valid(seqs)
+    w, vb = (torch.from_numpy(a.view(np.int32)).to(DEVICE) for a in (w, vb))
+    keys = window_keys(w, torch.from_numpy(lens).to(DEVICE), vb, k=K, L=L, d=1)
+    return keys.reshape(-1, nm * (L - K + 1))
+
+
+def _capture_replay(bxi: str, files: list, prefix: str) -> dict:
+    """The arguments of the first replay and first-hit dispatch of CLI
+    read_id on ``files`` with COLORID_RID_SAFE=0 (every read replayed):
+    {"replay" | "firsthit": (args, kwargs)}, tensors cloned."""
+    from colorid_tpu_torch.ops import query as q
+
+    seen: dict = {}
+    real = {"replay": q.query_readid_reads_batch, "firsthit": q.query_readid_firsthit_reads}
+
+    def observer(mode):
+        def observed(*args, **kw):
+            seen.setdefault(mode, (tuple(a.clone() for a in args), dict(kw)))
+            return real[mode](*args, **kw)
+        return observed
+
+    q.query_readid_reads_batch = observer("replay")
+    q.query_readid_firsthit_reads = observer("firsthit")
+    try:
+        read_id_bytes(bxi, files, prefix, env={"COLORID_RID_SAFE": "0"})
+    finally:
+        q.query_readid_reads_batch = real["replay"]
+        q.query_readid_firsthit_reads = real["firsthit"]
+    if "replay" not in seen:
+        raise AssertionError("[kernel] readid: CLI read_id made no replay dispatch")
+    return seen
+
+
+def readid_kernel_phase(classic_bxi: str, blocked_bxi: str, reads: dict, card: str) -> dict:
+    """Kernel H (csrc/readid.cu) against its twins, bitwise, on both
+    indexes: the order-free mode on the [reads] dispatch's own keys (the
+    first N_PROFILE pairs, as `[profile] readid` runs them), those keys
+    shuffled within each read, and edge reads (no window, mates below k,
+    all N, a homopolymer, mates alike; mates of 4,096 bp, two a read (the
+    widest the route admits) and three (the hash set in device memory));
+    the replay and first-hit modes on the rows, reads and positions of CLI
+    read_id's first replay dispatch (COLORID_RID_SAFE=0 on the N_CHECK
+    pairs), at B 0, 3 and the CLI's, shuffled, with padding k-mers on read
+    0 mid-batch and as int64 rows. Each mode's time (CUDA events, 20 calls),
+    its twin's (3 calls), its bound (readid_bytes; the order-free mode also
+    XXH3's instructions), and a [profile] line of one replay dispatch and
+    one first-hit dispatch (query_readid_reads_batch and _firsthit_reads on
+    the captured inputs), which must show no sort, gather, reduction or
+    scatter kernel. Launches made here are taken off H's count again."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops import query as q
+
+    t0 = time.time()
+    counts0 = dict(q.readid_launches)
+    mates = reads["mates"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    errs, rows = {}, {}
+    for name, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
+        eng = QueryEngine(BigsiIndex.load(bxi), device=DEVICE)
+        b2, geo = eng.blocks2, eng._reads_geometry(K, 160)
+        of = {n: geo[n] for n in READID_GEO}
+        keys = _readid_keys(mates[:N_PROFILE].reshape(-1, READ_LEN),
+                            np.full(2 * N_PROFILE, READ_LEN, dtype=np.int32), 160, 2)
+        perm = torch.argsort(torch.rand(keys.shape, generator=g, device=DEVICE), dim=1)
+        cases = [("dispatch", keys), ("dispatch shuffled", keys.gather(1, perm).contiguous())]
+        for L, nm, n in ((160, 2, 64), (4096, 2, 64), (4096, 3, 300)):
+            seqs, lens = _readid_edge_mates(mates, L, nm, n, SEED + L + nm)
+            cases.append((f"edge L {L} nm {nm}", _readid_keys(seqs, lens, L, nm)))
+        for case, kk in cases:
+            got = q.readid_orderfree(kk, b2, **of)
+            errs[f"{name} orderfree {case}"] = max_abs_diff(got, q._orderfree_plain(kk, b2, **of))
+        if max(errs.values()):
+            raise AssertionError(f"[kernel] readid {name}: kernel != twin: {errs}")
+        instance = "placement_kernelILi2ELi4ELi0E" if not geo["rpb"] else "placement_kernelILi7ELi4ELi0E"
+        bound_ms, bound_by, how, n_distinct = _orderfree_bound(
+            keys, of, sass_loop_instructions("placement.cu", instance))
+        if DEVICE == "cuda":
+            ms = cuda_ms(lambda: q.readid_orderfree(keys, b2, **of), 20)
+            plain = cuda_ms(lambda: q._orderfree_plain(keys, b2, **of), 3)
+        else:
+            ms = plain = 0.0
+        rows[f"{name} orderfree"] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                                         bound_by=bound_by)
+        log(f"[kernel] readid {name} order-free ({N_PROFILE} pairs' own keys: "
+            f"{keys.numel()} windows, {n_distinct} distinct k-mers of a read; and "
+            f"{len(cases) - 1} more cases: {', '.join(c for c, _ in cases[1:])}): "
+            f"bitwise_equal=True; ms={ms:.4f} plain_ms={plain:.4f} library_ms=null (no "
+            f"PyTorch call dedups, gathers and counts per read) bound_ms={bound_ms:.4f} "
+            f"bound_by={bound_by} ({how}) on {card}")
+        del cases, keys
+        # the replay and first hit on CLI read_id's own replay dispatch
+        seen = _capture_replay(bxi, reads["check"], os.path.join(reads["dir"], f"h_{name}"))
+        args, kw = seen["replay"]
+        geo = {n: kw[n] for n in ("num_reads", "num_colors", "wpad", "rpb")}
+        r, s, p = q._reads_rows_seg_pos(*args[1:], k=kw["k"], L=kw["L"], num_hash=kw["num_hash"],
+                                        bloom_size=kw["bloom_size"], rpb=kw["rpb"], bv=kw["bv"])
+        perm = torch.randperm(s.numel(), generator=g, device=DEVICE)
+        pad = p.clone()
+        mid = torch.arange(p.numel() // 3, p.numel() // 3 + 1000, device=DEVICE)
+        pad[mid] = q.PAD_POS
+        spad = s.clone()
+        spad[mid] = 0
+        ecases = [("dispatch", (r, s, p)), ("shuffled", (r[perm].contiguous(), s[perm], p[perm])),
+                  ("padding on read 0", (r, spad, pad)), ("int64 rows", (r.to(torch.int64), s, p))]
+        for B in sorted({0, 3, kw["start_sample"]}):
+            for case, (rr, ss, pp) in ecases if B == kw["start_sample"] else ecases[:1]:
+                for firsthit, twin in ((False, q._readid_core_plain),
+                                       (True, q._readid_firsthit_core_plain)):
+                    ekw = dict(geo, start_sample=B)
+                    got = q.readid_exact(b2, rr, ss, pp, **ekw, firsthit=firsthit)
+                    errs[f"{name} {'firsthit' if firsthit else 'replay'} B {B} {case}"] = \
+                        max_abs_diff(got, twin(b2, rr, ss, pp, **ekw))
+        if max(errs.values()):
+            raise AssertionError(f"[kernel] readid {name}: kernel != twin: {errs}")
+        ekw = dict(geo, start_sample=kw["start_sample"])
+        bound = _exact_bound(r, p, geo)
+        for mode, firsthit, twin in (("replay", False, q._readid_core_plain),
+                                     ("firsthit", True, q._readid_firsthit_core_plain)):
+            if DEVICE == "cuda":
+                ms = cuda_ms(lambda: q.readid_exact(b2, r, s, p, **ekw, firsthit=firsthit), 20)
+                plain = cuda_ms(lambda: twin(b2, r, s, p, **ekw), 3)
+                stages = _launch_ms(lambda: q.readid_exact(b2, r, s, p, **ekw, firsthit=firsthit))
+            else:
+                ms = plain = 0.0
+                stages = []
+            rows[f"{name} {mode}"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes")
+            log(f"[kernel] readid {name} {mode} (CLI read_id's first replay dispatch: "
+                f"N={r.shape[0]} k-mers, {int((p < q.BIG).sum())} not padding, "
+                f"{geo['num_reads']} reads, H {r.shape[1]}, B {kw['start_sample']}; and B 0 / 3, "
+                f"shuffled, padding on read 0, int64 rows): bitwise_equal=True; ms={ms:.4f} "
+                f"plain_ms={plain:.4f} library_ms=null bound_ms={bound:.4f} bound_by=bytes"
+                f"{'; launches ' + ', '.join(f'{n} {t:.4f}' for n, t in stages) if stages else ''}"
+                f" on {card}")
+        if DEVICE == "cuda":
+            for mode, fn in (("replay", q.query_readid_reads_batch),
+                             ("firsthit", q.query_readid_firsthit_reads)):
+                fargs, fkw = seen.get(mode, seen["replay"])
+                whose = "its own" if mode in seen else "the replay dispatch's"
+                log(f"[profile] readid {mode} {name}: {fargs[1].shape[0]} mates of "
+                    f"{fkw['num_reads']} reads, B {fkw['start_sample']} ({whose} inputs)")
+                profile_dispatch(lambda: fn(*fargs, **fkw), f"readid {mode} {name}", card,
+                                 label=mode, forbid_like=READID_FORBID)
+        del eng, seen, args, r, s, p, ecases
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    q.readid_launches.update(counts0)
+    secs = time.time() - t0
+    log(f"[kernel] readid phase took {secs:.1f}s on {card}")
+    first = rows["classic orderfree"]
+    return {
+        "name": "readid",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/readid.cu",
+        "replaces": "colorid_tpu/ops/query.py:937",
+        "launches": None,
+        "max_abs_err": max(errs.values()),
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": None,
+        "by_call": rows,
+        "phase_s": secs,
+    }
 
 
 # -- phase 4c: the fused reads path and the HTTP server -----------------------
@@ -4843,13 +5126,15 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
             "epilogue", "epilogue_sorted", "epilogue_overflow", *D_KERNELS, "sort_upsweep",
-            "sort_bases", "sort_chunk_scan", "sort_pass", *F_KERNELS, *G_KERNELS)
+            "sort_bases", "sort_chunk_scan", "sort_pass", *F_KERNELS, *G_KERNELS, *H_KERNELS)
     )
     f = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in F_KERNELS
          and name.endswith("_kernel")]
     d = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in D_KERNELS
          and name.endswith("_kernel")]
     g = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in G_KERNELS
+         and name.endswith("_kernel")]
+    h = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in H_KERNELS
          and name.endswith("_kernel")]
     ew = [(ms, n) for ms, n, name in rows if "elementwise" in name]
     sort = [(ms, n) for ms, n, name in rows if "RadixSort" in name]
@@ -4862,7 +5147,8 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         f"passes x{sum(n for _, n in sort)}={sum(ms for ms, _ in sort):.3f}ms; "
         f"kernel D x{sum(n for _, n in d)}={sum(ms for ms, _ in d):.4f}ms; "
         f"kernel F x{sum(n for _, n in f)}={sum(ms for ms, _ in f):.4f}ms; "
-        f"kernel G x{sum(n for _, n in g)}={sum(ms for ms, _ in g):.4f}ms; {host}"
+        f"kernel G x{sum(n for _, n in g)}={sum(ms for ms, _ in g):.4f}ms; "
+        f"kernel H x{sum(n for _, n in h)}={sum(ms for ms, _ in h):.4f}ms; {host}"
         f"top kernels: {top}; "
         f"the port's own: {ours or 'none'}; {gap or 'trace complete (markers on both sides)'} on "
         f"{card}")
@@ -5072,6 +5358,10 @@ def main() -> int:
             te = _f_modules()[0]
             f_modes = te.run_counts.launches_by_mode
             f_modes.update(dict.fromkeys(f_modes, 0))
+            from colorid_tpu_torch.ops import query as qmod
+
+            h_modes = qmod.readid_launches
+            h_modes.update(dict.fromkeys(h_modes, 0))
             classic_bxi, classic_row["launches"], t_build, classic_tsv = classic_path_phase(
                 tmp, inputs, card)
             blocked_bxi, probe_row["launches"] = blocked_path_phase(tmp, inputs, card)
@@ -5081,6 +5371,7 @@ def main() -> int:
             glue_launches = {kn.__name__: kn.launches for kn in glue}
             f_main = dict(f_modes)
             g_main, g_runs_main = te.value_sort.launches, te.value_sort.runs_launches
+            h_main = dict(h_modes)
         with phase("parity"):
             classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"], blocked_dispatch = blocked_parity_phase(
@@ -5108,8 +5399,11 @@ def main() -> int:
                                      + benched["stream_chunk_plan"])
         f_later = dict(f_modes)
         g_later, g_runs_later = te.value_sort.launches, te.value_sort.runs_launches
+        h_later = dict(h_modes)
         with phase("reads"):
             reads = reads_phase(tmp, inputs, classic_bxi, blocked_bxi, card)
+        with phase("readid"):
+            h_row = readid_kernel_phase(classic_bxi, blocked_bxi, reads, card)
         with phase("fused"):
             probe_row["launches"] += fused_phase(blocked_bxi, reads, card)
         with phase("run_counts"):
@@ -5141,6 +5435,16 @@ def main() -> int:
                                      "no hint (LSD passes)": g_row["launches"] - g_runs}
         log(f"[kernel] value_sort launches on the main path {g_row['launches']} "
             f"({g_by_phase}; {g_row['launches_by_hint']}) on {card}")
+        # kernel H on the main path by mode, as its wrappers count them in
+        # [main], in the port bench's process and in [reads]..[serve]
+        h_by_phase = {"main": h_main, "bench": benched["readid_by_mode"],
+                      "reads+fused+serve": {m: h_modes[m] - h_later[m] for m in h_modes}}
+        h_row["launches_by_mode"] = {m: sum(c[m] for c in h_by_phase.values())
+                                     for m in h_modes}
+        h_row["launches"] = sum(h_row["launches_by_mode"].values())
+        h_row["launches_by_phase"] = {k: sum(c.values()) for k, c in h_by_phase.items()}
+        log(f"[kernel] readid launches on the main path {h_row['launches']} "
+            f"({h_by_phase}) on {card}")
         classic_row["launches"] += served[0]
         probe_row["launches"] += served[1]
         shr = {key: reads[key] for key in ("pairs", "src", "blocked_all", "single", "L")}
@@ -5173,7 +5477,8 @@ def main() -> int:
     log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
         + f"; whole script {time.time() - t_script:.1f}s on {card}")
     print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row,
-                                  epilogue_row, tail_row, sort_row, counts_row, g_row]}))
+                                  epilogue_row, tail_row, sort_row, counts_row, g_row,
+                                  h_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

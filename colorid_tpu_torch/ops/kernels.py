@@ -100,6 +100,18 @@ KERNELS = {
         "value_sort_launch",
         [_VP, _VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32, _VP, _I64, _VP],
     ),
+    "readid_orderfree": (
+        "readid.cu",
+        "readid_orderfree_launch",
+        [_VP, _I64, _I32, _I32, _VP, _I32, _I32, _I64, _VP, _I64, _I32, _I32, _VP, _I32, _I32,
+         _I32, _I64, _I64, _VP, _VP],
+    ),
+    "readid_exact": (
+        "readid.cu",
+        "readid_exact_launch",
+        [_VP, _I32, _VP, _VP, _I64, _I32, _VP, _I64, _I32, _I64, _I32, _I32, _I64, _I32, _VP,
+         _VP, _VP, _VP],
+    ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})
 

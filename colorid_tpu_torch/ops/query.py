@@ -26,11 +26,13 @@ for a copy per chunk.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from . import kernels
-from .hash_torch import M32, _to_i32, device_rows
+from .hash_torch import _KERNEL_CONSTS, M32, _to_i32, device_rows
 
 FREQ_CAP = 1024  # per-color on-device frequency histogram width
 
@@ -636,6 +638,177 @@ def _seg_sum(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tenso
     return out.index_add_(0, seg.to(torch.int64), values)
 
 
+# Kernel H (csrc/readid.cu): the read classifier's dispatches. Its modes, as
+# readid_launches counts them: the order-free pass, the exact replay's
+# counts and its first hits.
+READID_MODES = ("orderfree", "replay", "firsthit")
+readid_launches = dict.fromkeys(READID_MODES, 0)
+READID_SET_SMEM = 1 << 17  # bytes of a read's hash set kept in shared memory
+READID_SMEM = 200 * 1024  # dynamic shared memory a block of the order-free mode may take
+
+
+def _check_matrix(blocks2, dev, wpad: int, rpb: int, num_colors: int, what: str) -> None:
+    if blocks2.dtype != torch.int32 or blocks2.dim() != 2 or blocks2.shape[1] != 128:
+        raise ValueError(f"{what}: blocks2 must be the int32 [Rb, 128] block matrix")
+    if blocks2.device != dev or not blocks2.is_contiguous():
+        raise ValueError(f"{what}: blocks2 must be contiguous on the queries' device")
+    if wpad < 1 or not 0 <= num_colors <= 32 * wpad:
+        raise ValueError(f"{what}: needs wpad >= 1 and 0 <= num_colors <= 32 * wpad")
+    if rpb < 0 or rpb & (rpb - 1) or rpb * wpad > 128:
+        raise ValueError(f"{what}: rpb must be 0 or a power of two with rpb * wpad <= 128")
+
+
+def _check_orderfree(keys, blocks2, *, num_colors, wpad, k, num_hash, bloom_size,
+                     rpb, bv) -> None:
+    """What kernel H's order-free mode takes (raises where a CUDA call would
+    break it)."""
+    from .hash_torch import _check_placement
+
+    what = "readid_orderfree"
+    if keys.dtype != torch.int64 or keys.dim() != 2 or not keys.is_contiguous():
+        raise ValueError(f"{what}: keys must be contiguous int64 [num_reads, WR]")
+    if keys.shape[1] < 1 or 2 * keys.shape[1] > 1 << 30:
+        raise ValueError(f"{what}: needs 1 <= WR <= 2^29 windows a read")
+    _check_matrix(blocks2, keys.device, wpad, rpb, num_colors, what)
+    _check_placement(keys.reshape(-1), k, num_hash, bloom_size, rpb, bv, False)
+    if num_hash > 32:
+        raise ValueError(f"{what}: at most 32 hashes")
+    words = (bloom_size // rpb) * 128 if rpb else bloom_size * wpad
+    if words > blocks2.numel():
+        raise ValueError(f"{what}: bloom_size {bloom_size} rows exceed the matrix")
+
+
+def readid_orderfree(keys: torch.Tensor, blocks2: torch.Tensor, *, num_colors: int,
+                     wpad: int, k: int, num_hash: int, bloom_size: int, rpb: int = 0,
+                     bv: int = 1) -> torch.Tensor:
+    """Kernel H's order-free mode: per read (a row of keys, int64 [R, WR]
+    sort keys of its windows, SENT_KEY where a window does not count) its
+    distinct keys' per-color counts over the present k-mers, any absent,
+    D and the zero-hit count: int32 [R, C + 3] (query_readid_orderfree_
+    reads' contract).
+
+    A CUDA tensor launches csrc/readid.cu (a block a read: a hash set of
+    the keys, then placement, gather and counts of each distinct one) on
+    the current stream; a CPU tensor takes the plain twin
+    ``_orderfree_plain``. Launches count in ``readid_launches["orderfree"]``
+    and ``readid_orderfree.launches``."""
+    kw = dict(num_colors=num_colors, wpad=wpad, k=k, num_hash=num_hash,
+              bloom_size=bloom_size, rpb=rpb, bv=bv)
+    dev = keys.device
+    if dev.type == "cpu":
+        return _orderfree_plain(keys, blocks2, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"readid_orderfree: unsupported device {dev}")
+    _check_orderfree(keys, blocks2, **kw)
+    R, WR = keys.shape
+    C = num_colors
+    out = torch.empty((R, C + 3), dtype=torch.int32, device=dev)
+    if R == 0:
+        return out
+    set_log2 = (2 * WR - 1).bit_length()
+    gset = None
+    if 8 << set_log2 <= READID_SET_SMEM:
+        grid, smem = min(R, 1 << 20), 8 << set_log2
+    else:  # one set in device memory for each resident block
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid, smem = min(R, 2 * sms), 0
+        gset = torch.empty(grid << set_log2, dtype=torch.int64, device=dev)
+    cnt_global = smem + 4 * C > READID_SMEM
+    smem += 0 if cnt_global else 4 * C
+    fn = kernels.kernel("readid_orderfree")
+    consts = (ctypes.c_uint64 * len(_KERNEL_CONSTS))(*_KERNEL_CONSTS)
+    with torch.cuda.device(dev):
+        err = fn(
+            keys.data_ptr(), R, WR, set_log2, None if gset is None else gset.data_ptr(),
+            grid, int(cnt_global), smem, blocks2.data_ptr(), blocks2.numel(), wpad, C,
+            out.data_ptr(), k, num_hash, bv if rpb else 0, bloom_size, rpb,
+            ctypes.addressof(consts), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"readid kernel (order-free) launch failed: CUDA error {err}")
+    readid_launches["orderfree"] += 1
+    readid_orderfree.launches += 1
+    return out
+
+
+readid_orderfree.launches = 0
+
+
+def _check_exact(blocks2, rows, seg_ids, kmer_pos, *, num_reads, num_colors, wpad,
+                 rpb) -> None:
+    """What kernel H's replay and first-hit modes take (raises where a CUDA
+    call would break it)."""
+    what = "readid_exact"
+    if rows.dtype not in (torch.int32, torch.int64) or rows.dim() != 2 or rows.shape[1] < 1:
+        raise ValueError(f"{what}: rows must be int32 or int64 [N, H]")
+    N = rows.shape[0]
+    for name, t in (("seg_ids", seg_ids), ("kmer_pos", kmer_pos)):
+        if t.dtype != torch.int32 or t.shape != (N,):
+            raise ValueError(f"{what}: {name} must be int32 [N] beside rows [N, H]")
+    if any(t.device != rows.device or not t.is_contiguous()
+           for t in (rows, seg_ids, kmer_pos)):
+        raise ValueError(f"{what}: rows, seg_ids and kmer_pos must be contiguous on one device")
+    if num_reads < 0:
+        raise ValueError(f"{what}: num_reads must be >= 0")
+    _check_matrix(blocks2, rows.device, wpad, rpb, num_colors, what)
+
+
+def readid_exact(blocks2: torch.Tensor, rows: torch.Tensor, seg_ids: torch.Tensor,
+                 kmer_pos: torch.Tensor, *, num_reads: int, start_sample: int,
+                 num_colors: int, wpad: int, rpb: int = 0,
+                 firsthit: bool = False) -> torch.Tensor:
+    """Kernel H's exact replay: per read, its counts and no_hits (int32
+    [num_reads, C + 1], query_readid_batch's contract) or, with
+    ``firsthit``, each color's first phase-1 hit and the first absent
+    position (query_readid_firsthit's). rows int32 or int64 [N, H], seg_ids
+    int32 [N] in [0, num_reads) in any order, kmer_pos int32 [N] (>= PAD_POS:
+    padding).
+
+    A CUDA tensor launches csrc/readid.cu on the current stream (an init
+    launch, the first-absent pass, one counting pass, two with B > 0; all
+    per-read reductions are integer atomics); a CPU tensor takes the plain
+    twin ``_readid_core_plain`` / ``_readid_firsthit_core_plain``. Launches
+    count in ``readid_launches["replay"]`` / ``["firsthit"]`` and in
+    ``readid_exact.launches``."""
+    kw = dict(num_reads=num_reads, start_sample=start_sample, num_colors=num_colors,
+              wpad=wpad, rpb=rpb)
+    dev = rows.device
+    if dev.type == "cpu":
+        twin = _readid_firsthit_core_plain if firsthit else _readid_core_plain
+        return twin(blocks2, rows, seg_ids, kmer_pos, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"readid_exact: unsupported device {dev}")
+    _check_exact(blocks2, rows, seg_ids, kmer_pos, num_reads=num_reads,
+                 num_colors=num_colors, wpad=wpad, rpb=rpb)
+    C, R = num_colors, num_reads
+    out = torch.empty((R, C + 1), dtype=torch.int32, device=dev)
+    if R == 0:
+        return out
+    fa = cand = None
+    if not firsthit:
+        fa = torch.empty(R, dtype=torch.int32, device=dev)
+        if start_sample > 0:
+            cand = torch.empty((R, wpad), dtype=torch.int32, device=dev)
+    N, H = rows.shape
+    fn = kernels.kernel("readid_exact")
+    with torch.cuda.device(dev):
+        err = fn(
+            rows.data_ptr(), int(rows.dtype == torch.int64), seg_ids.data_ptr(),
+            kmer_pos.data_ptr(), N, H, blocks2.data_ptr(), blocks2.numel(), wpad, rpb, C,
+            max(start_sample, 0), R, int(firsthit), out.data_ptr(),
+            None if fa is None else fa.data_ptr(), None if cand is None else cand.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"readid kernel (replay) launch failed: CUDA error {err}")
+    readid_launches["firsthit" if firsthit else "replay"] += 1
+    readid_exact.launches += 1
+    return out
+
+
+readid_exact.launches = 0
+
+
 def _first_absent(present, seg_ids, kmer_pos, num_reads: int):
     """(first absent k-mer position per read (BIG = none), counted bool
     [N]): a k-mer counts when all its rows are present and it comes
@@ -675,17 +848,18 @@ def query_readid_batch(
     int32 [N] (PAD_POS marks padding). Returns int32 [num_reads, C+1]
     per-read per-color counts; column C is the no_hits pseudo-color.
     """
-    return _readid_core(
+    return readid_exact(
         blocks2, rows, seg_ids, kmer_pos,
         num_reads=num_reads, start_sample=start_sample,
         num_colors=num_colors, wpad=wpad, rpb=rpb,
     )
 
 
-def _readid_core(
+def _readid_core_plain(
     blocks2, rows, seg_ids, kmer_pos, *, num_reads, start_sample,
     num_colors, wpad, rpb=0,
 ):
+    """Plain PyTorch twin of kernel H's replay mode (``readid_exact``)."""
     andw, present = _and_present(blocks2, rows, wpad, rpb)
     bits = _unpack_bits(andw, num_colors)  # [N, C]
     first_absent, counted = _first_absent(present, seg_ids, kmer_pos, num_reads)
@@ -731,17 +905,19 @@ def query_readid_firsthit(
     first-absent position. 2**30 where never hit. Used by the read_id tie
     fixup to reconstruct kmer_poll_plus's stable-sort order for tied top
     hits (read_id_mt_pe.rs:195-196)."""
-    return _readid_firsthit_core(
+    return readid_exact(
         blocks2, rows, seg_ids, kmer_pos,
         num_reads=num_reads, start_sample=start_sample,
-        num_colors=num_colors, wpad=wpad, rpb=rpb,
+        num_colors=num_colors, wpad=wpad, rpb=rpb, firsthit=True,
     )
 
 
-def _readid_firsthit_core(
+def _readid_firsthit_core_plain(
     blocks2, rows, seg_ids, kmer_pos, *, num_reads, start_sample,
     num_colors, wpad, rpb=0,
 ):
+    """Plain PyTorch twin of kernel H's first-hit mode (``readid_exact``
+    with ``firsthit``)."""
     andw, present = _and_present(blocks2, rows, wpad, rpb)
     bits = _unpack_bits(andw, num_colors)
     first_absent, counted = _first_absent(present, seg_ids, kmer_pos, num_reads)
@@ -822,7 +998,7 @@ def query_readid_hash_batch(
     rows = device_rows(packed, k=k, num_hash=num_hash, bloom_size=bloom_size,
                        rpb=rpb, version=bv)
     p16 = kmer_pos16.to(torch.int32)
-    return _readid_core(
+    return readid_exact(
         blocks2, rows, seg_ids16.to(torch.int32), torch.where(p16 < 0, PAD_POS, p16),
         num_reads=num_reads, start_sample=start_sample,
         num_colors=num_colors, wpad=wpad, rpb=rpb,
@@ -893,7 +1069,7 @@ def query_readid_reads_batch(
         mates_packed, mate_seg16, lens, ranks16, k=k, L=L, num_hash=num_hash,
         bloom_size=bloom_size, rpb=rpb, bv=bv,
     )
-    return _readid_core(
+    return readid_exact(
         blocks2, rows, seg, pos,
         num_reads=num_reads, start_sample=start_sample,
         num_colors=num_colors, wpad=wpad, rpb=rpb,
@@ -929,8 +1105,10 @@ def query_readid_orderfree_reads(
     decides from this pass's outputs whether ANY iteration order could
     change the outcome; only the reads that fail it replay the exact order.
 
-    The per-read k-mer SET is recovered on device: each read's canonical
-    windows sort by their int64 key (ops/extract.py) and repeats are masked.
+    The per-read k-mer SET is recovered on device: kernel B's window keys
+    (ops/extract.py::window_keys), then kernel H's order-free mode
+    (``readid_orderfree``) dedups each read's keys, places, gathers and
+    counts them.
 
     Returns int32 [num_reads, C + 3]: columns 0..C-1 = full counts,
     column C = 1 if any distinct k-mer had an absent row, column C+1 = D
@@ -938,11 +1116,24 @@ def query_readid_orderfree_reads(
     whose rows are all present but whose AND hits no color (these can make
     the first-B candidate set empty under some orders).
     """
-    from .extract import SENT_KEY, window_keys
+    from .extract import window_keys
 
-    WR = nm * (L - k + 1)  # windows per read
     keys = window_keys(mates_packed, lens, valid_bits, k=k, L=L, d=d)
-    s = torch.sort(keys.reshape(num_reads, WR), dim=1).values
+    return readid_orderfree(
+        keys.reshape(num_reads, nm * (L - k + 1)), blocks2, num_colors=num_colors,
+        wpad=wpad, k=k, num_hash=num_hash, bloom_size=bloom_size, rpb=rpb, bv=bv,
+    )
+
+
+def _orderfree_plain(keys, blocks2, *, num_colors, wpad, k, num_hash, bloom_size,
+                     rpb=0, bv=1):
+    """Plain PyTorch twin of kernel H's order-free mode (``readid_orderfree``):
+    each read's keys sort (any exact dedupe gives the same outputs) and
+    repeats and SENT keys are masked."""
+    from .extract import SENT_KEY
+
+    num_reads, WR = keys.shape
+    s = torch.sort(keys, dim=1).values
     first = torch.ones_like(s, dtype=torch.bool)
     first[:, 1:] = s[:, 1:] != s[:, :-1]
     uniq = first & (s != SENT_KEY)
@@ -991,8 +1182,8 @@ def query_readid_firsthit_reads(
         mates_packed, mate_seg16, lens, ranks16, k=k, L=L, num_hash=num_hash,
         bloom_size=bloom_size, rpb=rpb, bv=bv,
     )
-    return _readid_firsthit_core(
+    return readid_exact(
         blocks2, rows, seg, pos,
         num_reads=num_reads, start_sample=start_sample,
-        num_colors=num_colors, wpad=wpad, rpb=rpb,
+        num_colors=num_colors, wpad=wpad, rpb=rpb, firsthit=True,
     )

@@ -128,3 +128,19 @@ def test_value_sort_bytes_reads_and_writes_each_key_once():
     assert cs.value_sort_bytes(3, payload=True) == 3 * 24
     assert cs.value_sort_bytes(0, payload=True) == 0
     assert cs.value_sort_bytes(52_002_816, payload=False) == 832_045_056
+
+
+def test_readid_bytes_count_keys_row_sectors_and_the_output():
+    """Kernel H's order-free pass on 2 reads of 3 windows (24 bytes of keys
+    each) whose distinct valid k-mers have one-word rows at words 0, 5, 9
+    and 9 (sectors 0-7 and 8-15), C 21 (24 output columns a read); and the
+    replay on 5 k-mers of H 2 (8 + 4 + 4 bytes each) with 4-word rows at
+    words 0, 4, 8, 64 (sectors 0-7, 8-15, 64-71), C 21 (22 columns)."""
+    starts = torch.tensor([0, 5, 9, 9])
+    n_bytes, n_sectors = cs.readid_bytes(6, 8, starts, 1, 2, 24)
+    assert n_sectors == 2
+    assert n_bytes == 6 * 8 + 2 * 32 + 2 * 24 * 4
+    starts = torch.tensor([0, 4, 8, 64])
+    n_bytes, n_sectors = cs.readid_bytes(5, 16, starts, 4, 3, 22)
+    assert n_sectors == 3
+    assert n_bytes == 5 * 16 + 3 * 32 + 3 * 22 * 4

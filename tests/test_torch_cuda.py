@@ -2168,3 +2168,128 @@ def test_value_sort_merge_adds_no_host_sync(cuda_device):
         te.value_sort(keys, bits=64, runs=True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# -- kernel H: the read classifier's dispatches ------------------------------------
+
+_GEO = ("num_colors", "wpad", "k", "num_hash", "bloom_size", "rpb", "bv")
+
+
+def _orderfree_keys(case, device):
+    """(keys int64 [R, WR] on device, blocks2 on device, geometry) of an
+    order-free case: kernel B's window keys, as query_readid_orderfree_reads
+    hands them to kernel H."""
+    from colorid_tpu_torch.ops.extract import window_keys
+
+    blocks, words, vb, lens, kw = case
+    R, WR = kw["num_reads"], kw["nm"] * (kw["L"] - kw["k"] + 1)
+    keys = window_keys(*_on(device, ts.t32(words), torch.from_numpy(lens), ts.t32(vb)),
+                       k=kw["k"], L=kw["L"], d=kw["d"]).reshape(R, WR)
+    return keys, ts.t32(blocks).to(device), {n: kw[n] for n in _GEO}
+
+
+def _readid_of_case(name):
+    if name == "widest":  # 2 x 4,096 bp mates: a set of 16,384 slots in shared memory
+        case = ts.readid_orderfree_case(*ts.READID_WIDEST, n_reads=40)
+        case[3][:] = ts.READID_WIDEST[5]
+    elif name == "global_set":  # 3 x 4,096 bp mates: the set in device memory
+        layout, H, C, _nm, d, L = ts.READID_WIDEST
+        case = ts.readid_orderfree_case(layout, H, C, 3, d, L, n_reads=300)
+    elif name == "counts_in_row":  # C too wide for shared memory: counts in the output row
+        case = ts.readid_orderfree_case("classic", 2, 52_000, 2, 1, 64, n_reads=12)
+    else:
+        case = ts.readid_orderfree_case(*ts.READID_OF_CASES[name])
+    return case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ts.READID_OF_CASES)
+                         + ["widest", "global_set", "counts_in_row"])
+def test_readid_orderfree_kernel_matches_twin(cuda_device, name):
+    from colorid_tpu_torch.ops import query as q
+
+    keys, b2, geo = _orderfree_keys(_readid_of_case(name), cuda_device)
+    want = q._orderfree_plain(keys.cpu(), b2.cpu(), **geo)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    perm = torch.argsort(torch.rand(keys.shape, generator=g, device=cuda_device), dim=1)
+    shuffled = keys.gather(1, perm).contiguous()
+    before = q.readid_launches["orderfree"]
+    for order in (keys, keys, shuffled):
+        got = q.readid_orderfree(order, b2, **geo)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want), name
+    assert q.readid_launches["orderfree"] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ts.READID_EXACT_CASES))
+def test_readid_exact_kernel_matches_twin(cuda_device, name):
+    from colorid_tpu_torch.ops import query as q
+
+    blocks, rows, seg, pos, kw = ts.readid_exact_case(*ts.READID_EXACT_CASES[name])
+    cpu = (ts.t32(blocks), torch.from_numpy(rows), torch.from_numpy(seg), torch.from_numpy(pos))
+    card = _on(cuda_device, *cpu)
+    for firsthit in (False, True):
+        mode = "firsthit" if firsthit else "replay"
+        want = q.readid_exact(*cpu, **kw, firsthit=firsthit)
+        before = q.readid_launches[mode]
+        for _ in range(2):
+            got = q.readid_exact(*card, **kw, firsthit=firsthit)
+            torch.cuda.synchronize()
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), want), (name, mode)
+        assert q.readid_launches[mode] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["classic", "v4"])
+def test_readid_kernel_at_the_dispatch_size(cuda_device, layout):
+    """The [reads] dispatch's shape: 8,192 pairs of 160 bp mates (2,129,920
+    windows) on a 50,000,000-row index, order-free; and the replay and first
+    hit on 2,000,000 k-mers of 8,192 reads in no order, B 0 and 3."""
+    from colorid_tpu_torch.ops import query as q
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+
+    blocks, geo = ts.readid_matrix(layout, 4, 21, seed=11, bloom_size=50_000_000)
+    rng = np.random.default_rng(12)
+    seqs, lens = ts.readid_mates(rng, 8192, 2, 160, 31)
+    words, vb = pack_reads_valid(seqs)
+    case = (blocks, words, vb, lens, dict(geo, num_reads=8192, k=31, L=160, nm=2, d=1))
+    keys, b2, g = _orderfree_keys(case, cuda_device)
+    want = q._orderfree_plain(keys, b2, **g)  # the twin on the card's tensors
+    for _ in range(2):
+        assert torch.equal(q.readid_orderfree(keys, b2, **g), want)
+    N, R = 2_000_000, 8192
+    rows = rng.integers(0, geo["bloom_size"], (N, 4))
+    if geo["rpb"]:
+        rows = rows[:, :1] // geo["rpb"] * geo["rpb"] + rng.integers(0, geo["rpb"], (N, 4))
+    args = (b2, torch.from_numpy(rows.astype(np.int32)).to(cuda_device),
+            torch.from_numpy(rng.integers(0, R, N).astype(np.int32)).to(cuda_device),
+            torch.from_numpy(rng.integers(0, 200, N).astype(np.int32)).to(cuda_device))
+    for B in (0, 3):
+        kw = dict(num_reads=R, start_sample=B, num_colors=21, wpad=geo["wpad"], rpb=geo["rpb"])
+        for twin, firsthit in ((q._readid_core_plain, False),
+                               (q._readid_firsthit_core_plain, True)):
+            want = twin(*args, **kw)
+            for _ in range(2):
+                assert torch.equal(q.readid_exact(*args, **kw, firsthit=firsthit), want)
+
+
+@pytest.mark.cuda
+def test_readid_kernel_refuses_what_it_cannot_take(cuda_device):
+    from colorid_tpu_torch.ops import query as q
+
+    blocks, rows, seg, pos, kw = ts.readid_exact_case(*ts.READID_EXACT_CASES[
+        "classic_h4_c21_b0_sorted"])
+    b2, r, s, p = _on(cuda_device, ts.t32(blocks), torch.from_numpy(rows),
+                      torch.from_numpy(seg), torch.from_numpy(pos))
+    with pytest.raises(ValueError, match="seg_ids must be int32"):
+        q.readid_exact(b2, r, s.to(torch.int16), p, **kw)
+    with pytest.raises(ValueError, match="contiguous on one device"):
+        q.readid_exact(b2, r, s, p.cpu(), **kw)
+    with pytest.raises(ValueError, match="num_colors"):
+        q.readid_exact(b2, r, s, p, **dict(kw, num_colors=40))
+    keys, b2, geo = _orderfree_keys(_readid_of_case("v4_h4_c21_nm2_d1"), cuda_device)
+    with pytest.raises(ValueError, match="contiguous int64"):
+        q.readid_orderfree(keys[:, ::2], b2, **geo)
+    with pytest.raises(ValueError, match="exceed the matrix"):
+        q.readid_orderfree(keys, b2, **dict(geo, bloom_size=4 * b2.numel()))

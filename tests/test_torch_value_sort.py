@@ -410,9 +410,13 @@ def test_merge_twin_edge_cases(case, bits):
     }[case]
     key, qc = _sorted_runs(lengths, seed=hash(case) % 1000, bits=bits, values=values)
     runs = _merge_holds(key, qc, bits, case)
-    # a run of one key, or of a few values, may continue the run before it
-    exact = values is None and min(lengths, default=2) > 1
-    assert runs <= len(lengths) and (runs == len(lengths) or not exact)
+    # a run continues the one before it where its first key does not sort
+    # below that run's last key (a run of one key, or of a few values, or by
+    # chance): the runs found are one more than the descents at the joins
+    u = (key.numpy().view(np.uint64) ^ np.uint64(1 << 63)) & np.uint64(2**bits - 1)
+    joins = np.cumsum(lengths, dtype=np.int64)[:-1]
+    want = int((u[joins] < u[joins - 1]).sum()) + 1 if key.numel() else 0
+    assert runs == want <= len(lengths)
     if values is not None:  # stability: within a key, the payload in run order
         got_k, got_q = te.value_merge_plain(key, qc, bits=bits)
         src = torch.empty_like(qc)

@@ -719,3 +719,114 @@ def run_counts_ref(s: np.ndarray, w, mode: str, filter_t: int = 0, rounds: int =
     sel[grp] = np.maximum.reduceat(kept, np.r_[0, np.flatnonzero(np.diff(grp)) + 1]) if len(
         kept) else sel[grp]
     return s[sel], q[sel], len(kept)
+
+
+# -- kernel H (csrc/readid.cu): the read classifier's dispatches ------------------
+
+PAD_POS = 2**30  # ops/query.py::PAD_POS
+READID_K = 31
+# order-free cases: (layout, H, C, nm, d, L); C 70 packs 3 words a row into wpad 4
+READID_OF_CASES = {
+    "classic_h4_c21_nm2_d1": ("classic", 4, 21, 2, 1, 160),
+    "classic_h1_c5_nm1_d2": ("classic", 1, 5, 1, 2, 160),
+    "classic_h2_c70_nm2_d2": ("classic", 2, 70, 2, 2, 120),
+    "v1_h2_c21_nm1_d1": ("v1", 2, 21, 1, 1, 160),
+    "v2_h4_c70_nm2_d1": ("v2", 4, 70, 2, 1, 100),
+    "v3_h3_c5_nm2_d1": ("v3", 3, 5, 2, 1, 160),
+    "v4_h4_c21_nm2_d1": ("v4", 4, 21, 2, 1, 160),
+    "v4_h1_c70_nm1_d2": ("v4", 1, 70, 1, 2, 160),
+    "classic_h5_c21_nm2_d1": ("classic", 5, 21, 2, 1, 64),
+}
+# the largest window count a read that the reads route admits (mates of
+# 4,096 bp, two a read): 2 * (4096 - 31 + 1) = 8,132 keys
+READID_WIDEST = ("classic", 4, 21, 2, 1, 4096)
+# exact replay cases: (layout, H, C, B, order, rows64); order "sorted" keeps
+# each read's k-mers together, "shuffled" puts them in no order
+READID_EXACT_CASES = {
+    "classic_h4_c21_b0_sorted": ("classic", 4, 21, 0, "sorted", False),
+    "classic_h4_c21_b3_shuffled": ("classic", 4, 21, 3, "shuffled", False),
+    "classic_h1_c5_b3_sorted": ("classic", 1, 5, 3, "sorted", False),
+    "blocked_h2_c70_b0_shuffled": ("blocked", 2, 70, 0, "shuffled", False),
+    "blocked_h4_c21_b5_sorted": ("blocked", 4, 21, 5, "sorted", False),
+    "classic_h2_c70_b3_int64": ("classic", 2, 70, 3, "shuffled", True),
+    "classic_h3_c21_b0_int64": ("classic", 3, 21, 0, "sorted", True),
+}
+_LAYOUT_BV = {"classic": 0, "v1": 1, "v2": 2, "v3": 3, "v4": 4, "blocked": 4}
+
+
+def readid_matrix(layout: str, H: int, C: int, seed: int, bloom_size: int = 4096,
+                  zero_frac: float = 0.004):
+    """(blocks uint32 [Rb, 128], geometry dict: num_colors, wpad, num_hash,
+    bloom_size, rpb, bv) of a random index for kernel H's cases."""
+    from colorid_tpu_torch.ops.query import pack_matrix_blocks
+
+    rng = np.random.default_rng(seed)
+    bloom, matrix, _names = rand_blocked_matrix(rng, C, bloom_size, zero_frac)
+    blocks, wpad = pack_matrix_blocks(matrix)
+    rpb = 0 if layout == "classic" else 128 // wpad
+    return blocks, dict(num_colors=C, wpad=wpad, num_hash=H, bloom_size=bloom, rpb=rpb,
+                        bv=max(_LAYOUT_BV[layout], 1))
+
+
+def readid_mates(rng, n_reads: int, nm: int, L: int, k: int):
+    """ASCII mates [n_reads * nm, L] and their lengths for the order-free
+    pass, with the edge cases up front: read 0 has no window (length 0),
+    read 1 mates shorter than k, read 2 all N, read 3 a homopolymer (one
+    distinct k-mer), read 4 two mates alike (nm 2) or a run of N in the
+    middle; the rest random at random lengths."""
+    M = n_reads * nm
+    seqs = ACGT[rng.integers(0, 4, (M, L))]
+    lens = rng.integers(k, L + 1, M).astype(np.int32)
+    lens[:nm] = 0
+    lens[nm:2 * nm] = k - 1
+    seqs[2 * nm:3 * nm] = ord("N")
+    seqs[3 * nm:4 * nm] = ord("A")
+    lens[2 * nm:4 * nm] = L
+    if nm > 1:
+        seqs[4 * nm + 1], lens[4 * nm + 1] = seqs[4 * nm], lens[4 * nm]
+    else:
+        seqs[4, L // 3:L // 3 + 5] = ord("N")
+    return seqs, lens
+
+
+def readid_orderfree_case(layout: str, H: int, C: int, nm: int, d: int, L: int,
+                          n_reads: int = 24, seed: int = 0):
+    """Inputs of query_readid_orderfree_reads: (blocks, words, valid bits,
+    lens) as numpy arrays and its keyword arguments."""
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+
+    blocks, geo = readid_matrix(layout, H, C, seed)
+    rng = np.random.default_rng(seed + 1)
+    seqs, lens = readid_mates(rng, n_reads, nm, L, READID_K)
+    words, vb = pack_reads_valid(seqs)
+    kw = dict(geo, num_reads=n_reads, k=READID_K, L=L, nm=nm, d=d)
+    return blocks, words, vb, lens, kw
+
+
+def readid_exact_case(layout: str, H: int, C: int, B: int, order: str, rows64: bool,
+                      N: int = 3000, n_reads: int = 64, seed: int = 0):
+    """Inputs of query_readid_batch / _firsthit: (blocks, rows [N, H] (int64
+    where rows64), seg, pos) as numpy arrays and the keyword arguments.
+    Reads 0..n_reads-9 hold the k-mers at positions 0.. in a random order;
+    the last 8 reads none; 40 padding k-mers (PAD_POS) carry read 0, as a
+    padding mate's windows do; "shuffled" puts every k-mer in no order."""
+    blocks, geo = readid_matrix(layout, H, C, seed, zero_frac=0.01)
+    rng = np.random.default_rng(seed + 2)
+    seg = np.sort(rng.integers(0, n_reads - 8, N)).astype(np.int32)
+    pos = np.zeros(N, dtype=np.int32)
+    for r in range(n_reads - 8):
+        m = seg == r
+        pos[m] = rng.permutation(int(m.sum()))
+    seg[N // 2:N // 2 + 40] = 0
+    pos[N // 2:N // 2 + 40] = PAD_POS
+    rows = rng.integers(0, geo["bloom_size"], (N, H))
+    if geo["rpb"]:
+        rpb = geo["rpb"]
+        rows = rows[:, :1] // rpb * rpb + rng.integers(0, rpb, (N, H))
+    if order == "shuffled":
+        perm = rng.permutation(N)
+        rows, seg, pos = rows[perm], seg[perm], pos[perm]
+    rows = rows.astype(np.int64 if rows64 else np.int32)
+    kw = dict(num_reads=n_reads, start_sample=B, num_colors=C, wpad=geo["wpad"],
+              rpb=geo["rpb"])
+    return blocks, rows, seg, pos, kw
