@@ -8,8 +8,9 @@ With --compare it measures this checkout against the one at OTHER_ROOT (for
 example the parent commit, unpacked with git archive) on one cell, in the
 turns other, this, this, other, each a fresh process: the [parity],
 [kernel] sort (kernel E on both dispatches' own sort inputs), [reads],
-[fused] and [mproc] phases below with their [profile] lines. It prints
-no result line.
+[fused], [kernel] readid (with CLI read_id's files against --device cpu
+by every route) and [mproc] phases below with their [profile] lines. It
+prints no result line.
 
 Phases, each printing its lines (any failure exits non-zero):
 
@@ -2900,6 +2901,18 @@ def _exact_bound(rows, pos, geo: dict) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
+def readid_registers(build_log: str) -> list[str]:
+    """Kernel H's kernels from nvcc's -Xptxas -v report of csrc/readid.cu:
+    registers, shared memory and spills of each, the order-free mode's
+    instances at the read classifier's dispatch (classic and v4, H 4) on
+    their own, the rest as ranges."""
+    both = ptxas_summary([build_log])
+    mine = ptxas_summary([build_log], keep=("readid_orderfree_kernel",))
+    return ([e for e in mine if e.startswith(("readid_orderfree_kernel<2,4> ",
+                                              "readid_orderfree_kernel<7,4> "))]
+            + [e for e in both if e.startswith("readid_")])
+
+
 def _readid_edge_mates(mates, L: int, nm: int, n_reads: int, seed: int):
     """ASCII mates [n_reads * nm, L] and lengths for the order-free edge
     cases: from the seeded pairs where they are long enough (random bases
@@ -2981,12 +2994,16 @@ def readid_kernel_phase(classic_bxi: str, blocked_bxi: str, reads: dict, card: s
 
     from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.index.bigsi import BigsiIndex
-    from colorid_tpu_torch.ops import query as q
+    from colorid_tpu_torch.ops import kernels, query as q
 
     t0 = time.time()
     counts0 = dict(q.readid_launches)
     mates = reads["mates"]
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    if DEVICE == "cuda":
+        regs = readid_registers(kernels.build_log.get("readid.cu", ""))
+        log(f"[kernel] readid ptxas: {' | '.join(regs) or 'not built in this process'} "
+            f"on {card}")
     errs, rows = {}, {}
     for name, bxi in (("classic", classic_bxi), ("blocked", blocked_bxi)):
         eng = QueryEngine(BigsiIndex.load(bxi), device=DEVICE)
@@ -3010,8 +3027,10 @@ def readid_kernel_phase(classic_bxi: str, blocked_bxi: str, reads: dict, card: s
         if DEVICE == "cuda":
             ms = cuda_ms(lambda: q.readid_orderfree(keys, b2, **of), 20)
             plain = cuda_ms(lambda: q._orderfree_plain(keys, b2, **of), 3)
+            stages = _launch_ms(lambda: q.readid_orderfree(keys, b2, **of))
         else:
             ms = plain = 0.0
+            stages = []
         rows[f"{name} orderfree"] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms,
                                          bound_by=bound_by)
         log(f"[kernel] readid {name} order-free ({N_PROFILE} pairs' own keys: "
@@ -3019,7 +3038,9 @@ def readid_kernel_phase(classic_bxi: str, blocked_bxi: str, reads: dict, card: s
             f"{len(cases) - 1} more cases: {', '.join(c for c, _ in cases[1:])}): "
             f"bitwise_equal=True; ms={ms:.4f} plain_ms={plain:.4f} library_ms=null (no "
             f"PyTorch call dedups, gathers and counts per read) bound_ms={bound_ms:.4f} "
-            f"bound_by={bound_by} ({how}) on {card}")
+            f"bound_by={bound_by} ({how})"
+            f"{'; launches ' + ', '.join(f'{n} {t:.4f}' for n, t in stages) if stages else ''}"
+            f" on {card}")
         del cases, keys
         # the replay and first hit on CLI read_id's own replay dispatch
         seen = _capture_replay(bxi, reads["check"], os.path.join(reads["dir"], f"h_{name}"))
@@ -5034,12 +5055,12 @@ def wide_rates(engine) -> str:
             f"host int64 rows {n / t_host:.0f} k-mers/s")
 
 
-def ptxas_summary(logs) -> list[str]:
+def ptxas_summary(logs, keep: tuple = ()) -> list[str]:
     """One entry per compiled kernel instance from nvcc's -Xptxas -v
     reports: its name with template arguments (stream_probe_kernel<1,4> is
     W = 1, H = 4; placement_kernel<2,4,0> is path 2, H = 4, rows),
     registers, static shared memory and spills; a kernel of more than eight
-    instances as one entry with their ranges."""
+    instances as one entry with their ranges, unless named in ``keep``."""
     import re
 
     out, name, spill = [], None, ""
@@ -5065,7 +5086,7 @@ def ptxas_summary(logs) -> list[str]:
         by_base.setdefault(entry[0].split("<")[0], []).append(entry)
     lines = []
     for base, entries in by_base.items():
-        if len(entries) > 8:
+        if len(entries) > 8 and base not in keep:
             regs = [e[1] for e in entries]
             spills = sorted({e[3] for e in entries})
             lines.append(f"{base} {len(entries)} instances {min(regs)}-{max(regs)} registers "
@@ -5169,7 +5190,8 @@ def compare_cell(tmp: str) -> dict:
     under tmp: phase 3's inputs and its classic and blocked (v4) indexes,
     the 400,000 reads packed as the reads path takes them, the reads cell's
     204,000 pairs as files with the blocked index's single-device read_id
-    files, and the first N_PROFILE pairs' mates."""
+    files, the first N_CHECK pairs as files with both indexes' read_id
+    files on the CPU, and the first N_PROFILE pairs' mates."""
     import numpy as np
 
     man, fq, _sources = synth_inputs(tmp)
@@ -5184,6 +5206,10 @@ def compare_cell(tmp: str) -> dict:
     cell["pairs"] = write_pairs(os.path.join(tmp, "all"), mates, len1, np.arange(len(src)))
     cell["blocked_all"] = os.path.join(tmp, "blocked_all")
     read_id_bytes(cell["blocked"], cell["pairs"], cell["blocked_all"])
+    cell["check"] = write_pairs(os.path.join(tmp, "check"), mates, len1, np.arange(N_CHECK))
+    for name in ("classic", "blocked"):
+        cell[f"{name}_check_cpu"] = os.path.join(tmp, f"{name}_check_cpu")
+        read_id_bytes(cell[name], cell["check"], cell[f"{name}_check_cpu"], device="cpu")
     for key, a in (("words", reads[0]), ("lens", reads[1]), ("vbits", reads[2]),
                    ("mates", mates[:N_PROFILE]), ("src", src)):
         np.save(os.path.join(tmp, key + ".npy"), a)
@@ -5196,9 +5222,9 @@ def compare_turn(root: str, tmp: str) -> int:
     the parity phases of both indexes ([parity], [profile] classic and
     blocked), kernel E on both dispatches' sort inputs ([kernel] sort),
     search_reads and one order-free read_id dispatch on each
-    ([reads], [profile]), the fused phase ([fused]) and the [mproc] phase,
-    each with its own checks. Prints the search_reads answers on a line
-    of their own."""
+    ([reads], [profile]), the fused phase ([fused]), the read classifier
+    (readid_turn_phase) and the [mproc] phase, each with its own checks.
+    Prints the search_reads answers on a line of their own."""
     sys.path.insert(0, root)
     import hashlib
 
@@ -5234,6 +5260,7 @@ def compare_turn(root: str, tmp: str) -> int:
         answers[name] = [int(n_u), hashlib.sha256(
             got.counts.tobytes() + got.freq_hist.tobytes()).hexdigest()]
     fused_phase(cell["blocked"], {"dev": dev, "L": cell["L"]}, card)
+    readid_turn_phase(cell, a["mates"], tempfile.mkdtemp(dir=tmp), card)
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     shr = {"dev": dev[:2], "L": cell["L"], "pairs": cell["pairs"], "src": a["src"],
@@ -5242,6 +5269,28 @@ def compare_turn(root: str, tmp: str) -> int:
     mproc_phase(turn_dir, cell["fq"], cell["classic"], cell["blocked"], shr, card, root=root)
     print("ANSWERS " + json.dumps(answers), flush=True)
     return 0
+
+
+def readid_turn_phase(cell: dict, mates, d: str, card: str) -> None:
+    """--compare's read classifier on the turn's package: kernel H's phase
+    ([kernel] readid, [profile] readid replay / firsthit), then CLI read_id
+    on the cell's N_CHECK pairs, byte-identical to the cell's --device cpu
+    files on both indexes by the default route, with COLORID_RID_SAFE=0
+    and with COLORID_RID_READS=0."""
+    readid_kernel_phase(cell["classic"], cell["blocked"],
+                        {"mates": mates, "check": cell["check"], "dir": d}, card)
+    for name in ("classic", "blocked"):
+        cpu = cell[f"{name}_check_cpu"]
+        with open(cpu + "_reads.txt", "rb") as f, open(cpu + "_counts.txt", "rb") as g:
+            want = (f.read(), g.read())
+        for env in (None, {"COLORID_RID_SAFE": "0"}, {"COLORID_RID_READS": "0"}):
+            got = read_id_bytes(cell[name], cell["check"], os.path.join(d, f"{name}_rid"),
+                                env=env)
+            if got[:2] != want:
+                raise AssertionError(f"{name}: read_id files with {env} differ from the CPU's")
+        log(f"[reads] {name}: CLI read_id _reads.txt and _counts.txt byte-identical to "
+            f"--device cpu on {N_CHECK} pairs by the default route, COLORID_RID_SAFE=0 and "
+            f"COLORID_RID_READS=0 on {card}")
 
 
 def compare(other: str) -> int:

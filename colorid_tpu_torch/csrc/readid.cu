@@ -32,12 +32,17 @@
 // pairs of 2 x 160 bp mates, k 31, H 4: 2,129,920 windows): the keys (8 bytes
 // a window, 17 MB), the 32-byte sectors of the H rows of each distinct valid
 // k-mer (a classic index of 200 MB does not fit the 50 MB L2), the output
-// (0.8 MB): at most about 0.09 ms at 3.35 TB/s, less where reads share k-mers; XXH3 of four seeds is some 380
-// SASS instructions a k-mer (kernel A's count), about 0.02 ms. The gathers
-// are scattered 4-byte reads, so the sectors, not the bytes used, bind.
-// Mode 2 moves its rows, seg and pos (16-24 bytes a k-mer at H 4) and the
-// rows' sectors, twice for the counted k-mers (one pass finds each read's
-// first absent position, the next counts).
+// (0.8 MB); XXH3 of four seeds is some 380 SASS instructions a k-mer (kernel
+// A's count). The gathers are scattered 4-byte reads, one sector each, and
+// scattered sectors come from HBM at a rate far below its streaming rate:
+// both modes' gathers run at about the same number of sectors a second
+// however the threads are laid out (PERF.md §6 times the layouts tried:
+// a warp a read, 2-4 keys a thread in flight, 320 or 384 threads a read,
+// more or fewer resident warps, L1 bypass, keys evicted first, a
+// persistent grid with the next read's keys prefetched, per-color ballots
+// in place of the shared atomics: none faster than the layout below).
+// Mode 2 moves its rows, seg and pos (16-24 bytes a k-mer at H 4), the
+// rows' sectors once, and 4 wpad bytes a k-mer of scratch.
 //
 // What the design does about that:
 // - Mode 1 runs a block a read. It deduplicates the read's keys in a hash
@@ -48,18 +53,27 @@
 //   memory takes a set in global scratch, one per resident block, with the
 //   same code (WR past 8,192: nm > 2 with long mates).
 // - The owner places its k-mer with kernel A's own device code
-//   (csrc/placement.cuh, H of 1-4 unrolled), gathers the wpad words of the H
-//   rows (classic: word r * wpad; blocked: block * 128 + offset * wpad),
-//   tests presence (every row has a nonzero word) and adds each color bit of
-//   the AND into per-read counts in shared memory (the output row itself
-//   where C does not fit), then the block writes one row.
+//   (csrc/placement.cuh, H of 1-4 unrolled), loads the wpad words of its H
+//   rows together (classic: word r * wpad; blocked: block * 128 + offset *
+//   wpad), tests presence (every row has a nonzero word) and adds each
+//   color bit of the AND into per-read counts in shared memory (the output
+//   row itself where C does not fit), then the block writes one row.
 // - Mode 2 does not assume that seg is sorted or that a read's k-mers are
 //   contiguous (padding mates carry seg 0): every per-read reduction is an
 //   integer atomic, exact in any order. Launches: one writes the outputs'
-//   initial values, one finds fa by atomicMin (a k-mer at or past the read's
-//   current fa is skipped unread), then one counts by atomicAdd (with B > 0,
-//   one for the phase-1 k-mers that also ORs the read's candidate colors,
-//   and one for the rest) or takes the first hits by atomicMin.
+//   initial values; the first-absent pass (a block for every 256 k-mers)
+//   loads a k-mer's pos, seg and H row indices, then all its H wpad words
+//   through L2 only, before it tests any (no early exit, no wait on fa),
+//   writes the k-mer's AND words to the scratch andw [N, wpad] and lowers
+//   fa by atomicMin; then one counting pass (two with B > 0: phase 1 also
+//   ORs the read's candidate colors) or the first hits read the scratch,
+//   coalesced, and gather no matrix word. A k-mer at or past its read's
+//   final fa never counts, so the scratch of one the pass did not need is
+//   never read.
+// - Mode 2's atomics are aggregated in the warp: __match_any_sync on seg
+//   groups the lanes of one read (a read's k-mers lie side by side in the
+//   route's layout), and the group's minimum, OR or per-color popcount
+//   goes out in one atomic.
 //
 // Bound to Python with ctypes (colorid_tpu_torch/ops/kernels.py): plain C
 // entry points that launch on the caller's stream and return
@@ -73,6 +87,7 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int32_t BIG = 1 << 30;  // ops/query.py::BIG and PAD_POS
 constexpr unsigned long long SENT = 0x7FFFFFFFFFFFFFFFull;  // SENT_KEY, the set's empty slot
 constexpr int MAX_H = 32;  // rows a k-mer (the wrapper checks)
@@ -100,6 +115,13 @@ struct OrderFree {
 __device__ __forceinline__ uint32_t word_at(const uint32_t* blocks, int64_t n_words,
                                             int64_t w) {
   return w >= 0 && w < n_words ? __ldg(blocks + w) : 0u;
+}
+
+// The exact mode's gather: through L2 only (ld.global.cg). A row word is
+// read once there, so an L1 line would hold nothing that is read again.
+__device__ __forceinline__ uint32_t word_l2(const uint32_t* blocks, int64_t n_words,
+                                            int64_t w) {
+  return w >= 0 && w < n_words ? __ldcg(blocks + w) : 0u;
 }
 
 // Adds 1 to cnt[32 w + b] for each set bit b of word w of an AND below C;
@@ -299,43 +321,22 @@ struct Exact {
   const uint32_t* blocks;
   int64_t n_words;
   int wpad;
-  int64_t rpb;  // 0: classic rows
+  int64_t rpb;   // 0: classic rows
+  int rpb_log2;  // log2(rpb)
   int C, B;
   int64_t R;
-  int32_t* out;     // [R, C + 1]
-  int32_t* fa;      // first absent: out's column C (first hit) or [R] scratch (counts)
-  int fa_stride;    // C + 1 or 1
-  uint32_t* cand;   // [R, wpad] the colors of the phase-1 k-mers (counts, B > 0)
+  int32_t* out;    // [R, C + 1]
+  int32_t* fa;     // first absent: out's column C (first hit) or [R] scratch (counts)
+  int fa_stride;   // C + 1 or 1
+  uint32_t* cand;  // [R, wpad] the colors of the phase-1 k-mers (counts, B > 0)
+  uint32_t* andw;  // [N, wpad] the AND words of each k-mer that the first pass checked
 };
 
-// Word offset of hash h's row of k-mer i: classic r * wpad; blocked, as the
-// twin's gather: the block of hash 0's row, lanes (r % rpb) * wpad.
-template <typename RowT>
-__device__ __forceinline__ int64_t exact_base(const Exact& p, int64_t i, int h) {
-  const RowT* rows = static_cast<const RowT*>(p.rows) + i * p.H;
-  const int64_t r = (int64_t)rows[h];
+// Word offset of row r of a k-mer whose hash-0 row is r0: classic r * wpad;
+// blocked, as the twin's gather: the block of r0, lanes (r % rpb) * wpad.
+__device__ __forceinline__ int64_t exact_off(const Exact& p, int64_t r0, int64_t r) {
   if (!p.rpb) return r * p.wpad;
-  const int64_t r0 = (int64_t)rows[0];
-  return (r0 / p.rpb) * 128 + (r % p.rpb) * p.wpad;
-}
-
-template <typename RowT>
-__device__ bool exact_present(const Exact& p, int64_t i) {
-  for (int h = 0; h < p.H; ++h) {
-    const int64_t b = exact_base<RowT>(p, i, h);
-    bool nz = false;
-    for (int w = 0; w < p.wpad && !nz; ++w) nz = word_at(p.blocks, p.n_words, b + w) != 0;
-    if (!nz) return false;
-  }
-  return true;
-}
-
-// Word w of k-mer i's AND over its H rows.
-template <typename RowT>
-__device__ __forceinline__ uint32_t exact_and(const Exact& p, int64_t i, int w) {
-  uint32_t a = ~0u;
-  for (int h = 0; h < p.H; ++h) a &= word_at(p.blocks, p.n_words, exact_base<RowT>(p, i, h) + w);
-  return a;
+  return ((r0 >> p.rpb_log2) << 7) + (r & (p.rpb - 1)) * p.wpad;
 }
 
 __global__ void __launch_bounds__(THREADS) readid_init_kernel(const Exact p, int firsthit) {
@@ -351,18 +352,69 @@ __global__ void __launch_bounds__(THREADS) readid_init_kernel(const Exact p, int
       p.cand[i] = 0u;
 }
 
-// fa[seg] = min over absent k-mers of pos; padding (pos >= BIG) and a
-// k-mer at or past its read's current fa cannot lower it and are skipped.
-template <typename RowT>
+// fa[seg] = min over absent k-mers of pos, and andw[i] = the AND words of
+// every k-mer that is not padding. A k-mer's H row indices, then all its H
+// wpad words, are loaded before any is tested.
+template <typename RowT, int HT>
 __global__ void __launch_bounds__(THREADS) readid_absent_kernel(const Exact p) {
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < p.N; i += stride) {
-    const int32_t pi = p.pos[i];
-    const int32_t s = p.seg[i];
-    if (pi >= BIG || s < 0 || s >= p.R) continue;
-    int32_t* fa = p.fa + (int64_t)s * p.fa_stride;
-    if (pi >= *(volatile int32_t*)fa) continue;
-    if (!exact_present<RowT>(p, i)) atomicMin(fa, pi);
+  const int lane = threadIdx.x & 31;
+  // a warp takes 32 consecutive k-mers a round: its lanes hold neighbours
+  // (the same read, mostly), and every lane runs each round's warp-wide calls
+  for (int64_t i0 = (int64_t)blockIdx.x * THREADS + (threadIdx.x & ~31); i0 < p.N;
+       i0 += (int64_t)gridDim.x * THREADS) {
+    const int64_t i = i0 + lane;
+    int32_t pi = BIG, s = -1;
+    if (i < p.N) {
+      pi = p.pos[i];
+      s = p.seg[i];
+    }
+    const bool live = pi < BIG && s >= 0 && s < p.R;
+    bool present = true;
+    if (live) {
+      const RowT* const rows = static_cast<const RowT*>(p.rows) + i * p.H;
+      uint32_t* const andw = p.andw + i * p.wpad;
+      if constexpr (HT > 0) {
+        int64_t r[HT], off[HT];
+#pragma unroll
+        for (int h = 0; h < HT; ++h) r[h] = (int64_t)rows[h];
+#pragma unroll
+        for (int h = 0; h < HT; ++h) off[h] = exact_off(p, r[0], r[h]);
+        uint32_t nz = 0;
+#pragma unroll 4
+        for (int w = 0; w < p.wpad; ++w) {
+          uint32_t x[HT], a = ~0u;
+#pragma unroll
+          for (int h = 0; h < HT; ++h) x[h] = word_l2(p.blocks, p.n_words, off[h] + w);
+#pragma unroll
+          for (int h = 0; h < HT; ++h) {
+            a &= x[h];
+            nz |= (uint32_t)(x[h] != 0) << h;
+          }
+          andw[w] = a;
+        }
+        present = nz == (1u << HT) - 1u;
+      } else {  // a run-time H
+        const int64_t r0 = (int64_t)rows[0];
+        uint32_t nz = 0;
+        for (int w = 0; w < p.wpad; ++w) {
+          uint32_t a = ~0u;
+          for (int h = 0; h < p.H; ++h) {
+            const uint32_t x = word_l2(p.blocks, p.n_words, exact_off(p, r0, rows[h]) + w);
+            a &= x;
+            nz |= (uint32_t)(x != 0) << h;
+          }
+          andw[w] = a;
+        }
+        present = nz == (p.H >= 32 ? ~0u : (1u << p.H) - 1u);
+      }
+    }
+    // one atomicMin for the absent k-mers of a read in the warp
+    const bool miss = live && !present;
+    const unsigned grp = __match_any_sync(FULL, miss ? s : -1);
+    if (miss) {
+      const int32_t m = __reduce_min_sync(grp, pi);
+      if (lane == __ffs(grp) - 1) atomicMin(p.fa + (int64_t)s * p.fa_stride, m);
+    }
   }
 }
 
@@ -373,64 +425,88 @@ enum Pass : int {
   PASS_FIRST = 3,   // first hit: the counted phase-1 k-mers' least pos a color
 };
 
-// A k-mer counts where pos < fa[seg] (it is then present). The first
-// counting pass also writes the counts' no_hits column.
-template <typename RowT, int PASS>
+// A k-mer counts where pos < fa[seg] (it is then present); its AND words
+// come from the scratch. The lanes of one read (__match_any_sync on seg)
+// send one atomic a color. The first counting pass also writes the counts'
+// no_hits column.
+template <int PASS>
 __global__ void __launch_bounds__(THREADS) readid_count_kernel(const Exact p) {
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  const int64_t n = p.N > p.R ? p.N : p.R;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
-    if ((PASS == PASS_ALL || PASS == PASS_PHASE1) && i < p.R)
+  if (PASS == PASS_ALL || PASS == PASS_PHASE1)
+    for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < p.R;
+         i += (int64_t)gridDim.x * THREADS)
       p.out[i * (p.C + 1) + p.C] = p.fa[i] < BIG;
-    if (i >= p.N) continue;
-    const int32_t pi = p.pos[i];
-    const int32_t s = p.seg[i];
-    if (pi >= BIG || s < 0 || s >= p.R) continue;
-    if (!(pi < p.fa[(int64_t)s * p.fa_stride])) continue;
-    if (PASS == PASS_PHASE1 && !(pi < p.B)) continue;
-    if (PASS == PASS_PHASE2 && pi < p.B) continue;
-    if (PASS == PASS_FIRST && p.B > 0 && !(pi < p.B)) continue;
-    int32_t* row = p.out + (int64_t)s * (p.C + 1);
+  const int lane = threadIdx.x & 31;
+  for (int64_t i0 = (int64_t)blockIdx.x * THREADS + (threadIdx.x & ~31); i0 < p.N;
+       i0 += (int64_t)gridDim.x * THREADS) {
+    const int64_t i = i0 + lane;
+    int32_t pi = BIG, s = -1;
+    if (i < p.N) {
+      pi = p.pos[i];
+      s = p.seg[i];
+    }
+    bool live = pi < BIG && s >= 0 && s < p.R;
+    if (live) live = pi < p.fa[(int64_t)s * p.fa_stride];
+    if (PASS == PASS_PHASE1 || (PASS == PASS_FIRST && p.B > 0)) live = live && pi < p.B;
+    if (PASS == PASS_PHASE2) live = live && pi >= p.B;
+    const unsigned grp = __match_any_sync(FULL, live ? s : -1);
+    const bool lead = live && lane == __ffs(grp) - 1;
+    int32_t* const row = p.out + (int64_t)(live ? s : 0) * (p.C + 1);
     for (int w = 0; w < p.wpad && 32 * w < p.C; ++w) {
-      uint32_t a = exact_and<RowT>(p, i, w);
+      uint32_t a = live ? p.andw[i * p.wpad + w] : 0u;
       if (p.C - 32 * w < 32) a &= (1u << (p.C - 32 * w)) - 1u;
-      if (PASS == PASS_PHASE2) a &= p.cand[(int64_t)s * p.wpad + w];
-      if (!a) continue;
-      if (PASS == PASS_PHASE1) atomicOr(p.cand + (int64_t)s * p.wpad + w, a);
-      for (; a; a &= a - 1) {
-        int32_t* c = row + 32 * w + __ffs(a) - 1;
-        if (PASS == PASS_FIRST)
-          atomicMin(c, pi);
-        else
-          atomicAdd(c, 1);
+      if (PASS == PASS_PHASE2 && live) a &= p.cand[(int64_t)s * p.wpad + w];
+      if (PASS == PASS_PHASE1) {
+        const uint32_t o = __reduce_or_sync(grp, a);
+        if (lead && o) atomicOr(p.cand + (int64_t)s * p.wpad + w, o);
+      }
+      uint32_t bits = __reduce_or_sync(FULL, a);
+      while (bits) {
+        const int b = __ffs(bits) - 1;
+        bits &= bits - 1;
+        if (PASS == PASS_FIRST) {
+          const int32_t m = __reduce_min_sync(grp, (a >> b) & 1u ? pi : BIG);
+          if (lead && m < BIG) atomicMin(row + 32 * w + b, m);
+        } else {
+          const unsigned m = __ballot_sync(FULL, (a >> b) & 1u) & grp;
+          if (lead && m) atomicAdd(row + 32 * w + b, __popc(m));
+        }
       }
     }
   }
 }
 
-int grid_for(int64_t n) {
+// Blocks for n items, one a thread: at most 8 an SM, which then stride;
+// every one (cap false) for the first-absent pass, whose gathers want as
+// many warps in flight as the SMs take.
+int grid_for(int64_t n, bool cap = true) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int64_t needed = (n + THREADS - 1) / THREADS;
-  const int64_t most = (int64_t)(sms > 0 ? sms : 1) * 8;
+  const int64_t most = cap ? (int64_t)(sms > 0 ? sms : 1) * 8 : needed;
   return (int)(needed < 1 ? 1 : needed < most ? needed : most);
 }
 
 template <typename RowT>
 cudaError_t launch_exact(const Exact& p, int firsthit, cudaStream_t st) {
-  const int64_t n = p.N > p.R ? p.N : p.R;
   readid_init_kernel<<<grid_for(p.R * (p.C + 1 > p.wpad ? p.C + 1 : p.wpad)), THREADS, 0, st>>>(
       p, firsthit);
-  readid_absent_kernel<RowT><<<grid_for(p.N), THREADS, 0, st>>>(p);
-  const int g = grid_for(n);
+  const int ga = grid_for(p.N, false);
+  switch (p.H) {
+    case 1: readid_absent_kernel<RowT, 1><<<ga, THREADS, 0, st>>>(p); break;
+    case 2: readid_absent_kernel<RowT, 2><<<ga, THREADS, 0, st>>>(p); break;
+    case 3: readid_absent_kernel<RowT, 3><<<ga, THREADS, 0, st>>>(p); break;
+    case 4: readid_absent_kernel<RowT, 4><<<ga, THREADS, 0, st>>>(p); break;
+    default: readid_absent_kernel<RowT, 0><<<ga, THREADS, 0, st>>>(p); break;
+  }
+  const int g = grid_for(p.N > p.R ? p.N : p.R);
   if (firsthit) {
-    readid_count_kernel<RowT, PASS_FIRST><<<g, THREADS, 0, st>>>(p);
+    readid_count_kernel<PASS_FIRST><<<g, THREADS, 0, st>>>(p);
   } else if (p.B > 0) {
-    readid_count_kernel<RowT, PASS_PHASE1><<<g, THREADS, 0, st>>>(p);
-    readid_count_kernel<RowT, PASS_PHASE2><<<g, THREADS, 0, st>>>(p);
+    readid_count_kernel<PASS_PHASE1><<<g, THREADS, 0, st>>>(p);
+    readid_count_kernel<PASS_PHASE2><<<g, THREADS, 0, st>>>(p);
   } else {
-    readid_count_kernel<RowT, PASS_ALL><<<g, THREADS, 0, st>>>(p);
+    readid_count_kernel<PASS_ALL><<<g, THREADS, 0, st>>>(p);
   }
   return cudaGetLastError();
 }
@@ -438,7 +514,8 @@ cudaError_t launch_exact(const Exact& p, int firsthit, cudaStream_t st) {
 }  // namespace
 
 // Mode 1. keys int64 [R, WR]; blocks the matrix's n_words uint32 words;
-// out int32 [R, C + 3]. The hash set has 2^set_log2 >= 2 WR slots: in
+// out int32 [R, C + 3]; ops/query.py::readid_orderfree_plan chooses the
+// rest. The hash set has 2^set_log2 >= 2 WR slots: in
 // shared memory where gset is null (grid blocks, each walking reads r, r +
 // grid, ...), else in gset, 2^set_log2 slots for each of the grid's blocks.
 // cnt_global: the per-read counts live in the output row (C too large for
@@ -454,7 +531,8 @@ extern "C" int readid_orderfree_launch(const void* keys, int64_t R, int32_t WR,
                                        void* stream) {
   if (R <= 0) return 0;
   if (WR < 1 || set_log2 < 1 || set_log2 > 30 || (1ll << set_log2) < 2ll * WR || grid < 1 ||
-      H > MAX_H || wpad < 1 || C < 0 || C > 32 * wpad || smem < 0)
+      H > MAX_H || wpad < 1 || C < 0 || C > 32 * wpad ||
+      smem < (gset ? 0 : 8ll << set_log2) + (cnt_global ? 0 : 4ll * C))
     return (int)cudaErrorInvalidValue;
   OrderFree p{};
   const int path = place_fields(p, k, H, version, bloom_size, rpb, consts);
@@ -485,16 +563,18 @@ extern "C" int readid_orderfree_launch(const void* keys, int64_t R, int32_t WR,
 }
 
 // Mode 2. rows [N, H] (int64 where rows64), seg and pos int32 [N]; rpb 0
-// for classic rows. firsthit 0: out int32 [R, C + 1] counts and no_hits, fa
-// int32 [R] scratch, cand uint32 [R, wpad] scratch where B > 0 (else null);
+// for classic rows, else a power of two; andw uint32 [N, wpad] scratch.
+// firsthit 0: out int32 [R, C + 1] counts and no_hits, fa int32 [R]
+// scratch, cand uint32 [R, wpad] scratch where B > 0 (else null);
 // firsthit 1: out the first hits and fa, fa and cand null.
 extern "C" int readid_exact_launch(const void* rows, int32_t rows64, const void* seg,
                                    const void* pos, int64_t N, int32_t H, const void* blocks,
                                    int64_t n_words, int32_t wpad, int64_t rpb, int32_t C,
                                    int32_t B, int64_t R, int32_t firsthit, void* out, void* fa,
-                                   void* cand, void* stream) {
+                                   void* cand, void* andw, void* stream) {
   if (R <= 0) return 0;
-  if (N < 0 || H < 1 || wpad < 1 || rpb < 0 || C < 0 || C > 32 * wpad ||
+  if (N < 0 || H < 1 || H > MAX_H || wpad < 1 || rpb < 0 || (rpb & (rpb - 1)) || C < 0 ||
+      C > 32 * wpad || (N > 0 && andw == nullptr) ||
       (!firsthit && (fa == nullptr || (B > 0 && cand == nullptr))))
     return (int)cudaErrorInvalidValue;
   Exact p{};
@@ -507,6 +587,7 @@ extern "C" int readid_exact_launch(const void* rows, int32_t rows64, const void*
   p.n_words = n_words;
   p.wpad = wpad;
   p.rpb = rpb;
+  while (rpb > 1 && (1ll << p.rpb_log2) < rpb) ++p.rpb_log2;
   p.C = C;
   p.B = B;
   p.R = R;
@@ -514,6 +595,7 @@ extern "C" int readid_exact_launch(const void* rows, int32_t rows64, const void*
   p.fa = firsthit ? p.out + C : (int32_t*)fa;
   p.fa_stride = firsthit ? C + 1 : 1;
   p.cand = firsthit || B <= 0 ? nullptr : (uint32_t*)cand;
+  p.andw = (uint32_t*)andw;
   const cudaStream_t st = (cudaStream_t)stream;
   return (int)(rows64 ? launch_exact<int64_t>(p, firsthit, st)
                       : launch_exact<int32_t>(p, firsthit, st));

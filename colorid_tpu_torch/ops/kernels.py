@@ -110,7 +110,7 @@ KERNELS = {
         "readid.cu",
         "readid_exact_launch",
         [_VP, _I32, _VP, _VP, _I64, _I32, _VP, _I64, _I32, _I64, _I32, _I32, _I64, _I32, _VP,
-         _VP, _VP, _VP],
+         _VP, _VP, _VP, _VP],
     ),
 }
 SOURCES = sorted({src for src, _fn, _args in KERNELS.values()})

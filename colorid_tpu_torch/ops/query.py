@@ -645,6 +645,26 @@ READID_MODES = ("orderfree", "replay", "firsthit")
 readid_launches = dict.fromkeys(READID_MODES, 0)
 READID_SET_SMEM = 1 << 17  # bytes of a read's hash set kept in shared memory
 READID_SMEM = 200 * 1024  # dynamic shared memory a block of the order-free mode may take
+READID_THREADS = 256  # csrc/readid.cu THREADS: a block of the order-free mode
+
+
+def readid_orderfree_plan(R: int, WR: int, C: int, sms: int) -> dict:
+    """Kernel H's order-free launch for R reads of WR keys and C colors on a
+    card of ``sms`` SMs: a block of READID_THREADS threads a read (a window
+    a thread, ``rounds`` rounds of them), its hash set of 2^``set_log2`` >=
+    2 WR slots (8 bytes each) in shared memory, or past READID_SET_SMEM in
+    device memory (``gset``: one set for each of ``grid`` resident blocks);
+    ``cnt_global``: C int32 counts that do not fit beside the set live in
+    the output row; ``smem``: a block's dynamic shared memory, the set
+    (unless gset) and the counts (unless cnt_global)."""
+    set_log2 = (2 * WR - 1).bit_length()
+    gset = 8 << set_log2 > READID_SET_SMEM
+    smem = 0 if gset else 8 << set_log2
+    cnt_global = smem + 4 * C > READID_SMEM
+    smem += 0 if cnt_global else 4 * C
+    grid = min(R, 2 * sms) if gset else min(R, 1 << 20)
+    return dict(set_log2=set_log2, gset=gset, cnt_global=cnt_global, smem=smem,
+                grid=max(grid, 1), rounds=-(-WR // READID_THREADS))
 
 
 def _check_matrix(blocks2, dev, wpad: int, rpb: int, num_colors: int, what: str) -> None:
@@ -687,9 +707,10 @@ def readid_orderfree(keys: torch.Tensor, blocks2: torch.Tensor, *, num_colors: i
     D and the zero-hit count: int32 [R, C + 3] (query_readid_orderfree_
     reads' contract).
 
-    A CUDA tensor launches csrc/readid.cu (a block a read: a hash set of
-    the keys, then placement, gather and counts of each distinct one) on
-    the current stream; a CPU tensor takes the plain twin
+    A CUDA tensor launches csrc/readid.cu (a block a read, as
+    ``readid_orderfree_plan`` lays it out: a hash set of the keys, then
+    placement, gather and counts of each distinct one) on the current
+    stream; a CPU tensor takes the plain twin
     ``_orderfree_plain``. Launches count in ``readid_launches["orderfree"]``
     and ``readid_orderfree.launches``."""
     kw = dict(num_colors=num_colors, wpad=wpad, k=k, num_hash=num_hash,
@@ -705,23 +726,19 @@ def readid_orderfree(keys: torch.Tensor, blocks2: torch.Tensor, *, num_colors: i
     out = torch.empty((R, C + 3), dtype=torch.int32, device=dev)
     if R == 0:
         return out
-    set_log2 = (2 * WR - 1).bit_length()
+    plan = readid_orderfree_plan(R, WR, C,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    grid, set_log2 = plan["grid"], plan["set_log2"]
     gset = None
-    if 8 << set_log2 <= READID_SET_SMEM:
-        grid, smem = min(R, 1 << 20), 8 << set_log2
-    else:  # one set in device memory for each resident block
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        grid, smem = min(R, 2 * sms), 0
+    if plan["gset"]:  # one set in device memory for each resident block
         gset = torch.empty(grid << set_log2, dtype=torch.int64, device=dev)
-    cnt_global = smem + 4 * C > READID_SMEM
-    smem += 0 if cnt_global else 4 * C
     fn = kernels.kernel("readid_orderfree")
     consts = (ctypes.c_uint64 * len(_KERNEL_CONSTS))(*_KERNEL_CONSTS)
     with torch.cuda.device(dev):
         err = fn(
             keys.data_ptr(), R, WR, set_log2, None if gset is None else gset.data_ptr(),
-            grid, int(cnt_global), smem, blocks2.data_ptr(), blocks2.numel(), wpad, C,
-            out.data_ptr(), k, num_hash, bv if rpb else 0, bloom_size, rpb,
+            grid, int(plan["cnt_global"]), plan["smem"], blocks2.data_ptr(), blocks2.numel(),
+            wpad, C, out.data_ptr(), k, num_hash, bv if rpb else 0, bloom_size, rpb,
             ctypes.addressof(consts), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
@@ -741,6 +758,8 @@ def _check_exact(blocks2, rows, seg_ids, kmer_pos, *, num_reads, num_colors, wpa
     what = "readid_exact"
     if rows.dtype not in (torch.int32, torch.int64) or rows.dim() != 2 or rows.shape[1] < 1:
         raise ValueError(f"{what}: rows must be int32 or int64 [N, H]")
+    if rows.shape[1] > 32:
+        raise ValueError(f"{what}: at most 32 hashes")
     N = rows.shape[0]
     for name, t in (("seg_ids", seg_ids), ("kmer_pos", kmer_pos)):
         if t.dtype != torch.int32 or t.shape != (N,):
@@ -765,8 +784,10 @@ def readid_exact(blocks2: torch.Tensor, rows: torch.Tensor, seg_ids: torch.Tenso
     padding).
 
     A CUDA tensor launches csrc/readid.cu on the current stream (an init
-    launch, the first-absent pass, one counting pass, two with B > 0; all
-    per-read reductions are integer atomics); a CPU tensor takes the plain
+    launch, the first-absent pass, which gathers each k-mer's rows once
+    into an AND-word scratch, then one counting pass, two with B > 0, on
+    that scratch; all per-read reductions are integer atomics, aggregated
+    in the warp); a CPU tensor takes the plain
     twin ``_readid_core_plain`` / ``_readid_firsthit_core_plain``. Launches
     count in ``readid_launches["replay"]`` / ``["firsthit"]`` and in
     ``readid_exact.launches``."""
@@ -784,12 +805,13 @@ def readid_exact(blocks2: torch.Tensor, rows: torch.Tensor, seg_ids: torch.Tenso
     out = torch.empty((R, C + 1), dtype=torch.int32, device=dev)
     if R == 0:
         return out
+    N, H = rows.shape
+    andw = torch.empty((N, wpad), dtype=torch.int32, device=dev)  # the AND words
     fa = cand = None
     if not firsthit:
         fa = torch.empty(R, dtype=torch.int32, device=dev)
         if start_sample > 0:
             cand = torch.empty((R, wpad), dtype=torch.int32, device=dev)
-    N, H = rows.shape
     fn = kernels.kernel("readid_exact")
     with torch.cuda.device(dev):
         err = fn(
@@ -797,7 +819,7 @@ def readid_exact(blocks2: torch.Tensor, rows: torch.Tensor, seg_ids: torch.Tenso
             kmer_pos.data_ptr(), N, H, blocks2.data_ptr(), blocks2.numel(), wpad, rpb, C,
             max(start_sample, 0), R, int(firsthit), out.data_ptr(),
             None if fa is None else fa.data_ptr(), None if cand is None else cand.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            andw.data_ptr() if N else None, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
         raise RuntimeError(f"readid kernel (replay) launch failed: CUDA error {err}")

@@ -2197,6 +2197,9 @@ def _readid_of_case(name):
         case = ts.readid_orderfree_case(layout, H, C, 3, d, L, n_reads=300)
     elif name == "counts_in_row":  # C too wide for shared memory: counts in the output row
         case = ts.readid_orderfree_case("classic", 2, 52_000, 2, 1, 64, n_reads=12)
+    elif name in ts.READID_OF_EDGE_CASES:
+        case = ts.readid_orderfree_case(*ts.READID_OF_EDGE_CASES[name],
+                                        n_reads=ts.READID_EDGE_READS)
     else:
         case = ts.readid_orderfree_case(*ts.READID_OF_CASES[name])
     return case
@@ -2204,7 +2207,8 @@ def _readid_of_case(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(ts.READID_OF_CASES)
-                         + ["widest", "global_set", "counts_in_row"])
+                         + ["widest", "global_set", "counts_in_row"]
+                         + sorted(ts.READID_OF_EDGE_CASES))
 def test_readid_orderfree_kernel_matches_twin(cuda_device, name):
     from colorid_tpu_torch.ops import query as q
 
@@ -2238,6 +2242,53 @@ def test_readid_exact_kernel_matches_twin(cuda_device, name):
             torch.cuda.synchronize()
             assert got.device.type == "cuda" and torch.equal(got.cpu(), want), (name, mode)
         assert q.readid_launches[mode] == before + 2
+
+
+def _readid_dispatch_case(layout, device):
+    """The [reads] dispatch's shape on a 50,000,000-row index: order-free
+    (keys, blocks2, geometry) of 8,192 pairs of 160 bp mates (2,129,920
+    windows), and the replay's (blocks2, rows, seg, pos) of 2,000,000 k-mers
+    of 8,192 reads in no order."""
+    from colorid_tpu_torch.ops.extract import pack_reads_valid
+
+    blocks, geo = ts.readid_matrix(layout, 4, 21, seed=11, bloom_size=50_000_000)
+    rng = np.random.default_rng(12)
+    seqs, lens = ts.readid_mates(rng, 8192, 2, 160, 31)
+    words, vb = pack_reads_valid(seqs)
+    case = (blocks, words, vb, lens, dict(geo, num_reads=8192, k=31, L=160, nm=2, d=1))
+    keys, b2, g = _orderfree_keys(case, device)
+    N, R = 2_000_000, 8192
+    rows = rng.integers(0, geo["bloom_size"], (N, 4))
+    if geo["rpb"]:
+        rows = rows[:, :1] // geo["rpb"] * geo["rpb"] + rng.integers(0, geo["rpb"], (N, 4))
+    args = (b2, torch.from_numpy(rows.astype(np.int32)).to(device),
+            torch.from_numpy(rng.integers(0, R, N).astype(np.int32)).to(device),
+            torch.from_numpy(rng.integers(0, 200, N).astype(np.int32)).to(device))
+    return (keys, b2, g), args, dict(num_reads=R, num_colors=21, wpad=geo["wpad"],
+                                     rpb=geo["rpb"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["classic", "v4"])
+def test_readid_kernel_holds_over_twenty_runs(cuda_device, layout):
+    """Kernel H's shared-memory hash set and the exact mode's
+    warp-aggregated atomics must not race: at the dispatch's size each
+    mode, 20 times, gives its twin's outputs, each run's output overwritten
+    with junk after its check."""
+    from colorid_tpu_torch.ops import query as q
+
+    (keys, b2, g), args, kw = _readid_dispatch_case(layout, cuda_device)
+    runs = [(lambda: q.readid_orderfree(keys, b2, **g), q._orderfree_plain(keys, b2, **g))]
+    for twin, firsthit in ((q._readid_core_plain, False), (q._readid_firsthit_core_plain, True)):
+        ekw = dict(kw, start_sample=3)
+        runs.append((lambda f=firsthit, e=ekw: q.readid_exact(*args, **e, firsthit=f),
+                     twin(*args, **ekw)))
+    for run, want in runs:
+        for i in range(20):
+            got = run()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (layout, i)
+            got.fill_(-7)
 
 
 @pytest.mark.cuda

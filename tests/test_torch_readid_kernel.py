@@ -8,8 +8,12 @@ indexes, H 1-5, C 5 / 21 / 70 (wpad 1 and 4), one and two mates a read,
 strides 1 and 2, reads with no window, mates shorter than k, all N, a
 homopolymer and mates alike; each read's keys in a shuffled order (every
 output is a function of the read's key set); the widest read the reads
-route admits. Replay and first-hit cases (READID_EXACT_CASES): B 0 and > 0,
-padding k-mers on read 0, k-mers in no order, int32 and int64 rows; the
+route admits; the launch's edges (READID_OF_EDGE_CASES: window counts
+about a warp and a block, C 0 / 32 / 33, one color bit, a read all absent)
+and its plan (readid_orderfree_plan). Replay and first-hit cases
+(READID_EXACT_CASES): B 0 and > 0, padding k-mers on read 0, k-mers in no
+order or two reads alternating, C 0 / 32 / 33, H 5, one color bit with a
+read all absent, int32 and int64 rows; the
 reads route's padding mates (seg -1 -> 0) in the middle of the batch with
 int16 and uint8 rank planes. Card tests of the kernel itself:
 tests/test_torch_cuda.py -k readid."""
@@ -81,6 +85,80 @@ def test_orderfree_widest_read_the_route_admits():
     got = _torch_orderfree(blocks, words, vb, lens, kw)
     np.testing.assert_array_equal(got.numpy(), _jax_orderfree(blocks, words, vb, lens, kw))
     assert got[5, C + 1] > 8000
+
+
+@pytest.mark.parametrize("name", sorted(ts.READID_OF_EDGE_CASES))
+def test_orderfree_twin_matches_jax_at_the_launch_edges(name):
+    """The order-free launch's edges (window counts about a warp's lanes
+    and a block's threads, reads of one round and of several, C 0 / 32 /
+    33, H 5, every present row one color bit with a read all absent): the
+    twin against the JAX package."""
+    case = ts.READID_OF_EDGE_CASES[name]
+    blocks, words, vb, lens, kw = ts.readid_orderfree_case(*case, n_reads=ts.READID_EDGE_READS)
+    got = _torch_orderfree(blocks, words, vb, lens, kw)
+    np.testing.assert_array_equal(got.numpy(), _jax_orderfree(blocks, words, vb, lens, kw))
+    C = kw["num_colors"]
+    if case[6:] == ("one_color",):  # read 5 all absent; every count on color 2
+        assert got[5, C] == 1 and got[5, C + 1] > 100 and not got[5, :C].any()
+        assert got[:, 2].sum() > 0 and got[:, :C].sum() == got[:, 2].sum()
+
+
+# -- the order-free launch plan (ops/query.py::readid_orderfree_plan) ------------
+
+SMEM_MAX = 232_448  # dynamic shared memory a block may take on an H100
+PLAN_WR = (1, 31, 32, 33, 256, 257, 260, 320, 321, 1100, 2100, 4096, 8132, 8192, 8193,
+           12198, 1 << 20)
+
+
+@pytest.mark.parametrize("WR", PLAN_WR)
+def test_orderfree_plan_fits_the_card(WR):
+    """Every plan: a set of 2^s >= 2 WR slots (the least such), at most
+    READID_SMEM (and the card's 232,448 bytes) of shared memory a block, the
+    set in device memory exactly past READID_SET_SMEM, counts in the output
+    row exactly where they do not fit beside the set, a block a read (the
+    grid covers every read, or holds a set for each resident block), and
+    a round of windows for each READID_THREADS of them."""
+    for C in (0, 21, 32, 33, 70, 52_000):
+        for R in (1, 29, 8192):
+            plan = tq.readid_orderfree_plan(R, WR, C, 132)
+            s = plan["set_log2"]
+            assert 2 * WR <= 1 << s and (s == 1 or 1 << s < 4 * WR)
+            assert plan["gset"] == (WR > 8192) == (8 << s > tq.READID_SET_SMEM)
+            smem = 0 if plan["gset"] else 8 << s
+            assert plan["cnt_global"] == (smem + 4 * C > tq.READID_SMEM)
+            smem += 0 if plan["cnt_global"] else 4 * C
+            assert plan["smem"] == smem <= tq.READID_SMEM <= SMEM_MAX
+            assert plan["grid"] == (min(R, 2 * 132) if plan["gset"] else R)
+            assert plan["rounds"] == -(-WR // tq.READID_THREADS)
+
+
+def test_orderfree_plan_at_the_dispatch():
+    """The [reads] dispatch (8,192 pairs, 2 x 130 windows, C 21): a block a
+    read (260 windows: two rounds of 256 threads), 8,276 bytes of shared
+    memory, so that six such blocks leave most of an SM's 256 KB to L1."""
+    plan = tq.readid_orderfree_plan(8192, 260, 21, 132)
+    assert plan["grid"] == 8192 and plan["rounds"] == 2 and plan["set_log2"] == 10
+    assert not plan["gset"] and not plan["cnt_global"]
+    assert plan["smem"] == 8192 + 84 and 6 * (plan["smem"] + 1024) < 64 * 1024
+
+
+def test_orderfree_plan_widest_read_the_route_admits():
+    """Mates of 4,096 bp, two a read (8,132 windows): its set of 16,384 slots
+    stays in shared memory (32 rounds of 256 threads); a third mate puts it
+    in device memory."""
+    layout, H, C, nm, d, L = ts.READID_WIDEST
+    plan = tq.readid_orderfree_plan(6, nm * (L - ts.READID_K + 1), C, 132)
+    assert plan["set_log2"] == 14 and plan["rounds"] == 32
+    assert not plan["gset"] and not plan["cnt_global"] and plan["smem"] <= SMEM_MAX
+    third = tq.readid_orderfree_plan(6, 3 * (L - ts.READID_K + 1), C, 132)
+    assert third["gset"] and third["smem"] == 4 * C
+
+
+def test_orderfree_plan_counts_in_the_row():
+    """52,000 colors: their counts (208,000 bytes) do not fit beside a read's
+    set, so they live in the output row."""
+    plan = tq.readid_orderfree_plan(12, 68, 52_000, 132)
+    assert plan["cnt_global"] and plan["smem"] == 8 << plan["set_log2"]
 
 
 def _exact_args(blocks, rows, seg, pos):
@@ -206,11 +284,13 @@ def _exact_breach(name):
         kw["rpb"] = 256
     elif name == "negative_reads":
         kw["num_reads"] = -1
+    elif name == "hashes_past_32":
+        r = r[:, :1].repeat(1, 33)
     return (b2, r, s, p), kw
 
 
 EXACT_BREACHES = ("int16_seg", "short_pos", "int16_rows", "strided_rows", "narrow_matrix",
-                  "colors_past_wpad", "rpb_past_block", "negative_reads")
+                  "colors_past_wpad", "rpb_past_block", "negative_reads", "hashes_past_32")
 
 
 @pytest.mark.parametrize("name", EXACT_BREACHES)

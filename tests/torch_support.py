@@ -737,6 +737,29 @@ READID_OF_CASES = {
     "v4_h1_c70_nm1_d2": ("v4", 1, 70, 1, 2, 160),
     "classic_h5_c21_nm2_d1": ("classic", 5, 21, 2, 1, 64),
 }
+# the edges of the order-free mode's launch (a block of 256 threads a read,
+# a window a thread a round): (layout, H, C, nm, d, L[, matrix]) at WR 1,
+# 31, 32, 33 (a warp's lanes), 256 and 257 (a block's threads: one round or
+# two), 260 (the dispatch's), 320 and 321, 1,100 and 2,100 (5 and 9
+# rounds), C 32 and 33 (wpad 1 -> 2) and 0, H 5 (the run-time H), and
+# "one_color":
+# every present row carries one color bit and read 5's k-mers are all
+# absent; READID_EDGE_READS reads
+READID_OF_EDGE_CASES = {
+    "wr1_classic_h4_c21": ("classic", 4, 21, 1, 1, 31),
+    "wr31_v4_h4_c32": ("v4", 4, 32, 1, 1, 61),
+    "wr32_classic_h4_c33": ("classic", 4, 33, 2, 1, 46),
+    "wr33_v4_h3_c0": ("v4", 3, 0, 1, 1, 63),
+    "wr256_classic_h5_c33": ("classic", 5, 33, 2, 1, 158),
+    "wr257_v2_h4_c21": ("v2", 4, 21, 1, 1, 287),
+    "wr260_classic_h4_c21_one_color": ("classic", 4, 21, 2, 1, 160, "one_color"),
+    "wr260_v4_h4_c32_one_color": ("v4", 4, 32, 2, 1, 160, "one_color"),
+    "wr320_v4_h4_c21": ("v4", 4, 21, 2, 1, 190),
+    "wr321_classic_h2_c33": ("classic", 2, 33, 1, 1, 351),
+    "wr1100_v4_h4_c21": ("v4", 4, 21, 2, 1, 580),
+    "wr2100_classic_h4_c70": ("classic", 4, 70, 2, 1, 1080),
+}
+READID_EDGE_READS = 29
 # the largest window count a read that the reads route admits (mates of
 # 4,096 bp, two a read): 2 * (4096 - 31 + 1) = 8,132 keys
 READID_WIDEST = ("classic", 4, 21, 2, 1, 4096)
@@ -750,6 +773,16 @@ READID_EXACT_CASES = {
     "blocked_h4_c21_b5_sorted": ("blocked", 4, 21, 5, "sorted", False),
     "classic_h2_c70_b3_int64": ("classic", 2, 70, 3, "shuffled", True),
     "classic_h3_c21_b0_int64": ("classic", 3, 21, 0, "sorted", True),
+    # the edges of the warp's aggregation: two reads alternating k-mer by
+    # k-mer, C 32 / 33 (wpad 1 -> 2) and 0, H 5 (the run-time H), and
+    # "one_color" (every present row carries one color bit; read 1's k-mers
+    # are all absent)
+    "classic_h4_c32_b3_alternating": ("classic", 4, 32, 3, "alternating", False),
+    "blocked_h4_c33_b0_alternating": ("blocked", 4, 33, 0, "alternating", False),
+    "classic_h5_c0_b3_shuffled": ("classic", 5, 0, 3, "shuffled", False),
+    "blocked_h4_c21_b3_one_color": ("blocked", 4, 21, 3, "sorted", False, "one_color"),
+    "classic_h4_c21_b0_one_color_int64": ("classic", 4, 21, 0, "alternating", True,
+                                          "one_color"),
 }
 _LAYOUT_BV = {"classic": 0, "v1": 1, "v2": 2, "v3": 3, "v4": 4, "blocked": 4}
 
@@ -761,7 +794,8 @@ def readid_matrix(layout: str, H: int, C: int, seed: int, bloom_size: int = 4096
     from colorid_tpu_torch.ops.query import pack_matrix_blocks
 
     rng = np.random.default_rng(seed)
-    bloom, matrix, _names = rand_blocked_matrix(rng, C, bloom_size, zero_frac)
+    # C 0: rows of one random word that no color reads
+    bloom, matrix, _names = rand_blocked_matrix(rng, C or 32, bloom_size, zero_frac)
     blocks, wpad = pack_matrix_blocks(matrix)
     rpb = 0 if layout == "classic" else 128 // wpad
     return blocks, dict(num_colors=C, wpad=wpad, num_hash=H, bloom_size=bloom, rpb=rpb,
@@ -789,28 +823,65 @@ def readid_mates(rng, n_reads: int, nm: int, L: int, k: int):
     return seqs, lens
 
 
-def readid_orderfree_case(layout: str, H: int, C: int, nm: int, d: int, L: int,
-                          n_reads: int = 24, seed: int = 0):
-    """Inputs of query_readid_orderfree_reads: (blocks, words, valid bits,
-    lens) as numpy arrays and its keyword arguments."""
-    from colorid_tpu_torch.ops.extract import pack_reads_valid
+def _one_color(blocks: np.ndarray) -> np.ndarray:
+    """The matrix with every nonzero word replaced by color 2's bit alone."""
+    return np.where(blocks != 0, np.uint32(1 << 2), np.uint32(0))
 
-    blocks, geo = readid_matrix(layout, H, C, seed)
+
+def _zero_rows(blocks: np.ndarray, rows: np.ndarray, geo: dict) -> None:
+    """Zeroes the wpad words of each row of rows [N, H], as kernel H reads
+    them (classic r * wpad; blocked the block of hash 0's row, lanes (r %
+    rpb) * wpad): every such k-mer is absent."""
+    rpb, wpad = geo["rpb"], geo["wpad"]
+    r = rows.astype(np.int64)
+    starts = r * wpad if not rpb else (r[:, :1] // rpb) * 128 + (r % rpb) * wpad
+    flat = blocks.reshape(-1)
+    for w in range(wpad):
+        flat[starts.reshape(-1) + w] = 0
+
+
+def readid_orderfree_case(layout: str, H: int, C: int, nm: int, d: int, L: int,
+                          matrix: str = "random", n_reads: int = 24, seed: int = 0):
+    """Inputs of query_readid_orderfree_reads: (blocks, words, valid bits,
+    lens) as numpy arrays and its keyword arguments; matrix "one_color":
+    every nonzero word is color 2's bit alone and read 5's k-mers are all
+    absent."""
+    from colorid_tpu_torch.ops.extract import pack_reads_valid, window_keys
+    from colorid_tpu_torch.ops.hash_torch import device_rows
+
+    # one_color: a larger matrix, so that read 5's rows are few of its rows
+    blocks, geo = readid_matrix(layout, H, C, seed,
+                                bloom_size=1 << 16 if matrix == "one_color" else 4096)
     rng = np.random.default_rng(seed + 1)
     seqs, lens = readid_mates(rng, n_reads, nm, L, READID_K)
     words, vb = pack_reads_valid(seqs)
     kw = dict(geo, num_reads=n_reads, k=READID_K, L=L, nm=nm, d=d)
+    if matrix == "one_color":
+        blocks = _one_color(blocks)
+        m = slice(5 * nm, 6 * nm)
+        keys = window_keys(t32(words[m]), torch.from_numpy(lens[m]), t32(vb[m]), k=READID_K,
+                           L=L, d=d).reshape(-1)
+        keys = keys[keys != torch.iinfo(torch.int64).max]
+        rows = device_rows(keys, k=READID_K, num_hash=H, bloom_size=geo["bloom_size"],
+                           rpb=geo["rpb"], version=geo["bv"])
+        _zero_rows(blocks, rows.numpy(), geo)
     return blocks, words, vb, lens, kw
 
 
 def readid_exact_case(layout: str, H: int, C: int, B: int, order: str, rows64: bool,
-                      N: int = 3000, n_reads: int = 64, seed: int = 0):
+                      matrix: str = "random", N: int = 3000, n_reads: int = 64,
+                      seed: int = 0):
     """Inputs of query_readid_batch / _firsthit: (blocks, rows [N, H] (int64
     where rows64), seg, pos) as numpy arrays and the keyword arguments.
     Reads 0..n_reads-9 hold the k-mers at positions 0.. in a random order;
     the last 8 reads none; 40 padding k-mers (PAD_POS) carry read 0, as a
-    padding mate's windows do; "shuffled" puts every k-mer in no order."""
-    blocks, geo = readid_matrix(layout, H, C, seed, zero_frac=0.01)
+    padding mate's windows do; "shuffled" puts every k-mer in no order,
+    "alternating" the k-mers of reads 2m and 2m + 1 in turns. Matrix
+    "one_color": every nonzero word is color 2's bit alone, and read 1's
+    k-mers are all absent (on a larger matrix, so that its rows are few of
+    its rows)."""
+    blocks, geo = readid_matrix(layout, H, C, seed, zero_frac=0.01,
+                                bloom_size=1 << 16 if matrix == "one_color" else 4096)
     rng = np.random.default_rng(seed + 2)
     seg = np.sort(rng.integers(0, n_reads - 8, N)).astype(np.int32)
     pos = np.zeros(N, dtype=np.int32)
@@ -826,6 +897,16 @@ def readid_exact_case(layout: str, H: int, C: int, B: int, order: str, rows64: b
     if order == "shuffled":
         perm = rng.permutation(N)
         rows, seg, pos = rows[perm], seg[perm], pos[perm]
+    elif order == "alternating":
+        turn = np.zeros(N, dtype=np.int64)
+        for r in range(n_reads):
+            idx = np.flatnonzero(seg == r)
+            turn[idx] = (r // 2) * 2 * N + 2 * np.arange(idx.size) + r % 2
+        perm = np.argsort(turn, kind="stable")
+        rows, seg, pos = rows[perm], seg[perm], pos[perm]
+    if matrix == "one_color":
+        blocks = _one_color(blocks)
+        _zero_rows(blocks, rows[seg == 1], geo)
     rows = rows.astype(np.int64 if rows64 else np.int32)
     kw = dict(num_reads=n_reads, start_sample=B, num_colors=C, wpad=geo["wpad"],
               rpb=geo["rpb"])
