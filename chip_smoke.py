@@ -7,7 +7,8 @@
 With --compare it measures this checkout against the one at OTHER_ROOT (for
 example the parent commit, unpacked with git archive) on one cell, in the
 turns other, this, this, other, each a fresh process: the [parity],
-[kernel] sort (kernel E on both dispatches' own sort inputs), [reads],
+[kernel] sort (kernel E on both dispatches' own sort inputs), [panel]
+(the 1,000-accession panel built from the seed in each turn), [reads],
 [fused], [kernel] readid (with CLI read_id's files against --device cpu
 by every route) and [mproc] phases below with their [profile] lines. It
 prints no result line.
@@ -50,6 +51,10 @@ Phases, each printing its lines (any failure exits non-zero):
    (COLORID_STREAM=0) must give an identical SearchResult; k-mers/s for
    both paths and for the device-resident dispatches, and one
    device-resident stream dispatch's device time by kernel (torch.profiler);
+   on the classic index also the port bench's classic generic dispatch
+   (the k-mers device-resident through search_keys_dev_generic_async),
+   equal to search_keys, and its profile ([profile] generic classic W 1: no
+   index, gather or reduction kernel: kernel C gathers);
    the probe kernel on the inputs that the blocked dispatch hands it, against
    its twin and timed alone ("real segment").
 4-epilogue. The epilogue kernel against its twins, all four accumulators
@@ -58,7 +63,11 @@ Phases, each printing its lines (any failure exits non-zero):
    order, the rows, the sort's permutation, the window plan), in its
    AND-words mode on that batch's AND words and on synthetic batches (W 1
    / C 32 with hot histogram bins, W 8 / C 200, an overflow list from 1,000
-   past capO); each one's time, its twin's and its bound, and the main
+   past capO), and in its gather mode (the generic gather: a k-mer's rows
+   read, ANDed and tested in the kernel) on the calls of the port bench's
+   classic generic dispatch (W 1; the AND-words mode also on their AND
+   words); each one's time, its twin's and its bound, torch.take of the
+   gather's row words as the gather mode's library call, and the main
    path's launches.
 4-sort. Kernel E (the streams' key sort with its payloads) against its
    twin, bitwise, on the inputs that the device-resident dispatches hand
@@ -150,6 +159,19 @@ Phases, each printing its lines (any failure exits non-zero):
    /classify with 2,000 pairs equal to classify_batch on a CPU engine; 64
    concurrent 1-pair requests equal to a sequential run in fewer
    classify_batch calls; /search latency and /classify requests/s.
+4e. panel: a classic index of 1,000 accessions at the main cell's -k 31
+   -n 4 -s 50,000,000 built on the card from the seed (colors 0-20 the
+   classic index's columns, each further color the Bloom column of
+   3,000,000 seeded 31-mers, placed by kernel A and ORed in by the device
+   build's scatter-OR; rows of 32 words, 6.4 GB): search_keys on the main
+   query's host-counted k-mers, search_keys_dev_generic_async on them
+   device-resident and search_reads on the 400,000 device-resident reads,
+   all ending in kernel C's gather mode at W 32: the three equal each
+   other, the twin route on the card and, on a prefix, a numpy oracle;
+   colors 0-20 count what the classic index counted; k-mers/s, [profile]
+   generic panel W 32, build, H2D and search seconds, max_memory_allocated,
+   and the gather mode (and the AND-words mode at W 32) on the dispatch's
+   own calls against the twin, timed, bounded and beside torch.take.
 5. sharded paths on a logical mesh, every shard on the one card:
    - color layout at full width: a seeded 4,096-color, H = 2, k = 31, v4
      index of 4,194,304 rows placed for 4 color shards (2 GiB of matrix)
@@ -175,7 +197,7 @@ Phases, each printing its lines (any failure exits non-zero):
    seconds in collectives and each rank's max_memory_allocated.
 6. devbuild, on the phase-3 cell: CLI build --device-build -t 8 (the
    scatter-OR on the card, one per accession) and the host build back to
-   back (host, device, device, host), every .bxi byte-identical to phase
+   back (host, device), each .bxi byte-identical to phase
    3's host build, and search -f 1 on a device-built one the same TSV
    through classic_word; then the row-sharded build (build_matrix_rowshard
    + pack_blocks_rowshard) of the index's row lists on a (1, 4) row mesh: its
@@ -261,7 +283,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: the edges of a trace
 TRACE_PAD_S = 0.05  # idle host time on either side of a trace's calls
-TRACE_LEAD = 8  # markers of ~1 ms before the calls: a trace loses its first records
+TRACE_LEAD = 32  # markers of ~1 ms before the calls: a trace loses its first records
 TRACE_TAIL = 2  # markers after the calls
 
 
@@ -278,8 +300,9 @@ def trace(fn, reps: int = 1, attempts: int = 3):
     TRACE_PAD_S of idle host time on either side inside the profiler's
     window. After a minute or two in one process the profiler loses a
     trace's first device records, a few ms of them (a run of 860 s
-    recorded no kernel of some 1.5 ms traces): the leading markers take
-    that loss. A trace without a marker on either side of its device
+    recorded no kernel of some 1.5 ms traces; late in a run, the records
+    of its first 60 ms, 50 of them idle): the leading markers take that
+    loss. A trace without a marker on either side of its device
     events is taken again, up to ``attempts`` times; gap is "" for a
     complete trace, else what ``trace_gap`` says of the last. A trace
     that lost any marker is logged."""
@@ -891,7 +914,10 @@ def sass_loop_instructions(source: str, instance: str, outer: bool = False):
     counted once) of the kernel instance whose mangled name holds
     ``instance`` (cuobjdump -sass of the library built from ``source``):
     what a thread issues per item where the loop body is straight code.
-    None where the toolkit has no cuobjdump."""
+    A loop is a backward branch, leaving out the branches that jump back
+    over an unpredicated EXIT (the out-of-line slow paths of
+    warp-synchronous calls, not loops). None where the toolkit has no
+    cuobjdump."""
     import re
 
     from colorid_tpu_torch.ops import kernels
@@ -903,28 +929,36 @@ def sass_loop_instructions(source: str, instance: str, outer: bool = False):
                        capture_output=True, text=True, timeout=300)
     if r.returncode != 0:
         return None
-    spans, inside = [], False
+    branches, exits, inside = [], [], False
     for line in r.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             inside = instance in m.group(1)
             continue
+        if not inside:
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+EXIT\b", line)
+        if m:
+            exits.append(int(m.group(1), 16))
         m = re.search(r"/\*([0-9a-f]{4,})\*/\s+[^;]*\bBRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", line)
-        if inside and m and int(m.group(2), 16) < int(m.group(1), 16):
-            spans.append((int(m.group(1), 16) - int(m.group(2), 16)) // 16 + 1)
+        if m:
+            branches.append((int(m.group(1), 16), int(m.group(2), 16)))
+    spans = [(src - dst) // 16 + 1 for src, dst in branches
+             if dst < src and not any(dst < e < src for e in exits)]
     if not spans:
         return None
     return max(spans) if outer else min(spans)
 
 
-def _bound(n_bytes: int, n_items: int, instr) -> tuple[float, str, str]:
-    """(bound_ms, bound_by, how) from the bytes moved and, where the SASS
-    count is known, the instructions issued."""
+def _bound(n_bytes: int, n_items: int, instr,
+           what: str = "SASS instructions") -> tuple[float, str, str]:
+    """(bound_ms, bound_by, how) from the bytes moved and, where the count
+    is known, the instructions issued (``what`` names the count)."""
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     if instr is None:
         return bytes_ms, "bytes", f"bytes={n_bytes} ({bytes_ms:.4f} ms); operations: not measured (no cuobjdump)"
     ops_ms = issue_ms(n_items * instr)
-    how = (f"bytes={n_bytes} ({bytes_ms:.4f} ms); operations: {instr} SASS instructions "
+    how = (f"bytes={n_bytes} ({bytes_ms:.4f} ms); operations: {instr} {what} "
            f"per item x {n_items} ({ops_ms:.4f} ms)")
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", how
 
@@ -1282,12 +1316,14 @@ def _searches(tmp: str, bxi: str, fq: str, kernels):
 def _new_kernels():
     """The wrappers of the hand kernels for code that XLA compiles in the
     JAX package (each with a count): placement, window keys, and the
-    epilogue's two modes (AND words, the classic stream's sorted words)."""
+    epilogue's three modes (AND words, the classic stream's sorted words,
+    the generic gather)."""
+    from colorid_tpu_torch.ops import query as tq
     from colorid_tpu_torch.ops.extract import window_keys
     from colorid_tpu_torch.ops.hash_torch import placement
-    from colorid_tpu_torch.ops.query import _accumulate_sorted_words, _accumulate_tail
 
-    return placement, window_keys, _accumulate_tail, _accumulate_sorted_words
+    return (placement, window_keys, tq._accumulate_tail, tq._accumulate_sorted_words,
+            tq._accumulate_one)
 
 
 def _glue_kernels():
@@ -1479,17 +1515,23 @@ def blocked_path_phase(tmp: str, inputs, card: str):
 # -- phase 4: stream vs generic parity and rates ----------------------------
 
 
-def classic_parity_phase(bxi: str, fq: str, card: str, strict: bool = True):
+def classic_parity_phase(bxi: str, fq: str, card: str, strict: bool = True) -> dict:
     """The classic index: search_keys through the classic stream against
     the generic gather, the device-resident stream dispatch against both,
     their rates, and the profile of one device-resident dispatch (which
     must launch no torch.sort radix kernel where ``strict``: kernel E sorts
-    the rows; --compare's turns of an older checkout are not strict).
-    Returns that dispatch (a function of no arguments)."""
+    the rows; --compare's turns of an older checkout are not strict); then
+    the port bench's classic generic dispatch (the same k-mers device-
+    resident through search_keys_dev_generic_async, padded to its classic_P)
+    against search_keys, and its profile ([profile] generic: no index,
+    gather or reduction kernel where ``strict``: kernel C gathers).
+    Returns {"stream": that stream dispatch, "generic": the generic one
+    (functions of no arguments), "query": (keys, qcounts, packed),
+    "result": the generic SearchResult}."""
     import numpy as np
     import torch
 
-    from colorid_tpu_torch.bench import same_result
+    from colorid_tpu_torch.bench import classic_P, same_result
     from colorid_tpu_torch.engine import QueryEngine
     from colorid_tpu_torch.index.bigsi import BigsiIndex
     from colorid_tpu_torch.ops.stream_query import EPC_CL
@@ -1545,7 +1587,30 @@ def classic_parity_phase(bxi: str, fq: str, card: str, strict: bool = True):
     dispatch = lambda: stream_eng.search_keys_dev_classic_async(pk_dev, qc_dev, K)[0]  # noqa: E731
     if DEVICE == "cuda":
         profile_dispatch(dispatch, "classic", card, forbid_like=("RadixSort",) if strict else ())
-    return dispatch
+    # the port bench's classic generic dispatch: the same buffers padded to
+    # a multiple of the generic chunk, through the generic gather (W 1)
+    P = classic_P(n, min(stream_eng.chunk, 1 << 20))
+    pk_g = torch.cat([pk_dev, pk_dev.new_zeros((P - P0, 2))])
+    qc_g = torch.cat([qc_dev, qc_dev.new_zeros(P - P0)])
+    generic = lambda: stream_eng.search_keys_dev_generic_async(pk_g, qc_g, K, capO=P)  # noqa: E731
+    gen_res = stream_eng.search_keys_dev_finish(*_fetched(generic()))
+    if not same_result(gen_res, results["generic"]):
+        raise AssertionError("the device-resident generic dispatch != search_keys")
+    if DEVICE == "cuda":
+        profile_dispatch(lambda: generic()[0], "generic classic W 1", card, label="generic",
+                         forbid_like=GENERIC_FORBID if strict else ())
+    return {"stream": dispatch, "generic": lambda: generic()[0],
+            "query": (keys, qcounts, packed), "result": results["generic"]}
+
+
+# kernels the generic gather's dispatches must not run since kernel C's
+# gather mode: torch's indexed gathers and scatters and its reductions
+GENERIC_FORBID = ("index", "gather", "reduce_kernel")
+
+
+def _fetched(out):
+    """A search_keys_dev*_async tuple with its vector fetched to the host."""
+    return (out[0].cpu().numpy(),) + tuple(out[1:])
 
 
 def blocked_parity_phase(bxi: str, fq: str, card: str, strict: bool = True):
@@ -1752,16 +1817,171 @@ def _epi_compare(what: str, kernel, twin, accs, args, kw) -> int:
     return err
 
 
-def _epi_row_bound(N: int, W: int, n_kept: int, C: int, instr) -> tuple[float, str, str]:
+def _row_ops(W: int, H: int = 0) -> int:
+    """The integer operations that a row of W words needs at the least,
+    whatever the kernel: per word a popcount (the row's number of colors)
+    and a carry-save add into the counts' bit planes (an XOR and an AND);
+    in the gather mode (H > 0) also the AND over its H rows' words (H - 1)
+    and the nonzero test of each (H, for presence)."""
+    return W * (3 + max(2 * H - 1, 0))
+
+
+def _epi_row_bound(N: int, W: int, n_kept: int, C: int) -> tuple[float, str, str]:
     """The AND-words pass's bound over N rows of W words: each row's words,
     present, mask and frequency read once, the accumulators read and
-    written, the overflow entries written; its instructions are the tile
-    loop's (four rows a thread at W 1, one row at W > 1)."""
+    written, the overflow entries written; the operations those the
+    function needs (_row_ops)."""
     n_bytes = N * (4 * W + 6) + 2 * 4 * (C + W + 2 + C * 1024) + 8 * n_kept
-    return _bound(n_bytes, N // 4 if W == 1 else N, instr)
+    return _bound(n_bytes, N, _row_ops(W), "integer operations (the least a row needs)")
 
 
-def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> dict:
+def gather_bytes(rows, mask, wpad: int, rpb: int, C: int, n_kept: int) -> tuple[int, int]:
+    """(bytes, sectors) that kernel C's gather mode must move for rows [N,
+    H]: each k-mer's mask and frequency (5 bytes), the rows of every real
+    k-mer (4 or 8 bytes a row), the 32-byte sectors of their rows' words
+    (sectors() over the starts that kernel H's gather reads too, each
+    sector once), the accumulators read and written, and the overflow
+    entries written."""
+    live = rows[mask]
+    n = sectors(_readid_starts(live, rpb, wpad), wpad)
+    n_bytes = (5 * rows.shape[0] + live.numel() * rows.element_size() + 32 * n
+               + 2 * 4 * (C + wpad + 2 + C * 1024) + 8 * n_kept)
+    return n_bytes, n
+
+
+@contextlib.contextmanager
+def gather_replaced(make):
+    """ops/query.py::_accumulate_one replaced by make(the real one) while
+    the block runs. The replacement carries the real one's launch count
+    (the wrapper counts through its module's name) and hands it back."""
+    from colorid_tpu_torch.ops import query as tq
+
+    real = tq._accumulate_one
+    stand_in = make(real)
+    stand_in.launches = real.launches
+    tq._accumulate_one = stand_in
+    try:
+        yield
+    finally:
+        tq._accumulate_one = real
+        real.launches = stand_in.launches
+
+
+def _gather_calls(dispatch) -> list:
+    """The arguments of each _accumulate_one call of one dispatch (the
+    generic gather's chunks, in order): [(args, kwargs)]."""
+    calls = []
+
+    def observer(real):
+        def observed(*a, **kw):
+            calls.append((a, kw))
+            return real(*a, **kw)
+        return observed
+
+    with gather_replaced(observer):
+        dispatch()
+        sync()
+    if not calls:
+        raise AssertionError("the dispatch made no _accumulate_one call")
+    return calls
+
+
+def gather_kernel_rows(what: str, calls, card: str) -> dict:
+    """Kernel C's gather mode on a dispatch's own _accumulate_one calls
+    (every chunk, in order, from fresh accumulators): all four
+    accumulators bitwise equal to _accumulate_one_plain's on the card;
+    the calls' summed device ms (device_ms: a trace of 3 batches), the
+    twin's (CUDA events), the byte bound
+    (gather_bytes, each chunk's sectors) beside the operations that a
+    k-mer needs at the least (_row_ops), and torch.take of the same word offsets (the
+    H rows' wpad words of every k-mer, a chunk at a time: the nearest
+    single PyTorch call, which gathers only). Then the AND-words mode alone
+    on the same batches' AND words and presence (the twin's _and_present):
+    its device ms, twin ms and bound. Returns the numbers."""
+    import torch
+
+    from colorid_tpu_torch.ops import query as tq
+
+    a0 = calls[0][0]  # (stats, hist, over_col, over_freq, blocks2, rows, mask, q, wpad,
+    blocks2, wpad, rpb = a0[4], a0[8], a0[10]  # base_idx, rpb): the scans' call
+    C, capO = a0[0].numel() - wpad - 2, a0[2].numel()
+    H, rows64 = a0[5].shape[1], a0[5].dtype == torch.int64
+    N = sum(a[5].shape[0] for a, _kw in calls)
+
+    def run(fn, accs):
+        for a, kw in calls:
+            fn(*accs, *a[4:], **kw)
+        return accs
+
+    got = run(tq._accumulate_one, _epi_accs(C, wpad, capO))
+    want = run(tq._accumulate_one_plain, _epi_accs(C, wpad, capO))
+    sync()
+    err = max(max_abs_diff(x, y) for x, y in zip(got, want))
+    n_kept = min(int(want[0][-1]), capO)
+    log(f"[kernel] epilogue gather mode {what}: {len(calls)} calls, N={N} k-mers, H {H}, "
+        f"wpad {wpad}, rpb {rpb}, {'int64' if rows64 else 'int32'} rows, C {C}: stats, hist, "
+        f"over_col, over_freq bitwise_equal={err == 0} max_abs_err={err}; n_over "
+        f"{int(want[0][-1])} of capO {capO}; {int(want[0][:C].sum())} color hits")
+    if err:
+        raise AssertionError(f"gather mode != twin ({what}): max_abs_err {err}")
+    del got, want
+    accs = _epi_accs(C, wpad, capO)
+    # device time (a trace): a chunk's call is short beside the host's
+    # enqueue, so CUDA events around a batch would time the host
+    k1 = ("epilogue_w1_kernel" if wpad == 1 else "epilogue_wide_kernel",)
+    ms = device_ms(lambda: run(tq._accumulate_one, accs), 3, k1)[0] if DEVICE == "cuda" else 0.0
+    plain_ms = cuda_ms(lambda: run(tq._accumulate_one_plain, accs), 1)
+    n_bytes = n_sec = 0
+    take_ms = 0.0
+    flat = blocks2.reshape(-1)
+    lanes = torch.arange(wpad, device=flat.device)
+    for a, _kw in calls:
+        rows, mask = a[5], a[6]
+        b, n = gather_bytes(rows, mask, wpad, rpb, C, 0)
+        n_bytes += b
+        n_sec += n
+        offs = (_readid_starts(rows, rpb, wpad)[:, None] + lanes).reshape(-1)
+        take_ms += cuda_ms(lambda: torch.take(flat, offs), 3)
+        del offs
+    n_bytes += 8 * n_kept
+    bound_ms, bound_by, how = _bound(n_bytes, N, _row_ops(wpad, H),
+                                     "integer operations (the least a k-mer needs)")
+    log(f"[kernel] epilogue gather mode {what} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={take_ms:.4f} (torch.take of the {N * H * wpad} row words, a chunk at a "
+        f"time) bound_ms={bound_ms:.4f} bound_by={bound_by} ({how}; {n_sec} distinct 32-byte "
+        f"sectors of the rows) on {card}")
+    # the row pass alone: the AND-words mode on the same batches' AND words
+    row_calls = []
+    for a, kw in calls:
+        andw, present = tq._and_present(blocks2, a[5], wpad, rpb)
+        row_calls.append((andw, present, a[6], a[7], wpad, a[9], kw.get("gidx")))
+
+    def run_rows(fn, accs):
+        for andw, present, m, q, w, base, g in row_calls:
+            fn(*accs, andw, present, m, q, w, base, gidx=g)
+        return accs
+
+    got = run_rows(tq._accumulate_tail, _epi_accs(C, wpad, capO))
+    want = run_rows(tq._accumulate_tail_plain, _epi_accs(C, wpad, capO))
+    sync()
+    row_err = max(max_abs_diff(x, y) for x, y in zip(got, want))
+    if row_err:
+        raise AssertionError(f"AND-words mode != twin ({what}): max_abs_err {row_err}")
+    accs = _epi_accs(C, wpad, capO)
+    row_ms = device_ms(lambda: run_rows(tq._accumulate_tail, accs), 3, k1)[0] if DEVICE == "cuda" else 0.0
+    row_plain = cuda_ms(lambda: run_rows(tq._accumulate_tail_plain, accs), 1)
+    row_bound = _epi_row_bound(N, wpad, n_kept, C)
+    log(f"[kernel] epilogue AND-words row pass {what} (the same batches' AND words, N={N} W "
+        f"{wpad} C {C}) bitwise_equal=True ms={row_ms:.4f} plain_ms={row_plain:.4f} "
+        f"bound_ms={row_bound[0]:.4f} bound_by={row_bound[1]} ({row_bound[2]}) on {card}")
+    del row_calls, got, want
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": take_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "n_kmers": N, "wpad": wpad,
+            "row_pass_ms": row_ms, "row_pass_plain_ms": row_plain,
+            "row_pass_bound_ms": row_bound[0]}
+
+
+def epilogue_kernel_phase(classic: dict, main_launches: int, card: str) -> tuple[dict, dict]:
     """The epilogue kernel against its twins, bitwise on all four
     accumulators: in the sorted-words mode on the inputs that the
     device-resident classic dispatch hands it (the [main] cell's 8,650,752
@@ -1769,8 +1989,11 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
     rows, the sort's permutation, the window plan, its real frequencies);
     in the AND-words mode on that batch's AND words (the row pass alone), at
     W 1 / C 32 with hot histogram bins, at W 8 / C 200 and with an overflow
-    list that starts at 1,000 and runs past capO. Times, the twins' and the
-    bounds of each."""
+    list that starts at 1,000 and runs past capO; in the gather mode on the
+    calls of the port bench's classic generic dispatch (W 1, 9 chunks of
+    1,048,576 k-mers; gather_kernel_rows). Times, the twins' and the bounds
+    of each. Returns the sorted-words mode's row of the kernel table and
+    the gather mode's numbers (the [panel] phase adds its W 32 ones)."""
     import torch
 
     from colorid_tpu_torch.ops import query as tq
@@ -1786,7 +2009,7 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
 
     sq._accumulate_sorted_words = observed
     try:
-        classic_dispatch()
+        classic["stream"]()
         sync()
     finally:
         sq._accumulate_sorted_words = real
@@ -1812,7 +2035,7 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
     n_bytes = (16 * P + 32 * sectors(reread_rows.to(torch.int64), 1) + 5 * tb.numel()
                + 2 * 5 * N + 5 * N + 2 * 4 * (C + 3 + C * 1024) + 8 * n_kept)
     i_sorted = sass_loop_instructions("epilogue.cu", "epilogue_sorted_kernelILi2E")
-    i_row = sass_loop_instructions("epilogue.cu", "epilogue_kernelILb1E", outer=True)
+    i_row = sass_loop_instructions("epilogue.cu", "epilogue_w1_kernelILi0E", outer=True)
     # instructions per 4 probes: the first pass's per 4 probes, the row
     # pass's per 4 k-mers (N = P / H of them)
     instr = None if i_sorted is None or i_row is None else round(i_sorted + i_row * N / P, 2)
@@ -1838,15 +2061,14 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
                              row_kw))
     row_ms = cuda_ms(lambda: tq._accumulate_tail(*accs, *row_args, **row_kw), 20)
     row_plain = cuda_ms(lambda: tq._accumulate_tail_plain(*accs, *row_args, **row_kw), 3)
-    row_bound, row_by, row_how = _epi_row_bound(N, 1, n_kept, C, i_row)
+    row_bound, row_by, row_how = _epi_row_bound(N, 1, n_kept, C)
     log(f"[kernel] epilogue AND-words row pass on the classic batch N={N} W 1 C {C} "
         f"ms={row_ms:.4f} plain_ms={row_plain:.4f} bound_ms={row_bound:.4f} "
-        f"bound_by={row_by} ({row_how}; per 4 rows) on {card}")
+        f"bound_by={row_by} ({row_how}; per row) on {card}")
     del andw, present, row_args
 
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     times = {}
-    i_wide = sass_loop_instructions("epilogue.cu", "epilogue_kernelILb0E", outer=True)
     for what, N2, C2, W2, hot, n_over, cap in (
         ("AND words W 1 C 32 hot bins", EPI_N, 32, 1, True, 0, capO),
         ("AND words W 8 C 200", 1 << 21, 200, 8, False, 0, capO),
@@ -1866,13 +2088,15 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
         kept = min(int(tq._accumulate_tail(*[x.clone() for x in accs2], *args2)[0][-1]), cap)
         times[what] = (cuda_ms(lambda: tq._accumulate_tail(*accs2, *args2), 20),
                        cuda_ms(lambda: tq._accumulate_tail_plain(*accs2, *args2), 3),
-                       _epi_row_bound(N2, W2, kept, C2, i_row if W2 == 1 else i_wide))
+                       _epi_row_bound(N2, W2, kept, C2))
         del andw, present, msk, q2, accs2
     log("[kernel] epilogue AND-words times: " + "; ".join(
         f"{w}: ms={k:.4f} plain_ms={p:.4f} bound_ms={b[0]:.4f} bound_by={b[1]} ({b[2]})"
         for w, (k, p, b) in times.items()) + f" on {card}")
-    log(f"[kernel] epilogue phase took {time.time() - t0:.1f}s")
     del accs, after, calls, a, args
+    gather = gather_kernel_rows("on the classic generic dispatch (W 1)",
+                                _gather_calls(classic["generic"]), card)
+    log(f"[kernel] epilogue phase took {time.time() - t0:.1f}s")
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return {
@@ -1887,7 +2111,237 @@ def epilogue_kernel_phase(classic_dispatch, main_launches: int, card: str) -> di
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, gather
+
+
+def gather_row(classic: dict, panel: dict, launches: int) -> dict:
+    """The kernel table's row of kernel C's gather mode: the classic generic
+    dispatch's numbers (W 1) and, under panel_*, the [panel] dispatch's (W
+    32)."""
+    row = {
+        "name": "epilogue_gather",
+        "route": "cuda",
+        "source": "colorid_tpu_torch/csrc/epilogue.cu",
+        "replaces": "colorid_tpu/ops/query.py:304",
+        "launches": launches,
+        "max_abs_err": max(classic["max_abs_err"], panel["max_abs_err"]),
     }
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        row[key] = classic[key]
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms", "row_pass_ms", "row_pass_bound_ms",
+                "row_pass_plain_ms"):
+        row["panel_" + key] = panel[key]
+    for key in ("row_pass_ms", "row_pass_bound_ms"):
+        row[key] = classic[key]
+    return row
+
+
+# -- phase 4e: a 1,000-accession classic panel (kernel C's gather mode at W 32) --
+
+PANEL_COLORS = 1000  # accessions: colors 0-20 the [main] classic index's own
+PANEL_KMERS = 3_000_000  # seeded random 31-mers a further accession: a 3 Mbp genome's worth
+PANEL_ORACLE = 262_144  # k-mers held against the numpy oracle
+
+
+def panel_index(classic_bxi: str):
+    """A classic index of PANEL_COLORS accessions at the [main] cell's -k 31
+    -n 4 -s 50,000,000 (rows of 32 words: 6.4 GB), built on DEVICE from the
+    seed: colors 0-20 are the [main] classic index's columns bit for bit;
+    each further color is the Bloom column of PANEL_KMERS seeded random
+    31-mers, placed by kernel A (device_rows) and ORed in by the device
+    build's scatter_or_column; handed over through
+    convert.index_from_arrays. Returns (the panel's BigsiIndex, the [main]
+    index)."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch import convert
+    from colorid_tpu_torch.index.bigsi import BigsiIndex
+    from colorid_tpu_torch.ops.build_ops import scatter_or_column
+    from colorid_tpu_torch.ops.hash_torch import device_rows
+
+    base = BigsiIndex.load(classic_bxi)
+    R, H, C0 = base.bloom_size, base.num_hash, base.n_colors
+    mat = torch.zeros((R, (PANEL_COLORS + 31) // 32), dtype=torch.int32, device=DEVICE)
+    mat[:, 0] = torch.from_numpy(base.matrix[:, 0].copy().view(np.int32)).to(DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    for c in range(C0, PANEL_COLORS):
+        v = torch.randint(0, 4**K, (PANEL_KMERS,), generator=g, device=DEVICE)
+        packed = torch.stack([_as_i32(v & 0xFFFFFFFF), _as_i32(v >> 32)], dim=1)
+        rows = device_rows(packed, k=K, num_hash=H, bloom_size=R)
+        scatter_or_column(mat[:, c // 32], rows.reshape(-1), c % 32)
+    matrix = mat.cpu().numpy().view(np.uint32)
+    del mat
+    names = list(base.colors) + [f"p{c:04d}" for c in range(C0, PANEL_COLORS)]
+    index = convert.index_from_arrays(
+        matrix, bloom_size=R, num_hash=H, k_size=K, colors=names,
+        n_ref_kmers=dict(base.n_ref_kmers, **{n: PANEL_KMERS for n in names[C0:]}))
+    return index, base
+
+
+def panel_oracle(matrix, keys, qcounts, num_hash: int, C: int):
+    """The SearchResult fields of k-mers keys [n, k] (frequencies qcounts)
+    over a classic host matrix uint32 [R, W], from numpy alone: (counts,
+    all_valid, and_all, the uniq-hit histogram [C, 1024], the overflow list
+    sorted)."""
+    import numpy as np
+
+    from colorid_tpu_torch.hashing.xxh3 import bloom_rows_batch
+
+    rows = bloom_rows_batch(keys, num_hash, matrix.shape[0]).astype(np.int64)
+    vals = matrix[rows]  # [n, H, W]
+    andw = np.bitwise_and.reduce(vals, axis=1)
+    present = (vals != 0).any(axis=2).all(axis=1)
+    bits = np.unpackbits(andw.view(np.uint8), axis=1, bitorder="little")[:, :C].astype(bool)
+    counts = (bits & present[:, None]).sum(axis=0)
+    and_all = (np.bitwise_and.reduce(andw[present], axis=0) if present.any()
+               else np.full(matrix.shape[1], 0xFFFFFFFF, dtype=np.uint32))
+    uniq = present & (bits.sum(axis=1) == 1)
+    col = bits.argmax(axis=1)
+    hist = np.zeros((C, 1024), dtype=np.int64)
+    small = uniq & (qcounts < 1024)
+    np.add.at(hist, (col[small], qcounts[small]), 1)
+    big = uniq & (qcounts >= 1024)
+    return counts, bool(present.all()), and_all, hist, sorted(zip(col[big].tolist(),
+                                                                   qcounts[big].tolist()))
+
+
+def _oracle_holds(res, want) -> bool:
+    import numpy as np
+
+    counts, all_valid, and_all, hist, over = want
+    return (np.array_equal(res.counts, counts) and res.all_valid == all_valid
+            and np.array_equal(res.and_all, and_all) and np.array_equal(res.freq_hist, hist)
+            and sorted(zip(res.over_colors.tolist(), res.over_freqs.tolist())) == over)
+
+
+def panel_phase(classic: dict, classic_bxi: str, reads: dict, card: str, strict: bool = True,
+                measure: bool = True) -> tuple[int, dict | None]:
+    """[panel]: the [main] cell's query through the engine's entry points on
+    a 1,000-accession classic panel (panel_index: wpad 32, 6.4 GB on the
+    card; the classic stream takes only wpad 1, so every route ends in the
+    generic gather at W 32): search_keys on the 8.56 M host-counted k-mers
+    of search -f 1 (host arrays), search_keys_dev_generic_async on the same
+    k-mers device-resident, and search_reads on the 400,000 device-resident
+    reads (the counted route). The three SearchResults equal each other
+    (search_reads' overflow list in its own k-mer order), the twin route
+    (_accumulate_one_plain in place of the kernel) on the card, and on a
+    prefix of PANEL_ORACLE k-mers a numpy oracle over the host matrix;
+    colors 0-20 count what the [main] classic index's search_keys counted.
+    k-mers/s of each entry point, [profile] generic of one device-resident
+    dispatch, the build's, H2D's and searches' seconds and
+    max_memory_allocated. Where ``strict``, the dispatch must run no index,
+    gather or reduction kernel (--compare's turns of an older checkout,
+    whose generic gather is torch's, are not strict, and have no twin route
+    to check). With ``measure``, kernel C's gather mode on the dispatch's
+    own calls (gather_kernel_rows). Frees the panel. Returns (the gather
+    mode's launches in the three entry points, its numbers or None)."""
+    import numpy as np
+    import torch
+
+    from colorid_tpu_torch.bench import same_result
+    from colorid_tpu_torch.engine import QueryEngine
+    from colorid_tpu_torch.ops import query as tq
+    from colorid_tpu_torch.ops.query import row_wpad
+
+    t_phase = time.time()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    index, base = panel_index(classic_bxi)
+    t_build = time.time() - t0
+    t0 = time.time()
+    eng = QueryEngine(index, device=DEVICE)
+    sync()
+    t_h2d = time.time() - t0
+    C, C0 = index.n_colors, base.n_colors
+    if eng.wpad != row_wpad(index.words_per_row) or eng._stream_classic or eng._wide:
+        raise AssertionError(f"the panel is not a classic wpad 32 index (wpad {eng.wpad})")
+    keys, qcounts, packed = classic["query"]
+    n = keys.shape[0]
+    pk_dev = torch.from_numpy(packed.view(np.int32)).to(DEVICE)
+    qc_dev = torch.from_numpy(np.maximum(qcounts, 1).astype(np.int32)).to(DEVICE)
+    capO = -(-n // 1024) * 1024
+    words, lens, vbits = reads["dev"]
+
+    def dispatch():
+        return eng.search_keys_dev_generic_async(pk_dev, qc_dev, K, capO=capO)
+
+    entries = {
+        "search_keys": lambda: eng.search_keys(keys, qcounts=qcounts, packed_all=packed, k=K),
+        "search_keys_dev_generic_async": lambda: eng.search_keys_dev_finish(
+            *_fetched(dispatch())),
+        "search_reads": lambda: eng.search_reads(words, lens, vbits, k=K, L=reads["L"],
+                                                 filter_t=1),
+    }
+    got, secs = {}, {}
+    launches = getattr(tq._accumulate_one, "launches", 0)
+    for name, fn in entries.items():
+        sync()
+        t0 = time.time()
+        got[name] = fn()
+        sync()
+        secs[name] = time.time() - t0
+    launches = getattr(tq._accumulate_one, "launches", 0) - launches
+    res_reads, n_u = got.pop("search_reads")
+    res = got["search_keys"]
+    if not same_result(got["search_keys_dev_generic_async"], res):
+        raise AssertionError("[panel] device-resident generic != search_keys")
+    if n_u != n or not same_result(res_reads, res):
+        raise AssertionError(f"[panel] search_reads != search_keys ({n_u} of {n} k-mers)")
+    if not np.array_equal(res.counts[:C0], classic["result"].counts):
+        raise AssertionError("[panel] colors 0-20 differ from the [main] classic index's counts")
+    # the twin route on the card: the same entry points with the plain twin
+    if strict:
+        def twin_of(_real):
+            return lambda *a, **kw: tq._accumulate_one_plain(*a, **kw)
+
+        with gather_replaced(twin_of):
+            twin = {name: fn() for name, fn in entries.items()}
+        if not (same_result(twin["search_keys"], res)
+                and same_result(twin["search_keys_dev_generic_async"], res)
+                and same_result(twin["search_reads"][0], res_reads)):
+            raise AssertionError("[panel] the kernel's route != the twin route on the card")
+        del twin
+    # a prefix against the numpy oracle over the host matrix
+    P = min(PANEL_ORACLE, n)
+    want = panel_oracle(index.matrix, keys[:P], np.maximum(qcounts[:P], 1), index.num_hash, C)
+    pre_keys = eng.search_keys(keys[:P], qcounts=qcounts[:P], packed_all=packed[:P], k=K)
+    pre_dev = eng.search_keys_dev_finish(*_fetched(eng.search_keys_dev_generic_async(
+        pk_dev[:P], qc_dev[:P], K, capO=-(-P // 1024) * 1024)))
+    if not (_oracle_holds(pre_keys, want) and _oracle_holds(pre_dev, want)):
+        raise AssertionError("[panel] the prefix != the numpy oracle")
+    rates = {name: n / sec for name, sec in secs.items()}
+    reps = 3
+    sync()
+    t0 = time.time()
+    vecs = torch.stack([dispatch()[0] for _ in range(reps)]).cpu()
+    rates["search_keys_dev_generic_async (queued)"] = reps * n / (time.time() - t0)
+    del vecs
+    peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else 0.0
+    log(f"[panel] {C} colors (0-{C0 - 1} the [main] classic index's, {C - C0} of "
+        f"{PANEL_KMERS} seeded 31-mers each), -k {K} -n {index.num_hash} -s {index.bloom_size}, "
+        f"wpad {eng.wpad} ({index.bloom_size * eng.wpad * 4 / 1e9:.1f} GB): build "
+        f"{t_build:.1f}s, H2D {t_h2d:.1f}s; {n} k-mers: SearchResults identical (search_keys, "
+        f"search_keys_dev_generic_async; search_reads {n_u} k-mers), "
+        f"{'equal to the twin route on the card, ' if strict else ''}"
+        f"the first {P} to the numpy oracle, colors 0-{C0 - 1} to the [main] "
+        f"classic index's counts; search seconds "
+        + ", ".join(f"{k} {v:.2f}s" for k, v in secs.items())
+        + "; k-mers/s " + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+        + f"; gather-mode launches {launches}; max_memory_allocated {peak:.1f} GiB on {card}")
+    numbers = None
+    if DEVICE == "cuda":
+        profile_dispatch(lambda: dispatch()[0], "generic panel W 32", card, label="generic",
+                         forbid_like=GENERIC_FORBID if strict else ())
+    if measure:
+        numbers = gather_kernel_rows("on the panel dispatch (W 32)",
+                                     _gather_calls(lambda: dispatch()[0]), card)
+    del eng, index, base, pk_dev, qc_dev, entries, got
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[panel] phase took {time.time() - t_phase:.1f}s")
+    return launches, numbers
 
 
 # -- phase 4-stream_tail: kernel D on the blocked dispatch's inputs -----------
@@ -4741,8 +5195,7 @@ def _columns(index) -> list:
 
 def devbuild_phase(tmp: str, inputs, classic, blocked_bxi: str, card: str):
     """CLI build --device-build of phase 3's classic index against the host
-    build, timed back to back in the order host, device, device, host (each
-    .bxi byte-identical to phase 3's host build; search -f 1 on a
+    build, timed back to back, host then device (each .bxi byte-identical to phase 3's host build; search -f 1 on a
     device-built one gives the same TSV through the classic kernel), then
     the row-sharded build from the index's row lists (classic) and from the
     blocked v4 index's. Returns (classic_word launches in the device-built
@@ -4774,7 +5227,7 @@ def devbuild_phase(tmp: str, inputs, classic, blocked_bxi: str, card: str):
     load = os.getloadavg()[0]
     build_ops.scatter_or_column = observed
     try:
-        for i, who in enumerate(("host", "device", "device", "host")):
+        for i, who in enumerate(("host", "device")):
             prefix = os.path.join(tmp, f"{who}panel{i}")
             flags = ["--device-build", "--device", DEVICE] if who == "device" else []
             t0 = time.time()
@@ -4786,14 +5239,14 @@ def devbuild_phase(tmp: str, inputs, classic, blocked_bxi: str, card: str):
                 if g.read() != want:
                     raise AssertionError(f"build {i + 1} ({who}) wrote another .bxi than "
                                          "phase 3's host build")
-            if i != 2:
+            if who == "host":
                 os.remove(prefix + ".bxi")
     finally:
         build_ops.scatter_or_column = real
-    if len(scattered) != 2 * N_GENOMES:
+    if len(scattered) != N_GENOMES:
         raise AssertionError(f"build --device-build ran {len(scattered)} scatter-ORs on the "
-                             f"device, not one per accession of each device build")
-    dev_bxi = os.path.join(tmp, "devicepanel2.bxi")
+                             f"device, not one per accession")
+    dev_bxi = os.path.join(tmp, "devicepanel1.bxi")
     sq.classic_words.launches = 0
     t0 = time.time()
     tsv = cli(["search", "-b", dev_bxi, "-q", fq, "-f", "1", "--device", DEVICE])
@@ -4804,12 +5257,11 @@ def devbuild_phase(tmp: str, inputs, classic, blocked_bxi: str, card: str):
     if DEVICE == "cuda" and launches == 0:
         raise AssertionError("search -f 1 on the device-built index did not launch classic_word")
     ratio = sum(secs["device"]) / sum(secs["host"])
-    log(f"[devbuild] CLI build -t 8, back to back (host, device, device, host; load "
-        f"average {load:.2f} before): host {secs['host'][0]:.2f}s / {secs['host'][1]:.2f}s, "
-        f"--device-build {secs['device'][0]:.2f}s / {secs['device'][1]:.2f}s (device / host "
-        f"{ratio:.3f}; scatter-OR on the {DEVICE} {sum(scatter[:N_GENOMES]):.3f}s / "
-        f"{sum(scatter[N_GENOMES:]):.3f}s for {N_GENOMES} accessions, "
-        f"{sum(scattered[:N_GENOMES])} hashed rows each build); phase 3's host build, "
+    log(f"[devbuild] CLI build -t 8, back to back (host, device; load average "
+        f"{load:.2f} before): host {secs['host'][0]:.2f}s, --device-build "
+        f"{secs['device'][0]:.2f}s (device / host {ratio:.3f}; scatter-OR on the {DEVICE} "
+        f"{sum(scatter):.3f}s for {N_GENOMES} accessions, {sum(scattered)} hashed rows); "
+        f"phase 3's host build, "
         f"first and cold, {t_main:.2f}s; every .bxi byte-identical to phase 3's; search -f 1 "
         f"on the device-built index {t_search:.1f}s, TSV identical, classic_word "
         f"launches={launches} on {card}")
@@ -5146,7 +5598,8 @@ def profile_dispatch(fn, what: str, card: str, label: str = "stream",
         f"{name} x{n}={ms:.3f}ms" for ms, n, name in rows if name.endswith("_kernel")
         and name.split("_kernel")[0] in (
             "classic_word", "stream_probe", "stream_probe_raw", "placement", "window_keys",
-            "epilogue", "epilogue_sorted", "epilogue_overflow", *D_KERNELS, "sort_upsweep",
+            "epilogue", "epilogue_w1", "epilogue_wide", "epilogue_sorted", "epilogue_overflow",
+            *D_KERNELS, "sort_upsweep",
             "sort_bases", "sort_chunk_scan", "sort_pass", *F_KERNELS, *G_KERNELS, *H_KERNELS)
     )
     f = [(ms, n) for ms, n, name in rows if name.removesuffix("_kernel") in F_KERNELS
@@ -5220,8 +5673,10 @@ def compare_turn(root: str, tmp: str) -> int:
     """One turn of --compare (chip_smoke.py --compare-turn ROOT DIR): the
     package of the checkout at ROOT, first on sys.path, on DIR's cell:
     the parity phases of both indexes ([parity], [profile] classic and
-    blocked), kernel E on both dispatches' sort inputs ([kernel] sort),
-    search_reads and one order-free read_id dispatch on each
+    blocked, [profile] generic classic W 1), kernel E on both dispatches'
+    sort inputs ([kernel] sort), the 1,000-accession panel built from the
+    seed ([panel], [profile] generic panel W 32), search_reads and one
+    order-free read_id dispatch on each
     ([reads], [profile]), the fused phase ([fused]), the read classifier
     (readid_turn_phase) and the [mproc] phase, each with its own checks.
     Prints the search_reads answers on a line of their own."""
@@ -5247,11 +5702,14 @@ def compare_turn(root: str, tmp: str) -> int:
          for key in ("words", "lens", "vbits", "mates", "src")}
     dev = on_device((a["words"], a["lens"], a["vbits"]))
     strict = os.path.abspath(root) == HERE
-    classic_dispatch = classic_parity_phase(cell["classic"], cell["fq"], card, strict=strict)
+    classic = classic_parity_phase(cell["classic"], cell["fq"], card, strict=strict)
     _seg, blocked_dispatch = blocked_parity_phase(cell["blocked"], cell["fq"], card,
                                                   strict=strict)
-    sort_turn_phase(classic_dispatch, blocked_dispatch, card)
-    del classic_dispatch, blocked_dispatch
+    sort_turn_phase(classic["stream"], blocked_dispatch, card)
+    del blocked_dispatch
+    panel_phase(classic, cell["classic"], {"dev": dev, "L": cell["L"]}, card, strict=strict,
+                measure=False)
+    del classic
     with contextlib.redirect_stderr(io.StringIO()):
         query = _count_query_kmers(cell["fq"], None, K, 15, 1, False)
     answers = {}
@@ -5398,9 +5856,9 @@ def main() -> int:
             inputs = synth_inputs(tmp)
             log(f"[main] synthetic inputs: {N_GENOMES} x {GENOME_LEN} bp genomes, "
                 f"{N_READS} x {READ_LEN} bp reads in {time.time() - t0:.1f}s")
-            placement, window_keys, tail, sorted_words = _new_kernels()
+            placement, window_keys, tail, sorted_words, gather = _new_kernels()
             placement.launches = window_keys.launches = tail.launches = 0
-            sorted_words.launches = 0
+            sorted_words.launches = gather.launches = 0
             glue = _glue_kernels()
             for kn in glue:
                 kn.launches = 0
@@ -5417,20 +5875,21 @@ def main() -> int:
             placement_row["launches"] = placement.launches
             window_row["launches"] = window_keys.launches
             epilogue_launches = tail.launches + sorted_words.launches
+            gather_main = gather.launches
             glue_launches = {kn.__name__: kn.launches for kn in glue}
             f_main = dict(f_modes)
             g_main, g_runs_main = te.value_sort.launches, te.value_sort.runs_launches
             h_main = dict(h_modes)
         with phase("parity"):
-            classic_dispatch = classic_parity_phase(classic_bxi, inputs[1], card)
+            classic = classic_parity_phase(classic_bxi, inputs[1], card)
             probe_row["real_segment_ms"], blocked_dispatch = blocked_parity_phase(
                 blocked_bxi, inputs[1], card)
         with phase("sort"):
-            sort_row = sort_kernel_phase(classic_dispatch, blocked_dispatch,
+            sort_row = sort_kernel_phase(classic["stream"], blocked_dispatch,
                                          glue_launches["sort_payloads"], card)
         with phase("epilogue"):
-            epilogue_row = epilogue_kernel_phase(classic_dispatch, epilogue_launches, card)
-        del classic_dispatch
+            epilogue_row, gather_w1 = epilogue_kernel_phase(classic, epilogue_launches, card)
+        classic = {key: classic[key] for key in ("query", "result")}
         with phase("stream_tail"):
             tail_row = stream_tail_kernel_phase(blocked_dispatch, glue_launches["stream_tail"],
                                                 card)
@@ -5442,6 +5901,7 @@ def main() -> int:
             row["launches"] += benched[name]
         epilogue_row["launches"] += (benched["_accumulate_tail"]
                                      + benched["_accumulate_sorted_words"])
+        gather_later = gather.launches
         tail_row["launches"] += benched["stream_tail"]
         sort_row["launches"] += benched["sort_payloads"]
         tail_row["plan_launches"] = (glue_launches["stream_chunk_plan"]
@@ -5461,6 +5921,18 @@ def main() -> int:
             g_row = value_sort_kernel_phase(blocked_bxi, reads, card)
         with phase("serve"):
             served = serve_phase(classic_bxi, blocked_bxi, reads, card)
+        gather_reads = gather.launches - gather_later
+        with phase("panel"):
+            panel_launches, gather_w32 = panel_phase(classic, classic_bxi, reads, card)
+        del classic
+        # kernel C's gather mode on the main path, as its wrapper counts them
+        # in [main], in the port bench's process, in [reads]..[serve] and in
+        # [panel]'s three entry points
+        g_parts = {"main": gather_main, "bench": benched["_accumulate_one"],
+                   "reads+fused+serve": gather_reads, "panel": panel_launches}
+        gather_row_ = gather_row(gather_w1, gather_w32, sum(g_parts.values()))
+        log(f"[kernel] epilogue gather mode launches on the main path "
+            f"{gather_row_['launches']} ({g_parts}) on {card}")
         # kernel F on the main path by mode, as its wrapper counts them in
         # [main], in the port bench's process and in [reads]..[serve]
         f_by_phase = {"main": f_main, "bench": benched["run_counts_by_mode"],
@@ -5526,8 +5998,8 @@ def main() -> int:
     log("[time] " + ", ".join(f"{name} {sec:.1f}s" for name, sec in PHASE_S.items())
         + f"; whole script {time.time() - t_script:.1f}s on {card}")
     print(json.dumps({"kernels": [classic_row, probe_row, raw_row, placement_row, window_row,
-                                  epilogue_row, tail_row, sort_row, counts_row, g_row,
-                                  h_row]}))
+                                  epilogue_row, gather_row_, tail_row, sort_row, counts_row,
+                                  g_row, h_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

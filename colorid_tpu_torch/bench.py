@@ -45,7 +45,7 @@ estimate of 4 M queried k-mers/s for multithreaded Rust, vs_baseline =
 value / 4e6.
 
 Prints exactly one JSON line on stdout, and on stderr the card, each
-phase's per-dispatch span and the launches of the fourteen kernel wrappers.
+phase's per-dispatch span and the launches of the fifteen kernel wrappers.
 Exits 2 without a card unless ``--device cpu`` is given (no number), and 1
 after the line when a phase failed or a parity check did not hold.
 """
@@ -532,9 +532,10 @@ def emit_json(rates: dict, parity: list[str], device: str) -> None:
 
 
 def kernel_wrappers():
-    """The fourteen kernel wrappers, each with its launch count (the epilogue
-    kernel has two: its AND-words mode and the classic stream's
-    sorted-words mode; the blocked stream's glue two: its plan, and its
+    """The fifteen kernel wrappers, each with its launch count (the epilogue
+    kernel has three: its AND-words mode, its gather mode (the generic
+    gather) and the classic stream's sorted-words mode; the blocked
+    stream's glue two: its plan, and its
     tail with the residual gather; the streams' key sort one; the reads
     routes' run counts one, for all its modes, and their value sort one;
     the read classifier's kernel two: its order-free pass, and its exact
@@ -542,7 +543,8 @@ def kernel_wrappers():
     from .ops.extract import run_counts, value_sort, window_keys
     from .ops.hash_torch import placement
     from .ops.query import (
-        _accumulate_sorted_words, _accumulate_tail, readid_exact, readid_orderfree,
+        _accumulate_one, _accumulate_sorted_words, _accumulate_tail, readid_exact,
+        readid_orderfree,
     )
     from .ops.stream_query import (
         classic_words, sort_payloads, stream_chunk_plan, stream_probe, stream_probe_raw,
@@ -550,18 +552,18 @@ def kernel_wrappers():
     )
 
     return (classic_words, stream_probe, stream_probe_raw, placement, window_keys,
-            _accumulate_tail, _accumulate_sorted_words, stream_chunk_plan, stream_tail,
-            sort_payloads, run_counts, value_sort, readid_orderfree, readid_exact)
+            _accumulate_tail, _accumulate_one, _accumulate_sorted_words, stream_chunk_plan,
+            stream_tail, sort_payloads, run_counts, value_sort, readid_orderfree, readid_exact)
 
 
 # the kernels each phase must launch on the card (the wrappers' counts)
 PHASE_KERNELS = {
     "stream": ("stream_probe", "placement", "_accumulate_tail", "stream_chunk_plan",
                "stream_tail", "sort_payloads"),
-    "generic": ("placement", "_accumulate_tail"),
+    "generic": ("placement", "_accumulate_one"),
     "fused": ("stream_probe", "placement", "window_keys", "_accumulate_tail",
               "stream_chunk_plan", "stream_tail", "run_counts", "value_sort"),
-    "classic": ("classic_words", "placement", "_accumulate_tail", "_accumulate_sorted_words",
+    "classic": ("classic_words", "placement", "_accumulate_one", "_accumulate_sorted_words",
                 "sort_payloads"),
     "read_id": ("window_keys", "readid_orderfree"),
 }

@@ -1,19 +1,23 @@
 // The search epilogue on Hopper (sm_90a): per-color counts, the global AND,
 // the all-valid flag, the uniq-hit frequency histogram and the overflow list
-// of a batch of k-mers whose row words are already gathered.
+// of a batch of k-mers, from their row words or from their Bloom rows.
 //
 // Replaces code that the JAX package leaves to XLA, which fuses it into a
 // few loops on the TPU: colorid_tpu/ops/query.py::_accumulate_tail (its
 // histogram an int8 one-hot contraction on the MXU, its overflow list a
-// cumsum and two scatters), and around the classic stream's word kernel
+// cumsum and two scatters), its generic gather in front of it
+// (_accumulate_one: _gather_rows, XLA's block take with a one-hot lane
+// select, or _gather_rows_blocked; _and_present), and around the classic
+// stream's word kernel
 // the residual patch, the un-sort to k-mer order, the AND over the H hash
 // words and the presence test (colorid_tpu/ops/stream_query.py,
 // stream_accumulate_classic_exact). Its plain PyTorch twins, which run the
 // same arithmetic as some hundred tensor ops (one launch each on the card),
-// are colorid_tpu_torch/ops/query.py::_accumulate_tail_plain and
-// _accumulate_sorted_words_plain; kernel and twins agree bit for bit.
+// are colorid_tpu_torch/ops/query.py::_accumulate_tail_plain,
+// _accumulate_one_plain and _accumulate_sorted_words_plain; kernel and
+// twins agree bit for bit.
 //
-// Two entry points.
+// Three entry points.
 //
 // epilogue_launch, the AND-words mode, over rows i < N, in place on the
 // four accumulators (stats int32 [C + W + 2], hist int32 [C, FREQ_CAP],
@@ -31,6 +35,14 @@
 //              stats[C + W + 1] + r of over_col / over_freq where that slot
 //              is below capO; then stats[C + W + 1] += #big (not clamped).
 //
+// epilogue_gather_launch, the gather mode: the rows [N, H] (int32, or int64
+// past int32 row addressing) in place of the AND words. x_i is the AND over
+// k-mer i's H rows of their wpad words in the matrix (csrc/row_gather.cuh:
+// classic row r at word r * wpad, blocked lanes (r % rpb) * wpad of the
+// block of its hash-0 row), present_i "every row has a nonzero word", and
+// the rest is the AND-words mode with W = wpad. No gathered word, AND word
+// or presence flag is written to memory.
+//
 // epilogue_sorted_launch, the sorted-words mode of the classic stream (W =
 // 1): the classic word kernel's output in row order, words_s int32 [P],
 // with the sorted rows row_s int32 [P] and the sort's permutation gidx_s
@@ -44,6 +56,10 @@
 // What bounds it on an H100: bytes, by count. The AND-words row pass reads
 // each row's word, present, mask and frequency: 10 bytes at W 1 against
 // 3.35 TB/s; the rest is a few dozen integer instructions a row. The
+// gather mode reads a k-mer's rows (4 H or 8 H bytes), mask and frequency,
+// and the 32-byte sectors of its H rows' words: scattered sectors over a
+// matrix far larger than the 50 MB L2, which the card serves at a rate far
+// below its streaming rate (PERF.md §6, kernel H). The
 // sorted mode adds 16 bytes a probe (word, row, permutation) and the
 // per-k-mer arrays written and read (5 bytes a k-mer, 43 MB at the main
 // cell's 8.65 M k-mers), and one L2 atomic a probe, which measured slower
@@ -63,12 +79,25 @@
 //   W 1: four rows a thread as vector loads, all issued before any is
 //   used; no block barrier inside the loop): the words are read once and
 //   nothing per row is written back.
-// - Per-color counts at W 1 without a collective a row: each thread adds
-//   its rows' masked words into 8 bit planes (a carry-save counter: bit c
-//   of plane k is bit k of color c's count), and a warp folds the planes
-//   into lane c's count with ballots only every 252 rows a thread. Wider
-//   rows count a word at a time with one ballot per color set in the warp.
-//   The AND is a warp reduction; a block flushes counts and AND once.
+// - The gather mode feeds the row pass directly: at W 1 a thread loads its
+//   four k-mers' rows, then all their H words (16 loads at H 4, through L2
+//   only: a row word is read once), before any is used.
+// - Per-color counts without a collective a row: each lane adds its masked
+//   words into 8 bit planes (a carry-save counter: bit c of plane k is bit
+//   k of color c's count), and a warp folds the planes into the counts with
+//   ballots only every 252 words a lane. At W 1 a thread takes four rows
+//   and lane c owns color c. At W > 1 (epilogue_wide_kernel) a group of G
+//   lanes (the power of two from W up to 32) takes a row and lane j owns
+//   word j, so a warp step reads 32 / G whole rows as one coalesced line
+//   (one 32-byte sector a row at W 8, one 128-byte line at W 32) and each
+//   lane keeps the planes of its own word, the register cost of W 1; rows
+//   of 64 and 128 words give a lane two or four 32-word pieces. nh and the
+//   first color are reductions within the group, presence an OR within it
+//   in the gather mode, and the group's first lane adds the histogram bin.
+//   The wide tier (W > 128, past 4,096 colors) takes a row a warp, a piece
+//   at a time, and adds each color bit to the block's counts. The AND is
+//   kept in each lane's registers and folded once; a block flushes counts
+//   and AND once.
 // - The histogram, where the reads pile onto a few dozen (color,
 //   frequency) bins. The bins of frequency below hf live in shared memory,
 //   private to the block and flushed once at its end; hf is the largest
@@ -79,12 +108,14 @@
 //   with __match_any_sync, and one of them adds the group's size.
 // - The overflow list keeps k-mer order without a scan over N and without
 //   a launch for the scan: kernel 1 adds each warp's count of big rows to
-//   its tile's count and to a total; kernel 2 returns at once when the
-//   total is 0, else each block sums the counts of the tiles before its
-//   own range of tiles (a few thousand ints), ranks the big rows of its
-//   tiles with ballots, adds them to their slots (the slots beyond n_over
-//   are zero, so adding writes them, as in the twin), and the last block
-//   to finish advances n_over.
+//   its tile's count and to a total, and writes the color of each row with
+//   mask and q >= FREQ_CAP (-1 where it is not uniq) to the scratch, so no
+//   row's words are read twice; kernel 2 returns at once when the total is
+//   0, else each block sums the counts of the tiles before its own range
+//   of tiles (a few thousand ints), ranks the big rows of its tiles with
+//   ballots, adds them to their slots (the slots beyond n_over are zero,
+//   so adding writes them, as in the twin), and the last block to finish
+//   advances n_over.
 //
 // Bound to Python with ctypes (colorid_tpu_torch/ops/kernels.py): plain C
 // entry points that launch on the caller's stream and return
@@ -93,25 +124,47 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "row_gather.cuh"
+
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int THREADS = 512;  // a block; also the rows of a tile at W > 1
 constexpr int WARPS = THREADS / 32;
 constexpr int RPT1 = 4;  // rows a thread in a W = 1 tile (a multiple of 4)
 constexpr int FREQ_CAP = 1024;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int NO_COLOR = 0x7fffffff;
 // counts and AND words stay in shared memory up to this row width
 constexpr int SMEM_WORDS_MAX = 256;
 // dynamic shared memory of kernel 1: two blocks of 512 threads an SM
 constexpr int SMEM_BUDGET = 100 * 1024;
-// bit planes of the W = 1 carry-save counters: up to 255 rows a thread,
-// flushed every FLUSH_TILES tiles
+// bit planes of the carry-save counters: up to 255 words a lane, flushed
+// every FLUSH_TILES additions of four
 constexpr int PLANES = 8;
-constexpr int FLUSH_TILES = ((1 << PLANES) - 1) / RPT1;
+constexpr int FLUSH_TILES = ((1 << PLANES) - 1) / 4;
+constexpr int MAX_H = 32;  // rows a k-mer in the gather modes (the wrapper checks)
+
+enum Mode : int {
+  MODE_WORDS = 0,   // the AND words [N, W] and presence given
+  MODE_ROWS32 = 1,  // the rows int32 [N, H]: gathered, ANDed and tested here
+  MODE_ROWS64 = 2,  // the rows int64 [N, H]
+};
+
+template <int MODE>
+struct RowType {
+  using T = int32_t;
+};
+template <>
+struct RowType<MODE_ROWS64> {
+  using T = int64_t;
+};
 
 struct Params {
-  const uint32_t* words;   // [N, W] AND words
-  const uint8_t* present;  // [N]
+  const uint32_t* words;   // [N, W] AND words (MODE_WORDS)
+  const uint8_t* present;  // [N] (MODE_WORDS)
+  const void* rows;        // [N, H] (the gather modes)
+  int32_t H;
+  RowGeo geo;              // the matrix (the gather modes)
   const uint8_t* mask;     // [N]
   const int32_t* q;        // [N]
   const int32_t* gidx;     // [N] or nullptr
@@ -122,11 +175,13 @@ struct Params {
   int32_t W;
   int32_t C;
   int32_t vec;  // W = 1 rows load four at a time as vectors
+  int32_t lg;   // W > 1: log2 of the lanes that take a row
   int32_t* stats;
   int32_t* hist;
   int32_t* over_col;
   int32_t* over_freq;
   int32_t* big;  // [2 + n_tiles]: total big rows, blocks done, big rows per tile
+  int32_t* bigcol;  // [N]: rows with mask and q >= FREQ_CAP: color if uniq, else -1
 };
 
 // the bits of word w that hold colors below C
@@ -135,31 +190,65 @@ __device__ __forceinline__ uint32_t cmask_of(int C, int w) {
   return r >= 32 ? FULL : r <= 0 ? 0u : (1u << r) - 1u;
 }
 
-// The RPT1 W = 1 rows of a thread from i0; rows at or past N are masked out.
+// The RPT1 W = 1 rows of a thread from i0: word, frequency, mask and
+// presence; rows at or past N are masked out. The gather modes read each
+// row's H words from the matrix here, every load of the thread's rows in
+// flight before any is used, and AND them.
+template <int MODE>
 __device__ __forceinline__ void load_rows(const Params& p, int64_t i0, uint32_t (&x)[RPT1],
                                           int (&q)[RPT1], bool (&mk)[RPT1], bool (&pr)[RPT1]) {
   if (p.vec && i0 + RPT1 <= p.N) {
 #pragma unroll
     for (int v = 0; v < RPT1; v += 4) {
-      const uint4 w = *reinterpret_cast<const uint4*>(p.words + i0 + v);
       const int4 qq = *reinterpret_cast<const int4*>(p.q + i0 + v);
       const uchar4 m = *reinterpret_cast<const uchar4*>(p.mask + i0 + v);
-      const uchar4 pp = *reinterpret_cast<const uchar4*>(p.present + i0 + v);
-      x[v] = w.x, x[v + 1] = w.y, x[v + 2] = w.z, x[v + 3] = w.w;
       q[v] = qq.x, q[v + 1] = qq.y, q[v + 2] = qq.z, q[v + 3] = qq.w;
       mk[v] = m.x, mk[v + 1] = m.y, mk[v + 2] = m.z, mk[v + 3] = m.w;
-      pr[v] = pp.x, pr[v + 1] = pp.y, pr[v + 2] = pp.z, pr[v + 3] = pp.w;
+      if constexpr (MODE == MODE_WORDS) {
+        const uint4 w = *reinterpret_cast<const uint4*>(p.words + i0 + v);
+        const uchar4 pp = *reinterpret_cast<const uchar4*>(p.present + i0 + v);
+        x[v] = w.x, x[v + 1] = w.y, x[v + 2] = w.z, x[v + 3] = w.w;
+        pr[v] = pp.x, pr[v + 1] = pp.y, pr[v + 2] = pp.z, pr[v + 3] = pp.w;
+      }
     }
-    return;
-  }
+  } else {
 #pragma unroll
-  for (int r = 0; r < RPT1; ++r) {
-    const int64_t i = i0 + r;
-    const bool in = i < p.N;
-    x[r] = in ? p.words[i] : 0u;
-    q[r] = in ? p.q[i] : 0;
-    mk[r] = in && p.mask[i];
-    pr[r] = !in || p.present[i];
+    for (int r = 0; r < RPT1; ++r) {
+      const int64_t i = i0 + r;
+      const bool in = i < p.N;
+      q[r] = in ? p.q[i] : 0;
+      mk[r] = in && p.mask[i];
+      if constexpr (MODE == MODE_WORDS) {
+        x[r] = in ? p.words[i] : 0u;
+        pr[r] = !in || p.present[i];
+      }
+    }
+  }
+  if constexpr (MODE != MODE_WORDS) {
+    using RowT = typename RowType<MODE>::T;
+    const RowT* rows = static_cast<const RowT*>(p.rows);
+    uint32_t nz[RPT1];
+#pragma unroll
+    for (int r = 0; r < RPT1; ++r) x[r] = ~0u, nz[r] = 0;
+    for (int h0 = 0; h0 < p.H; h0 += 4) {
+      const int n = p.H - h0 < 4 ? p.H - h0 : 4;
+#pragma unroll
+      for (int r = 0; r < RPT1; ++r) {
+        const bool in = i0 + r < p.N;
+        const RowT* ri = rows + (in ? i0 + r : 0) * p.H;
+        int64_t off[4];
+        row_starts<RowT, 4>(p.geo, ri + h0, in ? n : 0, in ? (int64_t)ri[0] : 0, off);
+        uint32_t z = 0;
+        x[r] &= and_word<ROW_LOAD_L2, 4>(p.geo, off, in ? n : 0, 0, z);
+        nz[r] |= (z & ((1u << n) - 1u)) << h0;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT1; ++r) {
+      const bool in = i0 + r < p.N;
+      pr[r] = !in || rows_present(nz[r], p.H);
+      x[r] = in ? x[r] : 0u;
+    }
   }
 }
 
@@ -187,8 +276,13 @@ __device__ __forceinline__ void planes_add4(uint32_t (&P)[PLANES], const uint32_
   }
 }
 
-// Folds the warp's bit planes into lane c's count of color c and clears them.
-__device__ __forceinline__ void planes_flush(uint32_t (&P)[PLANES], int& my_cnt, int lane) {
+// Folds the warp's bit planes into counts and clears them: for each bit b
+// set in any lane's planes, the lanes of class `cls` (the lanes that count
+// the same word) sum their counts by ballots, and the `owner` of the class
+// adds the sum to cnt[b]. At W 1 every lane is one class and lane b owns
+// color b.
+__device__ __forceinline__ void planes_flush(uint32_t (&P)[PLANES], int* cnt, unsigned cls,
+                                             bool owner) {
   uint32_t any = 0;
 #pragma unroll
   for (int k = 0; k < PLANES; ++k) any |= P[k];
@@ -198,8 +292,8 @@ __device__ __forceinline__ void planes_flush(uint32_t (&P)[PLANES], int& my_cnt,
     any &= any - 1;
     int c = 0;
 #pragma unroll
-    for (int k = 0; k < PLANES; ++k) c += __popc(__ballot_sync(FULL, (P[k] >> b) & 1u)) << k;
-    if (lane == b) my_cnt += c;
+    for (int k = 0; k < PLANES; ++k) c += __popc(__ballot_sync(FULL, (P[k] >> b) & 1u) & cls) << k;
+    if (owner && c) atomicAdd(cnt + b, c);
   }
 #pragma unroll
   for (int k = 0; k < PLANES; ++k) P[k] = 0;
@@ -226,6 +320,13 @@ __device__ __forceinline__ void hist_add(const Params& p, int* s_hist, int hf, i
     atomicAdd(&p.hist[col * FREQ_CAP + qq], n);
 }
 
+// Row i's color for kernel 2 where it has mask and q >= FREQ_CAP: its
+// color if uniq, else -1 (the other rows' entries are never read).
+__device__ __forceinline__ void put_big(const Params& p, int64_t i, bool mk, int q, bool uniq,
+                                        int col) {
+  if (mk && q >= FREQ_CAP) p.bigcol[i] = uniq ? col : -1;
+}
+
 // A warp's big rows of tile t, added to the tile's count and the total.
 __device__ __forceinline__ void count_big(const Params& p, int64_t t, int nbig, int lane) {
   const int wb = __reduce_add_sync(FULL, nbig);
@@ -235,138 +336,363 @@ __device__ __forceinline__ void count_big(const Params& p, int64_t t, int nbig, 
   }
 }
 
-// Kernel 1: counts, AND, all-valid flag, histogram, big rows per tile.
-template <bool W1>
-__global__ void __launch_bounds__(THREADS, 2) epilogue_kernel(Params p, int hf, int smem_words) {
-  extern __shared__ int smem[];
-  __shared__ int s_bad;
-  const int lane = threadIdx.x & 31;
-  const int C = p.C, W = p.W;
+// Kernel 1's shared memory: the block's counts and AND words (where
+// smem_words; else the global ones) and the histogram band [C, hf].
+struct BlockAcc {
+  int* cnt;
+  int* andp;
+  int* s_hist;
+};
+
+__device__ __forceinline__ BlockAcc block_begin(const Params& p, int* smem, int hf,
+                                                int smem_words, int* s_bad) {
+  const int W = p.W;
+  BlockAcc b;
   int* s_cnt = smem;                              // [32 * W] when smem_words
   int* s_and = smem + (smem_words ? 32 * W : 0);  // [W] when smem_words
-  int* s_hist = s_and + (smem_words ? W : 0);     // [C, hf]
-  int* cnt = smem_words ? s_cnt : p.stats;
-  int* andp = smem_words ? s_and : p.stats + C;
+  b.s_hist = s_and + (smem_words ? W : 0);        // [C, hf]
+  b.cnt = smem_words ? s_cnt : p.stats;
+  b.andp = smem_words ? s_and : p.stats + p.C;
   if (smem_words) {
     for (int j = threadIdx.x; j < 32 * W; j += THREADS) s_cnt[j] = 0;
     for (int j = threadIdx.x; j < W; j += THREADS) s_and[j] = -1;
   }
-  for (int j = threadIdx.x; j < C * hf; j += THREADS) s_hist[j] = 0;
-  if (threadIdx.x == 0) s_bad = 0;
+  for (int j = threadIdx.x; j < p.C * hf; j += THREADS) b.s_hist[j] = 0;
+  if (threadIdx.x == 0) *s_bad = 0;
   __syncthreads();
+  return b;
+}
 
+// The block's all-valid flag, counts, AND words and histogram band, flushed.
+__device__ __forceinline__ void block_end(const Params& p, const BlockAcc& b, int hf,
+                                          int smem_words, bool bad, int* s_bad) {
+  if (bad) *s_bad = 1;
+  __syncthreads();
+  if (threadIdx.x == 0 && *s_bad) p.stats[p.C + p.W] = 0;
+  if (smem_words) {
+    for (int j = threadIdx.x; j < p.C; j += THREADS)
+      if (b.cnt[j]) atomicAdd(&p.stats[j], b.cnt[j]);
+    for (int j = threadIdx.x; j < p.W; j += THREADS)
+      if (b.andp[j] != -1) atomicAnd(&p.stats[p.C + j], b.andp[j]);
+  }
+  for (int j = threadIdx.x; j < p.C * hf; j += THREADS)
+    if (b.s_hist[j]) atomicAdd(&p.hist[(j / hf) * FREQ_CAP + j % hf], b.s_hist[j]);
+}
+
+// Kernel 1 at W 1: counts, AND, all-valid flag, histogram, big rows per tile.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2) epilogue_w1_kernel(Params p, int hf, int smem_words) {
+  extern __shared__ int smem[];
+  __shared__ int s_bad;
+  const BlockAcc acc = block_begin(p, smem, hf, smem_words, &s_bad);
+  const int lane = threadIdx.x & 31;
+  constexpr int TILE = THREADS * RPT1;
   bool bad = false;  // a real row that lacks one of its rows
-  if constexpr (W1) {
-    constexpr int TILE = THREADS * RPT1;
-    uint32_t P[PLANES] = {};
-    int my_cnt = 0;          // color `lane`'s count over this warp's rows
-    uint32_t my_and = FULL;  // the AND over this thread's valid rows
-    const uint32_t cm0 = cmask_of(C, 0);
-    int since = 0;
-    for (int64_t t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
-      uint32_t x[RPT1];
-      int q[RPT1];
-      bool mk[RPT1], pr[RPT1];
-      load_rows(p, t * TILE + threadIdx.x * RPT1, x, q, mk, pr);
-      uint32_t xc[RPT1];
+  uint32_t P[PLANES] = {};
+  uint32_t my_and = FULL;  // the AND over this thread's valid rows
+  const uint32_t cm0 = cmask_of(p.C, 0);
+  int since = 0;
+  for (int64_t t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+    uint32_t x[RPT1];
+    int q[RPT1];
+    bool mk[RPT1], pr[RPT1];
+    const int64_t i0 = t * TILE + threadIdx.x * RPT1;
+    load_rows<MODE>(p, i0, x, q, mk, pr);
+    uint32_t xc[RPT1];
 #pragma unroll
-      for (int r = 0; r < RPT1; ++r) {
-        const bool valid = mk[r] && pr[r];
-        bad = bad || (mk[r] && !pr[r]);
-        my_and &= valid ? x[r] : FULL;
-        xc[r] = valid ? x[r] & cm0 : 0u;
-      }
+    for (int r = 0; r < RPT1; ++r) {
+      const bool valid = mk[r] && pr[r];
+      bad = bad || (mk[r] && !pr[r]);
+      my_and &= valid ? x[r] : FULL;
+      xc[r] = valid ? x[r] & cm0 : 0u;
+    }
 #pragma unroll
-      for (int v = 0; v < RPT1; v += 4) planes_add4(P, xc + v);
-      int nbig = 0;
+    for (int v = 0; v < RPT1; v += 4) planes_add4(P, xc + v);
+    int nbig = 0;
 #pragma unroll
-      for (int r = 0; r < RPT1; ++r) {
-        const bool uniq = xc[r] != 0 && (xc[r] & (xc[r] - 1)) == 0;
-        hist_add<false>(p, s_hist, hf, lane, uniq && q[r] < FREQ_CAP, __ffs(xc[r]) - 1, q[r]);
-        nbig += uniq && q[r] >= FREQ_CAP;
-      }
-      count_big(p, t, nbig, lane);
-      if (++since == FLUSH_TILES) {
-        planes_flush(P, my_cnt, lane);
-        since = 0;
+    for (int r = 0; r < RPT1; ++r) {
+      const bool uniq = xc[r] != 0 && (xc[r] & (xc[r] - 1)) == 0;
+      hist_add<false>(p, acc.s_hist, hf, lane, uniq && q[r] < FREQ_CAP, __ffs(xc[r]) - 1, q[r]);
+      put_big(p, i0 + r, mk[r], q[r], uniq, __ffs(xc[r]) - 1);
+      nbig += uniq && q[r] >= FREQ_CAP;
+    }
+    count_big(p, t, nbig, lane);
+    if (++since == FLUSH_TILES * 4 / RPT1) {
+      planes_flush(P, acc.cnt, 1u << lane, true);
+      since = 0;
+    }
+  }
+  planes_flush(P, acc.cnt, 1u << lane, true);
+  const uint32_t a = __reduce_and_sync(FULL, my_and);
+  if (lane == 0 && a != FULL) atomicAnd(&acc.andp[0], (int)a);
+  block_end(p, acc, hf, smem_words, bad, &s_bad);
+}
+
+// The gather modes at W > 1: words wj[pc] of the U rows i[u] that a lane
+// group takes in a loop iteration (row u is lane src0 + u's own row), all
+// their loads in flight before any is used; x the words of the AND of each
+// row's H rows, pr its presence (the OR of the group's nonzero-row bits
+// holds every row). The first four rows' starts come from the lane whose
+// row it is (st, placed once a tile), a shuffle each; any further rows
+// are placed here.
+template <int MODE, int NP, int U>
+__device__ __forceinline__ void gather_group(const Params& p, const int64_t (&i)[U],
+                                             const bool (&act)[U], const int (&wj)[NP],
+                                             int src0, unsigned gmask, const int64_t (&st)[4],
+                                             uint32_t (&x)[U][NP], bool (&pr)[U]) {
+  using RowT = typename RowType<MODE>::T;
+  const RowT* rows = static_cast<const RowT*>(p.rows);
+  const int n0 = p.H < 4 ? p.H : 4;
+  uint32_t nz[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    int64_t off[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) off[h] = __shfl_sync(FULL, st[h], (src0 + u) & 31);
+    nz[u] = 0;
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) {
+      const bool live = act[u] && wj[pc] < p.W;
+      uint32_t z = 0;
+      x[u][pc] = and_word<ROW_LOAD_L2, 4>(p.geo, off, live ? n0 : 0, wj[pc], z);
+      if (live) nz[u] |= z & ((1u << n0) - 1u);
+    }
+  }
+  for (int h0 = 4; h0 < p.H; h0 += 4) {
+    const int n = p.H - h0 < 4 ? p.H - h0 : 4;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int nr = act[u] ? n : 0;
+      const RowT* ri = rows + (act[u] ? i[u] : 0) * p.H;
+      int64_t off[4];
+      row_starts<RowT, 4>(p.geo, ri + h0, nr, nr ? (int64_t)ri[0] : 0, off);
+#pragma unroll
+      for (int pc = 0; pc < NP; ++pc) {
+        const bool live = wj[pc] < p.W;
+        uint32_t z = 0;
+        x[u][pc] &= and_word<ROW_LOAD_L2, 4>(p.geo, off, live ? nr : 0, wj[pc], z);
+        if (live) nz[u] |= (z & ((1u << n) - 1u)) << h0;
       }
     }
-    planes_flush(P, my_cnt, lane);
-    if (my_cnt) atomicAdd(&cnt[lane], my_cnt);
-    const uint32_t a = __reduce_and_sync(FULL, my_and);
-    if (lane == 0 && a != FULL) atomicAnd(&andp[0], (int)a);
-  } else {
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    pr[u] = !act[u] || rows_present(__reduce_or_sync(gmask, nz[u]), p.H);
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc)
+      if (!act[u] || wj[pc] >= p.W) x[u][pc] = 0u;
+  }
+}
+
+// Kernel 1 at W > 1. NP > 0: a group of G = 2^lg lanes (the power of two
+// from W up to 32) takes a row a step, and lane j of the group owns word j
+// (NP = 1) or words j, j + 32, ... (NP pieces of 32 words, W up to 128): a
+// warp step reads 32 / G whole rows. Each lane keeps its words' counts in
+// bit planes and their AND in registers; nh and the first color are
+// reductions within the group (at G < 32 two ballots and a shuffle for the
+// step's 32 / G rows at once), kept by the lane whose row it is, and the
+// per-row rest (mask, frequency, presence flag, histogram, big rows) runs
+// once for 32 rows, a row a lane; the planes fold into the counts every
+// FLUSH_TILES steps of four. NP = 0 (the
+// wide tier, W > 128): the warp takes a row at a time, a 32-word piece of
+// it at a time, and adds each color bit to the counts.
+template <int MODE, int NP>
+__global__ void __launch_bounds__(THREADS, NP == 1 ? 2 : 1)
+    epilogue_wide_kernel(Params p, int hf, int smem_words) {
+  extern __shared__ int smem[];
+  __shared__ int s_bad;
+  const BlockAcc acc = block_begin(p, smem, hf, smem_words, &s_bad);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  using RowT = typename RowType<MODE>::T;
+  const RowT* rows = static_cast<const RowT*>(p.rows);
+  bool bad = false;  // a real row that lacks one of its rows
+  if constexpr (NP > 0) {
+    constexpr int U = 4;  // rows a group takes in a loop iteration (a multiple of 4)
+    // group g0 / G of the warp takes the warp's rows g0 .. g0 + G - 1 of a
+    // tile, one a step; lane l keeps row l's frequency, mask and presence,
+    // and its nh and color from the step its group took it
+    const int G = 1 << p.lg;
+    const int j = lane & (G - 1), g0 = lane & ~(G - 1);
+    const unsigned gbits = G == 32 ? FULL : (1u << G) - 1u;
+    const unsigned gmask = gbits << g0;
+    unsigned cls = 1;  // lanes j, j + G, j + 2G, ...: the lanes of word j
+    for (int s = G; s < 32; s <<= 1) cls |= cls << s;
+    cls <<= j;
+    int wj[NP];
+    uint32_t cm[NP], my_and[NP], P[NP][PLANES];
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) {
+      wj[pc] = 32 * pc + j;
+      cm[pc] = cmask_of(p.C, wj[pc]);
+      my_and[pc] = FULL;
+#pragma unroll
+      for (int k = 0; k < PLANES; ++k) P[pc][k] = 0;
+    }
+    int since = 0;
     for (int64_t t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
-      const int64_t i = t * THREADS + threadIdx.x;
-      const bool in = i < p.N;
-      bool msk = false, pres = true;
-      int q = 0;
-      if (in) {
-        msk = p.mask[i] != 0;
-        q = p.q[i];
-        pres = p.present[i] != 0;
-      }
-      const bool valid = msk && pres;
-      const uint32_t* row = p.words + i * W;
-      int nh = 0, col = 0;
-      bool found = false;
-      for (int w = 0; w < W; ++w) {
-        const uint32_t x = valid ? row[w] : 0u;
-        const uint32_t a = __reduce_and_sync(FULL, valid ? x : FULL);
-        if (lane == 0 && a != FULL) atomicAnd(&andp[w], (int)a);
-        const uint32_t xc = x & cmask_of(C, w);
-        uint32_t u = __reduce_or_sync(FULL, xc);
-        while (u) {
-          const int b = __ffs(u) - 1;
-          u &= u - 1;
-          const int c = __popc(__ballot_sync(FULL, (xc >> b) & 1u));
-          if (lane == 0) atomicAdd(&cnt[32 * w + b], c);
-        }
-        nh += __popc(xc);
-        if (!found && xc) {
-          found = true;
-          col = 32 * w + __ffs(xc) - 1;
+      const int64_t base = t * THREADS + warp * 32;
+      const int64_t il = base + lane;
+      const bool in = il < p.N;
+      const bool mk = in && p.mask[il];
+      const int q = in ? p.q[il] : 0;
+      bool pr = !in || MODE != MODE_WORDS || p.present[il];
+      const unsigned mk_bits = __ballot_sync(FULL, mk);
+      const unsigned pr_bits = __ballot_sync(FULL, pr);
+      int64_t st[4] = {0, 0, 0, 0};  // the gather modes: the starts of row il's first rows
+      if constexpr (MODE != MODE_WORDS) {
+        if (in) {
+          const RowT* ri = rows + il * p.H;
+          row_starts<RowT, 4>(p.geo, ri, p.H < 4 ? p.H : 4, (int64_t)ri[0], st);
         }
       }
-      bad = bad || (msk && !pres);
+      int nh = 0, col = NO_COLOR;
+      for (int s0 = 0; s0 < G; s0 += U) {
+        int64_t i[U];
+        bool act[U], prs[U];
+        uint32_t x[U][NP];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          i[u] = base + g0 + s0 + u;
+          act[u] = s0 + u < G && i[u] < p.N;
+        }
+        if constexpr (MODE == MODE_WORDS) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            prs[u] = (pr_bits >> ((g0 + s0 + u) & 31)) & 1u;
+#pragma unroll
+            for (int pc = 0; pc < NP; ++pc)
+              x[u][pc] = act[u] && wj[pc] < p.W ? p.words[i[u] * p.W + wj[pc]] : 0u;
+          }
+        } else {
+          gather_group<MODE, NP, U>(p, i, act, wj, g0 + s0, gmask, st, x, prs);
+        }
+        uint32_t xc[NP][U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const bool valid = act[u] && ((mk_bits >> ((g0 + s0 + u) & 31)) & 1u) && prs[u];
+          int n = 0, c0 = NO_COLOR;
+#pragma unroll
+          for (int pc = 0; pc < NP; ++pc) {
+            my_and[pc] &= valid ? x[u][pc] : FULL;
+            const uint32_t c = valid ? x[u][pc] & cm[pc] : 0u;
+            xc[pc][u] = c;
+            if (c && c0 == NO_COLOR) c0 = 32 * wj[pc] + __ffs(c) - 1;
+            n += __popc(c);
+          }
+          if (G == 32) {  // one row a step: two reductions
+            n = __reduce_add_sync(FULL, n);
+            c0 = __reduce_min_sync(FULL, c0);
+          } else {  // 32 / G rows a step: two ballots serve them all
+            const unsigned nz = (__ballot_sync(FULL, n != 0) >> g0) & gbits;
+            const unsigned multi = (__ballot_sync(FULL, n > 1) >> g0) & gbits;
+            c0 = __shfl_sync(FULL, c0, nz ? g0 + __ffs(nz) - 1 : lane);
+            n = !nz ? 0 : (nz & (nz - 1)) || multi ? 2 : 1;  // 2: more than one
+          }
+          if (j == s0 + u) {
+            nh = n;
+            col = c0;
+            pr = pr && prs[u];
+          }
+        }
+#pragma unroll
+        for (int pc = 0; pc < NP; ++pc)
+#pragma unroll
+          for (int v = 0; v < U; v += 4) planes_add4(P[pc], xc[pc] + v);
+        if ((since += U / 4) > FLUSH_TILES - U / 4) {
+#pragma unroll
+          for (int pc = 0; pc < NP; ++pc)
+            planes_flush(P[pc], acc.cnt + 32 * wj[pc], cls, g0 == 0 && wj[pc] < p.W);
+          since = 0;
+        }
+      }
+      const bool uniq = mk && pr && nh == 1;
+      bad = bad || (mk && !pr);
+      hist_add<true>(p, acc.s_hist, hf, lane, uniq && q < FREQ_CAP, col, q);
+      put_big(p, il, mk, q, uniq, col);
+      count_big(p, t, uniq && q >= FREQ_CAP, lane);
+    }
+#pragma unroll
+    for (int pc = 0; pc < NP; ++pc) {
+      planes_flush(P[pc], acc.cnt + 32 * wj[pc], cls, g0 == 0 && wj[pc] < p.W);
+      uint32_t a = my_and[pc];  // folded over the lanes of word wj[pc]
+      for (int o = G; o < 32; o <<= 1) a &= __shfl_xor_sync(FULL, a, o);
+      if (g0 == 0 && wj[pc] < p.W && a != FULL) atomicAnd(&acc.andp[wj[pc]], (int)a);
+    }
+  } else {
+    const int n_pc = (p.W + 31) >> 5;
+    for (int64_t t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+      const int64_t base = t * THREADS + warp * 32;
+      // lane s keeps row base + s's frequency, mask, presence, nh and color
+      const int64_t im = base + lane;
+      const bool in = im < p.N;
+      const bool mk = in && p.mask[im];
+      const int q = in ? p.q[im] : 0;
+      bool pr = true;
+      if constexpr (MODE == MODE_WORDS) {
+        pr = !in || p.present[im];
+      } else {
+        for (int s = 0; s < 32 && base + s < p.N; ++s) {
+          const RowT* ri = rows + (base + s) * p.H;
+          const int64_t r0 = (int64_t)ri[0];
+          uint32_t nz = 0;
+          for (int pc = 0; pc < n_pc; ++pc)
+            if (32 * pc + lane < p.W) kmer_word<ROW_LOAD_L2>(p.geo, ri, p.H, r0, 32 * pc + lane, nz);
+          const bool ok = rows_present(__reduce_or_sync(FULL, nz), p.H);
+          if (lane == s) pr = ok;
+        }
+      }
+      const bool valid = mk && pr;
+      bad = bad || (mk && !pr);
+      const unsigned vmask = __ballot_sync(FULL, valid);
+      int nh = 0, col = NO_COLOR;
+      for (int pc = 0; pc < n_pc; ++pc) {
+        const int w = 32 * pc + lane;
+        const bool live = w < p.W;
+        const uint32_t cm = cmask_of(p.C, w);
+        uint32_t a = FULL;
+        for (unsigned v = vmask; v; v &= v - 1) {
+          const int s = __ffs(v) - 1;
+          const int64_t i = base + s;
+          uint32_t x = 0;
+          if (live) {
+            if constexpr (MODE == MODE_WORDS) {
+              x = p.words[i * p.W + w];
+            } else {
+              const RowT* ri = rows + i * p.H;
+              uint32_t z = 0;
+              x = kmer_word<ROW_LOAD_L2>(p.geo, ri, p.H, (int64_t)ri[0], w, z);
+            }
+          }
+          a &= x;
+          uint32_t xc = x & cm;
+          const int rn = __reduce_add_sync(FULL, __popc(xc));
+          const int rc = __reduce_min_sync(FULL, xc ? 32 * w + __ffs(xc) - 1 : NO_COLOR);
+          if (lane == s) {
+            nh += rn;
+            col = rc < col ? rc : col;
+          }
+          while (xc) {
+            atomicAdd(&acc.cnt[32 * w + __ffs(xc) - 1], 1);
+            xc &= xc - 1;
+          }
+        }
+        if (live && a != FULL) atomicAnd(&acc.andp[w], (int)a);
+      }
       const bool uniq = valid && nh == 1;
-      hist_add<true>(p, s_hist, hf, lane, uniq && q < FREQ_CAP, col, q);
+      hist_add<true>(p, acc.s_hist, hf, lane, uniq && q < FREQ_CAP, col, q);
+      put_big(p, im, mk, q, uniq, col);
       count_big(p, t, uniq && q >= FREQ_CAP, lane);
     }
   }
-
-  if (bad) s_bad = 1;
-  __syncthreads();
-  if (threadIdx.x == 0 && s_bad) p.stats[C + W] = 0;
-  if (smem_words) {
-    for (int j = threadIdx.x; j < C; j += THREADS)
-      if (s_cnt[j]) atomicAdd(&p.stats[j], s_cnt[j]);
-    for (int j = threadIdx.x; j < W; j += THREADS)
-      if (s_and[j] != -1) atomicAnd(&p.stats[C + j], s_and[j]);
-  }
-  for (int j = threadIdx.x; j < C * hf; j += THREADS)
-    if (s_hist[j]) atomicAdd(&p.hist[(j / hf) * FREQ_CAP + j % hf], s_hist[j]);
+  block_end(p, acc, hf, smem_words, bad, &s_bad);
 }
 
-// Whether row i is big (uniq with q >= FREQ_CAP), and its color.
-template <bool W1>
+// Whether row i is big (valid, uniq with q >= FREQ_CAP), and its color,
+// as kernel 1 left them.
 __device__ __forceinline__ bool row_big(const Params& p, int64_t i, int& col) {
-  if (i >= p.N || !p.mask[i] || p.q[i] < FREQ_CAP || !p.present[i]) return false;
-  if constexpr (W1) {
-    const uint32_t x = p.words[i] & cmask_of(p.C, 0);
-    if (__popc(x) != 1) return false;
-    col = __ffs(x) - 1;
-    return true;
-  } else {
-    const uint32_t* row = p.words + i * p.W;
-    int nh = 0;
-    for (int w = 0; w < p.W && nh <= 1; ++w) {
-      const uint32_t xc = row[w] & cmask_of(p.C, w);
-      if (xc && nh == 0) col = 32 * w + __ffs(xc) - 1;
-      nh += __popc(xc);
-    }
-    return nh == 1;
-  }
+  if (i >= p.N || !p.mask[i] || p.q[i] < FREQ_CAP) return false;
+  col = p.bigcol[i];
+  return col >= 0;
 }
 
 // Kernel 2: the big rows, in k-mer order, added to their slots below capO;
@@ -406,7 +732,7 @@ __global__ void __launch_bounds__(THREADS) epilogue_overflow_kernel(Params p) {
     int n = 0;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      bg[r] = row_big<W1>(p, t * TILE + threadIdx.x * RPT + r, col[r]);
+      bg[r] = row_big(p, t * TILE + threadIdx.x * RPT + r, col[r]);
       n += bg[r];
     }
     int incl = n;  // inclusive scan within the warp
@@ -440,22 +766,30 @@ __global__ void __launch_bounds__(THREADS) epilogue_overflow_kernel(Params p) {
   }
 }
 
-template <bool W1>
+template <int MODE>
 int launch(Params p, cudaStream_t st) {
-  constexpr int TILE = THREADS * (W1 ? RPT1 : 1);
+  const bool w1 = p.W == 1;
+  const int tile = THREADS * (w1 ? RPT1 : 1);
   int dev, sms, per_sm;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  p.n_tiles = (p.N + TILE - 1) / TILE;
-  p.vec = W1 && (uintptr_t)p.words % 16 == 0 && (uintptr_t)p.q % 16 == 0 &&
-          (uintptr_t)p.mask % 4 == 0 && (uintptr_t)p.present % 4 == 0;
+  p.n_tiles = (p.N + tile - 1) / tile;
+  p.vec = w1 && (uintptr_t)p.q % 16 == 0 && (uintptr_t)p.mask % 4 == 0 &&
+          (MODE != MODE_WORDS ||
+           ((uintptr_t)p.words % 16 == 0 && (uintptr_t)p.present % 4 == 0));
+  p.lg = 0;
+  while (!w1 && p.lg < 5 && (1 << p.lg) < p.W) ++p.lg;
   const int smem_words = p.W <= SMEM_WORDS_MAX;
   const size_t words_bytes = smem_words ? (size_t)33 * p.W * 4 : 0;
   int hf = FREQ_CAP;
   while (hf > 1 && words_bytes + (size_t)p.C * hf * 4 > SMEM_BUDGET) hf >>= 1;
   if (words_bytes + (size_t)p.C * hf * 4 > SMEM_BUDGET) hf = 0;
   const size_t dyn = words_bytes + (size_t)p.C * hf * 4;
-  auto k1 = epilogue_kernel<W1>;
+  void (*k1)(Params, int, int) = w1            ? epilogue_w1_kernel<MODE>
+                                 : p.W <= 32  ? epilogue_wide_kernel<MODE, 1>
+                                 : p.W <= 64  ? epilogue_wide_kernel<MODE, 2>
+                                 : p.W <= 128 ? epilogue_wide_kernel<MODE, 4>
+                                              : epilogue_wide_kernel<MODE, 0>;
   cudaError_t e = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k1, THREADS, dyn);
@@ -467,17 +801,18 @@ int launch(Params p, cudaStream_t st) {
   k1<<<(unsigned)g1, THREADS, dyn, st>>>(p, hf, smem_words);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int64_t g2 = p.n_tiles < (int64_t)4 * sms ? p.n_tiles : (int64_t)4 * sms;
-  epilogue_overflow_kernel<W1><<<(unsigned)g2, THREADS, 0, st>>>(p);
+  if (w1)
+    epilogue_overflow_kernel<true><<<(unsigned)g2, THREADS, 0, st>>>(p);
+  else
+    epilogue_overflow_kernel<false><<<(unsigned)g2, THREADS, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-int run(const void* words, const void* present, const void* mask, const void* q,
-        const void* gidx, int64_t base_idx, int64_t N, int32_t W, int32_t C, void* stats,
-        void* hist, void* over_col, void* over_freq, int64_t capO, void* scratch,
-        cudaStream_t st) {
+// The accumulators and per-k-mer inputs that every mode takes.
+Params params(const void* mask, const void* q, const void* gidx, int64_t base_idx, int64_t N,
+              int32_t W, int32_t C, void* stats, void* hist, void* over_col, void* over_freq,
+              int64_t capO, void* scratch) {
   Params p{};
-  p.words = (const uint32_t*)words;
-  p.present = (const uint8_t*)present;
   p.mask = (const uint8_t*)mask;
   p.q = (const int32_t*)q;
   p.gidx = (const int32_t*)gidx;
@@ -491,7 +826,19 @@ int run(const void* words, const void* present, const void* mask, const void* q,
   p.over_col = (int32_t*)over_col;
   p.over_freq = (int32_t*)over_freq;
   p.big = (int32_t*)scratch;
-  return W == 1 ? launch<true>(p, st) : launch<false>(p, st);
+  p.bigcol = p.big + 2 + (N + THREADS - 1) / THREADS;
+  return p;
+}
+
+int run(const void* words, const void* present, const void* mask, const void* q,
+        const void* gidx, int64_t base_idx, int64_t N, int32_t W, int32_t C, void* stats,
+        void* hist, void* over_col, void* over_freq, int64_t capO, void* scratch,
+        cudaStream_t st) {
+  Params p = params(mask, q, gidx, base_idx, N, W, C, stats, hist, over_col, over_freq, capO,
+                    scratch);
+  p.words = (const uint32_t*)words;
+  p.present = (const uint8_t*)present;
+  return launch<MODE_WORDS>(p, st);
 }
 
 struct SortedParams {
@@ -553,7 +900,7 @@ __global__ void __launch_bounds__(THREADS) epilogue_sorted_kernel(SortedParams p
 // The AND-words mode. words: [N, W] int32 AND words; present, mask [N]
 // bool; q, gidx (or nullptr) [N] int32; stats [C + W + 2], hist [C, 1024],
 // over_col / over_freq [capO] int32, all contiguous; scratch: 2 + ceil(N /
-// 512) int32. N == 0 launches nothing.
+// 512) + N int32. N == 0 launches nothing.
 extern "C" int epilogue_launch(const void* words, const void* present, const void* mask,
                                const void* q, const void* gidx, int64_t base_idx, int64_t N,
                                int32_t W, int32_t C, void* stats, void* hist, void* over_col,
@@ -563,6 +910,34 @@ extern "C" int epilogue_launch(const void* words, const void* present, const voi
   if (N == 0) return 0;
   return run(words, present, mask, q, gidx, base_idx, N, W, C, stats, hist, over_col,
              over_freq, capO, scratch, (cudaStream_t)stream);
+}
+
+// The gather mode. rows [N, H] (int64 where rows64; 1 <= H <= 32), the
+// matrix blocks [n_words] int32 of rows of wpad words, rpb 0 (classic rows)
+// or a power of two (blocked: a k-mer's rows share the block of its hash-0
+// row); the rest as for epilogue_launch with W = wpad. N == 0 launches
+// nothing.
+extern "C" int epilogue_gather_launch(const void* rows, int32_t rows64, int64_t N, int32_t H,
+                                      const void* blocks, int64_t n_words, int32_t wpad,
+                                      int64_t rpb, const void* mask, const void* q,
+                                      const void* gidx, int64_t base_idx, int32_t C,
+                                      void* stats, void* hist, void* over_col, void* over_freq,
+                                      int64_t capO, void* scratch, void* stream) {
+  if (N < 0 || H < 1 || H > MAX_H || wpad < 1 || rpb < 0 || (rpb & (rpb - 1)) || C < 0 ||
+      C > 32 * wpad || capO < 0 || rows == nullptr || blocks == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  Params p = params(mask, q, gidx, base_idx, N, wpad, C, stats, hist, over_col, over_freq, capO,
+                    scratch);
+  p.rows = rows;
+  p.H = H;
+  p.geo.blocks = (const uint32_t*)blocks;
+  p.geo.n_words = n_words;
+  p.geo.wpad = wpad;
+  p.geo.rpb = rpb;
+  while (rpb > 1 && (1ll << p.geo.rpb_log2) < rpb) ++p.geo.rpb_log2;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return rows64 ? launch<MODE_ROWS64>(p, st) : launch<MODE_ROWS32>(p, st);
 }
 
 // The sorted-words mode. words_s, row_s [P] int32 and gidx_s [P] int64,

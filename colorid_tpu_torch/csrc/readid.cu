@@ -55,7 +55,8 @@
 // - The owner places its k-mer with kernel A's own device code
 //   (csrc/placement.cuh, H of 1-4 unrolled), loads the wpad words of its H
 //   rows together (classic: word r * wpad; blocked: block * 128 + offset *
-//   wpad), tests presence (every row has a nonzero word) and adds each
+//   wpad; csrc/row_gather.cuh, shared with kernel C's gather mode), tests
+//   presence (every row has a nonzero word) and adds each
 //   color bit of the AND into per-read counts in shared memory (the output
 //   row itself where C does not fit), then the block writes one row.
 // - Mode 2 does not assume that seg is sorted or that a read's k-mers are
@@ -83,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include "placement.cuh"
+#include "row_gather.cuh"
 
 namespace {
 
@@ -111,18 +113,6 @@ struct OrderFree {
   int wpad, C;
   int32_t* out;                 // [R, C + 3]
 };
-
-__device__ __forceinline__ uint32_t word_at(const uint32_t* blocks, int64_t n_words,
-                                            int64_t w) {
-  return w >= 0 && w < n_words ? __ldg(blocks + w) : 0u;
-}
-
-// The exact mode's gather: through L2 only (ld.global.cg). A row word is
-// read once there, so an L1 line would hold nothing that is read again.
-__device__ __forceinline__ uint32_t word_l2(const uint32_t* blocks, int64_t n_words,
-                                            int64_t w) {
-  return w >= 0 && w < n_words ? __ldcg(blocks + w) : 0u;
-}
 
 // Adds 1 to cnt[32 w + b] for each set bit b of word w of an AND below C;
 // returns whether it had one.
@@ -197,6 +187,7 @@ __global__ void __launch_bounds__(THREADS) readid_orderfree_kernel(const OrderFr
   constexpr int NH = HT > 0 ? HT : MAX_H;
   const int H = HT > 0 ? HT : p.H;
   const int S = 1 << p.set_log2;
+  const RowGeo g{p.blocks, p.n_words, p.wpad, 0, 0};  // base[] holds the words' offsets
   unsigned long long* set = p.gset ? p.gset + ((int64_t)blockIdx.x << p.set_log2) : smem;
   int32_t* cnt_smem = reinterpret_cast<int32_t*>(p.gset ? smem : smem + S);
   SeedConsts sc[HT > 0 ? HT : 1];
@@ -226,49 +217,29 @@ __global__ void __launch_bounds__(THREADS) readid_orderfree_kernel(const OrderFr
         block = place_any_h<PATH>(p, v, vals);
       int64_t base[NH];
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        if (h >= H) break;
-        base[h] = BLOCKED ? (int64_t)block * 128 + (int64_t)vals[h] * p.wpad
-                          : (int64_t)vals[h] * p.wpad;
-      }
+      for (int h = 0; h < NH; ++h)
+        base[h] = h >= H ? 0
+                  : BLOCKED ? (int64_t)block * 128 + (int64_t)vals[h] * p.wpad
+                            : (int64_t)vals[h] * p.wpad;
       bool any;
+      uint32_t nz = 0;
       if (p.wpad == 1) {
-        uint32_t a = ~0u;
-        bool present = true;
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          if (h >= H) break;
-          const uint32_t x = word_at(p.blocks, p.n_words, base[h]);
-          a &= x;
-          present &= x != 0;
-        }
-        if (!present) {
+        const uint32_t a = and_word<ROW_LOAD_L1, NH>(g, base, H, 0, nz);
+        if (!rows_present(nz, H)) {
           absent = 1;
           continue;
         }
         any = count_word(cnt, 0, a, p.C);
       } else {
-        bool present = true;
-        for (int h = 0; h < H && present; ++h) {
-          bool nz = false;
-          for (int w = 0; w < p.wpad && !nz; ++w)
-            nz = word_at(p.blocks, p.n_words, base[h] + w) != 0;
-          present = nz;
-        }
-        if (!present) {
+        for (int w = 0; w < p.wpad && !rows_present(nz, H); ++w)
+          and_word<ROW_LOAD_L1, NH>(g, base, H, w, nz);
+        if (!rows_present(nz, H)) {
           absent = 1;
           continue;
         }
         any = false;
-        for (int w = 0; w < p.wpad; ++w) {
-          uint32_t a = ~0u;
-#pragma unroll
-          for (int h = 0; h < NH; ++h) {
-            if (h >= H) break;
-            a &= word_at(p.blocks, p.n_words, base[h] + w);
-          }
-          any |= count_word(cnt, w, a, p.C);
-        }
+        for (int w = 0; w < p.wpad; ++w)
+          any |= count_word(cnt, w, and_word<ROW_LOAD_L1, NH>(g, base, H, w, nz), p.C);
       }
       zero += !any;
     }
@@ -332,13 +303,6 @@ struct Exact {
   uint32_t* andw;  // [N, wpad] the AND words of each k-mer that the first pass checked
 };
 
-// Word offset of row r of a k-mer whose hash-0 row is r0: classic r * wpad;
-// blocked, as the twin's gather: the block of r0, lanes (r % rpb) * wpad.
-__device__ __forceinline__ int64_t exact_off(const Exact& p, int64_t r0, int64_t r) {
-  if (!p.rpb) return r * p.wpad;
-  return ((r0 >> p.rpb_log2) << 7) + (r & (p.rpb - 1)) * p.wpad;
-}
-
 __global__ void __launch_bounds__(THREADS) readid_init_kernel(const Exact p, int firsthit) {
   const int64_t stride = (int64_t)gridDim.x * THREADS;
   const int64_t n_out = p.R * (p.C + 1);
@@ -371,42 +335,21 @@ __global__ void __launch_bounds__(THREADS) readid_absent_kernel(const Exact p) {
     const bool live = pi < BIG && s >= 0 && s < p.R;
     bool present = true;
     if (live) {
+      const RowGeo g{p.blocks, p.n_words, p.wpad, p.rpb, p.rpb_log2};
       const RowT* const rows = static_cast<const RowT*>(p.rows) + i * p.H;
       uint32_t* const andw = p.andw + i * p.wpad;
+      uint32_t nz = 0;
       if constexpr (HT > 0) {
-        int64_t r[HT], off[HT];
-#pragma unroll
-        for (int h = 0; h < HT; ++h) r[h] = (int64_t)rows[h];
-#pragma unroll
-        for (int h = 0; h < HT; ++h) off[h] = exact_off(p, r[0], r[h]);
-        uint32_t nz = 0;
+        int64_t off[HT];
+        row_starts<RowT, HT>(g, rows, HT, (int64_t)rows[0], off);
 #pragma unroll 4
-        for (int w = 0; w < p.wpad; ++w) {
-          uint32_t x[HT], a = ~0u;
-#pragma unroll
-          for (int h = 0; h < HT; ++h) x[h] = word_l2(p.blocks, p.n_words, off[h] + w);
-#pragma unroll
-          for (int h = 0; h < HT; ++h) {
-            a &= x[h];
-            nz |= (uint32_t)(x[h] != 0) << h;
-          }
-          andw[w] = a;
-        }
-        present = nz == (1u << HT) - 1u;
+        for (int w = 0; w < p.wpad; ++w) andw[w] = and_word<ROW_LOAD_L2, HT>(g, off, HT, w, nz);
       } else {  // a run-time H
         const int64_t r0 = (int64_t)rows[0];
-        uint32_t nz = 0;
-        for (int w = 0; w < p.wpad; ++w) {
-          uint32_t a = ~0u;
-          for (int h = 0; h < p.H; ++h) {
-            const uint32_t x = word_l2(p.blocks, p.n_words, exact_off(p, r0, rows[h]) + w);
-            a &= x;
-            nz |= (uint32_t)(x != 0) << h;
-          }
-          andw[w] = a;
-        }
-        present = nz == (p.H >= 32 ? ~0u : (1u << p.H) - 1u);
+        for (int w = 0; w < p.wpad; ++w)
+          andw[w] = kmer_word<ROW_LOAD_L2>(g, rows, p.H, r0, w, nz);
       }
+      present = rows_present(nz, HT > 0 ? HT : p.H);
     }
     // one atomicMin for the absent k-mers of a read in the warp
     const bool miss = live && !present;

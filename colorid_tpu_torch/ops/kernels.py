@@ -66,6 +66,12 @@ KERNELS = {
         [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I32, _I32, _VP, _VP, _VP, _VP,
          _I64, _VP, _VP],
     ),
+    "epilogue_gather": (
+        "epilogue.cu",
+        "epilogue_gather_launch",
+        [_VP, _I32, _I64, _I32, _VP, _I64, _I32, _I64, _VP, _VP, _VP, _I64, _I32, _VP, _VP,
+         _VP, _VP, _I64, _VP, _VP],
+    ),
     "epilogue_sorted": (
         "epilogue.cu",
         "epilogue_sorted_launch",

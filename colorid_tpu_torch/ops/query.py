@@ -200,12 +200,74 @@ def _accumulate_one(
     stats, hist, over_col, over_freq, blocks2, rows, mask, qcounts, wpad,
     base_idx, rpb=0, gidx=None,
 ):
-    """qcounts: int32 frequencies clipped to 65535 by the caller. Values
-    >= FREQ_CAP route to the overflow list, which records the k-mer's GLOBAL
-    index (base_idx + local); the host resolves exact frequencies from its
-    own copy."""
+    """The generic gather and the epilogue of one batch, in place on the
+    accumulators (the contract of _accumulate_one_plain): rows int32 [N, H]
+    (int64 past int32 row addressing), classic (rpb 0) or blocked (rpb rows
+    a block, a power of two). qcounts: int32 frequencies clipped to 65535
+    by the caller. Values >= FREQ_CAP route to the overflow list, which
+    records the k-mer's GLOBAL index (base_idx + local), or gidx where
+    given; the host resolves exact frequencies from its own copy.
+
+    A CUDA tensor launches csrc/epilogue.cu's gather mode on the current
+    stream: each k-mer's H rows are read from the matrix, ANDed and tested
+    in the kernel, which then runs the AND-words pass; no gathered word or
+    AND word is written. A CPU tensor takes the plain twin. Nothing here
+    waits for the device. ``_accumulate_one.launches`` counts kernel
+    launches (none for N = 0)."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return _accumulate_one_plain(
+            stats, hist, over_col, over_freq, blocks2, rows, mask, qcounts, wpad,
+            base_idx, rpb, gidx,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"_accumulate_one: unsupported device {dev}")
+    what = "_accumulate_one"
+    if rows.dtype not in (torch.int32, torch.int64) or blocks2.dtype != torch.int32:
+        raise TypeError(f"{what}: int32 or int64 rows and an int32 matrix")
+    if blocks2.device != dev or not blocks2.is_contiguous():
+        raise ValueError(f"{what}: the matrix must be contiguous on the rows' device")
+    if rows.dim() != 2 or not 1 <= rows.shape[1] <= 32:
+        raise ValueError(f"{what}: rows must be [N, H] with 1 <= H <= 32")
+    if wpad < 1 or rpb < 0 or rpb & (rpb - 1):
+        raise ValueError(f"{what}: wpad >= 1 and rpb 0 or a power of two")
+    C = _check_epilogue(stats, hist, over_col, over_freq, dev, mask, qcounts, gidx, wpad, what)
+    N, H = rows.shape
+    if qcounts.shape != (N,):
+        raise ValueError(f"{what}: mask, qcounts and gidx must be [N]")
+    if N == 0:
+        return stats, hist, over_col, over_freq
+    rows, mask, qcounts = rows.contiguous(), mask.contiguous(), qcounts.contiguous()
+    gidx = None if gidx is None else gidx.contiguous()
+    scratch = _epilogue_scratch(N, dev)
+    fn = kernels.kernel("epilogue_gather")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            rows.data_ptr(), int(rows.dtype == torch.int64), N, H, blocks2.data_ptr(),
+            blocks2.numel(), wpad, rpb, mask.data_ptr(), qcounts.data_ptr(),
+            None if gidx is None else gidx.data_ptr(), int(base_idx), C, stats.data_ptr(),
+            hist.data_ptr(), over_col.data_ptr(), over_freq.data_ptr(), over_col.shape[0],
+            scratch.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"epilogue kernel launch failed: CUDA error {err}")
+    _accumulate_one.launches += 1
+    return stats, hist, over_col, over_freq
+
+
+_accumulate_one.launches = 0
+
+
+def _accumulate_one_plain(
+    stats, hist, over_col, over_freq, blocks2, rows, mask, qcounts, wpad,
+    base_idx, rpb=0, gidx=None,
+):
+    """Plain PyTorch twin of _accumulate_one: the gather of each k-mer's H
+    rows, their AND and presence (_and_present), then
+    _accumulate_tail_plain."""
     andw, present = _and_present(blocks2, rows, wpad, rpb)
-    return _accumulate_tail(
+    return _accumulate_tail_plain(
         stats, hist, over_col, over_freq, andw, present, mask, qcounts,
         wpad, base_idx, gidx,
     )
@@ -321,8 +383,9 @@ EPI_TILE = 512  # rows per tile of csrc/epilogue.cu, at its narrowest
 
 
 def _epilogue_scratch(N: int, dev) -> torch.Tensor:
-    """csrc/epilogue.cu's scratch: two counters and a count per tile."""
-    return torch.empty(2 + -(-N // EPI_TILE), dtype=torch.int32, device=dev)
+    """csrc/epilogue.cu's scratch: two counters, a count per tile and a
+    color a row."""
+    return torch.empty(2 + -(-N // EPI_TILE) + N, dtype=torch.int32, device=dev)
 
 
 def _check_epilogue(stats, hist, over_col, over_freq, dev, mask, qcounts, gidx,

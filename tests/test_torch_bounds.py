@@ -144,3 +144,30 @@ def test_readid_bytes_count_keys_row_sectors_and_the_output():
     n_bytes, n_sectors = cs.readid_bytes(5, 16, starts, 4, 3, 22)
     assert n_sectors == 3
     assert n_bytes == 5 * 16 + 3 * 32 + 3 * 22 * 4
+
+
+def test_gather_bytes_count_real_rows_their_sectors_and_the_accumulators():
+    # classic rows of one word: k-mers 0 and 1 share the sector of words 0-7,
+    # k-mer 2 is padding (its rows are not read)
+    rows = _i32(0, 3, 5, 9, 100, 200).view(3, 2)
+    mask = torch.tensor([True, True, False])
+    n_bytes, n_sectors = cs.gather_bytes(rows, mask, 1, 0, 5, n_kept=2)
+    assert n_sectors == 2  # words 0-7 and 8-15
+    acc = 2 * 4 * (5 + 1 + 2 + 5 * 1024)
+    assert n_bytes == 3 * 5 + 4 * 4 + 2 * 32 + acc + 2 * 8
+    # blocked rows of 32 words (rpb 4): both rows of a k-mer lie in the block
+    # of its hash-0 row, 4 sectors each; int64 rows are 8 bytes a row
+    rows = torch.tensor([[4, 5], [4, 7], [9, 8]], dtype=torch.int64)
+    n_bytes, n_sectors = cs.gather_bytes(rows, torch.ones(3, dtype=torch.bool), 32, 4, 40, 0)
+    # starts: block 1 lanes 0, 32 and 96; block 2 lanes 32 and 0
+    assert n_sectors == 5 * 4
+    assert n_bytes == 3 * 5 + 6 * 8 + 20 * 32 + 2 * 4 * (40 + 32 + 2 + 40 * 1024)
+
+
+def test_row_ops_count_the_least_work_of_a_row():
+    # a word: a popcount and a carry-save add (XOR, AND); gathering, also
+    # the AND over its H rows' words and a nonzero test of each
+    assert cs._row_ops(1) == 3
+    assert cs._row_ops(8) == 8 * 3
+    assert cs._row_ops(32, 4) == 32 * (3 + 3 + 4)
+    assert cs._row_ops(1, 1) == 1 * (3 + 0 + 1)

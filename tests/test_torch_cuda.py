@@ -6,7 +6,8 @@ the card has no jax), so they run there without the repo's conftest:
 
 Each kernel (the classic word kernel, the blocked probe kernel and its raw
 mode, the placement kernel and its packed mode, the window-key and
-search-epilogue kernels, the blocked stream's plan, tail and residual
+search-epilogue kernels (the epilogue's gather mode too: the generic
+gather as one launch), the blocked stream's plan, tail and residual
 kernels, the streams' key sort, and the reads routes' run counts in each
 mode) must equal its
 plain twin bit for bit, count its launches and refuse what it cannot take; the engines on the card (single-device, and a (1, 4)
@@ -993,7 +994,8 @@ def test_window_keys_kernel_refuses_mixed_devices(cuda_device):
 
 # -- the search epilogue kernel -----------------------------------------------
 
-EPI_COLORS = [1, 20, 21, 32, 33, 70, 200, 9000]  # 9000: counts past shared memory
+# wpad 1, 2, 4, 8, 16, 32, 64, 128 and the wide tier; 9000: counts past shared memory
+EPI_COLORS = [1, 20, 21, 32, 33, 70, 200, 500, 1000, 2000, 4000, 4200, 9000]
 
 
 def _epi_inputs(C: int, hot: bool, seed: int):
@@ -1048,9 +1050,9 @@ def test_epilogue_kernel_matches_twins(cuda_device, monkeypatch, C, hot):
     """AND-words mode: the kernel equals the twin on the card and on the
     CPU bit for bit, twice, with bits at and above C, an overflow list that
     starts at 20 and runs past capO, the k-mer index payload from a nonzero
-    base_idx and a given payload; C 1-55 keep the histogram in shared
-    memory, wider C take the global-atomic branch, C 9000 also the global
-    counts."""
+    base_idx and a given payload; rows of 1 to 128 words and the wide tier
+    (C 4200, 9000); C 1-55 keep the histogram in shared memory, wider C take
+    the global-atomic branch, C 9000 also the global counts."""
     from colorid_tpu_torch.ops import query as tq
 
     wpad, andw, present, mask, q = _epi_inputs(C, hot, 10 * C + hot)
@@ -1069,6 +1071,79 @@ def test_epilogue_kernel_matches_twins(cuda_device, monkeypatch, C, hot):
                                      dict(gidx=gc)):
             _epi_equal(got, want)
         assert int(want[0][C + wpad + 1]) > 40 or hot
+
+
+# every wpad from 1 to 128 in both layouts and the wide tier (C 4200: 256
+# words; a blocked index holds at most 4,096 colors, engine.py)
+GATHER_CASES = [(C, layout) for C in (21, 33, 100, 200, 500, 1000, 2000, 4000)
+                for layout in ("classic", "blocked")] + [(4200, "classic")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,layout", GATHER_CASES)
+def test_gather_mode_matches_twins(cuda_device, monkeypatch, C, layout):
+    """The gather mode (_accumulate_one on the card: the rows read, ANDed
+    and tested in the kernel) equals _accumulate_one_plain on the card and
+    on the CPU bit for bit, twice, at H 1-4 with int32 and int64 rows in
+    turns, from accumulators that hold counts and an overflow list that runs
+    past capO, the k-mer index from a nonzero base_idx and a given payload,
+    bits past C in the last word, padding and N off the tiles; at H 2 the
+    hits pile onto three colors at frequencies 0-18 (hot histogram bins)."""
+    from colorid_tpu_torch.ops import query as tq
+
+    for H in (1, 2, 3, 4):
+        hot = H == 2
+        blocks, rows, mask, q, gidx, wpad, rpb = ts.gather_case(
+            C, H, layout, seed=10 * C + H, hot=hot, rows64=H % 2 == 1,
+            n=ts.GATHER_N if C < 2000 else 4 * 512 + 37, bloom=4096 if C < 2000 else 1024)
+        accs = ts.epi_accs(C, wpad, 40, n_over=20, seed=C + H)
+        for base_idx, g in ((123_456_789, None), (0, gidx)):
+            args_cpu = (ts.t32(blocks), torch.from_numpy(rows), torch.from_numpy(mask),
+                        torch.from_numpy(q), wpad, base_idx, rpb)
+            gk = None if g is None else torch.from_numpy(g)
+            want = tq._accumulate_one_plain(*_epi_on("cpu", accs), *args_cpu, gidx=gk)
+            args = tuple(a.to(cuda_device) if torch.is_tensor(a) else a for a in args_cpu)
+            gc = None if gk is None else gk.to(cuda_device)
+            twin = tq._accumulate_one_plain(*_epi_on(cuda_device, accs), *args, gidx=gc)
+            _epi_equal(twin, want)
+            monkeypatch.setattr(tq, "_accumulate_one_plain", _unreachable)
+            for got in _epi_kernel_calls(monkeypatch, tq._accumulate_one, accs, args,
+                                         dict(gidx=gc)):
+                _epi_equal(got, want)
+            monkeypatch.undo()
+            assert int(want[0][C + wpad + 1]) > 40 or hot
+            assert int(want[0][C + wpad]) == 0  # a real k-mer was absent
+
+
+def _unreachable(*a, **k):
+    raise AssertionError("a CUDA call reached _accumulate_one_plain")
+
+
+@pytest.mark.cuda
+def test_gather_mode_refuses_and_skips(cuda_device):
+    """Rows of another type, more than 32 rows a k-mer, an rpb that is not a
+    power of two and a matrix on another device are refused; N = 0
+    launches nothing and changes nothing."""
+    from colorid_tpu_torch.ops import query as tq
+
+    accs = _epi_on(cuda_device, ts.epi_accs(33, 2, 16, seed=1))
+    b2 = torch.zeros((512, 128), dtype=torch.int32, device=cuda_device)
+    rows = torch.zeros((64, 4), dtype=torch.int32, device=cuda_device)
+    q = torch.ones(64, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int64 rows"):
+        tq._accumulate_one(*accs, b2, rows.to(torch.int16), q > 0, q, 2, 0)
+    with pytest.raises(ValueError, match="1 <= H <= 32"):
+        tq._accumulate_one(*accs, b2, torch.zeros((64, 33), dtype=torch.int32,
+                                                  device=cuda_device), q > 0, q, 2, 0)
+    with pytest.raises(ValueError, match="power of two"):
+        tq._accumulate_one(*accs, b2, rows, q > 0, q, 2, 0, 48)
+    with pytest.raises(ValueError, match="contiguous on the rows' device"):
+        tq._accumulate_one(*accs, b2.cpu(), rows, q > 0, q, 2, 0)
+    before = tq._accumulate_one.launches
+    snap = [a.clone() for a in accs]
+    tq._accumulate_one(*accs, b2, rows[:0], q[:0] > 0, q[:0], 2, 0)
+    assert tq._accumulate_one.launches == before
+    _epi_equal(accs, snap)
 
 
 SORTED_CASES = [(H, C, "mixed") for H in (1, 2, 3, 4) for C in (5, 12, 21, 32)] + [
@@ -1153,7 +1228,7 @@ def test_classic_engine_ends_in_the_epilogue_kernel(cuda_device, monkeypatch, tm
     """search_keys on the card through the classic stream launches the
     epilogue's sorted-words mode and no indexed gather or scatter (the
     residual patch and the un-sort live in the kernel), and the generic
-    gather (COLORID_STREAM=0) its AND-words mode; both give the CPU's
+    gather (COLORID_STREAM=0) its gather mode; both give the CPU's
     SearchResult."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -1191,7 +1266,7 @@ def test_classic_engine_ends_in_the_epilogue_kernel(cuda_device, monkeypatch, tm
     assert card._use_stream_classic(packed.shape[0], 27)
     monkeypatch.setenv("COLORID_STREAM", "0")
     generic = QueryEngine(index, device=cuda_device)
-    for fn, engine in ((tq._accumulate_sorted_words, card), (tq._accumulate_tail, generic)):
+    for fn, engine in ((tq._accumulate_sorted_words, card), (tq._accumulate_one, generic)):
         before, sorts = fn.launches, sq.sort_payloads.launches
         stream_ops.names.clear()
         got = engine.search_keys(None, qcounts=qcounts, packed_all=packed, k=27)
@@ -1200,6 +1275,77 @@ def test_classic_engine_ends_in_the_epilogue_kernel(cuda_device, monkeypatch, tm
         assert not indexed & stream_ops.names, stream_ops.names
         for field in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
             np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+def test_generic_gather_is_one_kernel_launch(cuda_device, monkeypatch, tmp_path, blocked):
+    """The generic gather on the card (search_keys with COLORID_STREAM=0,
+    from packed k-mers and from host-hashed rows, and the device-resident
+    search_keys_dev_generic_async) is kernel A's placement and one gather-
+    mode launch of kernel C a chunk: no index, gather, element-wise AND or
+    any / all op runs in it (a TorchDispatchMode records them), and the
+    SearchResult is the CPU's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from colorid_tpu_torch import engine as te
+    from colorid_tpu_torch.ops import query as tq
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    ops = Ops()
+    for name in ("query_accumulate_hash_scan", "query_accumulate_hash_scan_exact",
+                 "query_accumulate_scan"):
+        real = getattr(te, name)
+
+        def recorded(*a, _real=real, **kw):
+            with ops:
+                return _real(*a, **kw)
+
+        monkeypatch.setattr(te, name, recorded)
+    monkeypatch.setenv("COLORID_STREAM", "0")
+    gs = ts.genomes(3, 40_000, seed=5)
+    _man, refs = ts.write_panel(tmp_path, gs)
+    index = build_index(refs, 300_000, 4, 27, verbose=False, blocked=blocked)
+    nc = native.NativeCounter(27)
+    assert nc.add_many(np.ascontiguousarray(ts.reads(gs[:2], 600, 2000, seed=13)))
+    packed, qcounts = nc.dump_packed(0)
+    want = QueryEngine(index, device="cpu").search_keys(
+        None, qcounts=qcounts, packed_all=packed, k=27)
+    card = QueryEngine(index, device=cuda_device)
+    forbidden = {"index", "index_put", "index_put_", "gather", "bitwise_and", "bitwise_and_",
+                 "any", "all", "ne"}
+    v = packed[:, 0].astype(np.uint64) | (packed[:, 1].astype(np.uint64) << np.uint64(32))
+    keys = ts.ACGT[(v[:, None] >> (2 * np.arange(26, -1, -1)).astype(np.uint64)) & np.uint64(3)]
+    rows = card.rows_for_keys(keys)
+    for run in (lambda: card.search_keys(None, qcounts=qcounts, packed_all=packed, k=27),
+                lambda: card.search_keys(None, qcounts=qcounts, rows_all=rows)):
+        before = tq._accumulate_one.launches
+        ops.names.clear()
+        got = run()
+        assert tq._accumulate_one.launches > before
+        assert ops.names and not forbidden & ops.names, ops.names
+        for field in ("counts", "and_all", "freq_hist", "over_colors", "over_freqs"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    n = packed.shape[0]
+    pk = ts.t32(packed).to(cuda_device)
+    qc = torch.from_numpy(np.maximum(qcounts, 1).astype(np.int32)).to(cuda_device)
+    before = tq._accumulate_one.launches
+    ops.names.clear()
+    dev = card.search_keys_dev_finish(
+        *[(x.cpu().numpy() if i == 0 else x) for i, x in enumerate(
+            card.search_keys_dev_generic_async(pk, qc, 27, capO=-(-n // 1024) * 1024))])
+    assert tq._accumulate_one.launches == before + 1  # one chunk
+    assert not forbidden & ops.names, ops.names
+    for field in ("counts", "and_all", "freq_hist"):
+        np.testing.assert_array_equal(getattr(dev, field), getattr(want, field))
 
 
 # -- kernel A's packed mode and kernel D (the blocked stream's glue) ----------

@@ -911,3 +911,56 @@ def readid_exact_case(layout: str, H: int, C: int, B: int, order: str, rows64: b
     kw = dict(num_reads=n_reads, start_sample=B, num_colors=C, wpad=geo["wpad"],
               rpb=geo["rpb"])
     return blocks, rows, seg, pos, kw
+
+
+# -- inputs of the generic gather (ops/query.py::_accumulate_one and its twin,
+# csrc/epilogue.cu's gather mode) ---------------------------------------------
+
+GATHER_N = 2 * 2048 + 37  # k-mers a batch: off both tiles (2,048 rows at W 1, 512 beyond)
+
+
+def gather_matrix(rng, C: int, H: int, bloom: int, hot: bool = False) -> np.ndarray:
+    """A random uint32 [bloom, W] matrix whose density makes the AND of H
+    distinct rows hit about one color, so unique hits are common (``hot``:
+    only colors 0, C // 2 and C - 1 are ever set); bits past C in the last
+    word of a third of the rows (every word is read, only the counts drop
+    them); 5 % of the rows all zero (their k-mers are absent)."""
+    W = (C + 31) // 32
+    cols = np.array(sorted({0, C // 2, C - 1})) if hot else np.arange(C)
+    density = min(0.9, len(cols) ** (-1 / H) * (0.8 if H > 1 else 1.0))
+    bits = np.zeros((bloom, W * 32), dtype=bool)
+    bits[:, cols] = rng.random((bloom, len(cols))) < density
+    if C % 32:
+        high = rng.random(bloom) < 1 / 3
+        bits[high, C:] = rng.random((int(high.sum()), W * 32 - C)) < 0.5
+    matrix = np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+    matrix[rng.random(bloom) < 0.05] = 0
+    return matrix
+
+
+def gather_case(C: int, H: int, layout: str, seed: int, n: int = GATHER_N,
+                hot: bool = False, rows64: bool = False, bloom: int = 4096):
+    """Inputs of _accumulate_one: (blocks uint32 [Rb, 128], rows [n, H]
+    (int64 where rows64, else int32), mask, q, gidx, wpad, rpb) as numpy
+    arrays. "classic": independent rows; "blocked": a k-mer's rows share
+    one block of rpb = 128 // wpad rows (wpad <= 128). The last tenth of
+    the batch is padding (mask False, q 0); frequencies straddle FREQ_CAP
+    and run far past it, or with ``hot`` stay in 0-18."""
+    from colorid_tpu_torch.ops.query import pack_matrix_blocks
+
+    from colorid_tpu_torch.ops.query import row_wpad
+
+    rng = np.random.default_rng(seed)
+    # a blocked k-mer's H rows lie among the rpb rows of one block
+    rpb = 128 // row_wpad((C + 31) // 32) if layout == "blocked" else 0
+    blocks, wpad = pack_matrix_blocks(gather_matrix(rng, C, min(H, rpb or H), bloom, hot))
+    rows = rng.integers(0, bloom, (n, H))
+    if rpb:
+        rows = rows[:, :1] // rpb * rpb + rng.integers(0, rpb, (n, H))
+    q = epi_qcounts(rng, n, hot=hot)
+    mask = np.ones(n, dtype=bool)
+    mask[n - n // 10:] = False
+    q[~mask] = 0
+    gidx = rng.integers(0, 2**31, n).astype(np.int32)
+    return (blocks, rows.astype(np.int64 if rows64 else np.int32), mask, q, gidx, wpad,
+            rpb)
